@@ -19,15 +19,31 @@ non-zero):
    categorical bitset), then the Higgs root split (mode 0 over the whole
    array at the main path's row count) against its plain version, and its
    time beside that of the smaller child's histogram alone;
-4. the main path: lightgbm_tpu_torch.train on Higgs-shaped data
+4. K3, the small-bin histogram, against its plain version at the masked
+   path's shape (20k x 28, B = 64, K = 3) and at edge cases (N not a
+   multiple of 8, a padded row stride, unaligned channels, B = 2 and 17,
+   F = 1 and 100, 1-8 channels, bf16, bins >= B, rows with zero channels),
+   then at 10.5M x 28, B = 64, K = 3 on dyadic
+   channels (bit-equal), with its time beside K1's on the same data in
+   row-major form, the plain version's and index_add_'s, and its byte bound;
+5. the compact path: lightgbm_tpu_torch.train on Higgs-shaped data
    (make_higgs_like, 10.5M x 28 with a 10% validation split, 255 leaves,
-   255 bins) for one warm-up round and R timed rounds, with the kernels'
-   launch counts (> 0), the plain versions' call counts (0), the host
-   syncs inside one tree (0), and a torch.profiler trace of one more tree
-   (device time, idle share, launches);
-5. the card against the CPU: the same training at 100k x 28, 31 leaves,
-   3 rounds, with device_type="cuda" and "cpu"; predictions agree within
-   1e-4.
+   255 bins) for one warm-up round and R timed rounds, with the launch
+   counts of its kernels K1 and K2 (> 0), the plain versions' call counts
+   (0), the host syncs inside one tree (0), and a torch.profiler trace of
+   one more tree (device time, idle share, launches);
+6. the card against the CPU on the compact path: the same training at
+   100k x 28, 31 leaves, 3 rounds, with device_type="cuda" and "cpu";
+   predictions agree within 1e-4;
+7. the masked path: the training stage of the repo's serving bench
+   (bench.py:769-776: make_higgs_like 20k x 28, 63 leaves, max_bin=63,
+   learning rate 0.1, min_data_in_leaf 20) with 2k more rows for
+   validation, tpu_hist_layout="sublane", 20 rounds: iterations/s, AUC
+   (> 0.7), K3's launches (> 0) and K1's and K2's (0), the plain versions'
+   calls (0), the host syncs inside one tree (0), a one-tree profile; then
+   the same training on the CPU and on the card with the lane layout (K1),
+   predictions within 1e-4, and save_model -> Booster(model_file=...) ->
+   predict within 1e-6.
 
 The line before the last is a JSON object with every kernel's launches,
 error, times and bound; the last line is
@@ -38,10 +54,12 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -98,6 +116,48 @@ def hist_close(kern, plain, abs_hist, what, rel=1e-5):
         check(worst <= 1.0, f"{what}: grad/hess error {worst:.3g}x "
               "tolerance")
     return float(err.max())
+
+
+def close_rel(kern, plain, abs_hist, what, rel):
+    """Every cell within rel * sum|addends| (rel = 0: bit-equal). Returns
+    the max abs error."""
+    if rel == 0:
+        check(torch.equal(kern, plain), f"{what}: differs from the plain "
+              "version")
+    else:
+        err = (kern - plain).abs()
+        worst = float((err / (rel * abs_hist + 1e-30)).max())
+        check(worst <= 1.0, f"{what}: error {worst:.3g}x tolerance")
+    return float((kern - plain).abs().max())
+
+
+@contextlib.contextmanager
+def syncs_in_second_tree(module, name, out):
+    """Count the host syncs inside the second call of the grower
+    ``module.name`` (torch's sync debug mode), into ``out["in_tree"]``."""
+    grow = getattr(module, name)
+    calls = [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        if calls[0] != 2:
+            return grow(*a, **kw)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                res = grow(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        out["in_tree"] = sum("called a synchronizing" in str(w.message)
+                             for w in caught)
+        return res
+    setattr(module, name, counted)
+    try:
+        yield
+    finally:
+        setattr(module, name, grow)
 
 
 def phase_kernels_k1(n, results):
@@ -355,6 +415,101 @@ def phase_kernels_k2(n_big, results):
     del work, scratch
 
 
+def phase_kernels_k3(n_big, results):
+    """K3 against its plain version. Random channels agree within 1e-5 *
+    sum|addends| a cell; at 10.5M rows the channels are dyadic (multiples of
+    1/64; grad in [-2, 2], hess in [0, 1]): every partial sum of a bin stays
+    below 2^18 and is exact in f32, so kernel and plain version must agree
+    bit for bit whatever the order of their atomics."""
+    from lightgbm_tpu_torch.ops.pallas_histogram import (
+        pallas_histogram, pallas_histogram_sublane,
+        pallas_histogram_sublane_plain)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    worst = 0.0
+
+    def channels(n, k, dyadic=False):
+        if dyadic:
+            gr = torch.randint(-128, 129, (n,), generator=g, device=dev) / 64.
+            he = torch.randint(0, 65, (n,), generator=g, device=dev) / 64.
+        else:
+            gr = torch.randn(n, generator=g, device=dev)
+            he = torch.rand(n, generator=g, device=dev)
+        cnt = (torch.rand(n, generator=g, device=dev) > 0.1).float()
+        cols = [gr, he, cnt, torch.ones_like(gr)]
+        cols += [torch.randn(n, generator=g, device=dev)
+                 for _ in range(k - 4)]
+        return torch.stack(cols[:k], 1).contiguous()
+
+    # (rows, F, B, K, mode, row-stride pad, bins past B): the masked path's
+    # shape, then the edges
+    cases = [(20_000, 28, 64, 3, "f32", 0, 0), (20_000, 28, 64, 3, "f32", 0, 3),
+             (5_000, 5, 17, 1, "f32", 0, 2), (4_999, 1, 2, 4, "split", 8, 2),
+             (20_000, 28, 63, 4, "bf16", 0, 1), (777, 100, 64, 8, "f32", 5, 0),
+             (33, 28, 64, 3, "f32", 0, 0)]
+    path = None
+    for n, F, B, K, mode, pad, over in cases:
+        bins = torch.randint(0, B + over, (F, n + pad), generator=g,
+                             device=dev, dtype=torch.uint8)[:, :n]
+        # past the path's own case, the channels start one row into their
+        # allocation: unaligned for 16-byte loads unless 4 divides K
+        ch = channels(n + 1, K)[0 if path is None else 1:][:n]
+        ch[::3] = 0.0          # rows outside the leaf: skipped
+        kern = pallas_histogram_sublane(bins, ch, B, mode)
+        plain = pallas_histogram_sublane_plain(bins, ch, B, mode)
+        absh = pallas_histogram_sublane_plain(bins, ch.abs(), B, mode)
+        err = close_rel(kern, plain, absh, f"K3 {n}x{F} B={B} K={K} {mode}",
+                        1e-5)
+        worst = max(worst, err)
+        line = {"rows": n, "F": F, "B": B, "K": K, "mode": mode,
+                "row_pad": pad, "bins_past_B": over, "max_abs_err": err}
+        if path is None:
+            # the masked path's own shape: launch latency binds it
+            line["kernel_ms"] = time_ms(
+                lambda: pallas_histogram_sublane(bins, ch, B, mode), 50, 5)
+            line["bound_ms"] = 1e3 * (n * F + 4 * n * K + F * B * K * 4) \
+                / HBM_BYTES_PER_S
+            path = line
+        print("K3", json.dumps(line), flush=True)
+
+    # the kernel probe: 10.5M x 28, B = 64, K = 3
+    n, F, B, K = n_big, 28, 64, 3
+    bins_t = torch.randint(0, B, (F, n), generator=g, device=dev,
+                           dtype=torch.uint8)
+    ch = channels(n, K, dyadic=True)
+    kern = pallas_histogram_sublane(bins_t, ch, B, "f32")
+    worst = max(worst, close_rel(
+        kern, pallas_histogram_sublane_plain(bins_t, ch, B, "f32"), None,
+        f"K3 {n}x{F} dyadic", 0))
+    bins = bins_t.T.contiguous()         # the same bins row-major, for K1
+    line = {"rows": n, "F": F, "B": B, "K": K, "dyadic": True,
+            "kernel_ms": time_ms(
+                lambda: pallas_histogram_sublane(bins_t, ch, B, "f32")),
+            "k1_dense_ms": time_ms(
+                lambda: pallas_histogram(bins, ch, B, mode="f32")),
+            "plain_ms": time_ms(lambda: pallas_histogram_sublane_plain(
+                bins_t, ch, B, "f32"), 3, 1)}
+    # a deep split's smaller child: one row in eight carries channels
+    sparse = ch * (torch.arange(n, device=dev) % 8 == 0)[:, None]
+    line["one_in_eight_rows_ms"] = time_ms(
+        lambda: pallas_histogram_sublane(bins_t, sparse, B, "f32"))
+    del sparse
+    flat = (bins.to(torch.int64) + torch.arange(F, device=dev) * B).reshape(-1)
+    src = ch[:, None, :].expand(n, F, K).reshape(-1, K)
+    lib_out = torch.zeros(F * B, K, device=dev)
+
+    def lib():
+        lib_out.zero_()
+        lib_out.index_add_(0, flat, src)
+    line["library_ms"] = time_ms(lib, 3, 1)
+    line["bound_ms"] = 1e3 * (n * F + 4 * n * K + F * B * K * 4) \
+        / HBM_BYTES_PER_S
+    print("K3", json.dumps(line), flush=True)
+    del flat, src, lib_out, bins, bins_t, ch
+    results["histogram_sublane"] = dict(line, max_abs_err=worst, path=path)
+
+
 def phase_main_path(lgt, rows, rounds, results):
     from lightgbm_tpu_torch import _kernels
     from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
@@ -367,30 +522,7 @@ def phase_main_path(lgt, rows, rounds, results):
               "max_bin": 255, "learning_rate": 0.1, "min_data_in_leaf": 100,
               "verbosity": -1, "device_type": "cuda"}
 
-    # host syncs inside one tree (the second), counted by torch's sync
-    # debug mode around the grower call
-    grow = gbdt_mod.grow_tree_compact
     syncs = {}
-
-    def counted_grow(*a, **kw):
-        if len(syncs) or counted_grow.calls != 1:
-            counted_grow.calls += 1
-            return grow(*a, **kw)
-        counted_grow.calls += 1
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                out = grow(*a, **kw)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        syncs["in_tree"] = sum("called a synchronizing" in str(w.message)
-                               for w in caught)
-        return out
-    counted_grow.calls = 0
-    gbdt_mod.grow_tree_compact = counted_grow
-
     ends = []
 
     def timer(env):
@@ -399,7 +531,7 @@ def phase_main_path(lgt, rows, rounds, results):
     timer.order = 5
 
     _kernels.reset_counts()
-    try:
+    with syncs_in_second_tree(gbdt_mod, "grow_tree_compact", syncs):
         t1 = time.perf_counter()
         ds = lgt.Dataset(Xt, yt)
         dv = ds.create_valid(Xv, yv)
@@ -410,8 +542,6 @@ def phase_main_path(lgt, rows, rounds, results):
         t_start = time.perf_counter()
         bst = lgt.train(params, ds, 1 + rounds, valid_sets=[dv],
                         callbacks=[timer, lgt.record_evaluation(evals)])
-    finally:
-        gbdt_mod.grow_tree_compact = grow
     launches = dict(_kernels.LAUNCHES)
     plain_calls = dict(_kernels.PLAIN_CALLS)
     check(len(ends) == 1 + rounds, f"trained {len(ends)} rounds")
@@ -426,14 +556,105 @@ def phase_main_path(lgt, rows, rounds, results):
     if rows < 10_500_000:
         out["note"] = "rows lowered by --rows"
     print("MAIN", json.dumps(out), flush=True)
-    for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched on the main path")
+    # the compact path's kernels: K1 (record mode) and K2
+    for k in ("histogram", "fused_split"):
+        check(launches[k] > 0, f"kernel {k} was not launched on the compact "
+              "path")
     for k, v in plain_calls.items():
         check(v == 0, f"plain version of {k} ran {v} times on the card")
     check(np.isfinite(auc) and auc > 0.7, f"validation AUC {auc}")
     check(syncs.get("in_tree") == 0, "host syncs inside the split loop")
     out["profile"] = profile_tree(bst, 1.0 / it_s)
     results["main"] = out
+
+
+def phase_masked(lgt, results):
+    """The masked path: the training stage of bench.py's serving bench
+    (bench.py:769-776) with the sublane layout, then the CPU, the lane
+    layout and a saved and reloaded model on the same data."""
+    from lightgbm_tpu_torch import _kernels
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    rounds = 20
+    X, y = make_higgs_like(22_000, 28)
+    Xt, yt, Xv, yv = X[:20_000], y[:20_000], X[20_000:], y[20_000:]
+    params = {"objective": "binary", "metric": "auc", "num_leaves": 63,
+              "max_bin": 63, "learning_rate": 0.1, "min_data_in_leaf": 20,
+              "verbosity": -1, "tpu_hist_layout": "sublane"}
+    syncs = {}
+    ends = []
+
+    def timer(env):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+    timer.order = 5
+
+    evals = {}
+    _kernels.reset_counts()
+    with syncs_in_second_tree(gbdt_mod, "grow_tree", syncs):
+        t_start = time.perf_counter()
+        ds = lgt.Dataset(Xt, yt)
+        bst = lgt.train(dict(params, device_type="cuda"), ds, rounds,
+                        valid_sets=[ds.create_valid(Xv, yv)],
+                        callbacks=[timer, lgt.record_evaluation(evals)])
+    launches = dict(_kernels.LAUNCHES)
+    plain_calls = dict(_kernels.PLAIN_CALLS)
+    check(len(ends) == rounds, f"trained {len(ends)} rounds")
+    it_s = (rounds - 1) / (ends[-1] - ends[0])
+    auc = evals["valid_0"]["auc"][-1]
+    out = {"train_rows": 20_000, "valid_rows": 2_000, "rounds": rounds,
+           "iterations_per_s": it_s, "first_round_s": ends[0] - t_start,
+           "valid_auc": auc, "launches": launches, "plain_calls": plain_calls,
+           "host_syncs_in_tree": syncs.get("in_tree"),
+           "num_trees": bst.num_trees(),
+           "hist_layout": bst._gbdt.grower_params.hist_layout}
+    print("MASKED", json.dumps(out), flush=True)
+    check(not bst._gbdt.use_compact, "20k rows did not take the masked "
+          "grower")
+    check(launches["histogram_sublane"] > 0, "K3 was not launched on the "
+          "masked path")
+    check(launches["histogram"] == 0 and launches["fused_split"] == 0,
+          f"K1/K2 launched on the masked sublane path: {launches}")
+    for k, v in plain_calls.items():
+        check(v == 0, f"plain version of {k} ran {v} times on the card")
+    check(np.isfinite(auc) and auc > 0.7, f"validation AUC {auc}")
+    check(syncs.get("in_tree") == 0, "host syncs inside the split loop")
+
+    pred = bst.predict(X)
+    check(np.all(np.isfinite(pred)) and pred.shape == (22_000,),
+          "masked-path predictions")
+    cpu = lgt.train(dict(params, device_type="cpu"), lgt.Dataset(Xt, yt),
+                    rounds)
+    _kernels.reset_counts()
+    lane = lgt.train(dict(params, device_type="cuda", tpu_hist_layout="lane"),
+                     lgt.Dataset(Xt, yt), rounds)
+    lane_launches = dict(_kernels.LAUNCHES)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.txt")
+        bst.save_model(path)
+        back = lgt.Booster(model_file=path)
+        reload_diff = float(np.abs(back.predict(X) - pred).max())
+    differ = 0
+    for a, b in zip(bst._gbdt.models, cpu._gbdt.models):
+        differ += int(((a.split_feature != b.split_feature)
+                       | (a.split_bin != b.split_bin)
+                       | (a.default_left != b.default_left)).sum())
+    cmp = {"cpu_max_abs_pred_diff": float(np.abs(cpu.predict(X) - pred).max()),
+           "cpu_differing_splits": differ,
+           "lane_max_abs_pred_diff":
+               float(np.abs(lane.predict(X) - pred).max()),
+           "lane_launches": lane_launches,
+           "reload_max_abs_pred_diff": reload_diff}
+    print("MASKED_CHECKS", json.dumps(cmp), flush=True)
+    check(cmp["cpu_max_abs_pred_diff"] <= 1e-4, "masked path: card vs CPU")
+    check(cmp["lane_max_abs_pred_diff"] <= 1e-4, "masked path: sublane vs "
+          "lane")
+    check(lane_launches["histogram"] > 0
+          and lane_launches["histogram_sublane"] == 0,
+          f"the lane layout did not run K1: {lane_launches}")
+    check(reload_diff <= 1e-6, f"reloaded model differs by {reload_diff}")
+    out.update(cmp)
+    out["profile"] = profile_tree(bst, 1.0 / it_s)
+    results["masked"] = out
 
 
 def profile_tree(bst, tree_s):
@@ -527,17 +748,21 @@ def main() -> int:
     results = {}
     phases = [("k1", lambda: phase_kernels_k1(args.rows, results)),
               ("k2", lambda: phase_kernels_k2(args.rows, results)),
+              ("k3", lambda: phase_kernels_k3(args.rows, results)),
               ("main", lambda: phase_main_path(lgt, args.rows, args.rounds,
                                                results)),
-              ("cpu_vs_card", lambda: phase_cpu_vs_card(lgt, results))]
+              ("cpu_vs_card", lambda: phase_cpu_vs_card(lgt, results)),
+              ("masked", lambda: phase_masked(lgt, results))]
     for name, run in phases:
         t0 = time.perf_counter()
         run()
         print(f"phase {name} wall_s {time.perf_counter() - t0:.1f}",
               flush=True)
     launches = results["main"]["launches"]
+    masked_launches = results["masked"]["launches"]
 
     h, f = results["histogram"], results["fused_split"]
+    h3 = results["histogram_sublane"]
     kernels = [
         {"name": "histogram", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/histogram.cu",
@@ -558,6 +783,15 @@ def main() -> int:
          "ms": f["kernel_ms"], "plain_ms": f["plain_ms"],
          "bound_ms": f["bound_ms"], "bound_by": "bytes",
          "library_ms": f["library_ms"]},
+        {"name": "histogram_sublane", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/histogram_sublane.cu",
+         "replaces": "lightgbm_tpu/ops/pallas_histogram.py:170",
+         "launches": masked_launches["histogram_sublane"],
+         "max_abs_err": h3["max_abs_err"], "ms": h3["kernel_ms"],
+         "plain_ms": h3["plain_ms"], "bound_ms": h3["bound_ms"],
+         "bound_by": "bytes", "library_ms": h3["library_ms"],
+         "path_ms": h3["path"]["kernel_ms"],
+         "path_bound_ms": h3["path"]["bound_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -45,6 +45,9 @@ KERNELS = {
         "lgbt_fused_split": [_I, _P, _P, _I, _L, _I, _P, _P, _I, _P, _I, _P,
                              _P],
     }),
+    "histogram_sublane": ("histogram_sublane.cu", {
+        "lgbt_hist_sublane": [_P, _L, _P, _I, _L, _I, _I, _I, _P, _P],
+    }),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -2,14 +2,17 @@
 
 Counterpart of ``lightgbm_tpu/basic.py`` (reference:
 python-package/lightgbm/basic.py): a lazily constructed ``Dataset`` and a
-``Booster`` with ``update``, ``predict``, ``eval_train``/``eval_valid`` and
-``current_iteration``. The device comes from the ``device_type`` parameter
-(default ``cuda``; ``cpu`` runs the plain PyTorch versions of the kernels)
-and is never chosen silently: ``cuda`` without a visible card raises.
+``Booster`` with ``update``, ``predict``, ``eval_train``/``eval_valid``,
+``current_iteration`` and model text (``save_model``, ``model_to_string``,
+``dump_model``; ``Booster(model_file=...)`` / ``Booster(model_str=...)``
+loads text written by the port, the JAX package or stock LightGBM, and
+predicts on the host, see ``model_io.py``). The device comes from the
+``device_type`` parameter (default ``cuda``; ``cpu`` runs the plain PyTorch
+versions of the kernels) and is never chosen silently: ``cuda`` without a
+visible card raises.
 
 Not here yet: ``cv``, refit, custom objectives and metrics, continued
-training and model text (``save_model`` / ``model_to_string``, the first
-item of the next slice), sklearn and the CLI (ROADMAP A8, A9, A16).
+training, sklearn and the CLI (ROADMAP A8, A16).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import numpy as np
 from .config import Config, alias_table, resolve_device
 from .io.dataset import BinnedDataset
 from .metrics import create_metrics
+from .model_io import booster_to_dict, booster_to_string, load_booster
 from .objectives import create_objective
 
 _DATASET_PARAM_KEYS = ("max_bin", "min_data_in_bin", "bin_construct_sample_cnt",
@@ -136,15 +140,26 @@ class Booster:
     basic.py:3586)."""
 
     def __init__(self, params: Optional[Dict[str, Any]] = None,
-                 train_set: Optional[Dataset] = None):
+                 train_set: Optional[Dataset] = None,
+                 model_file: Optional[str] = None,
+                 model_str: Optional[str] = None):
+        self.params = copy.deepcopy(params) if params else {}
+        self._valid_names: List[str] = []
+        self._train_data_name = "training"
+        self.best_iteration = -1
         if train_set is None:
-            raise NotImplementedError(
-                "loading a Booster from model text is not in the PyTorch "
-                "port yet (ROADMAP A9); build one from arrays with "
-                "lightgbm_tpu_torch.convert")
+            if model_file is None and model_str is None:
+                raise ValueError("need at least one of train_set, model_file "
+                                 "and model_str")
+            if model_file is not None:
+                with open(model_file) as fh:
+                    model_str = fh.read()
+            self.config = Config(self.params)
+            self.device = None
+            load_booster(self, model_str)
+            return
         if not isinstance(train_set, Dataset):
             raise TypeError("Training data should be a Dataset instance")
-        self.params = copy.deepcopy(params) if params else {}
         self.config = Config(self.params)
         self.config.check_supported()
         self.device = resolve_device(self.config)
@@ -158,9 +173,6 @@ class Booster:
             self.device)
         self._gbdt.set_train_metrics(
             create_metrics(self.config.metric, self.config))
-        self._valid_names: List[str] = []
-        self._train_data_name = "training"
-        self.best_iteration = -1
 
     @classmethod
     def _from_gbdt(cls, gbdt, params: Optional[Dict[str, Any]] = None
@@ -199,10 +211,11 @@ class Booster:
                fobj=None) -> bool:
         """One boosting iteration; True if no further split was possible
         (reference: Booster.update, basic.py:4092)."""
-        if train_set is not None or fobj is not None:
+        if train_set is not None or fobj is not None \
+                or self.train_set is None:
             raise NotImplementedError(
-                "update(train_set=..., fobj=...) is not in the PyTorch port "
-                "yet (ROADMAP A8)")
+                "update(train_set=..., fobj=...) and training a loaded model "
+                "further are not in the PyTorch port yet (ROADMAP A8)")
         return self._gbdt.train_one_iter()
 
     def eval_train(self):
@@ -226,9 +239,10 @@ class Booster:
         arr = np.asarray(_maybe_series(data))
         raw = self._gbdt.predict_raw_matrix(arr, num_iteration,
                                             start_iteration)[0]
-        if raw_score:
+        objective = self._gbdt.objective
+        if raw_score or objective is None:
             return raw
-        return np.asarray(self._gbdt.objective.convert_output(raw))
+        return np.asarray(objective.convert_output(raw))
 
     def current_iteration(self) -> int:
         return self._gbdt.current_iteration()
@@ -237,4 +251,24 @@ class Booster:
         return len(self._gbdt.models)
 
     def num_feature(self) -> int:
-        return len(self._gbdt.mappers)
+        return self._gbdt.num_features()
+
+    # -- model text (reference: Booster.save_model, model_to_string and
+    # dump_model of python-package/lightgbm/basic.py) -------------------------
+    def model_to_string(self, num_iteration: Optional[int] = None) -> str:
+        """The model as LightGBM v4 text (all trees unless
+        ``num_iteration``); a loaded model returns its text as read."""
+        if num_iteration is None and self.best_iteration > 0:
+            num_iteration = self.best_iteration
+        return booster_to_string(self, num_iteration)
+
+    def save_model(self, filename: str,
+                   num_iteration: Optional[int] = None) -> "Booster":
+        with open(filename, "w") as fh:
+            fh.write(self.model_to_string(num_iteration))
+        return self
+
+    def dump_model(self, num_iteration: Optional[int] = None
+                   ) -> Dict[str, Any]:
+        """The model as a JSON-ready dict (reference: GBDT::DumpModel)."""
+        return booster_to_dict(self, num_iteration)

@@ -1,19 +1,28 @@
-"""Gradient Boosted Decision Trees over the compact grower.
+"""Gradient Boosted Decision Trees over the masked and compact growers.
 
 Counterpart of ``lightgbm_tpu/boosting/gbdt.py`` for the serial, binary,
-numerical path (reference: class GBDT, src/boosting/gbdt.cpp): the packed
-row-record state of ``_setup_compact_state``, the compact training step
-(gradients in the current row order -> record columns -> grow -> shrinkage
--> score update through ``segments_to_leaf_vectors``), boost-from-average,
-validation-set score updates and ``HostTree``.
+numerical path (reference: class GBDT, src/boosting/gbdt.cpp): grower
+selection (``tpu_grower``: ``auto`` is the masked grower below 65,536 rows
+and the compact grower at and above, as at ``boosting/gbdt.py:964-995``
+there), the two training steps, boost-from-average, validation-set score
+updates and ``HostTree``.
 
-The compact grower permutes the rows of the record arrays every tree, so the
-train scores live in that permuted order (written into the record's score
-column before each tree) and a carried original-row-id column maps them back
-for metrics. The tree grows with no device-to-host read; after it, its
-arrays come to the host in ONE copy (the iteration's stop check and the
-model list need them), and validation scores are routed on the device with
-the device copy of the tree.
+* Masked step (``_build_step_fn``'s ``step`` there, K = 1, no bagging):
+  gradients in the original row order, a mask of ones, ``grow_tree`` over
+  the bin matrix (kept on the device row-major for K1 and feature-major for
+  the partition and K3), and ``train_score += leaf_value[row_leaf]``.
+* Compact step: the packed row-record state of ``_setup_compact_state``
+  (gradients in the current row order -> record columns -> grow ->
+  ``segments_to_leaf_vectors``). The compact grower permutes the rows of the
+  record arrays every tree, so the train scores live in that permuted order
+  (written into the record's score column before each tree) and a carried
+  original-row-id column maps them back for metrics.
+
+Either way a tree grows with no device-to-host read; after it, its arrays
+come to the host in ONE copy (the iteration's stop check and the model list
+need them), and validation scores are routed on the device with the device
+copy of the tree. A no-split tree is zeroed before shrinkage, and the init
+score is folded into the first tree's leaves.
 
 Multiclass, leaf renewal, quantized gradients, checkpoints, DART/RF and the
 JAX package's compile ladder are ROADMAP A12-A16 (the ladder has no
@@ -26,14 +35,19 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..config import resolve_hist_layout
 from ..io.dataset import BinnedDataset
 from ..metrics import Metric
 from ..ops.compact import RowLayout, _f32_to_u8, _u8_to_f32, pack_rows
-from ..ops.grower import GrowerParams, TreeArrays
+from ..ops.grower import GrowerParams, TreeArrays, grow_tree
 from ..ops.grower_compact import grow_tree_compact
 from ..ops.predict import StackedTrees, predict_leaf_batched, \
     predict_raw_batched
 from ..utils import log
+
+# tpu_grower=auto takes the compact grower from this many rows on
+# (reference: boosting/gbdt.py:988-995)
+_COMPACT_MIN_ROWS = 65536
 
 _INT_FIELDS = ("split_feature", "split_bin", "default_left", "left_child",
                "right_child", "leaf_parent", "leaf_depth")
@@ -148,11 +162,14 @@ class GBDT:
         self.valid_sets: List[_ValidSet] = []
         self.train_metrics: List[Metric] = []
         self.mappers = train_set.mappers
+        self.feature_names = list(train_set.feature_names)
         self._setup_train(train_set)
 
     @classmethod
     def for_prediction(cls, config, models: Sequence[HostTree], mappers,
-                       objective, device: torch.device) -> "GBDT":
+                       objective, device: torch.device,
+                       feature_names: Optional[Sequence[str]] = None
+                       ) -> "GBDT":
         """A model that only predicts: trees, bin mappers, objective."""
         self = cls.__new__(cls)
         self.config = config
@@ -162,6 +179,9 @@ class GBDT:
         self.models = list(models)
         self.iter_ = len(self.models)
         self.mappers = list(mappers)
+        self.feature_names = (list(feature_names) if feature_names is not None
+                              else [f"Column_{i}"
+                                    for i in range(len(self.mappers))])
         self.valid_sets = []
         self.train_metrics = []
         self.nan_bin_arr = torch.tensor(
@@ -177,10 +197,11 @@ class GBDT:
         self.num_data = n
         self._n_real = n
         if n >= (1 << 24):
-            # f32 raw-count histograms drive the partition offsets and the
-            # f32 row ids drive the metric permutation; both are exact only
-            # below 2^24 rows
-            raise RuntimeError("the compact grower supports up to 2^24 rows")
+            # f32 count histograms (the compact grower's partition offsets
+            # and row ids, both growers' min_data_in_leaf counts) are exact
+            # only below 2^24 rows
+            raise RuntimeError("the PyTorch port trains on fewer than 2^24 "
+                               "rows: f32 counts are exact only below that")
         mappers = train_set.mappers
         self.num_bins_arr = torch.from_numpy(
             train_set.feature_num_bins().astype(np.int64)).to(dev)
@@ -201,6 +222,8 @@ class GBDT:
                 cfg.get("min_sum_hessian_in_leaf", 1e-3)),
             min_gain_to_split=float(cfg.get("min_gain_to_split", 0.0)),
             max_delta_step=float(cfg.get("max_delta_step", 0.0)),
+            hist_layout=resolve_hist_layout(cfg,
+                                            int(train_set.max_num_bins)),
         )
         md = train_set.metadata
         self.objective.init(md, n)
@@ -209,7 +232,34 @@ class GBDT:
         if self._has_init_score:
             score0 += np.asarray(md.init_score, np.float32)
         self.train_score = torch.from_numpy(score0).to(dev)
-        self._setup_compact_state(train_set)
+        grower = str(cfg.get("tpu_grower", "auto")).lower()
+        self.use_compact = grower == "compact" or (
+            grower == "auto" and n >= _COMPACT_MIN_ROWS)
+        if self.use_compact:
+            self._setup_compact_state(train_set)
+        else:
+            self._setup_masked_state(train_set)
+
+    def _setup_masked_state(self, train_set: BinnedDataset) -> None:
+        """The masked grower's inputs, made once: the bin matrix row-major
+        (K1) and feature-major (the partition's feature rows and K3), label,
+        weight and the all-ones row mask (no bagging in this slice)."""
+        dev = self.device
+        md = train_set.metadata
+        binned = np.ascontiguousarray(train_set.binned)
+        self.binned = torch.from_numpy(binned).to(dev)
+        # feature rows padded to a multiple of 8 bytes: K3 reads each lane's
+        # 8 bins as one aligned load
+        n, f = binned.shape
+        binned_t = np.zeros((f, -(-n // 8) * 8), np.uint8)
+        binned_t[:, :n] = binned.T
+        self.binned_t = torch.from_numpy(binned_t).to(dev)[:, :n]
+        self.label = torch.from_numpy(np.asarray(md.label, np.float32)).to(
+            dev)
+        self.weight = (None if md.weight is None else torch.from_numpy(
+            np.asarray(md.weight, np.float32)).to(dev))
+        self.row_mask = torch.ones(self.num_data, dtype=torch.float32,
+                                   device=dev)
 
     def _setup_compact_state(self, train_set: BinnedDataset) -> None:
         """The packed row records (ops/compact.py). Extras carried through
@@ -261,30 +311,17 @@ class GBDT:
         """One boosting iteration; True when no further split was possible
         (reference: GBDT::TrainOneIter, gbdt.cpp:375)."""
         self._boost_from_average()
-        lay = self.layout
-        label = self._col(self._cx_label)
-        weight = (self._col(self._cx_weight)
-                  if self._cx_weight is not None else None)
-        g, h = self.objective.get_gradients(self.train_score, label, weight)
-        # the in-bag column stays 1 from setup (no bagging in this slice):
-        # write grad, hess and the score column only
-        self.work[:, lay.grad_off:lay.grad_off + 8] = \
-            torch.stack([g, h], dim=1).view(torch.uint8)
-        off = lay.extra_off + 4 * self._cx_score
-        self.work[:, off:off + 4] = _f32_to_u8(self.train_score)
-
-        tree, row_leaf, self.work, self.scratch, leaf_start, leaf_nrows = \
-            grow_tree_compact(self.work, self.scratch, self.num_bins_arr,
-                              self.nan_bin_arr, self.has_nan_arr,
-                              self.feat_mask, lay, self.grower_params,
-                              self.num_data)
+        if self.use_compact:
+            tree, row_leaf, score = self._grow_compact()
+        else:
+            tree, row_leaf, score = self._grow_masked()
         shrink = self.shrinkage_rate
+        # a no-split tree contributes nothing (reference: gbdt.cpp:433)
         lv = torch.where(tree.num_nodes > 0, tree.leaf_value,
                          torch.zeros_like(tree.leaf_value)) * shrink
         tree = tree._replace(leaf_value=lv,
                              internal_value=tree.internal_value * shrink)
-        # the score column moved with the rows: add each row's leaf value
-        self.train_score = self._col(self._cx_score) + lv[row_leaf]
+        self.train_score = score + lv[row_leaf]
 
         host = HostTree.from_device(tree, shrink)
         self._update_valid_scores(tree, host.max_depth)
@@ -303,6 +340,39 @@ class GBDT:
                         "that meet the split requirements")
             return True
         return False
+
+    def _grow_masked(self):
+        """One tree of the masked grower: ``(tree, row_leaf, train scores)``
+        with the rows in the dataset's order."""
+        g, h = self.objective.get_gradients(self.train_score, self.label,
+                                            self.weight)
+        tree, row_leaf = grow_tree(
+            self.binned, g, h, self.row_mask, self.num_bins_arr,
+            self.nan_bin_arr, self.has_nan_arr, self.feat_mask,
+            self.grower_params, self.binned_t)
+        return tree, row_leaf, self.train_score
+
+    def _grow_compact(self):
+        """One tree of the compact grower: ``(tree, row_leaf, train
+        scores)`` with the rows in the post-tree record order."""
+        lay = self.layout
+        label = self._col(self._cx_label)
+        weight = (self._col(self._cx_weight)
+                  if self._cx_weight is not None else None)
+        g, h = self.objective.get_gradients(self.train_score, label, weight)
+        # the in-bag column stays 1 from setup (no bagging in this slice):
+        # write grad, hess and the score column only
+        self.work[:, lay.grad_off:lay.grad_off + 8] = \
+            torch.stack([g, h], dim=1).view(torch.uint8)
+        off = lay.extra_off + 4 * self._cx_score
+        self.work[:, off:off + 4] = _f32_to_u8(self.train_score)
+
+        tree, row_leaf, self.work, self.scratch, _, _ = grow_tree_compact(
+            self.work, self.scratch, self.num_bins_arr, self.nan_bin_arr,
+            self.has_nan_arr, self.feat_mask, lay, self.grower_params,
+            self.num_data)
+        # the score column moved with the rows
+        return tree, row_leaf, self._col(self._cx_score)
 
     def _update_valid_scores(self, tree: TreeArrays, depth: int) -> None:
         if not self.valid_sets:
@@ -327,6 +397,17 @@ class GBDT:
     def current_iteration(self) -> int:
         return self.iter_
 
+    def num_features(self) -> int:
+        return len(self.mappers)
+
+    def feature_importance(self) -> np.ndarray:
+        """Splits per feature over all trees (reference:
+        GBDT::FeatureImportance, importance_type "split")."""
+        out = np.zeros(len(self.mappers), np.float64)
+        for m in self.models:
+            np.add.at(out, m.split_feature[:m.num_nodes], 1.0)
+        return out
+
     # -- validation and metrics ----------------------------------------------
     def add_valid(self, valid_set: BinnedDataset, name: str,
                   metrics: Sequence[Metric]) -> None:
@@ -349,6 +430,8 @@ class GBDT:
 
     def train_score_original_order(self) -> np.ndarray:
         """Train raw scores [N] in the dataset's row order."""
+        if not self.use_compact:
+            return self.train_score.cpu().numpy()
         perm = self._col(self._cx_rowid).to(torch.int64)
         out = torch.empty_like(self.train_score)
         out[perm] = self.train_score

@@ -97,8 +97,8 @@ PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...]]] = {
     "metric": (None, object, ("metrics", "metric_types")),
     "metric_freq": (1, int, ("output_freq",)),
     # grower selection knobs shared with the JAX package
-    "tpu_grower": ("auto", str, ()),            # auto | compact (masked: A11)
-    "tpu_hist_layout": ("auto", str, ("hist_layout",)),  # auto | lane
+    "tpu_grower": ("auto", str, ()),            # auto | compact | masked
+    "tpu_hist_layout": ("auto", str, ("hist_layout",)),  # auto|lane|sublane
     "tpu_bin_pack4": (False, bool, ("bin_pack4",)),
 }
 
@@ -240,7 +240,8 @@ class Config:
             need(str(self.tree_learner).lower() != "serial",
                  f"tree_learner={self.tree_learner!r}", "A18")
             need(self.num_machines > 1, "num_machines>1", "A18")
-            need(bool(self.input_model), "input_model", "A9")
+            need(bool(self.input_model), "input_model (continued training)",
+                 "A8/A9")
             need(self.boosting != "gbdt", f"boosting={self.boosting!r}",
                  "A14")
             need(self.data_sample_strategy != "bagging",
@@ -270,15 +271,29 @@ class Config:
             need(self.use_quantized_grad, "use_quantized_grad", "A15")
             # the CUDA histograms add f32 atomics in no fixed order
             need(self.deterministic, "deterministic histograms", "B1/B2")
-            grower = str(self.tpu_grower).lower()
-            need(grower not in ("auto", "compact"),
-                 f"tpu_grower={self.tpu_grower!r}", "A11")
-            layout = str(self.tpu_hist_layout).lower()
-            need(layout not in ("auto", "lane"),
-                 f"tpu_hist_layout={self.tpu_hist_layout!r}", "B3")
         if todo:
             raise NotImplementedError(
                 "not in the PyTorch port yet: " + "; ".join(todo))
+
+
+def resolve_hist_layout(cfg: Config, num_bins: int) -> str:
+    """``tpu_hist_layout`` as the histogram layout a run uses, with the
+    semantics of ``resolve_layout`` (``lightgbm_tpu/engines/registry.py:
+    348``): ``auto`` is ``lane`` (the port has no autotune cache yet,
+    ROADMAP A19); ``sublane`` above 64 bins, and an unknown value, warn and
+    use ``lane``."""
+    mode = str(cfg.tpu_hist_layout or "auto").lower()
+    if mode == "auto":
+        return "lane"
+    if mode not in ("lane", "sublane"):
+        log.warning(f"tpu_hist_layout={mode!r} is not one of "
+                    "auto|lane|sublane; using the lane layout")
+        return "lane"
+    if mode == "sublane" and num_bins > 64:
+        log.warning(f"tpu_hist_layout=sublane needs num_bins <= 64 (got "
+                    f"{num_bins}): using lane")
+        return "lane"
+    return mode
 
 
 

@@ -27,18 +27,28 @@ from .objectives import create_objective
 
 _TREE_FIELDS = ("split_feature", "split_bin", "default_left", "left_child",
                 "right_child", "leaf_value", "leaf_depth")
+# carried when given (model text and dump_model print them), else zeros
+_STAT_FIELDS = ("split_gain", "leaf_weight", "leaf_count", "internal_value",
+                "internal_weight", "internal_count")
 
 
 def mappers_from_arrays(bin_upper_bounds: Sequence[np.ndarray],
                         nan_bins: Sequence[int],
                         missing_types: Sequence[int],
-                        num_bins: Sequence[int]) -> List[BinMapper]:
+                        num_bins: Sequence[int],
+                        value_ranges: Optional[Sequence[Sequence[float]]]
+                        = None) -> List[BinMapper]:
     """Numerical ``BinMapper``s from their bounds, NaN bins, missing types
-    and bin counts. The zero bin is recomputed from the bounds, as
-    ``find_bin_numerical`` sets it, and each NaN bin must agree with it."""
+    and bin counts, and optionally each feature's ``(min, max)`` value
+    (model text's ``feature_infos``). The zero bin is recomputed from the
+    bounds, as ``find_bin_numerical`` sets it, and each NaN bin must agree
+    with it."""
     out = []
-    for j, (ub, nb, mt, k) in enumerate(zip(bin_upper_bounds, nan_bins,
-                                            missing_types, num_bins)):
+    if value_ranges is None:
+        value_ranges = [(0.0, 0.0)] * len(num_bins)
+    for j, (ub, nb, mt, k, (lo, hi)) in enumerate(zip(
+            bin_upper_bounds, nan_bins, missing_types, num_bins,
+            value_ranges)):
         ub = np.asarray(ub, np.float64)
         k, mt = int(k), int(mt)
         if k <= 1:
@@ -46,7 +56,8 @@ def mappers_from_arrays(bin_upper_bounds: Sequence[np.ndarray],
             continue
         m = BinMapper(num_bins=k, missing_type=mt, bin_upper_bounds=ub,
                       default_bin=int(np.searchsorted(ub[:-1], 0.0,
-                                                      side="left")))
+                                                      side="left")),
+                      min_value=float(lo), max_value=float(hi))
         if m.nan_bin != int(nb):
             raise ValueError(f"feature {j}: NaN bin {int(nb)} does not match "
                              f"its bounds and missing type {mt} "
@@ -83,12 +94,20 @@ def booster_from_arrays(trees: Sequence[Dict[str, Any]],
                         bin_upper_bounds: Sequence[np.ndarray],
                         nan_bins: Sequence[int], missing_types: Sequence[int],
                         num_bins: Sequence[int], init_score: float = 0.0,
-                        params: Optional[Dict[str, Any]] = None) -> Booster:
+                        params: Optional[Dict[str, Any]] = None,
+                        value_ranges: Optional[Sequence[Sequence[float]]]
+                        = None,
+                        feature_names: Optional[Sequence[str]] = None
+                        ) -> Booster:
     """A prediction-only port ``Booster`` from trees given as dicts of the
     HostTree fields (``split_feature``, ``split_bin``, ``default_left``,
     ``left_child``, ``right_child``, ``leaf_value``, ``leaf_depth``,
-    ``num_leaves``, ``num_nodes``, optional ``shrinkage``). ``init_score``
-    is added to the first tree's leaves, as boost-from-average does."""
+    ``num_leaves``, ``num_nodes``, optional ``shrinkage`` and the node and
+    leaf statistics ``split_gain``, ``leaf_weight``, ``leaf_count``,
+    ``internal_value``, ``internal_weight``, ``internal_count``).
+    ``init_score`` is added to the first tree's leaves, as
+    boost-from-average does. ``value_ranges`` and ``feature_names`` are
+    what model text prints of the features."""
     params = dict(params or {})
     params.setdefault("objective", "binary")
     cfg = Config(params)
@@ -99,6 +118,10 @@ def booster_from_arrays(trees: Sequence[Dict[str, Any]],
         fields = {k: np.asarray(t[k]) for k in _TREE_FIELDS}
         fields["leaf_value"] = fields["leaf_value"].astype(np.float32)
         fields["default_left"] = fields["default_left"].astype(bool)
+        for k in _STAT_FIELDS:
+            size = len(fields["leaf_value" if k.startswith("leaf")
+                              else "split_feature"])
+            fields[k] = np.asarray(t.get(k, np.zeros(size)), np.float32)
         if i == 0 and init_score:
             fields["leaf_value"] = fields["leaf_value"] + np.float32(
                 init_score)
@@ -106,7 +129,8 @@ def booster_from_arrays(trees: Sequence[Dict[str, Any]],
         fields["num_nodes"] = int(t["num_nodes"])
         models.append(HostTree(fields, float(t.get("shrinkage", 1.0))))
     mappers = mappers_from_arrays(bin_upper_bounds, nan_bins, missing_types,
-                                  num_bins)
+                                  num_bins, value_ranges)
     gbdt = GBDT.for_prediction(cfg, models, mappers,
-                               create_objective(cfg.objective, cfg), device)
+                               create_objective(cfg.objective, cfg), device,
+                               feature_names)
     return Booster._from_gbdt(gbdt, params)

@@ -1,0 +1,338 @@
+"""Model text: save, JSON dump and load, in LightGBM's v4 text format.
+
+Copy of the binary, numerical part of ``lightgbm_tpu/model_io.py`` (the
+port imports nothing of the JAX package; reference:
+src/boosting/gbdt_model_text.cpp — SaveModelToString, DumpModel,
+LoadModelFromString — and src/io/tree.cpp — Tree::ToString, Tree::ToJSON,
+Tree::Tree(const char*)). The text is the reference's ``v4`` format
+(``tree`` header, ``Tree=<i>`` blocks, decision_type bits kDefaultLeftMask=2
+and missing_type << 2), so a model saved here loads in stock LightGBM and
+in the JAX package, and theirs load here.
+
+A loaded model predicts on the host in float64 numpy (``LoadedGBDT.
+predict_raw_matrix``), as the JAX package's loaded models do: the text
+holds raw-value thresholds, not bins. Categorical and multiclass models
+(ROADMAP A12), linear trees, C++ export (``to_if_else``) and the merge of
+continued-training texts (ROADMAP A9) raise.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+from .config import Config
+from .io.binning import MISSING_NAN
+from .objectives import create_objective
+
+_MISSING_NAMES = {0: "None", 1: "Zero", 2: "NaN"}
+
+
+def _fmt(x: float) -> str:
+    return f"{float(x):.17g}"
+
+
+def _objective_string(gbdt) -> str:
+    obj = gbdt.objective
+    if obj is None:
+        return "custom"
+    return f"{obj.name} sigmoid:{obj.sigmoid:g}"
+
+
+def _tree_to_text(host, tree_idx: int, mappers) -> str:
+    """One ``Tree=i`` block (reference: Tree::ToString, src/io/tree.cpp)."""
+    nl, nn = host.num_leaves, host.num_nodes
+    thresholds, decision_types = [], []
+    for i in range(nn):
+        m = mappers[int(host.split_feature[i])]
+        dt = 2 if bool(host.default_left[i]) else 0      # kDefaultLeftMask
+        dt |= (2 if m.missing_type == MISSING_NAN else 0) << 2
+        thresholds.append(_fmt(m.bin_to_threshold(int(host.split_bin[i]))))
+        decision_types.append(str(dt))
+
+    def join(vals):
+        return " ".join(str(v) for v in vals)
+
+    def counts(arr, k):
+        return join(int(round(float(arr[i]))) for i in range(k))
+
+    return "\n".join([
+        f"Tree={tree_idx}",
+        f"num_leaves={nl}",
+        "num_cat=0",
+        "split_feature=" + join(int(host.split_feature[i]) for i in range(nn)),
+        "split_gain=" + join(_fmt(host.split_gain[i]) for i in range(nn)),
+        "threshold=" + join(thresholds),
+        "decision_type=" + join(decision_types),
+        "left_child=" + join(int(host.left_child[i]) for i in range(nn)),
+        "right_child=" + join(int(host.right_child[i]) for i in range(nn)),
+        "leaf_value=" + join(_fmt(host.leaf_value[i]) for i in range(nl)),
+        "leaf_weight=" + join(_fmt(host.leaf_weight[i]) for i in range(nl)),
+        "leaf_count=" + counts(host.leaf_count, nl),
+        "internal_value=" + join(_fmt(host.internal_value[i])
+                                 for i in range(nn)),
+        "internal_weight=" + join(_fmt(host.internal_weight[i])
+                                  for i in range(nn)),
+        "internal_count=" + counts(host.internal_count, nn),
+        "is_linear=0",
+        f"shrinkage={host.shrinkage:g}",
+        "",
+    ])
+
+
+def booster_to_string(booster, num_iteration: Optional[int] = None) -> str:
+    """(reference: GBDT::SaveModelToString, gbdt_model_text.cpp)"""
+    gbdt = booster._gbdt
+    if isinstance(gbdt, LoadedGBDT):
+        return gbdt.original_text
+    mappers = gbdt.mappers
+    feature_infos = ["none" if m.is_trivial
+                     else f"[{m.min_value:g}:{m.max_value:g}]"
+                     for m in mappers]
+    models = gbdt.models
+    if num_iteration is not None and num_iteration >= 0:
+        models = models[:num_iteration]   # None: all trees; 0: none
+    blocks = [_tree_to_text(m, i, mappers) for i, m in enumerate(models)]
+    header = [
+        "tree",
+        "version=v4",
+        "num_class=1",
+        "num_tree_per_iteration=1",
+        "label_index=0",
+        f"max_feature_idx={len(mappers) - 1}",
+        f"objective={_objective_string(gbdt)}",
+        "feature_names=" + " ".join(gbdt.feature_names),
+        "feature_infos=" + " ".join(feature_infos),
+        "tree_sizes=" + " ".join(str(len(b) + 1) for b in blocks),
+        "",
+    ]
+    footer = ["", "end of trees", "", "feature_importances:"]
+    imp = gbdt.feature_importance()
+    for j in np.argsort(-imp, kind="stable"):
+        if imp[j] > 0:
+            footer.append(f"{gbdt.feature_names[j]}={int(imp[j])}")
+    footer += ["", "parameters:"]
+    footer += [f"[{key}: {value}]"
+               for key, value in sorted(booster.params.items())]
+    footer += ["end of parameters", "", "pandas_categorical:null"]
+    return "\n".join(header) + "\n" + "\n".join(blocks) \
+        + "\n".join(footer) + "\n"
+
+
+def _node_to_json(host, mappers, node: int) -> Dict[str, Any]:
+    """(reference: Tree::ToJSON / NodeToJSON, src/io/tree.cpp)"""
+    if node < 0:
+        leaf = -(node + 1)
+        return {
+            "leaf_index": int(leaf),
+            "leaf_value": float(host.leaf_value[leaf]),
+            "leaf_weight": float(host.leaf_weight[leaf]),
+            "leaf_count": int(round(float(host.leaf_count[leaf]))),
+        }
+    f = int(host.split_feature[node])
+    m = mappers[f]
+    return {
+        "split_index": int(node),
+        "split_feature": f,
+        "split_gain": float(host.split_gain[node]),
+        "internal_value": float(host.internal_value[node]),
+        "internal_weight": float(host.internal_weight[node]),
+        "internal_count": int(round(float(host.internal_count[node]))),
+        "decision_type": "<=",
+        "threshold": float(m.bin_to_threshold(int(host.split_bin[node]))),
+        "default_left": bool(host.default_left[node]),
+        "missing_type": _MISSING_NAMES.get(m.missing_type, "None"),
+        "left_child": _node_to_json(host, mappers,
+                                    int(host.left_child[node])),
+        "right_child": _node_to_json(host, mappers,
+                                     int(host.right_child[node])),
+    }
+
+
+def booster_to_dict(booster, num_iteration: Optional[int] = None
+                    ) -> Dict[str, Any]:
+    """(reference: GBDT::DumpModel, gbdt_model_text.cpp)"""
+    gbdt = booster._gbdt
+    if isinstance(gbdt, LoadedGBDT):
+        raise NotImplementedError(
+            "dump_model of a model loaded from text is not in the PyTorch "
+            "port yet (ROADMAP A9); dump the booster that trained it")
+    models = gbdt.models
+    if num_iteration is not None and num_iteration > 0:
+        models = models[:num_iteration]
+    trees = [{
+        "tree_index": i,
+        "num_leaves": host.num_leaves,
+        "num_cat": 0,
+        "shrinkage": host.shrinkage,
+        "tree_structure": _node_to_json(
+            host, gbdt.mappers, 0 if host.num_nodes > 0 else -1),
+    } for i, host in enumerate(models)]
+    return {
+        "name": "tree",
+        "version": "v4",
+        "num_class": 1,
+        "num_tree_per_iteration": 1,
+        "label_index": 0,
+        "max_feature_idx": len(gbdt.mappers) - 1,
+        "objective": _objective_string(gbdt),
+        "average_output": False,
+        "feature_names": list(gbdt.feature_names),
+        "monotone_constraints": [],
+        "feature_infos": {},
+        "tree_info": trees,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Loading (reference: GBDT::LoadModelFromString, gbdt_model_text.cpp; per-tree
+# parser Tree::Tree(const char*), src/io/tree.cpp)
+# ---------------------------------------------------------------------------
+class LoadedTree:
+    __slots__ = ("num_leaves", "num_nodes", "split_feature", "threshold",
+                 "decision_type", "left_child", "right_child", "leaf_value")
+
+    def route(self, x: np.ndarray) -> np.ndarray:
+        """Leaf index per row of raw float64 values, node by node
+        (reference semantics: Tree::NumericalDecision, tree.h:334-351)."""
+        n = x.shape[0]
+        cur = np.zeros(n, np.int64)
+        if self.num_nodes == 0:
+            return cur
+        for k in range(self.num_nodes):
+            at = cur == k
+            if not at.any():
+                continue
+            v = x[at, self.split_feature[k]]
+            dt = int(self.decision_type[k])
+            missing_type = (dt >> 2) & 3
+            isnan = np.isnan(v)
+            if missing_type != 2:
+                v = np.where(isnan, 0.0, v)
+            if missing_type == 1:
+                miss = np.abs(v) <= 1e-35
+            elif missing_type == 2:
+                miss = isnan
+            else:
+                miss = np.zeros(len(v), bool)
+            go_left = np.where(miss, bool(dt & 2), v <= self.threshold[k])
+            cur[at] = np.where(go_left, self.left_child[k],
+                               self.right_child[k])
+        return -(cur + 1)
+
+
+def _parse_block(lines: List[str]) -> Dict[str, str]:
+    out = {}
+    for line in lines:
+        if "=" in line:
+            key, _, value = line.partition("=")
+            out[key.strip()] = value.strip()
+        elif line.strip():
+            out[line.strip()] = ""
+    return out
+
+
+def _arr(d: Dict[str, str], key: str, dtype, n: int) -> np.ndarray:
+    s = d.get(key, "")
+    return np.array(s.split(), dtype=dtype) if s else np.zeros(n, dtype)
+
+
+class LoadedGBDT:
+    """Prediction-only model built from model text."""
+
+    def __init__(self, model_str: str):
+        if not model_str.lstrip().startswith("tree"):
+            raise ValueError("Model string is not a LightGBM model (missing "
+                             "'tree' header)")
+        self.original_text = model_str
+        header: List[str] = []
+        chunks: List[List[str]] = []
+        for line in model_str.split("\n"):
+            if line.strip() == "end of trees":
+                break
+            if line.startswith("Tree="):
+                chunks.append([line])
+            elif chunks:
+                chunks[-1].append(line)
+            else:
+                header.append(line)
+        hdr = _parse_block(header)
+        self.num_tree_per_iteration = int(hdr.get(
+            "num_tree_per_iteration", hdr.get("num_class", 1)))
+        if self.num_tree_per_iteration != 1:
+            raise NotImplementedError(
+                "multiclass model text is not in the PyTorch port yet "
+                "(ROADMAP A12)")
+        self.max_feature_idx = int(hdr.get("max_feature_idx", 0))
+        self.feature_names = hdr.get("feature_names", "").split()
+        self.average_output = "average_output" in hdr
+        self.objective = _objective_from_string(hdr.get("objective",
+                                                        "custom"))
+        self.models: List[LoadedTree] = []
+        for chunk in chunks:
+            d = _parse_block(chunk)
+            t = LoadedTree()
+            t.num_leaves = int(d.get("num_leaves", 1))
+            t.num_nodes = nn = max(t.num_leaves - 1, 0)
+            t.decision_type = _arr(d, "decision_type", np.int32, nn)
+            if int(d.get("num_cat", 0)) or np.any(t.decision_type & 1):
+                raise NotImplementedError(
+                    "categorical splits in model text are not in the "
+                    "PyTorch port yet (ROADMAP A12)")
+            if int(d.get("is_linear", "0") or 0):
+                raise NotImplementedError(
+                    "linear trees in model text are not in the PyTorch port "
+                    "yet (ROADMAP A9)")
+            t.split_feature = _arr(d, "split_feature", np.int32, nn)
+            t.threshold = _arr(d, "threshold", np.float64, nn)
+            t.left_child = _arr(d, "left_child", np.int32, nn)
+            t.right_child = _arr(d, "right_child", np.int32, nn)
+            t.leaf_value = _arr(d, "leaf_value", np.float64, t.num_leaves)
+            self.models.append(t)
+
+    def current_iteration(self) -> int:
+        return len(self.models)
+
+    def num_features(self) -> int:
+        return self.max_feature_idx + 1
+
+    def predict_raw_matrix(self, arr: np.ndarray,
+                           num_iteration: Optional[int] = None,
+                           start_iteration: int = 0) -> np.ndarray:
+        """Raw scores ``[1, N]`` (float32) of raw feature rows."""
+        arr = np.asarray(arr, np.float64)
+        if arr.ndim == 1:
+            arr = arr.reshape(1, -1)
+        if arr.shape[1] != self.num_features():
+            raise ValueError(f"input has {arr.shape[1]} features, model "
+                             f"expects {self.num_features()}")
+        models = self.models[max(start_iteration, 0):]
+        if num_iteration is not None and num_iteration > 0:
+            models = models[:num_iteration]
+        out = np.zeros((1, arr.shape[0]), np.float64)
+        for t in models:
+            out[0] += t.leaf_value[t.route(arr)]
+        if self.average_output:
+            out /= max(len(models), 1)
+        return out.astype(np.float32)
+
+
+def _objective_from_string(obj_str: str):
+    """The objective of an ``objective=`` header line, or None for
+    ``custom``."""
+    parts = obj_str.split()
+    if not parts or parts[0] == "custom":
+        return None
+    params: Dict[str, Any] = {"objective": parts[0]}
+    for p in parts[1:]:
+        key, sep, value = p.partition(":")
+        if sep:
+            params[key] = value
+    cfg = Config(params)
+    return create_objective(cfg.objective, cfg)
+
+
+def load_booster(booster, model_str: str) -> None:
+    """Make ``booster`` a prediction-only handle of ``model_str``."""
+    booster._gbdt = LoadedGBDT(model_str)
+    booster.train_set = None

@@ -1,19 +1,47 @@
-"""Tree-growth parameters and the struct-of-arrays tree.
+"""Tree-growth parameters, the struct-of-arrays tree and the masked grower.
 
-Counterpart of ``GrowerParams`` and ``TreeArrays`` of
-``lightgbm_tpu/ops/grower.py``, with the fields the serial numerical
-compact grower reads. The masked grower ``grow_tree`` and per-node feature
-sampling are ROADMAP A11/A14. The JAX package's compile ladder (leaf rungs,
+Counterpart of ``lightgbm_tpu/ops/grower.py``: ``GrowerParams`` and
+``TreeArrays`` with the fields the serial numerical growers read, and
+``grow_tree``, the masked leaf-wise grower (reference:
+SerialTreeLearner::Train, serial_tree_learner.cpp:179). Rows never move:
+a dense ``row_leaf [N]`` vector says which leaf holds each row, each split
+builds the SMALLER child's histogram with one pass over all N rows whose
+channels are zeroed outside that child, and the larger child is parent
+minus smaller. The trainer picks it below 65,536 rows; above, the compact
+grower (``ops/grower_compact.py``) moves rows into contiguous segments.
+
+Like the JAX grower and the compact grower, the whole tree grows with no
+device-to-host read: the loop runs ``num_leaves - 1`` times, and a split
+that is not applied (no positive gain left) is unconditional work whose
+results ``torch.where`` discards, where the JAX grower skips it with
+``lax.cond``. Its histogram then has all-zero channels, which the kernels
+skip row by row.
+
+Not here yet: by-node feature sampling, interaction and monotone
+constraints, CEGB, forced splits, extra trees, voting and the data-parallel
+reduction (ROADMAP A14/A18). The JAX package's compile ladder (leaf rungs,
 depth buckets) fixes XLA jit keys and has no counterpart in eager PyTorch:
 trees grow at the exact ``num_leaves``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .split import SplitParams
+from .histogram import histogram
+from .split import (_NEG_INF, SplitParams, best_split, depth_gate,
+                    go_left_pred, leaf_output)
+
+# columns of the growers' per-leaf float table: sums, cached best split,
+# output
+(_LG, _LH, _LC, _BG, _BLG, _BLH, _BLC, _LOUT) = range(8)
+# columns of the per-node tables
+(_SF, _SB, _SDL, _LEFT, _RIGHT) = range(5)
+(_GAIN, _NG, _NH, _NC) = range(4)
+# columns of the masked grower's per-leaf int table: tree links, cached
+# best split
+(_PARENT, _PSIDE, _DEPTH, _BF, _BB, _BDL, _BLR) = range(7)
 
 
 class GrowerParams(NamedTuple):
@@ -27,6 +55,9 @@ class GrowerParams(NamedTuple):
     min_sum_hessian_in_leaf: float = 1e-3
     min_gain_to_split: float = 0.0
     max_delta_step: float = 0.0
+    # the masked grower's histogram layout (config.resolve_hist_layout):
+    # "lane" runs K1 on [N, F] bins, "sublane" K3 on [F, N] bins (B <= 64)
+    hist_layout: str = "lane"
 
     def split_params(self) -> SplitParams:
         return SplitParams(
@@ -65,3 +96,167 @@ class TreeArrays(NamedTuple):
     internal_count: torch.Tensor  # [L-1] f32
     num_leaves: torch.Tensor      # [] int64
     num_nodes: torch.Tensor       # [] int64
+
+
+def _split_rows(sp) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[2, 4] f32 and [2, 4] int64 cached-best-split columns (gain, left
+    sums; feature, bin, default_left, left raw rows) for a batch of two
+    scanned leaves."""
+    fl = torch.stack([sp.gain, sp.left_grad, sp.left_hess, sp.left_count],
+                     dim=1)
+    it = torch.stack([sp.feature, sp.bin, sp.default_left.to(torch.int64),
+                      sp.left_rows.to(torch.int64)], dim=1)
+    return fl, it
+
+
+def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
+              cnt_weight: torch.Tensor, num_bins_arr: torch.Tensor,
+              nan_bin_arr: torch.Tensor, has_nan_arr: torch.Tensor,
+              feat_mask: torch.Tensor, params: GrowerParams,
+              binned_t: Optional[torch.Tensor] = None
+              ) -> Tuple[TreeArrays, torch.Tensor]:
+    """Grow one tree over ``binned [N, F]`` (uint8) with per-row ``grad``,
+    ``hess`` (already multiplied by weights and bag mask) and
+    ``cnt_weight`` (the bag mask); returns ``(TreeArrays, row_leaf [N])``
+    (reference: ``grow_tree``, ``lightgbm_tpu/ops/grower.py:343``).
+    ``binned_t`` is the same matrix feature-major (``[F, N]``), which the
+    partition reads a feature row of and the sublane layout's K3 takes; a
+    trainer makes it once, else it is made here."""
+    dev = binned.device
+    n, f = binned.shape
+    L = params.num_leaves
+    B = params.num_bins
+    spp = params.split_params()
+    i64 = torch.int64
+    if binned_t is None:
+        binned_t = binned.T.contiguous()
+    grad = grad.to(torch.float32)
+    hess = hess.to(torch.float32)
+    cnt = cnt_weight.to(torch.float32)
+
+    def hist3(mask):
+        ch = torch.stack([grad * mask, hess * mask, cnt * mask], dim=1)
+        return histogram(binned, ch, B, params.hist_layout, binned_t)
+
+    def scan(hist, pg, ph, pc, depth):
+        sp = best_split(hist, pg, ph, pc, num_bins_arr, nan_bin_arr,
+                        has_nan_arr, feat_mask, spp)
+        return sp._replace(gain=depth_gate(sp.gain, depth, params.max_depth))
+
+    # ---- root ----
+    root_g, root_h, root_c = grad.sum(), hess.sum(), cnt.sum()
+    root_hist = hist3(torch.ones_like(cnt))
+    root_out = leaf_output(root_g, root_h, spp)
+    zero = torch.zeros(1, dtype=i64, device=dev)
+    fl0, it0 = _split_rows(scan(root_hist[None], root_g[None], root_h[None],
+                                root_c[None], zero))
+    leaf_f = torch.zeros((L, 8), dtype=torch.float32, device=dev)
+    leaf_f[:, _BG] = _NEG_INF
+    leaf_f[0] = torch.cat([torch.stack([root_g, root_h, root_c]), fl0[0],
+                           root_out[None]])
+    leaf_i = torch.zeros((L, 7), dtype=i64, device=dev)
+    leaf_i[:, _PARENT] = -1
+    leaf_i[0, _BF:] = it0[0]
+    leaf_hist = torch.zeros((L, f, B, 3), dtype=torch.float32, device=dev)
+    leaf_hist[0] = root_hist
+    node_i = torch.zeros((L - 1, 5), dtype=i64, device=dev)
+    node_i[:, _SF] = -1
+    node_i[:, _LEFT] = -1
+    node_i[:, _RIGHT] = -1
+    node_f = torch.zeros((L - 1, 4), dtype=torch.float32, device=dev)
+    row_leaf = torch.zeros(n, dtype=i64, device=dev)
+    done = torch.zeros(1, dtype=torch.bool, device=dev)
+    num_nodes = torch.zeros(1, dtype=i64, device=dev)
+
+    for k in range(L - 1):
+        # ---- FindBestFromAllSplits: leaves 0..k are alive ----
+        best = torch.argmax(leaf_f[:k + 1, _BG]).reshape(1)
+        rf = leaf_f.index_select(0, best)[0]
+        ri = leaf_i.index_select(0, best)[0]
+        gain = rf[_BG:_BG + 1]
+        valid = gain > 0.0
+        applied = valid & ~done
+        done = done | ~valid
+        new_leaf = k + 1
+        f_ = ri[_BF:_BF + 1]
+        b_ = ri[_BB:_BB + 1]
+        dl = ri[_BDL:_BDL + 1]
+
+        # ---- partition: the best leaf's right-going rows join new_leaf ----
+        go_left = go_left_pred(binned_t.index_select(0, f_)[0], b_, dl != 0,
+                               nan_bin_arr.index_select(0, f_), False, None)
+        row_leaf = torch.where(applied & (row_leaf == best) & ~go_left,
+                               new_leaf, row_leaf)
+
+        # ---- the smaller child's histogram; the larger is parent - it ----
+        pg, ph, pc = rf[_LG], rf[_LH], rf[_LC]
+        lg, lh, lc = rf[_BLG], rf[_BLH], rf[_BLC]
+        rg, rh, rc = pg - lg, ph - lh, pc - lc
+        left_smaller = lc <= rc
+        small = torch.where(left_smaller, best, new_leaf)
+        hist_small = hist3(((row_leaf == small) & applied).to(torch.float32))
+        hist_large = leaf_hist.index_select(0, best)[0] - hist_small
+        hist_left = torch.where(left_smaller, hist_small, hist_large)
+        hist_right = torch.where(left_smaller, hist_large, hist_small)
+
+        # ---- best splits of both children ----
+        depth = ri[_DEPTH] + 1
+        spf, spi = _split_rows(scan(
+            torch.stack([hist_left, hist_right]), torch.stack([lg, rg]),
+            torch.stack([lh, rh]), torch.stack([lc, rc]), depth))
+        lw = leaf_output(lg, lh, spp)
+        rw = leaf_output(rg, rh, spp)
+
+        # ---- the two leaves' new rows, kept as they were when not applied
+        idx = torch.cat([best, torch.full_like(best, new_leaf)])
+        new_f = torch.cat([torch.stack([torch.stack([lg, lh, lc]),
+                                        torch.stack([rg, rh, rc])]),
+                           spf, torch.stack([lw, rw])[:, None]], dim=1)
+        nodev = torch.full_like(best, k)
+        depth1 = depth.reshape(1)
+        new_i = torch.stack([torch.cat([nodev, zero, depth1, spi[0]]),
+                             torch.cat([nodev, zero + 1, depth1, spi[1]])])
+        leaf_f.index_copy_(0, idx, torch.where(
+            applied, new_f, leaf_f.index_select(0, idx)))
+        leaf_i.index_copy_(0, idx, torch.where(
+            applied, new_i, leaf_i.index_select(0, idx)))
+        leaf_hist.index_copy_(0, idx, torch.where(
+            applied.reshape(1, 1, 1, 1), torch.stack([hist_left, hist_right]),
+            leaf_hist.index_select(0, idx)))
+
+        # ---- record the split; wire the parent's child pointer ----
+        p = ri[_PARENT:_PARENT + 1]
+        flat = node_i.view(-1)
+        slot = torch.clamp(p, min=0) * 5 + _LEFT + ri[_PSIDE:_PSIDE + 1]
+        flat.index_copy_(0, slot, torch.where(
+            applied & (p >= 0), torch.full_like(p, k),
+            flat.index_select(0, slot)))
+        node_i[k] = torch.where(applied, torch.cat([
+            f_, b_, dl, -(best + 1), torch.full_like(best, -(new_leaf + 1))]),
+            node_i[k])
+        node_f[k] = torch.where(applied, torch.stack([gain[0], pg, ph, pc]),
+                                node_f[k])
+        num_nodes = num_nodes + applied.to(i64)
+
+    nn = num_nodes[0]
+    tree = TreeArrays(
+        split_feature=node_i[:, _SF],
+        split_bin=node_i[:, _SB],
+        cat_bitset=torch.zeros((L - 1, params.bitset_words),
+                               dtype=torch.int32, device=dev),
+        split_gain=node_f[:, _GAIN],
+        default_left=node_i[:, _SDL] != 0,
+        left_child=node_i[:, _LEFT],
+        right_child=node_i[:, _RIGHT],
+        leaf_value=leaf_f[:, _LOUT].clone(),
+        leaf_weight=leaf_f[:, _LH],
+        leaf_count=leaf_f[:, _LC],
+        leaf_parent=leaf_i[:, _PARENT],
+        leaf_depth=leaf_i[:, _DEPTH],
+        internal_value=leaf_output(node_f[:, _NG], node_f[:, _NH], spp),
+        internal_weight=node_f[:, _NH],
+        internal_count=node_f[:, _NC],
+        num_leaves=nn + 1,
+        num_nodes=nn,
+    )
+    return tree, row_leaf

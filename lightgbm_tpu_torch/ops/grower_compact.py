@@ -32,17 +32,15 @@ import torch
 
 from .compact import RowLayout, segments_to_leaf_vectors
 from .fused_split import fused_split
-from .grower import GrowerParams, TreeArrays
+from .grower import (_BG, _BLC, _BLG, _BLH, _GAIN, _LC, _LEFT, _LG, _LH,
+                     _LOUT, _NC, _NG, _NH, _RIGHT, _SDL, _SB, _SF,
+                     GrowerParams, TreeArrays, _split_rows)
 from .split import _NEG_INF, best_split, depth_gate, leaf_output
 
-# columns of the per-leaf float table
-(_LG, _LH, _LC, _BG, _BLG, _BLH, _BLC, _LOUT) = range(8)
-# columns of the per-leaf int table
+# columns of the compact grower's per-leaf int table: segment, tree links,
+# cached best split
 (_START, _NROWS, _SIDE, _PARENT, _PSIDE, _DEPTH, _BF, _BB, _BDL,
  _BLR) = range(10)
-# columns of the per-node tables
-(_SF, _SB, _SDL, _LEFT, _RIGHT) = range(5)
-(_GAIN, _NG, _NH, _NC) = range(4)
 
 
 class CompactState(NamedTuple):
@@ -54,16 +52,6 @@ class CompactState(NamedTuple):
     node_f: torch.Tensor      # [L-1, 4] f32 gain and node sums
     done: torch.Tensor        # [1] bool
     num_nodes: torch.Tensor   # [1] int64
-
-
-def _split_rows(sp):
-    """[2, 4] f32 and [2, 4] int64 cached-best-split columns for a batch of
-    two scanned leaves."""
-    fl = torch.stack([sp.gain, sp.left_grad, sp.left_hess, sp.left_count],
-                     dim=1)
-    it = torch.stack([sp.feature, sp.bin, sp.default_left.to(torch.int64),
-                      sp.left_rows.to(torch.int64)], dim=1)
-    return fl, it
 
 
 def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,

@@ -6,14 +6,18 @@ CUDA kernels of cuda_histogram_constructor.cu):
 
     hist[f, b, k] = sum_r [binned[r, f] == b] * channels[r, k]
 
-``_xla_histogram`` is the plain PyTorch version (an ``index_add_`` per
-feature, f32 accumulation); it is the CPU path and the version the Hopper
-histogram kernel of ``ops/pallas_histogram.py`` is held against.
-``histogram_block`` dispatches on where the tensors lie: the kernel for CUDA
-tensors, the plain version for CPU tensors. The narrowed and quantized
-histograms and feature-group overlap are ROADMAP A15/A18.
+``_xla_histogram`` is the plain PyTorch version (one ``scatter_add_`` over
+all features, f32 accumulation in row order); it is the CPU path and the version the Hopper
+histogram kernels of ``ops/pallas_histogram.py`` are held against.
+``histogram_block`` dispatches on the layout and on where the tensors lie:
+``lane`` is K1 (bins ``[N, F]``), ``sublane`` is K3 (bins feature-major
+``[F, N]``, B <= 64), each the plain version for CPU tensors. The narrowed
+and quantized histograms, the data-parallel reduction and feature-group
+overlap are ROADMAP A15/A18.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -21,27 +25,52 @@ from .. import _kernels
 
 
 def _xla_histogram(binned: torch.Tensor, channels: torch.Tensor,
-                   num_bins: int) -> torch.Tensor:
+                   num_bins: int, kernel: str = "histogram") -> torch.Tensor:
     """Plain histogram ``[F, B, K]`` f32 of ``binned [N, F]`` against
-    ``channels [N, K]``; bins >= ``num_bins`` are dropped."""
-    _kernels.PLAIN_CALLS["histogram"] += 1
+    ``channels [N, K]``; bins >= ``num_bins`` are dropped. ``kernel`` names
+    the kernel this call stands in for (its ``PLAIN_CALLS`` count)."""
+    _kernels.PLAIN_CALLS[kernel] += 1
     n, f = binned.shape
     k = channels.shape[1]
     b = num_bins
-    out = torch.zeros((f, b + 1, k), dtype=torch.float32,
-                      device=channels.device)
-    ch = channels.to(torch.float32)
-    for j in range(f):
-        idx = torch.clamp(binned[:, j].to(torch.int64), max=b)
-        out[j].index_add_(0, idx, ch)
-    return out[:, :b].contiguous()
+    dev = channels.device
+    # one scatter over every feature into cells f * (B + 1) + bin (bins >= B
+    # land in a column that is dropped); the positions run feature-major, so
+    # each cell still adds its rows in row order
+    idx = (torch.clamp(binned.to(torch.int64), max=b)
+           + torch.arange(f, device=dev) * (b + 1)).T.reshape(-1)
+    out = torch.zeros((k, f * (b + 1)), dtype=torch.float32, device=dev)
+    out.scatter_add_(1, idx.expand(k, -1),
+                     channels.to(torch.float32).T.repeat(1, f))
+    return out.view(k, f, b + 1).permute(1, 2, 0)[:, :b].contiguous()
 
 
 def histogram_block(binned: torch.Tensor, channels: torch.Tensor,
-                    num_bins: int) -> torch.Tensor:
-    """Histogram of one row block: the Hopper kernel for CUDA tensors
-    (f32 accumulation), the plain version for CPU tensors."""
+                    num_bins: int, layout: str = "lane",
+                    binned_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Histogram of one row block (reference: ``histogram_block``,
+    ``lightgbm_tpu/ops/histogram.py:239``), f32 accumulation: ``lane`` runs
+    K1 on ``binned [N, F]``, ``sublane`` runs K3 (B <= 64) on the same bins
+    feature-major, ``binned_t [F, N]`` when the caller keeps that copy (the
+    masked grower makes it once per training), else ``binned.T`` made here.
+    CPU tensors take the plain versions."""
+    from .pallas_histogram import pallas_histogram, pallas_histogram_sublane
+    if layout == "sublane":
+        bt = binned.T.contiguous() if binned_t is None else binned_t
+        return pallas_histogram_sublane(bt, channels, num_bins, mode="f32")
+    if layout != "lane":
+        raise ValueError(f"layout must be 'lane' or 'sublane', got "
+                         f"{layout!r}")
     if binned.device.type == "cpu":
         return _xla_histogram(binned, channels, num_bins)
-    from .pallas_histogram import pallas_histogram
     return pallas_histogram(binned, channels, num_bins, mode="f32")
+
+
+def histogram(binned: torch.Tensor, channels: torch.Tensor, num_bins: int,
+              layout: str = "lane",
+              binned_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``[F, B, K]`` per-(feature, bin) sums of the ``channels`` columns
+    (reference: ``histogram``, ``lightgbm_tpu/ops/histogram.py:330``), for
+    the serial learner: one block over all rows. The reference's
+    ``axis_name`` reduction and ``overlap`` groups are ROADMAP A18."""
+    return histogram_block(binned, channels, num_bins, layout, binned_t)

@@ -1,18 +1,30 @@
-"""Histogram kernel K1 for Hopper, with its wrappers and plain version.
+"""Histogram kernels K1 and K3 for Hopper, with their wrappers and plain
+versions.
 
-Counterpart of ``lightgbm_tpu/ops/pallas_histogram.py``: the TPU kernel
-``_hist_kernel`` (wrapper ``pallas_histogram``) becomes the CUDA kernel of
-``csrc/histogram.cu`` — a scatter-add into a shared-memory privatised
-histogram per block, in the pattern of LightGBM's
-CUDAConstructHistogramDenseKernel. What bounds it on the H100 (bytes of bins
-and channels, or shared-memory atomics) and what the design does about it is
-in the source's header note.
+Counterpart of ``lightgbm_tpu/ops/pallas_histogram.py``:
 
-Two wrappers launch the same kernel body:
+* the TPU kernel ``_hist_kernel`` (wrapper ``pallas_histogram``, bins along
+  lanes) becomes K1, ``csrc/histogram.cu`` — a scatter-add into a
+  shared-memory privatised histogram per block, in the pattern of
+  LightGBM's CUDAConstructHistogramDenseKernel;
+* the TPU kernel ``_hist_kernel_sublane`` (``pallas_histogram(...,
+  hist_layout="sublane")``, B <= 64, bins feature-major) becomes K3,
+  ``csrc/histogram_sublane.cu`` — the same sum over feature-major bins,
+  each warp holding its rows' channels in registers across the features it
+  walks, rows with all-zero channels skipped.
+
+What bounds each on the H100 and what its design does about it is in the
+source's header note.
+
+Three wrappers:
 
 * ``pallas_histogram`` — dense ``[N, F]`` bins against ``[N, K]`` f32
-  channels (the standalone entry);
-* ``record_histogram`` — a segment of the packed row records of
+  channels (the standalone entry); ``hist_layout="sublane"`` transposes the
+  bins, as the JAX wrapper does, and runs K3;
+* ``pallas_histogram_sublane`` — K3 on bins already feature-major
+  (``[F, N]``), the masked grower's entry: it makes that copy once per
+  training instead of once a split;
+* ``record_histogram`` — K1 on a segment of the packed row records of
   ``ops/compact.py``, read in place through the record stride, with the
   segment (start, count, which array) in a device int32 vector. The fused
   split (``ops/fused_split.py``) runs it for the smaller child.
@@ -22,7 +34,7 @@ the TPU's hi/lo-bf16 split; ``bf16`` rounds the channels to bf16 first, the
 same function as on the TPU; ``int8`` (quantized gradients) is ROADMAP A15.
 The TPU tiling arguments of the JAX wrapper (``row_block``, ``f_chunk``,
 ``mbatch``, ``interpret``) change nothing in its result and have no
-counterpart here; the bins-on-sublanes layout is ROADMAP B3.
+counterpart here.
 
 Each wrapper takes the plain PyTorch version only for CPU tensors; for CUDA
 tensors it launches the kernel or raises.
@@ -36,6 +48,8 @@ from .compact import RowLayout, segment_histogram
 from .histogram import _xla_histogram
 
 _MODES = ("split", "f32", "bf16")
+# the sublane layout's bin limit (reference: pallas_histogram.py:157)
+SUBLANE_MAX_BINS = 64
 
 
 def _check_mode(mode: str, k: int) -> None:
@@ -50,21 +64,89 @@ def _check_mode(mode: str, k: int) -> None:
         raise ValueError(f"mode={mode!r} takes 1..{limit} channels, got {k}")
 
 
+def _mode_channels(channels: torch.Tensor, mode: str) -> torch.Tensor:
+    ch = channels.to(torch.float32)
+    if mode == "bf16":
+        ch = ch.to(torch.bfloat16).to(torch.float32)
+    return ch
+
+
 def pallas_histogram_plain(binned: torch.Tensor, channels: torch.Tensor,
                            num_bins: int, mode: str = "split"
                            ) -> torch.Tensor:
     """Plain PyTorch version of K1's dense mode."""
     _check_mode(mode, channels.shape[1])
-    ch = channels.to(torch.float32)
-    if mode == "bf16":
-        ch = ch.to(torch.bfloat16).to(torch.float32)
-    return _xla_histogram(binned, ch, num_bins)
+    return _xla_histogram(binned, _mode_channels(channels, mode), num_bins)
+
+
+def _check_sublane_bins(num_bins: int) -> None:
+    if not 1 <= num_bins <= SUBLANE_MAX_BINS:
+        raise ValueError(
+            f"hist_layout=sublane supports num_bins <= {SUBLANE_MAX_BINS} "
+            f"(got {num_bins})")
+
+
+def pallas_histogram_sublane_plain(binned_t: torch.Tensor,
+                                   channels: torch.Tensor, num_bins: int,
+                                   mode: str = "split") -> torch.Tensor:
+    """Plain PyTorch version of K3: the plain histogram of ``binned_t.T``."""
+    _check_mode(mode, channels.shape[1])
+    _check_sublane_bins(num_bins)
+    return _xla_histogram(binned_t.T, _mode_channels(channels, mode),
+                          num_bins, kernel="histogram_sublane")
+
+
+def pallas_histogram_sublane(binned_t: torch.Tensor, channels: torch.Tensor,
+                             num_bins: int, mode: str = "split"
+                             ) -> torch.Tensor:
+    """``[F, B, K]`` f32 histogram of feature-major ``binned_t [F, N]``
+    (uint8, unit stride along rows) against ``channels [N, K]`` (f32; K <= 4
+    in ``split`` mode, <= 8 otherwise), B <= 64; bins >= B are dropped."""
+    _check_mode(mode, channels.shape[1])
+    _check_sublane_bins(num_bins)
+    if binned_t.dim() != 2 or channels.dim() != 2 \
+            or binned_t.shape[1] != channels.shape[0]:
+        raise ValueError(f"binned_t [F, N] and channels [N, K] must share N: "
+                         f"{tuple(binned_t.shape)} vs "
+                         f"{tuple(channels.shape)}")
+    if binned_t.device != channels.device:
+        raise ValueError("binned_t and channels must lie on one device")
+    if binned_t.device.type == "cpu":
+        return pallas_histogram_sublane_plain(binned_t, channels, num_bins,
+                                              mode)
+    if binned_t.device.type != "cuda":
+        raise ValueError(f"no histogram kernel for {binned_t.device}")
+    if binned_t.dtype != torch.uint8 or channels.dtype != torch.float32:
+        raise TypeError("the sublane histogram kernel takes uint8 bins and "
+                        f"float32 channels, got {binned_t.dtype} / "
+                        f"{channels.dtype}")
+    if binned_t.stride(1) != 1 or not channels.is_contiguous():
+        raise ValueError("the sublane histogram kernel needs unit row stride "
+                         "bins and contiguous channels")
+    f, n = binned_t.shape
+    k = channels.shape[1]
+    out = torch.zeros((f, num_bins, k), dtype=torch.float32,
+                      device=binned_t.device)
+    _kernels.launch("histogram_sublane", "lgbt_hist_sublane",
+                    binned_t.device, binned_t.data_ptr(), binned_t.stride(0),
+                    channels.data_ptr(), k, n, f, num_bins,
+                    1 if mode == "bf16" else 0, out.data_ptr())
+    return out
 
 
 def pallas_histogram(binned: torch.Tensor, channels: torch.Tensor,
-                     num_bins: int, mode: str = "split") -> torch.Tensor:
+                     num_bins: int, mode: str = "split",
+                     hist_layout: str = "lane") -> torch.Tensor:
     """``[F, B, K]`` f32 histogram of ``binned [N, F]`` (uint8) against
-    ``channels [N, K]`` (f32; K <= 4 in ``split`` mode, <= 8 otherwise)."""
+    ``channels [N, K]`` (f32; K <= 4 in ``split`` mode, <= 8 otherwise).
+    ``hist_layout="sublane"`` (B <= 64) runs K3 on ``binned.T``."""
+    if hist_layout == "sublane":
+        _check_sublane_bins(num_bins)
+        return pallas_histogram_sublane(binned.T.contiguous(), channels,
+                                        num_bins, mode)
+    if hist_layout != "lane":
+        raise ValueError(f"hist_layout must be 'lane' or 'sublane', got "
+                         f"{hist_layout!r}")
     _check_mode(mode, channels.shape[1])
     if binned.dim() != 2 or channels.dim() != 2 \
             or binned.shape[0] != channels.shape[0]:

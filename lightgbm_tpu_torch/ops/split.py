@@ -95,16 +95,20 @@ def go_left_pred(col: torch.Tensor, bin_, default_left, nan_bin, is_cat,
                  cat_bitset: torch.Tensor) -> torch.Tensor:
     """The left-child routing predicate shared by the partition, the
     histograms' cumulative semantics and prediction (Tree::Decision /
-    Tree::CategoricalDecision). ``cat_bitset`` holds int32 words."""
+    Tree::CategoricalDecision). ``cat_bitset`` holds int32 words.
+    ``is_cat`` is a host value, or a bool tensor on ``col``'s device that
+    selects between the two predicates with no read back to the host."""
     col = col.to(torch.int64)
     num = (col <= bin_) | (default_left & (col == nan_bin))
-    if not bool(is_cat):
+    on_host = not isinstance(is_cat, torch.Tensor)
+    if on_host and not is_cat:
         return num
     words = cat_bitset.to(torch.int64) & 0xFFFFFFFF
     w = col >> 5
     word = torch.where(w < words.shape[0],
                        words[torch.clamp(w, max=words.shape[0] - 1)], 0)
-    return ((word >> (col & 31)) & 1) != 0
+    cat = ((word >> (col & 31)) & 1) != 0
+    return cat if on_host else torch.where(is_cat, cat, num)
 
 
 def left_rows_of_split(hist: torch.Tensor, feature, bin_, default_left,

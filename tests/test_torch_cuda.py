@@ -7,7 +7,8 @@ one (which need not have JAX), run
 
 Kernel and plain version get the same inputs on the card. The record arrays
 must be byte-equal; histogram counts are exact and grad/hess agree within
-1e-5 * sum |addends| per cell (f32 atomics add in another order).
+1e-5 * sum |addends| per cell (f32 atomics add in another order), and bit
+for bit on dyadic channels (multiples of 1/64, every partial sum exact).
 """
 import numpy as np
 import pytest
@@ -17,10 +18,9 @@ import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch import _kernels
 from lightgbm_tpu_torch.ops.compact import RowLayout, pack_rows
 from lightgbm_tpu_torch.ops.fused_split import fused_split, fused_split_plain
-from lightgbm_tpu_torch.ops.pallas_histogram import (pallas_histogram,
-                                                     pallas_histogram_plain,
-                                                     record_histogram,
-                                                     record_histogram_plain)
+from lightgbm_tpu_torch.ops.pallas_histogram import (
+    pallas_histogram, pallas_histogram_plain, pallas_histogram_sublane,
+    pallas_histogram_sublane_plain, record_histogram, record_histogram_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -136,7 +136,8 @@ def test_train_on_card_matches_cpu(dev):
     X[rng.rand(*X.shape) < 0.05] = np.nan
     y = (np.nan_to_num(X[:, 0]) - 0.5 * np.nan_to_num(X[:, 3])
          + 0.3 * rng.randn(20_000) > 0).astype(float)
-    p = {"objective": "binary", "num_leaves": 31, "verbosity": -1}
+    p = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+         "tpu_grower": "compact"}
     _kernels.reset_counts()
     bg = lgt.train(dict(p, device_type="cuda"), lgt.Dataset(X, y), 3)
     launches = dict(_kernels.LAUNCHES)
@@ -144,5 +145,84 @@ def test_train_on_card_matches_cpu(dev):
     bc = lgt.train(dict(p, device_type="cpu"), lgt.Dataset(X, y), 3)
     assert launches["fused_split"] == 3 * 31
     assert launches["histogram"] == 3 * 31
+    assert sum(plain.values()) == 0
+    np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-4)
+
+
+@pytest.mark.parametrize("n,f,b,k,mode,pad", [
+    (20_000, 28, 64, 3, "f32", 0), (5_000, 5, 17, 1, "f32", 0),
+    (4_999, 1, 2, 4, "split", 8), (20_000, 28, 63, 4, "bf16", 0),
+    (777, 100, 64, 8, "f32", 5), (33, 28, 64, 3, "f32", 0)])
+def test_sublane_histogram(dev, n, f, b, k, mode, pad):
+    """K3 at the masked path's shape and at edges: N not a multiple of 8
+    (byte loads), a bins view with a padded row stride, channels one row
+    into their allocation (unaligned unless 4 divides K), B = 2 and 17, one
+    feature, F = 100 (feature chunks), 1-8 channels, bf16 rounding; bins up
+    to B + 2 (the ones >= B dropped); a third of the rows with zero
+    channels (skipped)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(n + f)
+    bins = torch.randint(0, b + 2, (f, n + pad), generator=g, device=dev,
+                         dtype=torch.uint8)[:, :n]
+    ch = torch.randn(n + 1, k, generator=g, device=dev)[1:]
+    ch[::3] = 0.0
+    _kernels.reset_counts()
+    kern = pallas_histogram_sublane(bins, ch, b, mode)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["histogram_sublane"] == 1
+    plain = pallas_histogram_sublane_plain(bins, ch, b, mode)
+    err = (kern - plain).abs()
+    scale = pallas_histogram_sublane_plain(bins, ch.abs(), b, mode)
+    assert bool((err <= 1e-5 * scale + 1e-30).all())
+
+
+def test_sublane_histogram_dyadic_is_exact(dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    n, f = 1 << 20, 28
+    bins = torch.randint(0, 64, (f, n), generator=g, device=dev,
+                         dtype=torch.uint8)
+    ch = torch.stack([
+        torch.randint(-128, 129, (n,), generator=g, device=dev) / 64.0,
+        torch.randint(0, 65, (n,), generator=g, device=dev) / 64.0,
+        (torch.rand(n, generator=g, device=dev) > 0.1).float()], 1)
+    kern = pallas_histogram_sublane(bins, ch.contiguous(), 64, "f32")
+    assert torch.equal(kern, pallas_histogram_sublane_plain(bins, ch, 64,
+                                                            "f32"))
+
+
+def test_sublane_histogram_rejects_bad_inputs(dev):
+    bins = torch.zeros((4, 1000), dtype=torch.uint8, device=dev)
+    ch = torch.zeros((1000, 3), device=dev)
+    with pytest.raises(ValueError, match="64"):
+        pallas_histogram_sublane(bins, ch, 65)
+    with pytest.raises(TypeError):
+        pallas_histogram_sublane(bins.to(torch.int32), ch, 64)
+    with pytest.raises(TypeError):
+        pallas_histogram_sublane(bins, ch.double(), 64)
+    with pytest.raises(ValueError):
+        pallas_histogram_sublane(bins, torch.zeros((3, 1000),
+                                                   device=dev).T, 64)
+    with pytest.raises(ValueError):
+        pallas_histogram_sublane(bins.T.contiguous().T, ch, 64)
+
+
+def test_masked_train_on_card_matches_cpu(dev):
+    """Small data (auto -> the masked grower) with the sublane layout: K3
+    launches once for the root and once a split, K1 and K2 not at all."""
+    rng = np.random.RandomState(1)
+    X = rng.randn(5_000, 8).astype(np.float32)
+    X[rng.rand(*X.shape) < 0.05] = np.nan
+    y = (np.nan_to_num(X[:, 0]) + 0.5 * np.nan_to_num(X[:, 2])
+         + 0.3 * rng.randn(5_000) > 0).astype(float)
+    p = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+         "tpu_hist_layout": "sublane", "verbosity": -1}
+    _kernels.reset_counts()
+    bg = lgt.train(dict(p, device_type="cuda"), lgt.Dataset(X, y), 3)
+    launches = dict(_kernels.LAUNCHES)
+    plain = dict(_kernels.PLAIN_CALLS)
+    bc = lgt.train(dict(p, device_type="cpu"), lgt.Dataset(X, y), 3)
+    assert launches == {"histogram": 0, "fused_split": 0,
+                        "histogram_sublane": 3 * 31}
     assert sum(plain.values()) == 0
     np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-4)

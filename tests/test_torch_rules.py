@@ -131,8 +131,8 @@ def test_unknown_device_raises(device):
     ({"enable_bundle": True}, "A13"),
     ({"use_quantized_grad": True}, "A15"),
     ({"tpu_bin_pack4": True}, "A15"),
-    ({"tpu_grower": "masked"}, "A11"),
-    ({"tpu_hist_layout": "sublane"}, "B3"),
+    ({"path_smooth": 0.5}, "A14"),
+    ({"early_stopping_round": 5}, "A8"),
     ({"deterministic": True}, "B1/B2"),
     ({"feature_contri": [1.0, 0.5, 1.0]}, "A14"),
     ({"num_machines": 2}, "A18"),
