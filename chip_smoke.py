@@ -12,13 +12,18 @@ non-zero):
    sources in lightgbm_tpu_torch/csrc (one nvcc per source, in parallel);
 2. K1, the histogram kernel, against its plain PyTorch version at the Higgs
    root shape (dense channels and packed row records) and at F=100 (feature
-   chunking), with its time, the plain version's and index_add_'s;
+   chunking), with its time, the plain version's and index_add_'s; then two
+   skewed record cases at the same shape, timed and bit-equal on integer
+   channels: 90% of the rows in bin 0, and every row of a feature in one
+   bin (each block's packed 16-bit counts flush past 65,535 rows);
 3. K2, the fused split, against its plain version on a 1M-row record array
    (modes 0 and 1, aligned and unaligned starts, counts 0/1/255/to the end,
    both residency sides, NaN default-left, forced smaller child, a
    categorical bitset), then the Higgs root split (mode 0 over the whole
-   array at the main path's row count) against its plain version, and its
-   time beside that of the smaller child's histogram alone;
+   array at the main path's row count), each held to the split's contract
+   (the merged children equal the plain version's, rows outside the segment
+   and the padding unchanged, the dead range not compared), and its time
+   beside that of the smaller child's histogram alone;
 4. K3, the small-bin histogram, against its plain version at the masked
    path's shape (20k x 28, B = 64, K = 3) and at edge cases (N not a
    multiple of 8, a padded row stride, unaligned channels, B = 2 and 17,
@@ -31,7 +36,8 @@ non-zero):
    255 bins) for one warm-up round and R timed rounds, with the launch
    counts of its kernels K1 and K2 (> 0), the plain versions' call counts
    (0), the host syncs inside one tree (0), and a torch.profiler trace of
-   one more tree (device time, idle share, launches);
+   one more tree (device time, idle share, launches, and K1's and K2's
+   device ms in that tree beside their byte bounds from its node counts);
 6. the card against the CPU on the compact path: the same training at
    100k x 28, 31 leaves, 3 rounds, with device_type="cuda" and "cpu";
    predictions agree within 1e-4;
@@ -179,7 +185,13 @@ def phase_kernels_k1(n, results):
     worst = [0.0]
 
     def channels(rows, dyadic):
-        if dyadic:
+        if dyadic == "int":
+            # integers: every partial sum of a bin that holds all the rows
+            # stays below 2^24 and is exact in f32
+            gr = torch.randint(-1, 2, (rows,), generator=g,
+                               device=dev).float()
+            he = torch.randint(0, 2, (rows,), generator=g, device=dev).float()
+        elif dyadic:
             gr = torch.randint(-128, 129, (rows,), generator=g,
                                device=dev) / 64.0
             he = torch.randint(0, 129, (rows,), generator=g,
@@ -229,11 +241,17 @@ def phase_kernels_k1(n, results):
         print("K1", json.dumps(line), flush=True)
         return line
 
-    def record_case(rows, F, dyadic, timed=False):
-        """Record mode: the rows the fused split streams, read in place."""
+    def record_case(rows, F, dyadic, timed=False, skew=None):
+        """Record mode: the rows the fused split streams, read in place.
+        skew "bin0_90": 90% of the rows in bin 0; "one_bin": every row of a
+        feature in one bin (a block's count cells pass 65,535 rows)."""
         layout = RowLayout(num_features=F, num_extra=4)
         bins = torch.randint(0, B, (rows, F), generator=g, device=dev,
                              dtype=torch.uint8)
+        if skew == "bin0_90":
+            bins[torch.rand(rows, F, generator=g, device=dev) < 0.9] = 0
+        elif skew == "one_bin":
+            bins[:] = (torch.arange(F, device=dev) * 37 % B).to(torch.uint8)
         gr, he, cnt = channels(rows, dyadic)
         extras = torch.randn(4, rows, generator=g, device=dev)
         work = pack_rows(bins, gr, he, cnt, extras, layout)
@@ -245,12 +263,16 @@ def phase_kernels_k1(n, results):
         plain = record_histogram_plain(work, scratch, seg, layout, B)
         absh = record_histogram_plain(wabs, scratch, seg, layout, B)
         del wabs
-        err = hist_close(kern, plain, absh, f"K1 records F={F}",
+        err = hist_close(kern, plain, absh, f"K1 records F={F} {skew}",
                          0 if dyadic else 1e-5)
         worst[0] = max(worst[0], err)
         line = {"rows": rows, "F": F, "mode": "records", "dyadic": dyadic,
                 "max_abs_err": err}
-        if timed:
+        if skew:
+            line["skew"] = skew
+            line["kernel_ms"] = time_ms(lambda: record_histogram(
+                work, scratch, seg, layout, B))
+        elif timed:
             line["kernel_ms"] = time_ms(lambda: record_histogram(
                 work, scratch, seg, layout, B))
             line["plain_ms"] = time_ms(lambda: record_histogram_plain(
@@ -279,7 +301,34 @@ def phase_kernels_k1(n, results):
     dense_case(1 << 20, 100, "f32", False)
     record_case(1 << 20, 29, False)      # grad_off = 29: unaligned floats
     rec = record_case(n, 28, True, timed=True)
-    results["histogram"] = dict(rec, max_abs_err=worst[0], dense=dense)
+    skewed = [record_case(n, 28, "int", skew=k)
+              for k in ("bin0_90", "one_bin")]
+    results["histogram"] = dict(rec, max_abs_err=worst[0], dense=dense,
+                                skewed_ms=[c["kernel_ms"] for c in skewed])
+
+
+def check_split(kern, plain, before, start, count, n_left, side, layout,
+                what):
+    """K2's contract, held against its plain version: the merged children
+    (left in the parent's array at [start, start + n_left), right in the
+    other array at [start + n_left, start + count)) equal; rows outside the
+    segment untouched in both arrays; the padding past the moved vectors
+    unchanged. The other array's left range is dead and not compared.
+    Each of kern, plain, before is (work, scratch)."""
+    def parts(arrays):
+        par, oth = (arrays[1], arrays[0]) if side else arrays
+        return par, oth
+    (kp, ko), (pp, po), (bp, bo) = (parts(a) for a in (kern, plain, before))
+    s, c, nl = start, count, n_left
+    check(torch.equal(kp[s:s + nl], pp[s:s + nl])
+          and torch.equal(ko[s + nl:s + c], po[s + nl:s + c]),
+          f"{what}: children differ from the plain version")
+    for k, b in ((kp, bp), (ko, bo)):
+        check(torch.equal(k[:s], b[:s]) and torch.equal(k[s + c:], b[s + c:]),
+              f"{what}: rows outside the segment changed")
+        check(torch.equal(k[:, layout.moved_cols:],
+                          b[:, layout.moved_cols:]),
+              f"{what}: padding bytes changed")
 
 
 def phase_kernels_k2(n_big, results):
@@ -349,8 +398,9 @@ def phase_kernels_k2(n_big, results):
         _, _, hk = fused_split(wk, sk, *args, **kw)
         wp, spl = w0.clone(), s0.clone()
         _, _, hp = fused_split_plain(wp, spl, *args, **kw)
-        check(torch.equal(wk, wp) and torch.equal(sk, spl),
-              f"K2 {c}: record arrays differ from the plain version")
+        check_split((wk, sk), (wp, spl), (w0, s0), s, cnt,
+                    n_left if c["mode"] == 0 else cnt, side, layout,
+                    f"K2 {c}")
         # the same split of the same rows with |grad| gives sum|addends|
         absw, abss = w0.clone(), s0.clone()
         for arr in (absw, abss):
@@ -376,16 +426,16 @@ def phase_kernels_k2(n_big, results):
     _, _, hk = fused_split(wk, sk, *args, side=0)
     wp, spl = work.clone(), scratch.clone()
     _, _, hp = fused_split_plain(wp, spl, *args, side=0)
-    check(torch.equal(wk, wp) and torch.equal(sk, spl),
-          f"K2 root split of {n_big} rows: record arrays differ from the "
-          "plain version")
+    check_split((wk, sk), (wp, spl), (work, scratch), 0, n_big, n_left, 0,
+                layout, f"K2 root split of {n_big} rows")
     worst = max(worst, hist_close(hk, hp, hp, f"K2 root split {n_big}", 0))
     print("K2 ok root split", n_big, "rows, n_left", n_left, flush=True)
     del wk, sk, wp, spl, hk, hp
 
-    # timing at the same split. After a split both arrays hold the
-    # partitioned segment, so splitting it again from the other side moves
-    # the same rows: the calls alternate sides
+    # timing at the same split. The calls alternate sides, so each one
+    # partitions what the one before left in the other array: as many rows,
+    # moved the same way (the contents no longer match n_left; the kernel
+    # drops the surplus right rows, as its defence does)
     calls = [0]
 
     def alternating(fn):
@@ -409,9 +459,18 @@ def phase_kernels_k2(n_big, results):
         "library_ms": time_ms(library, 4, 2),
         "child_hist_ms": time_ms(lambda: record_histogram(
             work, scratch, seg, layout, B)),
-        "bound_ms": 1e3 * (2 * n_big * layout.num_cols
-                           + n_small * RECORD_ROW_BYTES) / HBM_BYTES_PER_S}
-    print("K2", json.dumps(results["fused_split"]), flush=True)
+        # the bytes the work needs: each parent row's real columns read and
+        # written once, the smaller child's bins and channels read once
+        "bound_ms": 1e3 * (2 * n_big * layout.num_real_cols
+                           + n_small * RECORD_ROW_BYTES) / HBM_BYTES_PER_S,
+        # the same with whole 128-byte records, as the bound was stated
+        # before the partition moved only the real columns
+        "whole_record_bound_ms": 1e3 * (2 * n_big * layout.num_cols
+                                        + n_small * RECORD_ROW_BYTES)
+        / HBM_BYTES_PER_S}
+    f = results["fused_split"]
+    f["partition_ms"] = f["kernel_ms"] - f["child_hist_ms"]
+    print("K2", json.dumps(f), flush=True)
     del work, scratch
 
 
@@ -657,11 +716,36 @@ def phase_masked(lgt, results):
     results["masked"] = out
 
 
+# the device functions of each kernel of the port, as the profiler names them
+KERNEL_FUNCTIONS = {"histogram": ("hist_kernel",),
+                    "fused_split": ("prep_kernel", "partition_kernel"),
+                    "histogram_sublane": ("hist_sublane_kernel",)}
+
+
+def tree_byte_bounds(tree, layout):
+    """Byte bounds of one compact tree from its node counts: K1 reads 64 B
+    (bins and channels) of every root row and of every smaller-child row;
+    K2 reads and writes each split parent's real columns once."""
+    cnt = np.asarray(tree.internal_count, np.float64)[:tree.num_nodes]
+    leaf = np.asarray(tree.leaf_count, np.float64)
+
+    def rows(child):
+        return cnt[child] if child >= 0 else leaf[-child - 1]
+    smaller = sum(min(rows(int(tree.left_child[i])),
+                      rows(int(tree.right_child[i])))
+                  for i in range(tree.num_nodes))
+    n = float(cnt[0]) if tree.num_nodes else float(leaf[0])
+    return {"histogram": (n + smaller) * RECORD_ROW_BYTES,
+            "fused_split": float(2 * cnt.sum() * layout.num_real_cols)}
+
+
 def profile_tree(bst, tree_s):
     """One more boosting round under torch.profiler: device time by kernel
-    and the launches of a tree. The idle share compares the device time
-    with the unprofiled rounds' mean wall time per tree (the profiler slows
-    the host)."""
+    and the launches of a tree, and each of the port's kernels' device ms in
+    that tree; on the compact path beside its byte bound from the tree's
+    node counts. The idle share compares the device time with the
+    unprofiled rounds' mean wall time per tree (the profiler slows the
+    host)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -687,6 +771,18 @@ def profile_tree(bst, tree_s):
             "kernel_launches": launches,
             "top_device_ops": [{"name": k[:60], "ms": us * 1e-3, "calls": n}
                                for k, (us, n) in top]}
+    gbdt = bst._gbdt
+    bounds = (tree_byte_bounds(gbdt.models[-1], gbdt.layout)
+              if gbdt.use_compact else {})
+    for kern, fns in KERNEL_FUNCTIONS.items():
+        hits = [(us, n) for name, (us, n) in by_name.items()
+                if any(fn + "<" in name or fn + "(" in name for fn in fns)]
+        entry = {"device_ms": sum(us for us, _ in hits) * 1e-3,
+                 "launches": sum(n for _, n in hits)}
+        if kern in bounds:
+            entry["bytes"] = bounds[kern]
+            entry["bound_ms"] = 1e3 * bounds[kern] / HBM_BYTES_PER_S
+        line.setdefault("kernels", {})[kern] = entry
     print("PROFILE", json.dumps(line), flush=True)
     return line
 
@@ -763,6 +859,7 @@ def main() -> int:
 
     h, f = results["histogram"], results["fused_split"]
     h3 = results["histogram_sublane"]
+    per_tree = results["main"]["profile"]["kernels"]
     kernels = [
         {"name": "histogram", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/histogram.cu",
@@ -771,18 +868,27 @@ def main() -> int:
          "ms": h["kernel_ms"], "plain_ms": h["plain_ms"],
          "bound_ms": h["bound_ms"], "bound_by": "bytes",
          "library_ms": h["library_ms"],
-         # what the card shows: a time that falls with the channel count
-         # (one shared-memory atomic a channel) is bound by the atomics
+         # what the card shows: a time far above the byte bound that falls
+         # with the channel count (one shared-memory atomic a channel) is
+         # bound by the atomics
          "limited_by": ("shared-memory atomics"
-                        if h["dense"]["kernel_ms"]
-                        > 2 * h["dense"]["one_channel_ms"] else "bytes")},
+                        if h["kernel_ms"] > 2 * h["bound_ms"]
+                        and h["dense"]["kernel_ms"]
+                        > 1.2 * h["dense"]["one_channel_ms"] else "bytes"),
+         "one_channel_ms": h["dense"]["one_channel_ms"],
+         "dense_ms": h["dense"]["kernel_ms"], "skewed_ms": h["skewed_ms"],
+         "tree_device_ms": per_tree["histogram"]["device_ms"],
+         "tree_bound_ms": per_tree["histogram"]["bound_ms"]},
         {"name": "fused_split", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/fused_split.cu",
          "replaces": "lightgbm_tpu/ops/fused_split.py:198",
          "launches": launches["fused_split"], "max_abs_err": f["max_abs_err"],
          "ms": f["kernel_ms"], "plain_ms": f["plain_ms"],
          "bound_ms": f["bound_ms"], "bound_by": "bytes",
-         "library_ms": f["library_ms"]},
+         "library_ms": f["library_ms"], "partition_ms": f["partition_ms"],
+         "whole_record_bound_ms": f["whole_record_bound_ms"],
+         "tree_device_ms": per_tree["fused_split"]["device_ms"],
+         "tree_bound_ms": per_tree["fused_split"]["bound_ms"]},
         {"name": "histogram_sublane", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/histogram_sublane.cu",
          "replaces": "lightgbm_tpu/ops/pallas_histogram.py:170",

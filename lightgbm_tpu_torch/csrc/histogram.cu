@@ -7,11 +7,8 @@
 //     hist[f, b, k] = sum_r [bins[r, f] == b] * ch[r, k]
 //
 // The TPU kernel builds a one-hot in VMEM and contracts it on the MXU. Here
-// the sum is a scatter-add in the pattern of LightGBM's
-// CUDAConstructHistogramDenseKernel: every block owns a strided share of
-// the rows and a chunk of the features (grid.y), keeps a private
-// [f_chunk, B, K] f32 histogram in shared memory, atomicAdds into it, and
-// at the end adds its non-zero cells into the output with global atomics.
+// the sum is a scatter-add into a histogram privatised in shared memory, one
+// copy a block, added into the output with global atomics at the end.
 //
 // One body, two channel sources (template parameter RECORDS):
 //   * dense: bins [N, F] u8 read through a row stride, channels [N, K] f32;
@@ -22,29 +19,62 @@
 //     from the two covering 32-bit words (funnel shift), never loaded as a
 //     misaligned float.
 // In record mode the segment (start, count, which array) is read from a
-// device int32 vector, so the grower never reads it back to the host.
+// device int32 vector and clamped there, so the grower never reads it back
+// to the host.
 //
-// What bounds it on the H100: not the bytes. The least time is that of
-// the bins and channels read once (dense: N * (F + 4K) bytes; records: the
-// two 32-byte sectors of each 128-byte record that hold bins and channels,
-// 64 B a row), but the kernel is bound by its shared-memory atomics, F * K
-// of them a row: at 10.5M rows x 28 features it runs 45x over the byte
-// bound, and with one channel instead of four it runs 8x faster
-// (chip_smoke.py, PERF.md). The design keeps the histogram on chip so
-// global memory sees each input byte once and each output cell a few
-// times; fewer atomics (a bin-sorted or warp-aggregated update) is the
-// next step.
+// What bounds it on the H100: the least time is that of the bytes (dense:
+// N (F + 4K); records: the two 32-byte sectors of each 128-byte record that
+// hold bins and channels, 64 B a row), but the kernel issues one
+// shared-memory atomic a (row, feature, channel), so shared-memory
+// wavefronts and hot cells bind it. The design keeps their count low:
+//   * feature rotation: at step j, lane l adds feature (j + l) mod P of its
+//     own rows (P = 32 when 16 < fc < 32, the lanes past fc idling; else
+//     P = fc). The shared histogram is [channel][bin][Fp] with Fp = 32 or
+//     64, so a cell's bank is its feature mod 32: the 32 lanes of a warp hit
+//     32 different banks whatever their bins, and never one cell, so a
+//     skewed feature (most rows in one bin, zero-as-bin) puts no two lanes
+//     of a warp on one address (no __match_any_sync aggregation needed);
+//   * hot cells across warps: a skewed feature still sends the atomics of
+//     all 32 warps of a block to a few cells. Each thread takes two rows a
+//     tile and adds them with one atomic a channel where both sit in one
+//     bin;
+//   * wide loads: a row's bins go into a per-thread row buffer in shared
+//     memory (records: 16-byte loads; dense: aligned 32-bit words), from
+//     where the rotated byte is read (a stride of 8 words puts those reads
+//     on 32 banks at P = 32; an odd stride on at most two a bank
+//     otherwise); the channels go into registers once a row;
+//   * integer counts: in record mode the in-bag and raw counts of a cell are
+//     the low and high 16 bits of one u32, one integer atomic a (row,
+//     feature) for both. A block flushes them into the output before any
+//     bin could pass 65,535 rows (every 31 tiles of 2,048 rows) and at the
+//     end, as exact integers converted to f32 (exact below 2^24 rows);
+//   * occupancy: one 1,024-thread block an SM holds the whole feature set at
+//     B = 256 (records: 3 x 256 x 32 x 4 B = 96 KB, with 64 KB of row
+//     buffers), so a row is read once; wide feature sets split into chunks
+//     over grid.y (at most 64 features a chunk, and dense channels into
+//     halves when K x B does not fit);
+//   * short segments (a deep split's child): a block takes at least one
+//     tile, the blocks past the segment's tiles return before zeroing their
+//     shared memory, and the end-of-block flush walks the cells without
+//     integer division.
+//
+// A one-hot product on the tensor cores is not the route: it would first
+// write a 256-wide one-hot for every (row, feature) into shared memory:
+// 10.5M x 28 x 256 = 75 billion entries at the root of a Higgs-sized tree,
+// 75 GB of stores even at one byte an entry, against 0.7 GB of input.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 1024;
+constexpr int kTile = 2 * kThreads;      // two rows a thread a tile
 constexpr int kMaxK = 8;
-// shared-memory budget of one block's private histogram: two to three
-// blocks fit an SM (228 KB), and wide feature sets split over grid.y
-constexpr int kSmemBudget = 96 * 1024;
+constexpr int kMaxChunk = 64;            // features a block at most
+constexpr long long kCountFlushRows = 65535;
+// the most dynamic shared memory a block may use on the H100 (227 KB)
+constexpr int kSmemLimit = 232448;
 
 __device__ __forceinline__ float load_f32_bytes(const uint8_t* rec, int off) {
   const uint32_t* w = reinterpret_cast<const uint32_t*>(rec);
@@ -55,64 +85,190 @@ __device__ __forceinline__ float load_f32_bytes(const uint8_t* rec, int off) {
   return __uint_as_float(v);
 }
 
-template <bool RECORDS>
-__global__ void __launch_bounds__(kThreads)
-hist_kernel(const uint8_t* rows_a, const uint8_t* rows_b, long long stride,
-            const float* ch, int K, const int* seg, long long n_rows,
-            int start_h, int count_h, int F, int f_chunk, int B, int bf16,
-            int grad_off, int hess_off, int cnt_off, float* out) {
-  extern __shared__ float hist[];  // [fc, B, K]
-  const int f0 = blockIdx.y * f_chunk;
-  const int fc = min(f_chunk, F - f0);
-  const int cells = fc * B * K;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) hist[i] = 0.f;
-  __syncthreads();
+struct Args {
+  const uint8_t* rows_a;
+  const uint8_t* rows_b;
+  long long stride;
+  const float* ch;
+  const int* seg;
+  long long n_rows;
+  long long count;
+  float* out;
+  int K, F, B, bf16;
+  int fc, Fp, kc, nf;  // feature chunk, its padded width, channels a chunk
+  int u;               // row-buffer words a thread (8 or odd)
+  int grad_off, hess_off, cnt_off;
+};
 
-  long long start = start_h;
-  long long count = count_h;
-  const uint8_t* rows = rows_a;
-  if (seg != nullptr) {
+// One row into the thread's row buffer (the bytes of features [f0, f0 + fc)
+// from the returned offset on) and its channels into c (records: grad, hess
+// and the packed counts `packed`). Returns the offset.
+template <bool RECORDS>
+__device__ __forceinline__ int load_row(const Args& a, const uint8_t* rows,
+                                        long long row, int f0, int fc, int k0,
+                                        int kc, uint32_t* buf, float* c,
+                                        uint32_t& packed) {
+  if (RECORDS) {
+    const uint8_t* rec = rows + row * a.stride;
+    const int q0 = f0 >> 4;
+    const int q1 = (f0 + fc + 15) >> 4;
+    const uint4* src = reinterpret_cast<const uint4*>(rec);
+    for (int q = q0; q < q1; ++q) {
+      const uint4 v = __ldg(src + q);
+      uint32_t* d = buf + 4 * (q - q0);
+      d[0] = v.x;
+      d[1] = v.y;
+      d[2] = v.z;
+      d[3] = v.w;
+    }
+    c[0] = load_f32_bytes(rec, a.grad_off);
+    c[1] = load_f32_bytes(rec, a.hess_off);
+    packed = 0x10000u | (load_f32_bytes(rec, a.cnt_off) != 0.f ? 1u : 0u);
+    return f0 - 16 * q0;
+  }
+  const uint8_t* p = rows + row * a.stride + f0;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(p);
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(addr & ~uintptr_t(3));
+  const int boff = (int)(addr & 3);
+  const int nw = (boff + fc + 3) >> 2;
+  for (int i = 0; i < nw; ++i) buf[i] = __ldg(w + i);
+#pragma unroll
+  for (int k = 0; k < kMaxK; ++k) {
+    if (k < kc) {
+      const float v = __ldg(a.ch + row * a.K + k0 + k);
+      c[k] = a.bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+    }
+  }
+  return boff;
+}
+
+template <bool RECORDS>
+__global__ void __launch_bounds__(kThreads, 1) hist_kernel(const Args a) {
+  extern __shared__ uint32_t smem[];
+  const int f0 = (blockIdx.y % a.nf) * a.fc;
+  const int fc = min(a.fc, a.F - f0);
+  const int k0 = (blockIdx.y / a.nf) * a.kc;
+  const int kc = RECORDS ? 3 : min(a.kc, a.K - k0);
+  const int B = a.B;
+  const int Fp = a.Fp;                 // 32 or 64
+  const int lg = Fp == 64 ? 6 : 5;
+
+  long long start = 0;
+  long long count = a.count;
+  const uint8_t* rows = a.rows_a;
+  if (RECORDS) {
     // defence in depth, as the fused split's prep clamps its scalars: a bad
     // segment reads fewer rows, never rows outside the arrays
-    start = min(max((long long)seg[0], 0LL), n_rows);
-    count = min(max((long long)seg[1], 0LL), n_rows - start);
-    if (seg[2] != 0) rows = rows_b;
+    start = min(max((long long)a.seg[0], 0LL), a.n_rows);
+    count = min(max((long long)a.seg[1], 0LL), a.n_rows - start);
+    if (a.seg[2] != 0) rows = a.rows_b;
   }
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       r < count; r += step) {
-    const long long row = start + r;
-    const uint8_t* rec = rows + row * stride;
-    float c[kMaxK];
-    if (RECORDS) {
-      c[0] = load_f32_bytes(rec, grad_off);
-      c[1] = load_f32_bytes(rec, hess_off);
-      c[2] = load_f32_bytes(rec, cnt_off) != 0.f ? 1.f : 0.f;
-      c[3] = 1.f;
-    } else {
+  const long long n_tiles = (count + kTile - 1) / kTile;
+  const int active = (int)min((long long)gridDim.x, max(n_tiles, 1LL));
+  if ((int)blockIdx.x >= active) return;  // uniform across the block
+
+  // [kc][B][Fp] cells; in record mode channel 2 holds the packed counts
+  float* hist = reinterpret_cast<float*>(smem);
+  uint32_t* counts = smem + 2 * B * Fp;
+  const int cells = kc * B * Fp;
+  for (int i = threadIdx.x; i < cells; i += kThreads) smem[i] = 0u;
+  uint32_t* buf0 = smem + cells + threadIdx.x * a.u;
+  uint32_t* buf1 = buf0 + kThreads * a.u;
+  const uint8_t* bytes0 = reinterpret_cast<const uint8_t*>(buf0);
+  const uint8_t* bytes1 = reinterpret_cast<const uint8_t*>(buf1);
+  // rotation period: between 16 and 32 features, the lanes past fc would
+  // share banks with lanes 0.. (two wavefronts an atomic); a period of 32
+  // idles them instead (one wavefront, a few more steps)
+  const int rot = fc > 16 && fc < 32 ? 32 : fc;
+  const int lane_f = (threadIdx.x & 31) % rot;
+  __syncthreads();
+
+  long long since_flush = 0;
+  for (long long t = blockIdx.x; t < n_tiles; t += active) {
+    if (RECORDS && since_flush + kTile > kCountFlushRows) {
+      // no bin of this block can pass 65,535 rows before the flush
+      __syncthreads();
+      for (int i = threadIdx.x; i < B * Fp; i += kThreads) {
+        const int f = i & (Fp - 1);
+        const uint32_t v = counts[i];
+        if (f < fc && v != 0u) {
+          float* o = a.out + ((long long)(f0 + f) * B + (i >> lg)) * 4;
+          atomicAdd(o + 2, (float)(v & 0xffffu));
+          atomicAdd(o + 3, (float)(v >> 16));
+          counts[i] = 0u;
+        }
+      }
+      __syncthreads();
+      since_flush = 0;
+    }
+    since_flush += kTile;
+    // rows r and r + kThreads of the tile: neighbouring threads read
+    // neighbouring rows
+    const long long r = t * kTile + threadIdx.x;
+    if (r >= count) continue;
+    const bool two = r + kThreads < count;
+    float c0[kMaxK], c1[kMaxK] = {};
+    uint32_t p0 = 0u, p1 = 0u;
+    const int boff0 = load_row<RECORDS>(a, rows, start + r, f0, fc, k0, kc,
+                                        buf0, c0, p0);
+    const int boff1 = two ? load_row<RECORDS>(a, rows, start + r + kThreads,
+                                              f0, fc, k0, kc, buf1, c1, p1)
+                          : 0;
+    for (int j = 0; j < rot; ++j) {
+      int f = j + lane_f;
+      if (f >= rot) f -= rot;
+      if (f >= fc) continue;
+      const int b0 = bytes0[boff0 + f];
+      // bins >= B drop, as the TPU one-hot drops them; 256 marks no row
+      const int b1 = two ? bytes1[boff1 + f] : 256;
+      // both rows in one bin (a skewed feature): one atomic a channel
+      const bool same = b0 == b1;
+      if (b0 < B) {
+        const int cell = b0 * Fp + f;
+        if (RECORDS) {
+          atomicAdd(hist + cell, same ? c0[0] + c1[0] : c0[0]);
+          atomicAdd(hist + B * Fp + cell, same ? c0[1] + c1[1] : c0[1]);
+          atomicAdd(counts + cell, same ? p0 + p1 : p0);
+        } else {
 #pragma unroll
-      for (int k = 0; k < kMaxK; ++k) {
-        if (k < K) {
-          float v = __ldg(ch + row * K + k);
-          c[k] = bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+          for (int k = 0; k < kMaxK; ++k) {
+            if (k < kc)
+              atomicAdd(hist + k * B * Fp + cell, same ? c0[k] + c1[k] : c0[k]);
+          }
+        }
+      }
+      if (!same && b1 < B) {
+        const int cell = b1 * Fp + f;
+        if (RECORDS) {
+          atomicAdd(hist + cell, c1[0]);
+          atomicAdd(hist + B * Fp + cell, c1[1]);
+          atomicAdd(counts + cell, p1);
+        } else {
+#pragma unroll
+          for (int k = 0; k < kMaxK; ++k) {
+            if (k < kc) atomicAdd(hist + k * B * Fp + cell, c1[k]);
+          }
         }
       }
     }
-    for (int j = 0; j < fc; ++j) {
-      const int b = __ldg(rec + f0 + j);
-      if (b >= B) continue;  // the TPU one-hot drops bins >= B the same way
-      float* cell = hist + (j * B + b) * K;
-#pragma unroll
-      for (int k = 0; k < kMaxK; ++k) {
-        if (k < K) atomicAdd(cell + k, c[k]);
-      }
-    }
   }
   __syncthreads();
-  float* o = out + (long long)f0 * B * K;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const float v = hist[i];
-    if (v != 0.f) atomicAdd(o + i, v);
+  const int K = RECORDS ? 4 : a.K;
+  const int float_ch = RECORDS ? 2 : kc;
+  for (int k = 0; k < kc; ++k) {
+    const uint32_t* cells_k = smem + k * B * Fp;
+    for (int i = threadIdx.x; i < B * Fp; i += kThreads) {
+      const int f = i & (Fp - 1);
+      const uint32_t v = cells_k[i];
+      if (f >= fc || v == 0u) continue;
+      float* o = a.out + ((long long)(f0 + f) * B + (i >> lg)) * K;
+      if (k < float_ch) {
+        atomicAdd(o + k0 + k, __uint_as_float(v));
+      } else {
+        atomicAdd(o + 2, (float)(v & 0xffffu));
+        atomicAdd(o + 3, (float)(v >> 16));
+      }
+    }
   }
 }
 
@@ -126,39 +282,71 @@ int num_sms() {
   return sms;
 }
 
+// Chunking: the widest feature chunk (<= 64) and the most channels a chunk
+// whose histogram and row buffers fit one block's shared memory.
 template <bool RECORDS>
-int launch(const uint8_t* rows_a, const uint8_t* rows_b, long long stride,
-           const float* ch, int K, const int* seg, long long n_rows,
-           int start, int count, int F, int B, int bf16, int grad_off,
-           int hess_off, int cnt_off, float* out, cudaStream_t stream) {
-  if (F <= 0 || B <= 0 || K <= 0 || K > kMaxK) return (int)cudaErrorInvalidValue;
-  const long long per_feature = (long long)B * K * sizeof(float);
-  const long long total = per_feature * F;
-  const int n_chunks = (int)((total + kSmemBudget - 1) / kSmemBudget);
-  const int f_chunk = (F + n_chunks - 1) / n_chunks;
-  const int chunks = (F + f_chunk - 1) / f_chunk;
-  const int smem = (int)(per_feature * f_chunk);
+int launch(Args a, cudaStream_t stream) {
+  if (a.F <= 0 || a.B <= 0 || a.B > 256 || a.K <= 0 || a.K > kMaxK)
+    return (int)cudaErrorInvalidValue;
+  const int kc_all = RECORDS ? 3 : a.K;
+  // a thread's row-buffer words: its chunk's bins (records: whole 16-byte
+  // vectors from a chunk start that may sit mid-vector; dense: words from
+  // an address that may sit mid-word). The stride sets the banks of the
+  // rotated byte reads: 8 words puts them on 32 banks at a rotation period
+  // of 32, an odd stride on at most two a bank otherwise
+  auto row_words = [&](int fc) {
+    // records in one chunk start at vector 0
+    const int w = !RECORDS ? (3 + fc + 3) / 4
+                  : fc == a.F ? 4 * ((fc + 15) / 16)
+                              : 4 * ((15 + fc + 15) / 16);
+    return fc > 16 && fc < 32 && w <= 8 ? 8 : w | 1;
+  };
+  auto fp_of = [](int fc) { return (fc + 31) / 32 * 32; };
+  auto smem_of = [&](int fc, int kc) {
+    return (long long)kc * a.B * fp_of(fc) * 4
+           + 2LL * kThreads * row_words(fc) * 4;
+  };
+  int fc = a.F < kMaxChunk ? a.F : kMaxChunk;
+  int kc = kc_all;
+  while (smem_of(fc, kc) > kSmemLimit) {
+    if (fc > 32) {
+      fc = 32;
+    } else if (!RECORDS && kc > 1) {
+      kc = (kc + 1) / 2;
+    } else if (fc > 1) {
+      fc = (fc + 1) / 2;
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  a.nf = (a.F + fc - 1) / fc;
+  a.fc = (a.F + a.nf - 1) / a.nf;
+  const int nk = (kc_all + kc - 1) / kc;
+  a.kc = RECORDS ? 3 : (kc_all + nk - 1) / nk;
+  a.Fp = fp_of(a.fc);
+  a.u = row_words(a.fc);
+  const int smem = (int)smem_of(a.fc, a.kc);
   static int smem_set = 48 * 1024;
   if (smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
         hist_kernel<RECORDS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        kSmemLimit);
     if (e != cudaSuccess) return (int)e;
-    smem_set = smem;
+    smem_set = kSmemLimit;
   }
   int occ = 0;
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &occ, hist_kernel<RECORDS>, kThreads, smem);
   if (e != cudaSuccess) return (int)e;
-  int gx = max(1, num_sms() * max(occ, 1) / chunks);
-  if (seg == nullptr) {
-    if (count <= 0) return (int)cudaSuccess;
-    gx = min(gx, (count + kThreads - 1) / kThreads);
+  const int chunks = a.nf * nk;
+  int gx = num_sms() * (occ > 0 ? occ : 1) / chunks;
+  if (gx < 1) gx = 1;
+  if (!RECORDS) {
+    if (a.count <= 0) return (int)cudaSuccess;
+    const long long tiles = (a.count + kTile - 1) / kTile;
+    if (tiles < gx) gx = (int)tiles;
   }
-  dim3 grid(gx, chunks);
-  hist_kernel<RECORDS><<<grid, kThreads, smem, stream>>>(
-      rows_a, rows_b, stride, ch, K, seg, n_rows, start, count, F, f_chunk,
-      B, bf16, grad_off, hess_off, cnt_off, out);
+  hist_kernel<RECORDS><<<dim3(gx, chunks), kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -169,10 +357,18 @@ int launch(const uint8_t* rows_a, const uint8_t* rows_b, long long stride,
 extern "C" int lgbt_hist_dense(const void* bins, long long stride,
                                const void* ch, int K, int n, int F, int B,
                                int bf16, void* out, void* stream) {
-  return launch<false>(static_cast<const uint8_t*>(bins), nullptr, stride,
-                       static_cast<const float*>(ch), K, nullptr, n, 0, n, F,
-                       B, bf16, 0, 0, 0, static_cast<float*>(out),
-                       static_cast<cudaStream_t>(stream));
+  Args a = {};
+  a.rows_a = static_cast<const uint8_t*>(bins);
+  a.stride = stride;
+  a.ch = static_cast<const float*>(ch);
+  a.n_rows = n;
+  a.count = n;
+  a.out = static_cast<float*>(out);
+  a.K = K;
+  a.F = F;
+  a.B = B;
+  a.bf16 = bf16;
+  return launch<false>(a, static_cast<cudaStream_t>(stream));
 }
 
 // Record mode: rows [start, start + count) of `work` (seg[2] == 0) or
@@ -184,9 +380,18 @@ extern "C" int lgbt_hist_records(const void* work, const void* scratch,
                                  const void* seg, int F, int B, int grad_off,
                                  int hess_off, int cnt_off, void* out,
                                  void* stream) {
-  return launch<true>(static_cast<const uint8_t*>(work),
-                      static_cast<const uint8_t*>(scratch), stride, nullptr,
-                      4, static_cast<const int*>(seg), n_rows, 0, 0, F, B, 0,
-                      grad_off, hess_off, cnt_off, static_cast<float*>(out),
-                      static_cast<cudaStream_t>(stream));
+  Args a = {};
+  a.rows_a = static_cast<const uint8_t*>(work);
+  a.rows_b = static_cast<const uint8_t*>(scratch);
+  a.stride = stride;
+  a.seg = static_cast<const int*>(seg);
+  a.n_rows = n_rows;
+  a.out = static_cast<float*>(out);
+  a.K = 4;
+  a.F = F;
+  a.B = B;
+  a.grad_off = grad_off;
+  a.hess_off = hess_off;
+  a.cnt_off = cnt_off;
+  return launch<true>(a, static_cast<cudaStream_t>(stream));
 }

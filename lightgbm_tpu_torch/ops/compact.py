@@ -16,8 +16,9 @@ JAX package's layout:
     [F+12, ..+4E)   E extra f32 columns carried through every partition
                     (score, label, weight, original row id)
 
-C is rounded up to 128 bytes, so a record is one 128-byte line on the GPU
-and moves as eight 16-byte vectors.
+C is rounded up to 128 bytes, so a record is one 128-byte line on the GPU.
+A partition moves only its first ``moved_cols`` bytes (the real columns in
+whole 16-byte vectors); the padding after them is zero and stays zero.
 
 ``partition_segment`` and ``segment_histogram`` here are plain PyTorch: they
 are the oracles the kernels of ``ops/fused_split.py`` and
@@ -67,6 +68,12 @@ class RowLayout(NamedTuple):
     @property
     def num_cols(self) -> int:
         return -(-self.num_real_cols // 128) * 128
+
+    @property
+    def moved_cols(self) -> int:
+        """Bytes of a record that a partition moves: the real columns
+        rounded up to whole 16-byte vectors (the rest is zero padding)."""
+        return -(-self.num_real_cols // 16) * 16
 
 
 def _f32_to_u8(x: torch.Tensor) -> torch.Tensor:

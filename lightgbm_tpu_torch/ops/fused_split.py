@@ -5,30 +5,38 @@ version.
 Counterpart of ``lightgbm_tpu/ops/fused_split.py``: the TPU kernel
 ``_fused_kernel`` (wrapper ``fused_split``) streams the parent's segment once
 through VMEM, partitions it with a one-hot permutation matmul and
-accumulates the smaller child's histogram on the MXU. On Hopper the same
-function is a short chain of launches (``csrc/fused_split.cu``: routing
-counts, block offsets, a stable scatter of whole 128-byte records, the
-copy-back of the left child) followed by the histogram kernel K1 in record
-mode over the smaller child's contiguous range
+accumulates the smaller child's histogram on the MXU. On Hopper the
+partition is one pass with decoupled look-back (``csrc/fused_split.cu``: a
+one-thread ``prep`` of the scalars, then tiles taken in ticket order, left
+rows written in place, right rows into the other array), followed by the
+histogram kernel K1 in record mode over the smaller child's contiguous range
 (``ops/pallas_histogram.py`` ``record_histogram``). Mode 1 skips the
 partition and histograms the whole segment (the root). The source note of
-``csrc/fused_split.cu`` says what bounds the chain on the H100 and how dual
-residency is kept race-free.
+``csrc/fused_split.cu`` says what bounds the pass on the H100 and why the
+in-place writes are race-free.
 
 The contract is the TPU's (dual residency): the parent's segment
 ``[start, start+count)`` lives in ``work`` (side 0) or ``scratch``
 (side 1); afterwards the left child is at ``[start, start+n_left)`` of the
 parent's array and the right child at ``[start+n_left, start+count)`` of
-the other array, both in their original row order; rows outside the
-segment are untouched. The wrapper updates both arrays in place and
-returns them with the ``[F, B, 4]`` histogram (grad, hess, in-bag count,
-raw count) of the smaller child, or of the child ``smaller_left`` names.
+the other array, both in their original row order; the other array's left
+range is dead; rows outside the segment are untouched. Only the first
+``layout.moved_cols`` bytes of a row move (the padding after them is zero in
+both arrays). The wrapper updates both arrays in place and returns them with
+the ``[F, B, 4]`` histogram (grad, hess, in-bag count, raw count) of the
+smaller child, or of the child ``smaller_left`` names.
+
+The look-back state (an epoch counter, a tile ticket and one flag a tile)
+lives on the device across splits, one set per (device, stream): splits on
+one stream run one after another on the device, and a lock keeps each
+split's two launches together when several threads issue splits.
 
 Not here yet: the quantized (``quant``) and nibble-packed (``packed4``)
 records and the copy-back variant ``dual=False`` (ROADMAP A15, A13).
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -38,15 +46,41 @@ from .compact import RowLayout, segment_histogram
 from .pallas_histogram import _check_records, record_histogram
 from .split import go_left_pred
 
-_SMS: dict = {}
+# the partition kernel's rows a tile: the largest of these whose staged
+# vectors (16 B each) and destinations (4 B a row) fit about 72 KB, so three
+# blocks share an SM
+_TILES = (1024, 512, 256)
+_TILE_SMEM = 72 * 1024
+_MAX_SMEM = 232448            # the H100's per-block shared-memory limit
 
 
-def _n_blocks(dev: torch.device) -> int:
-    """Fixed grid of the partition kernels: two blocks per SM."""
-    if dev not in _SMS:
-        _SMS[dev] = 2 * torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    return _SMS[dev]
+def _tile_rows(layout: RowLayout) -> int:
+    vec = layout.moved_cols // 16
+    for t in _TILES:
+        if t * (16 * vec + 4) <= _TILE_SMEM:
+            return t
+    if 256 * (16 * vec + 4) > _MAX_SMEM:
+        raise ValueError(f"records with {layout.num_real_cols} real bytes "
+                         "are too wide for the partition kernel")
+    return 256
+
+
+# the partition kernel's look-back state for each (device, stream): ctl
+# (epoch, ticket) and one flag a tile, zeroed once and grown with the arrays;
+# the lock keeps one split's `prep` and partition together when several
+# threads issue splits on one stream
+_LOOKBACK: dict = {}
+_LOOKBACK_LOCK = threading.Lock()
+
+
+def _lookback_state(dev: torch.device, n_tiles: int):
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    st = _LOOKBACK.get(key)
+    if st is None or st[1].numel() < n_tiles:
+        st = (torch.zeros(2, dtype=torch.int32, device=dev),
+              torch.zeros(max(n_tiles, 1), dtype=torch.int64, device=dev))
+        _LOOKBACK[key] = st
+    return st
 
 
 def fused_split_plain(work, scratch, mode, start, count, n_left, feature,
@@ -54,9 +88,9 @@ def fused_split_plain(work, scratch, mode, start, count, n_left, feature,
                       layout: RowLayout, num_bins: int, smaller_left=None,
                       side=None) -> Tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]:
-    """Plain PyTorch version of K2: masks and ``torch.cat`` in stable
-    order, the same writes as the kernel chain (both children into the
-    other array, the left child copied back)."""
+    """Plain PyTorch version of K2: masks in stable order, the same writes
+    as the kernel (left rows in place, right rows into the other array, the
+    first ``layout.moved_cols`` bytes of a row)."""
     _kernels.PLAIN_CALLS["fused_split"] += 1
     n_rows = work.shape[0]
     s = min(max(int(start), 0), n_rows)
@@ -69,20 +103,24 @@ def fused_split_plain(work, scratch, mode, start, count, n_left, feature,
     f = min(max(int(feature), 0), layout.num_features - 1)
     bits = (cat_bitset if cat_bitset is not None
             else torch.zeros(1, dtype=torch.int32, device=work.device))
-    seg = src[s:s + c]
+    mv = layout.moved_cols
+    seg = src[s:s + c, :mv]
     gl = go_left_pred(seg[:, f], int(bin_), bool(int(default_left)),
                       int(nan_bin), bool(int(is_cat)), bits)
     left, right = seg[gl], seg[~gl]
-    dst[s:s + left.shape[0]] = left
+    src[s:s + left.shape[0], :mv] = left
+    # right rows past the segment's end (an n_left below the routing's
+    # count) are dropped, as the kernel drops them
     right = right[:c - nl]
-    dst[s + nl:s + nl + right.shape[0]] = right
-    src[s:s + nl] = dst[s:s + nl]
+    dst[s + nl:s + nl + right.shape[0], :mv] = right
     if smaller_left is None:
         sl = nl <= c - nl
     else:
         sl = int(smaller_left) != 0
-    hs, hc = (s, nl) if sl else (s + nl, c - nl)
-    return work, scratch, segment_histogram(dst, hs, hc, layout, num_bins)
+    if sl:
+        return work, scratch, segment_histogram(src, s, nl, layout, num_bins)
+    return work, scratch, segment_histogram(dst, s + nl, c - nl, layout,
+                                            num_bins)
 
 
 def fused_split(work: torch.Tensor, scratch: torch.Tensor, mode: int,
@@ -133,14 +171,17 @@ def fused_split(work: torch.Tensor, scratch: torch.Tensor, mode: int,
                 or bits.dim() != 1 or not bits.is_contiguous():
             raise ValueError("cat_bitset must be a contiguous int32 vector "
                              f"on {dev}")
-    g = _n_blocks(dev)
-    block_left = torch.empty(g, dtype=torch.int32, device=dev)
+    vec = layout.moved_cols // 16
+    tile = _tile_rows(layout)
+    n_tiles = -(-work.shape[0] // tile)
     ws = torch.empty(16, dtype=torch.int32, device=dev)
-    _kernels.launch("fused_split", "lgbt_fused_split", dev, mode,
-                    work.data_ptr(), scratch.data_ptr(), work.shape[0],
-                    work.shape[1], layout.num_features, sp.data_ptr(),
-                    bits.data_ptr(), bits.numel(), block_left.data_ptr(), g,
-                    ws.data_ptr())
+    with _LOOKBACK_LOCK:
+        ctl, flags = _lookback_state(dev, n_tiles)
+        _kernels.launch("fused_split", "lgbt_fused_split", dev, mode,
+                        work.data_ptr(), scratch.data_ptr(), work.shape[0],
+                        work.shape[1], vec, tile, layout.num_features,
+                        sp.data_ptr(), bits.data_ptr(), bits.numel(),
+                        ws.data_ptr(), flags.data_ptr(), ctl.data_ptr())
     # ws[3:6] = (start, count, which array) of the histogram's segment
     hist = record_histogram(work, scratch, ws[3:6], layout, num_bins)
     return work, scratch, hist

@@ -10,6 +10,9 @@ must be byte-equal; histogram counts are exact and grad/hess agree within
 1e-5 * sum |addends| per cell (f32 atomics add in another order), and bit
 for bit on dyadic channels (multiples of 1/64, every partial sum exact).
 """
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +24,7 @@ from lightgbm_tpu_torch.ops.fused_split import fused_split, fused_split_plain
 from lightgbm_tpu_torch.ops.pallas_histogram import (
     pallas_histogram, pallas_histogram_plain, pallas_histogram_sublane,
     pallas_histogram_sublane_plain, record_histogram, record_histogram_plain)
+from lightgbm_tpu_torch.ops.split import go_left_pred
 
 pytestmark = pytest.mark.cuda
 
@@ -76,7 +80,7 @@ def test_dense_histogram(dev, f, b, mode):
            pallas_histogram_plain(bins, ch.abs(), b, mode=mode))
 
 
-@pytest.mark.parametrize("f", [5, 28])
+@pytest.mark.parametrize("f", [5, 28, 29])
 def test_record_histogram(dev, f):
     layout, work = _records(30_000, f, 256, dev, seed=f)
     scratch = torch.zeros_like(work)
@@ -85,6 +89,36 @@ def test_record_histogram(dev, f):
     _close(kern, record_histogram_plain(work, scratch, seg, layout, 256),
            record_histogram_plain(_abs_grad(work, layout), scratch, seg,
                                   layout, 256))
+
+
+@pytest.mark.parametrize("skew", ["bin0_90", "one_bin"])
+def test_record_histogram_skewed_bins_is_exact(dev, skew):
+    """Skewed features: 90% of the rows in bin 0, or every row of a feature
+    in one bin. 9M rows put more than 65,535 rows of one bin into every
+    block, so the packed 16-bit counts must flush on the way; with integer
+    channels every partial sum is exact and kernel and plain version agree
+    bit for bit."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    n, f, b = 9_000_000, 3, 8
+    layout = RowLayout(num_features=f, num_extra=0)
+    bins = torch.randint(0, b, (n, f), generator=g, device=dev,
+                         dtype=torch.uint8)
+    if skew == "bin0_90":
+        bins[torch.rand(n, f, generator=g, device=dev) < 0.9] = 0
+    else:
+        bins[:] = torch.tensor([1, 7, 0], dtype=torch.uint8, device=dev)
+    work = pack_rows(
+        bins, torch.randint(-1, 2, (n,), generator=g, device=dev).float(),
+        torch.randint(0, 2, (n,), generator=g, device=dev).float(),
+        (torch.rand(n, generator=g, device=dev) > 0.2).float(),
+        torch.zeros(0, n, device=dev), layout)
+    del bins
+    seg = torch.tensor([0, n, 0], dtype=torch.int32, device=dev)
+    kern = record_histogram(work, work, seg, layout, b)
+    assert torch.equal(kern, record_histogram_plain(work, work, seg, layout,
+                                                    b))
+    assert float(kern[0, :, 3].sum()) == n
 
 
 @pytest.mark.parametrize("seg,clamped", [
@@ -107,16 +141,24 @@ def test_record_histogram_clamps_the_segment(dev, seg, clamped):
     assert float(kern[..., 3].sum()) == clamped[1] * 5
 
 
-@pytest.mark.parametrize("mode,start,count,side,smaller", [
-    (0, 0, 30_000, 0, None), (0, 37, 22_190, 1, None), (0, 96, 128, 0, 1),
-    (0, 500, 1, 1, None), (0, 200, 0, 0, None), (0, 11, 20_000, 0, 0),
-    (1, 41, 23_000, 1, None)])
-def test_fused_split(dev, mode, start, count, side, smaller):
-    layout, parent = _records(30_000, 5, 256, dev, seed=start)
-    _, other = _records(30_000, 5, 256, dev, seed=start + 1)
+@pytest.mark.parametrize("mode,start,count,side,smaller,f,skew_left", [
+    (0, 0, 30_000, 0, None, 5, 0), (0, 37, 22_190, 1, None, 5, 0),
+    (0, 96, 128, 0, 1, 5, 0), (0, 500, 1, 1, None, 5, 0),
+    (0, 200, 0, 0, None, 5, 0), (0, 11, 20_000, 0, 0, 5, 0),
+    (1, 41, 23_000, 1, None, 5, 0), (0, 1001, 255, 1, None, 29, 0),
+    (0, 3, 1, 0, None, 29, 0), (0, 7, 0, 1, None, 29, 0),
+    (0, 13, 29_000, 1, None, 29, 0), (0, 13, 29_000, 0, None, 28, 7),
+    (0, 5, 27_000, 1, 1, 28, -7)])
+def test_fused_split(dev, mode, start, count, side, smaller, f, skew_left):
+    """Counts 0, 1, 128, 255 and most of the array, unaligned starts, both
+    residency sides, F = 29 (unaligned floats), a forced smaller child, and
+    an n_left off the routing's count by +-7 (the segment may scramble, but
+    no write leaves it; kernel and plain version write the same bytes)."""
+    layout, parent = _records(30_000, f, 256, dev, seed=start)
+    _, other = _records(30_000, f, 256, dev, seed=start + 1)
     feat, bin_ = 2, 100
     col = parent[start:start + count, feat].to(torch.int64)
-    n_left = int((col <= bin_).sum())
+    n_left = min(max(int((col <= bin_).sum()) + skew_left, 0), count)
     args = (mode, start, count, n_left, feat, bin_, 0, 0, 0, None, layout,
             256)
     kw = {"smaller_left": smaller, "side": side}
@@ -128,6 +170,85 @@ def test_fused_split(dev, mode, start, count, side, smaller):
     _, _, habs = fused_split_plain(
         *(_abs_grad(a, layout) for a in arrays), *args, **kw)
     _close(hk, hp, habs)
+
+
+def test_fused_split_categorical_and_nan(dev):
+    """A categorical bitset and a NaN bin sent left, then the two splits in a
+    row on one pair of arrays (the look-back state of the first must not
+    leak into the second)."""
+    layout, parent = _records(30_000, 28, 256, dev, seed=21)
+    other = torch.zeros_like(parent)
+    bits = torch.zeros(8, dtype=torch.int32, device=dev)
+    for cat in (3, 17, 100, 255):
+        bits[cat // 32] |= 1 << (cat % 32)
+    arrays_k = (parent.clone(), other.clone())
+    arrays_p = (parent.clone(), other.clone())
+    start, count = 17, 29_000
+    for feat, bin_, dl, nan_bin, is_cat in ((4, 0, 0, 0, 1),
+                                           (6, 60, 1, 255, 0)):
+        col = arrays_p[0][start:start + count, feat]
+        n_left = int(go_left_pred(col, bin_, bool(dl), nan_bin, bool(is_cat),
+                                  bits).sum())
+        args = (0, start, count, n_left, feat, bin_, dl, nan_bin, is_cat,
+                bits, layout, 256)
+        _, _, hk = fused_split(*arrays_k, *args, side=0)
+        _, _, hp = fused_split_plain(*arrays_p, *args, side=0)
+        torch.cuda.synchronize()
+        assert torch.equal(arrays_k[0], arrays_p[0])
+        assert torch.equal(arrays_k[1], arrays_p[1])
+        assert torch.equal(hk[..., 2:], hp[..., 2:])
+        # the left child stays in place: split it again from the same side
+        count = n_left
+
+
+@pytest.mark.parametrize("streams", [False, True])
+def test_fused_split_from_threads(dev, streams):
+    """Splits issued from four threads at once, on one stream or on one
+    stream a thread: the look-back state (kept across splits) must never
+    mix two splits."""
+    layout, parent = _records(30_000, 28, 256, dev, seed=31)
+    col = parent[:, 3].to(torch.int64)
+    jobs = []
+    for i in range(4):
+        start, count = 100 * i, 29_000 - 500 * i
+        n_left = int((col[start:start + count] <= 90 + i).sum())
+        args = (0, start, count, n_left, 3, 90 + i, 0, 0, 0, None, layout,
+                256)
+        want = fused_split_plain(parent.clone(), torch.zeros_like(parent),
+                                 *args)
+        jobs.append((args, want))
+    torch.cuda.synchronize()
+    errors = []
+
+    def worker(i):
+        try:
+            args, (ww, ws, wh) = jobs[i]
+            ctx = (torch.cuda.stream(torch.cuda.Stream(dev)) if streams
+                   else torch.cuda.stream(torch.cuda.current_stream(dev)))
+            with ctx:
+                for _ in range(20):
+                    w, s, h = fused_split(parent.clone(),
+                                          torch.zeros_like(parent), *args)
+                    torch.cuda.current_stream(dev).synchronize()
+                    if not (torch.equal(w, ww) and torch.equal(s, ws)
+                            and torch.equal(h[..., 2:], wh[..., 2:])):
+                        errors.append(i)
+        except Exception as err:  # reported by the assertion below
+            errors.append(repr(err))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
 
 
 def test_train_on_card_matches_cpu(dev):

@@ -256,3 +256,42 @@ def test_segments_to_leaf_vectors():
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     assert got[0].tolist() == [0] * 120 + [2] * 180 + [3] * 200
+
+
+@pytest.mark.parametrize("side,f,extra", [(0, 5, 1), (1, 29, 2), (0, 28, 3)])
+def test_plain_split_moves_real_vectors_only(side, f, extra):
+    """The kernel's write pattern, held by its plain version on the CPU: the
+    left child in place in the parent's array, the right child in the
+    other; only the first ``moved_cols`` bytes of a row move (the padding
+    after them keeps whatever it held), the other array's left range and
+    every row outside the segment keep theirs."""
+    n, b, start, count = 1200, 256, 45, 1000
+    rng = np.random.RandomState(f)
+    tl = RowLayout(num_features=f, num_extra=extra)
+    binned, g, h, cnt, _ = _inputs(n, f, b, seed=f)
+    ex = rng.randn(extra, n).astype(np.float32)
+    parent = pack_rows(*(torch.from_numpy(a) for a in
+                         (binned, g, h, cnt, ex)), tl)
+    mv = tl.moved_cols
+    assert mv % 16 == 0 and tl.num_real_cols <= mv <= tl.num_cols
+    parent[:, mv:] = torch.from_numpy(
+        rng.randint(0, 256, (n, tl.num_cols - mv)).astype(np.uint8))
+    other = torch.from_numpy(rng.randint(0, 256, parent.shape)
+                             .astype(np.uint8))
+    p0, o0 = parent.clone(), other.clone()
+    feat, bin_ = 1, 120
+    gl = p0[start:start + count, feat] <= bin_
+    n_left = int(gl.sum())
+    arrays = (other, parent) if side else (parent, other)
+    fused_split(*arrays, 0, start, count, n_left, feat, bin_, 0, 0, 0, None,
+                tl, b, side=side)
+    seg = p0[start:start + count]
+    assert torch.equal(parent[start:start + n_left, :mv], seg[gl][:, :mv])
+    assert torch.equal(other[start + n_left:start + count, :mv],
+                       seg[~gl][:, :mv])
+    assert torch.equal(parent[:, mv:], p0[:, mv:])
+    assert torch.equal(other[:, mv:], o0[:, mv:])
+    assert torch.equal(other[start:start + n_left], o0[start:start + n_left])
+    for arr, before in ((parent, p0), (other, o0)):
+        assert torch.equal(arr[:start], before[:start])
+        assert torch.equal(arr[start + count:], before[start + count:])
