@@ -25,12 +25,20 @@ non-zero):
    and the padding unchanged, the dead range not compared), and its time
    beside that of the smaller child's histogram alone;
 4. K3, the small-bin histogram, against its plain version at the masked
-   path's shape (20k x 28, B = 64, K = 3) and at edge cases (N not a
-   multiple of 8, a padded row stride, unaligned channels, B = 2 and 17,
-   F = 1 and 100, 1-8 channels, bf16, bins >= B, rows with zero channels),
-   then at 10.5M x 28, B = 64, K = 3 on dyadic
-   channels (bit-equal), with its time beside K1's on the same data in
-   row-major form, the plain version's and index_add_'s, and its byte bound;
+   path's shape (20k x 28, B = 64, K = 3; its device time from the
+   profiler) and at edge cases (N not a multiple of 16, a padded row
+   stride, unaligned channels, B = 2 and 17, F = 1, 31, 32, 33, 65 and 100
+   around the rotation period and the feature chunks, 1-8 channels, bf16,
+   bins >= B, rows with zero channels), each on both of its paths (the
+   small-data path these sizes take, and the tile path); then at 10.5M x
+   28, B = 64, K = 3 on dyadic channels (bit-equal); both paths on each
+   side of the row count where the host switches between them (all rows
+   and an eighth live; at the switch each path's device time, the K3_PATHS
+   line); then two skewed cases (90% of the rows in bin 0; every row of a
+   feature in one bin) on integer channels and two sparse ones (a random
+   1/8 and 1/64 of the rows live), bit-equal and timed; with its time
+   beside K1's on the same data in row-major form, the plain version's and
+   index_add_'s, and its byte bound;
 5. the compact path: lightgbm_tpu_torch.train on Higgs-shaped data
    (make_higgs_like, 10.5M x 28 with a 10% validation split, 255 leaves,
    255 bins) for one warm-up round and R timed rounds, with the launch
@@ -38,10 +46,16 @@ non-zero):
    (0), the host syncs inside one tree (0), and a torch.profiler trace of
    one more tree (device time, idle share, launches, and K1's and K2's
    device ms in that tree beside their byte bounds from its node counts);
-6. the card against the CPU on the compact path: the same training at
+6. the masked grower at the main path's row count: the same Higgs-shaped
+   rows binned at max_bin=63 with tpu_grower=masked and the sublane layout
+   (K3 only), 63 leaves, 1 warm-up and 2 timed rounds: iterations/s, AUC
+   (> 0.7), K3's launches (> 0) and K1's and K2's (0), plain calls (0),
+   host syncs inside one tree (0), and a profiled tree with K3's device ms
+   beside its byte bound for that tree;
+7. the card against the CPU on the compact path: the same training at
    100k x 28, 31 leaves, 3 rounds, with device_type="cuda" and "cpu";
    predictions agree within 1e-4;
-7. the masked path: the training stage of the repo's serving bench
+8. the masked path: the training stage of the repo's serving bench
    (bench.py:769-776: make_higgs_like 20k x 28, 63 leaves, max_bin=63,
    learning rate 0.1, min_data_in_leaf 20) with 2k more rows for
    validation, tpu_hist_layout="sublane", 20 rounds: iterations/s, AUC
@@ -49,10 +63,13 @@ non-zero):
    calls (0), the host syncs inside one tree (0), a one-tree profile; then
    the same training on the CPU and on the card with the lane layout (K1),
    predictions within 1e-4, and save_model -> Booster(model_file=...) ->
-   predict within 1e-6.
+   predict within 1e-6, and a profiled tree with K3's device ms beside its
+   byte bound.
 
-The line before the last is a JSON object with every kernel's launches,
-error, times and bound; the last line is
+Each profiled tree must hold as many launches of each kernel as its wrapper
+counted in that round; a short trace is repeated. The line before the last
+is the card's name and power limit, the one before it a JSON object with
+every kernel's launches, error, times and bound; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
@@ -481,15 +498,20 @@ def phase_kernels_k3(n_big, results):
     below 2^18 and is exact in f32, so kernel and plain version must agree
     bit for bit whatever the order of their atomics."""
     from lightgbm_tpu_torch.ops.pallas_histogram import (
-        pallas_histogram, pallas_histogram_sublane,
-        pallas_histogram_sublane_plain)
+        _launch_sublane, pallas_histogram, pallas_histogram_sublane,
+        pallas_histogram_sublane_plain, sublane_tile_geometry)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = 0.0
 
     def channels(n, k, dyadic=False):
-        if dyadic:
+        if dyadic == "int":
+            # integers: a bin that holds every row still sums exactly
+            gr = torch.randint(-1, 2, (n,), generator=g, device=dev).float()
+            he = torch.randint(0, 2, (n,), generator=g, device=dev).float()
+        elif dyadic:
             gr = torch.randint(-128, 129, (n,), generator=g, device=dev) / 64.
             he = torch.randint(0, 65, (n,), generator=g, device=dev) / 64.
         else:
@@ -506,7 +528,13 @@ def phase_kernels_k3(n_big, results):
     cases = [(20_000, 28, 64, 3, "f32", 0, 0), (20_000, 28, 64, 3, "f32", 0, 3),
              (5_000, 5, 17, 1, "f32", 0, 2), (4_999, 1, 2, 4, "split", 8, 2),
              (20_000, 28, 63, 4, "bf16", 0, 1), (777, 100, 64, 8, "f32", 5, 0),
-             (33, 28, 64, 3, "f32", 0, 0)]
+             (33, 28, 64, 3, "f32", 0, 0),
+             # around the rotation period (32 columns) and the feature
+             # chunks (at most 32 features a chunk)
+             (20_000, 31, 64, 3, "f32", 0, 1),
+             (20_000, 32, 64, 3, "f32", 0, 0),
+             (20_001, 33, 64, 3, "f32", 0, 0),
+             (20_000, 65, 64, 5, "f32", 16, 1)]
     path = None
     for n, F, B, K, mode, pad, over in cases:
         bins = torch.randint(0, B + over, (F, n + pad), generator=g,
@@ -520,6 +548,12 @@ def phase_kernels_k3(n_big, results):
         absh = pallas_histogram_sublane_plain(bins, ch.abs(), B, mode)
         err = close_rel(kern, plain, absh, f"K3 {n}x{F} B={B} K={K} {mode}",
                         1e-5)
+        # these sizes take the small-data path; the tile path on the same
+        # inputs
+        tile = _launch_sublane(bins, ch, B, mode, sublane_tile_geometry(
+            n, F, B, K, sms))
+        err = max(err, close_rel(tile, plain, absh, f"K3 tile path "
+                                 f"{n}x{F} B={B} K={K} {mode}", 1e-5))
         worst = max(worst, err)
         line = {"rows": n, "F": F, "B": B, "K": K, "mode": mode,
                 "row_pad": pad, "bins_past_B": over, "max_abs_err": err}
@@ -527,6 +561,9 @@ def phase_kernels_k3(n_big, results):
             # the masked path's own shape: launch latency binds it
             line["kernel_ms"] = time_ms(
                 lambda: pallas_histogram_sublane(bins, ch, B, mode), 50, 5)
+            line["device_us"] = device_us(
+                lambda: pallas_histogram_sublane(bins, ch, B, mode),
+                "hist_sublane")
             line["bound_ms"] = 1e3 * (n * F + 4 * n * K + F * B * K * 4) \
                 / HBM_BYTES_PER_S
             path = line
@@ -537,10 +574,46 @@ def phase_kernels_k3(n_big, results):
     bins_t = torch.randint(0, B, (F, n), generator=g, device=dev,
                            dtype=torch.uint8)
     ch = channels(n, K, dyadic=True)
+    plain = pallas_histogram_sublane_plain(bins_t, ch, B, "f32")
     kern = pallas_histogram_sublane(bins_t, ch, B, "f32")
-    worst = max(worst, close_rel(
-        kern, pallas_histogram_sublane_plain(bins_t, ch, B, "f32"), None,
-        f"K3 {n}x{F} dyadic", 0))
+    worst = max(worst, close_rel(kern, plain, None, f"K3 {n}x{F} dyadic", 0))
+    del plain
+    paths = check_k3_paths(g)
+    # skewed bins at the probe's size, bit-equal to the plain version on
+    # integer channels (a bin may hold every row, and its sums stay exact):
+    # 90% of the rows in bin 0; every row of a feature in one bin
+    skewed = {}
+    chi = channels(n, K, dyadic="int")
+    for skew in ("bin0_90", "one_bin"):
+        if skew == "bin0_90":
+            sk = bins_t.clone()
+            sk[torch.rand(F, n, generator=g, device=dev) < 0.9] = 0
+        else:
+            sk = (torch.arange(F, device=dev) * 37 % B).to(torch.uint8)[
+                :, None].expand(F, n).contiguous()
+        worst = max(worst, close_rel(
+            pallas_histogram_sublane(sk, chi, B, "f32"),
+            pallas_histogram_sublane_plain(sk, chi, B, "f32"), None,
+            f"K3 {n}x{F} {skew} integer channels", 0))
+        skewed[skew] = time_ms(
+            lambda: pallas_histogram_sublane(sk, chi, B, "f32"))
+        del sk
+    # sparse channels, as the masked grower's deeper splits give them: a
+    # random share of the rows live (bins of 16-row pieces without a live
+    # row are not read, the live rows go through pending tiles)
+    sparse_ms = {}
+    for frac in (8, 64):
+        live = torch.rand(n, generator=g, device=dev) < 1.0 / frac
+        sp = ch * live[:, None]
+        worst = max(worst, close_rel(
+            pallas_histogram_sublane(bins_t, sp, B, "f32"),
+            pallas_histogram_sublane_plain(bins_t, sp, B, "f32"), None,
+            f"K3 {n}x{F} random 1/{frac} live", 0))
+        sparse_ms[f"random_1_in_{frac}"] = time_ms(
+            lambda: pallas_histogram_sublane(bins_t, sp, B, "f32"))
+        del sp, live
+    del chi
+    print("K3 skewed", json.dumps(skewed), flush=True)
     bins = bins_t.T.contiguous()         # the same bins row-major, for K1
     line = {"rows": n, "F": F, "B": B, "K": K, "dyadic": True,
             "kernel_ms": time_ms(
@@ -564,9 +637,79 @@ def phase_kernels_k3(n_big, results):
     line["library_ms"] = time_ms(lib, 3, 1)
     line["bound_ms"] = 1e3 * (n * F + 4 * n * K + F * B * K * 4) \
         / HBM_BYTES_PER_S
+    # one row in eight live: the channels are read whole, the bins of the
+    # live rows only
+    line["one_in_eight_rows_bound_ms"] = 1e3 * (
+        -(-n // 8) * F + 4 * n * K + F * B * K * 4) / HBM_BYTES_PER_S
+    line["skewed_ms"] = skewed
+    line["sparse_ms"] = sparse_ms
     print("K3", json.dumps(line), flush=True)
     del flat, src, lib_out, bins, bins_t, ch
-    results["histogram_sublane"] = dict(line, max_abs_err=worst, path=path)
+    results["histogram_sublane"] = dict(line, max_abs_err=worst, path=path,
+                                        paths=paths)
+
+
+def device_us(fn, name, reps=30):
+    """Mean device microseconds of the kernels whose name holds `name` in
+    reps calls of fn (torch.profiler; events around short back-to-back
+    launches would time the host's issue rate instead)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):   # a profile now and then records no device events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if name in e.name]
+        if len(us) == reps:
+            return sum(us) / reps
+    raise AssertionError(f"profiled {len(us)} launches of {name}, not "
+                         f"{reps}")
+
+
+def check_k3_paths(g):
+    """K3's two paths on each side of the row count where the host switches
+    from the small-data path to the tile path (SUBLANE_SMALL_ROWS), every
+    row live and an eighth live, each within 1e-5 of the plain version's
+    addends; at the switch, each path's device microseconds a launch."""
+    from lightgbm_tpu_torch.ops.pallas_histogram import (
+        SUBLANE_SMALL_ROWS, _launch_sublane, pallas_histogram_sublane_plain,
+        sublane_small_geometry, sublane_tile_geometry)
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    B, K, F = 64, 3, 28             # the masked path's shape
+    top = SUBLANE_SMALL_ROWS + 1
+    bins_all = torch.randint(0, B, (F, top), generator=g, device=dev,
+                             dtype=torch.uint8)
+    ch_all = torch.randn(top, K, generator=g, device=dev)
+    live = torch.rand(top, generator=g, device=dev) < 0.125
+    line = {"rows": SUBLANE_SMALL_ROWS}
+    for n in (SUBLANE_SMALL_ROWS, top):
+        bins = bins_all[:, :n]
+        ch = ch_all[:n]
+        sparse = (ch * live[:n, None]).contiguous()
+        for path in (sublane_small_geometry, sublane_tile_geometry):
+            geom = path(n, F, B, K, sms)
+            for c in (ch, sparse):
+                plain = pallas_histogram_sublane_plain(bins, c, B, "f32")
+                close_rel(_launch_sublane(bins, c, B, "f32", geom), plain,
+                          pallas_histogram_sublane_plain(bins, c.abs(), B,
+                                                         "f32"),
+                          f"K3 {n} rows, geometry {geom}", 1e-5)
+            if n == SUBLANE_SMALL_ROWS:
+                name = "small" if geom.small else "tile"
+                line[f"{name}_dense_us"] = device_us(
+                    lambda: _launch_sublane(bins, ch, B, "f32", geom),
+                    "hist_sublane")
+                line[f"{name}_eighth_live_us"] = device_us(
+                    lambda: _launch_sublane(bins, sparse, B, "f32", geom),
+                    "hist_sublane")
+    print("K3_PATHS", json.dumps(line), flush=True)
+    return line
 
 
 def phase_main_path(lgt, rows, rounds, results):
@@ -625,6 +768,71 @@ def phase_main_path(lgt, rows, rounds, results):
     check(syncs.get("in_tree") == 0, "host syncs inside the split loop")
     out["profile"] = profile_tree(bst, 1.0 / it_s)
     results["main"] = out
+    # the large-N masked phase trains on the same rows
+    results["higgs_rows"] = (Xt, yt, Xv, yv)
+
+
+def phase_masked_large(lgt, rows, results):
+    """The masked grower at the main path's row count: the Higgs-shaped
+    rows of the main path (no second generation) binned at max_bin=63 with
+    tpu_grower=masked and the sublane layout (K3 only), 63 leaves, learning
+    rate 0.1, min_data_in_leaf 100; 1 warm-up and 2 timed rounds, then one
+    profiled tree with K3's device ms beside its byte bound a tree."""
+    from lightgbm_tpu_torch import _kernels
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    Xt, yt, Xv, yv = results.pop("higgs_rows")
+    rounds = 2
+    params = {"objective": "binary", "metric": "auc", "num_leaves": 63,
+              "max_bin": 63, "learning_rate": 0.1, "min_data_in_leaf": 100,
+              "verbosity": -1, "device_type": "cuda", "tpu_grower": "masked",
+              "tpu_hist_layout": "sublane"}
+    syncs = {}
+    ends = []
+
+    def timer(env):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+    timer.order = 5
+
+    t1 = time.perf_counter()
+    ds = lgt.Dataset(Xt, yt, params={"max_bin": 63})
+    dv = ds.create_valid(Xv, yv)
+    ds.construct()
+    dv.construct()
+    construct_s = time.perf_counter() - t1
+    evals = {}
+    _kernels.reset_counts()
+    with syncs_in_second_tree(gbdt_mod, "grow_tree", syncs):
+        bst = lgt.train(params, ds, 1 + rounds, valid_sets=[dv],
+                        callbacks=[timer, lgt.record_evaluation(evals)])
+    launches = dict(_kernels.LAUNCHES)
+    plain_calls = dict(_kernels.PLAIN_CALLS)
+    check(len(ends) == 1 + rounds, f"trained {len(ends)} rounds")
+    it_s = rounds / (ends[-1] - ends[0])
+    auc = evals["valid_0"]["auc"][-1]
+    out = {"train_rows": len(yt), "valid_rows": len(yv), "rounds_timed":
+           rounds, "iterations_per_s": it_s, "construct_s": construct_s,
+           "valid_auc": auc, "launches": launches, "plain_calls":
+           plain_calls, "host_syncs_in_tree": syncs.get("in_tree"),
+           "num_trees": bst.num_trees(),
+           "hist_layout": bst._gbdt.grower_params.hist_layout}
+    if rows < 10_500_000:
+        out["note"] = "rows lowered by --rows"
+    print("MASKED_LARGE", json.dumps(out), flush=True)
+    check(not bst._gbdt.use_compact, "tpu_grower=masked took the compact "
+          "grower")
+    check(out["hist_layout"] == "sublane", "the large-N masked path did not "
+          "take the sublane layout")
+    check(launches["histogram_sublane"] > 0, "K3 was not launched on the "
+          "large-N masked path")
+    check(launches["histogram"] == 0 and launches["fused_split"] == 0,
+          f"K1/K2 launched on the masked sublane path: {launches}")
+    for k, v in plain_calls.items():
+        check(v == 0, f"plain version of {k} ran {v} times on the card")
+    check(np.isfinite(auc) and auc > 0.7, f"validation AUC {auc}")
+    check(syncs.get("in_tree") == 0, "host syncs inside the split loop")
+    out["profile"] = profile_tree(bst, 1.0 / it_s)
+    results["masked_large"] = out
 
 
 def phase_masked(lgt, results):
@@ -719,13 +927,23 @@ def phase_masked(lgt, results):
 # the device functions of each kernel of the port, as the profiler names them
 KERNEL_FUNCTIONS = {"histogram": ("hist_kernel",),
                     "fused_split": ("prep_kernel", "partition_kernel"),
-                    "histogram_sublane": ("hist_sublane_kernel",)}
+                    "histogram_sublane": ("hist_sublane_kernel",
+                                          "hist_sublane_small_kernel")}
+# of those, the ones of which exactly one runs for each launch a wrapper
+# counts (K2's partition does not run for the root's histogram, mode 1)
+ENTRY_FUNCTIONS = {"histogram": ("hist_kernel",),
+                   "fused_split": ("prep_kernel",),
+                   "histogram_sublane": ("hist_sublane_kernel",
+                                         "hist_sublane_small_kernel")}
 
 
-def tree_byte_bounds(tree, layout):
-    """Byte bounds of one compact tree from its node counts: K1 reads 64 B
-    (bins and channels) of every root row and of every smaller-child row;
-    K2 reads and writes each split parent's real columns once."""
+def _named(name, fns):
+    return any(fn + "<" in name or fn + "(" in name for fn in fns)
+
+
+def smaller_child_rows(tree):
+    """(root rows, sum over the tree's splits of the smaller child's
+    rows) from its node counts."""
     cnt = np.asarray(tree.internal_count, np.float64)[:tree.num_nodes]
     leaf = np.asarray(tree.leaf_count, np.float64)
 
@@ -735,8 +953,33 @@ def tree_byte_bounds(tree, layout):
                       rows(int(tree.right_child[i])))
                   for i in range(tree.num_nodes))
     n = float(cnt[0]) if tree.num_nodes else float(leaf[0])
+    return n, smaller
+
+
+def tree_byte_bounds(tree, layout):
+    """Byte bounds of one compact tree from its node counts: K1 reads 64 B
+    (bins and channels) of every root row and of every smaller-child row;
+    K2 reads and writes each split parent's real columns once."""
+    n, smaller = smaller_child_rows(tree)
+    cnt = np.asarray(tree.internal_count, np.float64)[:tree.num_nodes]
     return {"histogram": (n + smaller) * RECORD_ROW_BYTES,
             "fused_split": float(2 * cnt.sum() * layout.num_real_cols)}
+
+
+def masked_tree_k3_bytes(tree, gbdt, k=3):
+    """K3's byte bound for one masked tree: the grower launches K3 once for
+    the root and once a split (num_leaves launches, the unapplied splits
+    included), each over all N rows. A launch must read the N x 4K bytes of
+    channels (the zeroed ones tell it which rows are live), the bins of its
+    live rows (F bytes a row: all N at the root, the smaller child's rows
+    at a split) and write the F x B x K f32 output:
+    bytes = L (4 N K + 4 F B K) + (N + sum of smaller-child rows) F."""
+    n = gbdt.num_data
+    f = gbdt.binned_t.shape[0]
+    b = gbdt.grower_params.num_bins
+    launches = gbdt.grower_params.num_leaves
+    _, smaller = smaller_child_rows(tree)
+    return float(launches * (4 * n * k + 4 * f * b * k) + (n + smaller) * f)
 
 
 def profile_tree(bst, tree_s):
@@ -745,24 +988,47 @@ def profile_tree(bst, tree_s):
     that tree; on the compact path beside its byte bound from the tree's
     node counts. The idle share compares the device time with the
     unprofiled rounds' mean wall time per tree (the profiler slows the
-    host)."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        bst.update()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    host). A trace that holds fewer launches of a kernel than its wrapper
+    counted in that round (the profiler now and then drops device events)
+    is thrown away and the round repeated with one more tree, three trees
+    at most; the masked path launches K3 once a leaf."""
     from torch.autograd import DeviceType
-    by_name = {}
-    launches = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-        elif e.name == "cudaLaunchKernel":
-            launches += 1
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightgbm_tpu_torch import _kernels
+    gbdt = bst._gbdt
+    for _ in range(3):
+        before = dict(_kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            bst.update()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counted = {k: v - before[k] for k, v in _kernels.LAUNCHES.items()}
+        by_name = {}
+        launches = 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                us, n = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+            elif e.name == "cudaLaunchKernel":
+                launches += 1
+        traced = {k: sum(n for name, (_, n) in by_name.items()
+                         if _named(name, fns))
+                  for k, fns in ENTRY_FUNCTIONS.items()}
+        if traced == counted:
+            break
+        print(f"PROFILE retry: the trace holds {traced} launches, the "
+              f"wrappers counted {counted}", flush=True)
+    else:
+        raise AssertionError("three profiled trees each held fewer launches "
+                             "of a kernel than its wrapper counted")
+    if not gbdt.use_compact and gbdt.grower_params.hist_layout == "sublane":
+        check(counted["histogram_sublane"] == gbdt.grower_params.num_leaves,
+              f"K3 launched {counted['histogram_sublane']} times in a masked "
+              f"tree of {gbdt.grower_params.num_leaves} leaves")
     device_s = sum(us for us, _ in by_name.values()) * 1e-6
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     line = {"profiled_wall_s": wall, "device_s": device_s,
@@ -771,12 +1037,14 @@ def profile_tree(bst, tree_s):
             "kernel_launches": launches,
             "top_device_ops": [{"name": k[:60], "ms": us * 1e-3, "calls": n}
                                for k, (us, n) in top]}
-    gbdt = bst._gbdt
     bounds = (tree_byte_bounds(gbdt.models[-1], gbdt.layout)
               if gbdt.use_compact else {})
+    if not gbdt.use_compact and gbdt.grower_params.hist_layout == "sublane":
+        bounds["histogram_sublane"] = masked_tree_k3_bytes(gbdt.models[-1],
+                                                           gbdt)
     for kern, fns in KERNEL_FUNCTIONS.items():
         hits = [(us, n) for name, (us, n) in by_name.items()
-                if any(fn + "<" in name or fn + "(" in name for fn in fns)]
+                if _named(name, fns)]
         entry = {"device_ms": sum(us for us, _ in hits) * 1e-3,
                  "launches": sum(n for _, n in hits)}
         if kern in bounds:
@@ -847,6 +1115,8 @@ def main() -> int:
               ("k3", lambda: phase_kernels_k3(args.rows, results)),
               ("main", lambda: phase_main_path(lgt, args.rows, args.rounds,
                                                results)),
+              ("masked_large", lambda: phase_masked_large(lgt, args.rows,
+                                                          results)),
               ("cpu_vs_card", lambda: phase_cpu_vs_card(lgt, results)),
               ("masked", lambda: phase_masked(lgt, results))]
     for name, run in phases:
@@ -860,6 +1130,9 @@ def main() -> int:
     h, f = results["histogram"], results["fused_split"]
     h3 = results["histogram_sublane"]
     per_tree = results["main"]["profile"]["kernels"]
+    k3_large = results["masked_large"]["profile"]["kernels"][
+        "histogram_sublane"]
+    k3_small = results["masked"]["profile"]["kernels"]["histogram_sublane"]
     kernels = [
         {"name": "histogram", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/histogram.cu",
@@ -897,7 +1170,16 @@ def main() -> int:
          "plain_ms": h3["plain_ms"], "bound_ms": h3["bound_ms"],
          "bound_by": "bytes", "library_ms": h3["library_ms"],
          "path_ms": h3["path"]["kernel_ms"],
-         "path_bound_ms": h3["path"]["bound_ms"]},
+         "path_device_us": h3["path"]["device_us"],
+         "path_bound_ms": h3["path"]["bound_ms"],
+         "k1_dense_ms": h3["k1_dense_ms"],
+         "one_in_eight_rows_ms": h3["one_in_eight_rows_ms"],
+         "skewed_ms": h3["skewed_ms"], "sparse_ms": h3["sparse_ms"],
+         "tree_device_ms": k3_small["device_ms"],
+         "tree_bound_ms": k3_small["bound_ms"],
+         "large_tree_device_ms": k3_large["device_ms"],
+         "large_tree_bound_ms": k3_large["bound_ms"],
+         "large_tree_launches": k3_large["launches"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -46,7 +46,8 @@ KERNELS = {
                              _P, _P, _P],
     }),
     "histogram_sublane": ("histogram_sublane.cu", {
-        "lgbt_hist_sublane": [_P, _L, _P, _I, _L, _I, _I, _I, _P, _P],
+        "lgbt_hist_sublane": [_P, _L, _P, _I, _L, _I, _I, _I, _P, _I, _I,
+                              _I, _I, _I, _I, _I, _P],
     }),
 }
 

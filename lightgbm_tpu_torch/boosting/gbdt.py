@@ -248,10 +248,10 @@ class GBDT:
         md = train_set.metadata
         binned = np.ascontiguousarray(train_set.binned)
         self.binned = torch.from_numpy(binned).to(dev)
-        # feature rows padded to a multiple of 8 bytes: K3 reads each lane's
-        # 8 bins as one aligned load
+        # feature rows padded to a multiple of 16 bytes: K3 loads its tiles
+        # in 16-byte pieces
         n, f = binned.shape
-        binned_t = np.zeros((f, -(-n // 8) * 8), np.uint8)
+        binned_t = np.zeros((f, -(-n // 16) * 16), np.uint8)
         binned_t[:, :n] = binned.T
         self.binned_t = torch.from_numpy(binned_t).to(dev)[:, :n]
         self.label = torch.from_numpy(np.asarray(md.label, np.float32)).to(

@@ -10,8 +10,13 @@ Counterpart of ``lightgbm_tpu/ops/pallas_histogram.py``:
 * the TPU kernel ``_hist_kernel_sublane`` (``pallas_histogram(...,
   hist_layout="sublane")``, B <= 64, bins feature-major) becomes K3,
   ``csrc/histogram_sublane.cu`` — the same sum over feature-major bins,
-  each warp holding its rows' channels in registers across the features it
-  walks, rows with all-zero channels skipped.
+  staged a warp tile at a time through shared memory, features rotated
+  across the lanes of a warp, into a private histogram copy a warp; rows
+  with all-zero channels skipped, sparse tiles compacted; small inputs
+  take a lighter path with one shared histogram a block. Its launch
+  geometry is computed here (``sublane_geometry``);
+  ``tests/test_torch_histogram_sublane.py`` replays the kernel's mapping of
+  (block, warp, lane, step) to (row, feature) in numpy.
 
 What bounds each on the H100 and what its design does about it is in the
 source's header note.
@@ -40,6 +45,9 @@ Each wrapper takes the plain PyTorch version only for CPU tensors; for CUDA
 tensors it launches the kernel or raises.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -96,6 +104,135 @@ def pallas_histogram_sublane_plain(binned_t: torch.Tensor,
                           num_bins, kernel="histogram_sublane")
 
 
+# K3's launch geometry on the H100 (NVIDIA's figures: 228 KB of shared
+# memory an SM, 227 KB a block, 1 KB of it reserved a block, 2,048 threads)
+SUBLANE_COLUMNS = 32          # histogram columns a copy: one per bank
+SUBLANE_ROWS_PER_LANE = 4     # a lane's bins of a feature: one 32-bit word
+SUBLANE_STAGE_ROW = 128       # bytes of a feature in a warp's stage
+SUBLANE_MAX_WARPS = 8
+# at most this many rows take the small-data path, whose fixed costs a
+# launch are lower (chip_smoke.py's K3_PATHS line, PERF.md)
+SUBLANE_SMALL_ROWS = 262_144
+SUBLANE_SMALL_TILE = 256      # small path: 8 rows a lane, 8 warps a block
+SUBLANE_SMALL_BUDGET = 96 * 1024
+SMEM_PER_SM = 233472          # 228 KB
+SMEM_PER_BLOCK = 232448       # 227 KB, the most one block may take
+SMEM_RESERVED_PER_BLOCK = 1024
+THREADS_PER_SM = 2048
+
+
+class SublaneGeometry(NamedTuple):
+    """K3's launch, computed here and passed to the kernel: ``fc``
+    features a chunk (grid.y = ``chunks``), ``warps`` warps a block, work
+    items of ``group`` rotation steps (small path: features), ``grid_x``
+    blocks a chunk, ``blocks_per_sm`` blocks that fit an SM. ``smem`` bytes
+    of shared memory a block: on the tile path ``warps`` private histogram
+    copies, then ``warps`` areas of ``warp_bytes`` (a warp's stage, pending
+    tile and pending rows' channels); on the small-data path (``small``,
+    8 warps) one histogram a block, and ``warp_bytes`` is 0."""
+    fc: int
+    chunks: int
+    warps: int
+    group: int
+    grid_x: int
+    smem: int
+    warp_bytes: int
+    blocks_per_sm: int
+    small: bool
+
+
+def sublane_active_lanes(fcc: int) -> int:
+    """Active lanes of a warp on a chunk of ``fcc`` features: whole
+    replicas of the chunk (32 // fcc of them), rounded down to a multiple
+    of 4; a lane owns 4 rows of a tile."""
+    return min(SUBLANE_COLUMNS // fcc * fcc, 32) & ~3
+
+
+@functools.lru_cache(maxsize=256)
+def sublane_geometry(n: int, num_features: int, num_bins: int, k: int,
+                     num_sms: int) -> SublaneGeometry:
+    """K3's launch geometry for ``n`` rows, ``num_features`` features,
+    ``num_bins`` (<= 64) bins and ``k`` channels on a card of ``num_sms``
+    SMs: the small-data path up to SUBLANE_SMALL_ROWS rows, the tile path
+    above."""
+    _check_sublane_bins(num_bins)
+    if not 1 <= k <= 8:
+        raise ValueError(f"K3 takes 1..8 channels, got {k}")
+    path = (sublane_small_geometry if n <= SUBLANE_SMALL_ROWS
+            else sublane_tile_geometry)
+    return path(n, num_features, num_bins, k, num_sms)
+
+
+def sublane_tile_geometry(n: int, num_features: int, num_bins: int, k: int,
+                          num_sms: int) -> SublaneGeometry:
+    """The tile path: chunks of at most 32 features, a private histogram
+    copy ([B][K][32] f32) a warp, and as many warps a block as fit its
+    shared memory (7 at B = 64, K = 3, F <= 32)."""
+    nf = -(-num_features // SUBLANE_COLUMNS)
+    fc = -(-num_features // nf)
+    widths = [min(fc, num_features - y * fc) for y in range(nf)]
+    # a warp's stage and pending tile ([fc][128 B] each), and 4 rows of K
+    # f32 channels for each of the most active lanes over the chunks
+    warp_bytes = (2 * fc * SUBLANE_STAGE_ROW
+                  + 16 * k * max(sublane_active_lanes(x) for x in widths))
+    per_warp = num_bins * k * SUBLANE_COLUMNS * 4 + warp_bytes
+    w = max(1, min(SUBLANE_MAX_WARPS, SMEM_PER_BLOCK // per_warp))
+    smem = w * per_warp
+    per_sm = max(1, min(SMEM_PER_SM // (smem + SMEM_RESERVED_PER_BLOCK),
+                        THREADS_PER_SM // (32 * w)))
+    # the narrowest active lane count over the chunks gives the most tiles
+    lanes = min(sublane_active_lanes(x) for x in widths)
+    tiles = -(-max(n, 1) // (SUBLANE_ROWS_PER_LANE * lanes))
+    blocks = max(1, num_sms * per_sm // nf)
+    # fewer rotation steps an item when the tiles alone leave warp slots
+    # of the card idle
+    group = min(fc, max(1, -(-tiles * fc // (blocks * w))))
+    items = tiles * -(-fc // group)
+    grid_x = max(1, min(-(-items // w), blocks))
+    return SublaneGeometry(fc, nf, w, group, grid_x, smem, warp_bytes,
+                           per_sm, False)
+
+
+def sublane_small_geometry(n: int, num_features: int, num_bins: int,
+                           k: int, num_sms: int) -> SublaneGeometry:
+    """The small-data path: a block's histogram is [fc][B][K | 1] f32 in at
+    most 96 KB, so that several blocks share an SM; an item covers fewer
+    features when the tiles alone leave warp slots idle."""
+    feature_bytes = num_bins * (k | 1) * 4
+    fc = min(num_features, SUBLANE_SMALL_BUDGET // feature_bytes)
+    chunks = -(-num_features // fc)
+    smem = fc * feature_bytes
+    per_sm = max(1, min(THREADS_PER_SM // 256,
+                        SMEM_PER_SM // (smem + SMEM_RESERVED_PER_BLOCK)))
+    tiles = -(-max(n, 1) // SUBLANE_SMALL_TILE)
+    group = min(fc, max(1, -(-tiles * fc // (num_sms * per_sm * 8))))
+    items = tiles * -(-fc // group)
+    grid_x = max(1, min(num_sms * per_sm // chunks, -(-items // 8)))
+    return SublaneGeometry(fc, chunks, 8, group, grid_x, smem, 0, per_sm,
+                           True)
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch_sublane(binned_t: torch.Tensor, channels: torch.Tensor,
+                    num_bins: int, mode: str,
+                    geom: SublaneGeometry) -> torch.Tensor:
+    f, n = binned_t.shape
+    k = channels.shape[1]
+    out = torch.zeros((f, num_bins, k), dtype=torch.float32,
+                      device=binned_t.device)
+    _kernels.launch("histogram_sublane", "lgbt_hist_sublane",
+                    binned_t.device, binned_t.data_ptr(), binned_t.stride(0),
+                    channels.data_ptr(), k, n, f, num_bins,
+                    1 if mode == "bf16" else 0, out.data_ptr(),
+                    int(geom.small), geom.fc, geom.warps, geom.group,
+                    geom.grid_x, geom.smem, geom.warp_bytes)
+    return out
+
+
 def pallas_histogram_sublane(binned_t: torch.Tensor, channels: torch.Tensor,
                              num_bins: int, mode: str = "split"
                              ) -> torch.Tensor:
@@ -124,14 +261,10 @@ def pallas_histogram_sublane(binned_t: torch.Tensor, channels: torch.Tensor,
         raise ValueError("the sublane histogram kernel needs unit row stride "
                          "bins and contiguous channels")
     f, n = binned_t.shape
-    k = channels.shape[1]
-    out = torch.zeros((f, num_bins, k), dtype=torch.float32,
-                      device=binned_t.device)
-    _kernels.launch("histogram_sublane", "lgbt_hist_sublane",
-                    binned_t.device, binned_t.data_ptr(), binned_t.stride(0),
-                    channels.data_ptr(), k, n, f, num_bins,
-                    1 if mode == "bf16" else 0, out.data_ptr())
-    return out
+    index = binned_t.device.index
+    geom = sublane_geometry(n, f, num_bins, channels.shape[1], _num_sms(
+        torch.cuda.current_device() if index is None else index))
+    return _launch_sublane(binned_t, channels, num_bins, mode, geom)
 
 
 def pallas_histogram(binned: torch.Tensor, channels: torch.Tensor,

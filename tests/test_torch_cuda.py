@@ -22,8 +22,10 @@ from lightgbm_tpu_torch import _kernels
 from lightgbm_tpu_torch.ops.compact import RowLayout, pack_rows
 from lightgbm_tpu_torch.ops.fused_split import fused_split, fused_split_plain
 from lightgbm_tpu_torch.ops.pallas_histogram import (
-    pallas_histogram, pallas_histogram_plain, pallas_histogram_sublane,
-    pallas_histogram_sublane_plain, record_histogram, record_histogram_plain)
+    SUBLANE_SMALL_ROWS, _launch_sublane, pallas_histogram,
+    pallas_histogram_plain, pallas_histogram_sublane,
+    pallas_histogram_sublane_plain, record_histogram, record_histogram_plain,
+    sublane_small_geometry, sublane_tile_geometry)
 from lightgbm_tpu_torch.ops.split import go_left_pred
 
 pytestmark = pytest.mark.cuda
@@ -273,14 +275,17 @@ def test_train_on_card_matches_cpu(dev):
 @pytest.mark.parametrize("n,f,b,k,mode,pad", [
     (20_000, 28, 64, 3, "f32", 0), (5_000, 5, 17, 1, "f32", 0),
     (4_999, 1, 2, 4, "split", 8), (20_000, 28, 63, 4, "bf16", 0),
-    (777, 100, 64, 8, "f32", 5), (33, 28, 64, 3, "f32", 0)])
+    (777, 100, 64, 8, "f32", 5), (33, 28, 64, 3, "f32", 0),
+    (20_000, 31, 64, 3, "f32", 0), (20_000, 32, 64, 3, "f32", 0),
+    (20_001, 33, 64, 3, "f32", 0), (20_000, 65, 64, 5, "f32", 16)])
 def test_sublane_histogram(dev, n, f, b, k, mode, pad):
-    """K3 at the masked path's shape and at edges: N not a multiple of 8
+    """K3 at the masked path's shape and at edges: N not a multiple of 16
     (byte loads), a bins view with a padded row stride, channels one row
     into their allocation (unaligned unless 4 divides K), B = 2 and 17, one
-    feature, F = 100 (feature chunks), 1-8 channels, bf16 rounding; bins up
-    to B + 2 (the ones >= B dropped); a third of the rows with zero
-    channels (skipped)."""
+    feature, F = 31, 32, 33, 65 and 100 (around the 32 histogram columns
+    and the feature chunks), 1-8 channels, bf16 rounding; bins up to B + 2
+    (the ones >= B dropped); a third of the rows with zero channels
+    (skipped)."""
     g = torch.Generator(device=dev)
     g.manual_seed(n + f)
     bins = torch.randint(0, b + 2, (f, n + pad), generator=g, device=dev,
@@ -292,9 +297,14 @@ def test_sublane_histogram(dev, n, f, b, k, mode, pad):
     torch.cuda.synchronize()
     assert _kernels.LAUNCHES["histogram_sublane"] == 1
     plain = pallas_histogram_sublane_plain(bins, ch, b, mode)
-    err = (kern - plain).abs()
     scale = pallas_histogram_sublane_plain(bins, ch.abs(), b, mode)
-    assert bool((err <= 1e-5 * scale + 1e-30).all())
+    # these sizes take the small-data path; the tile path as well
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tile = _launch_sublane(bins, ch, b, mode, sublane_tile_geometry(
+        n, f, b, k, sms))
+    for got in (kern, tile):
+        err = (got - plain).abs()
+        assert bool((err <= 1e-5 * scale + 1e-30).all())
 
 
 def test_sublane_histogram_dyadic_is_exact(dev):
@@ -310,6 +320,82 @@ def test_sublane_histogram_dyadic_is_exact(dev):
     kern = pallas_histogram_sublane(bins, ch.contiguous(), 64, "f32")
     assert torch.equal(kern, pallas_histogram_sublane_plain(bins, ch, 64,
                                                             "f32"))
+
+
+def _dyadic(n, g, dev, integer=False):
+    if integer:
+        # a bin may hold every row: integer sums stay exact below 2^24
+        gr = torch.randint(-1, 2, (n,), generator=g, device=dev).float()
+        he = torch.randint(0, 2, (n,), generator=g, device=dev).float()
+    else:
+        gr = torch.randint(-128, 129, (n,), generator=g, device=dev) / 64.0
+        he = torch.randint(0, 65, (n,), generator=g, device=dev) / 64.0
+    cnt = (torch.rand(n, generator=g, device=dev) > 0.1).float()
+    return torch.stack([gr, he, cnt], 1).contiguous()
+
+
+@pytest.mark.parametrize("skew", ["bin0_90", "one_bin"])
+def test_sublane_histogram_skewed_bins_is_exact(dev, skew):
+    """Skewed features: 90% of the rows in bin 0, or every row of a
+    feature in one bin. Integer channels keep every partial sum exact, so
+    kernel and plain version agree bit for bit."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    n, f = 2_000_000, 28
+    bins = torch.randint(0, 64, (f, n), generator=g, device=dev,
+                         dtype=torch.uint8)
+    if skew == "bin0_90":
+        bins[torch.rand(f, n, generator=g, device=dev) < 0.9] = 0
+    else:
+        bins[:] = (torch.arange(f, device=dev) * 37 % 64).to(
+            torch.uint8)[:, None]
+    ch = _dyadic(n, g, dev, integer=True)
+    assert torch.equal(pallas_histogram_sublane(bins, ch, 64, "f32"),
+                       pallas_histogram_sublane_plain(bins, ch, 64, "f32"))
+
+
+@pytest.mark.parametrize("live", ["random_8", "random_64", "runs", "none"])
+def test_sublane_histogram_sparse_is_exact(dev, live):
+    """The masked grower's deeper splits: few live rows (non-zero
+    channels), spread out or in runs. Dead 16-row pieces are not read and
+    sparse tiles go through the warp's pending tile; dyadic channels make
+    the result exact."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    n, f = 1_000_003, 28
+    bins = torch.randint(0, 64, (f, n), generator=g, device=dev,
+                         dtype=torch.uint8)
+    rows = torch.arange(n, device=dev)
+    mask = {"random_8": torch.rand(n, generator=g, device=dev) < 1 / 8,
+            "random_64": torch.rand(n, generator=g, device=dev) < 1 / 64,
+            "runs": (rows // 3000) % 2 == 0,
+            "none": torch.zeros(n, dtype=torch.bool, device=dev)}[live]
+    ch = (_dyadic(n, g, dev) * mask[:, None]).contiguous()
+    kern = pallas_histogram_sublane(bins, ch, 64, "f32")
+    assert torch.equal(kern, pallas_histogram_sublane_plain(bins, ch, 64,
+                                                            "f32"))
+    assert float(kern[0, :, 2].sum()) == float(ch[:, 2].sum())
+
+
+@pytest.mark.parametrize("small,k,warps", [(False, 3, 7), (False, 2, 8),
+                                           (False, 6, 3), (True, 3, 8)])
+def test_sublane_histogram_geometries_agree(dev, small, k, warps):
+    """Both paths just past the row count where the host switches between
+    them, at block sizes that the channel count leaves on the tile path
+    (7, 8 and 3 warps), give the plain result on dyadic channels."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+    n, f = SUBLANE_SMALL_ROWS + 1, 28
+    bins = torch.randint(0, 64, (f, n), generator=g, device=dev,
+                         dtype=torch.uint8)
+    ch = torch.cat([_dyadic(n, g, dev)] * 3, 1)[:, :k].contiguous()
+    ch[::5] = 0.0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    path = sublane_small_geometry if small else sublane_tile_geometry
+    geom = path(n, f, 64, k, sms)
+    assert (geom.warps, geom.small) == (warps, small)
+    assert torch.equal(_launch_sublane(bins, ch, 64, "f32", geom),
+                       pallas_histogram_sublane_plain(bins, ch, 64, "f32"))
 
 
 def test_sublane_histogram_rejects_bad_inputs(dev):
