@@ -64,7 +64,30 @@ non-zero):
    the same training on the CPU and on the card with the lane layout (K1),
    predictions within 1e-4, and save_model -> Booster(model_file=...) ->
    predict within 1e-6, and a profiled tree with K3's device ms beside its
-   byte bound.
+   byte bound;
+9. the masked grower with multiclass and categorical splits: the same 20k
+   rows with the multiclass label and categorical columns, max_bin=63, 63
+   leaves, sublane, 20 rounds: iterations/s, K3's launches (> 0) and K1's
+   and K2's (0), host syncs inside one tree (0); save_model ->
+   Booster(model_file=...) -> predict (1e-6); the card against the CPU,
+   reported at 20 rounds beside a CPU control that nudges the row weights
+   by 1e-6, and held within 1e-4 at 3 rounds on weighted rows, where the
+   control agrees; one objective=regression run with the categorical
+   columns on the card against the CPU (1e-4);
+10. the multiclass compact path at the main path's row count: the same
+   Higgs-shaped rows with a 5-class label cut from the generator's logits
+   and five categorical columns (four of 32 codes for the sorted scan, one
+   of 3 for the one-hot scan; make_higgs_multiclass_like),
+   objective=multiclass, 255 leaves, 255 bins, 1 warm-up and 2 timed
+   rounds (5 trees a round): iterations/s and trees/s, validation
+   multi_logloss (below ln 5) and multi_error, K1's and K2's launches (> 0),
+   K3's (0), plain calls (0), host syncs inside one tree (0), one-hot and
+   sorted categorical splits (each > 0), the record's width; K2 on a
+   sorted categorical split of the grown trees (its 8-word bitset) over the
+   whole wider record array against its plain version, timed; a profiled
+   tree with K1's and K2's device ms beside their byte bounds; and the
+   card against the CPU at 100k rows, 31 leaves, 3 rounds, on weighted rows
+   (tie_free_weights: every class probability within 1e-4).
 
 Each profiled tree must hold as many launches of each kernel as its wrapper
 counted in that round; a short trace is repeated. The line before the last
@@ -93,15 +116,44 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 RECORD_ROW_BYTES = 64          # bins + channels: two 32-byte sectors a row
 
 
-def make_higgs_like(n, f, seed=7):
-    """Dense float features + nonlinear binary target (Higgs-shaped)."""
+def make_higgs_like(n, f, seed=7, with_logits=False):
+    """Dense float features + nonlinear binary target (Higgs-shaped); with
+    ``with_logits`` also the logits the target is cut from."""
     rng = np.random.RandomState(seed)
     X = rng.randn(n, f).astype(np.float32)
     w1 = rng.randn(f) / np.sqrt(f)
     w2 = rng.randn(f) / np.sqrt(f)
     logits = X @ w1 + 0.7 * np.abs(X @ w2) - 0.4 + 0.5 * rng.randn(n)
     y = (logits > 0).astype(np.float64)
-    return X, y
+    return (X, y, logits) if with_logits else (X, y)
+
+
+# the multiclass case's categorical columns: four cut into 32 quantile codes
+# (the sorted scan) and one into 3 (the one-hot scan: 3 categories and the
+# missing bin make 4 bins, max_cat_to_onehot's default)
+MC_SORTED_COLS = (0, 1, 2, 3)
+MC_ONEHOT_COL = 4
+MC_CATS = list(MC_SORTED_COLS) + [MC_ONEHOT_COL]
+MC_CLASSES = 5
+MC_PARAMS = {"objective": "multiclass", "num_class": MC_CLASSES,
+             "metric": "multi_logloss,multi_error", "num_leaves": 255,
+             "max_bin": 255, "learning_rate": 0.1, "min_data_in_leaf": 100,
+             "verbosity": -1}
+
+
+def make_higgs_multiclass_like(X, logits, seed=7):
+    """The repo's own multiclass-and-categorical case
+    (scripts/gen_interop_goldens.py:52-66) on Higgs-shaped rows: a 5-class
+    label cut from the generator's logits at their 20/40/60/80% quantiles;
+    columns 0-3 become 32 quantile codes and column 4 three, each mapped
+    through a fixed permutation from the seed so that code order does not
+    follow the target. Rewrites ``X`` in place; returns ``(X, y)``."""
+    rng = np.random.RandomState(seed + 1)
+    y = np.digitize(logits, np.quantile(logits, [0.2, 0.4, 0.6, 0.8]))
+    for j, k in [(c, 32) for c in MC_SORTED_COLS] + [(MC_ONEHOT_COL, 3)]:
+        edges = np.quantile(X[:, j], np.linspace(0, 1, k + 1)[1:-1])
+        X[:, j] = rng.permutation(k)[np.searchsorted(edges, X[:, j])]
+    return X, y.astype(np.float64)
 
 
 def check(cond, what):
@@ -181,6 +233,17 @@ def syncs_in_second_tree(module, name, out):
         yield
     finally:
         setattr(module, name, grow)
+
+
+def compare_boosters(a, b, X):
+    """(max |prediction difference|, splits that differ) of two boosters
+    with the same trees."""
+    differ = 0
+    for ta, tb in zip(a._gbdt.models, b._gbdt.models):
+        differ += int(((ta.split_feature != tb.split_feature)
+                       | (ta.split_bin != tb.split_bin)
+                       | (ta.default_left != tb.default_left)).sum())
+    return float(np.abs(a.predict(X) - b.predict(X)).max()), differ
 
 
 def phase_kernels_k1(n, results):
@@ -348,6 +411,16 @@ def check_split(kern, plain, before, start, count, n_left, side, layout,
               f"{what}: padding bytes changed")
 
 
+def abs_grad(arr, layout):
+    """A copy of a record array with |grad| in the grad column: its
+    histograms give each cell's sum of |addends|."""
+    out = arr.clone()
+    gcol = out[:, layout.grad_off:layout.grad_off + 4].contiguous()
+    out[:, layout.grad_off:layout.grad_off + 4] = gcol.view(
+        torch.float32).abs().view(torch.uint8)
+    return out
+
+
 def phase_kernels_k2(n_big, results):
     from lightgbm_tpu_torch.ops.compact import RowLayout, pack_rows
     from lightgbm_tpu_torch.ops.fused_split import (fused_split,
@@ -419,12 +492,8 @@ def phase_kernels_k2(n_big, results):
                     n_left if c["mode"] == 0 else cnt, side, layout,
                     f"K2 {c}")
         # the same split of the same rows with |grad| gives sum|addends|
-        absw, abss = w0.clone(), s0.clone()
-        for arr in (absw, abss):
-            gcol = arr[:, layout.grad_off:layout.grad_off + 4].contiguous()
-            arr[:, layout.grad_off:layout.grad_off + 4] = gcol.view(
-                torch.float32).abs().view(torch.uint8)
-        _, _, habs = fused_split_plain(absw, abss, *args, **kw)
+        _, _, habs = fused_split_plain(abs_grad(w0, layout),
+                                       abs_grad(s0, layout), *args, **kw)
         worst = max(worst, hist_close(hk, hp, habs, f"K2 {c}"))
         print("K2 ok", json.dumps(c), "n_left", n_left, flush=True)
     del base, garbage
@@ -716,7 +785,7 @@ def phase_main_path(lgt, rows, rounds, results):
     from lightgbm_tpu_torch import _kernels
     from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
     t0 = time.perf_counter()
-    X, y = make_higgs_like(rows, 28)
+    X, y, logits = make_higgs_like(rows, 28, with_logits=True)
     n_val = rows // 10
     Xt, yt, Xv, yv = X[:-n_val], y[:-n_val], X[-n_val:], y[-n_val:]
     gen_s = time.perf_counter() - t0
@@ -768,8 +837,8 @@ def phase_main_path(lgt, rows, rounds, results):
     check(syncs.get("in_tree") == 0, "host syncs inside the split loop")
     out["profile"] = profile_tree(bst, 1.0 / it_s)
     results["main"] = out
-    # the large-N masked phase trains on the same rows
-    results["higgs_rows"] = (Xt, yt, Xv, yv)
+    # the large-N masked and the multiclass phases train on the same rows
+    results["higgs"] = (X, y, logits, n_val)
 
 
 def phase_masked_large(lgt, rows, results):
@@ -780,7 +849,8 @@ def phase_masked_large(lgt, rows, results):
     profiled tree with K3's device ms beside its byte bound a tree."""
     from lightgbm_tpu_torch import _kernels
     from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
-    Xt, yt, Xv, yv = results.pop("higgs_rows")
+    X, y, _, n_val = results["higgs"]
+    Xt, yt, Xv, yv = X[:-n_val], y[:-n_val], X[-n_val:], y[-n_val:]
     rounds = 2
     params = {"objective": "binary", "metric": "auc", "num_leaves": 63,
               "max_bin": 63, "learning_rate": 0.1, "min_data_in_leaf": 100,
@@ -900,12 +970,8 @@ def phase_masked(lgt, results):
         bst.save_model(path)
         back = lgt.Booster(model_file=path)
         reload_diff = float(np.abs(back.predict(X) - pred).max())
-    differ = 0
-    for a, b in zip(bst._gbdt.models, cpu._gbdt.models):
-        differ += int(((a.split_feature != b.split_feature)
-                       | (a.split_bin != b.split_bin)
-                       | (a.default_left != b.default_left)).sum())
-    cmp = {"cpu_max_abs_pred_diff": float(np.abs(cpu.predict(X) - pred).max()),
+    cpu_diff, differ = compare_boosters(bst, cpu, X)
+    cmp = {"cpu_max_abs_pred_diff": cpu_diff,
            "cpu_differing_splits": differ,
            "lane_max_abs_pred_diff":
                float(np.abs(lane.predict(X) - pred).max()),
@@ -922,6 +988,334 @@ def phase_masked(lgt, results):
     out.update(cmp)
     out["profile"] = profile_tree(bst, 1.0 / it_s)
     results["masked"] = out
+
+
+def categorical_split_counts(bst):
+    """(one-hot, sorted) categorical splits in a booster's trees: a
+    categorical feature of at most max_cat_to_onehot bins splits one-hot."""
+    gbdt = bst._gbdt
+    onehot_max = int(gbdt.config.get("max_cat_to_onehot", 4))
+    counts = [0, 0]
+    for t in gbdt.models:
+        for f in t.split_feature[:t.num_nodes]:
+            m = gbdt.mappers[int(f)]
+            if m.is_categorical:
+                counts[m.num_bins > onehot_max] += 1
+    return tuple(counts)
+
+
+def check_k2_grown_split(bst):
+    """K2 against its plain version on the multiclass record array (all
+    training rows, the wider record) with a sorted categorical split the
+    grower chose: its feature and its 8-word bin bitset, as the root split
+    of the whole array, on integer grad and hess (bit-equal histograms);
+    then its time there and its byte bound."""
+    from lightgbm_tpu_torch.ops.fused_split import (fused_split,
+                                                    fused_split_plain)
+    from lightgbm_tpu_torch.ops.split import go_left_pred
+    gbdt = bst._gbdt
+    layout = gbdt.layout
+    B = gbdt.grower_params.num_bins
+    onehot_max = int(gbdt.config.get("max_cat_to_onehot", 4))
+    node = None
+    for t in reversed(gbdt.models):
+        for i in range(t.num_nodes):
+            m = gbdt.mappers[int(t.split_feature[i])]
+            if m.is_categorical and m.num_bins > onehot_max:
+                node = (int(t.split_feature[i]), t.cat_bitset[i])
+                break
+        if node is not None:
+            break
+    check(node is not None, "no sorted categorical split in the trees")
+    feat, words = node
+    dev = gbdt.work.device
+    bits = torch.from_numpy(np.ascontiguousarray(words).view(
+        np.int32)).to(dev)
+    check(bits.numel() == -(-B // 32), f"bitset of {bits.numel()} words")
+    n = gbdt.num_data
+    work, scratch = gbdt.work.clone(), torch.zeros_like(gbdt.work)
+    # integer grad and hess: a categorical bin may hold millions of rows,
+    # and integer partial sums below 2^24 are exact in f32 whatever the
+    # order, so kernel and plain version must agree bit for bit
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    ints = torch.stack([torch.randint(-1, 2, (n,), generator=g, device=dev),
+                        torch.randint(0, 2, (n,), generator=g, device=dev)],
+                       dim=1).float()
+    work[:, layout.grad_off:layout.grad_off + 8] = ints.view(torch.uint8)
+    del ints
+    n_left = int(go_left_pred(work[:n, feat], 0, False, 0, True,
+                              bits).sum())
+    args = (0, 0, n, n_left, feat, 0, 0, 0, 1, bits, layout, B)
+    wk, sk = work.clone(), scratch.clone()
+    _, _, hk = fused_split(wk, sk, *args, side=0)
+    wp, spl = work.clone(), scratch.clone()
+    _, _, hp = fused_split_plain(wp, spl, *args, side=0)
+    check_split((wk, sk), (wp, spl), (work, scratch), 0, n, n_left, 0,
+                layout, "K2 grown categorical split")
+    err = hist_close(hk, hp, hp, "K2 grown categorical split", 0)
+    del wk, sk, wp, spl, hk, hp
+    calls = [0]
+
+    def alternating():
+        fused_split(work, scratch, *args, side=calls[0] % 2)
+        calls[0] += 1
+    n_small = min(n_left, n - n_left)
+    line = {"rows": n, "feature": feat, "bitset_words": bits.numel(),
+            "bins_left": int(sum(bin(int(w)).count("1")
+                                 for w in np.asarray(words))),
+            "n_left": n_left, "max_abs_err": err,
+            "record_real_bytes": layout.num_real_cols,
+            "moved_bytes": layout.moved_cols,
+            "kernel_ms": time_ms(alternating),
+            "bound_ms": 1e3 * (2 * n * layout.num_real_cols
+                               + n_small * RECORD_ROW_BYTES)
+            / HBM_BYTES_PER_S}
+    print("K2_CATEGORICAL", json.dumps(line), flush=True)
+    del work, scratch
+    return line
+
+
+def phase_multiclass(lgt, rows, results):
+    """The compact path with multiclass and categorical splits at the main
+    path's row count: the main path's Higgs-shaped rows (no second
+    generation) with a 5-class label and five categorical columns
+    (make_higgs_multiclass_like), objective=multiclass, 255 leaves, 255
+    bins, 10% validation, 1 warm-up and 2 timed rounds (5 trees a round);
+    then K2 on a grown categorical split, a profiled round, and the card
+    against the CPU at 100k rows."""
+    from lightgbm_tpu_torch import _kernels
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    X, _, logits, n_val = results.pop("higgs")
+    t0 = time.perf_counter()
+    X, y = make_higgs_multiclass_like(X, logits)
+    label_s = time.perf_counter() - t0
+    Xt, yt, Xv, yv = X[:-n_val], y[:-n_val], X[-n_val:], y[-n_val:]
+    rounds = 2
+    syncs = {}
+    ends = []
+
+    def timer(env):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+    timer.order = 5
+
+    t1 = time.perf_counter()
+    ds = lgt.Dataset(Xt, yt, categorical_feature=MC_CATS)
+    dv = ds.create_valid(Xv, yv)
+    ds.construct()
+    dv.construct()
+    construct_s = time.perf_counter() - t1
+    evals = {}
+    _kernels.reset_counts()
+    with syncs_in_second_tree(gbdt_mod, "grow_tree_compact", syncs):
+        bst = lgt.train(dict(MC_PARAMS, device_type="cuda"), ds, 1 + rounds,
+                        valid_sets=[dv],
+                        callbacks=[timer, lgt.record_evaluation(evals)])
+    launches = dict(_kernels.LAUNCHES)
+    plain_calls = dict(_kernels.PLAIN_CALLS)
+    check(len(ends) == 1 + rounds, f"trained {len(ends)} rounds")
+    it_s = rounds / (ends[-1] - ends[0])
+    logloss = evals["valid_0"]["multi_logloss"][-1]
+    error = evals["valid_0"]["multi_error"][-1]
+    onehot, sorted_ = categorical_split_counts(bst)
+    lay = bst._gbdt.layout
+    out = {"train_rows": len(yt), "valid_rows": len(yv), "classes":
+           MC_CLASSES, "rounds_timed": rounds, "iterations_per_s": it_s,
+           "trees_per_s": it_s * MC_CLASSES, "construct_s": construct_s,
+           "label_and_codes_s": label_s, "valid_multi_logloss": logloss,
+           "valid_multi_error": error, "class_prior_logloss":
+           float(np.log(MC_CLASSES)), "launches": launches,
+           "launches_per_round": {k: v / (1 + rounds)
+                                  for k, v in launches.items()},
+           "plain_calls": plain_calls,
+           "host_syncs_in_tree": syncs.get("in_tree"),
+           "num_trees": bst.num_trees(), "onehot_splits": onehot,
+           "sorted_cat_splits": sorted_, "record_bytes": lay.num_cols,
+           "record_real_bytes": lay.num_real_cols,
+           "moved_bytes": lay.moved_cols}
+    if rows < 10_500_000:
+        out["note"] = "rows lowered by --rows"
+    print("MULTICLASS", json.dumps(out), flush=True)
+    check(bst._gbdt.use_compact, "the multiclass phase did not take the "
+          "compact grower")
+    check(launches["histogram"] > 0 and launches["fused_split"] > 0,
+          f"K1/K2 not launched on the multiclass compact path: {launches}")
+    check(launches["histogram_sublane"] == 0, "K3 launched on the compact "
+          "path")
+    for k, v in plain_calls.items():
+        check(v == 0, f"plain version of {k} ran {v} times on the card")
+    check(syncs.get("in_tree") == 0, "host syncs inside the split loop")
+    check(onehot > 0 and sorted_ > 0, f"categorical splits: {onehot} "
+          f"one-hot, {sorted_} sorted")
+    check(np.isfinite(logloss) and logloss < np.log(MC_CLASSES),
+          f"validation multi_logloss {logloss} not below the class prior's")
+    out["k2_categorical"] = check_k2_grown_split(bst)
+    out["profile"] = profile_tree(bst, 1.0 / (it_s * MC_CLASSES),
+                                  (gbdt_mod, "grow_tree_compact"))
+    del bst, ds, dv, X, Xt, Xv
+    out["cpu_vs_card"] = multiclass_cpu_vs_card(lgt)
+    results["multiclass"] = out
+
+
+def tie_free_weights(n, seed=13):
+    """Row weights for the multiclass card-against-CPU comparisons. In the
+    first round the softmax gradients take two values (1/K - y), so two
+    categories with the same class counts have equal sums and tie exactly in
+    the sorted scan: f32 summation order (the card's atomics, the CPU's row
+    order) then picks one of two different category sets, and the models
+    part. Continuous weights leave no such exact tie (a deep model can
+    still part at a near tie: phase_multiclass_masked's control)."""
+    return np.random.RandomState(seed).uniform(0.5, 1.5, n)
+
+
+def multiclass_cpu_vs_card(lgt):
+    """The multiclass phase's configuration at 100k rows, 31 leaves and 3
+    rounds, on weighted rows (tie_free_weights), on the card and on the
+    CPU: every class probability within 1e-4."""
+    X, _, logits = make_higgs_like(100_000, 28, seed=11, with_logits=True)
+    X, y = make_higgs_multiclass_like(X, logits)
+    w = tie_free_weights(len(y))
+    params = dict(MC_PARAMS, num_leaves=31)
+    boosters = {dev: lgt.train(dict(params, device_type=dev),
+                               lgt.Dataset(X, y, weight=w,
+                                           categorical_feature=MC_CATS),
+                               3) for dev in ("cuda", "cpu")}
+    check(boosters["cuda"]._gbdt.use_compact, "100k rows did not take the "
+          "compact grower")
+    diff, differ = compare_boosters(boosters["cuda"], boosters["cpu"], X)
+    out = {"rows": 100_000, "weighted": True, "max_abs_prob_diff": diff,
+           "differing_splits": differ,
+           "categorical_splits": categorical_split_counts(boosters["cuda"])}
+    print("MULTICLASS_CPU_VS_CARD", json.dumps(out), flush=True)
+    check(diff <= 1e-4, f"multiclass card vs CPU probabilities differ by "
+          f"{diff}")
+    return out
+
+
+def phase_multiclass_masked(lgt, results):
+    """The masked grower with multiclass and categorical splits: the
+    serving bench's 20k x 28 rows (bench.py:769-776) with the multiclass
+    case's label and categorical columns, max_bin=63, 63 leaves, the
+    sublane layout (K3), 20 rounds; the saved and reloaded model; the
+    card against the CPU, reported at 20 rounds beside a CPU control (the
+    CPU against itself with the rows weighted 1 + 1e-6 x noise) and checked
+    at 3 rounds on weighted rows (tie_free_weights), where the same control
+    agrees; and one
+    objective=regression run with the categorical columns on the card
+    against the CPU."""
+    from lightgbm_tpu_torch import _kernels
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    rounds = 20
+    X, _, logits = make_higgs_like(22_000, 28, with_logits=True)
+    X, y = make_higgs_multiclass_like(X, logits)
+    Xt, yt, Xv, yv = X[:20_000], y[:20_000], X[20_000:], y[20_000:]
+    params = dict(MC_PARAMS, num_leaves=63, max_bin=63, min_data_in_leaf=20,
+                  tpu_hist_layout="sublane")
+    syncs = {}
+    ends = []
+
+    def timer(env):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+    timer.order = 5
+
+    def dataset(X_, y_, w=None):
+        return lgt.Dataset(X_, y_, weight=w, categorical_feature=MC_CATS)
+
+    evals = {}
+    _kernels.reset_counts()
+    with syncs_in_second_tree(gbdt_mod, "grow_tree", syncs):
+        ds = dataset(Xt, yt)
+        bst = lgt.train(dict(params, device_type="cuda"), ds, rounds,
+                        valid_sets=[ds.create_valid(Xv, yv)],
+                        callbacks=[timer, lgt.record_evaluation(evals)])
+    launches = dict(_kernels.LAUNCHES)
+    plain_calls = dict(_kernels.PLAIN_CALLS)
+    check(len(ends) == rounds, f"trained {len(ends)} rounds")
+    it_s = (rounds - 1) / (ends[-1] - ends[0])
+    onehot, sorted_ = categorical_split_counts(bst)
+    out = {"train_rows": 20_000, "valid_rows": 2_000, "rounds": rounds,
+           "iterations_per_s": it_s, "trees_per_s": it_s * MC_CLASSES,
+           "valid_multi_logloss": evals["valid_0"]["multi_logloss"][-1],
+           "valid_multi_error": evals["valid_0"]["multi_error"][-1],
+           "launches": launches, "plain_calls": plain_calls,
+           "host_syncs_in_tree": syncs.get("in_tree"),
+           "num_trees": bst.num_trees(), "onehot_splits": onehot,
+           "sorted_cat_splits": sorted_,
+           "hist_layout": bst._gbdt.grower_params.hist_layout}
+    print("MULTICLASS_MASKED", json.dumps(out), flush=True)
+    check(not bst._gbdt.use_compact, "20k rows did not take the masked "
+          "grower")
+    check(launches["histogram_sublane"] > 0, "K3 was not launched on the "
+          "masked multiclass path")
+    check(launches["histogram"] == 0 and launches["fused_split"] == 0,
+          f"K1/K2 launched on the masked sublane path: {launches}")
+    for k, v in plain_calls.items():
+        check(v == 0, f"plain version of {k} ran {v} times on the card")
+    check(syncs.get("in_tree") == 0, "host syncs inside the split loop")
+    check(onehot > 0 and sorted_ > 0, f"categorical splits: {onehot} "
+          f"one-hot, {sorted_} sorted")
+
+    pred = bst.predict(X)
+    check(np.all(np.isfinite(pred)) and pred.shape == (22_000, MC_CLASSES),
+          "masked multiclass predictions")
+    def train(dev, w, n_rounds):
+        return lgt.train(dict(params, device_type=dev), dataset(Xt, yt, w),
+                         n_rounds)
+    # reported, not checked, at the run's 20 rounds: the card against the
+    # CPU, and the CPU against itself on rows weighted 1 + 1e-6 x noise. A
+    # model this deep is bistable (exact ties of the sorted scan, then near
+    # ties), so where the CPU control parts, the card may part as well
+    w = tie_free_weights(len(yt))
+    nudged = 1.0 + 1e-6 * np.random.RandomState(17).randn(len(yt))
+    cpu = train("cpu", None, rounds)
+    deep_card = compare_boosters(bst, cpu, X)
+    deep_control = compare_boosters(train("cpu", nudged, rounds), cpu, X)
+    # checked: 3 rounds on weighted rows (tie_free_weights), as the compact
+    # phase compares, where the same CPU control shows the comparison is
+    # well posed
+    shallow = 3
+    cpu_w = train("cpu", w, shallow)
+    control = compare_boosters(train("cpu", w * nudged, shallow), cpu_w, X)
+    cpu_diff, cpu_differ = compare_boosters(train("cuda", w, shallow), cpu_w,
+                                            X)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.txt")
+        bst.save_model(path)
+        back = lgt.Booster(model_file=path)
+        reload_diff = float(np.abs(back.predict(X) - pred).max())
+    # a pointwise objective on the card: regression on the logits
+    reg = {"objective": "regression", "num_leaves": 63, "max_bin": 63,
+           "min_data_in_leaf": 20, "tpu_hist_layout": "sublane",
+           "verbosity": -1}
+    _kernels.reset_counts()
+    reg_card = lgt.train(dict(reg, device_type="cuda"),
+                         dataset(Xt, logits[:20_000]), 10)
+    reg_launches = dict(_kernels.LAUNCHES)
+    reg_cpu = lgt.train(dict(reg, device_type="cpu"),
+                        dataset(Xt, logits[:20_000]), 10)
+    reg_diff, _ = compare_boosters(reg_card, reg_cpu, X)
+    cmp = {"rounds_20": {"card_vs_cpu": deep_card,
+                         "cpu_vs_nudged_cpu": deep_control},
+           "rounds_3_weighted": {"card_vs_cpu": [cpu_diff, cpu_differ],
+                                 "cpu_vs_nudged_cpu": control},
+           "reload_max_abs_prob_diff": reload_diff,
+           "regression_cpu_max_abs_pred_diff": reg_diff,
+           "regression_launches": reg_launches,
+           "regression_categorical_splits":
+               categorical_split_counts(reg_card)}
+    print("MULTICLASS_MASKED_CHECKS", json.dumps(cmp), flush=True)
+    check(control[0] <= 1e-4, f"masked multiclass: the 3-round CPU control "
+          f"parts by {control[0]}; the card comparison is not well posed")
+    check(cpu_diff <= 1e-4, f"masked multiclass: card vs CPU on weighted "
+          f"rows {cpu_diff}")
+    check(reload_diff <= 1e-6, f"reloaded model differs by {reload_diff}")
+    check(reg_launches["histogram_sublane"] > 0, "K3 not launched by the "
+          "regression run")
+    check(reg_diff <= 1e-4, f"regression: card vs CPU {reg_diff}")
+    out.update(cmp)
+    results["multiclass_masked"] = out
 
 
 # the device functions of each kernel of the port, as the profiler names them
@@ -982,31 +1376,68 @@ def masked_tree_k3_bytes(tree, gbdt, k=3):
     return float(launches * (4 * n * k + 4 * f * b * k) + (n + smaller) * f)
 
 
-def profile_tree(bst, tree_s):
-    """One more boosting round under torch.profiler: device time by kernel
-    and the launches of a tree, and each of the port's kernels' device ms in
-    that tree; on the compact path beside its byte bound from the tree's
-    node counts. The idle share compares the device time with the
-    unprofiled rounds' mean wall time per tree (the profiler slows the
-    host). A trace that holds fewer launches of a kernel than its wrapper
-    counted in that round (the profiler now and then drops device events)
-    is thrown away and the round repeated with one more tree, three trees
-    at most; the masked path launches K3 once a leaf."""
+def profile_tree(bst, tree_s, grower=None):
+    """One more boosting round with torch.profiler on: device time by
+    kernel and the launches of a tree, and each of the port's kernels'
+    device ms in that tree beside its byte bound from the tree's node
+    counts (compact, and K3 on the masked path). With ``grower`` (module,
+    name) the round grows K > 1 trees and only the first tree's grower call
+    is traced (a round's trace of K trees is K times as long to take and
+    read); else the whole round, one tree. The idle share compares the
+    device time with ``tree_s``, the unprofiled mean wall time a tree (the
+    profiler slows the host). A trace that holds fewer launches of a kernel
+    than its wrapper counted in it (the profiler now and then drops device
+    events) is thrown away and the round repeated, three rounds at most;
+    the masked path launches K3 once a leaf."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from lightgbm_tpu_torch import _kernels
     gbdt = bst._gbdt
     for _ in range(3):
-        before = dict(_kernels.LAUNCHES)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            bst.update()
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        box = {}
+
+        def traced_call(fn, *a, **kw):
+            before = dict(_kernels.LAUNCHES)
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        counted = {k: v - before[k] for k, v in _kernels.LAUNCHES.items()}
+            prof.start()
+            # a trace taken late in a process can miss the first device
+            # activities after it starts (the more traces before it, the
+            # more): let tiny kernels take their place (about 0.5 ms of
+            # device time in the report)
+            warm = torch.zeros(4, device=gbdt.device)
+            for _ in range(256):
+                warm.add_(1.0)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            t0 = time.perf_counter()
+            try:
+                res = fn(*a, **kw)
+                torch.cuda.synchronize()
+            finally:
+                prof.stop()
+            box["wall"] = time.perf_counter() - t0
+            box["counted"] = {k: v - before[k]
+                              for k, v in _kernels.LAUNCHES.items()}
+            return res
+        if grower is None:
+            traced_call(bst.update)
+        else:
+            module, name = grower
+            grow = getattr(module, name)
+
+            def first(*a, **kw):
+                if box:
+                    return grow(*a, **kw)
+                return traced_call(grow, *a, **kw)
+            setattr(module, name, first)
+            try:
+                bst.update()
+            finally:
+                setattr(module, name, grow)
+        wall, counted = box["wall"], box["counted"]
         by_name = {}
         launches = 0
         for e in prof.events():
@@ -1025,23 +1456,27 @@ def profile_tree(bst, tree_s):
     else:
         raise AssertionError("three profiled trees each held fewer launches "
                              "of a kernel than its wrapper counted")
+    # the traced tree: the round's only tree, or its first (class 0)
+    tree = gbdt.models[-gbdt.num_class]
     if not gbdt.use_compact and gbdt.grower_params.hist_layout == "sublane":
         check(counted["histogram_sublane"] == gbdt.grower_params.num_leaves,
               f"K3 launched {counted['histogram_sublane']} times in a masked "
               f"tree of {gbdt.grower_params.num_leaves} leaves")
     device_s = sum(us for us, _ in by_name.values()) * 1e-6
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    line = {"profiled_wall_s": wall, "device_s": device_s,
+    line = {"traced": "first tree of the round" if grower else "round",
+            "profiled_wall_s": wall, "device_s": device_s,
             "unprofiled_tree_s": tree_s,
             "device_idle_share": 1.0 - device_s / tree_s,
             "kernel_launches": launches,
             "top_device_ops": [{"name": k[:60], "ms": us * 1e-3, "calls": n}
                                for k, (us, n) in top]}
-    bounds = (tree_byte_bounds(gbdt.models[-1], gbdt.layout)
-              if gbdt.use_compact else {})
-    if not gbdt.use_compact and gbdt.grower_params.hist_layout == "sublane":
-        bounds["histogram_sublane"] = masked_tree_k3_bytes(gbdt.models[-1],
-                                                           gbdt)
+    if gbdt.use_compact:
+        bounds = tree_byte_bounds(tree, gbdt.layout)
+    elif gbdt.grower_params.hist_layout == "sublane":
+        bounds = {"histogram_sublane": masked_tree_k3_bytes(tree, gbdt)}
+    else:
+        bounds = {}
     for kern, fns in KERNEL_FUNCTIONS.items():
         hits = [(us, n) for name, (us, n) in by_name.items()
                 if _named(name, fns)]
@@ -1063,14 +1498,7 @@ def phase_cpu_vs_card(lgt, results):
         boosters[dev] = lgt.train(dict(params, device_type=dev),
                                   lgt.Dataset(X, y), 3)
     pg = boosters["cuda"].predict(X)
-    pc = boosters["cpu"].predict(X)
-    diff = float(np.abs(pg - pc).max())
-    differ = 0
-    for a, b in zip(boosters["cuda"]._gbdt.models,
-                    boosters["cpu"]._gbdt.models):
-        differ += int(((a.split_feature != b.split_feature)
-                       | (a.split_bin != b.split_bin)
-                       | (a.default_left != b.default_left)).sum())
+    diff, differ = compare_boosters(boosters["cuda"], boosters["cpu"], X)
     out = {"rows": 100_000, "max_abs_pred_diff": diff,
            "differing_splits": differ}
     print("CPU_VS_CARD", json.dumps(out), flush=True)
@@ -1118,7 +1546,11 @@ def main() -> int:
               ("masked_large", lambda: phase_masked_large(lgt, args.rows,
                                                           results)),
               ("cpu_vs_card", lambda: phase_cpu_vs_card(lgt, results)),
-              ("masked", lambda: phase_masked(lgt, results))]
+              ("masked", lambda: phase_masked(lgt, results)),
+              ("multiclass_masked", lambda: phase_multiclass_masked(
+                  lgt, results)),
+              ("multiclass", lambda: phase_multiclass(lgt, args.rows,
+                                                      results))]
     for name, run in phases:
         t0 = time.perf_counter()
         run()
@@ -1133,6 +1565,20 @@ def main() -> int:
     k3_large = results["masked_large"]["profile"]["kernels"][
         "histogram_sublane"]
     k3_small = results["masked"]["profile"]["kernels"]["histogram_sublane"]
+    mc = results["multiclass"]
+    mc_tree = mc["profile"]["kernels"]
+    mc_masked = results["multiclass_masked"]
+
+    def multiclass_path(kern, tree_kernels, launches, rounds, extra=None):
+        """A kernel's numbers on a multiclass path: launches a round (K
+        trees) over the run's rounds, and device ms and byte bound of one
+        profiled tree where the path has one."""
+        entry = {"launches_per_round": launches[kern] / rounds}
+        if tree_kernels:
+            entry["tree_device_ms"] = tree_kernels[kern]["device_ms"]
+            entry["tree_bound_ms"] = tree_kernels[kern]["bound_ms"]
+        entry.update(extra or {})
+        return entry
     kernels = [
         {"name": "histogram", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/histogram.cu",
@@ -1151,7 +1597,10 @@ def main() -> int:
          "one_channel_ms": h["dense"]["one_channel_ms"],
          "dense_ms": h["dense"]["kernel_ms"], "skewed_ms": h["skewed_ms"],
          "tree_device_ms": per_tree["histogram"]["device_ms"],
-         "tree_bound_ms": per_tree["histogram"]["bound_ms"]},
+         "tree_bound_ms": per_tree["histogram"]["bound_ms"],
+         "multiclass": multiclass_path("histogram", mc_tree,
+                                       mc["launches"],
+                                       1 + mc["rounds_timed"])},
         {"name": "fused_split", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/fused_split.cu",
          "replaces": "lightgbm_tpu/ops/fused_split.py:198",
@@ -1161,7 +1610,15 @@ def main() -> int:
          "library_ms": f["library_ms"], "partition_ms": f["partition_ms"],
          "whole_record_bound_ms": f["whole_record_bound_ms"],
          "tree_device_ms": per_tree["fused_split"]["device_ms"],
-         "tree_bound_ms": per_tree["fused_split"]["bound_ms"]},
+         "tree_bound_ms": per_tree["fused_split"]["bound_ms"],
+         "multiclass": multiclass_path(
+             "fused_split", mc_tree, mc["launches"], 1 + mc["rounds_timed"],
+             {"categorical_split_ms": mc["k2_categorical"]["kernel_ms"],
+              "categorical_split_bound_ms":
+                  mc["k2_categorical"]["bound_ms"],
+              "categorical_split_max_abs_err":
+                  mc["k2_categorical"]["max_abs_err"],
+              "record_real_bytes": mc["record_real_bytes"]})},
         {"name": "histogram_sublane", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/histogram_sublane.cu",
          "replaces": "lightgbm_tpu/ops/pallas_histogram.py:170",
@@ -1179,7 +1636,10 @@ def main() -> int:
          "tree_bound_ms": k3_small["bound_ms"],
          "large_tree_device_ms": k3_large["device_ms"],
          "large_tree_bound_ms": k3_large["bound_ms"],
-         "large_tree_launches": k3_large["launches"]},
+         "large_tree_launches": k3_large["launches"],
+         "multiclass_masked": multiclass_path(
+             "histogram_sublane", None, mc_masked["launches"],
+             mc_masked["rounds"])},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

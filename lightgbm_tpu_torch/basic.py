@@ -48,6 +48,7 @@ class Dataset:
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
                  weight=None, init_score=None, feature_name="auto",
+                 categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = True):
         self.data = data
@@ -56,6 +57,7 @@ class Dataset:
         self.weight = weight
         self.init_score = init_score
         self.feature_name = feature_name
+        self.categorical_feature = categorical_feature
         self.params = copy.deepcopy(params) if params else {}
         self.free_raw_data = free_raw_data
         self._inner: Optional[BinnedDataset] = None
@@ -92,6 +94,10 @@ class Dataset:
             raise ValueError("Dataset has no data to construct from")
         feature_names = (None if self.feature_name == "auto"
                          else list(self.feature_name))
+        # the argument, else the categorical_feature parameter
+        cat = self.categorical_feature
+        if cat is None or (isinstance(cat, str) and cat == "auto"):
+            cat = cfg.categorical_feature
         self._inner = BinnedDataset.construct(
             self.data,
             max_bin=cfg.max_bin,
@@ -103,6 +109,7 @@ class Dataset:
             data_random_seed=cfg.get("data_random_seed", 1),
             reference=ref_inner,
             max_bin_by_feature=cfg.get("max_bin_by_feature"),
+            categorical_feature=cat,
         )
         md = self._inner.metadata
         if self.label is not None:
@@ -229,7 +236,10 @@ class Booster:
                 num_iteration: Optional[int] = None,
                 raw_score: bool = False, pred_leaf: bool = False,
                 pred_contrib: bool = False, **kwargs) -> np.ndarray:
-        """(reference: Booster.predict, basic.py:4701)"""
+        """Predictions ``[N]``, or ``[N, K]`` for a model of K classes:
+        the objective's output (probabilities for the classifiers), or raw
+        scores with ``raw_score`` (reference: Booster.predict,
+        basic.py:4701)."""
         if pred_leaf or pred_contrib or kwargs:
             raise NotImplementedError(
                 "pred_leaf, pred_contrib and prediction early stopping are "
@@ -238,7 +248,8 @@ class Booster:
             num_iteration = self.best_iteration
         arr = np.asarray(_maybe_series(data))
         raw = self._gbdt.predict_raw_matrix(arr, num_iteration,
-                                            start_iteration)[0]
+                                            start_iteration)
+        raw = raw[0] if raw.shape[0] == 1 else raw.T
         objective = self._gbdt.objective
         if raw_score or objective is None:
             return raw

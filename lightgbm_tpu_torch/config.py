@@ -63,6 +63,12 @@ PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...]]] = {
     "lambda_l1": (0.0, float, ("reg_alpha", "l1_regularization")),
     "lambda_l2": (0.0, float, ("reg_lambda", "lambda", "l2_regularization")),
     "min_gain_to_split": (0.0, float, ("min_split_gain",)),
+    # categorical splits (reference: config.h:480-501)
+    "min_data_per_group": (100, int, ()),
+    "max_cat_threshold": (32, int, ()),
+    "cat_l2": (10.0, float, ()),
+    "cat_smooth": (10.0, float, ()),
+    "max_cat_to_onehot": (4, int, ()),
     # constraints / cost-effective boosting / forced splits
     "monotone_constraints": (None, object, ("mc", "monotone_constraint")),
     "interaction_constraints": (None, object, ()),
@@ -93,9 +99,15 @@ PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...]]] = {
     "scale_pos_weight": (1.0, float, ()),
     "sigmoid": (1.0, float, ()),
     "boost_from_average": (True, bool, ()),
+    "reg_sqrt": (False, bool, ()),
+    "alpha": (0.9, float, ()),
+    "fair_c": (1.0, float, ()),
+    "poisson_max_delta_step": (0.7, float, ()),
+    "tweedie_variance_power": (1.5, float, ()),
     # metric
     "metric": (None, object, ("metrics", "metric_types")),
     "metric_freq": (1, int, ("output_freq",)),
+    "multi_error_top_k": (1, int, ()),
     # grower selection knobs shared with the JAX package
     "tpu_grower": ("auto", str, ()),            # auto | compact | masked
     "tpu_hist_layout": ("auto", str, ("hist_layout",)),  # auto|lane|sublane
@@ -120,10 +132,41 @@ OBJECTIVE_ALIASES: Dict[str, str] = {
 }
 
 METRIC_ALIASES: Dict[str, str] = {
+    "l1": "l1", "mean_absolute_error": "l1", "mae": "l1", "regression_l1": "l1",
+    "l2": "l2", "mean_squared_error": "l2", "mse": "l2", "regression_l2": "l2",
+    "regression": "l2",
+    "rmse": "rmse", "root_mean_squared_error": "rmse", "l2_root": "rmse",
+    "quantile": "quantile",
+    "mape": "mape", "mean_absolute_percentage_error": "mape",
+    "huber": "huber", "fair": "fair", "poisson": "poisson", "gamma": "gamma",
+    "gamma_deviance": "gamma_deviance", "tweedie": "tweedie",
     "auc": "auc",
     "binary_logloss": "binary_logloss", "binary": "binary_logloss",
+    "binary_error": "binary_error",
+    "multi_logloss": "multi_logloss", "multiclass": "multi_logloss",
+    "softmax": "multi_logloss", "multiclassova": "multi_logloss",
+    "multiclass_ova": "multi_logloss", "ova": "multi_logloss",
+    "ovr": "multi_logloss",
+    "multi_error": "multi_error",
+    "cross_entropy": "cross_entropy", "xentropy": "cross_entropy",
+    "cross_entropy_lambda": "cross_entropy_lambda",
+    "xentlambda": "cross_entropy_lambda",
     "none": "none", "na": "none", "null": "none", "custom": "none",
 }
+
+# each objective's own metric (reference: the default metric of
+# Config::CheckParamConflict / the JAX package's default_metric_for_objective)
+DEFAULT_METRIC: Dict[str, str] = {
+    "regression": "l2", "regression_l1": "l1", "huber": "huber",
+    "fair": "fair", "poisson": "poisson", "quantile": "quantile",
+    "mape": "mape", "gamma": "gamma", "tweedie": "tweedie",
+    "binary": "binary_logloss", "multiclass": "multi_logloss",
+    "multiclassova": "multi_logloss", "xentropy": "cross_entropy",
+    "xentlambda": "cross_entropy_lambda", "lambdarank": "ndcg",
+    "rank_xendcg": "ndcg",
+}
+
+MULTICLASS_OBJECTIVES = ("multiclass", "multiclassova")
 
 DEVICE_ALIASES: Dict[str, str] = {"cuda": "cuda", "gpu": "cuda", "cpu": "cpu"}
 
@@ -206,6 +249,13 @@ class Config:
                 f"device_type={self.device_type!r}: the port runs on 'cuda' "
                 "(alias 'gpu') or 'cpu'")
         self.device_type = DEVICE_ALIASES[dev]
+        if self.objective in MULTICLASS_OBJECTIVES and self.num_class <= 1:
+            log.fatal("Number of classes should be specified and greater "
+                      "than 1 for multiclass training")
+        if self.objective not in MULTICLASS_OBJECTIVES \
+                and self.num_class != 1:
+            log.fatal("Number of classes must be 1 for non-multiclass "
+                      "training")
         if self.bagging_freq > 0 and not 0.0 < self.bagging_fraction < 1.0:
             self.bagging_freq = 0
         if self.num_leaves < 2:
@@ -218,7 +268,7 @@ class Config:
 
     def check_supported(self, dataset_only: bool = False) -> None:
         """Raise ``NotImplementedError`` for every parameter outside the
-        port's first slice, naming the ROADMAP item that brings it.
+        port's slices so far, naming the ROADMAP item that brings it.
         ``dataset_only`` checks only the binning parameters (a Dataset is
         constructed before the objective is known)."""
         todo = []
@@ -227,16 +277,16 @@ class Config:
             if cond:
                 todo.append(f"{what} (ROADMAP {item})")
 
-        need(self.categorical_feature not in ("", None, "auto", []),
-             "categorical features", "A12")
         need(self.enable_bundle, "EFB bundling (enable_bundle)", "A13")
         need(self.tpu_bin_pack4, "tpu_bin_pack4", "A15")
         need(bool(self.forcedbins_filename), "forced bins", "A3")
         need(self.max_bin > 255, "max_bin>255", "A3")
         if not dataset_only:
-            need(self.objective != "binary",
-                 f"objective={self.objective!r}", "A12")
-            need(self.num_class > 1, "num_class>1", "A12")
+            # the objectives that renew leaf outputs after growth and the
+            # ranking objectives are the next slice
+            from .objectives import OBJECTIVES
+            need(self.objective not in OBJECTIVES,
+                 f"objective={self.objective!r}", "A12b")
             need(str(self.tree_learner).lower() != "serial",
                  f"tree_learner={self.tree_learner!r}", "A18")
             need(self.num_machines > 1, "num_machines>1", "A18")
@@ -315,7 +365,8 @@ def resolve_metrics(metric: Any, objective: Any) -> List[str]:
     """The ``metric`` parameter as a canonical list (default: the
     objective's own metric)."""
     if metric is None or metric == "" or metric == []:
-        return ["binary_logloss"] if objective == "binary" else []
+        default = DEFAULT_METRIC.get(objective)
+        return [default] if default in METRIC_ALIASES else []
     if isinstance(metric, str):
         metric = [m.strip() for m in metric.split(",") if m.strip()]
     out: List[str] = []
@@ -323,8 +374,8 @@ def resolve_metrics(metric: Any, objective: Any) -> List[str]:
         canon = METRIC_ALIASES.get(str(m).lower())
         if canon is None:
             raise NotImplementedError(
-                f"metric {m!r} is not in the PyTorch port yet (ROADMAP A4); "
-                "it has binary_logloss and auc")
+                f"metric {m!r} is not in the PyTorch port yet (ROADMAP "
+                "A12b, A4)")
         if canon == "none":
             return []
         if canon not in out:

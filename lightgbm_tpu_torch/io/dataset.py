@@ -1,9 +1,10 @@
 """Binned dataset construction for lightgbm_tpu_torch.
 
-Counterpart of ``lightgbm_tpu/io/dataset.py`` for dense numerical matrices:
+Counterpart of ``lightgbm_tpu/io/dataset.py`` for dense matrices:
 ``Metadata`` (label, weight, init score) and ``BinnedDataset.construct``,
-with the same row sampling, per-feature mapper fit and bin-matrix layout, so
-the bin matrix is equal to the JAX package's (reference: LightGBM's
+with the same row sampling, per-feature mapper fit (categorical features
+named by index or by name) and bin-matrix layout, so the bin matrix is
+equal to the JAX package's (reference: LightGBM's
 ``Dataset`` / ``Metadata``, include/LightGBM/dataset.h:48,487).
 
 Binning is numpy on the host. The matrix stays a host ``uint8`` array here;
@@ -13,12 +14,13 @@ the trainer copies it to the device once, into the packed row records of
 """
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence
+from typing import Any, List, Optional, Sequence, Set, Union
 
 import numpy as np
 
 from ..utils import log
-from .binning import BinMapper, bin_columns, find_bin_numerical
+from .binning import (MISSING_NAN, BinMapper, bin_columns,
+                      find_bin_categorical, find_bin_numerical)
 
 
 def _to_2d_float(data: Any) -> np.ndarray:
@@ -66,13 +68,18 @@ class Metadata:
         self.weight = arr
 
     def set_init_score(self, init_score: Any) -> None:
+        """One score a row, or K a row for K classes (class-major, as
+        LightGBM stores them)."""
         if init_score is None:
             self.init_score = None
             return
-        arr = np.asarray(init_score, dtype=np.float64).reshape(-1)
-        if len(arr) != self.num_data:
-            raise ValueError(f"init_score length {len(arr)} != num_data "
-                             f"{self.num_data}")
+        arr = np.asarray(init_score, dtype=np.float64)
+        if arr.ndim == 2:
+            arr = arr.T          # [N, K] -> class-major
+        arr = arr.reshape(-1)
+        if len(arr) == 0 or len(arr) % max(self.num_data, 1):
+            raise ValueError(f"init_score length {len(arr)} is not a "
+                             f"multiple of num_data {self.num_data}")
         self.init_score = arr
 
 
@@ -89,6 +96,7 @@ class BinnedDataset:
         self.num_data: int = 0
         self.num_total_features: int = 0
         self.used_features: List[int] = []         # non-trivial feature indices
+        self.categorical_features: List[int] = []
 
     @staticmethod
     def construct(
@@ -103,6 +111,7 @@ class BinnedDataset:
         data_random_seed: int = 1,
         reference: Optional["BinnedDataset"] = None,
         max_bin_by_feature: Optional[Sequence[int]] = None,
+        categorical_feature: Optional[Sequence[Union[int, str]]] = None,
     ) -> "BinnedDataset":
         arr = _to_2d_float(data)
         n, f = arr.shape
@@ -126,7 +135,11 @@ class BinnedDataset:
             ds.mappers = reference.mappers
             ds.max_num_bins = reference.max_num_bins
             ds.used_features = reference.used_features
+            ds.categorical_features = reference.categorical_features
         else:
+            cat_idx = _resolve_categorical(categorical_feature,
+                                           ds.feature_names)
+            ds.categorical_features = sorted(cat_idx)
             # row sample for bin construction (reference: bin_construct_sample_cnt)
             if n > bin_construct_sample_cnt:
                 rng = np.random.RandomState(data_random_seed)
@@ -134,8 +147,8 @@ class BinnedDataset:
                 sample = arr[np.sort(idx)]
             else:
                 sample = arr
-            _fit_mappers(ds, sample, f, max_bin, min_data_in_bin, use_missing,
-                         zero_as_missing, max_bin_by_feature)
+            _fit_mappers(ds, sample, f, cat_idx, max_bin, min_data_in_bin,
+                         use_missing, zero_as_missing, max_bin_by_feature)
         ds.binned = bin_columns(ds.mappers, arr, np.uint8)
         ds.metadata = Metadata(n)
         return ds
@@ -153,23 +166,59 @@ class BinnedDataset:
                          for m in self.mappers], dtype=np.int32)
 
     def feature_has_nan(self) -> np.ndarray:
-        return np.array([m.missing_type == 2 for m in self.mappers], bool)
+        """Per feature: a numerical feature with a NaN bin (the scan's
+        "missing left" direction)."""
+        return np.array([m.missing_type == MISSING_NAN
+                         and not m.is_categorical for m in self.mappers],
+                        bool)
+
+    def feature_is_categorical(self) -> np.ndarray:
+        return np.array([m.is_categorical for m in self.mappers], bool)
 
 
-def _fit_mappers(ds, sample, f, max_bin, min_data_in_bin, use_missing,
-                 zero_as_missing, max_bin_by_feature):
+def _resolve_categorical(categorical_feature, feature_names: List[str]
+                         ) -> Set[int]:
+    """Categorical feature indices from indices, names (``"name:"``
+    prefixed or not) or a comma-separated string of either."""
+    out: Set[int] = set()
+    if categorical_feature is None or categorical_feature in ("auto", ""):
+        return out
+    if isinstance(categorical_feature, str):
+        categorical_feature = [c.strip() for c in
+                               categorical_feature.split(",") if c.strip()]
+    for c in categorical_feature:
+        if isinstance(c, (int, np.integer)):
+            out.add(int(c))
+            continue
+        c = str(c)
+        if c.startswith("name:"):
+            c = c[5:]
+        if c in feature_names:
+            out.add(feature_names.index(c))
+        else:
+            try:
+                out.add(int(c))
+            except ValueError:
+                log.warning(f"Unknown categorical feature: {c}")
+    return out
+
+
+def _fit_mappers(ds, sample, f, cat_idx, max_bin, min_data_in_bin,
+                 use_missing, zero_as_missing, max_bin_by_feature):
     """Fit per-feature BinMappers from a row sample."""
     total_sample_cnt = len(sample)
     if max_bin_by_feature is not None and len(max_bin_by_feature) != f:
         raise ValueError("max_bin_by_feature needs one entry per feature")
-    ds.mappers = [
-        find_bin_numerical(
-            sample[:, j], total_sample_cnt,
-            int(max_bin_by_feature[j]) if max_bin_by_feature is not None
-            else max_bin,
-            min_data_in_bin, use_missing=use_missing,
-            zero_as_missing=zero_as_missing)
-        for j in range(f)]
+
+    def fit(j):
+        mb = (int(max_bin_by_feature[j]) if max_bin_by_feature is not None
+              else max_bin)
+        if j in cat_idx:
+            return find_bin_categorical(sample[:, j], mb, min_data_in_bin)
+        return find_bin_numerical(sample[:, j], total_sample_cnt, mb,
+                                  min_data_in_bin, use_missing=use_missing,
+                                  zero_as_missing=zero_as_missing)
+    ds.mappers = [fit(j) for j in range(f)]
     ds.used_features = [j for j, m in enumerate(ds.mappers)
                         if not m.is_trivial]
     if not ds.used_features:

@@ -17,6 +17,11 @@ results ``torch.where`` discards, where the JAX grower skips it with
 ``lax.cond``. Its histogram then has all-zero channels, which the kernels
 skip row by row.
 
+Categorical features (``is_cat_arr``): the scan also proposes one-hot and
+sorted categorical splits, each leaf caches its best split's bin bitset
+and whether it is a sorted one (whose children's outputs take ``lambda_l2 +
+cat_l2``), and the partition routes by the bitset through the same
+predicate as the numerical split (``go_left_pred`` selects on the device).
 Not here yet: by-node feature sampling, interaction and monotone
 constraints, CEGB, forced splits, extra trees, voting and the data-parallel
 reduction (ROADMAP A14/A18). The JAX package's compile ladder (leaf rungs,
@@ -40,8 +45,8 @@ from .split import (_NEG_INF, SplitParams, best_split, depth_gate,
 (_SF, _SB, _SDL, _LEFT, _RIGHT) = range(5)
 (_GAIN, _NG, _NH, _NC) = range(4)
 # columns of the masked grower's per-leaf int table: tree links, cached
-# best split
-(_PARENT, _PSIDE, _DEPTH, _BF, _BB, _BDL, _BLR) = range(7)
+# best split (feature, bin, default left, left raw rows, sorted-cat flag)
+(_PARENT, _PSIDE, _DEPTH, _BF, _BB, _BDL, _BLR, _BCL2) = range(8)
 
 
 class GrowerParams(NamedTuple):
@@ -55,6 +60,12 @@ class GrowerParams(NamedTuple):
     min_sum_hessian_in_leaf: float = 1e-3
     min_gain_to_split: float = 0.0
     max_delta_step: float = 0.0
+    # categorical splits (reference: config.h:480-501)
+    max_cat_threshold: int = 32
+    cat_l2: float = 10.0
+    cat_smooth: float = 10.0
+    max_cat_to_onehot: int = 4
+    min_data_per_group: float = 100.0
     # the masked grower's histogram layout (config.resolve_hist_layout):
     # "lane" runs K1 on [N, F] bins, "sublane" K3 on [F, N] bins (B <= 64)
     hist_layout: str = "lane"
@@ -67,6 +78,11 @@ class GrowerParams(NamedTuple):
             min_sum_hessian_in_leaf=self.min_sum_hessian_in_leaf,
             min_gain_to_split=self.min_gain_to_split,
             max_delta_step=self.max_delta_step,
+            max_cat_threshold=self.max_cat_threshold,
+            cat_l2=self.cat_l2,
+            cat_smooth=self.cat_smooth,
+            max_cat_to_onehot=self.max_cat_to_onehot,
+            min_data_per_group=self.min_data_per_group,
         )
 
     @property
@@ -99,21 +115,29 @@ class TreeArrays(NamedTuple):
 
 
 def _split_rows(sp) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[2, 4] f32 and [2, 4] int64 cached-best-split columns (gain, left
-    sums; feature, bin, default_left, left raw rows) for a batch of two
-    scanned leaves."""
+    """[2, 4] f32 and [2, 5] int64 cached-best-split columns (gain, left
+    sums; feature, bin, default_left, left raw rows, sorted-cat flag) for a
+    batch of two scanned leaves."""
     fl = torch.stack([sp.gain, sp.left_grad, sp.left_hess, sp.left_count],
                      dim=1)
     it = torch.stack([sp.feature, sp.bin, sp.default_left.to(torch.int64),
-                      sp.left_rows.to(torch.int64)], dim=1)
+                      sp.left_rows.to(torch.int64),
+                      sp.is_cat_l2.to(torch.int64)], dim=1)
     return fl, it
+
+
+def child_l2(params: GrowerParams, cat_l2_flag: torch.Tensor):
+    """The L2 of a split's children: ``lambda_l2 + cat_l2`` below a sorted
+    categorical split (reference: the categorical branch's l2)."""
+    return params.lambda_l2 + params.cat_l2 * cat_l2_flag.to(torch.float32)
 
 
 def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               cnt_weight: torch.Tensor, num_bins_arr: torch.Tensor,
               nan_bin_arr: torch.Tensor, has_nan_arr: torch.Tensor,
               feat_mask: torch.Tensor, params: GrowerParams,
-              binned_t: Optional[torch.Tensor] = None
+              binned_t: Optional[torch.Tensor] = None,
+              is_cat_arr: Optional[torch.Tensor] = None
               ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree over ``binned [N, F]`` (uint8) with per-row ``grad``,
     ``hess`` (already multiplied by weights and bag mask) and
@@ -121,13 +145,16 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     (reference: ``grow_tree``, ``lightgbm_tpu/ops/grower.py:343``).
     ``binned_t`` is the same matrix feature-major (``[F, N]``), which the
     partition reads a feature row of and the sublane layout's K3 takes; a
-    trainer makes it once, else it is made here."""
+    trainer makes it once, else it is made here. ``is_cat_arr [F]`` bool
+    marks the categorical features (None: all numerical)."""
     dev = binned.device
     n, f = binned.shape
     L = params.num_leaves
     B = params.num_bins
+    W = params.bitset_words
     spp = params.split_params()
     i64 = torch.int64
+    any_cat = is_cat_arr is not None
     if binned_t is None:
         binned_t = binned.T.contiguous()
     grad = grad.to(torch.float32)
@@ -140,7 +167,7 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
     def scan(hist, pg, ph, pc, depth):
         sp = best_split(hist, pg, ph, pc, num_bins_arr, nan_bin_arr,
-                        has_nan_arr, feat_mask, spp)
+                        has_nan_arr, feat_mask, spp, is_cat_arr)
         return sp._replace(gain=depth_gate(sp.gain, depth, params.max_depth))
 
     # ---- root ----
@@ -148,13 +175,14 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     root_hist = hist3(torch.ones_like(cnt))
     root_out = leaf_output(root_g, root_h, spp)
     zero = torch.zeros(1, dtype=i64, device=dev)
-    fl0, it0 = _split_rows(scan(root_hist[None], root_g[None], root_h[None],
-                                root_c[None], zero))
+    sp0 = scan(root_hist[None], root_g[None], root_h[None], root_c[None],
+               zero)
+    fl0, it0 = _split_rows(sp0)
     leaf_f = torch.zeros((L, 8), dtype=torch.float32, device=dev)
     leaf_f[:, _BG] = _NEG_INF
     leaf_f[0] = torch.cat([torch.stack([root_g, root_h, root_c]), fl0[0],
                            root_out[None]])
-    leaf_i = torch.zeros((L, 7), dtype=i64, device=dev)
+    leaf_i = torch.zeros((L, 8), dtype=i64, device=dev)
     leaf_i[:, _PARENT] = -1
     leaf_i[0, _BF:] = it0[0]
     leaf_hist = torch.zeros((L, f, B, 3), dtype=torch.float32, device=dev)
@@ -164,6 +192,12 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     node_i[:, _LEFT] = -1
     node_i[:, _RIGHT] = -1
     node_f = torch.zeros((L - 1, 4), dtype=torch.float32, device=dev)
+    # categorical: each leaf's cached split bitset, each node's bitset
+    leaf_bits = torch.zeros((L, W), dtype=torch.int32, device=dev)
+    node_bits = torch.zeros((max(L - 1, 1), W), dtype=torch.int32,
+                            device=dev)
+    if any_cat:
+        leaf_bits[0] = sp0.cat_bitset[0]
     row_leaf = torch.zeros(n, dtype=i64, device=dev)
     done = torch.zeros(1, dtype=torch.bool, device=dev)
     num_nodes = torch.zeros(1, dtype=i64, device=dev)
@@ -182,9 +216,15 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         b_ = ri[_BB:_BB + 1]
         dl = ri[_BDL:_BDL + 1]
 
+        if any_cat:
+            bits = leaf_bits.index_select(0, best)[0]
+            f_cat = is_cat_arr.index_select(0, f_)
+        else:
+            bits, f_cat = None, False
+
         # ---- partition: the best leaf's right-going rows join new_leaf ----
         go_left = go_left_pred(binned_t.index_select(0, f_)[0], b_, dl != 0,
-                               nan_bin_arr.index_select(0, f_), False, None)
+                               nan_bin_arr.index_select(0, f_), f_cat, bits)
         row_leaf = torch.where(applied & (row_leaf == best) & ~go_left,
                                new_leaf, row_leaf)
 
@@ -201,11 +241,12 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
         # ---- best splits of both children ----
         depth = ri[_DEPTH] + 1
-        spf, spi = _split_rows(scan(
-            torch.stack([hist_left, hist_right]), torch.stack([lg, rg]),
-            torch.stack([lh, rh]), torch.stack([lc, rc]), depth))
-        lw = leaf_output(lg, lh, spp)
-        rw = leaf_output(rg, rh, spp)
+        sp2 = scan(torch.stack([hist_left, hist_right]), torch.stack([lg, rg]),
+                   torch.stack([lh, rh]), torch.stack([lc, rc]), depth)
+        spf, spi = _split_rows(sp2)
+        l2 = child_l2(params, ri[_BCL2]) if any_cat else None
+        lw = leaf_output(lg, lh, spp, l2)
+        rw = leaf_output(rg, rh, spp, l2)
 
         # ---- the two leaves' new rows, kept as they were when not applied
         idx = torch.cat([best, torch.full_like(best, new_leaf)])
@@ -223,6 +264,10 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         leaf_hist.index_copy_(0, idx, torch.where(
             applied.reshape(1, 1, 1, 1), torch.stack([hist_left, hist_right]),
             leaf_hist.index_select(0, idx)))
+        if any_cat:
+            leaf_bits.index_copy_(0, idx, torch.where(
+                applied, sp2.cat_bitset, leaf_bits.index_select(0, idx)))
+            node_bits[k] = torch.where(applied, bits, node_bits[k])
 
         # ---- record the split; wire the parent's child pointer ----
         p = ri[_PARENT:_PARENT + 1]
@@ -242,8 +287,7 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     tree = TreeArrays(
         split_feature=node_i[:, _SF],
         split_bin=node_i[:, _SB],
-        cat_bitset=torch.zeros((L - 1, params.bitset_words),
-                               dtype=torch.int32, device=dev),
+        cat_bitset=node_bits[:L - 1],
         split_gain=node_f[:, _GAIN],
         default_left=node_i[:, _SDL] != 0,
         left_child=node_i[:, _LEFT],

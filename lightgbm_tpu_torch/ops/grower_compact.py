@@ -20,13 +20,17 @@ and a split that is not applied becomes a no-op through a zero row count
 Per-leaf scalars live in two small ``[L, ...]`` tables (float and int) so a
 split reads and writes its two leaves with one gather and one scatter each.
 
-Not here yet (ROADMAP A12-A18): categorical splits, monotone constraints
-and their intermediate rescans, CEGB, by-node sampling, EFB, quantized
-histograms, data-parallel reductions.
+Categorical splits (``is_cat_arr``): each leaf caches its best split's bin
+bitset (``leaf_bits``) and sorted-cat flag; a split hands its leaf's bitset
+row and the feature's categorical flag to K2, which routes by them.
+
+Not here yet (ROADMAP A13-A18): monotone constraints and their
+intermediate rescans, CEGB, by-node sampling, EFB, quantized histograms,
+data-parallel reductions.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -34,22 +38,24 @@ from .compact import RowLayout, segments_to_leaf_vectors
 from .fused_split import fused_split
 from .grower import (_BG, _BLC, _BLG, _BLH, _GAIN, _LC, _LEFT, _LG, _LH,
                      _LOUT, _NC, _NG, _NH, _RIGHT, _SDL, _SB, _SF,
-                     GrowerParams, TreeArrays, _split_rows)
+                     GrowerParams, TreeArrays, _split_rows, child_l2)
 from .split import _NEG_INF, best_split, depth_gate, leaf_output
 
 # columns of the compact grower's per-leaf int table: segment, tree links,
 # cached best split
 (_START, _NROWS, _SIDE, _PARENT, _PSIDE, _DEPTH, _BF, _BB, _BDL,
- _BLR) = range(10)
+ _BLR, _BCL2) = range(11)
 
 
 class CompactState(NamedTuple):
     """The grower's device state between splits."""
     leaf_f: torch.Tensor      # [L, 8] f32 per-leaf sums, cached best split
-    leaf_i: torch.Tensor      # [L, 10] int64 segment, tree links, best split
+    leaf_i: torch.Tensor      # [L, 11] int64 segment, tree links, best split
     leaf_hist: torch.Tensor   # [L, F, B, 4] f32 per-leaf histograms
     node_i: torch.Tensor      # [L-1, 5] int64 split feature/bin/dl, children
     node_f: torch.Tensor      # [L-1, 4] f32 gain and node sums
+    leaf_bits: torch.Tensor   # [L, W] int32 cached categorical bitsets
+    node_bits: torch.Tensor   # [L-1, W] int32 node categorical bitsets
     done: torch.Tensor        # [1] bool
     num_nodes: torch.Tensor   # [1] int64
 
@@ -57,10 +63,13 @@ class CompactState(NamedTuple):
 def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
                       num_bins_arr: torch.Tensor, nan_bin_arr: torch.Tensor,
                       has_nan_arr: torch.Tensor, feat_mask: torch.Tensor,
-                      layout: RowLayout, params: GrowerParams, n_real: int):
+                      layout: RowLayout, params: GrowerParams, n_real: int,
+                      is_cat_arr: Optional[torch.Tensor] = None):
     """Grow one tree. Returns ``(TreeArrays, row_leaf [N], work, scratch,
     leaf_start [L], leaf_nrows [L])``, the per-row outputs in the post-tree
-    row order; ``work`` and ``scratch`` are updated in place."""
+    row order; ``work`` and ``scratch`` are updated in place.
+    ``is_cat_arr [F]`` bool marks the categorical features (None: all
+    numerical)."""
     dev = work.device
     n = n_real
     L = params.num_leaves
@@ -72,7 +81,7 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
 
     def scan(hist, pg, ph, pc, depth):
         sp = best_split(hist, pg, ph, pc, num_bins_arr, nan_bin_arr,
-                        has_nan_arr, feat_mask, spp)
+                        has_nan_arr, feat_mask, spp, is_cat_arr)
         return sp._replace(gain=depth_gate(sp.gain, depth, params.max_depth))
 
     # ---- root: the fused kernel's histogram-only mode ----
@@ -93,7 +102,7 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
     leaf_f[:, _BG] = _NEG_INF
     leaf_f[0] = torch.cat([torch.stack([root_g, root_h, root_c]), fl0[0],
                            root_out[None]])
-    leaf_i = torch.zeros((L, 10), dtype=i64, device=dev)
+    leaf_i = torch.zeros((L, 11), dtype=i64, device=dev)
     leaf_i[:, _PARENT] = -1
     # fill_ of a slice, not a scalar setitem: the latter copies through the
     # host and synchronizes
@@ -106,13 +115,18 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
     node_i[:, _LEFT] = -1
     node_i[:, _RIGHT] = -1
     node_f = torch.zeros((max(L - 1, 1), 4), dtype=torch.float32, device=dev)
-    st = CompactState(leaf_f, leaf_i, leaf_hist, node_i, node_f,
+    leaf_bits = torch.zeros((L, W), dtype=torch.int32, device=dev)
+    if is_cat_arr is not None:
+        leaf_bits[0] = sp0.cat_bitset[0]
+    st = CompactState(leaf_f, leaf_i, leaf_hist, node_i, node_f, leaf_bits,
+                      torch.zeros((max(L - 1, 1), W), dtype=torch.int32,
+                                  device=dev),
                       torch.zeros(1, dtype=torch.bool, device=dev),
                       torch.zeros(1, dtype=i64, device=dev))
 
     for k in range(L - 1):
-        st = _split_step(st, k, work, scratch, layout, B, W, nan_bin_arr,
-                         scan, spp)
+        st = _split_step(st, k, work, scratch, layout, B, nan_bin_arr,
+                         is_cat_arr, scan, params)
 
     leaf_f, leaf_i, node_i, node_f = st.leaf_f, st.leaf_i, st.node_i, \
         st.node_f
@@ -128,7 +142,7 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
     tree = TreeArrays(
         split_feature=node_i[:L - 1, _SF],
         split_bin=node_i[:L - 1, _SB],
-        cat_bitset=torch.zeros((L - 1, W), dtype=torch.int32, device=dev),
+        cat_bitset=st.node_bits[:L - 1],
         split_gain=node_f[:L - 1, _GAIN],
         default_left=node_i[:L - 1, _SDL] != 0,
         left_child=node_i[:L - 1, _LEFT],
@@ -150,13 +164,15 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
     return tree, row_leaf, work, scratch, leaf_start, leaf_nrows
 
 
-def _split_step(st: CompactState, k: int, work, scratch, layout, B, W,
-                nan_bin_arr, scan, spp) -> CompactState:
+def _split_step(st: CompactState, k: int, work, scratch, layout, B,
+                nan_bin_arr, is_cat_arr, scan, params) -> CompactState:
     """Split number ``k``: node ``k`` splits the best leaf into itself (left
     child) and leaf ``k + 1`` (right child)."""
-    dev = work.device
     i64 = torch.int64
-    leaf_f, leaf_i, leaf_hist, node_i, node_f, done, num_nodes = st
+    spp = params.split_params()
+    (leaf_f, leaf_i, leaf_hist, node_i, node_f, leaf_bits, node_bits, done,
+     num_nodes) = st
+    any_cat = is_cat_arr is not None
     node = k
     new_leaf = k + 1
 
@@ -186,9 +202,16 @@ def _split_step(st: CompactState, k: int, work, scratch, layout, B, W,
     m_eff = torch.where(applied, m, zero)
     n_left_eff = torch.where(applied, n_left, zero)
     left_smaller = n_left <= m - n_left
+    if any_cat:
+        # the leaf's bitset row as a contiguous int32 vector on the device
+        # (no read back to the host)
+        bits = leaf_bits.index_select(0, best)[0]
+        f_cat = is_cat_arr.index_select(0, f_)
+    else:
+        bits, f_cat = None, zero
     work, scratch, hist_small = fused_split(
         work, scratch, 0, s_, m_eff, n_left_eff, f_, b_, dl,
-        nan_bin_arr.index_select(0, f_), zero, None, layout, B,
+        nan_bin_arr.index_select(0, f_), f_cat, bits, layout, B,
         smaller_left=left_smaller, side=side_p)
     parent_hist = leaf_hist.index_select(0, best)[0]
     hist_large = parent_hist - hist_small
@@ -201,8 +224,9 @@ def _split_step(st: CompactState, k: int, work, scratch, layout, B, W,
     sp = scan(torch.stack([hist_left, hist_right]), torch.stack([lg, rg]),
               torch.stack([lh, rh]), torch.stack([lc, rc]), depth)
     spf, spi = _split_rows(sp)
-    lw = leaf_output(lg, lh, spp)
-    rw = leaf_output(rg, rh, spp)
+    l2 = child_l2(params, ri[_BCL2]) if any_cat else None
+    lw = leaf_output(lg, lh, spp, l2)
+    rw = leaf_output(rg, rh, spp, l2)
 
     # ---- the two leaves' new rows, kept as they were when not applied ----
     idx = torch.cat([best, torch.full_like(best, new_leaf)])
@@ -223,6 +247,10 @@ def _split_step(st: CompactState, k: int, work, scratch, layout, B, W,
     new_h = torch.stack([hist_left, hist_right])
     leaf_hist.index_copy_(0, idx, torch.where(applied.reshape(1, 1, 1, 1),
                                               new_h, old_h))
+    if any_cat:
+        leaf_bits.index_copy_(0, idx, torch.where(
+            applied, sp.cat_bitset, leaf_bits.index_select(0, idx)))
+        node_bits[node] = torch.where(applied, bits, node_bits[node])
 
     # ---- record the split; wire the parent's child pointer ----
     p = ri[_PARENT:_PARENT + 1]
@@ -238,5 +266,5 @@ def _split_step(st: CompactState, k: int, work, scratch, layout, B, W,
     node_f[node] = torch.where(applied, torch.stack([gain[0], pg, ph, pc]),
                                torch.zeros_like(node_f[node]))
     num_nodes = num_nodes + applied.to(i64)
-    return CompactState(leaf_f, leaf_i, leaf_hist, node_i, node_f, done,
-                        num_nodes)
+    return CompactState(leaf_f, leaf_i, leaf_hist, node_i, node_f, leaf_bits,
+                        node_bits, done, num_nodes)

@@ -1,24 +1,35 @@
 """Best-split search over histograms, in torch.
 
-Counterpart of the numerical path of ``lightgbm_tpu/ops/split.py``
-(``best_split`` :281-480; reference: FeatureHistogram::
-FindBestThresholdSequentially, src/treelearner/feature_histogram.hpp:832).
-The scan is a cumulative sum over the bin axis of the whole ``[F, B]``
-histogram, a masked gain and one argmax, with both missing-value
-directions: "missing right" is the plain left-cumulative scan, "missing
-left" adds the NaN-bin mass to the left side for thresholds below it.
+Counterpart of ``lightgbm_tpu/ops/split.py`` (``best_split`` :281-480,
+``_sorted_cat_split`` :482, ``pack_bin_bitset`` :166; reference:
+FeatureHistogram::FindBestThresholdSequentially and
+FindBestThresholdCategoricalInner, src/treelearner/feature_histogram.hpp:832
+and feature_histogram.cpp:243-339). The numerical scan is a cumulative sum
+over the bin axis of the whole ``[F, B]`` histogram, a masked gain and one
+argmax, with both missing-value directions: "missing right" is the plain
+left-cumulative scan, "missing left" adds the NaN-bin mass to the left side
+for thresholds below it. A categorical feature with at most
+``max_cat_to_onehot`` bins splits one bin from the rest; a larger one sorts
+its bins by ``g / (h + cat_smooth)`` and scans prefixes from both ends (at
+most ``max_cat_threshold`` bins, ``lambda_l2 + cat_l2``, the
+``min_data_per_group`` gate). A categorical split's left set is a bitset of
+bins, as int32 words.
 
 Unlike the JAX function, ``best_split`` takes any leading batch shape
 (``[..., F, B, K]``): the grower scans both children of a split in one
 call. Everything stays on the device; nothing here reads a value back to
-the host. Categorical, monotone, CEGB, path-smoothing and extra-trees
-scans are ROADMAP A12/A14.
+the host, and Python branches only on static shapes and parameters. The
+sorted scan's ``min_data_per_group`` gate, a sequential ``lax.scan`` in the
+JAX package, is here a handful of tensor ops (see ``_group_gate``) rather
+than a loop of launches over the prefix positions. Monotone, CEGB,
+path-smoothing and extra-trees scans are ROADMAP A14.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as tnf
 
 _NEG_INF = -1e30
 _EPS = 1e-15
@@ -32,6 +43,12 @@ class SplitParams(NamedTuple):
     min_sum_hessian_in_leaf: float = 1e-3
     min_gain_to_split: float = 0.0
     max_delta_step: float = 0.0
+    # categorical splits (reference: config.h:480-501)
+    max_cat_threshold: int = 32
+    cat_l2: float = 10.0
+    cat_smooth: float = 10.0
+    max_cat_to_onehot: int = 4
+    min_data_per_group: float = 100.0
 
 
 class SplitResult(NamedTuple):
@@ -45,6 +62,8 @@ class SplitResult(NamedTuple):
     left_hess: torch.Tensor
     left_count: torch.Tensor    # in-bag row count
     left_rows: torch.Tensor     # raw row count (drives the partition)
+    cat_bitset: torch.Tensor    # [..., W] int32 left bins of a cat split
+    is_cat_l2: torch.Tensor     # bool: sorted cat split, l2 += cat_l2
 
 
 def threshold_l1(s: torch.Tensor, l1: float) -> torch.Tensor:
@@ -111,6 +130,18 @@ def go_left_pred(col: torch.Tensor, bin_, default_left, nan_bin, is_cat,
     return cat if on_host else torch.where(is_cat, cat, num)
 
 
+def pack_bin_bitset(mask: torch.Tensor) -> torch.Tensor:
+    """``[..., B]`` bool bin membership -> ``[..., ceil(B / 32)]`` int32
+    words (the bit patterns of the JAX package's uint32 words)."""
+    b = mask.shape[-1]
+    w = -(-b // 32)
+    m = tnf.pad(mask.to(torch.int64), (0, w * 32 - b)).reshape(
+        *mask.shape[:-1], w, 32)
+    words = (m << torch.arange(32, device=mask.device)).sum(-1)
+    return torch.where(words >= (1 << 31), words - (1 << 32),
+                       words).to(torch.int32)
+
+
 def left_rows_of_split(hist: torch.Tensor, feature, bin_, default_left,
                        nan_bin) -> torch.Tensor:
     """Raw rows a numerical split routes left, from the raw-count channel
@@ -131,8 +162,11 @@ def best_split(
     has_nan_bin: torch.Tensor,   # [F] bool
     feat_mask: torch.Tensor,     # [F] bool
     p: SplitParams,
+    is_cat: Optional[torch.Tensor] = None,   # [F] bool; None: numerical
 ) -> SplitResult:
-    """Best (feature, threshold, missing direction) for each leaf."""
+    """Best (feature, threshold, missing direction) for each leaf; with
+    ``is_cat``, also the best categorical split (one-hot or sorted) of the
+    categorical features."""
     f, b, k = hist.shape[-3:]
     batch = hist.shape[:-3]
     g = hist[..., 0]
@@ -160,12 +194,24 @@ def best_split(
     left2 = [with_nan(x, cx) for x, cx in ((g, cg), (h, ch), (c, cc),
                                            (r, cr))]
     left1 = [cg, ch, cc, cr]
+    # numerical thresholds leave the last bin on the right
+    tmask = t_iota < nb - 1
+    dir2_ok = has_nan_bin.to(dev)[:, None] & below & tmask
+    if is_cat is not None:
+        # a one-hot categorical candidate's left side is the one bin t, and
+        # any bin (the last too) may be it
+        cat_b = is_cat.to(dev)[:, None]
+        left1 = [torch.where(cat_b, x, cx) for x, cx in zip((g, h, c, r),
+                                                             left1)]
+        onehot_ok = cat_b & (nb <= p.max_cat_to_onehot)
+        tmask = torch.where(cat_b, onehot_ok & (t_iota < nb), tmask)
+        dir2_ok = dir2_ok & ~cat_b
 
     pg = parent_grad[..., None, None]
     ph = parent_hess[..., None, None]
     pc = parent_count[..., None, None]
-    gain_shift = leaf_gain(parent_grad, parent_hess, p)[..., None, None] \
-        + p.min_gain_to_split
+    gain_shift0 = leaf_gain(parent_grad, parent_hess, p) + p.min_gain_to_split
+    gain_shift = gain_shift0[..., None, None]
     fmask = feat_mask.to(dev)[:, None]
 
     def dir_score(lg, lh, lc, extra_valid):
@@ -177,10 +223,7 @@ def best_split(
         gain = leaf_gain(lg, lh, p) + leaf_gain(rg, rh, p) - gain_shift
         return torch.where(valid, gain, torch.full_like(gain, _NEG_INF))
 
-    # numerical thresholds leave the last bin on the right
-    tmask = t_iota < nb - 1
     score1 = dir_score(left1[0], left1[1], left1[2], tmask)
-    dir2_ok = has_nan_bin.to(dev)[:, None] & below & tmask
     score2 = dir_score(left2[0], left2[1], left2[2], dir2_ok)
 
     flat = torch.stack([score1, score2], dim=-1).reshape(*batch, f * b * 2)
@@ -194,7 +237,7 @@ def best_split(
         v2 = torch.gather(x2.reshape(*batch, f * b), -1, best_fb[..., None])
         return torch.where(best_dir2, v2[..., 0], v1[..., 0])
 
-    return SplitResult(
+    out = SplitResult(
         gain=best_gain,
         feature=best_fb // b,
         bin=best_fb % b,
@@ -203,4 +246,135 @@ def best_split(
         left_hess=pick(left1[1], left2[1]),
         left_count=pick(left1[2], left2[2]),
         left_rows=pick(left1[3], left2[3]),
+        cat_bitset=torch.zeros((*batch, -(-b // 32)), dtype=torch.int32,
+                               device=dev),
+        is_cat_l2=torch.zeros(batch, dtype=torch.bool, device=dev),
     )
+    if is_cat is None:
+        return out
+    # the one-hot winner's bitset: its single bin
+    best_cat = is_cat.to(dev)[out.feature]
+    onehot = (torch.arange(b, device=dev) == out.bin[..., None]) \
+        & best_cat[..., None]
+    out = out._replace(cat_bitset=pack_bin_bitset(onehot))
+    srt = _sorted_cat_split(hist, is_cat.to(dev), num_bins.to(dev),
+                            feat_mask.to(dev), parent_grad, parent_hess,
+                            parent_count, gain_shift0, p)
+    if srt is None:
+        return out
+    use = srt.gain > out.gain
+    return SplitResult(*(torch.where(
+        use[(...,) + (None,) * (a.dim() - use.dim())], s_, a)
+        for a, s_ in zip(out, srt)))
+
+
+def _group_gate(lc_t, cond, min_data_per_group: float) -> torch.Tensor:
+    """Which prefix sizes the sorted scan evaluates (reference:
+    FindBestThresholdCategoricalInner's ``cnt_cur_group``). Walking t = 1..T,
+    a size whose other conditions hold (``cond``) is evaluated when the rows
+    added since the last evaluated size (or since the start) reach
+    ``min_data_per_group``; the count then restarts. ``lc_t [..., T, 2]``
+    holds the left child's count at each size, so the rows since size s are
+    ``lc_t[t] - lc_t[s]``. Each size's next evaluated size is a masked
+    argmax over the sizes after it, and the chain from the start follows by
+    pointer doubling (log2 T steps), with no loop over T."""
+    *lead, t_len, two = lc_t.shape
+    dev = lc_t.device
+    base = torch.cat([torch.zeros((*lead, 1, two), dtype=lc_t.dtype,
+                                  device=dev), lc_t], dim=-2)   # [.., T+1, 2]
+    ts = torch.arange(1, t_len + 1, device=dev)
+    after = ts[None, :] > torch.arange(t_len + 1, device=dev)[:, None]
+    ok = (after[:, :, None] & cond[..., None, :, :]
+          & (lc_t[..., None, :, :] - base[..., :, None, :]
+             >= min_data_per_group))                  # [.., T+1 (s), T, 2]
+    first = torch.argmax(ok.to(torch.float32), dim=-2) + 1
+    end = t_len + 1
+    nxt = torch.where(ok.any(dim=-2), first, end)     # [.., T+1, 2]
+    nxt = torch.cat([nxt, torch.full_like(nxt[..., :1, :], end)], dim=-2)
+    reach = nxt[..., :1, :]                           # one step from start
+    jump = nxt
+    for _ in range((t_len - 1).bit_length()):
+        reach = torch.cat([reach, torch.gather(jump, -2, reach)], dim=-2)
+        jump = torch.gather(jump, -2, jump)
+    return (reach[..., None, :, :] == ts[:, None, None]).any(dim=-2)
+
+
+def _sorted_cat_split(hist, is_cat, num_bins, feat_mask, parent_grad,
+                      parent_hess, parent_count, gain_shift,
+                      p: SplitParams) -> Optional[SplitResult]:
+    """Best sorted-many-category split over all features of each leaf
+    (``_sorted_cat_split`` of the JAX package); None when no prefix size can
+    exist (static). ``hist``: ``[..., F, B, K]``; the channels are sorted,
+    summed and read together."""
+    *batch, f, b, k = hist.shape
+    mct = int(min(p.max_cat_threshold, b))
+    if mct <= 0 or b <= 1:
+        return None
+    dev = hist.device
+    g, h, c = hist[..., 0], hist[..., 1], hist[..., 2]
+    l2c = p.lambda_l2 + p.cat_l2
+    sort_mode = is_cat & (num_bins > p.max_cat_to_onehot) & feat_mask  # [F]
+    elig = sort_mode[:, None] & (c >= p.cat_smooth)                 # [.., F, B]
+    used_bin = elig.sum(dim=-1)                                     # [.., F]
+    ratio = torch.where(elig, g / (h + p.cat_smooth),
+                        torch.full_like(g, float("inf")))
+    order = torch.argsort(ratio, dim=-1, stable=True)
+    srt = torch.gather(hist, -2, order[..., None].expand(*batch, f, b, k))
+    csum = tnf.pad(torch.cumsum(srt, dim=-2), (0, 0, 1, 0))        # [.., F, B+1, K]
+
+    # left sums of the first t sorted bins (forward) and of the last t
+    # eligible ones (reverse), t = 1..T: csum[t] and csum[used] - csum[used-t]
+    ts = torch.arange(1, mct + 1, device=dev)                       # [T]
+    tot = used_bin[..., None]                                       # [.., F, 1]
+    idx = torch.cat([tot, torch.clamp(ts, max=b).expand(*batch, f, mct),
+                     torch.clamp(tot - ts, min=0)], dim=-1)
+    at_idx = torch.gather(csum, -2, idx[..., None].expand(*batch, f,
+                                                          2 * mct + 1, k))
+    top = at_idx[..., :1, :]
+    pre = torch.stack([at_idx[..., 1:mct + 1, :],
+                       top - at_idx[..., mct + 1:, :]], dim=-2)   # [.., F, T, 2, K]
+    lg, lh, lc = pre[..., 0], pre[..., 1], pre[..., 2]
+    lr = pre[..., 3] if k > 3 else lc
+    max_num_cat = torch.clamp((used_bin + 1) // 2, max=mct)
+    in_range = ((ts <= used_bin[..., None]) & (ts <= max_num_cat[..., None])
+                & sort_mode[:, None])[..., None]                    # [.., F, T, 1]
+
+    def lead(x):
+        return x[..., None, None, None]
+    pg, ph, pc = lead(parent_grad), lead(parent_hess), lead(parent_count)
+    rg, rh, rc = pg - lg, ph - lh, pc - lc
+    left_ok = (lc >= p.min_data_in_leaf) & (lh >= p.min_sum_hessian_in_leaf)
+    brk = ((rc < p.min_data_in_leaf) | (rc < p.min_data_per_group)
+           | (rh < p.min_sum_hessian_in_leaf))
+    # a size whose right side is too small ends the scan in that direction
+    ended = torch.cummax((in_range & brk).to(torch.int32), dim=-2)[0] != 0
+    dead = torch.cat([torch.zeros_like(ended[..., :1, :]),
+                      ended[..., :-1, :]], dim=-2)
+    cond = in_range & ~dead & left_ok & ~brk
+    evald = _group_gate(lc, cond, p.min_data_per_group)
+    gains = leaf_gain(lg, lh, p, l2c) + leaf_gain(rg, rh, p, l2c) \
+        - lead(gain_shift)
+    gains = torch.where(evald, gains, torch.full_like(gains, _NEG_INF))
+
+    flat = gains.reshape(*batch, f * mct * 2)
+    cb = torch.argmax(flat, dim=-1)                                 # [...]
+    cf = cb // (mct * 2)
+    t_best = (cb // 2) % mct + 1
+    rev = (cb % 2) == 1
+    pos = torch.arange(b, device=dev)
+    ub = torch.gather(used_bin, -1, cf[..., None])                  # [.., 1]
+    tb = t_best[..., None]
+    pos_mask = torch.where(rev[..., None], (pos >= ub - tb) & (pos < ub),
+                           pos < tb)                                # [.., B]
+    order_f = torch.gather(order, -2, cf[..., None, None].expand(
+        *batch, 1, b))[..., 0, :]
+    bin_mask = torch.zeros_like(pos_mask).scatter(-1, order_f, pos_mask)
+
+    def at(x):
+        return torch.gather(x.reshape(*batch, -1), -1, cb[..., None])[..., 0]
+    zero = torch.zeros_like(cf)
+    return SplitResult(
+        gain=at(gains), feature=cf, bin=zero, default_left=zero != 0,
+        left_grad=at(lg), left_hess=at(lh), left_count=at(lc),
+        left_rows=at(lr), cat_bitset=pack_bin_bitset(bin_mask),
+        is_cat_l2=zero == 0)

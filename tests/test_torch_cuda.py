@@ -433,3 +433,101 @@ def test_masked_train_on_card_matches_cpu(dev):
                         "histogram_sublane": 3 * 31}
     assert sum(plain.values()) == 0
     np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-4)
+
+
+def _cat_data(n, seed):
+    """Four numerical features and two categorical ones (20 categories,
+    sorted scan; 3 categories, one-hot) with a 3-class label and a
+    continuous target."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, 6).astype(np.float32)
+    X[:, 1] = rng.randint(0, 20, n)
+    X[:, 4] = rng.randint(0, 3, n)
+    X[rng.rand(n) < 0.05, 2] = np.nan
+    s = (np.nan_to_num(X[:, 0]) + np.isin(X[:, 1], [2, 3, 11, 17])
+         - 0.7 * (X[:, 4] == 1) + 0.3 * rng.randn(n))
+    return X, np.digitize(s, np.quantile(s, [1 / 3, 2 / 3])).astype(float), s
+
+
+@pytest.mark.parametrize("objective", ["multiclass", "regression"])
+@pytest.mark.parametrize("grower", ["compact", "masked"])
+def test_categorical_train_on_card_matches_cpu(dev, grower, objective):
+    """Multiclass (3 trees a round) and regression with categorical
+    features on each grower: the card's kernels launch where the CPU runs
+    their plain versions, and the predictions (class probabilities) agree
+    within 1e-4. The rows are weighted: unweighted first-round softmax
+    gradients take two values, so categories with equal class counts tie
+    exactly in the sorted scan and the f32 summation order picks a set."""
+    X, y3, s = _cat_data(20_000, seed=4)
+    w = np.random.RandomState(6).uniform(0.5, 1.5, len(s))
+    y = y3 if objective == "multiclass" else s
+    k = 3 if objective == "multiclass" else 1
+    p = {"objective": objective, "num_leaves": 31, "max_bin": 63,
+         "tpu_grower": grower, "tpu_hist_layout": "sublane",
+         "verbosity": -1, "min_data_per_group": 20, "cat_smooth": 2.0}
+    if k > 1:
+        p["num_class"] = k
+
+    def train(device):
+        return lgt.train(dict(p, device_type=device),
+                         lgt.Dataset(X, y, weight=w,
+                                     categorical_feature=[1, 4]), 3)
+    _kernels.reset_counts()
+    bg = train("cuda")
+    launches = dict(_kernels.LAUNCHES)
+    plain = dict(_kernels.PLAIN_CALLS)
+    bc = train("cpu")
+    per_run = 3 * k * 31
+    if grower == "compact":
+        assert launches == {"histogram": per_run, "fused_split": per_run,
+                            "histogram_sublane": 0}
+    else:
+        assert launches == {"histogram": 0, "fused_split": 0,
+                            "histogram_sublane": per_run}
+    assert sum(plain.values()) == 0
+    assert any(t.cat_bitset[:t.num_nodes].any() for t in bg._gbdt.models)
+    np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-4)
+
+
+def test_fused_split_with_a_grown_categorical_split(dev):
+    """K2 against its plain version on a multiclass record array (3 score
+    and 6 class-gradient columns beside the label and the row id) with the
+    bitset of a sorted categorical split the grower chose, at 255 bins (8
+    words); integer grad and hess, so the histograms are bit-equal."""
+    X, y3, _ = _cat_data(70_000, seed=5)
+    bst = lgt.train({"objective": "multiclass", "num_class": 3,
+                     "num_leaves": 15, "verbosity": -1, "device_type": "cuda",
+                     "min_data_per_group": 20, "cat_smooth": 2.0},
+                    lgt.Dataset(X, y3, categorical_feature=[1, 4]), 1)
+    gbdt = bst._gbdt
+    assert gbdt.use_compact and gbdt.layout.num_extra == 3 + 6 + 2
+    node = next((int(t.split_feature[i]), t.cat_bitset[i])
+                for t in gbdt.models for i in range(t.num_nodes)
+                if int(t.split_feature[i]) == 1)
+    feat, words = node
+    bits = torch.from_numpy(np.ascontiguousarray(words).view(np.int32)).to(
+        dev)
+    assert bits.numel() == 8
+    n = gbdt.num_data
+    parent = gbdt.work.clone()
+    # integer grad and hess: a one-hot category holds a third of the rows,
+    # and integer sums are exact in f32 whatever the order
+    ints = torch.stack([torch.randint(-1, 2, (n,), device=dev),
+                        torch.randint(0, 2, (n,), device=dev)], 1).float()
+    o = gbdt.layout.grad_off
+    parent[:, o:o + 8] = ints.view(torch.uint8)
+    n_left = int(go_left_pred(parent[:n, feat], 0, False, 0, True,
+                              bits).sum())
+    assert 0 < n_left < n
+    args = (0, 7, n - 7, n_left - int(go_left_pred(
+        parent[:7, feat], 0, False, 0, True, bits).sum()), feat, 0, 0, 0, 1,
+        bits, gbdt.layout, gbdt.grower_params.num_bins)
+    arrays_k = (parent.clone(), torch.zeros_like(parent))
+    arrays_p = (parent.clone(), torch.zeros_like(parent))
+    _, _, hk = fused_split(*arrays_k, *args, side=0)
+    _, _, hp = fused_split_plain(*arrays_p, *args, side=0)
+    torch.cuda.synchronize()
+    assert torch.equal(arrays_k[0], arrays_p[0])
+    nl = args[3]
+    assert torch.equal(arrays_k[1][7 + nl:], arrays_p[1][7 + nl:])
+    assert torch.equal(hk, hp)

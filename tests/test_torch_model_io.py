@@ -4,16 +4,18 @@ package and stock LightGBM, on the CPU.
 * the same trees (trained by the JAX package, carried across by
   ``convert.py``) give the same text, line for line, and the same
   ``dump_model``;
-* ``tests/golden/binary_nan.model.txt``, saved by stock LightGBM, loads and
-  predicts the golden predictions within ``rtol=1e-5, atol=2e-6`` (the
-  tolerance of ``tests/test_interop.py``);
-* text written by the port, trained on the golden data with the golden
+* ``tests/golden/{binary_nan,multiclass,categorical,regression}.model.txt``,
+  saved by stock LightGBM, load and predict the golden predictions within
+  ``rtol=1e-5, atol=2e-6`` (the tolerance of ``tests/test_interop.py``);
+* a JAX multiclass model with categorical splits, carried across, gives
+  the JAX package's text line for line (category-value bitsets included);
+* text written by the port, trained on each golden's data with its
   parameters (masked grower, ``max_bin=63``), loads into the JAX package's
-  ``LoadedGBDT`` and predicts what the port predicts;
+  ``LoadedGBDT`` and predicts what the port predicts within 1e-6;
 * save -> load -> predict round-trips within 1e-6 (the loaded model routes
   raw float64 values on the host, the trained one bins on the device);
-* categorical, multiclass and non-binary texts raise, naming their ROADMAP
-  item.
+* texts outside the port's slices (ranking, quantile, linear trees)
+  raise, naming their ROADMAP item.
 """
 import os
 
@@ -109,6 +111,93 @@ def test_stock_lightgbm_model_loads_and_predicts():
                                ref.predict(X, num_iteration=5), atol=1e-7)
 
 
+# each golden case's parameters (scripts/gen_interop_goldens.py), without
+# deterministic=True (see GOLDEN_PARAMS)
+CASES = {
+    "multiclass": ({"objective": "multiclass", "num_class": 3}, "auto"),
+    "categorical": ({"objective": "regression", "min_data_per_group": 10,
+                     "cat_smooth": 2.0}, [0]),
+    "regression": ({"objective": "regression"}, "auto"),
+}
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_stock_lightgbm_golden_loads_and_predicts(name):
+    X, _, pred, text = _golden(name)
+    bst = lgt.Booster(model_str=text)
+    k = CASES[name][0].get("num_class", 1)
+    assert bst.num_trees() == 12 * k and bst.current_iteration() == 12
+    got = np.asarray(bst.predict(X), np.float64)
+    assert got.shape == pred.shape
+    np.testing.assert_allclose(got, pred, rtol=1e-5, atol=2e-6)
+    ref = lgb.Booster(model_str=text)
+    np.testing.assert_allclose(bst.predict(X, raw_score=True),
+                               ref.predict(X, raw_score=True), atol=1e-7)
+    np.testing.assert_allclose(bst.predict(X, num_iteration=5),
+                               ref.predict(X, num_iteration=5), atol=1e-7)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_port_golden_case_text_loads_in_jax(name, tmp_path):
+    X, y, _, _ = _golden(name)
+    extra, cat = CASES[name]
+    bt = lgt.train(dict(GOLDEN_PARAMS, **extra, device_type="cpu"),
+                   lgt.Dataset(X, y, categorical_feature=cat), 12)
+    p = bt.predict(X)
+    text = bt.model_to_string()
+    if cat != "auto":
+        assert "num_cat=1" in text and "cat_threshold=" in text
+    path = tmp_path / "model.txt"
+    bt.save_model(str(path))
+    back = lgt.Booster(model_file=str(path))
+    np.testing.assert_allclose(back.predict(X), p, atol=1e-6)
+    jax_loaded = lgb.Booster(model_str=text)
+    np.testing.assert_allclose(jax_loaded.predict(X), p, atol=1e-6)
+    # unseen categories and NaN route alike in both loaders
+    Xn = X[:200].copy()
+    Xn[::3, 0] = 25.0
+    Xn[::5, 0] = np.nan
+    np.testing.assert_allclose(back.predict(Xn, raw_score=True),
+                               jax_loaded.predict(Xn, raw_score=True),
+                               atol=1e-6)
+
+
+def test_multiclass_categorical_text_equals_jax():
+    """The JAX package's multiclass model with categorical splits, carried
+    across as arrays, gives the JAX package's text and dump."""
+    rng = np.random.RandomState(4)
+    X = rng.randn(900, 4)
+    X[:, 1] = rng.randint(0, 9, 900)
+    y = ((X[:, 0] > 0) + np.isin(X[:, 1], [2, 3, 7])).astype(float)
+    p = dict(GOLDEN_PARAMS, objective="multiclass", num_class=3,
+             min_data_per_group=10, cat_smooth=2.0, device_type="cpu")
+    bj = lgb.train(p, lgb.Dataset(X, label=y, categorical_feature=[1]), 4)
+    fields = ("split_feature", "split_bin", "default_left", "left_child",
+              "right_child", "leaf_value", "leaf_depth", "split_gain",
+              "leaf_weight", "leaf_count", "internal_value",
+              "internal_weight", "internal_count", "cat_bitset")
+    trees = [dict({k: np.asarray(getattr(t, k)) for k in fields},
+                  num_leaves=t.num_leaves, num_nodes=t.num_nodes,
+                  shrinkage=t.shrinkage) for t in bj._gbdt.models]
+    ds = bj._gbdt.train_set
+    ms = ds.mappers
+    bt = booster_from_arrays(
+        trees, [m.bin_upper_bounds for m in ms], [m.nan_bin for m in ms],
+        [m.missing_type for m in ms], [m.num_bins for m in ms],
+        params=bj.params, value_ranges=[(m.min_value, m.max_value)
+                                        for m in ms],
+        feature_names=ds.feature_names,
+        bin_to_cats=[m.bin_to_cat if m.is_categorical else None
+                     for m in ms])
+    ours, theirs = bt.model_to_string(), bj.model_to_string()
+    assert "cat_threshold=" in ours
+    for i, (a, b) in enumerate(zip(ours.split("\n"), theirs.split("\n"))):
+        assert a == b, f"line {i}: {a!r} != {b!r}"
+    assert len(ours) == len(theirs)
+    assert bt.dump_model() == jax_booster_to_dict(bj)
+    np.testing.assert_allclose(bt.predict(X), bj.predict(X), atol=1e-6)
+
+
 def test_port_text_loads_in_jax_and_round_trips(tmp_path):
     X, y, _, _ = _golden()
     bt = lgt.train(dict(GOLDEN_PARAMS, device_type="cpu"),
@@ -132,11 +221,20 @@ def test_port_text_loads_in_jax_and_round_trips(tmp_path):
                                atol=1e-7)
 
 
-@pytest.mark.parametrize("name,item", [("categorical", "A12"),
-                                       ("multiclass", "A12"),
-                                       ("regression", "A12")])
-def test_texts_outside_the_slice_raise(name, item):
-    _, _, _, text = _golden(name)
+@pytest.mark.parametrize("case,item", [("ranking", "A12b"),
+                                       ("quantile", "A12b"),
+                                       ("linear", "A9")])
+def test_texts_outside_the_slice_raise(case, item):
+    """Stock LightGBM's ranking golden, and the binary golden turned into a
+    quantile model and into one with a linear tree."""
+    if case == "ranking":
+        _, _, _, text = _golden("ranking")
+    else:
+        _, _, _, text = _golden()
+        text = (text.replace("objective=binary sigmoid:1",
+                             "objective=quantile")
+                if case == "quantile"
+                else text.replace("is_linear=0", "is_linear=1", 1))
     with pytest.raises(NotImplementedError, match=item):
         lgt.Booster(model_str=text)
 

@@ -7,7 +7,7 @@
   raises a clear RuntimeError;
 * the device is explicit: ``cuda`` (the default) without a card raises,
   never falling back to the CPU; unknown devices raise;
-* parameters outside the port's slice raise NotImplementedError naming the
+* parameters outside the port's slices raise NotImplementedError naming the
   ROADMAP item that brings them.
 """
 import importlib
@@ -114,9 +114,12 @@ def test_unknown_device_raises(device):
 
 
 @pytest.mark.parametrize("params,item", [
-    ({"objective": "regression"}, "A12"),
-    ({"num_class": 3, "objective": "multiclass"}, "A12"),
-    ({"categorical_feature": [0]}, "A12"),
+    ({"objective": "regression_l1"}, "A12b"),
+    ({"objective": "quantile"}, "A12b"),
+    ({"objective": "mape"}, "A12b"),
+    ({"objective": "lambdarank"}, "A12b"),
+    ({"objective": "rank_xendcg"}, "A12b"),
+    ({"metric": "auc_mu"}, "A12b"),
     ({"tree_learner": "data"}, "A18"),
     ({"bagging_fraction": 0.5, "bagging_freq": 1}, "A14"),
     ({"boosting": "goss"}, "A14"),
