@@ -87,7 +87,26 @@ non-zero):
    whole wider record array against its plain version, timed; a profiled
    tree with K1's and K2's device ms beside their byte bounds; and the
    card against the CPU at 100k rows, 31 leaves, 3 rounds, on weighted rows
-   (tie_free_weights: every class probability within 1e-4).
+   (tie_free_weights: every class probability within 1e-4);
+11. Exclusive Feature Bundling on the compact grower at the Allstate shape
+   of the repo's sparse benchmark (make_allstate_like, 500k x 4228 one-hot
+   columns in blocks of 8, a 10% validation split; the parameters of
+   bench.py:1185-1200 with BENCH_SPARSE=1: 255 leaves, 255 bins,
+   min_data_in_leaf 100, bin_construct_sample_cnt 20,000, default
+   enable_bundle), 1 warm-up and 2 timed rounds (EFB line: construct s and
+   its planning part, bundled features and stored columns, record bytes,
+   iterations/s, AUC above chance, K1's and K2's launches (> 0), K3's (0),
+   plain calls (0), host syncs inside one tree (0), and a profiled tree
+   with K1's and K2's device ms beside their byte bounds); then
+   (EFB_CHECKS) K2's copy-back variant against its plain version and
+   against its dual variant on the bundled records at the first tree's
+   root split and at its first grown split (integer grad and hess: arrays
+   byte-equal, histograms bit-equal), both variants timed at the root
+   beside the root's smaller-child histogram alone (the rest of each is its
+   partition); K1 on the wide records against its plain version
+   (bit-equal), timed beside index_add_; the saved and reloaded model within 1e-6; and the card against the CPU on
+   a narrower one-hot shape (100k x 320 plus 4 dense columns, 31 leaves, 3
+   rounds) within 1e-4.
 
 Each profiled tree must hold as many launches of each kernel as its wrapper
 counted in that round; a short trace is repeated. The line before the last
@@ -139,6 +158,27 @@ MC_PARAMS = {"objective": "multiclass", "num_class": MC_CLASSES,
              "metric": "multi_logloss,multi_error", "num_leaves": 255,
              "max_bin": 255, "learning_rate": 0.1, "min_data_in_leaf": 100,
              "verbosity": -1}
+
+
+def make_allstate_like(n, f, card=8, seed=7):
+    """Sparse one-hot blocks of ``card`` columns (the Allstate F = 4228
+    shape of the repo's sparse benchmark, copied from bench.py:265-282,
+    which imports JAX): every row has one hot column a block, the label a
+    thresholded sum of per-column weights. Made block by block, with no
+    dense float64 intermediate."""
+    rng = np.random.RandomState(seed)
+    X = np.zeros((n, f), np.float32)
+    logits = 0.5 * rng.randn(n)
+    off = 0
+    while off < f:
+        w = min(card, f - off)           # the remainder is a smaller block
+        cats = rng.randint(0, w, size=n)
+        X[np.arange(n), off + cats] = 1.0
+        wg = rng.randn(w) * 0.3
+        logits += wg[cats]
+        off += w
+    y = (logits > 0).astype(np.float64)
+    return X, y
 
 
 def make_higgs_multiclass_like(X, logits, seed=7):
@@ -1320,7 +1360,8 @@ def phase_multiclass_masked(lgt, results):
 
 # the device functions of each kernel of the port, as the profiler names them
 KERNEL_FUNCTIONS = {"histogram": ("hist_kernel",),
-                    "fused_split": ("prep_kernel", "partition_kernel"),
+                    "fused_split": ("prep_kernel", "partition_kernel",
+                                    "copyback_kernel"),
                     "histogram_sublane": ("hist_sublane_kernel",
                                           "hist_sublane_small_kernel")}
 # of those, the ones of which exactly one runs for each launch a wrapper
@@ -1350,13 +1391,22 @@ def smaller_child_rows(tree):
     return n, smaller
 
 
+def record_row_bytes(layout):
+    """Bytes K1 must read of a record: the 32-byte sectors that hold its
+    bins and its grad, hess and weight columns (64 B, two sectors, at
+    F = 28; 544 B, 17 sectors, for 529 bundle columns)."""
+    return 32 * -(-(layout.cnt_off + 4) // 32)
+
+
 def tree_byte_bounds(tree, layout):
-    """Byte bounds of one compact tree from its node counts: K1 reads 64 B
-    (bins and channels) of every root row and of every smaller-child row;
-    K2 reads and writes each split parent's real columns once."""
+    """Byte bounds of one compact tree from its node counts: K1 reads the
+    bins and channels of every root row and of every smaller-child row
+    (``record_row_bytes``); K2 reads and writes each split parent's real
+    columns once (in either variant: copy-back's round trip through
+    scratch is the implementation's, not the function's)."""
     n, smaller = smaller_child_rows(tree)
     cnt = np.asarray(tree.internal_count, np.float64)[:tree.num_nodes]
-    return {"histogram": (n + smaller) * RECORD_ROW_BYTES,
+    return {"histogram": (n + smaller) * record_row_bytes(layout),
             "fused_split": float(2 * cnt.sum() * layout.num_real_cols)}
 
 
@@ -1508,6 +1558,320 @@ def phase_cpu_vs_card(lgt, results):
     results["cpu_vs_card"] = out
 
 
+EFB_ROWS = 500_000
+EFB_FEATURES = 4228
+EFB_ROUNDS = 2                 # timed rounds after one warm-up round
+
+
+def efb_node_route(gbdt, tree, node):
+    """(stored column, bin, default_left, NaN bin, bitset flag, int32
+    bitset) of a node of a bundled model, as the grower routes it: a
+    bundled feature by its node's bitset on its bundle column."""
+    orig = int(tree.split_feature[node])
+    col = int(gbdt._route_col[orig])
+    bits = torch.from_numpy(np.ascontiguousarray(
+        tree.cat_bitset[node]).view(np.int32)).to(gbdt.device)
+    return (col, int(tree.split_bin[node]), int(tree.default_left[node]),
+            int(gbdt._route_nan[col]), int(bool(gbdt._route_cat[orig])),
+            bits)
+
+
+def check_efb_kernels(bst):
+    """K2's copy-back variant against its plain version and against K2's
+    dual variant on the bundled record array (all training rows, 640-byte
+    records) at the first tree's root split and at its first grown split
+    (the root's child, on its segment of the root split's result), on
+    integer grad and hess: record arrays byte-equal, histograms bit-equal;
+    both variants timed at the root, with the root's smaller-child
+    histogram alone (the rest is the partition). Then K1 in record mode on
+    the same wide records against its plain version (bit-equal), timed
+    beside index_add_."""
+    from lightgbm_tpu_torch.ops.compact import record_channels
+    from lightgbm_tpu_torch.ops.fused_split import (fused_split,
+                                                    fused_split_plain)
+    from lightgbm_tpu_torch.ops.pallas_histogram import (
+        record_histogram, record_histogram_plain)
+    from lightgbm_tpu_torch.ops.split import go_left_pred
+    gbdt = bst._gbdt
+    layout = gbdt.layout
+    B = gbdt.grower_params.num_bins
+    dev = gbdt.device
+    n = gbdt.num_data
+    work = gbdt.work.clone()
+    scratch = torch.zeros_like(work)
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    ints = torch.stack([torch.randint(-1, 2, (n,), generator=g, device=dev),
+                        torch.randint(0, 2, (n,), generator=g, device=dev)],
+                       dim=1).float()
+    work[:, layout.grad_off:layout.grad_off + 8] = ints.view(torch.uint8)
+    del ints
+    tree = gbdt.models[0]
+    check(tree.num_nodes > 1, "the first EFB tree has no grown split")
+
+    def split_args(node, start, count, arr):
+        col, b, dl, nan, cat, bits = efb_node_route(gbdt, tree, node)
+        gl = go_left_pred(arr[start:start + count, col], b, bool(dl), nan,
+                          bool(cat), bits)
+        return (0, start, count, int(gl.sum()), col, b, dl, nan, cat, bits,
+                layout, B), gl
+
+    line = {"rows": n, "record_bytes": layout.num_cols,
+            "record_real_bytes": layout.num_real_cols,
+            "moved_bytes": layout.moved_cols}
+    root_args, gl = split_args(0, 0, n, work)
+    child = int(tree.left_child[0])
+    side_left = child >= 0
+    if not side_left:
+        child = int(tree.right_child[0])
+    check(child >= 0, "the root has no internal child")
+    after_root = None
+    for what, node in (("root", 0), ("grown", child)):
+        if what == "root":
+            base, args = work, root_args
+        else:
+            nl0 = root_args[3]
+            start, count = (0, nl0) if side_left else (nl0, n - nl0)
+            base = after_root
+            args, _ = split_args(node, start, count, base)
+        start, count, n_left = args[1], args[2], args[3]
+        wk, sk = base.clone(), scratch.clone()
+        _, _, hk = fused_split(wk, sk, *args, dual=False)
+        wp, spl = base.clone(), scratch.clone()
+        _, _, hp = fused_split_plain(wp, spl, *args, dual=False)
+        wd, sd = base.clone(), scratch.clone()
+        _, _, hd = fused_split(wd, sd, *args, side=0)
+        torch.cuda.synchronize()
+        check(torch.equal(wk, wp) and torch.equal(sk, spl),
+              f"K2 copy-back at the {what} split: records differ from the "
+              "plain version")
+        merged = wd
+        merged[start + n_left:start + count] = sd[start + n_left:
+                                                  start + count]
+        check(torch.equal(wk, merged), f"K2 copy-back at the {what} split: "
+              "work differs from dual residency's merged children")
+        err = hist_close(hk, hp, hp, f"K2 copy-back {what} split", 0)
+        hist_close(hk, hd, hd, f"K2 copy-back vs dual {what} split", 0)
+        line[what] = {"start": start, "count": count, "n_left": n_left,
+                      "column": args[4], "bitset": bool(args[8]),
+                      "max_abs_err": err}
+        if what == "root":
+            after_root = wk
+        del wp, spl, wd, sd, hk, hp, hd, merged
+        if what != "root":
+            del wk, sk
+    del after_root
+    n_left = root_args[3]
+    n_small = min(n_left, n - n_left)
+    calls = [0]
+
+    def dual_alternating():
+        fused_split(work, scratch, *root_args, side=calls[0] % 2)
+        calls[0] += 1
+
+    def library():
+        perm = torch.argsort(gl.to(torch.uint8), stable=True)
+        torch.index_select(work, 0, perm, out=scratch)
+    row_bytes = record_row_bytes(layout)
+    # the smaller child's histogram alone (K1 on its rows), the part of
+    # either variant that is not the partition, as the main path's K2 line
+    hs = 0 if n_left <= n - n_left else n_left
+    child_seg = torch.tensor([hs, n_small, 0], dtype=torch.int32,
+                             device=dev)
+    line.update({
+        "copy_back_ms": time_ms(lambda: fused_split(
+            work, scratch, *root_args, dual=False)),
+        "dual_ms": time_ms(dual_alternating),
+        "copy_back_plain_ms": time_ms(lambda: fused_split_plain(
+            work, scratch, *root_args, dual=False), 4, 2),
+        "library_ms": time_ms(library, 4, 2),
+        "child_hist_ms": time_ms(lambda: record_histogram(
+            work, scratch, child_seg, layout, B)),
+        "bound_ms": 1e3 * (2 * n * layout.num_real_cols
+                           + n_small * row_bytes) / HBM_BYTES_PER_S})
+    line["copy_back_partition_ms"] = (line["copy_back_ms"]
+                                      - line["child_hist_ms"])
+    line["dual_partition_ms"] = line["dual_ms"] - line["child_hist_ms"]
+    seg = torch.tensor([0, n, 0], dtype=torch.int32, device=dev)
+    hk = record_histogram(work, scratch, seg, layout, B)
+    hp = record_histogram_plain(work, scratch, seg, layout, B)
+    line["k1"] = {
+        "rows": n, "features": layout.num_features,
+        "row_bytes_read": row_bytes,
+        "max_abs_err": hist_close(hk, hp, hp, "K1 on the EFB records", 0),
+        "kernel_ms": time_ms(lambda: record_histogram(work, scratch, seg,
+                                                      layout, B)),
+        "plain_ms": time_ms(lambda: record_histogram_plain(
+            work, scratch, seg, layout, B), 2, 1),
+        "bound_ms": 1e3 * n * row_bytes / HBM_BYTES_PER_S}
+    del hk, hp
+    # index_add_ of the same rows' channels on a flat index precomputed
+    # from the records, as for K1's main-path line
+    F = layout.num_features
+    flat = (work[:, :F].to(torch.int64)
+            + torch.arange(F, device=dev) * B).reshape(-1)
+    src = record_channels(work, layout)[:, None, :].expand(
+        n, F, 4).reshape(-1, 4)
+    lib_out = torch.zeros(F * B, 4, device=dev)
+
+    def lib():
+        lib_out.zero_()
+        lib_out.index_add_(0, flat, src)
+    line["k1"]["library_ms"] = time_ms(lib, 3, 1)
+    del work, scratch, flat, src, lib_out
+    return line
+
+
+def efb_cpu_vs_card(lgt):
+    """A narrower one-hot shape (100,000 x 320 one-hot in blocks of 8, plus
+    4 dense columns), 31 leaves, 3 rounds, default parameters: bundled on
+    both, the card within 1e-4 of the CPU."""
+    rng = np.random.RandomState(21)
+    n, groups = 100_000, 40
+    cats = rng.randint(0, 8, (n, groups))
+    X = np.zeros((n, groups * 8), np.float32)
+    for gi in range(groups):
+        X[np.arange(n), gi * 8 + cats[:, gi]] = 1.0
+    X = np.concatenate([X, rng.randn(n, 4).astype(np.float32)], axis=1)
+    y = (X @ (rng.randn(X.shape[1]) * 0.5) + 0.4 * rng.randn(n) > 0
+         ).astype(float)
+    params = {"objective": "binary", "num_leaves": 31, "verbosity": -1}
+    boosters = {dev: lgt.train(dict(params, device_type=dev),
+                               lgt.Dataset(X, y), 3)
+                for dev in ("cuda", "cpu")}
+    for b in boosters.values():
+        check(b._gbdt._efb is not None, "the one-hot check did not bundle")
+    diff, differ = compare_boosters(boosters["cuda"], boosters["cpu"], X)
+    check(diff <= 1e-4, f"EFB card vs CPU predictions differ by {diff}")
+    return {"rows": n, "features": X.shape[1],
+            "stored_columns": boosters["cpu"]._gbdt.layout.num_features,
+            "max_abs_pred_diff": diff, "differing_splits": differ}
+
+
+def phase_efb(lgt, results):
+    """Exclusive Feature Bundling on the compact grower at the Allstate
+    shape (make_allstate_like, 4228 one-hot columns in blocks of 8, 10%
+    validation split; the parameters of bench.py:1185-1200 with
+    BENCH_SPARSE=1): default enable_bundle, 255 leaves, 255 bins,
+    min_data_in_leaf 100, bin_construct_sample_cnt 20,000, 1 warm-up and
+    EFB_ROUNDS timed rounds, then a profiled tree; the raw matrix is freed
+    after construction (the validation rows kept)."""
+    from lightgbm_tpu_torch import _kernels
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    from lightgbm_tpu_torch.io import dataset as dataset_mod
+    rows, rounds = EFB_ROWS, EFB_ROUNDS
+    t0 = time.perf_counter()
+    X, y = make_allstate_like(rows, EFB_FEATURES)
+    n_val = rows // 10
+    Xv, yv = X[-n_val:].copy(), y[-n_val:]
+    gen_s = time.perf_counter() - t0
+    params = {"objective": "binary", "metric": "auc", "num_leaves": 255,
+              "max_bin": 255, "learning_rate": 0.1, "min_data_in_leaf": 100,
+              "bin_construct_sample_cnt": 20_000, "verbosity": -1,
+              "device_type": "cuda"}
+    plan_s = [0.0]
+    plan = dataset_mod._plan_efb
+
+    def timed_plan(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return plan(*a, **kw)
+        finally:
+            plan_s[0] += time.perf_counter() - t
+    syncs = {}
+    ends = []
+
+    def timer(env):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+    timer.order = 5
+
+    _kernels.reset_counts()
+    dataset_mod._plan_efb = timed_plan
+    try:
+        with syncs_in_second_tree(gbdt_mod, "grow_tree_compact", syncs):
+            t1 = time.perf_counter()
+            ds = lgt.Dataset(X[:-n_val], y[:-n_val], params=params)
+            dv = ds.create_valid(Xv, yv)
+            ds.construct()
+            dv.construct()
+            construct_s = time.perf_counter() - t1
+            del X
+            evals = {}
+            t_start = time.perf_counter()
+            bst = lgt.train(params, ds, 1 + rounds, valid_sets=[dv],
+                            callbacks=[timer, lgt.record_evaluation(evals)])
+    finally:
+        dataset_mod._plan_efb = plan
+    launches = dict(_kernels.LAUNCHES)
+    plain_calls = dict(_kernels.PLAIN_CALLS)
+    gbdt = bst._gbdt
+    info = ds._inner.bundle_info
+    check(info is not None and info.n_bundled > 0, "no bundle formed")
+    check(gbdt.use_compact and gbdt._efb is not None
+          and not gbdt.grower_params.fused_dual,
+          "the bundled run did not take the compact grower's copy-back path")
+    check(len(ends) == 1 + rounds, f"trained {len(ends)} rounds")
+    it_s = rounds / (ends[-1] - ends[0])
+    auc = evals["valid_0"]["auc"][-1]
+    for k in ("histogram", "fused_split"):
+        check(launches[k] > 0, f"kernel {k} was not launched on the EFB "
+              "path")
+    for k, v in plain_calls.items():
+        check(v == 0, f"plain version of {k} ran {v} times on the card")
+    check(launches["histogram_sublane"] == 0, "K3 ran on the EFB path")
+    # a sanity gate above chance (about 0.003 of AUC for 50,000 rows): three
+    # trees of 255 leaves see few of the 529 blocks the label sums over
+    check(np.isfinite(auc) and auc > 0.55, f"EFB validation AUC {auc}")
+    check(syncs.get("in_tree") == 0, "host syncs inside the EFB split loop")
+    bundled_splits = sum(int((info.offset_of[t.split_feature[:t.num_nodes]]
+                              >= 0).sum()) for t in gbdt.models)
+    check(bundled_splits > 0, "no split on a bundled feature")
+    prof = profile_tree(bst, 1.0 / it_s)
+    out = {"rows": rows, "features": EFB_FEATURES,
+           "train_rows": rows - n_val, "valid_rows": n_val,
+           "rounds_timed": rounds, "iterations_per_s": it_s,
+           "first_round_s": ends[0] - t_start, "construct_s": construct_s,
+           "plan_s": plan_s[0], "data_gen_s": gen_s,
+           "bundled_features": int(info.n_bundled),
+           "stored_columns": int(info.n_columns),
+           "record_bytes": gbdt.layout.num_cols,
+           "record_real_bytes": gbdt.layout.num_real_cols,
+           "scan_features": int(gbdt.num_bins_arr.numel()),
+           "valid_auc": auc, "launches": launches,
+           "plain_calls": plain_calls, "host_syncs_in_tree":
+           syncs.get("in_tree"), "bundled_splits": bundled_splits,
+           "num_trees": bst.num_trees(),
+           "tree_kernel_launches": prof["kernel_launches"],
+           "tree_device_s": prof["device_s"],
+           "tree_device_idle_share": prof["device_idle_share"],
+           "tree_kernels": {k: {"device_ms": v["device_ms"],
+                                "bound_ms": v.get("bound_ms")}
+                            for k, v in prof["kernels"].items()
+                            if k != "histogram_sublane"}}
+    print("EFB", json.dumps(out), flush=True)
+    checks = {"kernels": check_efb_kernels(bst)}
+    # the saved bundled model routes raw values per original feature
+    p_card = bst.predict(Xv[:20_000])
+    check(np.all(np.isfinite(p_card)), "EFB card predictions")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "efb.txt")
+        bst.save_model(path)
+        loaded = lgt.Booster(model_file=path)
+        reload_diff = float(np.abs(loaded.predict(Xv[:20_000])
+                                   - p_card).max())
+    check(reload_diff <= 1e-6, f"reloaded EFB model differs by "
+          f"{reload_diff}")
+    checks["reload_max_abs_diff"] = reload_diff
+    checks["cpu_vs_card"] = efb_cpu_vs_card(lgt)
+    print("EFB_CHECKS", json.dumps(checks), flush=True)
+    out["profile"] = prof
+    out["checks"] = checks
+    results["efb"] = out
+    del bst, ds, dv, gbdt
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=10_500_000,
@@ -1550,7 +1914,8 @@ def main() -> int:
               ("multiclass_masked", lambda: phase_multiclass_masked(
                   lgt, results)),
               ("multiclass", lambda: phase_multiclass(lgt, args.rows,
-                                                      results))]
+                                                      results)),
+              ("efb", lambda: phase_efb(lgt, results))]
     for name, run in phases:
         t0 = time.perf_counter()
         run()
@@ -1568,6 +1933,9 @@ def main() -> int:
     mc = results["multiclass"]
     mc_tree = mc["profile"]["kernels"]
     mc_masked = results["multiclass_masked"]
+    efb = results["efb"]
+    efb_tree = efb["profile"]["kernels"]
+    efb_k = efb["checks"]["kernels"]
 
     def multiclass_path(kern, tree_kernels, launches, rounds, extra=None):
         """A kernel's numbers on a multiclass path: launches a round (K
@@ -1600,7 +1968,17 @@ def main() -> int:
          "tree_bound_ms": per_tree["histogram"]["bound_ms"],
          "multiclass": multiclass_path("histogram", mc_tree,
                                        mc["launches"],
-                                       1 + mc["rounds_timed"])},
+                                       1 + mc["rounds_timed"]),
+         # the EFB path: 640-byte records of 529 bundle columns
+         "efb": {"launches": efb["launches"]["histogram"],
+                 "ms": efb_k["k1"]["kernel_ms"],
+                 "plain_ms": efb_k["k1"]["plain_ms"],
+                 "bound_ms": efb_k["k1"]["bound_ms"],
+                 "library_ms": efb_k["k1"]["library_ms"],
+                 "max_abs_err": efb_k["k1"]["max_abs_err"],
+                 "features": efb_k["k1"]["features"],
+                 "tree_device_ms": efb_tree["histogram"]["device_ms"],
+                 "tree_bound_ms": efb_tree["histogram"]["bound_ms"]}},
         {"name": "fused_split", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/fused_split.cu",
          "replaces": "lightgbm_tpu/ops/fused_split.py:198",
@@ -1618,7 +1996,27 @@ def main() -> int:
                   mc["k2_categorical"]["bound_ms"],
               "categorical_split_max_abs_err":
                   mc["k2_categorical"]["max_abs_err"],
-              "record_real_bytes": mc["record_real_bytes"]})},
+              "record_real_bytes": mc["record_real_bytes"]}),
+         # K2's two variants: dual residency (the paths above) and
+         # copy-back (the EFB path, at its root split)
+         "modes": {
+             "dual": {"launches": launches["fused_split"],
+                      "ms": f["kernel_ms"], "bound_ms": f["bound_ms"],
+                      "efb_root_split_ms": efb_k["dual_ms"],
+                      "efb_root_partition_ms": efb_k["dual_partition_ms"]},
+             "copy_back": {
+                 "launches": efb["launches"]["fused_split"],
+                 "ms": efb_k["copy_back_ms"],
+                 "plain_ms": efb_k["copy_back_plain_ms"],
+                 "bound_ms": efb_k["bound_ms"], "bound_by": "bytes",
+                 "library_ms": efb_k["library_ms"],
+                 "partition_ms": efb_k["copy_back_partition_ms"],
+                 "child_hist_ms": efb_k["child_hist_ms"],
+                 "max_abs_err": max(efb_k["root"]["max_abs_err"],
+                                    efb_k["grown"]["max_abs_err"]),
+                 "record_bytes": efb_k["record_bytes"],
+                 "tree_device_ms": efb_tree["fused_split"]["device_ms"],
+                 "tree_bound_ms": efb_tree["fused_split"]["bound_ms"]}}},
         {"name": "histogram_sublane", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/histogram_sublane.cu",
          "replaces": "lightgbm_tpu/ops/pallas_histogram.py:170",

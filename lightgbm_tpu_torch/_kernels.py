@@ -42,8 +42,8 @@ KERNELS = {
                               _P],
     }),
     "fused_split": ("fused_split.cu", {
-        "lgbt_fused_split": [_I, _P, _P, _I, _L, _I, _I, _I, _P, _P, _I, _P,
-                             _P, _P, _P],
+        "lgbt_fused_split": [_I, _I, _P, _P, _I, _L, _I, _I, _I, _P, _P, _I,
+                             _P, _P, _P, _P],
     }),
     "histogram_sublane": ("histogram_sublane.cu", {
         "lgbt_hist_sublane": [_P, _L, _P, _I, _L, _I, _I, _I, _P, _I, _I,

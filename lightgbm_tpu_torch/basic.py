@@ -30,8 +30,8 @@ from .objectives import create_objective
 _DATASET_PARAM_KEYS = ("max_bin", "min_data_in_bin", "bin_construct_sample_cnt",
                        "use_missing", "zero_as_missing", "data_random_seed",
                        "max_bin_by_feature", "device_type", "enable_bundle",
-                       "categorical_feature", "forcedbins_filename",
-                       "tpu_bin_pack4")
+                       "max_conflict_rate", "categorical_feature",
+                       "forcedbins_filename", "tpu_bin_pack4")
 
 
 def _maybe_series(x):
@@ -110,6 +110,8 @@ class Dataset:
             reference=ref_inner,
             max_bin_by_feature=cfg.get("max_bin_by_feature"),
             categorical_feature=cat,
+            enable_bundle=bool(cfg.enable_bundle),
+            max_conflict_rate=float(cfg.max_conflict_rate),
         )
         md = self._inner.metadata
         if self.label is not None:

@@ -3,10 +3,23 @@
 Counterpart of ``lightgbm_tpu/boosting/gbdt.py`` for the serial learner
 (reference: class GBDT, src/boosting/gbdt.cpp): grower selection
 (``tpu_grower``: ``auto`` is the masked grower below 65,536 rows and the
-compact grower at and above, as at ``boosting/gbdt.py:964-995`` there), the
-two training steps, boost-from-average, validation-set score updates and
-``HostTree``. An iteration grows K = ``num_model_per_iteration`` trees, one
-a class in class order (K > 1 for the multiclass objectives); the train and
+compact grower at and above, as at ``boosting/gbdt.py:964-995`` there;
+EFB-bundled data takes the compact grower at any row count, and from 2^24
+rows on every run takes the masked grower), the two training steps,
+boost-from-average, validation-set score updates and ``HostTree``.
+
+EFB (``_setup_efb``, reference ``_setup_efb``, ``boosting/gbdt.py:
+2131-2245``): on a bundled dataset the compact grower scans the stored
+columns plus one virtual feature per bundled original and routes bundled
+winners by bitsets on their bundle columns through K2's copy-back variant;
+the trees record original feature ids and bins, so prediction and model
+text work in the original feature space, while validation sets, stored in
+bundle space, are routed through ``col_of``. Where the compact grower cannot
+run (``tpu_grower=masked``, 2^24 rows or more) the dataset is unbundled
+first, with a warning.
+
+An iteration grows K = ``num_model_per_iteration`` trees, one a class in
+class order (K > 1 for the multiclass objectives); the train and
 validation scores are ``[K, N]``. As in the reference (``GBDT::Boosting``
 before the class loop, gbdt.cpp:220), the K classes' gradients are computed
 once an iteration from the iteration-start scores.
@@ -45,6 +58,7 @@ import torch
 
 from ..config import resolve_hist_layout
 from ..io.dataset import BinnedDataset
+from ..io.efb import EfbLayout, unbundle
 from ..metrics import Metric
 from ..ops.compact import RowLayout, _u8_to_f32, pack_rows
 from ..ops.grower import GrowerParams, TreeArrays, grow_tree
@@ -56,6 +70,12 @@ from ..utils import log
 # tpu_grower=auto takes the compact grower from this many rows on
 # (reference: boosting/gbdt.py:988-995)
 _COMPACT_MIN_ROWS = 65536
+# from this many rows on, every run takes the masked grower: f32 counts are
+# exact only below 2^24, and the compact grower's partition offsets and row
+# ids need them exact; the masked grower routes each row by its own bin and
+# leaves only its min_data gates inexact there (reference:
+# boosting/gbdt.py:970)
+_COMPACT_MAX_ROWS = 1 << 24
 
 _INT_FIELDS = ("split_feature", "split_bin", "default_left", "left_child",
                "right_child", "leaf_parent", "leaf_depth", "cat_bitset")
@@ -163,6 +183,24 @@ def _initial_scores(md, k: int, n: int) -> np.ndarray:
     return score0
 
 
+def _dense_bins(ds: BinnedDataset) -> np.ndarray:
+    """``ds``'s bin matrix with one column a feature (bundles undone)."""
+    if ds.bundle_info is None:
+        return ds.binned
+    dbins = np.array([m.default_bin for m in ds.mappers], np.int32)
+    return unbundle(np.asarray(ds.binned), ds.bundle_info, dbins,
+                    ds.feature_num_bins())
+
+
+def _unbundle(ds: BinnedDataset, why: str) -> None:
+    """Undo ``ds``'s EFB bundles in place, with a warning (reference:
+    ``_efb_precheck`` and ``_setup_efb``'s fallback, ``boosting/gbdt.py:
+    2081-2184``)."""
+    log.warning(why)
+    ds.binned = _dense_bins(ds)
+    ds.bundle_info = None
+
+
 class _ValidSet:
     """Cached raw scores of one validation set (reference: ScoreUpdater)."""
 
@@ -222,6 +260,8 @@ class GBDT:
         self.nan_bin_arr = torch.tensor(
             [m.nan_bin if not m.is_trivial else 0 for m in self.mappers],
             dtype=torch.int64).to(device)
+        self._pred_nan_arr = self.nan_bin_arr
+        self._efb = None
         return self
 
     def feature_is_categorical(self) -> np.ndarray:
@@ -234,25 +274,30 @@ class GBDT:
         n = train_set.num_data
         self.num_data = n
         self._n_real = n
-        if n >= (1 << 24):
-            # f32 count histograms (the compact grower's partition offsets
-            # and row ids, both growers' min_data_in_leaf counts) are exact
-            # only below 2^24 rows
-            raise RuntimeError("the PyTorch port trains on fewer than 2^24 "
-                               "rows: f32 counts are exact only below that")
+        grower = str(cfg.get("tpu_grower", "auto")).lower()
+        bundled = train_set.bundle_info is not None
+        can_compact = n < _COMPACT_MAX_ROWS
+        if grower == "compact" and not can_compact:
+            log.warning(f"tpu_grower=compact supports fewer than "
+                        f"{_COMPACT_MAX_ROWS} rows (f32 counts); using the "
+                        "masked grower")
+        # bundled data takes the compact grower at any row count: the
+        # bundle-space scan and routing live there
+        self.use_compact = can_compact and (grower == "compact" or (
+            grower == "auto" and (n >= _COMPACT_MIN_ROWS or bundled)))
+        self._efb_precheck(train_set)
         mappers = train_set.mappers
+        # prediction and model text work per original feature
+        self._pred_nan_arr = torch.from_numpy(
+            train_set.feature_nan_bins().astype(np.int64)).to(dev)
         self.num_bins_arr = torch.from_numpy(
             train_set.feature_num_bins().astype(np.int64)).to(dev)
-        self.nan_bin_arr = torch.from_numpy(
-            train_set.feature_nan_bins().astype(np.int64)).to(dev)
+        self.nan_bin_arr = self._pred_nan_arr
         self.has_nan_arr = torch.from_numpy(train_set.feature_has_nan()).to(
             dev)
         self.feat_mask = torch.from_numpy(np.array(
             [not m.is_trivial for m in mappers], bool)).to(dev)
         is_cat = train_set.feature_is_categorical()
-        # None keeps the categorical scan and routing out of numerical runs
-        self.is_cat_arr = (torch.from_numpy(is_cat).to(dev) if is_cat.any()
-                           else None)
         self.grower_params = GrowerParams(
             num_leaves=int(cfg.get("num_leaves", 31)),
             max_depth=int(cfg.get("max_depth", -1)),
@@ -272,18 +317,98 @@ class GBDT:
             hist_layout=resolve_hist_layout(cfg,
                                             int(train_set.max_num_bins)),
         )
+        self._efb = None
+        if train_set.bundle_info is not None:
+            is_cat = self._setup_efb(train_set)
+        # None keeps the categorical scan out of numerical runs
+        self.is_cat_arr = (torch.from_numpy(is_cat).to(dev) if is_cat.any()
+                           else None)
         md = train_set.metadata
         self.objective.init(md, n)
         self._has_init_score = md.init_score is not None
         self.train_score = torch.from_numpy(_initial_scores(
             md, self.num_class, n)).to(dev)
-        grower = str(cfg.get("tpu_grower", "auto")).lower()
-        self.use_compact = grower == "compact" or (
-            grower == "auto" and n >= _COMPACT_MIN_ROWS)
         if self.use_compact:
             self._setup_compact_state(train_set)
         else:
             self._setup_masked_state(train_set)
+
+    def _efb_precheck(self, train_set: BinnedDataset) -> None:
+        """Unbundle an EFB dataset, with a warning, when the run does not
+        take the compact grower (``tpu_grower=masked``, 2^24 rows or more;
+        reference: ``_efb_precheck``, ``boosting/gbdt.py:2081-2129``, whose
+        other conditions are parameters the port raises on)."""
+        if train_set.bundle_info is not None and not self.use_compact:
+            _unbundle(train_set, "EFB bundles need the compact grower; "
+                      "unbundling the dataset (set enable_bundle=false to "
+                      "skip bundling entirely)")
+
+    def _setup_efb(self, train_set: BinnedDataset) -> np.ndarray:
+        """Wire an EFB-bundled dataset into the compact grower (reference:
+        ``_setup_efb``, ``boosting/gbdt.py:2131-2245``). Scan space: the C
+        stored columns plus one virtual feature per bundled original (its
+        histogram is made from its bundle column's bin range,
+        ``extend_hist_efb``); routing space: the stored columns (a bundled
+        winner carries a ready bitset). Bundle columns never win a split.
+        Sets the scan-space arrays, ``self._efb`` (an ``EfbLayout``) and
+        the arrays that route validation rows in bundle space; returns
+        the scan-space categorical flags. K2 runs its copy-back variant
+        here, as the reference does (``boosting/gbdt.py:1424-1438``)."""
+        dev = self.device
+        binfo = train_set.bundle_info
+        c = binfo.n_columns
+        mappers = train_set.mappers
+        orig_nb = train_set.feature_num_bins()
+        orig_nan = train_set.feature_nan_bins()
+        orig_cat = train_set.feature_is_categorical()
+        orig_has_nan = train_set.feature_has_nan()
+        orig_dbin = np.array([m.default_bin for m in mappers], np.int64)
+        nontrivial = np.array([not m.is_trivial for m in mappers], bool)
+        bundled = np.nonzero(binfo.offset_of >= 0)[0]
+        passthrough = np.nonzero(binfo.offset_of < 0)[0]
+        fb = len(bundled)
+
+        def colv(vals, fill):
+            """Per-feature values on the stored columns (passthrough
+            features' own columns; ``fill`` on bundle columns)."""
+            vals = np.asarray(vals)
+            v = np.full(c, fill, vals.dtype)
+            v[binfo.col_of[passthrough]] = vals[passthrough]
+            return v
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        i64 = np.int64
+        self.num_bins_arr = t(np.concatenate(
+            [binfo.num_column_bins, orig_nb[bundled]]).astype(i64))
+        self.nan_bin_arr = t(np.concatenate(
+            [colv(orig_nan, 0), orig_nan[bundled]]).astype(i64))
+        self.has_nan_arr = t(np.concatenate(
+            [colv(orig_has_nan, False), np.zeros(fb, bool)]))
+        self.feat_mask = t(np.concatenate(
+            [colv(nontrivial, False), np.ones(fb, bool)]))
+        orig_of_col = np.full(c, -1, i64)
+        orig_of_col[binfo.col_of[passthrough]] = passthrough
+        self._efb = EfbLayout(*(t(a) for a in (
+            np.concatenate([np.arange(c), binfo.col_of[bundled]]).astype(i64),
+            np.concatenate([colv(orig_cat, False), np.ones(fb, bool)]),
+            np.concatenate([np.full(c, -1), binfo.offset_of[bundled]]
+                           ).astype(i64),
+            np.concatenate([np.zeros(c), orig_nb[bundled]]).astype(i64),
+            np.concatenate([np.zeros(c), orig_dbin[bundled]]).astype(i64),
+            np.concatenate([orig_of_col, bundled]).astype(i64))))
+        # validation rows are stored in bundle space: a node on original
+        # feature j reads column col_of[j], by its bitset when j is bundled
+        self._route_col = t(binfo.col_of.astype(i64))
+        self._route_cat = t(orig_cat | (binfo.offset_of >= 0))
+        self._route_nan = t(colv(orig_nan, 0).astype(i64))
+        self.grower_params = self.grower_params._replace(
+            efb_virtual=fb, efb_bmax=int(orig_nb[bundled].max()),
+            fused_dual=False)
+        log.info("EFB-bundled dataset: the compact grower scans "
+                 f"{c} stored columns and {fb} bundled features, K2 in its "
+                 "copy-back variant")
+        return np.concatenate([colv(orig_cat, False), np.zeros(fb, bool)])
 
     def _setup_masked_state(self, train_set: BinnedDataset) -> None:
         """The masked grower's inputs, made once: the bin matrix row-major
@@ -456,7 +581,7 @@ class GBDT:
         tree, row_leaf, self.work, self.scratch, _, _ = grow_tree_compact(
             self.work, self.scratch, self.num_bins_arr, self.nan_bin_arr,
             self.has_nan_arr, self.feat_mask, lay, self.grower_params,
-            self.num_data, self.is_cat_arr)
+            self.num_data, self.is_cat_arr, self._efb)
         # the score columns moved with the rows
         self.train_score = self._score_cols()
         return tree, row_leaf
@@ -465,13 +590,22 @@ class GBDT:
                              k: int) -> None:
         if not self.valid_sets:
             return
-        cat = {}
-        if self.is_cat_arr is not None:
+        sf = tree.split_feature
+        cat, nan_arr = {}, self.nan_bin_arr
+        if self._efb is not None:
+            # bundle-space rows: the node's column, and its bitset where the
+            # feature is bundled (reference: _route_args, gbdt.py:2247-2251)
+            safe = torch.clamp(sf, min=0)
+            sf = torch.where(sf >= 0, self._route_col[safe], sf)
+            cat = dict(is_cat=self._route_cat[safe][None],
+                       cat_bitset=tree.cat_bitset[None])
+            nan_arr = self._route_nan
+        elif self.is_cat_arr is not None:
             cat = dict(is_cat=self.is_cat_arr[
-                torch.clamp(tree.split_feature, min=0)][None],
+                torch.clamp(sf, min=0)][None],
                 cat_bitset=tree.cat_bitset[None])
         one = StackedTrees(
-            split_feature=tree.split_feature[None],
+            split_feature=sf[None],
             split_bin=tree.split_bin[None],
             default_left=tree.default_left[None],
             left_child=tree.left_child[None],
@@ -479,8 +613,7 @@ class GBDT:
             leaf_value=tree.leaf_value[None],
             num_nodes=tree.num_nodes.reshape(1), **cat)
         for vs in self.valid_sets:
-            leaf = predict_leaf_batched(vs.binned, one, self.nan_bin_arr,
-                                        depth)[0]
+            leaf = predict_leaf_batched(vs.binned, one, nan_arr, depth)[0]
             vs.score[k] += tree.leaf_value[leaf]
 
     @property
@@ -507,10 +640,23 @@ class GBDT:
         if valid_set.mappers is not self.mappers:
             raise ValueError(f"validation set '{name}' must be binned with "
                              "the training set's mappers")
+        # the valid matrix must be in the column space the trees route in
+        # (reference: add_valid, boosting/gbdt.py:2001-2023)
+        vb = valid_set.bundle_info
+        if self._efb is not None:
+            if vb is None or valid_set.binned.shape[1] \
+                    != self.layout.num_features:
+                raise ValueError(
+                    f"validation set '{name}' is not in the training data's "
+                    "EFB bundle layout (a feature conflict outside the "
+                    "training rows?); rebuild both with enable_bundle=false")
+        elif vb is not None:
+            _unbundle(valid_set, f"validation set '{name}': unbundling to "
+                      "match the unbundled training layout")
         vs = _ValidSet(valid_set, name, self.num_class, self.device)
         if self.models:
             vs.score += torch.from_numpy(self.predict_raw_binned(
-                valid_set.binned)).to(self.device)
+                _dense_bins(valid_set))).to(self.device)
         for m in metrics:
             m.init(valid_set.metadata, valid_set.num_data)
         vs.metrics = list(metrics)
@@ -585,7 +731,7 @@ class GBDT:
                             self.feature_is_categorical())
         depth = max(m.max_depth for m in models)
         b = torch.from_numpy(np.ascontiguousarray(binned)).to(self.device)
-        raw = predict_raw_batched(b, trees, self.nan_bin_arr, depth,
+        raw = predict_raw_batched(b, trees, self._pred_nan_arr, depth,
                                   num_class=self.num_class)
         return raw.cpu().numpy()
 

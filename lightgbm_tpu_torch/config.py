@@ -87,8 +87,9 @@ PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...]]] = {
     "min_data_in_bin": (3, int, ()),
     "bin_construct_sample_cnt": (200000, int, ("subsample_for_bin",)),
     "data_random_seed": (1, int, ("data_seed",)),
-    # the port stores the dense bin matrix; EFB bundling is ROADMAP A13
-    "enable_bundle": (False, bool, ("is_enable_bundle", "bundle")),
+    # Exclusive Feature Bundling (io/efb.py), on by default as in LightGBM
+    "enable_bundle": (True, bool, ("is_enable_bundle", "bundle")),
+    "max_conflict_rate": (1e-4, float, ()),
     "use_missing": (True, bool, ()),
     "zero_as_missing": (False, bool, ()),
     "categorical_feature": ("", object, ("cat_feature", "categorical_column", "cat_column", "categorical_features")),
@@ -277,7 +278,6 @@ class Config:
             if cond:
                 todo.append(f"{what} (ROADMAP {item})")
 
-        need(self.enable_bundle, "EFB bundling (enable_bundle)", "A13")
         need(self.tpu_bin_pack4, "tpu_bin_pack4", "A15")
         need(bool(self.forcedbins_filename), "forced bins", "A3")
         need(self.max_bin > 255, "max_bin>255", "A3")

@@ -12,8 +12,9 @@ trees an iteration, class by class.
 * ``booster_from_arrays`` builds a port ``Booster`` that predicts what the
   JAX model predicts;
 * ``dataset_from_arrays`` builds a port ``BinnedDataset`` from a bin matrix
-  and the same mapper arrays, so grower and kernel tests start from
-  identical inputs.
+  and the same mapper arrays (and, for an EFB-bundled matrix, the JAX
+  package's bundle layout ``col_of``, ``offset_of``, ``num_column_bins``),
+  so grower and kernel tests start from identical inputs.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from .boosting.gbdt import GBDT, HostTree
 from .config import Config, resolve_device
 from .io.binning import MISSING_NAN, BinMapper
 from .io.dataset import BinnedDataset, Metadata
+from .io.efb import BundleInfo
 from .objectives import create_objective
 
 _TREE_FIELDS = ("split_feature", "split_bin", "default_left", "left_child",
@@ -92,14 +94,34 @@ def dataset_from_arrays(binned: np.ndarray,
                         num_bins: Sequence[int], label: np.ndarray,
                         weight: Optional[np.ndarray] = None,
                         max_bin: int = 255,
-                        bin_to_cats: CatTables = None) -> BinnedDataset:
-    """A port ``BinnedDataset`` around an existing ``[N, F]`` uint8 bin
-    matrix and its mappers' arrays."""
+                        bin_to_cats: CatTables = None,
+                        col_of: Optional[np.ndarray] = None,
+                        offset_of: Optional[np.ndarray] = None,
+                        num_column_bins: Optional[np.ndarray] = None
+                        ) -> BinnedDataset:
+    """A port ``BinnedDataset`` around an existing uint8 bin matrix and its
+    mappers' arrays: ``[N, F]``, or with an EFB layout (``col_of`` and
+    ``offset_of`` a feature, ``num_column_bins`` a stored column, the JAX
+    package's ``BundleInfo`` fields) the bundled ``[N, C]`` matrix."""
     binned = np.ascontiguousarray(binned, np.uint8)
     ds = BinnedDataset()
     ds.binned = binned
-    ds.num_data, ds.num_total_features = binned.shape
-    ds.feature_names = [f"Column_{i}" for i in range(binned.shape[1])]
+    ds.num_data = binned.shape[0]
+    ds.num_total_features = len(num_bins)
+    if col_of is not None:
+        offset_of = np.asarray(offset_of, np.int32)
+        ds.bundle_info = BundleInfo(
+            col_of=np.asarray(col_of, np.int32), offset_of=offset_of,
+            num_column_bins=np.asarray(num_column_bins, np.int32),
+            n_columns=len(num_column_bins),
+            n_bundled=int((offset_of >= 0).sum()))
+        if binned.shape[1] != ds.bundle_info.n_columns:
+            raise ValueError(f"the bundled matrix has {binned.shape[1]} "
+                             f"columns, the layout {len(num_column_bins)}")
+    elif binned.shape[1] != ds.num_total_features:
+        raise ValueError(f"the bin matrix has {binned.shape[1]} columns for "
+                         f"{ds.num_total_features} features")
+    ds.feature_names = [f"Column_{i}" for i in range(ds.num_total_features)]
     ds.mappers = mappers_from_arrays(bin_upper_bounds, nan_bins,
                                      missing_types, num_bins,
                                      bin_to_cats=bin_to_cats)

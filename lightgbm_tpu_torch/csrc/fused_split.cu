@@ -35,18 +35,30 @@
 // an earlier split never pass for this one and the flag array is never
 // cleared.
 //
+// Copy-back variant (dual = 0; the TPU kernel's dual=False, which the JAX
+// package runs on EFB-bundled data): every segment lives in `work`. prep
+// takes the side as 0, the partition writes the left rows in place and the
+// right rows to `scratch` at the same offsets, and a third launch,
+//
+//   copyback   a grid-stride copy of the right rows' first P vectors from
+//              `scratch` back into `work`, over exactly [start + n_left,
+//              start + count) (rows outside it are left bit for bit),
+//
+// restores the one-array layout; the histogram then reads `work`.
+//
 // The histogram of the smaller child is K1 (csrc/histogram.cu) in record
 // mode over that child's now contiguous range (left child: the parent's
-// array, right child: the other array), launched by the Python wrapper
-// after this pair; in mode 1 only `prep` runs here and K1 covers the whole
-// segment.
+// array, right child: the other array, or `work` in copy-back), launched by
+// the Python wrapper after these launches; in mode 1 only `prep` runs here
+// and K1 covers the whole segment.
 //
 // Padding bytes past the last 16-byte vector of a row's real columns are
 // neither read nor written; the arrays start with zero padding and every
 // copy of the grower moves whole rows, so the padding stays zero.
 //
 // What bounds it on the H100: bytes, 2 * count * 16 * ceil(num_real_cols /
-// 16) (each parent row's real vectors read once and written once); the
+// 16) (each parent row's real vectors read once and written once; the
+// copy-back adds a read and a write of each right row's vectors); the
 // routing byte comes from the staged tile. No host sync: the segment
 // scalars come from the device, the grid is fixed (a persistent grid sized
 // from the array's rows, whose surplus blocks return at once), and a zero
@@ -72,13 +84,14 @@ enum { CTL_EPOCH, CTL_TICKET, CTL_LEN };
 // flag status, in the low two bits of the flag's high word
 enum { FLAG_NONE = 0, FLAG_AGGREGATE = 1, FLAG_PREFIX = 2 };
 
-__global__ void prep_kernel(const int* sp, int mode, int n_rows, int F,
-                            int* ws, int* ctl) {
+__global__ void prep_kernel(const int* sp, int mode, int dual, int n_rows,
+                            int F, int* ws, int* ctl) {
   if (threadIdx.x != 0 || blockIdx.x != 0) return;
   const int start = min(max(sp[SP_START], 0), n_rows);
   const int count = min(max(sp[SP_COUNT], 0), n_rows - start);
   const int n_left = min(max(sp[SP_NLEFT], 0), count);
-  const int side = sp[SP_SIDE] != 0 ? 1 : 0;
+  // copy-back: every segment lives in work
+  const int side = dual && sp[SP_SIDE] != 0 ? 1 : 0;
   ws[WS_START] = start;
   ws[WS_COUNT] = count;
   ws[WS_NLEFT] = n_left;
@@ -96,9 +109,10 @@ __global__ void prep_kernel(const int* sp, int mode, int n_rows, int F,
     const int smaller = sp[SP_SMALLER] < 0 ? (n_left <= count - n_left)
                                            : (sp[SP_SMALLER] != 0);
     // the left child stays in the parent's array, the right is in the other
+    // (copy-back: back in work)
     ws[WS_HSTART] = smaller ? start : start + n_left;
     ws[WS_HCOUNT] = smaller ? n_left : count - n_left;
-    ws[WS_HSEL] = smaller ? side : 1 - side;
+    ws[WS_HSEL] = smaller || !dual ? side : 1 - side;
     int epoch = (ctl[CTL_EPOCH] + 1) & 0x3fffffff;
     ctl[CTL_EPOCH] = epoch == 0 ? 1 : epoch;
     ctl[CTL_TICKET] = 0;
@@ -304,6 +318,26 @@ partition_kernel(uint8_t* work, uint8_t* scratch, long long C, int P, int T,
   }
 }
 
+// The copy-back pass: rows [start + n_left, start + count) of scratch into
+// work, their first P vectors, one vector a thread per step of a grid-stride
+// loop (a zero-row range is a no-op; the grid is fixed by the host).
+__global__ void __launch_bounds__(kThreads)
+copyback_kernel(uint8_t* work, const uint8_t* scratch, long long C, int P,
+                const int* ws) {
+  const long long r0 = (long long)ws[WS_START] + ws[WS_NLEFT];
+  const long long rows = (long long)ws[WS_COUNT] - ws[WS_NLEFT];
+  const long long cp = C / 16;
+  const long long total = rows * P;
+  uint4* dst = reinterpret_cast<uint4*>(work);
+  const uint4* src = reinterpret_cast<const uint4*>(scratch);
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+       i < total; i += (long long)gridDim.x * kThreads) {
+    const long long row = i / P;
+    const long long at = (r0 + row) * cp + (i - row * P);
+    dst[at] = src[at];
+  }
+}
+
 }  // namespace
 
 // One split's launches on `stream`. work/scratch: [n_rows, C] u8 row records
@@ -315,8 +349,9 @@ partition_kernel(uint8_t* work, uint8_t* scratch, long long C, int P, int T,
 // zeroed once and kept across splits; T: rows a tile (a multiple of 256, at
 // most 1024). The persistent grid is as many blocks as fit the card at once,
 // at most one a tile of the whole array. mode 1 runs prep only (the
-// histogram of the whole segment follows).
-extern "C" int lgbt_fused_split(int mode, void* work, void* scratch,
+// histogram of the whole segment follows). dual = 0 selects the copy-back
+// variant (side taken as 0, then the copy-back launch).
+extern "C" int lgbt_fused_split(int mode, int dual, void* work, void* scratch,
                                 int n_rows, long long C, int P, int T, int F,
                                 const void* sp, const void* bits, int W,
                                 void* ws, void* flags, void* ctl,
@@ -327,8 +362,8 @@ extern "C" int lgbt_fused_split(int mode, void* work, void* scratch,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* wsp = static_cast<int*>(ws);
   int* ctlp = static_cast<int*>(ctl);
-  prep_kernel<<<1, 32, 0, st>>>(static_cast<const int*>(sp), mode, n_rows, F,
-                                wsp, ctlp);
+  prep_kernel<<<1, 32, 0, st>>>(static_cast<const int*>(sp), mode, dual,
+                                n_rows, F, wsp, ctlp);
   if (mode != 1) {
     const int smem = T * P * 16 + T * 4;
     cudaError_t e = cudaFuncSetAttribute(
@@ -348,6 +383,15 @@ extern "C" int lgbt_fused_split(int mode, void* work, void* scratch,
         static_cast<uint8_t*>(work), static_cast<uint8_t*>(scratch), C, P, T,
         wsp, static_cast<const uint32_t*>(bits), W,
         static_cast<unsigned long long*>(flags), ctlp);
+    if (!dual) {
+      // four blocks an SM, fewer where the whole array has fewer vectors
+      const long long vecs = (long long)n_rows * P;
+      const long long want = (vecs + kThreads - 1) / kThreads;
+      const int cb_grid = want < 4LL * sms ? (int)want : 4 * sms;
+      copyback_kernel<<<cb_grid > 0 ? cb_grid : 1, kThreads, 0, st>>>(
+          static_cast<uint8_t*>(work),
+          static_cast<const uint8_t*>(scratch), C, P, wsp);
+    }
   }
   return (int)cudaGetLastError();
 }

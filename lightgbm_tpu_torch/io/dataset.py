@@ -9,8 +9,15 @@ equal to the JAX package's (reference: LightGBM's
 
 Binning is numpy on the host. The matrix stays a host ``uint8`` array here;
 the trainer copies it to the device once, into the packed row records of
-``ops/compact.py``. Not here yet: EFB bundling (ROADMAP A13), nibble packing
-(A15), sequence input and binary save/load (A16).
+``ops/compact.py``. With ``enable_bundle`` (the default, as in LightGBM),
+Exclusive Feature Bundling (``io/efb.py``) is planned on the first 50,000
+binned rows and applied to the whole matrix, which then holds
+``bundle_info.n_columns`` stored columns (reference: ``io/dataset.py:
+330-350`` of the JAX package); a validation set built with ``reference=``
+takes the training set's bundle layout. Every per-feature array
+(``feature_num_bins`` and the others) stays per original feature. Not here
+yet: nibble packing (ROADMAP A15), sequence input and binary save/load
+(A16).
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import numpy as np
 from ..utils import log
 from .binning import (MISSING_NAN, BinMapper, bin_columns,
                       find_bin_categorical, find_bin_numerical)
+from .efb import BundleInfo, build_bundle_info, bundle_matrix, plan_bundles
 
 
 def _to_2d_float(data: Any) -> np.ndarray:
@@ -97,6 +105,8 @@ class BinnedDataset:
         self.num_total_features: int = 0
         self.used_features: List[int] = []         # non-trivial feature indices
         self.categorical_features: List[int] = []
+        # EFB layout of the stored columns (None: one column a feature)
+        self.bundle_info: Optional[BundleInfo] = None
 
     @staticmethod
     def construct(
@@ -112,6 +122,8 @@ class BinnedDataset:
         reference: Optional["BinnedDataset"] = None,
         max_bin_by_feature: Optional[Sequence[int]] = None,
         categorical_feature: Optional[Sequence[Union[int, str]]] = None,
+        enable_bundle: bool = True,
+        max_conflict_rate: float = 1e-4,
     ) -> "BinnedDataset":
         arr = _to_2d_float(data)
         n, f = arr.shape
@@ -149,7 +161,22 @@ class BinnedDataset:
                 sample = arr
             _fit_mappers(ds, sample, f, cat_idx, max_bin, min_data_in_bin,
                          use_missing, zero_as_missing, max_bin_by_feature)
-        ds.binned = bin_columns(ds.mappers, arr, np.uint8)
+        binned = bin_columns(ds.mappers, arr, np.uint8)
+        # Exclusive Feature Bundling (reference: FeatureGroup /
+        # Dataset::Construct FindGroups, include/LightGBM/feature_group.h)
+        if reference is not None:
+            if reference.bundle_info is not None:
+                binned = _apply_bundles(binned, reference.bundle_info, ds,
+                                        max_conflict_rate)
+        elif enable_bundle and ds.max_num_bins <= 256:
+            info = _plan_efb(ds, binned[:min(n, 50_000)], max_bin,
+                             max_conflict_rate)
+            if info is not None:
+                binned = _apply_bundles(binned, info, ds, max_conflict_rate)
+                if ds.bundle_info is not None:
+                    log.info(f"EFB: bundled {info.n_bundled} of {f} features "
+                             f"into {info.n_columns} stored columns")
+        ds.binned = binned
         ds.metadata = Metadata(n)
         return ds
 
@@ -174,6 +201,37 @@ class BinnedDataset:
 
     def feature_is_categorical(self) -> np.ndarray:
         return np.array([m.is_categorical for m in self.mappers], bool)
+
+
+def _plan_efb(ds, sample_binned, max_bin, max_conflict_rate
+              ) -> Optional[BundleInfo]:
+    """EFB plan from a binned row sample, or None (reference:
+    ``_plan_efb``, ``io/dataset.py:556-569`` of the JAX package)."""
+    dbins = np.array([m.default_bin for m in ds.mappers], np.int32)
+    nbins = np.array([m.num_bins for m in ds.mappers], np.int32)
+    ok = np.array([not m.is_categorical and m.missing_type != MISSING_NAN
+                   and not m.is_trivial for m in ds.mappers], bool)
+    bundles = plan_bundles(sample_binned, nbins, dbins, ok, max_bin=max_bin,
+                           max_conflict_rate=max_conflict_rate)
+    if not bundles:
+        return None
+    return build_bundle_info(bundles, nbins, ds.num_total_features)
+
+
+def _apply_bundles(binned, info: BundleInfo, ds,
+                   max_conflict_rate: float = 1e-4) -> np.ndarray:
+    """The bundled matrix, with ``ds.bundle_info`` set; the dense matrix,
+    with ``ds.bundle_info`` None, when more conflicts appear than the plan
+    allows (reference: ``_apply_bundles``, ``io/dataset.py:624-633``)."""
+    dbins = np.array([m.default_bin for m in ds.mappers], np.int32)
+    out = bundle_matrix(binned, info, dbins, max_conflict_rate)
+    if out is None:
+        log.warning("EFB: feature conflict outside the planning sample; "
+                    "keeping the dense matrix")
+        ds.bundle_info = None
+        return binned
+    ds.bundle_info = info
+    return out
 
 
 def _resolve_categorical(categorical_feature, feature_names: List[str]

@@ -15,16 +15,22 @@ partition and histograms the whole segment (the root). The source note of
 ``csrc/fused_split.cu`` says what bounds the pass on the H100 and why the
 in-place writes are race-free.
 
-The contract is the TPU's (dual residency): the parent's segment
-``[start, start+count)`` lives in ``work`` (side 0) or ``scratch``
-(side 1); afterwards the left child is at ``[start, start+n_left)`` of the
-parent's array and the right child at ``[start+n_left, start+count)`` of
-the other array, both in their original row order; the other array's left
-range is dead; rows outside the segment are untouched. Only the first
-``layout.moved_cols`` bytes of a row move (the padding after them is zero in
-both arrays). The wrapper updates both arrays in place and returns them with
-the ``[F, B, 4]`` histogram (grad, hess, in-bag count, raw count) of the
-smaller child, or of the child ``smaller_left`` names.
+The contract is the TPU's. With dual residency (``dual=True``, the
+default) the parent's segment ``[start, start+count)`` lives in ``work``
+(side 0) or ``scratch`` (side 1); afterwards the left child is at
+``[start, start+n_left)`` of the parent's array and the right child at
+``[start+n_left, start+count)`` of the other array, both in their original
+row order; the other array's left range is dead; rows outside the segment
+are untouched. The copy-back variant (``dual=False``, the TPU kernel's
+``dual=False``, which the JAX package runs on EFB-bundled data) keeps every
+segment in ``work``: ``side`` is taken as 0, the right rows stage through
+``scratch`` at the same offsets and a third launch copies them back into
+``work`` over exactly ``[start+n_left, start+count)``; ``scratch`` is then
+dead everywhere. Only the first ``layout.moved_cols`` bytes of a row move
+(the padding after them is zero in both arrays). The wrapper updates both
+arrays in place and returns them with the ``[F, B, 4]`` histogram (grad,
+hess, in-bag count, raw count) of the smaller child, or of the child
+``smaller_left`` names.
 
 The look-back state (an epoch counter, a tile ticket and one flag a tile)
 lives on the device across splits, one set per (device, stream): splits on
@@ -32,7 +38,7 @@ one stream run one after another on the device, and a lock keeps each
 split's two launches together when several threads issue splits.
 
 Not here yet: the quantized (``quant``) and nibble-packed (``packed4``)
-records and the copy-back variant ``dual=False`` (ROADMAP A15, A13).
+records (ROADMAP A15).
 """
 from __future__ import annotations
 
@@ -86,17 +92,18 @@ def _lookback_state(dev: torch.device, n_tiles: int):
 def fused_split_plain(work, scratch, mode, start, count, n_left, feature,
                       bin_, default_left, nan_bin, is_cat, cat_bitset,
                       layout: RowLayout, num_bins: int, smaller_left=None,
-                      side=None) -> Tuple[torch.Tensor, torch.Tensor,
-                                          torch.Tensor]:
+                      side=None, dual: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K2: masks in stable order, the same writes
     as the kernel (left rows in place, right rows into the other array, the
-    first ``layout.moved_cols`` bytes of a row)."""
+    first ``layout.moved_cols`` bytes of a row; with ``dual=False`` the
+    right range then copied back from ``scratch`` into ``work``)."""
     _kernels.PLAIN_CALLS["fused_split"] += 1
     n_rows = work.shape[0]
     s = min(max(int(start), 0), n_rows)
     c = min(max(int(count), 0), n_rows - s)
     nl = min(max(int(n_left), 0), c)
-    sd = int(side) != 0 if side is not None else False
+    sd = dual and side is not None and int(side) != 0
     src, dst = (scratch, work) if sd else (work, scratch)
     if mode == 1:
         return work, scratch, segment_histogram(src, s, c, layout, num_bins)
@@ -113,6 +120,9 @@ def fused_split_plain(work, scratch, mode, start, count, n_left, feature,
     # count) are dropped, as the kernel drops them
     right = right[:c - nl]
     dst[s + nl:s + nl + right.shape[0], :mv] = right
+    if not dual:
+        work[s + nl:s + c, :mv] = scratch[s + nl:s + c, :mv]
+        dst = work
     if smaller_left is None:
         sl = nl <= c - nl
     else:
@@ -127,9 +137,10 @@ def fused_split(work: torch.Tensor, scratch: torch.Tensor, mode: int,
                 start, count, n_left, feature, bin_, default_left, nan_bin,
                 is_cat, cat_bitset: Optional[torch.Tensor],
                 layout: RowLayout, num_bins: int, smaller_left=None,
-                side=None) -> Tuple[torch.Tensor, torch.Tensor,
-                                    torch.Tensor]:
-    """One split (mode 0) or one segment histogram (mode 1).
+                side=None, dual: bool = True
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One split (mode 0) or one segment histogram (mode 1); ``dual``
+    chooses dual residency or the copy-back variant (module docstring).
 
     ``work``/``scratch``: ``[N, C]`` uint8 record arrays, updated in place.
     ``mode`` is a Python int; every other scalar may be a Python int or a
@@ -143,7 +154,7 @@ def fused_split(work: torch.Tensor, scratch: torch.Tensor, mode: int,
         return fused_split_plain(work, scratch, mode, start, count, n_left,
                                  feature, bin_, default_left, nan_bin, is_cat,
                                  cat_bitset, layout, num_bins, smaller_left,
-                                 side)
+                                 side, dual)
     _check_records(work, scratch, layout)
     dev = work.device
     if work.shape[0] >= (1 << 31):
@@ -178,6 +189,7 @@ def fused_split(work: torch.Tensor, scratch: torch.Tensor, mode: int,
     with _LOOKBACK_LOCK:
         ctl, flags = _lookback_state(dev, n_tiles)
         _kernels.launch("fused_split", "lgbt_fused_split", dev, mode,
+                        1 if dual else 0,
                         work.data_ptr(), scratch.data_ptr(), work.shape[0],
                         work.shape[1], vec, tile, layout.num_features,
                         sp.data_ptr(), bits.data_ptr(), bits.numel(),

@@ -69,6 +69,13 @@ class GrowerParams(NamedTuple):
     # the masked grower's histogram layout (config.resolve_hist_layout):
     # "lane" runs K1 on [N, F] bins, "sublane" K3 on [F, N] bins (B <= 64)
     hist_layout: str = "lane"
+    # the compact grower's K2 variant: dual residency, or copy-back (every
+    # segment in `work`, the JAX package's choice on EFB-bundled data)
+    fused_dual: bool = True
+    # EFB (compact grower): virtual features scanned after the stored
+    # columns, and the widest bundled feature's bin count
+    efb_virtual: int = 0
+    efb_bmax: int = 0
 
     def split_params(self) -> SplitParams:
         return SplitParams(

@@ -11,7 +11,9 @@ contiguous segment of the packed record arrays (``ops/compact.py``):
   kernel in mode 0 (stable partition + the smaller child's histogram), takes
   the larger child's histogram as parent minus smaller, and scans both
   children for their best splits;
-* at the end of the tree the two residency arrays merge back into ``work``.
+* at the end of the tree the two residency arrays merge back into ``work``
+  (with K2's copy-back variant, ``params.fused_dual`` False, every segment
+  is in ``work`` already and there is nothing to merge).
 
 Like the JAX grower, the whole tree grows with zero device-to-host reads:
 the loop runs ``num_leaves - 1`` times, every scalar stays a device tensor,
@@ -22,10 +24,22 @@ split reads and writes its two leaves with one gather and one scatter each.
 
 Categorical splits (``is_cat_arr``): each leaf caches its best split's bin
 bitset (``leaf_bits``) and sorted-cat flag; a split hands its leaf's bitset
-row and the feature's categorical flag to K2, which routes by them.
+row and the feature's routing flag to K2, which routes by them.
 
-Not here yet (ROADMAP A13-A18): monotone constraints and their
-intermediate rescans, CEGB, by-node sampling, EFB, quantized histograms,
+EFB (``efb``, the ``io/efb.py`` ``EfbLayout`` of ``boosting/gbdt.py``
+``_setup_efb``): the scan space is the ``F`` stored columns plus
+``params.efb_virtual`` virtual features, one per bundled original, appended
+to each scanned histogram (``extend_hist_efb``); a bundled winner becomes a bitset on its
+bundle column (``apply_efb_bitset``). A split then translates its scan
+index into (stored column, routing mode, original feature id) (reference:
+``lightgbm_tpu/ops/grower_compact.py:283-306``, ``:558-566``). The scan's
+categorical flags (``is_cat_arr``, scan space) and the routing flags
+differ: virtual features scan as numerical and route as bitsets, so a run
+with no categorical feature still routes by bitsets once anything is
+bundled.
+
+Not here yet (ROADMAP A14-A18): monotone constraints and their
+intermediate rescans, CEGB, by-node sampling, quantized histograms,
 data-parallel reductions.
 """
 from __future__ import annotations
@@ -34,12 +48,14 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..io.efb import EfbLayout
 from .compact import RowLayout, segments_to_leaf_vectors
 from .fused_split import fused_split
 from .grower import (_BG, _BLC, _BLG, _BLH, _GAIN, _LC, _LEFT, _LG, _LH,
                      _LOUT, _NC, _NG, _NH, _RIGHT, _SDL, _SB, _SF,
                      GrowerParams, TreeArrays, _split_rows, child_l2)
-from .split import _NEG_INF, best_split, depth_gate, leaf_output
+from .split import (_NEG_INF, apply_efb_bitset, best_split, depth_gate,
+                    extend_hist_efb, leaf_output)
 
 # columns of the compact grower's per-leaf int table: segment, tree links,
 # cached best split
@@ -64,12 +80,15 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
                       num_bins_arr: torch.Tensor, nan_bin_arr: torch.Tensor,
                       has_nan_arr: torch.Tensor, feat_mask: torch.Tensor,
                       layout: RowLayout, params: GrowerParams, n_real: int,
-                      is_cat_arr: Optional[torch.Tensor] = None):
+                      is_cat_arr: Optional[torch.Tensor] = None,
+                      efb: Optional[EfbLayout] = None):
     """Grow one tree. Returns ``(TreeArrays, row_leaf [N], work, scratch,
     leaf_start [L], leaf_nrows [L])``, the per-row outputs in the post-tree
-    row order; ``work`` and ``scratch`` are updated in place.
-    ``is_cat_arr [F]`` bool marks the categorical features (None: all
-    numerical)."""
+    row order; ``work`` and ``scratch`` are updated in place. The
+    per-feature arrays are in scan space (``F + params.efb_virtual``
+    entries); ``is_cat_arr`` bool marks the categorical ones (None: the
+    scan is numerical). ``efb``: the ``EfbLayout``, or None when nothing is
+    bundled."""
     dev = work.device
     n = n_real
     L = params.num_leaves
@@ -79,16 +98,29 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
     spp = params.split_params()
     i64 = torch.int64
 
+    # routing: (stored column, bitset flag, original feature) of a scan index
+    if efb is not None:
+        route = (efb.col_of, efb.route_cat, efb.orig_of)
+    elif is_cat_arr is not None:
+        route = (None, is_cat_arr, None)
+    else:
+        route = None
+
     def scan(hist, pg, ph, pc, depth):
+        if efb is not None:
+            hist = extend_hist_efb(hist, efb, params.efb_virtual,
+                                   params.efb_bmax)
         sp = best_split(hist, pg, ph, pc, num_bins_arr, nan_bin_arr,
                         has_nan_arr, feat_mask, spp, is_cat_arr)
+        if efb is not None:
+            sp = apply_efb_bitset(sp, efb, F, B)
         return sp._replace(gain=depth_gate(sp.gain, depth, params.max_depth))
 
     # ---- root: the fused kernel's histogram-only mode ----
     zero = torch.zeros(1, dtype=i64, device=dev)
     work, scratch, root_hist = fused_split(
         work, scratch, 1, zero, n, zero, zero, zero, zero, zero, zero, None,
-        layout, B, side=zero)
+        layout, B, side=zero, dual=params.fused_dual)
     # every feature's bins sum to the totals, so feature 0 gives the root
     root_g = root_hist[0, :, 0].sum()
     root_h = root_hist[0, :, 1].sum()
@@ -116,7 +148,7 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
     node_i[:, _RIGHT] = -1
     node_f = torch.zeros((max(L - 1, 1), 4), dtype=torch.float32, device=dev)
     leaf_bits = torch.zeros((L, W), dtype=torch.int32, device=dev)
-    if is_cat_arr is not None:
+    if route is not None:
         leaf_bits[0] = sp0.cat_bitset[0]
     st = CompactState(leaf_f, leaf_i, leaf_hist, node_i, node_f, leaf_bits,
                       torch.zeros((max(L - 1, 1), W), dtype=torch.int32,
@@ -126,17 +158,18 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
 
     for k in range(L - 1):
         st = _split_step(st, k, work, scratch, layout, B, nan_bin_arr,
-                         is_cat_arr, scan, params)
+                         is_cat_arr is not None, route, scan, params)
 
     leaf_f, leaf_i, node_i, node_f = st.leaf_f, st.leaf_i, st.node_i, \
         st.node_f
     leaf_start = leaf_i[:, _START]
     leaf_nrows = leaf_i[:, _NROWS]
-    # dual residency: consolidate the scratch-resident segments into work
-    _, row_side = segments_to_leaf_vectors(leaf_start, leaf_nrows,
-                                           leaf_i[:, _SIDE], n)
-    torch.where((row_side != 0)[:, None], scratch[:n], work[:n],
-                out=work[:n])
+    if params.fused_dual:
+        # dual residency: consolidate the scratch-resident segments into work
+        _, row_side = segments_to_leaf_vectors(leaf_start, leaf_nrows,
+                                               leaf_i[:, _SIDE], n)
+        torch.where((row_side != 0)[:, None], scratch[:n], work[:n],
+                    out=work[:n])
     nn = st.num_nodes[0]
     leaf_value = leaf_f[:, _LOUT].clone()
     tree = TreeArrays(
@@ -165,14 +198,16 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
 
 
 def _split_step(st: CompactState, k: int, work, scratch, layout, B,
-                nan_bin_arr, is_cat_arr, scan, params) -> CompactState:
+                nan_bin_arr, any_cat, route, scan, params) -> CompactState:
     """Split number ``k``: node ``k`` splits the best leaf into itself (left
-    child) and leaf ``k + 1`` (right child)."""
+    child) and leaf ``k + 1`` (right child). ``any_cat``: the scan has
+    categorical features; ``route``: (stored column, bitset flag, original
+    feature) arrays over scan indices (the first or last None: the scan
+    index itself), or None when every split is numerical."""
     i64 = torch.int64
     spp = params.split_params()
     (leaf_f, leaf_i, leaf_hist, node_i, node_f, leaf_bits, node_bits, done,
      num_nodes) = st
-    any_cat = is_cat_arr is not None
     node = k
     new_leaf = k + 1
 
@@ -202,17 +237,22 @@ def _split_step(st: CompactState, k: int, work, scratch, layout, B,
     m_eff = torch.where(applied, m, zero)
     n_left_eff = torch.where(applied, n_left, zero)
     left_smaller = n_left <= m - n_left
-    if any_cat:
+    f_col, f_orig = f_, f_
+    if route is not None:
         # the leaf's bitset row as a contiguous int32 vector on the device
         # (no read back to the host)
         bits = leaf_bits.index_select(0, best)[0]
-        f_cat = is_cat_arr.index_select(0, f_)
+        col_of, route_cat, orig_of = route
+        f_cat = route_cat.index_select(0, f_)
+        if col_of is not None:
+            f_col = col_of.index_select(0, f_)
+            f_orig = orig_of.index_select(0, f_)
     else:
         bits, f_cat = None, zero
     work, scratch, hist_small = fused_split(
-        work, scratch, 0, s_, m_eff, n_left_eff, f_, b_, dl,
+        work, scratch, 0, s_, m_eff, n_left_eff, f_col, b_, dl,
         nan_bin_arr.index_select(0, f_), f_cat, bits, layout, B,
-        smaller_left=left_smaller, side=side_p)
+        smaller_left=left_smaller, side=side_p, dual=params.fused_dual)
     parent_hist = leaf_hist.index_select(0, best)[0]
     hist_large = parent_hist - hist_small
     ls = left_smaller.reshape(1, 1, 1)
@@ -237,9 +277,11 @@ def _split_step(st: CompactState, k: int, work, scratch, layout, B,
                        spf, torch.stack([lw, rw])[:, None]], dim=1)
     depth1 = depth.reshape(1)
     nodev = torch.full_like(best, node)
+    # the right child lies in the other array (copy-back: in work)
+    side_r = 1 - side_p if params.fused_dual else side_p
     new_i = torch.stack([
         torch.cat([s_, n_left, side_p, nodev, zero, depth1, spi[0]]),
-        torch.cat([s_ + n_left, m - n_left, 1 - side_p, nodev, zero + 1,
+        torch.cat([s_ + n_left, m - n_left, side_r, nodev, zero + 1,
                    depth1, spi[1]])])
     leaf_f.index_copy_(0, idx, torch.where(applied, new_f, old_f))
     leaf_i.index_copy_(0, idx, torch.where(applied, new_i, old_i))
@@ -247,7 +289,7 @@ def _split_step(st: CompactState, k: int, work, scratch, layout, B,
     new_h = torch.stack([hist_left, hist_right])
     leaf_hist.index_copy_(0, idx, torch.where(applied.reshape(1, 1, 1, 1),
                                               new_h, old_h))
-    if any_cat:
+    if route is not None:
         leaf_bits.index_copy_(0, idx, torch.where(
             applied, sp.cat_bitset, leaf_bits.index_select(0, idx)))
         node_bits[node] = torch.where(applied, bits, node_bits[node])
@@ -261,7 +303,7 @@ def _split_step(st: CompactState, k: int, work, scratch, layout, B,
     flat.index_copy_(0, slot, torch.where(wire, torch.full_like(p, node),
                                           flat.index_select(0, slot)))
     node_i[node] = torch.where(applied, torch.cat([
-        f_, b_, dl, -(best + 1), torch.full_like(best, -(new_leaf + 1))]),
+        f_orig, b_, dl, -(best + 1), torch.full_like(best, -(new_leaf + 1))]),
         node_i[node])
     node_f[node] = torch.where(applied, torch.stack([gain[0], pg, ph, pc]),
                                torch.zeros_like(node_f[node]))

@@ -142,6 +142,54 @@ def pack_bin_bitset(mask: torch.Tensor) -> torch.Tensor:
                        words).to(torch.int32)
 
 
+def extend_hist_efb(hist: torch.Tensor, efb, n_virtual: int, bmax: int
+                    ) -> torch.Tensor:
+    """Append one virtual histogram row per EFB-bundled original feature
+    (``extend_hist_efb`` of the JAX package, ``ops/split.py:220-245``).
+
+    ``hist`` is ``[..., C, B, K]`` over the stored columns (passthrough
+    features and bundle columns). A bundled feature's non-default bins lie
+    at ``offset + 1 .. offset + nb`` of its bundle column; its default bin
+    takes the leaf total minus that range (reference: FixHistogram,
+    include/LightGBM/bin.h). The scan then treats the virtual rows as
+    ordinary numerical features. ``efb`` is the ``io/efb.py`` ``EfbLayout``
+    of ``boosting/gbdt.py`` ``_setup_efb``; everything stays on the device."""
+    c, b = hist.shape[-3], hist.shape[-2]
+    bcol = efb.col_of[c:]                                       # [Fb]
+    off, nb, dbin = efb.off[c:], efb.nb[c:], efb.dbin[c:]
+    j = torch.arange(bmax, device=hist.device)[None, :]         # [1, Bmax]
+    idx = torch.clamp(off[:, None] + 1 + j, max=b - 1)
+    gathered = hist[..., bcol[:, None], idx, :]         # [.., Fb, Bmax, K]
+    gathered = gathered * (j < nb[:, None])[..., None]
+    totals = hist[..., 0, :, :].sum(dim=-2)             # [.., K] leaf totals
+    default = totals[..., None, :] - gathered.sum(dim=-2)       # [.., Fb, K]
+    at_dbin = (j == dbin[:, None])[..., None]                   # [Fb, Bmax, 1]
+    virtual = gathered + at_dbin * default[..., None, :]
+    virtual = tnf.pad(virtual, (0, 0, 0, b - bmax))
+    return torch.cat([hist, virtual], dim=-3)
+
+
+def apply_efb_bitset(sp: SplitResult, efb, n_cols: int, num_bins: int
+                     ) -> SplitResult:
+    """A winning split on a virtual (bundled) feature as a bitset on its
+    bundle column (``apply_efb_bitset`` of the JAX package, ``ops/split.py:
+    248-268``), so the partition routes it as a ready-made categorical-style
+    split: left = {v in (off, off + 1 + t]} | {v outside the member's range,
+    when the member's default bin <= t}. Splits on stored columns keep their
+    bitset."""
+    f = sp.feature
+    o = efb.off[f][..., None]
+    nb = efb.nb[f][..., None]
+    d = efb.dbin[f][..., None]
+    t = sp.bin[..., None]
+    v = torch.arange(num_bins, device=f.device)
+    in_r = (v > o) & (v <= o + nb)
+    left = (in_r & (v <= o + 1 + t)) | (~in_r & (d <= t))
+    bits = pack_bin_bitset(left)
+    return sp._replace(cat_bitset=torch.where((f >= n_cols)[..., None], bits,
+                                              sp.cat_bitset))
+
+
 def left_rows_of_split(hist: torch.Tensor, feature, bin_, default_left,
                        nan_bin) -> torch.Tensor:
     """Raw rows a numerical split routes left, from the raw-count channel

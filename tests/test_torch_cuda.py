@@ -203,6 +203,68 @@ def test_fused_split_categorical_and_nan(dev):
         count = n_left
 
 
+@pytest.mark.parametrize("start,count,smaller,f,skew_left", [
+    (0, 30_000, None, 5, 0), (37, 22_190, None, 5, 0), (96, 128, 1, 5, 0),
+    (500, 1, None, 5, 0), (200, 0, None, 5, 0), (11, 20_000, 0, 5, 0),
+    (1001, 255, None, 29, 0), (13, 29_000, None, 28, 7),
+    (5, 27_000, 1, 28, -7), (17, 28_000, None, 529, 0)])
+def test_fused_split_copy_back(dev, start, count, smaller, f, skew_left):
+    """K2's copy-back variant (dual=False, the EFB path) against its plain
+    version: both arrays byte-equal (the rights copied back into work over
+    exactly their range, every other row untouched), the histogram's counts
+    exact; the side argument is ignored (every segment lives in work).
+    F = 529: a 560-byte moved record (the Allstate shape's bundle
+    columns)."""
+    layout, work = _records(30_000, f, 256, dev, seed=start + f)
+    _, scratch = _records(30_000, f, 256, dev, seed=start + 1)
+    feat, bin_ = 2, 100
+    col = work[start:start + count, feat].to(torch.int64)
+    n_left = min(max(int((col <= bin_).sum()) + skew_left, 0), count)
+    args = (0, start, count, n_left, feat, bin_, 0, 0, 0, None, layout, 256)
+    kw = {"smaller_left": smaller, "side": 1, "dual": False}
+    wk, sk, hk = fused_split(work.clone(), scratch.clone(), *args, **kw)
+    wp, sp, hp = fused_split_plain(work.clone(), scratch.clone(), *args,
+                                   **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(wk, wp) and torch.equal(sk, sp)
+    outside = torch.ones(30_000, dtype=torch.bool, device=dev)
+    outside[start:start + count] = False
+    assert torch.equal(wk[outside], work[outside])
+    _, _, habs = fused_split_plain(_abs_grad(work, layout),
+                                   _abs_grad(scratch, layout), *args, **kw)
+    _close(hk, hp, habs)
+
+
+def test_wide_records_dual_and_copy_back_agree(dev):
+    """At a record wider than 128 bytes (529 bundle columns and 3 carried
+    columns, as on the Allstate shape) K1 matches its plain version, and
+    K2's two variants leave the same rows in work once dual residency is
+    merged, with equal histograms."""
+    layout, work = _records(40_000, 529, 18, dev, seed=5)
+    assert layout.num_cols == 640 and layout.moved_cols == 560
+    scratch = torch.zeros_like(work)
+    seg = torch.tensor([7, 39_000, 0], dtype=torch.int32, device=dev)
+    kern = record_histogram(work, scratch, seg, layout, 256)
+    _close(kern, record_histogram_plain(work, scratch, seg, layout, 256),
+           record_histogram_plain(_abs_grad(work, layout), scratch, seg,
+                                  layout, 256))
+    start, count, feat = 7, 39_000, 300
+    n_left = int((work[start:start + count, feat] <= 8).sum())
+    args = (0, start, count, n_left, feat, 8, 0, 0, 0, None, layout, 256)
+    dw, ds_, dh = fused_split(work.clone(), scratch.clone(), *args, side=0)
+    cw, _, ch = fused_split(work.clone(), scratch.clone(), *args,
+                            dual=False)
+    torch.cuda.synchronize()
+    merged = dw.clone()
+    merged[start + n_left:start + count] = ds_[start + n_left:start + count]
+    assert torch.equal(cw, merged)
+    assert torch.equal(ch[..., 2:], dh[..., 2:])
+    _close(ch, dh, record_histogram_plain(
+        _abs_grad(merged, layout), scratch, torch.tensor(
+            [start, n_left, 0] if n_left <= count - n_left
+            else [start + n_left, count - n_left, 0]), layout, 256))
+
+
 @pytest.mark.parametrize("streams", [False, True])
 def test_fused_split_from_threads(dev, streams):
     """Splits issued from four threads at once, on one stream or on one
@@ -266,6 +328,31 @@ def test_train_on_card_matches_cpu(dev):
     launches = dict(_kernels.LAUNCHES)
     plain = dict(_kernels.PLAIN_CALLS)
     bc = lgt.train(dict(p, device_type="cpu"), lgt.Dataset(X, y), 3)
+    assert launches["fused_split"] == 3 * 31
+    assert launches["histogram"] == 3 * 31
+    assert sum(plain.values()) == 0
+    np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-4)
+
+
+def test_efb_train_on_card_matches_cpu(dev):
+    """One-hot blocks bundle with default parameters; the card (K1 on the
+    bundled records, K2 copy-back) predicts what the CPU predicts."""
+    rng = np.random.RandomState(3)
+    n, groups = 20_000, 40
+    cats = rng.randint(0, 8, (n, groups))
+    X = np.zeros((n, groups * 8), np.float32)
+    for g in range(groups):
+        X[np.arange(n), g * 8 + cats[:, g]] = 1.0
+    X = np.concatenate([X, rng.randn(n, 4).astype(np.float32)], axis=1)
+    y = (X @ (rng.randn(X.shape[1]) * 0.5) + 0.4 * rng.randn(n) > 0
+         ).astype(float)
+    p = {"objective": "binary", "num_leaves": 31, "verbosity": -1}
+    _kernels.reset_counts()
+    bg = lgt.train(dict(p, device_type="cuda"), lgt.Dataset(X, y), 3)
+    launches = dict(_kernels.LAUNCHES)
+    plain = dict(_kernels.PLAIN_CALLS)
+    bc = lgt.train(dict(p, device_type="cpu"), lgt.Dataset(X, y), 3)
+    assert bg._gbdt._efb is not None and not bg._gbdt.grower_params.fused_dual
     assert launches["fused_split"] == 3 * 31
     assert launches["histogram"] == 3 * 31
     assert sum(plain.values()) == 0
@@ -433,6 +520,48 @@ def test_masked_train_on_card_matches_cpu(dev):
                         "histogram_sublane": 3 * 31}
     assert sum(plain.values()) == 0
     np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-4)
+
+
+def test_masked_grower_past_the_compact_bound(dev):
+    """Just over 2^24 rows (the compact grower's bound, where f32 counts
+    stop being exact): tpu_grower=auto trains one round on the masked
+    grower, and the sublane layout (K3) grows the same splits as the lane
+    layout (K1's dense mode) on the same Higgs-shaped rows. The label's
+    x7 * x9 term is symmetric, so two leaves can tie within f32 summation
+    order and be split in the other order (ROADMAP C, notes): the splits
+    are compared as a set, the models by their predictions."""
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    n = gbdt_mod._COMPACT_MAX_ROWS + 4096
+    rng = np.random.RandomState(5)
+    X = rng.randn(n, 28).astype(np.float32)
+    y = (X[:, 0] - 0.5 * X[:, 3] + 0.3 * X[:, 7] * X[:, 9]
+         + 0.5 * rng.randn(n).astype(np.float32) > 0).astype(np.float32)
+    p = {"objective": "binary", "num_leaves": 63, "max_bin": 63,
+         "verbosity": -1, "device_type": "cuda"}
+    ds = lgt.Dataset(X, y, params=p)
+    boosters, launches = {}, {}
+    for layout in ("sublane", "lane"):
+        _kernels.reset_counts()
+        boosters[layout] = lgt.train(dict(p, tpu_hist_layout=layout), ds, 1)
+        launches[layout] = dict(_kernels.LAUNCHES)
+        assert sum(_kernels.PLAIN_CALLS.values()) == 0
+        assert not boosters[layout]._gbdt.use_compact
+    assert launches["sublane"] == {"histogram": 0, "fused_split": 0,
+                                   "histogram_sublane": 63}
+    assert launches["lane"]["histogram"] == 63
+    assert launches["lane"]["fused_split"] == 0
+    ts, tl = (b._gbdt.models[0] for b in boosters.values())
+    assert ts.num_nodes == tl.num_nodes == 62
+
+    def splits(t):
+        return sorted(zip(t.split_feature[:62].tolist(),
+                          t.split_bin[:62].tolist()))
+    assert splits(ts) == splits(tl)
+    # leaf counts summed in f32 past 2^24 (inexact in either layout)
+    assert abs(int(ts.internal_count[0]) - n) <= 64
+    rows = X[:200_000]
+    np.testing.assert_allclose(boosters["sublane"].predict(rows),
+                               boosters["lane"].predict(rows), atol=1e-4)
 
 
 def _cat_data(n, seed):

@@ -295,3 +295,57 @@ def test_plain_split_moves_real_vectors_only(side, f, extra):
     for arr, before in ((parent, p0), (other, o0)):
         assert torch.equal(arr[:start], before[:start])
         assert torch.equal(arr[start + count:], before[start + count:])
+
+
+@pytest.mark.parametrize("start,count,smaller_left,f", [
+    (0, 2000, None, 5), (37, 1900, None, 5), (64, 1800, 0, 5),
+    (64, 1800, 1, 5), (500, 1, None, 5), (200, 0, None, 5),
+    (41, 1500, None, 140)])
+def test_copy_back_matches_dual_and_reference(start, count, smaller_left, f):
+    """K2's copy-back variant (``dual=False``, the JAX package's choice on
+    EFB-bundled data), plain version: ``work`` ends in the row order the
+    dual variant leaves once its two arrays are merged, every row outside
+    the segment keeps its bytes, the histogram is the dual variant's bit
+    for bit, and ``work`` equals the JAX kernel's copy-back variant in
+    interpret mode (f = 140: a record wider than 128 bytes)."""
+    n, b = 2000, 256
+    jl, tl, work0 = _records(n, f, b, seed=start + count + f)
+    other0 = pack_rows(*(torch.from_numpy(a) for a in
+                         _inputs(n, f, b, start + 1)), tl).numpy()
+    feat, bin_ = 2, 90
+    n_left = _n_left(work0[start:start + count, feat], bin_)
+    cb_w, cb_s, cb_h = fused_split(
+        torch.from_numpy(work0.copy()), torch.from_numpy(other0.copy()), 0,
+        start, count, n_left, feat, bin_, 0, 0, 0, None, tl, b,
+        smaller_left=smaller_left, side=1, dual=False)
+    du_w, du_s, du_h = fused_split(
+        torch.from_numpy(work0.copy()), torch.from_numpy(other0.copy()), 0,
+        start, count, n_left, feat, bin_, 0, 0, 0, None, tl, b,
+        smaller_left=smaller_left, side=0)
+    cb_w = cb_w.numpy()
+    np.testing.assert_array_equal(
+        cb_w, _merged(du_w.numpy(), du_s.numpy(), start, count, n_left))
+    outside = np.ones(n, bool)
+    outside[start:start + count] = False
+    np.testing.assert_array_equal(cb_w[outside], work0[outside])
+    np.testing.assert_array_equal(cb_s.numpy()[outside], other0[outside])
+    np.testing.assert_array_equal(cb_h.numpy(), du_h.numpy())
+
+    pad = np.zeros((PAD, work0.shape[1]), np.uint8)
+    kw = {} if smaller_left is None else {
+        "smaller_left": jnp.asarray(smaller_left, I32)}
+    rw, _, rh = jax_fused_split(
+        jnp.asarray(np.concatenate([work0, pad])),
+        jnp.asarray(np.concatenate([other0, pad])), jnp.asarray(0, I32),
+        *(jnp.asarray(v, I32) for v in (start, count, n_left, feat, bin_, 0,
+                                        0, 0)),
+        jnp.asarray(np.zeros(8, np.uint32)), jl, b, 128, 8, interpret=True,
+        dual=False, **kw)
+    np.testing.assert_array_equal(cb_w, np.asarray(rw)[:n])
+    aw = torch.from_numpy(_abs_grad(cb_w, tl))
+    s, c = _child_range(start, count, n_left, smaller_left)
+    scale = segment_histogram(aw, s, c, tl, b).numpy()
+    rh = np.asarray(rh)
+    np.testing.assert_array_equal(cb_h.numpy()[..., 2:], rh[..., 2:])
+    assert np.all(np.abs(cb_h.numpy()[..., :2] - rh[..., :2])
+                  <= 2.0 ** -16 * scale[..., :2] + 1e-30)

@@ -131,7 +131,7 @@ def test_unknown_device_raises(device):
     ({"cegb_penalty_split": 0.1}, "A14"),
     ({"forcedsplits_filename": "f.json"}, "A14"),
     ({"linear_tree": True}, "A14"),
-    ({"enable_bundle": True}, "A13"),
+    ({"max_bin": 511}, "A3"),
     ({"use_quantized_grad": True}, "A15"),
     ({"tpu_bin_pack4": True}, "A15"),
     ({"path_smooth": 0.5}, "A14"),
@@ -150,3 +150,17 @@ def test_parameters_outside_the_slice_raise(params, item):
               "verbosity": -1}, **params)
     with pytest.raises(NotImplementedError, match=item):
         lgt.train(p, lgt.Dataset(X, y), 1)
+
+
+@pytest.mark.parametrize("value", [True, "true", False])
+def test_enable_bundle_trains(value):
+    """``enable_bundle`` is LightGBM's default (True) in the port too, and
+    written out either way it trains (EFB, ROADMAP A13)."""
+    assert Config({}).enable_bundle is True
+    assert Config({}).max_conflict_rate == 1e-4
+    X, y = _data()
+    bst = lgt.train({"objective": "binary", "device_type": "cpu",
+                     "verbosity": -1, "enable_bundle": value,
+                     "max_conflict_rate": 0.0}, lgt.Dataset(X, y), 2)
+    assert bst.num_trees() == 2
+    assert np.all(np.isfinite(bst.predict(X)))
