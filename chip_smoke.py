@@ -46,16 +46,30 @@ non-zero):
    (0), the host syncs inside one tree (0), and a torch.profiler trace of
    one more tree (device time, idle share, launches, and K1's and K2's
    device ms in that tree beside their byte bounds from its node counts);
-6. the masked grower at the main path's row count: the same Higgs-shaped
+6. quantized-gradient training on the same constructed datasets
+   (QUANT): use_quantized_grad=True with LightGBM's defaults (4 bins,
+   stochastic rounding), 1 warm-up and 2 timed rounds and a profiled tree:
+   iterations/s, AUC (> 0.7) beside the f32 run's at the same round, every
+   K1 and K2 launch in its quant mode, host syncs in a tree step (0), K1's
+   integer variant's and K2's device ms a tree beside their byte bounds;
+   then QUANT_CHECKS: K2 quant against its plain version at the root
+   (mode 1 and the last tree's root split) and a grown split on the run's
+   records (children byte-equal, int32 histograms exactly equal), timed
+   beside K2 f32; K1's integer variant alone at the root, exactly equal,
+   timed beside K1 f32, its plain version and index_add_ of int32
+   channels; the reloaded model (1e-6); the card against the CPU with
+   deterministic rounding (compact at 100k x 28, the masked grower's shim
+   at 20k, 31 leaves, 3 rounds; 1e-4, differing splits counted);
+7. the masked grower at the main path's row count: the same Higgs-shaped
    rows binned at max_bin=63 with tpu_grower=masked and the sublane layout
    (K3 only), 63 leaves, 1 warm-up and 2 timed rounds: iterations/s, AUC
    (> 0.7), K3's launches (> 0) and K1's and K2's (0), plain calls (0),
    host syncs inside one tree (0), and a profiled tree with K3's device ms
    beside its byte bound for that tree;
-7. the card against the CPU on the compact path: the same training at
+8. the card against the CPU on the compact path: the same training at
    100k x 28, 31 leaves, 3 rounds, with device_type="cuda" and "cpu";
    predictions agree within 1e-4;
-8. the masked path: the training stage of the repo's serving bench
+9. the masked path: the training stage of the repo's serving bench
    (bench.py:769-776: make_higgs_like 20k x 28, 63 leaves, max_bin=63,
    learning rate 0.1, min_data_in_leaf 20) with 2k more rows for
    validation, tpu_hist_layout="sublane", 20 rounds: iterations/s, AUC
@@ -65,7 +79,7 @@ non-zero):
    predictions within 1e-4, and save_model -> Booster(model_file=...) ->
    predict within 1e-6, and a profiled tree with K3's device ms beside its
    byte bound;
-9. the masked grower with multiclass and categorical splits: the same 20k
+10. the masked grower with multiclass and categorical splits: the same 20k
    rows with the multiclass label and categorical columns, max_bin=63, 63
    leaves, sublane, 20 rounds: iterations/s, K3's launches (> 0) and K1's
    and K2's (0), host syncs inside one tree (0); save_model ->
@@ -74,7 +88,7 @@ non-zero):
    by 1e-6, and held within 1e-4 at 3 rounds on weighted rows, where the
    control agrees; one objective=regression run with the categorical
    columns on the card against the CPU (1e-4);
-10. the multiclass compact path at the main path's row count: the same
+11. the multiclass compact path at the main path's row count: the same
    Higgs-shaped rows with a 5-class label cut from the generator's logits
    and five categorical columns (four of 32 codes for the sorted scan, one
    of 3 for the one-hot scan; make_higgs_multiclass_like),
@@ -88,7 +102,7 @@ non-zero):
    tree with K1's and K2's device ms beside their byte bounds; and the
    card against the CPU at 100k rows, 31 leaves, 3 rounds, on weighted rows
    (tie_free_weights: every class probability within 1e-4);
-11. Exclusive Feature Bundling on the compact grower at the Allstate shape
+12. Exclusive Feature Bundling on the compact grower at the Allstate shape
    of the repo's sparse benchmark (make_allstate_like, 500k x 4228 one-hot
    columns in blocks of 8, a 10% validation split; the parameters of
    bench.py:1185-1200 with BENCH_SPARSE=1: 255 leaves, 255 bins,
@@ -106,7 +120,9 @@ non-zero):
    partition); K1 on the wide records against its plain version
    (bit-equal), timed beside index_add_; the saved and reloaded model within 1e-6; and the card against the CPU on
    a narrower one-hot shape (100k x 320 plus 4 dense columns, 31 leaves, 3
-   rounds) within 1e-4.
+   rounds) within 1e-4; and K2's quant mode in copy-back at the bundled
+   root split against its plain version (byte-equal, int32 exact), timed
+   (EFB_CHECKS' quant_copy_back, the bundled part of QUANT_CHECKS).
 
 Each profiled tree must hold as many launches of each kernel as its wrapper
 counted in that round; a short trace is repeated. The line before the last
@@ -858,7 +874,14 @@ def phase_main_path(lgt, rows, rounds, results):
     check(len(ends) == 1 + rounds, f"trained {len(ends)} rounds")
     it_s = rounds / (ends[-1] - ends[0])
     auc = evals["valid_0"]["auc"][-1]
+    # QUANT trains on the same constructed datasets and compares its AUC
+    # with this run's at the same round
+    results["main_datasets"] = (ds, dv)
     out = {"rows": rows, "train_rows": rows - n_val, "valid_rows": n_val,
+           "valid_auc_by_round": evals["valid_0"]["auc"],
+           # each timed round's wall s; the first holds the tree whose host
+           # syncs are counted (torch's sync debug mode on)
+           "round_s": np.diff(ends).tolist(),
            "rounds_timed": rounds, "iterations_per_s": it_s,
            "first_round_s": ends[0] - t_start, "construct_s": construct_s,
            "data_gen_s": gen_s, "valid_auc": auc, "launches": launches,
@@ -879,6 +902,284 @@ def phase_main_path(lgt, rows, rounds, results):
     results["main"] = out
     # the large-N masked and the multiclass phases train on the same rows
     results["higgs"] = (X, y, logits, n_val)
+
+
+QUANT_ROUNDS = 2                 # timed rounds after one warm-up round
+
+
+def phase_quant(lgt, results):
+    """Quantized-gradient training on the main path: MAIN's constructed
+    datasets (the same 10.5M Higgs-shaped rows, 10% validation) and
+    parameters with use_quantized_grad=True and LightGBM's defaults
+    (num_grad_quant_bins=4, stochastic_rounding=True,
+    quant_train_renew_leaf=False), 1 warm-up and QUANT_ROUNDS timed rounds
+    and a profiled tree: the compact grower's int path (K2's quant mode,
+    K1's integer variant). Then QUANT_CHECKS (check_quant_kernels,
+    quant_cpu_vs_card, the reloaded model)."""
+    from lightgbm_tpu_torch import _kernels
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    ds, dv = results.pop("main_datasets")
+    rounds = QUANT_ROUNDS
+    params = {"objective": "binary", "metric": "auc", "num_leaves": 255,
+              "max_bin": 255, "learning_rate": 0.1, "min_data_in_leaf": 100,
+              "verbosity": -1, "device_type": "cuda",
+              "use_quantized_grad": True}
+    syncs = {}
+    ends = []
+
+    def timer(env):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+    timer.order = 5
+
+    evals = {}
+    _kernels.reset_counts()
+    # the host syncs of the whole tree step: the discretizer runs in
+    # _grow_compact, before the grower
+    with syncs_in_second_tree(gbdt_mod.GBDT, "_grow_compact", syncs):
+        t_start = time.perf_counter()
+        bst = lgt.train(params, ds, 1 + rounds, valid_sets=[dv],
+                        callbacks=[timer, lgt.record_evaluation(evals)])
+    launches = dict(_kernels.LAUNCHES)
+    modes = dict(_kernels.MODE_LAUNCHES)
+    plain_calls = dict(_kernels.PLAIN_CALLS)
+    gbdt = bst._gbdt
+    check(len(ends) == 1 + rounds, f"trained {len(ends)} rounds")
+    it_s = rounds / (ends[-1] - ends[0])
+    auc = evals["valid_0"]["auc"][-1]
+    main_aucs = results["main"]["valid_auc_by_round"]
+    out = {"train_rows": gbdt.num_data, "valid_rows": dv.num_data(),
+           "rounds_timed": rounds, "iterations_per_s": it_s,
+           "round_s": np.diff(ends).tolist(),
+           "first_round_s": ends[0] - t_start, "construct_s": "reused",
+           "valid_auc": auc,
+           "main_f32_valid_auc_same_round": main_aucs[rounds],
+           "launches": launches, "mode_launches": modes,
+           "plain_calls": plain_calls,
+           "host_syncs_in_tree": syncs.get("in_tree"),
+           "num_trees": bst.num_trees(), "quant_int": gbdt._quant_int}
+    check(gbdt.use_compact and gbdt._quant_int, "quantized training did not "
+          "take the compact grower's int path")
+    for k in ("histogram", "fused_split"):
+        check(launches[k] > 0, f"kernel {k} was not launched on the QUANT "
+              "path")
+        check(modes[f"{k}/quant"] == launches[k], f"{k}: "
+              f"{launches[k] - modes[k + '/quant']} launches outside its "
+              "quant mode on the QUANT path")
+    for k, v in plain_calls.items():
+        check(v == 0, f"plain version of {k} ran {v} times on the card")
+    check(np.isfinite(auc) and auc > 0.7, f"QUANT validation AUC {auc}")
+    check(syncs.get("in_tree") == 0, "host syncs inside the quantized tree "
+          "step")
+    prof = profile_tree(bst, 1.0 / it_s)
+    pm = prof["modes"]
+    check(pm["histogram/quant"]["launches"] == pm["histogram/quant"][
+        "counted"] == prof["kernels"]["histogram"]["launches"],
+          "the profiled QUANT tree ran K1 outside its integer variant")
+    # profile_tree held each kernel's traced launches to its wrapper's
+    # count; on the compact path each K2 launch runs one K1
+    check(pm["fused_split/quant"]["counted"]
+          == pm["histogram/quant"]["counted"] > 0,
+          "the profiled QUANT tree's K2 launches are not all quant")
+    out.update({"tree_kernel_launches": prof["kernel_launches"],
+                "tree_device_s": prof["device_s"],
+                "tree_wall_s": 1.0 / it_s,
+                "tree_device_idle_share": prof["device_idle_share"],
+                "tree_kernels": {k: {"device_ms": v["device_ms"],
+                                     "launches": v["launches"],
+                                     "bound_ms": v.get("bound_ms")}
+                                 for k, v in prof["kernels"].items()
+                                 if k != "histogram_sublane"}})
+    print("QUANT", json.dumps(out), flush=True)
+    out["profile"] = prof
+    checks = {"kernels": check_quant_kernels(bst)}
+    X, _, _, n_val = results["higgs"]
+    Xv = X[-n_val:][:20_000]
+    p_card = bst.predict(Xv)
+    check(np.all(np.isfinite(p_card)) and p_card.shape == (len(Xv),),
+          "QUANT card predictions")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "quant.txt")
+        bst.save_model(path)
+        reload_diff = float(np.abs(lgt.Booster(model_file=path).predict(Xv)
+                                   - p_card).max())
+    check(reload_diff <= 1e-6, f"reloaded quantized model differs by "
+          f"{reload_diff}")
+    checks["reload_max_abs_diff"] = reload_diff
+    checks["cpu_vs_card"] = quant_cpu_vs_card(lgt)
+    print("QUANT_CHECKS", json.dumps(checks), flush=True)
+    out["checks"] = checks
+    results["quant"] = out
+    del bst, ds, dv, gbdt
+
+
+def check_quant_kernels(bst):
+    """K2's quant mode against its plain version on the QUANT run's records
+    (all training rows, carrying the last tree's integer codes): at the
+    root (mode 1, the whole segment; and mode 0, the last tree's root
+    split) and at one grown split (the root's child on its segment of the
+    root split's result): children byte-equal, rows outside the segment
+    and the padding unchanged, int32 histograms exactly equal. Then times:
+    K2 quant against K2 f32 at the root split, and K1's integer variant
+    alone at the root against K1 f32, the plain version and index_add_ of
+    int32 channels on a precomputed flat index."""
+    from lightgbm_tpu_torch.ops.compact import record_channels
+    from lightgbm_tpu_torch.ops.fused_split import (fused_split,
+                                                    fused_split_plain)
+    from lightgbm_tpu_torch.ops.pallas_histogram import (
+        record_histogram, record_histogram_plain)
+    from lightgbm_tpu_torch.ops.split import go_left_pred
+    gbdt = bst._gbdt
+    layout = gbdt.layout
+    B = gbdt.grower_params.num_bins
+    F = layout.num_features
+    dev = gbdt.device
+    n = gbdt.num_data
+    work = gbdt.work.clone()
+    scratch = torch.zeros_like(work)
+    codes = work[:, layout.grad_off:layout.grad_off + 8].contiguous().view(
+        torch.float32)
+    check(torch.equal(codes, codes.trunc()), "the QUANT records do not hold "
+          "integer codes")
+    tree = gbdt.models[-1]
+    check(tree.num_nodes > 1, "the last QUANT tree has no grown split")
+    none = torch.zeros(8, dtype=torch.int32, device=dev)
+
+    def split_args(node, start, count, arr):
+        f, b = int(tree.split_feature[node]), int(tree.split_bin[node])
+        dl, nan = int(tree.default_left[node]), int(gbdt.nan_bin_arr[f])
+        gl = go_left_pred(arr[start:start + count, f], b, bool(dl), nan,
+                          False, none)
+        return (0, start, count, int(gl.sum()), f, b, dl, nan, 0, None,
+                layout, B), gl
+
+    line = {"rows": n}
+    worst = 0
+    # mode 1: the root histogram
+    seg_args = (1, 0, n, 0, 0, 0, 0, 0, 0, None, layout, B)
+    _, _, hk = fused_split(work, scratch, *seg_args, quant=True)
+    _, _, hp = fused_split_plain(work, scratch, *seg_args, quant=True)
+    check(hk.dtype == torch.int32 and torch.equal(hk, hp),
+          "K2 quant mode 1 at the root: histograms differ")
+    check(int(hk[0, :, 3].sum()) == n, "K2 quant mode 1: row count")
+    worst = max(worst, int((hk - hp).abs().max()))
+    root_args, gl = split_args(0, 0, n, work)
+    child = int(tree.left_child[0])
+    side_left = child >= 0
+    if not side_left:
+        child = int(tree.right_child[0])
+    check(child >= 0, "the root has no internal child")
+    after_root = None
+    for what, node in (("root", 0), ("grown", child)):
+        if what == "root":
+            base, args, side = work, root_args, 0
+        else:
+            nl0 = root_args[3]
+            start, count = (0, nl0) if side_left else (nl0, n - nl0)
+            # the left child stays in work, the right one lies in scratch
+            base = after_root
+            side = 0 if side_left else 1
+            arr = base[0] if side == 0 else base[1]
+            args, _ = split_args(node, start, count, arr)
+        start, count, n_left = args[1], args[2], args[3]
+        if what == "root":
+            before = (base.clone(), scratch.clone())
+        else:
+            before = (base[0].clone(), base[1].clone())
+        wk, sk = before[0].clone(), before[1].clone()
+        _, _, hk = fused_split(wk, sk, *args, side=side, quant=True)
+        wp, spl = before[0].clone(), before[1].clone()
+        _, _, hp = fused_split_plain(wp, spl, *args, side=side, quant=True)
+        torch.cuda.synchronize()
+        check_split((wk, sk), (wp, spl), before, start, count, n_left, side,
+                    layout, f"K2 quant at the {what} split")
+        check(hk.dtype == torch.int32 and torch.equal(hk, hp),
+              f"K2 quant at the {what} split: histograms differ")
+        worst = max(worst, int((hk - hp).abs().max()))
+        line[what] = {"start": start, "count": count, "n_left": n_left,
+                      "feature": args[4], "side": side}
+        if what == "root":
+            after_root = (wk, sk)
+        del wp, spl, hk, hp, before
+    del after_root, wk, sk
+    line["max_abs_err"] = worst
+    n_left = root_args[3]
+    n_small = min(n_left, n - n_left)
+    calls = [0]
+
+    def alternating(quant):
+        def run():
+            fused_split(work, scratch, *root_args, side=calls[0] % 2,
+                        quant=quant)
+            calls[0] += 1
+        return run
+
+    def library():
+        perm = torch.argsort(gl.to(torch.uint8), stable=True)
+        torch.index_select(work, 0, perm, out=scratch)
+    row_bytes = record_row_bytes(layout)
+    line["k2"] = {
+        "ms": time_ms(alternating(True)),
+        "f32_ms": time_ms(alternating(False)),
+        "plain_ms": time_ms(lambda: fused_split_plain(
+            work, scratch, *root_args, quant=True), 4, 2),
+        "library_ms": time_ms(library, 4, 2),
+        "bound_ms": 1e3 * (2 * n * layout.num_real_cols
+                           + n_small * row_bytes) / HBM_BYTES_PER_S}
+    # the timing calls partitioned the arrays again and again: K1 alone
+    # runs on what they left, the whole array of records with codes
+    seg = torch.tensor([0, n, 0], dtype=torch.int32, device=dev)
+    hk = record_histogram(work, scratch, seg, layout, B, quant=True)
+    hp = record_histogram_plain(work, scratch, seg, layout, B, quant=True)
+    check(torch.equal(hk, hp), "K1's integer variant at the root differs "
+          "from its plain version")
+    flat = (work[:, :F].to(torch.int64)
+            + torch.arange(F, device=dev) * B).reshape(-1)
+    src = record_channels(work, layout, quant=True)[:, None, :].expand(
+        n, F, 4).reshape(-1, 4)
+    lib_out = torch.zeros(F * B, 4, dtype=torch.int32, device=dev)
+
+    def lib():
+        lib_out.zero_()
+        lib_out.index_add_(0, flat, src)
+    lib()
+    check(torch.equal(lib_out.view(F, B, 4), hk), "index_add_ of the int32 "
+          "channels differs from K1's integer variant")
+    line["k1"] = {
+        "rows": n, "max_abs_err": int((hk - hp).abs().max()),
+        "ms": time_ms(lambda: record_histogram(work, scratch, seg, layout,
+                                               B, quant=True)),
+        "f32_ms": time_ms(lambda: record_histogram(work, scratch, seg,
+                                                   layout, B)),
+        "plain_ms": time_ms(lambda: record_histogram_plain(
+            work, scratch, seg, layout, B, quant=True), 3, 1),
+        "library_ms": time_ms(lib, 3, 1),
+        "bound_ms": 1e3 * (n * row_bytes + F * B * 16) / HBM_BYTES_PER_S}
+    del work, scratch, flat, src, lib_out, hk, hp
+    return line
+
+
+def quant_cpu_vs_card(lgt):
+    """The card against the CPU with deterministic rounding: the compact
+    int path at 100k x 28 and the masked grower's shim at 20k x 28, 31
+    leaves, 3 rounds, num_grad_quant_bins=4."""
+    out = {}
+    for grower, rows in (("compact", 100_000), ("masked", 20_000)):
+        X, y = make_higgs_like(rows, 28, seed=17)
+        params = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+                  "use_quantized_grad": True, "num_grad_quant_bins": 4,
+                  "stochastic_rounding": False, "tpu_grower": grower}
+        boosters = {dev: lgt.train(dict(params, device_type=dev),
+                                   lgt.Dataset(X, y), 3)
+                    for dev in ("cuda", "cpu")}
+        check(boosters["cuda"]._gbdt._quant_int == (grower == "compact"),
+              f"quantized {grower} run took the wrong histogram path")
+        diff, differ = compare_boosters(boosters["cuda"], boosters["cpu"], X)
+        check(diff <= 1e-4, f"quantized {grower}: card vs CPU predictions "
+              f"differ by {diff}")
+        out[grower] = {"rows": rows, "max_abs_pred_diff": diff,
+                       "differing_splits": differ}
+    return out
 
 
 def phase_masked_large(lgt, rows, results):
@@ -1372,8 +1673,18 @@ ENTRY_FUNCTIONS = {"histogram": ("hist_kernel",),
                                          "hist_sublane_small_kernel")}
 
 
+# the device function of a kernel mode that has its own instantiation (the
+# profiler's demangled name, spaces removed): K1's integer variant. K2's
+# quant mode runs the same partition functions as its f32 mode
+MODE_FUNCTIONS = {"histogram/quant": "hist_kernel<true,true>"}
+
+
 def _named(name, fns):
     return any(fn + "<" in name or fn + "(" in name for fn in fns)
+
+
+def _mode_named(name, mode):
+    return MODE_FUNCTIONS[mode] in name.replace(" ", "")
 
 
 def smaller_child_rows(tree):
@@ -1451,6 +1762,7 @@ def profile_tree(bst, tree_s, grower=None):
 
         def traced_call(fn, *a, **kw):
             before = dict(_kernels.LAUNCHES)
+            modes_before = dict(_kernels.MODE_LAUNCHES)
             torch.cuda.synchronize()
             prof.start()
             # a trace taken late in a process can miss the first device
@@ -1471,6 +1783,8 @@ def profile_tree(bst, tree_s, grower=None):
             box["wall"] = time.perf_counter() - t0
             box["counted"] = {k: v - before[k]
                               for k, v in _kernels.LAUNCHES.items()}
+            box["modes"] = {k: v - modes_before[k]
+                            for k, v in _kernels.MODE_LAUNCHES.items()}
             return res
         if grower is None:
             traced_call(bst.update)
@@ -1487,7 +1801,8 @@ def profile_tree(bst, tree_s, grower=None):
                 bst.update()
             finally:
                 setattr(module, name, grow)
-        wall, counted = box["wall"], box["counted"]
+        wall, counted, counted_modes = (box["wall"], box["counted"],
+                                        box["modes"])
         by_name = {}
         launches = 0
         for e in prof.events():
@@ -1499,10 +1814,15 @@ def profile_tree(bst, tree_s, grower=None):
         traced = {k: sum(n for name, (_, n) in by_name.items()
                          if _named(name, fns))
                   for k, fns in ENTRY_FUNCTIONS.items()}
-        if traced == counted:
+        traced_modes = {m: sum(n for name, (_, n) in by_name.items()
+                               if _mode_named(name, m))
+                        for m in MODE_FUNCTIONS}
+        if traced == counted and all(
+                traced_modes[m] == counted_modes[m] for m in MODE_FUNCTIONS):
             break
-        print(f"PROFILE retry: the trace holds {traced} launches, the "
-              f"wrappers counted {counted}", flush=True)
+        print(f"PROFILE retry: the trace holds {traced} launches "
+              f"({traced_modes}), the wrappers counted {counted} "
+              f"({counted_modes})", flush=True)
     else:
         raise AssertionError("three profiled trees each held fewer launches "
                              "of a kernel than its wrapper counted")
@@ -1536,6 +1856,14 @@ def profile_tree(bst, tree_s, grower=None):
             entry["bytes"] = bounds[kern]
             entry["bound_ms"] = 1e3 * bounds[kern] / HBM_BYTES_PER_S
         line.setdefault("kernels", {})[kern] = entry
+    # a mode's launches in the trace against its wrappers' count
+    line["modes"] = {m: {"counted": n} for m, n in counted_modes.items()}
+    for m in MODE_FUNCTIONS:
+        hits = [(us, n) for name, (us, n) in by_name.items()
+                if _mode_named(name, m)]
+        line["modes"][m].update(
+            device_ms=sum(us for us, _ in hits) * 1e-3,
+            launches=sum(n for _, n in hits))
     print("PROFILE", json.dumps(line), flush=True)
     return line
 
@@ -1661,6 +1989,19 @@ def check_efb_kernels(bst):
         if what != "root":
             del wk, sk
     del after_root
+    # K2's quant mode in copy-back at the root split: the grad and hess
+    # written above are integers, so the records double as quantized codes
+    wk, sk = work.clone(), scratch.clone()
+    _, _, hk = fused_split(wk, sk, *root_args, dual=False, quant=True)
+    wp, spl = work.clone(), scratch.clone()
+    _, _, hp = fused_split_plain(wp, spl, *root_args, dual=False, quant=True)
+    torch.cuda.synchronize()
+    check(torch.equal(wk, wp) and torch.equal(sk, spl), "K2 quant copy-back "
+          "at the root split: records differ from the plain version")
+    check(hk.dtype == torch.int32 and torch.equal(hk, hp), "K2 quant "
+          "copy-back at the root split: histograms differ")
+    line["quant_copy_back"] = {"max_abs_err": int((hk - hp).abs().max())}
+    del wk, sk, wp, spl, hk, hp
     n_left = root_args[3]
     n_small = min(n_left, n - n_left)
     calls = [0]
@@ -1689,6 +2030,11 @@ def check_efb_kernels(bst):
             work, scratch, child_seg, layout, B)),
         "bound_ms": 1e3 * (2 * n * layout.num_real_cols
                            + n_small * row_bytes) / HBM_BYTES_PER_S})
+    line["quant_copy_back"].update({
+        "ms": time_ms(lambda: fused_split(work, scratch, *root_args,
+                                          dual=False, quant=True)),
+        "plain_ms": time_ms(lambda: fused_split_plain(
+            work, scratch, *root_args, dual=False, quant=True), 4, 2)})
     line["copy_back_partition_ms"] = (line["copy_back_ms"]
                                       - line["child_hist_ms"])
     line["dual_partition_ms"] = line["dual_ms"] - line["child_hist_ms"]
@@ -1907,6 +2253,7 @@ def main() -> int:
               ("k3", lambda: phase_kernels_k3(args.rows, results)),
               ("main", lambda: phase_main_path(lgt, args.rows, args.rounds,
                                                results)),
+              ("quant", lambda: phase_quant(lgt, results)),
               ("masked_large", lambda: phase_masked_large(lgt, args.rows,
                                                           results)),
               ("cpu_vs_card", lambda: phase_cpu_vs_card(lgt, results)),
@@ -1936,6 +2283,9 @@ def main() -> int:
     efb = results["efb"]
     efb_tree = efb["profile"]["kernels"]
     efb_k = efb["checks"]["kernels"]
+    qt = results["quant"]
+    qt_tree = qt["profile"]["kernels"]
+    qk = qt["checks"]["kernels"]
 
     def multiclass_path(kern, tree_kernels, launches, rounds, extra=None):
         """A kernel's numbers on a multiclass path: launches a round (K
@@ -1978,7 +2328,17 @@ def main() -> int:
                  "max_abs_err": efb_k["k1"]["max_abs_err"],
                  "features": efb_k["k1"]["features"],
                  "tree_device_ms": efb_tree["histogram"]["device_ms"],
-                 "tree_bound_ms": efb_tree["histogram"]["bound_ms"]}},
+                 "tree_bound_ms": efb_tree["histogram"]["bound_ms"]},
+         # the integer variant (quantized codes, exact int32) on QUANT's
+         # records at the root, beside K1 f32 on the same records
+         "quant": {"launches": qt["mode_launches"]["histogram/quant"],
+                   "ms": qk["k1"]["ms"], "f32_ms": qk["k1"]["f32_ms"],
+                   "plain_ms": qk["k1"]["plain_ms"],
+                   "bound_ms": qk["k1"]["bound_ms"], "bound_by": "bytes",
+                   "library_ms": qk["k1"]["library_ms"],
+                   "max_abs_err": qk["k1"]["max_abs_err"],
+                   "tree_device_ms": qt_tree["histogram"]["device_ms"],
+                   "tree_bound_ms": qt_tree["histogram"]["bound_ms"]}},
         {"name": "fused_split", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/fused_split.cu",
          "replaces": "lightgbm_tpu/ops/fused_split.py:198",
@@ -2016,7 +2376,19 @@ def main() -> int:
                                     efb_k["grown"]["max_abs_err"]),
                  "record_bytes": efb_k["record_bytes"],
                  "tree_device_ms": efb_tree["fused_split"]["device_ms"],
-                 "tree_bound_ms": efb_tree["fused_split"]["bound_ms"]}}},
+                 "tree_bound_ms": efb_tree["fused_split"]["bound_ms"]}},
+         # quant mode: the same partition, K1's integer variant; at QUANT's
+         # root split beside K2 f32 on the same records
+         "quant": {"launches": qt["mode_launches"]["fused_split/quant"],
+                   "ms": qk["k2"]["ms"], "f32_ms": qk["k2"]["f32_ms"],
+                   "plain_ms": qk["k2"]["plain_ms"],
+                   "bound_ms": qk["k2"]["bound_ms"], "bound_by": "bytes",
+                   "library_ms": qk["k2"]["library_ms"],
+                   "max_abs_err": max(qk["max_abs_err"],
+                                      efb_k["quant_copy_back"]["max_abs_err"]),
+                   "tree_device_ms": qt_tree["fused_split"]["device_ms"],
+                   "tree_bound_ms": qt_tree["fused_split"]["bound_ms"],
+                   "efb_copy_back": efb_k["quant_copy_back"]}},
         {"name": "histogram_sublane", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/histogram_sublane.cu",
          "replaces": "lightgbm_tpu/ops/pallas_histogram.py:170",

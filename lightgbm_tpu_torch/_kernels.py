@@ -10,8 +10,10 @@ launch on PyTorch's current stream and allocate nothing; the Python wrappers
 allocate outputs and scratch with ``torch.empty`` / ``torch.zeros``.
 
 ``LAUNCHES`` counts kernel launches by kernel name (:func:`launch` adds one
-each time a wrapper launches its kernel) and ``PLAIN_CALLS`` counts calls of
-the plain PyTorch versions, so a run can show which path it took.
+each time a wrapper launches its kernel), ``MODE_LAUNCHES`` those of a
+kernel's mode by ``"kernel/mode"`` (the quantized ``histogram/quant`` and
+``fused_split/quant``), and ``PLAIN_CALLS`` counts calls of the plain
+PyTorch versions, so a run can show which path it took.
 """
 from __future__ import annotations
 
@@ -40,6 +42,8 @@ KERNELS = {
         "lgbt_hist_dense": [_P, _L, _P, _I, _I, _I, _I, _I, _P, _P],
         "lgbt_hist_records": [_P, _P, _L, _L, _P, _I, _I, _I, _I, _I, _P,
                               _P],
+        "lgbt_hist_records_int": [_P, _P, _L, _L, _P, _I, _I, _I, _I, _I,
+                                  _P, _P],
     }),
     "fused_split": ("fused_split.cu", {
         "lgbt_fused_split": [_I, _I, _P, _P, _I, _L, _I, _I, _I, _P, _P, _I,
@@ -52,6 +56,8 @@ KERNELS = {
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+MODE_LAUNCHES: Dict[str, int] = {"histogram/quant": 0,
+                                 "fused_split/quant": 0}
 PLAIN_CALLS: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -59,7 +65,7 @@ _lock = threading.Lock()
 
 
 def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS):
+    for d in (LAUNCHES, MODE_LAUNCHES, PLAIN_CALLS):
         for k in d:
             d[k] = 0
 
@@ -141,14 +147,18 @@ def library(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def launch(name: str, fn: str, device, *args) -> None:
+def launch(name: str, fn: str, device, *args,
+           mode: Optional[str] = None) -> None:
     """Call C entry ``fn`` of kernel library ``name`` with ``args`` and the
     current stream of ``device``, with ``device`` made current (the C side
-    launches on the current device). Counts the launch and raises if the
-    entry returns a CUDA error code."""
+    launches on the current device). Counts the launch (and, with ``mode``,
+    the launch of that mode) and raises if the entry returns a CUDA error
+    code."""
     import torch
     lib = library(name)
     LAUNCHES[name] += 1
+    if mode is not None:
+        MODE_LAUNCHES[f"{name}/{mode}"] += 1
     with torch.cuda.device(device):
         err = getattr(lib, fn)(*args,
                                torch.cuda.current_stream(device).cuda_stream)

@@ -39,14 +39,27 @@ once an iteration from the iteration-start scores.
   carried columns, which the trees of classes 1..K-1 read in their
   permuted order.
 
+Quantized gradients (``use_quantized_grad``; reference:
+``_discretize_gradients``, ``boosting/gbdt.py:128-174``, after
+GradientDiscretizer, gradient_discretizer.cpp): each round the gradients
+become integer codes on the device with per-round scales (0-d device
+tensors, never read by the host). One tree a round on the compact grower
+(``num_grad_quant_bins`` <= 127 and ``num_data * bins`` below
+``_QUANT_INT_LIMIT``) writes the codes into the records and grows on int32
+histograms (K2's ``quant`` mode) that the scan dequantizes; every other
+case (multiclass, the masked grower, the gates failed) takes the shim that
+multiplies the codes back by their scales. ``quant_train_renew_leaf``
+refits the leaf outputs from the true gradients. Stochastic rounding draws
+from a ``torch.Generator`` on the run's device, seeded from ``seed + 1337``
+and the iteration.
+
 Either way a tree grows with no device-to-host read; after it, its arrays
 come to the host in ONE copy (the iteration's stop check and the model list
 need them), and validation scores are routed on the device with the device
 copy of the tree. A no-split tree is zeroed before shrinkage, and the init
 score is folded into the first tree's leaves.
 
-Leaf renewal, external gradients (ranking), quantized gradients,
-checkpoints, DART/RF and the JAX package's compile ladder are ROADMAP
+Leaf renewal, external gradients (ranking), checkpoints, DART/RF and the JAX package's compile ladder are ROADMAP
 A12b-A16 (the ladder has no counterpart in eager PyTorch).
 """
 from __future__ import annotations
@@ -65,6 +78,7 @@ from ..ops.grower import GrowerParams, TreeArrays, grow_tree
 from ..ops.grower_compact import grow_tree_compact
 from ..ops.predict import StackedTrees, predict_leaf_batched, \
     predict_raw_batched
+from ..ops.split import leaf_output
 from ..utils import log
 
 # tpu_grower=auto takes the compact grower from this many rows on
@@ -76,6 +90,10 @@ _COMPACT_MIN_ROWS = 65536
 # leaves only its min_data gates inexact there (reference:
 # boosting/gbdt.py:970)
 _COMPACT_MAX_ROWS = 1 << 24
+# quantized training's int32 histograms need num_data * num_grad_quant_bins
+# below this: a near-constant feature's root bin sums up to that many code
+# units (reference: boosting/gbdt.py:1642-1652)
+_QUANT_INT_LIMIT = 1 << 31
 
 _INT_FIELDS = ("split_feature", "split_bin", "default_left", "left_child",
                "right_child", "leaf_parent", "leaf_depth", "cat_bitset")
@@ -172,6 +190,51 @@ def stack_trees(models: Sequence[HostTree], device: torch.device,
         num_nodes=torch.tensor([m.num_nodes for m in models],
                                dtype=torch.int64).to(device),
         **cat)
+
+
+def _discretize_gradients(grad: torch.Tensor, hess: torch.Tensor,
+                          num_bins: int, stochastic: bool, const_hess: bool,
+                          generator: Optional[torch.Generator] = None,
+                          uniforms=None):
+    """Gradient discretization (reference: ``_discretize_gradients``,
+    ``lightgbm_tpu/boosting/gbdt.py:128-159``): codes on ``num_bins``
+    levels, ``|qg| <= bins / 2`` and ``0 <= qh <= bins`` (exact integers in
+    f32), with the scales ``max|g| / (bins // 2)`` and ``max h`` (constant
+    hessian) or ``max h / bins``, as 0-d tensors. Stochastic rounding
+    truncates ``x + sign(x) u`` with ``u`` uniform in [0, 1), drawn from
+    ``generator``; ``uniforms = (ug, uh)`` passes the draws in instead (the
+    tests feed the JAX package's). Returns ``(qg, qh, g_scale, h_scale)``."""
+    g_scale = torch.clamp(torch.max(torch.abs(grad)) / (num_bins // 2),
+                          min=1e-30)
+    hmax = torch.max(torch.abs(hess))
+    h_scale = torch.clamp(hmax if const_hess else hmax / num_bins,
+                          min=1e-30)
+    if stochastic:
+        if uniforms is None:
+            uniforms = (torch.rand(grad.shape, generator=generator,
+                                   device=grad.device),
+                        torch.rand(hess.shape, generator=generator,
+                                   device=hess.device))
+        ug, uh = uniforms
+        qg = torch.trunc(grad / g_scale + torch.sign(grad) * ug)
+        qh = torch.trunc(hess / h_scale + uh)
+    else:
+        qg = torch.trunc(grad / g_scale + torch.sign(grad) * 0.5)
+        qh = torch.trunc(hess / h_scale + 0.5)
+    return qg, qh, g_scale, h_scale
+
+
+def _quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
+                        num_bins: int, stochastic: bool, const_hess: bool,
+                        generator: Optional[torch.Generator] = None,
+                        uniforms=None):
+    """The dequantized-f32 shim (reference: ``_quantize_gradients``,
+    ``lightgbm_tpu/boosting/gbdt.py:162-174``): the codes times their
+    scales, exact integer multiples, for the paths that keep f32
+    histograms."""
+    qg, qh, g_scale, h_scale = _discretize_gradients(
+        grad, hess, num_bins, stochastic, const_hess, generator, uniforms)
+    return qg * g_scale, qh * h_scale
 
 
 def _initial_scores(md, k: int, n: int) -> np.ndarray:
@@ -328,10 +391,85 @@ class GBDT:
         self._has_init_score = md.init_score is not None
         self.train_score = torch.from_numpy(_initial_scores(
             md, self.num_class, n)).to(dev)
+        self._setup_quant()
         if self.use_compact:
             self._setup_compact_state(train_set)
         else:
             self._setup_masked_state(train_set)
+
+    def _setup_quant(self) -> None:
+        """Quantized training's parameters and the choice between the int32
+        histogram path and the shim (reference: ``boosting/gbdt.py:815-824``
+        and ``:1618-1676``)."""
+        cfg = self.config
+        self._use_quant = bool(cfg.get("use_quantized_grad", False))
+        self._quant_bins = int(cfg.get("num_grad_quant_bins", 4))
+        self._quant_renew = self._use_quant and bool(
+            cfg.get("quant_train_renew_leaf", False))
+        self._quant_stochastic = bool(cfg.get("stochastic_rounding", True))
+        self._quant_seed = int(cfg.get("seed", 0) or 0) + 1337
+        self._quant_gen = None
+        self._quant_int = False
+        if not self._use_quant or not self.use_compact:
+            return
+        k, n, bins = self.num_class, self.num_data, self._quant_bins
+        if k > 1:
+            if self._quant_renew:
+                # the iteration-start gradients are not carried past the
+                # permutation; the masked grower renews multiclass leaves
+                log.warning("quant_train_renew_leaf with num_class>1 is "
+                            "only supported by tpu_grower=masked; skipping "
+                            "renewal")
+                self._quant_renew = False
+            return
+        fits = n * bins < _QUANT_INT_LIMIT
+        if bins > 127:
+            log.warning(f"use_quantized_grad: num_grad_quant_bins={bins} "
+                        "exceeds the int8 code range (127); using the "
+                        "dequantized-f32 histogram path")
+        elif not fits:
+            log.warning(
+                f"use_quantized_grad: num_data*num_grad_quant_bins = "
+                f"{n}*{bins} exceeds the int32 histogram range; using the "
+                "dequantized-f32 histogram path")
+        self._quant_int = bins <= 127 and fits
+        if not self._quant_int:
+            return
+        bits = int(cfg.get("tpu_quant_hist_bits", 0) or 0)
+        if bits not in (0, 16, 32):
+            log.warning(f"tpu_quant_hist_bits={bits} is not one of 0 (auto) "
+                        "| 16 | 32; using 32-bit accumulation")
+        elif bits == 16:
+            log.warning("tpu_quant_hist_bits=16 (the narrowed 16-bit "
+                        "histogram) is not in the PyTorch port; keeping "
+                        "32-bit accumulation")
+
+    def _quant_generator(self) -> torch.Generator:
+        """The stochastic-rounding draws of this iteration: a generator on
+        the run's device seeded from ``seed + 1337`` and the iteration (the
+        JAX key's ``fold_in(key, iter_)``)."""
+        if self._quant_gen is None:
+            self._quant_gen = torch.Generator(device=self.device)
+        # within 32 bits: the CPU generator keeps only the low 32 of a seed
+        self._quant_gen.manual_seed(
+            (self._quant_seed * 1_000_003 + self.iter_) & 0xFFFF_FFFF)
+        return self._quant_gen
+
+    def _quant_args(self):
+        return (self._quant_bins, self._quant_stochastic,
+                bool(self.objective.is_constant_hessian),
+                self._quant_generator() if self._quant_stochastic else None)
+
+    def _renewed(self, tree: TreeArrays, sums_g: torch.Tensor,
+                 sums_h: torch.Tensor) -> TreeArrays:
+        """The tree with its live leaves refit from true gradient sums
+        (reference: RenewIntGradTreeOutput, ``boosting/gbdt.py:1118-1130``
+        and ``:1802-1823``)."""
+        live = torch.arange(sums_g.shape[0], device=sums_g.device) \
+            < tree.num_leaves
+        out = leaf_output(sums_g, sums_h, self.grower_params.split_params())
+        return tree._replace(leaf_value=torch.where(live, out,
+                                                    tree.leaf_value))
 
     def _efb_precheck(self, train_set: BinnedDataset) -> None:
         """Unbundle an EFB dataset, with a warning, when the run does not
@@ -510,12 +648,25 @@ class GBDT:
         shrink = self.shrinkage_rate
         if not self.use_compact:
             g, h = self._gradients(self.train_score, self.label, self.weight)
+            true_g, true_h = g, h
+            if self._use_quant:
+                # one scale over all K classes (reference: boosting/gbdt.py:
+                # 2311-2318)
+                g, h = _quantize_gradients(g, h, *self._quant_args())
         hosts = []
         for k in range(k_total):
             if self.use_compact:
                 tree, row_leaf = self._grow_compact(k)
             else:
                 tree, row_leaf = self._grow_masked(g[k], h[k])
+                if self._quant_renew:
+                    # true gradient sums a leaf, by each row's leaf
+                    L = tree.leaf_value.shape[0]
+                    sums = torch.zeros((2, L), dtype=torch.float32,
+                                       device=self.device)
+                    sums.index_add_(1, row_leaf,
+                                    torch.stack([true_g[k], true_h[k]]))
+                    tree = self._renewed(tree, sums[0], sums[1])
             # a no-split tree contributes nothing (reference: gbdt.cpp:433)
             lv = torch.where(tree.num_nodes > 0, tree.leaf_value,
                              torch.zeros_like(tree.leaf_value)) * shrink
@@ -556,11 +707,20 @@ class GBDT:
         lay = self.layout
         k_total = self.num_class
         extra = [self.train_score]
+        quant_scales = None
         if k == 0:
             label = self._col(self._cx_label)
             weight = (self._col(self._cx_weight)
                       if self._cx_weight is not None else None)
             g, h = self._gradients(self.train_score, label, weight)
+            if self._quant_int:
+                # the records carry the codes (exact small integers in the
+                # f32 lanes); the scales go to the scan
+                g, h, g_s, h_s = _discretize_gradients(
+                    g, h, *self._quant_args())
+                quant_scales = (g_s, h_s)
+            elif self._use_quant:
+                g, h = _quantize_gradients(g, h, *self._quant_args())
             g_k, h_k = g[0], h[0]
             if k_total > 1:
                 # every class's gradients from the iteration-start scores,
@@ -578,12 +738,28 @@ class GBDT:
         self.work[:, lay.extra_off:lay.extra_off + 4 * cols.shape[0]] = \
             cols.T.reshape(-1).view(torch.uint8).reshape(self.num_data, -1)
 
-        tree, row_leaf, self.work, self.scratch, _, _ = grow_tree_compact(
+        (tree, row_leaf, self.work, self.scratch, leaf_start,
+         leaf_nrows) = grow_tree_compact(
             self.work, self.scratch, self.num_bins_arr, self.nan_bin_arr,
             self.has_nan_arr, self.feat_mask, lay, self.grower_params,
-            self.num_data, self.is_cat_arr, self._efb)
+            self.num_data, self.is_cat_arr, self._efb, quant_scales)
         # the score columns moved with the rows
         self.train_score = self._score_cols()
+        if self._quant_renew:
+            # true gradients from the carried label, weight and (pre-tree)
+            # score columns, summed a leaf segment by prefix-sum differences;
+            # the in-bag column is 1 (no bagging), so no mask (K == 1 here)
+            n = self.num_data
+            weight = (self._col(self._cx_weight)
+                      if self._cx_weight is not None else None)
+            tg, th = self._gradients(self.train_score,
+                                     self._col(self._cx_label), weight)
+            cs = torch.cumsum(torch.cat([tg, th]), dim=1)
+            cs = torch.cat([torch.zeros_like(cs[:, :1]), cs], dim=1)
+            ends = torch.clamp(leaf_start + leaf_nrows, max=n)
+            starts = torch.clamp(leaf_start, max=n)
+            sums = cs[:, ends] - cs[:, starts]
+            tree = self._renewed(tree, sums[0], sums[1])
         return tree, row_leaf
 
     def _update_valid_scores(self, tree: TreeArrays, depth: int,

@@ -79,7 +79,11 @@ PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...]]] = {
     "path_smooth": (0.0, float, ()),
     "feature_contri": (None, object, ("feature_contrib", "fc", "fp", "feature_penalty")),
     "verbosity": (1, int, ("verbose",)),
+    # quantized-gradient training (reference: gradient_discretizer.cpp)
     "use_quantized_grad": (False, bool, ()),
+    "num_grad_quant_bins": (4, int, ()),
+    "quant_train_renew_leaf": (False, bool, ()),
+    "stochastic_rounding": (True, bool, ()),
     # dataset
     "linear_tree": (False, bool, ("linear_trees",)),
     "max_bin": (255, int, ("max_bins",)),
@@ -113,6 +117,9 @@ PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...]]] = {
     "tpu_grower": ("auto", str, ()),            # auto | compact | masked
     "tpu_hist_layout": ("auto", str, ("hist_layout",)),  # auto|lane|sublane
     "tpu_bin_pack4": (False, bool, ("bin_pack4",)),
+    # 0 = auto, 16 = narrowed accumulation (kept at 32 bits here, with a
+    # warning, as the JAX package does when its fused kernel is on), 32
+    "tpu_quant_hist_bits": (0, int, ("quant_hist_bits",)),
 }
 
 OBJECTIVE_ALIASES: Dict[str, str] = {
@@ -278,7 +285,7 @@ class Config:
             if cond:
                 todo.append(f"{what} (ROADMAP {item})")
 
-        need(self.tpu_bin_pack4, "tpu_bin_pack4", "A15")
+        need(self.tpu_bin_pack4, "tpu_bin_pack4", "A15b")
         need(bool(self.forcedbins_filename), "forced bins", "A3")
         need(self.max_bin > 255, "max_bin>255", "A3")
         if not dataset_only:
@@ -318,7 +325,6 @@ class Config:
                  "feature_contri", "A14")
             need(self.linear_tree, "linear_tree", "A14")
             need(self.early_stopping_round > 0, "early stopping", "A8")
-            need(self.use_quantized_grad, "use_quantized_grad", "A15")
             # the CUDA histograms add f32 atomics in no fixed order
             need(self.deterministic, "deterministic histograms", "B1/B2")
         if todo:

@@ -22,6 +22,16 @@
 // device int32 vector and clamped there, so the grower never reads it back
 // to the host.
 //
+// Record mode has an integer variant (template parameter QUANT), the
+// quantized-gradient histogram of the TPU kernels' int8 x int8 -> int32
+// contraction (lightgbm_tpu/ops/fused_split.py, quant=True): the grad and
+// hess columns hold the discretizer's integer codes as exact f32 values;
+// each is converted to int once a row, summed with integer shared-memory
+// atomics (native on sm_90, where an f32 one is a compare-and-swap loop) and
+// added into an int32 output with integer global atomics. Integer sums do
+// not depend on their order, so the result equals the plain version's
+// exactly. The caller keeps rows x max |code| below 2^31.
+//
 // What bounds it on the H100: the least time is that of the bytes (dense:
 // N (F + 4K); records: the two 32-byte sectors of each 128-byte record that
 // hold bins and channels, 64 B a row), but the kernel issues one
@@ -66,6 +76,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 1024;
@@ -85,6 +97,10 @@ __device__ __forceinline__ float load_f32_bytes(const uint8_t* rec, int off) {
   return __uint_as_float(v);
 }
 
+// the accumulator of the grad and hess channels: int codes (QUANT) or f32
+template <bool QUANT>
+using Acc = typename std::conditional<QUANT, int, float>::type;
+
 struct Args {
   const uint8_t* rows_a;
   const uint8_t* rows_b;
@@ -94,6 +110,7 @@ struct Args {
   long long n_rows;
   long long count;
   float* out;
+  int* iout;           // the integer variant's int32 output
   int K, F, B, bf16;
   int fc, Fp, kc, nf;  // feature chunk, its padded width, channels a chunk
   int u;               // row-buffer words a thread (8 or odd)
@@ -102,11 +119,12 @@ struct Args {
 
 // One row into the thread's row buffer (the bytes of features [f0, f0 + fc)
 // from the returned offset on) and its channels into c (records: grad, hess
-// and the packed counts `packed`). Returns the offset.
-template <bool RECORDS>
+// -- as ints with QUANT -- and the packed counts `packed`). Returns the
+// offset.
+template <bool RECORDS, bool QUANT>
 __device__ __forceinline__ int load_row(const Args& a, const uint8_t* rows,
                                         long long row, int f0, int fc, int k0,
-                                        int kc, uint32_t* buf, float* c,
+                                        int kc, uint32_t* buf, Acc<QUANT>* c,
                                         uint32_t& packed) {
   if (RECORDS) {
     const uint8_t* rec = rows + row * a.stride;
@@ -121,8 +139,14 @@ __device__ __forceinline__ int load_row(const Args& a, const uint8_t* rows,
       d[2] = v.z;
       d[3] = v.w;
     }
-    c[0] = load_f32_bytes(rec, a.grad_off);
-    c[1] = load_f32_bytes(rec, a.hess_off);
+    if (QUANT) {
+      // integer codes stored as f32: the conversion is exact
+      c[0] = __float2int_rz(load_f32_bytes(rec, a.grad_off));
+      c[1] = __float2int_rz(load_f32_bytes(rec, a.hess_off));
+    } else {
+      c[0] = load_f32_bytes(rec, a.grad_off);
+      c[1] = load_f32_bytes(rec, a.hess_off);
+    }
     packed = 0x10000u | (load_f32_bytes(rec, a.cnt_off) != 0.f ? 1u : 0u);
     return f0 - 16 * q0;
   }
@@ -142,8 +166,9 @@ __device__ __forceinline__ int load_row(const Args& a, const uint8_t* rows,
   return boff;
 }
 
-template <bool RECORDS>
+template <bool RECORDS, bool QUANT>
 __global__ void __launch_bounds__(kThreads, 1) hist_kernel(const Args a) {
+  static_assert(RECORDS || !QUANT, "the integer variant reads records");
   extern __shared__ uint32_t smem[];
   const int f0 = (blockIdx.y % a.nf) * a.fc;
   const int fc = min(a.fc, a.F - f0);
@@ -168,7 +193,7 @@ __global__ void __launch_bounds__(kThreads, 1) hist_kernel(const Args a) {
   if ((int)blockIdx.x >= active) return;  // uniform across the block
 
   // [kc][B][Fp] cells; in record mode channel 2 holds the packed counts
-  float* hist = reinterpret_cast<float*>(smem);
+  Acc<QUANT>* hist = reinterpret_cast<Acc<QUANT>*>(smem);
   uint32_t* counts = smem + 2 * B * Fp;
   const int cells = kc * B * Fp;
   for (int i = threadIdx.x; i < cells; i += kThreads) smem[i] = 0u;
@@ -192,9 +217,14 @@ __global__ void __launch_bounds__(kThreads, 1) hist_kernel(const Args a) {
         const int f = i & (Fp - 1);
         const uint32_t v = counts[i];
         if (f < fc && v != 0u) {
-          float* o = a.out + ((long long)(f0 + f) * B + (i >> lg)) * 4;
-          atomicAdd(o + 2, (float)(v & 0xffffu));
-          atomicAdd(o + 3, (float)(v >> 16));
+          const long long o = ((long long)(f0 + f) * B + (i >> lg)) * 4;
+          if (QUANT) {
+            atomicAdd(a.iout + o + 2, (int)(v & 0xffffu));
+            atomicAdd(a.iout + o + 3, (int)(v >> 16));
+          } else {
+            atomicAdd(a.out + o + 2, (float)(v & 0xffffu));
+            atomicAdd(a.out + o + 3, (float)(v >> 16));
+          }
           counts[i] = 0u;
         }
       }
@@ -207,13 +237,14 @@ __global__ void __launch_bounds__(kThreads, 1) hist_kernel(const Args a) {
     const long long r = t * kTile + threadIdx.x;
     if (r >= count) continue;
     const bool two = r + kThreads < count;
-    float c0[kMaxK], c1[kMaxK] = {};
+    Acc<QUANT> c0[kMaxK], c1[kMaxK] = {};
     uint32_t p0 = 0u, p1 = 0u;
-    const int boff0 = load_row<RECORDS>(a, rows, start + r, f0, fc, k0, kc,
-                                        buf0, c0, p0);
-    const int boff1 = two ? load_row<RECORDS>(a, rows, start + r + kThreads,
-                                              f0, fc, k0, kc, buf1, c1, p1)
-                          : 0;
+    const int boff0 = load_row<RECORDS, QUANT>(a, rows, start + r, f0, fc,
+                                               k0, kc, buf0, c0, p0);
+    const int boff1 =
+        two ? load_row<RECORDS, QUANT>(a, rows, start + r + kThreads, f0, fc,
+                                       k0, kc, buf1, c1, p1)
+            : 0;
     for (int j = 0; j < rot; ++j) {
       int f = j + lane_f;
       if (f >= rot) f -= rot;
@@ -233,7 +264,8 @@ __global__ void __launch_bounds__(kThreads, 1) hist_kernel(const Args a) {
 #pragma unroll
           for (int k = 0; k < kMaxK; ++k) {
             if (k < kc)
-              atomicAdd(hist + k * B * Fp + cell, same ? c0[k] + c1[k] : c0[k]);
+              atomicAdd(hist + k * B * Fp + cell,
+                        same ? c0[k] + c1[k] : c0[k]);
           }
         }
       }
@@ -261,12 +293,19 @@ __global__ void __launch_bounds__(kThreads, 1) hist_kernel(const Args a) {
       const int f = i & (Fp - 1);
       const uint32_t v = cells_k[i];
       if (f >= fc || v == 0u) continue;
-      float* o = a.out + ((long long)(f0 + f) * B + (i >> lg)) * K;
-      if (k < float_ch) {
-        atomicAdd(o + k0 + k, __uint_as_float(v));
+      const long long o = ((long long)(f0 + f) * B + (i >> lg)) * K;
+      if (QUANT) {
+        if (k < float_ch) {
+          atomicAdd(a.iout + o + k, (int)v);
+        } else {
+          atomicAdd(a.iout + o + 2, (int)(v & 0xffffu));
+          atomicAdd(a.iout + o + 3, (int)(v >> 16));
+        }
+      } else if (k < float_ch) {
+        atomicAdd(a.out + o + k0 + k, __uint_as_float(v));
       } else {
-        atomicAdd(o + 2, (float)(v & 0xffffu));
-        atomicAdd(o + 3, (float)(v >> 16));
+        atomicAdd(a.out + o + 2, (float)(v & 0xffffu));
+        atomicAdd(a.out + o + 3, (float)(v >> 16));
       }
     }
   }
@@ -284,7 +323,7 @@ int num_sms() {
 
 // Chunking: the widest feature chunk (<= 64) and the most channels a chunk
 // whose histogram and row buffers fit one block's shared memory.
-template <bool RECORDS>
+template <bool RECORDS, bool QUANT = false>
 int launch(Args a, cudaStream_t stream) {
   if (a.F <= 0 || a.B <= 0 || a.B > 256 || a.K <= 0 || a.K > kMaxK)
     return (int)cudaErrorInvalidValue;
@@ -329,14 +368,15 @@ int launch(Args a, cudaStream_t stream) {
   static int smem_set = 48 * 1024;
   if (smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        hist_kernel<RECORDS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        hist_kernel<RECORDS, QUANT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         kSmemLimit);
     if (e != cudaSuccess) return (int)e;
     smem_set = kSmemLimit;
   }
   int occ = 0;
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &occ, hist_kernel<RECORDS>, kThreads, smem);
+      &occ, hist_kernel<RECORDS, QUANT>, kThreads, smem);
   if (e != cudaSuccess) return (int)e;
   const int chunks = a.nf * nk;
   int gx = num_sms() * (occ > 0 ? occ : 1) / chunks;
@@ -346,8 +386,27 @@ int launch(Args a, cudaStream_t stream) {
     const long long tiles = (a.count + kTile - 1) / kTile;
     if (tiles < gx) gx = (int)tiles;
   }
-  hist_kernel<RECORDS><<<dim3(gx, chunks), kThreads, smem, stream>>>(a);
+  hist_kernel<RECORDS, QUANT>
+      <<<dim3(gx, chunks), kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+Args record_args(const void* work, const void* scratch, long long n_rows,
+                 long long stride, const void* seg, int F, int B,
+                 int grad_off, int hess_off, int cnt_off) {
+  Args a = {};
+  a.rows_a = static_cast<const uint8_t*>(work);
+  a.rows_b = static_cast<const uint8_t*>(scratch);
+  a.stride = stride;
+  a.seg = static_cast<const int*>(seg);
+  a.n_rows = n_rows;
+  a.K = 4;
+  a.F = F;
+  a.B = B;
+  a.grad_off = grad_off;
+  a.hess_off = hess_off;
+  a.cnt_off = cnt_off;
+  return a;
 }
 
 }  // namespace
@@ -380,18 +439,21 @@ extern "C" int lgbt_hist_records(const void* work, const void* scratch,
                                  const void* seg, int F, int B, int grad_off,
                                  int hess_off, int cnt_off, void* out,
                                  void* stream) {
-  Args a = {};
-  a.rows_a = static_cast<const uint8_t*>(work);
-  a.rows_b = static_cast<const uint8_t*>(scratch);
-  a.stride = stride;
-  a.seg = static_cast<const int*>(seg);
-  a.n_rows = n_rows;
+  Args a = record_args(work, scratch, n_rows, stride, seg, F, B, grad_off,
+                       hess_off, cnt_off);
   a.out = static_cast<float*>(out);
-  a.K = 4;
-  a.F = F;
-  a.B = B;
-  a.grad_off = grad_off;
-  a.hess_off = hess_off;
-  a.cnt_off = cnt_off;
   return launch<true>(a, static_cast<cudaStream_t>(stream));
+}
+
+// Record mode, integer variant: the same rows, whose grad and hess columns
+// hold integer codes (f32 bytes); out [F, B, 4] int32 zeroed by the caller.
+extern "C" int lgbt_hist_records_int(const void* work, const void* scratch,
+                                     long long n_rows, long long stride,
+                                     const void* seg, int F, int B,
+                                     int grad_off, int hess_off, int cnt_off,
+                                     void* out, void* stream) {
+  Args a = record_args(work, scratch, n_rows, stride, seg, F, B, grad_off,
+                       hess_off, cnt_off);
+  a.iout = static_cast<int*>(out);
+  return launch<true, true>(a, static_cast<cudaStream_t>(stream));
 }

@@ -16,7 +16,7 @@ binned rows and applied to the whole matrix, which then holds
 330-350`` of the JAX package); a validation set built with ``reference=``
 takes the training set's bundle layout. Every per-feature array
 (``feature_num_bins`` and the others) stays per original feature. Not here
-yet: nibble packing (ROADMAP A15), sequence input and binary save/load
+yet: nibble packing (ROADMAP A15b), sequence input and binary save/load
 (A16).
 """
 from __future__ import annotations

@@ -34,6 +34,10 @@ class Objective:
     # gradients depend only on this row's (label, weight, scores): required
     # by the compact grower, whose rows live in a per-tree permuted order
     row_elementwise = True
+    # the gradient discretizer's hessian scale is max h for a constant
+    # hessian, else max h / bins (reference: IsConstantHessian); set on
+    # every class, so that no subclass inherits its parent's flag
+    is_constant_hessian = False
 
     def __init__(self, config):
         self.config = config
@@ -82,6 +86,7 @@ class RegressionL2(Objective):
     """L2 loss (reference: RegressionL2loss, regression_objective.hpp:93)."""
 
     name = "regression"
+    is_constant_hessian = True
 
     def __init__(self, config):
         super().__init__(config)
@@ -118,6 +123,7 @@ class RegressionHuber(RegressionL2):
     regression_objective.hpp:234)."""
 
     name = "huber"
+    is_constant_hessian = True
 
     def __init__(self, config):
         super().__init__(config)
@@ -135,6 +141,7 @@ class RegressionFair(RegressionL2):
     regression_objective.hpp:290)."""
 
     name = "fair"
+    is_constant_hessian = False
 
     def __init__(self, config):
         super().__init__(config)
@@ -153,6 +160,7 @@ class RegressionPoisson(RegressionL2):
     RegressionPoissonLoss, regression_objective.hpp:341)."""
 
     name = "poisson"
+    is_constant_hessian = False
 
     def __init__(self, config):
         super().__init__(config)
@@ -175,6 +183,7 @@ class RegressionGamma(RegressionPoisson):
     regression_objective.hpp:578)."""
 
     name = "gamma"
+    is_constant_hessian = False
 
     def get_gradients(self, score, label, weight=None):
         e = torch.exp(-score)
@@ -186,6 +195,7 @@ class RegressionTweedie(RegressionPoisson):
     RegressionTweedieLoss, regression_objective.hpp:612)."""
 
     name = "tweedie"
+    is_constant_hessian = False
 
     def __init__(self, config):
         super().__init__(config)
@@ -207,6 +217,7 @@ class BinaryLogloss(Objective):
     """Binary cross-entropy on a sigmoid of the raw score."""
 
     name = "binary"
+    is_constant_hessian = False
 
     def __init__(self, config):
         super().__init__(config)
@@ -293,6 +304,7 @@ class MulticlassSoftmax(_Multiclass):
     multiclass_objective.hpp:24). One tree per class per iteration."""
 
     name = "multiclass"
+    is_constant_hessian = False
 
     def get_gradients(self, score, label, weight=None):
         p = torch.softmax(score, dim=0)                       # [K, N]
@@ -311,6 +323,7 @@ class MulticlassOVA(_Multiclass):
     multiclass_objective.hpp:186)."""
 
     name = "multiclassova"
+    is_constant_hessian = False
 
     def __init__(self, config):
         super().__init__(config)
@@ -338,6 +351,7 @@ class MulticlassOVA(_Multiclass):
 # ---------------------------------------------------------------------------
 class CrossEntropy(Objective):
     name = "cross_entropy"
+    is_constant_hessian = False
 
     def init(self, metadata, num_data):
         super().init(metadata, num_data)
@@ -362,6 +376,7 @@ class CrossEntropyLambda(Objective):
     xentropy_objective.hpp:185)."""
 
     name = "cross_entropy_lambda"
+    is_constant_hessian = False
 
     def get_gradients(self, score, label, weight=None):
         epf = torch.exp(score)

@@ -117,24 +117,31 @@ def unpack_rows(work: torch.Tensor, n: int, layout: RowLayout):
     return binned, grad, hess, cnt, extras
 
 
-def record_channels(rows: torch.Tensor, layout: RowLayout) -> torch.Tensor:
-    """[M, C] u8 records -> [M, 4] f32 histogram channels
-    (grad, hess, in-bag indicator, raw count 1)."""
+def record_channels(rows: torch.Tensor, layout: RowLayout,
+                    quant: bool = False) -> torch.Tensor:
+    """[M, C] u8 records -> [M, 4] histogram channels (grad, hess, in-bag
+    indicator, raw count 1): f32, or int32 with ``quant``, where the grad
+    and hess columns hold the discretizer's integer codes (exact in f32)."""
     g = _u8_to_f32(rows[:, layout.grad_off:layout.grad_off + 4])
     h = _u8_to_f32(rows[:, layout.hess_off:layout.hess_off + 4])
     c = _u8_to_f32(rows[:, layout.cnt_off:layout.cnt_off + 4])
-    ones = torch.ones_like(g)
-    return torch.stack([g, h, (c != 0.0).to(torch.float32), ones], dim=1)
+    dt = torch.int32 if quant else torch.float32
+    ones = torch.ones_like(g, dtype=dt)
+    return torch.stack([g.to(dt), h.to(dt), (c != 0.0).to(dt), ones], dim=1)
 
 
 def segment_histogram(work: torch.Tensor, start: int, count: int,
-                      layout: RowLayout, num_bins: int) -> torch.Tensor:
+                      layout: RowLayout, num_bins: int,
+                      quant: bool = False) -> torch.Tensor:
     """Histogram ``[F, B, 4]`` of the contiguous segment
     ``work[start:start+count]`` (channels: grad, hess, in-bag count, raw
-    count). Counts accumulate in f32, exact below 2^24 rows."""
+    count). Counts accumulate in f32, exact below 2^24 rows; with ``quant``
+    every channel is an exact int32 sum of integer codes (reference:
+    ``segment_histogram(quantized=True)``, ``lightgbm_tpu/ops/compact.py:
+    387-393``)."""
     rows = work[start:start + count]
     return _xla_histogram(rows[:, :layout.feat_cols],
-                          record_channels(rows, layout), num_bins)
+                          record_channels(rows, layout, quant), num_bins)
 
 
 def partition_segment(work: torch.Tensor, start: int, count: int,

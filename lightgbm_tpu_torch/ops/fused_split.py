@@ -32,13 +32,18 @@ arrays in place and returns them with the ``[F, B, 4]`` histogram (grad,
 hess, in-bag count, raw count) of the smaller child, or of the child
 ``smaller_left`` names.
 
+``quant=True`` is the TPU kernel's quantized mode (``quant``,
+``lightgbm_tpu/ops/fused_split.py:337-360``, ``:401-404``): the grad and
+hess columns hold the gradient discretizer's integer codes and the
+histogram is an exact int32 sum, from K1's integer variant. The partition
+moves the same bytes in either mode.
+
 The look-back state (an epoch counter, a tile ticket and one flag a tile)
 lives on the device across splits, one set per (device, stream): splits on
 one stream run one after another on the device, and a lock keeps each
 split's two launches together when several threads issue splits.
 
-Not here yet: the quantized (``quant``) and nibble-packed (``packed4``)
-records (ROADMAP A15).
+Not here yet: the nibble-packed (``packed4``) records (ROADMAP A15b).
 """
 from __future__ import annotations
 
@@ -92,12 +97,13 @@ def _lookback_state(dev: torch.device, n_tiles: int):
 def fused_split_plain(work, scratch, mode, start, count, n_left, feature,
                       bin_, default_left, nan_bin, is_cat, cat_bitset,
                       layout: RowLayout, num_bins: int, smaller_left=None,
-                      side=None, dual: bool = True
+                      side=None, dual: bool = True, quant: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K2: masks in stable order, the same writes
     as the kernel (left rows in place, right rows into the other array, the
     first ``layout.moved_cols`` bytes of a row; with ``dual=False`` the
-    right range then copied back from ``scratch`` into ``work``)."""
+    right range then copied back from ``scratch`` into ``work``); an int32
+    histogram with ``quant``."""
     _kernels.PLAIN_CALLS["fused_split"] += 1
     n_rows = work.shape[0]
     s = min(max(int(start), 0), n_rows)
@@ -106,7 +112,8 @@ def fused_split_plain(work, scratch, mode, start, count, n_left, feature,
     sd = dual and side is not None and int(side) != 0
     src, dst = (scratch, work) if sd else (work, scratch)
     if mode == 1:
-        return work, scratch, segment_histogram(src, s, c, layout, num_bins)
+        return work, scratch, segment_histogram(src, s, c, layout, num_bins,
+                                                quant)
     f = min(max(int(feature), 0), layout.num_features - 1)
     bits = (cat_bitset if cat_bitset is not None
             else torch.zeros(1, dtype=torch.int32, device=work.device))
@@ -128,33 +135,36 @@ def fused_split_plain(work, scratch, mode, start, count, n_left, feature,
     else:
         sl = int(smaller_left) != 0
     if sl:
-        return work, scratch, segment_histogram(src, s, nl, layout, num_bins)
+        return work, scratch, segment_histogram(src, s, nl, layout, num_bins,
+                                                quant)
     return work, scratch, segment_histogram(dst, s + nl, c - nl, layout,
-                                            num_bins)
+                                            num_bins, quant)
 
 
 def fused_split(work: torch.Tensor, scratch: torch.Tensor, mode: int,
                 start, count, n_left, feature, bin_, default_left, nan_bin,
                 is_cat, cat_bitset: Optional[torch.Tensor],
                 layout: RowLayout, num_bins: int, smaller_left=None,
-                side=None, dual: bool = True
+                side=None, dual: bool = True, quant: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One split (mode 0) or one segment histogram (mode 1); ``dual``
-    chooses dual residency or the copy-back variant (module docstring).
+    chooses dual residency or the copy-back variant, ``quant`` the int32
+    histogram of integer codes (module docstring).
 
     ``work``/``scratch``: ``[N, C]`` uint8 record arrays, updated in place.
     ``mode`` is a Python int; every other scalar may be a Python int or a
     one-element tensor on the arrays' device (the grower passes device
     tensors, so nothing is read back to the host). ``cat_bitset``: int32
     words of the categorical bitset (bit patterns), or None.
-    Returns ``(work, scratch, hist [F, B, 4])``."""
+    Returns ``(work, scratch, hist [F, B, 4])``, f32 or (``quant``)
+    int32."""
     if mode not in (0, 1):
         raise ValueError(f"mode must be 0 or 1, got {mode!r}")
     if work.device.type == "cpu":
         return fused_split_plain(work, scratch, mode, start, count, n_left,
                                  feature, bin_, default_left, nan_bin, is_cat,
                                  cat_bitset, layout, num_bins, smaller_left,
-                                 side, dual)
+                                 side, dual, quant)
     _check_records(work, scratch, layout)
     dev = work.device
     if work.shape[0] >= (1 << 31):
@@ -193,7 +203,8 @@ def fused_split(work: torch.Tensor, scratch: torch.Tensor, mode: int,
                         work.data_ptr(), scratch.data_ptr(), work.shape[0],
                         work.shape[1], vec, tile, layout.num_features,
                         sp.data_ptr(), bits.data_ptr(), bits.numel(),
-                        ws.data_ptr(), flags.data_ptr(), ctl.data_ptr())
+                        ws.data_ptr(), flags.data_ptr(), ctl.data_ptr(),
+                        mode="quant" if quant else None)
     # ws[3:6] = (start, count, which array) of the histogram's segment
-    hist = record_histogram(work, scratch, ws[3:6], layout, num_bins)
+    hist = record_histogram(work, scratch, ws[3:6], layout, num_bins, quant)
     return work, scratch, hist

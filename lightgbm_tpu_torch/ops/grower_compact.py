@@ -38,9 +38,17 @@ differ: virtual features scan as numerical and route as bitsets, so a run
 with no categorical feature still routes by bitsets once anything is
 bundled.
 
+Quantized gradients (``quant_scales``, reference: ``grow_tree_compact``'s
+``quant_scales``, ``lightgbm_tpu/ops/grower_compact.py:186-205``): the
+records' grad and hess columns hold the discretizer's integer codes, K2
+runs its ``quant`` mode, and every histogram -- the root, the smaller
+child, the cached leaf histograms and parent minus smaller -- is exact
+int32. The scan dequantizes with the round's scales (0-d device tensors);
+the root sums are an int sum, then a cast to f32, then the multiply.
+
 Not here yet (ROADMAP A14-A18): monotone constraints and their
-intermediate rescans, CEGB, by-node sampling, quantized histograms,
-data-parallel reductions.
+intermediate rescans, CEGB, by-node sampling, the narrowed (16-bit)
+quantized histogram, data-parallel reductions.
 """
 from __future__ import annotations
 
@@ -67,7 +75,7 @@ class CompactState(NamedTuple):
     """The grower's device state between splits."""
     leaf_f: torch.Tensor      # [L, 8] f32 per-leaf sums, cached best split
     leaf_i: torch.Tensor      # [L, 11] int64 segment, tree links, best split
-    leaf_hist: torch.Tensor   # [L, F, B, 4] f32 per-leaf histograms
+    leaf_hist: torch.Tensor   # [L, F, B, 4] per-leaf histograms (f32/int32)
     node_i: torch.Tensor      # [L-1, 5] int64 split feature/bin/dl, children
     node_f: torch.Tensor      # [L-1, 4] f32 gain and node sums
     leaf_bits: torch.Tensor   # [L, W] int32 cached categorical bitsets
@@ -81,14 +89,15 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
                       has_nan_arr: torch.Tensor, feat_mask: torch.Tensor,
                       layout: RowLayout, params: GrowerParams, n_real: int,
                       is_cat_arr: Optional[torch.Tensor] = None,
-                      efb: Optional[EfbLayout] = None):
+                      efb: Optional[EfbLayout] = None, quant_scales=None):
     """Grow one tree. Returns ``(TreeArrays, row_leaf [N], work, scratch,
     leaf_start [L], leaf_nrows [L])``, the per-row outputs in the post-tree
     row order; ``work`` and ``scratch`` are updated in place. The
     per-feature arrays are in scan space (``F + params.efb_virtual``
     entries); ``is_cat_arr`` bool marks the categorical ones (None: the
     scan is numerical). ``efb``: the ``EfbLayout``, or None when nothing is
-    bundled."""
+    bundled. ``quant_scales``: ``(g_scale, h_scale)`` 0-d f32 tensors when
+    the records carry quantized codes (int32 histograms), else None."""
     dev = work.device
     n = n_real
     L = params.num_leaves
@@ -97,6 +106,7 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
     W = params.bitset_words
     spp = params.split_params()
     i64 = torch.int64
+    quant = quant_scales is not None
 
     # routing: (stored column, bitset flag, original feature) of a scan index
     if efb is not None:
@@ -111,7 +121,7 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
             hist = extend_hist_efb(hist, efb, params.efb_virtual,
                                    params.efb_bmax)
         sp = best_split(hist, pg, ph, pc, num_bins_arr, nan_bin_arr,
-                        has_nan_arr, feat_mask, spp, is_cat_arr)
+                        has_nan_arr, feat_mask, spp, is_cat_arr, quant_scales)
         if efb is not None:
             sp = apply_efb_bitset(sp, efb, F, B)
         return sp._replace(gain=depth_gate(sp.gain, depth, params.max_depth))
@@ -120,11 +130,14 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
     zero = torch.zeros(1, dtype=i64, device=dev)
     work, scratch, root_hist = fused_split(
         work, scratch, 1, zero, n, zero, zero, zero, zero, zero, zero, None,
-        layout, B, side=zero, dual=params.fused_dual)
-    # every feature's bins sum to the totals, so feature 0 gives the root
-    root_g = root_hist[0, :, 0].sum()
-    root_h = root_hist[0, :, 1].sum()
-    root_c = root_hist[0, :, 2].sum()
+        layout, B, side=zero, dual=params.fused_dual, quant=quant)
+    # every feature's bins sum to the totals, so feature 0 gives the root;
+    # quantized: the int sums cast to f32, then times the scales
+    root_g, root_h, root_c = (root_hist[0, :, j].sum().to(torch.float32)
+                              for j in range(3))
+    if quant:
+        root_g = root_g * quant_scales[0]
+        root_h = root_h * quant_scales[1]
     root_out = leaf_output(root_g, root_h, spp)
     sp0 = scan(root_hist[None], root_g[None], root_h[None], root_c[None],
                zero)
@@ -140,7 +153,7 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
     # host and synchronizes
     leaf_i[0:1, _NROWS].fill_(n)
     leaf_i[0, _BF:] = it0[0]
-    leaf_hist = torch.zeros((L, F, B, 4), dtype=torch.float32, device=dev)
+    leaf_hist = torch.zeros((L, F, B, 4), dtype=root_hist.dtype, device=dev)
     leaf_hist[0] = root_hist
     node_i = torch.zeros((max(L - 1, 1), 5), dtype=i64, device=dev)
     node_i[:, _SF] = -1
@@ -158,7 +171,7 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
 
     for k in range(L - 1):
         st = _split_step(st, k, work, scratch, layout, B, nan_bin_arr,
-                         is_cat_arr is not None, route, scan, params)
+                         is_cat_arr is not None, route, scan, params, quant)
 
     leaf_f, leaf_i, node_i, node_f = st.leaf_f, st.leaf_i, st.node_i, \
         st.node_f
@@ -198,12 +211,14 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
 
 
 def _split_step(st: CompactState, k: int, work, scratch, layout, B,
-                nan_bin_arr, any_cat, route, scan, params) -> CompactState:
+                nan_bin_arr, any_cat, route, scan, params,
+                quant: bool) -> CompactState:
     """Split number ``k``: node ``k`` splits the best leaf into itself (left
     child) and leaf ``k + 1`` (right child). ``any_cat``: the scan has
     categorical features; ``route``: (stored column, bitset flag, original
     feature) arrays over scan indices (the first or last None: the scan
-    index itself), or None when every split is numerical."""
+    index itself), or None when every split is numerical. ``quant``: the
+    histograms are int32 (quantized codes)."""
     i64 = torch.int64
     spp = params.split_params()
     (leaf_f, leaf_i, leaf_hist, node_i, node_f, leaf_bits, node_bits, done,
@@ -252,7 +267,9 @@ def _split_step(st: CompactState, k: int, work, scratch, layout, B,
     work, scratch, hist_small = fused_split(
         work, scratch, 0, s_, m_eff, n_left_eff, f_col, b_, dl,
         nan_bin_arr.index_select(0, f_), f_cat, bits, layout, B,
-        smaller_left=left_smaller, side=side_p, dual=params.fused_dual)
+        smaller_left=left_smaller, side=side_p, dual=params.fused_dual,
+        quant=quant)
+    # exact in int32 when quantized
     parent_hist = leaf_hist.index_select(0, best)[0]
     hist_large = parent_hist - hist_small
     ls = left_smaller.reshape(1, 1, 1)

@@ -7,12 +7,15 @@ CUDA kernels of cuda_histogram_constructor.cu):
     hist[f, b, k] = sum_r [binned[r, f] == b] * channels[r, k]
 
 ``_xla_histogram`` is the plain PyTorch version (one ``scatter_add_`` over
-all features, f32 accumulation in row order); it is the CPU path and the version the Hopper
-histogram kernels of ``ops/pallas_histogram.py`` are held against.
+all features, f32 accumulation in row order; int32 for integer channels,
+the quantized-gradient codes); it is the CPU path and the version the
+Hopper histogram kernels of ``ops/pallas_histogram.py`` are held against.
+``dequantize_hist`` is the one int32 -> f32 boundary of a quantized
+histogram.
 ``histogram_block`` dispatches on the layout and on where the tensors lie:
 ``lane`` is K1 (bins ``[N, F]``), ``sublane`` is K3 (bins feature-major
 ``[F, N]``, B <= 64), each the plain version for CPU tensors. The narrowed
-and quantized histograms, the data-parallel reduction and feature-group
+(16-bit) quantized histogram, the data-parallel reduction and feature-group
 overlap are ROADMAP A15/A18.
 """
 from __future__ import annotations
@@ -26,9 +29,11 @@ from .. import _kernels
 
 def _xla_histogram(binned: torch.Tensor, channels: torch.Tensor,
                    num_bins: int, kernel: str = "histogram") -> torch.Tensor:
-    """Plain histogram ``[F, B, K]`` f32 of ``binned [N, F]`` against
-    ``channels [N, K]``; bins >= ``num_bins`` are dropped. ``kernel`` names
-    the kernel this call stands in for (its ``PLAIN_CALLS`` count)."""
+    """Plain histogram ``[F, B, K]`` of ``binned [N, F]`` against
+    ``channels [N, K]``: f32, or exact int32 for integer channels
+    (reference: ``_xla_histogram``, ``lightgbm_tpu/ops/histogram.py:49``);
+    bins >= ``num_bins`` are dropped. ``kernel`` names the kernel this call
+    stands in for (its ``PLAIN_CALLS`` count)."""
     _kernels.PLAIN_CALLS[kernel] += 1
     n, f = binned.shape
     k = channels.shape[1]
@@ -39,10 +44,20 @@ def _xla_histogram(binned: torch.Tensor, channels: torch.Tensor,
     # each cell still adds its rows in row order
     idx = (torch.clamp(binned.to(torch.int64), max=b)
            + torch.arange(f, device=dev) * (b + 1)).T.reshape(-1)
-    out = torch.zeros((k, f * (b + 1)), dtype=torch.float32, device=dev)
-    out.scatter_add_(1, idx.expand(k, -1),
-                     channels.to(torch.float32).T.repeat(1, f))
+    dt = torch.float32 if channels.is_floating_point() else torch.int32
+    out = torch.zeros((k, f * (b + 1)), dtype=dt, device=dev)
+    out.scatter_add_(1, idx.expand(k, -1), channels.to(dt).T.repeat(1, f))
     return out.view(k, f, b + 1).permute(1, 2, 0)[:, :b].contiguous()
+
+
+def dequantize_hist(hist: torch.Tensor, g_scale, h_scale) -> torch.Tensor:
+    """int32 quantized histogram ``[..., 4]`` -> f32 (reference:
+    ``dequantize_hist``, ``lightgbm_tpu/ops/histogram.py:201-215``): the
+    grad and hess code sums times the round's scales (0-d tensors), the
+    count channels cast exactly."""
+    h = hist.to(torch.float32)
+    return torch.cat([h[..., 0:1] * g_scale, h[..., 1:2] * h_scale,
+                      h[..., 2:]], dim=-1)
 
 
 def histogram_block(binned: torch.Tensor, channels: torch.Tensor,

@@ -32,11 +32,17 @@ Three wrappers:
 * ``record_histogram`` — K1 on a segment of the packed row records of
   ``ops/compact.py``, read in place through the record stride, with the
   segment (start, count, which array) in a device int32 vector. The fused
-  split (``ops/fused_split.py``) runs it for the smaller child.
+  split (``ops/fused_split.py``) runs it for the smaller child. With
+  ``quant=True`` the grad and hess columns hold the quantized-gradient
+  codes and K1's integer variant sums them into an exact int32 histogram
+  (the TPU kernels' int8 x int8 -> int32 contraction).
 
-Modes: ``split`` and ``f32`` both accumulate in f32, at least as accurate as
-the TPU's hi/lo-bf16 split; ``bf16`` rounds the channels to bf16 first, the
-same function as on the TPU; ``int8`` (quantized gradients) is ROADMAP A15.
+Modes of the dense and sublane entries: ``split`` and ``f32`` both
+accumulate in f32, at least as accurate as the TPU's hi/lo-bf16 split;
+``bf16`` rounds the channels to bf16 first, the same function as on the
+TPU. Their ``int8`` mode lies on no path of the port yet: the JAX package
+reaches it only through the compact grower's walk without the fused kernel
+(``tpu_fused=off``), which the port does not have (ROADMAP B, with A7c).
 The TPU tiling arguments of the JAX wrapper (``row_block``, ``f_chunk``,
 ``mbatch``, ``interpret``) change nothing in its result and have no
 counterpart here.
@@ -63,8 +69,11 @@ SUBLANE_MAX_BINS = 64
 def _check_mode(mode: str, k: int) -> None:
     if mode == "int8":
         raise NotImplementedError(
-            "pallas_histogram mode='int8' (quantized gradients) is not in "
-            "the PyTorch port yet (ROADMAP A15)")
+            "pallas_histogram mode='int8' (the dense and sublane histograms "
+            "of quantized codes) is not in the PyTorch port yet: it comes "
+            "with the compact grower's walk without the fused kernel "
+            "(ROADMAP A7c); quantized training runs K1's record mode "
+            "(record_histogram(..., quant=True))")
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
     limit = 4 if mode == "split" else 8
@@ -312,27 +321,32 @@ def pallas_histogram(binned: torch.Tensor, channels: torch.Tensor,
 
 def record_histogram_plain(work: torch.Tensor, scratch: torch.Tensor,
                            seg: torch.Tensor, layout: RowLayout,
-                           num_bins: int) -> torch.Tensor:
-    """Plain PyTorch version of K1's record mode, with the kernel's clamps
-    of the segment."""
+                           num_bins: int, quant: bool = False
+                           ) -> torch.Tensor:
+    """Plain PyTorch version of K1's record mode (int32 with ``quant``),
+    with the kernel's clamps of the segment."""
     start, count, which = (int(v) for v in seg.tolist()[:3])
     n_rows = work.shape[0]
     start = min(max(start, 0), n_rows)
     count = min(max(count, 0), n_rows - start)
     return segment_histogram(scratch if which else work, start, count,
-                             layout, num_bins)
+                             layout, num_bins, quant)
 
 
 def record_histogram(work: torch.Tensor, scratch: torch.Tensor,
                      seg: torch.Tensor, layout: RowLayout,
-                     num_bins: int) -> torch.Tensor:
-    """``[F, B, 4]`` f32 histogram (grad, hess, in-bag, raw count) of rows
+                     num_bins: int, quant: bool = False) -> torch.Tensor:
+    """``[F, B, 4]`` histogram (grad, hess, in-bag, raw count) of rows
     ``[start, start+count)`` of ``work`` (which == 0) or ``scratch``, where
     ``seg`` = int32 ``(start, count, which)`` on the arrays' device. The
     segment is clamped to the arrays' rows (start in ``[0, N]``, count in
-    ``[0, N - start]``), so a bad scalar never reads outside them."""
+    ``[0, N - start]``), so a bad scalar never reads outside them. f32; with
+    ``quant`` the grad and hess columns hold integer codes (|code| < 2^24)
+    and every channel is an exact int32 sum (K1's integer variant): the
+    caller keeps ``rows x max |code|`` below 2^31."""
     if work.device.type == "cpu":
-        return record_histogram_plain(work, scratch, seg, layout, num_bins)
+        return record_histogram_plain(work, scratch, seg, layout, num_bins,
+                                      quant)
     _check_records(work, scratch, layout)
     if seg.device != work.device or seg.dtype != torch.int32 \
             or seg.numel() < 3 or not seg.is_contiguous():
@@ -341,12 +355,16 @@ def record_histogram(work: torch.Tensor, scratch: torch.Tensor,
     if not 1 <= num_bins <= 256:
         raise ValueError(f"num_bins must be in 1..256, got {num_bins}")
     f = layout.num_features
-    out = torch.zeros((f, num_bins, 4), dtype=torch.float32,
+    out = torch.zeros((f, num_bins, 4),
+                      dtype=torch.int32 if quant else torch.float32,
                       device=work.device)
-    _kernels.launch("histogram", "lgbt_hist_records", work.device,
-                    work.data_ptr(), scratch.data_ptr(), work.shape[0],
-                    work.stride(0), seg.data_ptr(), f, num_bins, layout.grad_off,
-                    layout.hess_off, layout.cnt_off, out.data_ptr())
+    _kernels.launch("histogram",
+                    "lgbt_hist_records_int" if quant else "lgbt_hist_records",
+                    work.device, work.data_ptr(), scratch.data_ptr(),
+                    work.shape[0], work.stride(0), seg.data_ptr(), f,
+                    num_bins, layout.grad_off, layout.hess_off,
+                    layout.cnt_off, out.data_ptr(),
+                    mode="quant" if quant else None)
     return out
 
 

@@ -31,6 +31,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as tnf
 
+from .histogram import dequantize_hist
+
 _NEG_INF = -1e30
 _EPS = 1e-15
 
@@ -153,7 +155,8 @@ def extend_hist_efb(hist: torch.Tensor, efb, n_virtual: int, bmax: int
     takes the leaf total minus that range (reference: FixHistogram,
     include/LightGBM/bin.h). The scan then treats the virtual rows as
     ordinary numerical features. ``efb`` is the ``io/efb.py`` ``EfbLayout``
-    of ``boosting/gbdt.py`` ``_setup_efb``; everything stays on the device."""
+    of ``boosting/gbdt.py`` ``_setup_efb``; everything stays on the device.
+    An int32 (quantized) histogram stays int32, its sums exact."""
     c, b = hist.shape[-3], hist.shape[-2]
     bcol = efb.col_of[c:]                                       # [Fb]
     off, nb, dbin = efb.off[c:], efb.nb[c:], efb.dbin[c:]
@@ -161,8 +164,10 @@ def extend_hist_efb(hist: torch.Tensor, efb, n_virtual: int, bmax: int
     idx = torch.clamp(off[:, None] + 1 + j, max=b - 1)
     gathered = hist[..., bcol[:, None], idx, :]         # [.., Fb, Bmax, K]
     gathered = gathered * (j < nb[:, None])[..., None]
-    totals = hist[..., 0, :, :].sum(dim=-2)             # [.., K] leaf totals
-    default = totals[..., None, :] - gathered.sum(dim=-2)       # [.., Fb, K]
+    # leaf totals [.., K]; the sums keep the histogram's dtype (torch sums
+    # int32 into int64 by default)
+    totals = hist[..., 0, :, :].sum(dim=-2, dtype=hist.dtype)
+    default = totals[..., None, :] - gathered.sum(dim=-2, dtype=hist.dtype)
     at_dbin = (j == dbin[:, None])[..., None]                   # [Fb, Bmax, 1]
     virtual = gathered + at_dbin * default[..., None, :]
     virtual = tnf.pad(virtual, (0, 0, 0, b - bmax))
@@ -211,10 +216,16 @@ def best_split(
     feat_mask: torch.Tensor,     # [F] bool
     p: SplitParams,
     is_cat: Optional[torch.Tensor] = None,   # [F] bool; None: numerical
+    quant_scales=None,           # (g_scale, h_scale) 0-d f32 tensors
 ) -> SplitResult:
     """Best (feature, threshold, missing direction) for each leaf; with
     ``is_cat``, also the best categorical split (one-hot or sorted) of the
-    categorical features."""
+    categorical features. With ``quant_scales`` the histogram holds int32
+    sums of quantized-gradient codes, dequantized here before any gain
+    (reference: ``best_split(quant_scales=)``, ``lightgbm_tpu/ops/split.py:
+    300-312``)."""
+    if quant_scales is not None:
+        hist = dequantize_hist(hist, *quant_scales)
     f, b, k = hist.shape[-3:]
     batch = hist.shape[:-3]
     g = hist[..., 0]

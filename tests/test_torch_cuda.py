@@ -660,3 +660,105 @@ def test_fused_split_with_a_grown_categorical_split(dev):
     nl = args[3]
     assert torch.equal(arrays_k[1][7 + nl:], arrays_p[1][7 + nl:])
     assert torch.equal(hk, hp)
+
+
+def _int_records(n, f, b, dev, seed, skew=None):
+    """Records whose grad and hess columns hold quantized codes (|qg| <= 63,
+    0 <= qh <= 127: the widest int8 code range), as the int path writes
+    them. skew "bin0_90": 90% of the rows in bin 0; "one_bin": every row of
+    a feature in one bin."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    layout = RowLayout(num_features=f, num_extra=2)
+    bins = torch.randint(0, b, (n, f), generator=g, device=dev,
+                         dtype=torch.uint8)
+    if skew == "bin0_90":
+        bins[torch.rand(n, f, generator=g, device=dev) < 0.9] = 0
+    elif skew == "one_bin":
+        bins[:] = (torch.arange(f, device=dev) * 37 % b).to(torch.uint8)
+    work = pack_rows(
+        bins, torch.randint(-63, 64, (n,), generator=g, device=dev).float(),
+        torch.randint(0, 128, (n,), generator=g, device=dev).float(),
+        (torch.rand(n, generator=g, device=dev) > 0.2).float(),
+        torch.randn(2, n, generator=g, device=dev), layout)
+    return layout, work
+
+
+@pytest.mark.parametrize("n,f,skew,start", [
+    (30_000, 5, None, 123), (30_000, 29, None, 7),
+    (3_000_000, 28, "bin0_90", 0), (3_000_000, 28, "one_bin", 11),
+    (100_000, 529, None, 5)])
+def test_record_histogram_int_is_exact(dev, n, f, skew, start):
+    """K1's integer variant against its plain version, exactly equal (int32
+    sums do not depend on their order): uniform bins at F = 5 and 29
+    (unaligned codes), skewed bins whose segments put more than 65,535 rows
+    of one bin into a block (the packed counts flush on the way), and the
+    EFB record width (529 columns in nine feature chunks)."""
+    layout, work = _int_records(n, f, 256, dev, seed=n + f, skew=skew)
+    scratch = work.flip(0).contiguous()
+    seg = torch.tensor([start, n - 2 * start, 1], dtype=torch.int32,
+                       device=dev)
+    _kernels.reset_counts()
+    kern = record_histogram(work, scratch, seg, layout, 256, quant=True)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["histogram"] == 1
+    assert _kernels.MODE_LAUNCHES["histogram/quant"] == 1
+    plain = record_histogram_plain(work, scratch, seg, layout, 256,
+                                   quant=True)
+    assert kern.dtype == torch.int32
+    assert torch.equal(kern, plain)
+    assert int(kern[0, :, 3].sum()) == n - 2 * start
+
+
+@pytest.mark.parametrize("dual", [True, False])
+@pytest.mark.parametrize("mode,start,count,side,f", [
+    (1, 0, 30_000, 0, 28), (0, 0, 30_000, 0, 28), (0, 37, 22_190, 1, 29),
+    (0, 96, 128, 0, 5), (0, 13, 29_000, 1, 529)])
+def test_fused_split_quant(dev, mode, start, count, side, f, dual):
+    """K2's quant mode against its plain version, dual and copy-back: the
+    record arrays byte-equal, the int32 histogram exactly equal."""
+    layout, parent = _int_records(30_000, f, 256, dev, seed=start + f)
+    _, other = _int_records(30_000, f, 256, dev, seed=start + 1)
+    feat, bin_ = 2, 100
+    col = parent[start:start + count, feat].to(torch.int64)
+    n_left = int((col <= bin_).sum())
+    args = (mode, start, count, n_left, feat, bin_, 0, 0, 0, None, layout,
+            256)
+    kw = {"side": side, "dual": dual, "quant": True}
+    arrays = (other, parent) if side and dual else (parent, other)
+    _kernels.reset_counts()
+    wk, sk, hk = fused_split(*(a.clone() for a in arrays), *args, **kw)
+    wp, sp, hp = fused_split_plain(*(a.clone() for a in arrays), *args, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.MODE_LAUNCHES["fused_split/quant"] == 1
+    assert _kernels.MODE_LAUNCHES["histogram/quant"] == 1
+    assert torch.equal(wk, wp) and torch.equal(sk, sp)
+    assert hk.dtype == torch.int32 and torch.equal(hk, hp)
+
+
+def test_quantized_train_on_card_matches_cpu(dev):
+    """use_quantized_grad on the compact grower's int path, deterministic
+    rounding: the card (K2 quant, K1's integer variant) grows the CPU's
+    trees; no plain version runs on the card."""
+    rng = np.random.RandomState(4)
+    X = rng.randn(20_000, 6).astype(np.float32)
+    y = (X[:, 0] - 0.5 * X[:, 3] + 0.3 * rng.randn(20_000) > 0).astype(float)
+    p = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+         "tpu_grower": "compact", "use_quantized_grad": True,
+         "stochastic_rounding": False}
+    _kernels.reset_counts()
+    bg = lgt.train(dict(p, device_type="cuda"), lgt.Dataset(X, y), 3)
+    launches = dict(_kernels.LAUNCHES)
+    modes = dict(_kernels.MODE_LAUNCHES)
+    plain = dict(_kernels.PLAIN_CALLS)
+    bc = lgt.train(dict(p, device_type="cpu"), lgt.Dataset(X, y), 3)
+    assert bg._gbdt._quant_int
+    assert launches["fused_split"] == modes["fused_split/quant"] == 3 * 31
+    assert launches["histogram"] == modes["histogram/quant"] == 3 * 31
+    assert sum(plain.values()) == 0
+    for a, b in zip(bg._gbdt.models, bc._gbdt.models):
+        n = a.num_nodes
+        assert b.num_nodes == n
+        np.testing.assert_array_equal(a.split_feature[:n], b.split_feature[:n])
+        np.testing.assert_array_equal(a.split_bin[:n], b.split_bin[:n])
+    np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-5)

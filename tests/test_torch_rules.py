@@ -132,8 +132,7 @@ def test_unknown_device_raises(device):
     ({"forcedsplits_filename": "f.json"}, "A14"),
     ({"linear_tree": True}, "A14"),
     ({"max_bin": 511}, "A3"),
-    ({"use_quantized_grad": True}, "A15"),
-    ({"tpu_bin_pack4": True}, "A15"),
+    ({"tpu_bin_pack4": True}, "A15b"),
     ({"path_smooth": 0.5}, "A14"),
     ({"early_stopping_round": 5}, "A8"),
     ({"deterministic": True}, "B1/B2"),
