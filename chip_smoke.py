@@ -122,7 +122,34 @@ non-zero):
    a narrower one-hot shape (100k x 320 plus 4 dense columns, 31 leaves, 3
    rounds) within 1e-4; and K2's quant mode in copy-back at the bundled
    root split against its plain version (byte-equal, int32 exact), timed
-   (EFB_CHECKS' quant_copy_back, the bundled part of QUANT_CHECKS).
+   (EFB_CHECKS' quant_copy_back, the bundled part of QUANT_CHECKS);
+13. leaf renewal (RENEW, run right after QUANT, on MAIN's datasets
+   with the generator's logits as the label): objective=quantile, alpha
+   0.9, 255 leaves, 1 warm-up and 2 timed rounds and a profiled tree:
+   iterations/s, the validation quantile loss (it falls), K1's and K2's
+   launches (> 0), plain calls (0), host syncs in a tree step (0), the
+   renewal's device ms and launches a tree; then RENEW_CHECKS: the card
+   against the CPU for regression_l1, quantile and mape on the compact
+   grower (100k x 28) and the masked grower (20k x 28), 31 leaves, 3
+   rounds (1e-4, differing splits counted);
+14. learning to rank (RANK, run right after RENEW) at the repo's MS-LTR
+   configuration (make_msltr_like, 2.27M x 137, 120 documents a query,
+   graded labels 0-4, 10% of the queries held out whole; bench.py:1005-1017:
+   lambdarank, ndcg@10, 255 leaves, 255 bins, learning rate 0.1,
+   min_data_in_leaf 50), 1 warm-up and 2 timed rounds and a profiled tree:
+   construct s, record bytes, iterations/s, validation ndcg@10 before the
+   first tree and after the last round (it rises), the compact grower, K1's
+   and K2's launches (> 0), K3's (0), plain calls (0), host syncs in a
+   tree step (0), the lambdarank gradient's device ms and launches in an
+   iteration, K1's and K2's device ms a tree beside their byte bounds; then
+   RANK_CHECKS: K2 (mode 1 and the first tree's root split) and K1 at the
+   root on the run's 256-byte records against their plain versions (on the
+   run's gradients within hist_close, on dyadic channels bit-equal),
+   timed beside stable argsort + index_select and index_add_; the
+   reloaded model (1e-6); the card against the CPU for lambdarank on the
+   compact grower (100k rows, 833 queries), rank_xendcg (the same draws on
+   both) and lambdarank with positions on the masked grower (20k rows), 31
+   leaves, 3 rounds (1e-4, differing splits counted).
 
 Each profiled tree must hold as many launches of each kernel as its wrapper
 counted in that round; a short trace is repeated. The line before the last
@@ -918,7 +945,7 @@ def phase_quant(lgt, results):
     quant_cpu_vs_card, the reloaded model)."""
     from lightgbm_tpu_torch import _kernels
     from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
-    ds, dv = results.pop("main_datasets")
+    ds, dv = results["main_datasets"]
     rounds = QUANT_ROUNDS
     params = {"objective": "binary", "metric": "auc", "num_leaves": 255,
               "max_bin": 255, "learning_rate": 0.1, "min_data_in_leaf": 100,
@@ -2217,6 +2244,470 @@ def phase_efb(lgt, results):
     del bst, ds, dv, gbdt
 
 
+RANK_ROWS = 2_270_000
+RANK_FEATURES = 137
+RANK_ROUNDS = 2                # timed rounds after one warm-up round
+# the repo's MS-LTR configuration (bench.py:1005-1017)
+RANK_PARAMS = {"objective": "lambdarank", "metric": "ndcg", "eval_at": [10],
+               "num_leaves": 255, "max_bin": 255, "learning_rate": 0.1,
+               "min_data_in_leaf": 50, "verbosity": -1}
+
+
+def make_msltr_like(n, f, docs_per_query=120, seed=7):
+    """MS-LTR-shaped ranking data (copied from bench.py:284-300, which
+    imports JAX): graded labels 0-4 from global quantiles of a noisy linear
+    relevance, queries of ``docs_per_query`` documents (the last one takes
+    the rest); LightGBM's docs/Experiments.rst: 2.27M documents x 137
+    features."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, f).astype(np.float32)
+    w = rng.randn(f) / np.sqrt(f)
+    rel = X @ w + 0.8 * rng.randn(n)
+    qs = np.quantile(rel, [0.55, 0.75, 0.9, 0.97])
+    y = np.digitize(rel, qs).astype(np.float64)
+    n_q = n // docs_per_query
+    group = np.full(n_q, docs_per_query, np.int64)
+    rest = n - n_q * docs_per_query
+    if rest:
+        group = np.concatenate([group, [rest]])
+    return X, y, group
+
+
+def split_queries(X, y, group, frac=0.1):
+    """``((X, y, group) train, (X, y, group) validation)``: the last
+    ``frac`` of the queries, whole, held out."""
+    nq_val = max(int(len(group) * frac), 1)
+    n_tr = int(group[:-nq_val].sum())
+    return ((X[:n_tr], y[:n_tr], group[:-nq_val]),
+            (X[n_tr:], y[n_tr:], group[-nq_val:]))
+
+
+def device_profile(fn, reps=3):
+    """(device ms, kernel launches) of one call of fn: a torch.profiler
+    trace of ``reps`` calls after one untraced call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+    launches = sum(1 for e in prof.events() if e.name == "cudaLaunchKernel")
+    return dev_us * 1e-3 / reps, launches / reps
+
+
+def check_rank_kernels(bst):
+    """K2 (dual) and K1 (record mode) on the RANK run's records (all
+    training rows, F = 137, carrying the last tree's lambdarank gradients)
+    against their plain versions: K2 in mode 1 (the root histogram) and at
+    the first tree's root split, children byte-equal and histograms within
+    hist_close; then with dyadic grad and hess written into the records
+    (multiples of 1/64: every partial sum exact) K2's root split and K1 at
+    the root bit-equal. Times: K2 at the root split beside its plain
+    version and stable argsort + index_select, K1 at the root beside its
+    plain version and index_add_ on a precomputed flat index."""
+    from lightgbm_tpu_torch.ops.compact import record_channels
+    from lightgbm_tpu_torch.ops.fused_split import (fused_split,
+                                                    fused_split_plain)
+    from lightgbm_tpu_torch.ops.pallas_histogram import (
+        record_histogram, record_histogram_plain)
+    from lightgbm_tpu_torch.ops.split import go_left_pred
+    gbdt = bst._gbdt
+    layout = gbdt.layout
+    B = gbdt.grower_params.num_bins
+    F = layout.num_features
+    dev = gbdt.device
+    n = gbdt.num_data
+    work = gbdt.work.clone()
+    scratch = torch.zeros_like(work)
+    tree = gbdt.models[0]
+    check(tree.num_nodes > 1, "the first RANK tree has no grown split")
+    none = torch.zeros(8, dtype=torch.int32, device=dev)
+    f0, b0 = int(tree.split_feature[0]), int(tree.split_bin[0])
+    dl0, nan0 = int(tree.default_left[0]), int(gbdt.nan_bin_arr[f0])
+    gl = go_left_pred(work[:, f0], b0, bool(dl0), nan0, False, none)
+    root_args = (0, 0, n, int(gl.sum()), f0, b0, dl0, nan0, 0, None,
+                 layout, B)
+    seg_args = (1, 0, n, 0, 0, 0, 0, 0, 0, None, layout, B)
+    line = {"rows": n, "features": F, "record_bytes": layout.num_cols,
+            "record_real_bytes": layout.num_real_cols,
+            "row_bytes_read": record_row_bytes(layout)}
+    errs = []
+    for dyadic in (False, True):
+        if dyadic:
+            g = torch.Generator(device=dev)
+            g.manual_seed(11)
+            ch = torch.stack(
+                [torch.randint(-64, 65, (n,), generator=g, device=dev),
+                 torch.randint(1, 65, (n,), generator=g, device=dev)],
+                dim=1).float() / 64.0
+            work[:, layout.grad_off:layout.grad_off + 8] = ch.view(
+                torch.uint8)
+            del ch
+        rel = 0 if dyadic else 1e-5
+        tag = "dyadic" if dyadic else "run's gradients"
+        absw = abs_grad(work, layout)
+        _, _, hk = fused_split(work, scratch, *seg_args)
+        _, _, hp = fused_split_plain(work, scratch, *seg_args)
+        _, _, ha = fused_split_plain(absw, scratch, *seg_args)
+        errs.append(hist_close(hk, hp, ha, f"K2 mode 1 at the RANK root "
+                               f"({tag})", rel))
+        before = (work.clone(), scratch.clone())
+        wk, sk = work.clone(), scratch.clone()
+        _, _, hk = fused_split(wk, sk, *root_args, side=0)
+        wp, spl = work.clone(), scratch.clone()
+        _, _, hp = fused_split_plain(wp, spl, *root_args, side=0)
+        wa, sa = absw.clone(), scratch.clone()
+        _, _, ha = fused_split_plain(wa, sa, *root_args, side=0)
+        torch.cuda.synchronize()
+        check_split((wk, sk), (wp, spl), before, 0, n, root_args[3], 0,
+                    layout, f"K2 at the RANK root split ({tag})")
+        errs.append(hist_close(hk, hp, ha, f"K2 at the RANK root split "
+                               f"({tag})", rel))
+        del before, wk, sk, wp, spl, wa, sa
+        seg = torch.tensor([0, n, 0], dtype=torch.int32, device=dev)
+        hk = record_histogram(work, scratch, seg, layout, B)
+        hp = record_histogram_plain(work, scratch, seg, layout, B)
+        ha = record_histogram_plain(absw, scratch, seg, layout, B)
+        errs.append(hist_close(hk, hp, ha, f"K1 at the RANK root ({tag})",
+                               rel))
+        del absw, hk, hp, ha
+    line["max_abs_err"] = max(errs)
+    n_left = root_args[3]
+    n_small = min(n_left, n - n_left)
+    row_bytes = record_row_bytes(layout)
+    calls = [0]
+
+    def dual_alternating():
+        fused_split(work, scratch, *root_args, side=calls[0] % 2)
+        calls[0] += 1
+
+    def library():
+        perm = torch.argsort(gl.to(torch.uint8), stable=True)
+        torch.index_select(work, 0, perm, out=scratch)
+    line["k2"] = {
+        "root_split": {"n_left": n_left, "feature": f0},
+        "ms": time_ms(dual_alternating),
+        "plain_ms": time_ms(lambda: fused_split_plain(
+            work, scratch, *root_args, side=0), 4, 2),
+        "library_ms": time_ms(library, 4, 2),
+        "bound_ms": 1e3 * (2 * n * layout.num_real_cols
+                           + n_small * row_bytes) / HBM_BYTES_PER_S}
+    # K1 on what the timing calls left: the whole array of records
+    seg = torch.tensor([0, n, 0], dtype=torch.int32, device=dev)
+    flat = (work[:, :F].to(torch.int64)
+            + torch.arange(F, device=dev) * B).reshape(-1)
+    src = record_channels(work, layout)[:, None, :].expand(
+        n, F, 4).reshape(-1, 4)
+    lib_out = torch.zeros(F * B, 4, device=dev)
+
+    def lib():
+        lib_out.zero_()
+        lib_out.index_add_(0, flat, src)
+    line["k1"] = {
+        "ms": time_ms(lambda: record_histogram(work, scratch, seg, layout,
+                                               B)),
+        "plain_ms": time_ms(lambda: record_histogram_plain(
+            work, scratch, seg, layout, B), 2, 1),
+        "library_ms": time_ms(lib, 2, 1),
+        "bound_ms": 1e3 * n * row_bytes / HBM_BYTES_PER_S}
+    del work, scratch, flat, src, lib_out
+    return line
+
+
+@contextlib.contextmanager
+def same_xendcg_draws():
+    """rank_xendcg draws its exponentials from one CPU generator seeded as
+    the objective seeds its own, moved to the scores' device: the card and
+    the CPU runs see the same draws."""
+    from lightgbm_tpu_torch.objectives import RankXENDCG
+    own = RankXENDCG._draws
+
+    def draws(self, shape, device):
+        g = torch.Generator()
+        g.manual_seed((self.seed * 1_000_003 + self._calls) & 0xFFFF_FFFF)
+        return torch.empty(shape).exponential_(generator=g).to(device)
+    RankXENDCG._draws = draws
+    try:
+        yield
+    finally:
+        RankXENDCG._draws = own
+
+
+def rank_cpu_vs_card(lgt):
+    """The card against the CPU: lambdarank on the compact grower at 100k
+    MS-LTR-shaped rows (833 queries), rank_xendcg (the same draws on both)
+    and lambdarank with positions on the masked grower at 20k rows; 31
+    leaves, 3 rounds; predictions within 1e-4, differing splits
+    counted."""
+    out = {}
+    cases = (("lambdarank_compact", 100_000, {"tpu_grower": "compact"}),
+             ("rank_xendcg_masked", 20_000, {"objective": "rank_xendcg"}),
+             ("lambdarank_position_masked", 20_000, {}))
+    for name, rows, extra in cases:
+        X, y, group = make_msltr_like(rows, RANK_FEATURES, seed=23)
+        params = dict(RANK_PARAMS, num_leaves=31, **extra)
+        kw = {}
+        if "position" in name:
+            kw["position"] = np.concatenate([np.arange(s) for s in group])
+        boosters = {}
+        with same_xendcg_draws():
+            for dev in ("cuda", "cpu"):
+                boosters[dev] = lgt.train(
+                    dict(params, device_type=dev),
+                    lgt.Dataset(X, y, group=group, **kw), 3)
+        check(boosters["cuda"]._gbdt.use_compact == (rows >= 65_536),
+              f"{name}: the wrong grower")
+        diff, differ = compare_boosters(boosters["cuda"], boosters["cpu"], X)
+        check(diff <= 1e-4, f"{name}: card vs CPU predictions differ by "
+              f"{diff}")
+        out[name] = {"rows": rows, "queries": len(group),
+                     "max_abs_pred_diff": diff, "differing_splits": differ}
+    return out
+
+
+def phase_rank(lgt, results):
+    """Learning to rank on the compact grower at the repo's MS-LTR
+    configuration (make_msltr_like, 2.27M x 137, 10% of the queries, whole,
+    held out; the parameters of bench.py:1005-1017): lambdarank, ndcg@10,
+    255 leaves, 255 bins, 1 warm-up and RANK_ROUNDS timed rounds and a
+    profiled tree. The gradients are computed on the card in the dataset's
+    row order each round and gathered into the records' order; K1 (record
+    mode) and K2 (dual) grow the tree on about 256-byte records. Then
+    RANK_CHECKS (check_rank_kernels, the reloaded model,
+    rank_cpu_vs_card)."""
+    from lightgbm_tpu_torch import _kernels
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.metrics import create_metrics
+    rounds = RANK_ROUNDS
+    t0 = time.perf_counter()
+    X, y, group = make_msltr_like(RANK_ROWS, RANK_FEATURES)
+    (Xt, yt, gt), (Xv, yv, gv) = split_queries(X, y, group)
+    gen_s = time.perf_counter() - t0
+    params = dict(RANK_PARAMS, device_type="cuda")
+    syncs = {}
+    ends = []
+
+    def timer(env):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+    timer.order = 5
+
+    _kernels.reset_counts()
+    # the host syncs of the whole tree step, the gradients included
+    with syncs_in_second_tree(gbdt_mod.GBDT, "_grow_compact", syncs):
+        t1 = time.perf_counter()
+        ds = lgt.Dataset(Xt, yt, group=gt)
+        dv = ds.create_valid(Xv, yv, group=gv)
+        ds.construct()
+        dv.construct()
+        construct_s = time.perf_counter() - t1
+        evals = {}
+        t_start = time.perf_counter()
+        bst = lgt.train(params, ds, 1 + rounds, valid_sets=[dv],
+                        callbacks=[timer, lgt.record_evaluation(evals)])
+    launches = dict(_kernels.LAUNCHES)
+    plain_calls = dict(_kernels.PLAIN_CALLS)
+    gbdt = bst._gbdt
+    check(len(ends) == 1 + rounds, f"trained {len(ends)} rounds")
+    it_s = rounds / (ends[-1] - ends[0])
+    # validation ndcg@10 before the first tree (every score 0: the
+    # documents' own order) and after each round
+    metric = create_metrics(["ndcg"], Config(params))[0]
+    metric.init(dv._inner.metadata, dv.num_data())
+    ndcg0 = metric.eval_all(np.zeros(dv.num_data()))[0]
+    ndcg = evals["valid_0"]["ndcg@10"]
+    check(gbdt.use_compact and gbdt._ext_grads, "lambdarank did not take "
+          "the compact grower's external-gradient route")
+    for k in ("histogram", "fused_split"):
+        check(launches[k] > 0, f"kernel {k} was not launched on the RANK "
+              "path")
+    check(launches["histogram_sublane"] == 0, "K3 ran on the RANK path")
+    for k, v in plain_calls.items():
+        check(v == 0, f"plain version of {k} ran {v} times on the card")
+    check(syncs.get("in_tree") == 0, "host syncs inside the RANK tree step")
+    check(np.isfinite(ndcg[-1]) and ndcg[-1] > ndcg0,
+          f"validation ndcg@10 did not rise: {ndcg0} -> {ndcg}")
+    # the gradient layer: one iteration's lambdarank gradients, scores in
+    # the dataset's row order
+    s_orig = torch.from_numpy(gbdt.train_score_original_order()[0]).to(
+        gbdt.device)
+    grad_dev_ms, grad_launches = device_profile(
+        lambda: gbdt.objective.get_gradients(s_orig))
+    del s_orig
+    prof = profile_tree(bst, 1.0 / it_s)
+    out = {"rows": RANK_ROWS, "features": RANK_FEATURES,
+           "queries": len(group), "train_rows": gbdt.num_data,
+           "valid_rows": dv.num_data(), "valid_queries": len(gv),
+           "reduced": "10% of the queries, whole, held out for validation",
+           "rounds_timed": rounds, "iterations_per_s": it_s,
+           "round_s": np.diff(ends).tolist(),
+           "first_round_s": ends[0] - t_start, "construct_s": construct_s,
+           "data_gen_s": gen_s, "record_bytes": gbdt.layout.num_cols,
+           "record_real_bytes": gbdt.layout.num_real_cols,
+           "grower": "compact" if gbdt.use_compact else "masked",
+           "valid_ndcg10_round0": ndcg0, "valid_ndcg10_by_round": ndcg,
+           "launches": launches, "plain_calls": plain_calls,
+           "host_syncs_in_tree": syncs.get("in_tree"),
+           "num_trees": bst.num_trees(),
+           "gradient_device_ms": grad_dev_ms,
+           "gradient_launches": grad_launches,
+           "tree_kernel_launches": prof["kernel_launches"],
+           "tree_device_s": prof["device_s"],
+           "tree_wall_s": 1.0 / it_s,
+           "tree_device_idle_share": prof["device_idle_share"],
+           "tree_kernels": {k: {"device_ms": v["device_ms"],
+                                "launches": v["launches"],
+                                "bound_ms": v.get("bound_ms")}
+                            for k, v in prof["kernels"].items()
+                            if k != "histogram_sublane"}}
+    print("RANK", json.dumps(out), flush=True)
+    out["profile"] = prof
+    checks = {"kernels": check_rank_kernels(bst)}
+    Xp = Xv[:20_000]
+    p_card = bst.predict(Xp)
+    check(np.all(np.isfinite(p_card)) and p_card.shape == (len(Xp),),
+          "RANK card predictions")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rank.txt")
+        bst.save_model(path)
+        reload_diff = float(np.abs(lgt.Booster(model_file=path).predict(
+            Xp) - p_card).max())
+    check(reload_diff <= 1e-6, f"reloaded ranking model differs by "
+          f"{reload_diff}")
+    checks["reload_max_abs_diff"] = reload_diff
+    checks["cpu_vs_card"] = rank_cpu_vs_card(lgt)
+    print("RANK_CHECKS", json.dumps(checks), flush=True)
+    out["checks"] = checks
+    results["rank"] = out
+    del bst, ds, dv, gbdt, X, Xt, Xv
+
+
+RENEW_ROUNDS = 2               # timed rounds after one warm-up round
+
+
+def renew_cpu_vs_card(lgt):
+    """The card against the CPU for regression_l1, quantile (alpha 0.9)
+    and mape on the compact grower (100k x 28) and the masked grower (20k x
+    28), the generator's logits as the label, 31 leaves, 3 rounds;
+    predictions within 1e-4, differing splits counted."""
+    out = {}
+    for grower, rows in (("compact", 100_000), ("masked", 20_000)):
+        X, _, logits = make_higgs_like(rows, 28, seed=19, with_logits=True)
+        for objective in ("regression_l1", "quantile", "mape"):
+            params = {"objective": objective, "alpha": 0.9,
+                      "num_leaves": 31, "verbosity": -1,
+                      "tpu_grower": grower}
+            boosters = {dev: lgt.train(dict(params, device_type=dev),
+                                       lgt.Dataset(X, logits), 3)
+                        for dev in ("cuda", "cpu")}
+            check(boosters["cuda"]._gbdt.use_compact
+                  == (grower == "compact"), f"{objective}: wrong grower")
+            diff, differ = compare_boosters(boosters["cuda"],
+                                            boosters["cpu"], X)
+            check(diff <= 1e-4, f"{objective} {grower}: card vs CPU "
+                  f"predictions differ by {diff}")
+            out[f"{objective}_{grower}"] = {
+                "rows": rows, "max_abs_pred_diff": diff,
+                "differing_splits": differ}
+    return out
+
+
+def phase_renew(lgt, results):
+    """Leaf renewal on the compact grower: MAIN's constructed datasets
+    (the 10.5M Higgs-shaped rows) with the generator's logits as the label
+    (make_higgs_like(..., with_logits=True); the repo's own data, not a
+    published configuration), objective=quantile with alpha 0.9, 255
+    leaves, 255 bins, 1 warm-up and RENEW_ROUNDS timed rounds and a
+    profiled tree, with the renewal's device ms and launches a tree; then
+    RENEW_CHECKS (renew_cpu_vs_card)."""
+    from lightgbm_tpu_torch import _kernels
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    ds, dv = results.pop("main_datasets")
+    _, _, logits, n_val = results["higgs"]
+    ds._inner.metadata.set_label(logits[:-n_val])
+    dv._inner.metadata.set_label(logits[-n_val:])
+    rounds = RENEW_ROUNDS
+    params = {"objective": "quantile", "alpha": 0.9, "metric": "quantile",
+              "num_leaves": 255, "max_bin": 255, "learning_rate": 0.1,
+              "min_data_in_leaf": 100, "verbosity": -1,
+              "device_type": "cuda"}
+    syncs = {}
+    ends = []
+    last_renew = {}
+    renew = gbdt_mod.renew_leaf_quantile
+
+    def recorded_renew(*a):
+        last_renew["args"] = a
+        return renew(*a)
+
+    def timer(env):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+    timer.order = 5
+
+    evals = {}
+    _kernels.reset_counts()
+    gbdt_mod.renew_leaf_quantile = recorded_renew
+    try:
+        with syncs_in_second_tree(gbdt_mod.GBDT, "_grow_compact", syncs):
+            t_start = time.perf_counter()
+            bst = lgt.train(params, ds, 1 + rounds, valid_sets=[dv],
+                            callbacks=[timer, lgt.record_evaluation(evals)])
+    finally:
+        gbdt_mod.renew_leaf_quantile = renew
+    launches = dict(_kernels.LAUNCHES)
+    plain_calls = dict(_kernels.PLAIN_CALLS)
+    gbdt = bst._gbdt
+    check(len(ends) == 1 + rounds, f"trained {len(ends)} rounds")
+    it_s = rounds / (ends[-1] - ends[0])
+    loss = evals["valid_0"]["quantile"]
+    check(gbdt.use_compact and gbdt.objective.renew_leaves,
+          "the quantile run did not renew on the compact grower")
+    for k in ("histogram", "fused_split"):
+        check(launches[k] > 0, f"kernel {k} was not launched on the RENEW "
+              "path")
+    for k, v in plain_calls.items():
+        check(v == 0, f"plain version of {k} ran {v} times on the card")
+    check(syncs.get("in_tree") == 0, "host syncs inside the RENEW tree step")
+    check(np.all(np.isfinite(loss)) and loss[-1] < loss[0],
+          f"validation quantile loss did not fall: {loss}")
+    # the renewal layer: the last tree's call on its own inputs
+    args = last_renew.pop("args")
+    renew_dev_ms, renew_launches = device_profile(lambda: renew(*args))
+    del args
+    prof = profile_tree(bst, 1.0 / it_s)
+    out = {"train_rows": gbdt.num_data, "valid_rows": dv.num_data(),
+           "objective": "quantile", "alpha": 0.9, "rounds_timed": rounds,
+           "iterations_per_s": it_s, "round_s": np.diff(ends).tolist(),
+           "first_round_s": ends[0] - t_start, "construct_s": "reused",
+           "valid_quantile_by_round": loss, "launches": launches,
+           "plain_calls": plain_calls,
+           "host_syncs_in_tree": syncs.get("in_tree"),
+           "num_trees": bst.num_trees(),
+           "renew_device_ms": renew_dev_ms,
+           "renew_launches": renew_launches,
+           "tree_kernel_launches": prof["kernel_launches"],
+           "tree_device_s": prof["device_s"], "tree_wall_s": 1.0 / it_s,
+           "tree_device_idle_share": prof["device_idle_share"],
+           "tree_kernels": {k: {"device_ms": v["device_ms"],
+                                "launches": v["launches"],
+                                "bound_ms": v.get("bound_ms")}
+                            for k, v in prof["kernels"].items()
+                            if k != "histogram_sublane"}}
+    print("RENEW", json.dumps(out), flush=True)
+    out["profile"] = prof
+    del bst, ds, dv, gbdt
+    checks = {"cpu_vs_card": renew_cpu_vs_card(lgt)}
+    print("RENEW_CHECKS", json.dumps(checks), flush=True)
+    out["checks"] = checks
+    results["renew"] = out
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2254,6 +2745,8 @@ def main() -> int:
               ("main", lambda: phase_main_path(lgt, args.rows, args.rounds,
                                                results)),
               ("quant", lambda: phase_quant(lgt, results)),
+              ("renew", lambda: phase_renew(lgt, results)),
+              ("rank", lambda: phase_rank(lgt, results)),
               ("masked_large", lambda: phase_masked_large(lgt, args.rows,
                                                           results)),
               ("cpu_vs_card", lambda: phase_cpu_vs_card(lgt, results)),
@@ -2286,6 +2779,29 @@ def main() -> int:
     qt = results["quant"]
     qt_tree = qt["profile"]["kernels"]
     qk = qt["checks"]["kernels"]
+    rk = results["rank"]
+    rk_tree = rk["profile"]["kernels"]
+    rkk = rk["checks"]["kernels"]
+    rn = results["renew"]
+    rn_tree = rn["profile"]["kernels"]
+
+    def ranking_path(kern):
+        """A kernel on the RANK path (F = 137): its launches there, its
+        times at the run's root (K1) or root split (K2) against its plain
+        version, bound and library call, and one tree's device ms and
+        byte bound."""
+        key = "k1" if kern == "histogram" else "k2"
+        return {"launches": rk["launches"][kern],
+                "record_bytes": rkk["record_bytes"],
+                "max_abs_err": rkk["max_abs_err"], **rkk[key],
+                "bound_by": "bytes",
+                "tree_device_ms": rk_tree[kern]["device_ms"],
+                "tree_bound_ms": rk_tree[kern]["bound_ms"]}
+
+    def renew_path(kern):
+        return {"launches": rn["launches"][kern],
+                "tree_device_ms": rn_tree[kern]["device_ms"],
+                "tree_bound_ms": rn_tree[kern]["bound_ms"]}
 
     def multiclass_path(kern, tree_kernels, launches, rounds, extra=None):
         """A kernel's numbers on a multiclass path: launches a round (K
@@ -2338,7 +2854,9 @@ def main() -> int:
                    "library_ms": qk["k1"]["library_ms"],
                    "max_abs_err": qk["k1"]["max_abs_err"],
                    "tree_device_ms": qt_tree["histogram"]["device_ms"],
-                   "tree_bound_ms": qt_tree["histogram"]["bound_ms"]}},
+                   "tree_bound_ms": qt_tree["histogram"]["bound_ms"]},
+         "ranking": ranking_path("histogram"),
+         "renew": renew_path("histogram")},
         {"name": "fused_split", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/fused_split.cu",
          "replaces": "lightgbm_tpu/ops/fused_split.py:198",
@@ -2388,7 +2906,9 @@ def main() -> int:
                                       efb_k["quant_copy_back"]["max_abs_err"]),
                    "tree_device_ms": qt_tree["fused_split"]["device_ms"],
                    "tree_bound_ms": qt_tree["fused_split"]["bound_ms"],
-                   "efb_copy_back": efb_k["quant_copy_back"]}},
+                   "efb_copy_back": efb_k["quant_copy_back"]},
+         "ranking": ranking_path("fused_split"),
+         "renew": renew_path("fused_split")},
         {"name": "histogram_sublane", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/histogram_sublane.cu",
          "replaces": "lightgbm_tpu/ops/pallas_histogram.py:170",

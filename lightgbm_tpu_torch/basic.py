@@ -47,14 +47,16 @@ class Dataset:
     basic.py:1900); binning happens at ``construct()``."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
-                 weight=None, init_score=None, feature_name="auto",
-                 categorical_feature="auto",
+                 weight=None, group=None, init_score=None,
+                 feature_name="auto", categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None,
-                 free_raw_data: bool = True):
+                 free_raw_data: bool = True, position=None):
         self.data = data
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group
+        self.position = position
         self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
@@ -117,21 +119,37 @@ class Dataset:
         if self.label is not None:
             md.set_label(_maybe_series(self.label))
         md.set_weight(_maybe_series(self.weight))
+        md.set_group(_maybe_series(self.group))
         md.set_init_score(self.init_score)
+        md.set_position(_maybe_series(self.position))
         if self.free_raw_data:
             self.data = None
         return self
 
-    def create_valid(self, data, label=None, weight=None,
-                     init_score=None) -> "Dataset":
-        """A validation Dataset binned with this one's mappers."""
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, position=None) -> "Dataset":
+        """A validation Dataset binned with this one's mappers (its own
+        query groups for the ranking metrics)."""
         return Dataset(data, label=label, reference=self, weight=weight,
-                       init_score=init_score, params=self.params)
+                       group=group, init_score=init_score,
+                       params=self.params, position=position)
+
+    def set_group(self, group) -> "Dataset":
+        """Query sizes in row order (reference: Dataset.set_group)."""
+        self.group = group
+        if self._inner is not None:
+            self._inner.metadata.set_group(group)
+        return self
 
     def get_label(self):
         if self._inner is not None:
             return self._inner.metadata.label
         return self.label
+
+    def get_group(self):
+        if self._inner is not None:
+            return self._inner.metadata.group
+        return self.group
 
     def num_data(self) -> int:
         if self._inner is not None:

@@ -53,14 +53,32 @@ refits the leaf outputs from the true gradients. Stochastic rounding draws
 from a ``torch.Generator`` on the run's device, seeded from ``seed + 1337``
 and the iteration.
 
+Ranking (reference: ``_ext_grads`` and ``_rank_grads_fn``, ``boosting/
+gbdt.py:950-979``, ``:1512-1540``): a row-coupled objective (lambdarank)
+takes the compact grower only with one tree a round, no quantized
+gradients and no stochastic objective; its gradients are computed at
+k = 0 in the dataset's row order (the carried score column scattered back
+by the carried row id) and gathered into the records' current order. Every
+other ranking configuration (``rank_xendcg``, quantized gradients, below
+65,536 rows under ``auto``) takes the masked grower, whose rows keep the
+dataset's order. Ranking data is never bundled.
+
+Leaf renewal (``regression_l1``, ``quantile``, ``mape``; reference:
+``boosting/gbdt.py:1130-1137`` masked, ``:1791-1800`` compact): after a
+tree grows, each live leaf's output becomes the weighted alpha-quantile of
+its rows' residuals (``ops/renew.py``), label minus the pre-tree score,
+weighed by the metadata weight times the in-bag mask: in the dataset order
+after the masked grower, from the carried label, weight, in-bag and
+pre-tree score columns in the post-tree order after the compact grower.
+
 Either way a tree grows with no device-to-host read; after it, its arrays
 come to the host in ONE copy (the iteration's stop check and the model list
 need them), and validation scores are routed on the device with the device
 copy of the tree. A no-split tree is zeroed before shrinkage, and the init
 score is folded into the first tree's leaves.
 
-Leaf renewal, external gradients (ranking), checkpoints, DART/RF and the JAX package's compile ladder are ROADMAP
-A12b-A16 (the ladder has no counterpart in eager PyTorch).
+Checkpoints, DART/RF and the JAX package's compile ladder are ROADMAP
+A14-A16 (the ladder has no counterpart in eager PyTorch).
 """
 from __future__ import annotations
 
@@ -78,6 +96,7 @@ from ..ops.grower import GrowerParams, TreeArrays, grow_tree
 from ..ops.grower_compact import grow_tree_compact
 from ..ops.predict import StackedTrees, predict_leaf_batched, \
     predict_raw_batched
+from ..ops.renew import renew_leaf_quantile
 from ..ops.split import leaf_output
 from ..utils import log
 
@@ -338,17 +357,33 @@ class GBDT:
         self.num_data = n
         self._n_real = n
         grower = str(cfg.get("tpu_grower", "auto")).lower()
-        bundled = train_set.bundle_info is not None
-        can_compact = n < _COMPACT_MAX_ROWS
-        if grower == "compact" and not can_compact:
+        obj = self.objective
+        # a row-coupled objective (lambdarank) runs on the compact grower
+        # with its gradients computed outside the step (reference: gbdt.py:
+        # 950-979). Decided before the objective's init, as the reference
+        # does: lambdarank's position biases (found at init) make it
+        # stochastic but do not close this route
+        self._ext_grads = (not obj.row_elementwise and self.num_class == 1
+                           and not bool(cfg.get("use_quantized_grad",
+                                                False)))
+        obj_ok = ((obj.row_elementwise or self._ext_grads)
+                  and not obj.is_stochastic)
+        can_compact = n < _COMPACT_MAX_ROWS and obj_ok
+        if grower == "compact" and not obj_ok:
+            log.warning("tpu_grower=compact requires a row-elementwise "
+                        "objective, or a row-coupled one with one tree a "
+                        "round, no quantized gradients and no random draws; "
+                        "using the masked grower")
+        elif grower == "compact" and not can_compact:
             log.warning(f"tpu_grower=compact supports fewer than "
                         f"{_COMPACT_MAX_ROWS} rows (f32 counts); using the "
                         "masked grower")
+        self._efb_precheck(train_set, grower, can_compact)
+        bundled = train_set.bundle_info is not None
         # bundled data takes the compact grower at any row count: the
         # bundle-space scan and routing live there
         self.use_compact = can_compact and (grower == "compact" or (
             grower == "auto" and (n >= _COMPACT_MIN_ROWS or bundled)))
-        self._efb_precheck(train_set)
         mappers = train_set.mappers
         # prediction and model text work per original feature
         self._pred_nan_arr = torch.from_numpy(
@@ -471,13 +506,34 @@ class GBDT:
         return tree._replace(leaf_value=torch.where(live, out,
                                                     tree.leaf_value))
 
-    def _efb_precheck(self, train_set: BinnedDataset) -> None:
-        """Unbundle an EFB dataset, with a warning, when the run does not
-        take the compact grower (``tpu_grower=masked``, 2^24 rows or more;
+    def _renew_quantile(self, tree: TreeArrays, residual: torch.Tensor,
+                        weight: torch.Tensor, row_leaf: torch.Tensor
+                        ) -> TreeArrays:
+        """The tree with each live leaf's output renewed to its rows'
+        weighted ``renew_alpha``-quantile of ``residual`` (reference:
+        ``boosting/gbdt.py:1130-1137``, ``:1791-1800``)."""
+        L = tree.leaf_value.shape[0]
+        renewed = renew_leaf_quantile(residual, weight, row_leaf, L,
+                                      float(self.objective.renew_alpha))
+        live = torch.arange(L, device=renewed.device) < tree.num_leaves
+        return tree._replace(leaf_value=torch.where(live, renewed,
+                                                    tree.leaf_value))
+
+    def _efb_precheck(self, train_set: BinnedDataset, grower: str,
+                      can_compact: bool) -> None:
+        """Unbundle an EFB dataset, with a warning, before the grower is
+        chosen, where the run cannot take the compact grower with a
+        row-elementwise objective (``tpu_grower=masked``, 2^24 rows or
+        more, a row-coupled or stochastic objective, query groups;
         reference: ``_efb_precheck``, ``boosting/gbdt.py:2081-2129``, whose
         other conditions are parameters the port raises on)."""
-        if train_set.bundle_info is not None and not self.use_compact:
-            _unbundle(train_set, "EFB bundles need the compact grower; "
+        obj = self.objective
+        if train_set.bundle_info is not None and (
+                grower not in ("compact", "auto") or not can_compact
+                or not obj.row_elementwise
+                or train_set.metadata.query_boundaries is not None):
+            _unbundle(train_set, "EFB bundles need the compact grower and "
+                      "a row-elementwise objective without query groups; "
                       "unbundling the dataset (set enable_bundle=false to "
                       "skip bundling entirely)")
 
@@ -566,18 +622,28 @@ class GBDT:
             dev)
         self.weight = (None if md.weight is None else torch.from_numpy(
             np.asarray(md.weight, np.float32)).to(dev))
+        # the gradients' weight: the objective's own (MAPE folds its label
+        # weight into it; the JAX package's masked step reads it there)
+        ow = self.objective.weight
+        self.grad_weight = (self.weight if ow is md.weight else
+                            torch.from_numpy(np.asarray(ow, np.float32))
+                            .to(dev))
         self.row_mask = torch.ones(self.num_data, dtype=torch.float32,
                                    device=dev)
 
     def _setup_compact_state(self, train_set: BinnedDataset) -> None:
         """The packed row records (ops/compact.py). Extras carried through
         every partition: [scores (K), class gradients and hessians (2K, when
-        K > 1), label, weight?, original row id]."""
+        K > 1), label, weight?, original row id]. The weight column is the
+        objective's (MAPE's holds its label weight, reference: boosting/
+        gbdt.py:1375, :1471): the compact step's gradients and its leaf
+        renewal read it."""
         dev = self.device
         n = self.num_data
         k = self.num_class
         md = train_set.metadata
-        has_w = md.weight is not None
+        obj_w = self.objective.weight
+        has_w = obj_w is not None
         gcols = 2 * k if k > 1 else 0
         e = k + gcols + 2 + (1 if has_w else 0)
         self.layout = RowLayout(num_features=int(train_set.binned.shape[1]),
@@ -596,7 +662,7 @@ class GBDT:
             torch.from_numpy(np.asarray(md.label, np.float32)).to(dev))
         if has_w:
             parts.append(torch.from_numpy(
-                np.asarray(md.weight, np.float32)).to(dev))
+                np.asarray(obj_w, np.float32)).to(dev))
         parts.append(torch.arange(n, dtype=torch.float32, device=dev))
         zeros = torch.zeros(n, dtype=torch.float32, device=dev)
         self.work = pack_rows(binned, zeros, zeros, zeros + 1.0,
@@ -633,7 +699,12 @@ class GBDT:
                     log.info(f"Start training from score {init:.6f}")
 
     def _gradients(self, score: torch.Tensor, label, weight):
-        """``[K, N]`` gradients and hessians of the ``[K, N]`` scores."""
+        """``[K, N]`` gradients and hessians of the ``[K, N]`` scores; a
+        row-coupled objective takes scores in the dataset's row order and
+        uses its own label and weight."""
+        if not self.objective.row_elementwise:
+            g, h = self.objective.get_gradients(score[0])
+            return g[None], h[None]
         if self.num_class > 1:
             return self.objective.get_gradients(score, label, weight)
         g, h = self.objective.get_gradients(score[0], label, weight)
@@ -647,7 +718,8 @@ class GBDT:
         first_iter = self.num_total_trees < k_total
         shrink = self.shrinkage_rate
         if not self.use_compact:
-            g, h = self._gradients(self.train_score, self.label, self.weight)
+            g, h = self._gradients(self.train_score, self.label,
+                                   self.grad_weight)
             true_g, true_h = g, h
             if self._use_quant:
                 # one scale over all K classes (reference: boosting/gbdt.py:
@@ -667,6 +739,12 @@ class GBDT:
                     sums.index_add_(1, row_leaf,
                                     torch.stack([true_g[k], true_h[k]]))
                     tree = self._renewed(tree, sums[0], sums[1])
+                if self.objective.renew_leaves:
+                    w = (self.row_mask if self.weight is None
+                         else self.row_mask * self.weight)
+                    tree = self._renew_quantile(
+                        tree, self.objective._target(self.label)
+                        - self.train_score[k], w, row_leaf)
             # a no-split tree contributes nothing (reference: gbdt.cpp:433)
             lv = torch.where(tree.num_nodes > 0, tree.leaf_value,
                              torch.zeros_like(tree.leaf_value)) * shrink
@@ -708,7 +786,17 @@ class GBDT:
         k_total = self.num_class
         extra = [self.train_score]
         quant_scales = None
-        if k == 0:
+        if k == 0 and self._ext_grads:
+            # the gradients of a row-coupled objective in the dataset's row
+            # order: the score column scattered back by the carried row id,
+            # the gradients gathered into the current order (reference:
+            # _rank_grads_fn, boosting/gbdt.py:1512-1540)
+            rid = self._col(self._cx_rowid).to(torch.int64)
+            s_orig = torch.empty_like(self.train_score[0])
+            s_orig[rid] = self.train_score[0]
+            g, h = self.objective.get_gradients(s_orig)
+            g_k, h_k = g[rid], h[rid]
+        elif k == 0:
             label = self._col(self._cx_label)
             weight = (self._col(self._cx_weight)
                       if self._cx_weight is not None else None)
@@ -745,6 +833,17 @@ class GBDT:
             self.num_data, self.is_cat_arr, self._efb, quant_scales)
         # the score columns moved with the rows
         self.train_score = self._score_cols()
+        if self.objective.renew_leaves:
+            # the carried label, weight, in-bag and pre-tree score columns,
+            # in the post-tree order (K == 1 here)
+            off = lay.cnt_off
+            w = (_u8_to_f32(self.work[:, off:off + 4]) != 0).to(
+                torch.float32)
+            if self._cx_weight is not None:
+                w = w * self._col(self._cx_weight)
+            tree = self._renew_quantile(
+                tree, self.objective._target(self._col(self._cx_label))
+                - self.train_score[k], w, row_leaf)
         if self._quant_renew:
             # true gradients from the carried label, weight and (pre-tree)
             # score columns, summed a leaf segment by prefix-sum differences;
@@ -870,8 +969,17 @@ class GBDT:
         if self.num_class == 1:
             raw = raw[0]
         convert = self.objective.convert_output
-        return [(name, m.name, m.eval(raw, convert), m.higher_better)
-                for m in metrics]
+        out = []
+        for m in metrics:
+            if hasattr(m, "eval_all"):
+                # one value an eval_at position, named ndcg@k (reference:
+                # boosting/gbdt.py:2774-2776)
+                out.extend((name, f"{m.name}@{k}", v, m.higher_better)
+                           for k, v in zip(m.eval_at, m.eval_all(raw)))
+            else:
+                out.append((name, m.name, m.eval(raw, convert),
+                            m.higher_better))
+        return out
 
     # -- prediction ----------------------------------------------------------
     def _model_window(self, num_iteration: Optional[int],

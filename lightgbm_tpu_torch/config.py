@@ -109,10 +109,19 @@ PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...]]] = {
     "fair_c": (1.0, float, ()),
     "poisson_max_delta_step": (0.7, float, ()),
     "tweedie_variance_power": (1.5, float, ()),
+    # ranking (reference: config.h:1011-1040)
+    "lambdarank_truncation_level": (30, int, ()),
+    "lambdarank_norm": (True, bool, ()),
+    "label_gain": (None, object, ()),
+    "lambdarank_position_bias_regularization": (0.0, float, ()),
+    "objective_seed": (5, int, ()),
     # metric
     "metric": (None, object, ("metrics", "metric_types")),
     "metric_freq": (1, int, ("output_freq",)),
+    "eval_at": ((1, 2, 3, 4, 5), object, (
+        "ndcg_eval_at", "ndcg_at", "map_eval_at", "map_at")),
     "multi_error_top_k": (1, int, ()),
+    "auc_mu_weights": (None, object, ()),
     # grower selection knobs shared with the JAX package
     "tpu_grower": ("auto", str, ()),            # auto | compact | masked
     "tpu_hist_layout": ("auto", str, ("hist_layout",)),  # auto|lane|sublane
@@ -148,9 +157,15 @@ METRIC_ALIASES: Dict[str, str] = {
     "mape": "mape", "mean_absolute_percentage_error": "mape",
     "huber": "huber", "fair": "fair", "poisson": "poisson", "gamma": "gamma",
     "gamma_deviance": "gamma_deviance", "tweedie": "tweedie",
+    "ndcg": "ndcg", "lambdarank": "ndcg", "rank_xendcg": "ndcg",
+    "xendcg": "ndcg", "xe_ndcg": "ndcg", "xe_ndcg_mart": "ndcg",
+    "xendcg_mart": "ndcg",
+    "map": "map", "mean_average_precision": "map",
     "auc": "auc",
+    "average_precision": "average_precision",
     "binary_logloss": "binary_logloss", "binary": "binary_logloss",
     "binary_error": "binary_error",
+    "auc_mu": "auc_mu",
     "multi_logloss": "multi_logloss", "multiclass": "multi_logloss",
     "softmax": "multi_logloss", "multiclassova": "multi_logloss",
     "multiclass_ova": "multi_logloss", "ova": "multi_logloss",
@@ -159,6 +174,7 @@ METRIC_ALIASES: Dict[str, str] = {
     "cross_entropy": "cross_entropy", "xentropy": "cross_entropy",
     "cross_entropy_lambda": "cross_entropy_lambda",
     "xentlambda": "cross_entropy_lambda",
+    "kullback_leibler": "kldiv", "kldiv": "kldiv",
     "none": "none", "na": "none", "null": "none", "custom": "none",
 }
 
@@ -289,11 +305,6 @@ class Config:
         need(bool(self.forcedbins_filename), "forced bins", "A3")
         need(self.max_bin > 255, "max_bin>255", "A3")
         if not dataset_only:
-            # the objectives that renew leaf outputs after growth and the
-            # ranking objectives are the next slice
-            from .objectives import OBJECTIVES
-            need(self.objective not in OBJECTIVES,
-                 f"objective={self.objective!r}", "A12b")
             need(str(self.tree_learner).lower() != "serial",
                  f"tree_learner={self.tree_learner!r}", "A18")
             need(self.num_machines > 1, "num_machines>1", "A18")
@@ -379,9 +390,7 @@ def resolve_metrics(metric: Any, objective: Any) -> List[str]:
     for m in metric:
         canon = METRIC_ALIASES.get(str(m).lower())
         if canon is None:
-            raise NotImplementedError(
-                f"metric {m!r} is not in the PyTorch port yet (ROADMAP "
-                "A12b, A4)")
+            raise ValueError(f"Unknown metric: {m!r}")
         if canon == "none":
             return []
         if canon not in out:

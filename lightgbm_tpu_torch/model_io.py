@@ -47,7 +47,7 @@ def _objective_string(gbdt) -> str:
         parts.append(f"sigmoid:{obj.sigmoid:g}")
     if obj.name == "tweedie":
         parts.append(f"tweedie_variance_power:{obj.rho:g}")
-    if obj.name == "huber":
+    if obj.name in ("quantile", "huber"):
         parts.append(f"alpha:{obj.alpha:g}")
     return " ".join(parts)
 

@@ -3,18 +3,22 @@
 Counterpart of ``lightgbm_tpu/objectives.py`` (reference:
 include/LightGBM/objective_function.h, families in
 src/objective/{regression,binary,multiclass,xentropy}_objective.hpp).
-Gradients depend only on the row's own label, weight and score(s): the
-compact grower keeps rows in a per-tree permuted order, so the trainer hands
-the label and weight columns in that order to ``get_gradients`` (the JAX
-package's objectives read their own copies instead). ``score`` is ``[N]``
-for one model a row and ``[K, N]`` for the multiclass objectives
-(``num_model_per_iteration = K``), whose gradients come back ``[K, N]``.
+A pointwise objective's gradients depend only on the row's own label,
+weight and score(s): the compact grower keeps rows in a per-tree permuted
+order, so the trainer hands the label and weight columns in that order to
+``get_gradients`` (the JAX package's objectives read their own copies
+instead). ``score`` is ``[N]`` for one model a row and ``[K, N]`` for the
+multiclass objectives (``num_model_per_iteration = K``), whose gradients
+come back ``[K, N]``.
 
-Here: binary, the pointwise regression objectives that need no leaf
-renewal (L2, Huber, Fair, Poisson, Gamma, Tweedie), the two cross-entropy
-objectives and multiclass softmax and one-vs-all. The objectives that renew
-leaf outputs after growth (L1, quantile, MAPE) and the ranking objectives
-are ROADMAP A12b.
+Here: binary, the regression family (L2, L1, Huber, Fair, Poisson,
+quantile, MAPE, Gamma, Tweedie; L1, quantile and MAPE renew their leaf
+outputs after growth, ``renew_leaves``, see ``ops/renew.py``), the two
+cross-entropy objectives, multiclass softmax and one-vs-all, and the
+ranking objectives ``lambdarank`` and ``rank_xendcg``. A ranking
+objective's gradients couple the rows of a query (``row_elementwise``
+False): it keeps its own label, weight and query arrays in the dataset's
+row order from ``init`` and takes only the scores, in that order.
 """
 from __future__ import annotations
 
@@ -38,6 +42,14 @@ class Objective:
     # hessian, else max h / bins (reference: IsConstantHessian); set on
     # every class, so that no subclass inherits its parent's flag
     is_constant_hessian = False
+    # leaf outputs become each leaf's weighted renew_alpha-quantile of its
+    # residuals after growth (reference: RenewTreeOutput)
+    renew_leaves = False
+    is_ranking = False
+    # gradients change from call to call with equal scores (random draws,
+    # state updated inside get_gradients): the compact grower's external
+    # gradient route is closed to such an objective
+    is_stochastic = False
 
     def __init__(self, config):
         self.config = config
@@ -116,6 +128,67 @@ class RegressionL2(Objective):
 
     def _convert(self, raw):
         return torch.sign(raw) * raw * raw if self.sqrt else raw
+
+
+class RegressionL1(RegressionL2):
+    """L1 loss; leaf outputs renewed to the leaf's weighted median of its
+    residuals (reference: RegressionL1loss, regression_objective.hpp:165)."""
+
+    name = "regression_l1"
+    is_constant_hessian = True
+    renew_leaves = True
+    renew_alpha = 0.5
+
+    def get_gradients(self, score, label, weight=None):
+        grad = torch.sign(score - self._target(label))
+        return _weighted(grad, torch.ones_like(score), weight)
+
+
+class RegressionQuantile(RegressionL2):
+    """Quantile (pinball) loss with each leaf renewed to its weighted
+    alpha-quantile (reference: RegressionQuantileloss,
+    regression_objective.hpp:417)."""
+
+    name = "quantile"
+    is_constant_hessian = True
+    renew_leaves = True
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.alpha = float(config.get("alpha", 0.9))
+        self.renew_alpha = self.alpha
+
+    def get_gradients(self, score, label, weight=None):
+        diff = score - self._target(label)
+        grad = torch.where(diff >= 0, 1.0 - self.alpha, -self.alpha)
+        return _weighted(grad, torch.ones_like(score), weight)
+
+
+class RegressionMAPE(RegressionL2):
+    """MAPE loss (reference: RegressionMAPELOSS,
+    regression_objective.hpp:498). ``init`` folds the label weight
+    ``1 / max(1, |label|)`` into ``self.weight``, as the JAX package does:
+    the gradients on both growers take it (the compact grower's carried
+    weight column is the objective's). Leaf renewal, as in the JAX
+    package, weighs rows by the metadata weight on the masked grower and by
+    that carried column, label weight included, on the compact grower
+    (ROADMAP C, notes)."""
+
+    name = "mape"
+    is_constant_hessian = True
+    renew_leaves = True
+    renew_alpha = 0.5
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        lbl = self._label_np.astype(np.float32)
+        lw = (np.float32(1.0) / np.maximum(np.float32(1.0), np.abs(lbl)))
+        self.weight = lw if self.weight is None else \
+            np.asarray(self.weight, np.float32) * lw
+
+    def get_gradients(self, score, label, weight=None):
+        grad = torch.sign(score - self._target(label))
+        return _weighted(grad, torch.ones_like(score), weight)
 
 
 class RegressionHuber(RegressionL2):
@@ -402,21 +475,303 @@ class CrossEntropyLambda(Objective):
         return torch.log1p(torch.exp(raw))
 
 
+# ---------------------------------------------------------------------------
+# Ranking (reference: src/objective/rank_objective.hpp, LambdarankNDCG :138,
+# RankXENDCG :378)
+# ---------------------------------------------------------------------------
+def _pad_queries(boundaries: np.ndarray) -> Tuple[np.ndarray, int]:
+    """``[Q, M]`` row indices of the queries (-1 pads each to the longest,
+    M) from the query boundaries."""
+    sizes = np.diff(boundaries)
+    q = len(sizes)
+    m = int(sizes.max()) if q else 1
+    pos = np.arange(m, dtype=np.int64)[None, :]
+    idx = boundaries[:-1, None].astype(np.int64) + pos
+    return np.where(pos < sizes[:, None], idx, -1), m
+
+
+class _Ranking(Objective):
+    """The query layout both ranking objectives share (their flags are set
+    on each of them), made once on the host at ``init`` and copied to a
+    device at its first use: the padded
+    ``[Q, M]`` row matrix, its mask, and the flat positions of its real
+    entries, which list the rows in dataset order (queries are contiguous),
+    so one gather takes ``[Q, M]`` values back to ``[N]`` rows."""
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        if metadata.query_boundaries is None:
+            raise ValueError("ranking objective requires query groups "
+                             "(set_group)")
+        idx, self.max_query = _pad_queries(
+            np.asarray(metadata.query_boundaries))
+        self._query_rows = idx
+        self._host = {"query_index": np.maximum(idx, 0),
+                      "query_mask": idx >= 0,
+                      "flat_rows": np.flatnonzero(idx >= 0)}
+        self._dev = {}
+
+    def _arrays(self, device) -> dict:
+        """The host arrays on ``device`` (copied once a device)."""
+        key = str(device)
+        if key not in self._dev:
+            self._dev[key] = {k: torch.from_numpy(np.ascontiguousarray(v))
+                              .to(device) for k, v in self._host.items()}
+        return self._dev[key]
+
+    @staticmethod
+    def _check_args(label, weight):
+        if label is not None or weight is not None:
+            raise ValueError("a ranking objective uses its own label and "
+                             "weight in dataset order; pass scores only")
+
+    def _to_rows(self, a, vals: torch.Tensor) -> torch.Tensor:
+        """``[Q, M]`` values -> ``[N]`` in dataset row order."""
+        return vals.reshape(-1)[a["flat_rows"]]
+
+
+class LambdarankNDCG(_Ranking):
+    """LambdaRank with |delta NDCG| weighting (reference: LambdarankNDCG,
+    rank_objective.hpp:138-320), as the JAX package computes it: the
+    queries padded to ``[Q, M]``, each sorted by score (a stable sort, so
+    tied scores keep document order: at the first iteration every score
+    of a query ties, and that order is the gradient), and the pairs of
+    sorted positions (i < truncation level, j > i) evaluated as one
+    ``[Qc, T, M]`` block a chunk of queries. The chunk only bounds memory:
+    each query's gradients depend on its own rows alone.
+
+    With ``position`` the scores are debiased by per-position biases, a
+    device tensor that every call updates by a Newton step with the
+    learning rate as its step (reference: UpdatePositionBiasFactors,
+    rank_objective.hpp:296-331); the objective is then stochastic."""
+
+    name = "lambdarank"
+    is_ranking = True
+    row_elementwise = False
+    is_stochastic = False
+    is_constant_hessian = False
+    renew_leaves = False
+    # pair-block elements a chunk: [Qc, T, M] f32 temporaries of 64 MiB
+    _CHUNK_ELEMS = 1 << 24
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.sigmoid = float(config.get("sigmoid", 2.0))
+        self.norm = bool(config.get("lambdarank_norm", True))
+        self.truncation_level = int(config.get(
+            "lambdarank_truncation_level", 30))
+        self.label_gain = config.get("label_gain", None)
+        self.bias_reg = float(config.get(
+            "lambdarank_position_bias_regularization", 0.0))
+        self.bias_lr = float(config.get("learning_rate", 0.1))
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        idx = self._query_rows
+        lbl = np.asarray(metadata.label).astype(np.int32)
+        max_label = int(lbl.max()) if len(lbl) else 0
+        if self.label_gain is None:
+            gains = (2.0 ** np.arange(max(max_label + 1, 2))) - 1.0
+        else:
+            gains = np.asarray(self.label_gain, dtype=np.float64)
+            if len(gains) <= max_label:
+                raise ValueError("label_gain shorter than max label + 1")
+        row_gain = gains[lbl]
+        # inverse max DCG a query, over the truncation level (reference:
+        # LambdarankNDCG::Init)
+        m = self.max_query
+        gp = np.where(idx >= 0, row_gain[np.maximum(idx, 0)], -np.inf)
+        gp = -np.sort(-gp, axis=1)
+        k = min(m, self.truncation_level)
+        disc = 1.0 / np.log2(np.arange(k) + 2.0)
+        mdcg = np.sum(np.where(np.isfinite(gp[:, :k]), gp[:, :k], 0.0)
+                      * disc[None, :], axis=1)
+        self._host["row_gain"] = row_gain.astype(np.float32)
+        self._host["inv_max_dcg"] = np.where(
+            mdcg > 0, 1.0 / np.maximum(mdcg, 1e-300), 0.0).astype(np.float32)
+        if self.weight is not None:
+            self._host["weight"] = np.asarray(self.weight, np.float32)
+        self.pos_biases = None
+        if metadata.position is not None:
+            pos = np.asarray(metadata.position).astype(np.int64)
+            if len(pos) != num_data:
+                raise ValueError("position length != num_data")
+            self.num_position_ids = int(pos.max()) + 1
+            wts = (np.asarray(metadata.weight, np.float64)
+                   if metadata.weight is not None else np.ones(num_data))
+            self._host["positions"] = pos
+            self._host["pos_counts"] = np.bincount(
+                pos, weights=(wts > 0).astype(np.float64),
+                minlength=self.num_position_ids).astype(np.float32)
+            self.is_stochastic = True
+
+    def _chunk_grads(self, s, g, mask, inv_max_dcg):
+        """Lambda gradients of one chunk of padded queries ``[Qc, M]``
+        (reference: rank_objective.hpp:222-263)."""
+        qc, m = s.shape
+        t = min(self.truncation_level, m)
+        sig = self.sigmoid
+        dev = s.device
+        order = torch.argsort(-s, dim=1, stable=True)
+        rank_of = torch.empty_like(order).scatter_(
+            1, order, torch.arange(m, device=dev).expand(qc, m))
+        s_s = torch.gather(s, 1, order)
+        g_s = torch.gather(g, 1, order)
+        m_s = torch.gather(mask, 1, order)
+        disc = 1.0 / torch.log2(torch.arange(m, dtype=torch.float32,
+                                             device=dev) + 2.0)
+        s_i, s_j = s_s[:, :t, None], s_s[:, None, :]
+        g_i, g_j = g_s[:, :t, None], g_s[:, None, :]
+        d_i, d_j = disc[None, :t, None], disc[None, None, :]
+        upper = (torch.arange(t, device=dev)[:, None]
+                 < torch.arange(m, device=dev)[None, :])
+        pair_valid = (m_s[:, :t, None] & m_s[:, None, :] & (g_i != g_j)
+                      & upper[None])
+        delta = torch.abs((g_i - g_j) * (d_i - d_j)) \
+            * inv_max_dcg[:, None, None]
+        # lambda goes to the higher-labelled document of the pair
+        i_high = g_i > g_j
+        ds_high = torch.where(i_high, s_i - s_j, s_j - s_i)
+        if self.norm:
+            # score-distance regularization where the query's best and
+            # worst scores differ (reference: rank_objective.hpp:242-244)
+            n_valid = m_s.sum(dim=1)
+            best = s_s[:, 0]
+            worst = torch.gather(
+                s_s, 1, torch.clamp(n_valid - 1, min=0)[:, None])[:, 0]
+            delta = torch.where((best != worst)[:, None, None],
+                                delta / (0.01 + torch.abs(ds_high)), delta)
+        p = torch.sigmoid(sig * ds_high)
+        lam_h = torch.where(pair_valid, sig * (p - 1.0) * delta, 0.0)
+        hes = torch.where(pair_valid, sig * sig * p * (1.0 - p) * delta, 0.0)
+        lam_i = torch.where(i_high, lam_h, -lam_h)
+        pad = (0, m - t)
+        grad_s = torch.nn.functional.pad(lam_i.sum(dim=2), pad) \
+            - lam_i.sum(dim=1)
+        hess_s = torch.nn.functional.pad(hes.sum(dim=2), pad) \
+            + hes.sum(dim=1)
+        if self.norm:
+            # (reference: norm_, rank_objective.hpp:259-263)
+            sum_l = 2.0 * (-lam_h).sum(dim=(1, 2))
+            scale = torch.where(
+                sum_l > 0, torch.log2(1.0 + sum_l)
+                / torch.clamp(sum_l, min=_EPS), 1.0)
+            grad_s = grad_s * scale[:, None]
+            hess_s = hess_s * scale[:, None]
+        # back to document order within the query
+        return torch.gather(grad_s, 1, rank_of), \
+            torch.gather(hess_s, 1, rank_of)
+
+    def get_gradients(self, score, label=None, weight=None):
+        """``[N]`` gradients and hessians of ``[N]`` scores in dataset row
+        order."""
+        self._check_args(label, weight)
+        a = self._arrays(score.device)
+        if "positions" in a:
+            if self.pos_biases is None:
+                self.pos_biases = torch.zeros(self.num_position_ids,
+                                              dtype=torch.float32,
+                                              device=score.device)
+            # the ranking sees position-debiased scores (reference:
+            # rank_objective.hpp:70)
+            score = score + self.pos_biases[a["positions"]]
+        idx, mask = a["query_index"], a["query_mask"]
+        s = torch.where(mask, score[idx], -torch.inf)
+        g = torch.where(mask, a["row_gain"][idx], 0.0)
+        q, m = s.shape
+        t = min(self.truncation_level, m)
+        chunk = max(1, self._CHUNK_ELEMS // (t * m))
+        parts = [self._chunk_grads(s[c:c + chunk], g[c:c + chunk],
+                                   mask[c:c + chunk],
+                                   a["inv_max_dcg"][c:c + chunk])
+                 for c in range(0, q, chunk)]
+        grad = self._to_rows(a, torch.cat([p[0] for p in parts]))
+        hess = self._to_rows(a, torch.cat([p[1] for p in parts]))
+        grad, hess = _weighted(grad, hess, a.get("weight"))
+        if "positions" in a:
+            # Newton step on the position biases, fed the weighted lambdas
+            # (reference: UpdatePositionBiasFactors)
+            pid, cnt = a["positions"], a["pos_counts"]
+            d1 = torch.zeros_like(self.pos_biases).index_add_(0, pid, -grad)
+            d2 = torch.zeros_like(self.pos_biases).index_add_(0, pid, -hess)
+            d1 = d1 - self.pos_biases * self.bias_reg * cnt
+            d2 = d2 - self.bias_reg * cnt
+            self.pos_biases = self.pos_biases + \
+                self.bias_lr * d1 / (torch.abs(d2) + 0.001)
+        return grad, hess
+
+
+class RankXENDCG(_Ranking):
+    """The listwise cross-entropy surrogate of NDCG (reference: RankXENDCG,
+    rank_objective.hpp:378): a softmax over each query's scores against a
+    target from the labels perturbed by exponential(1) draws (gamma(1)),
+    new draws every call. The draws come from a ``torch.Generator`` on the
+    scores' device, seeded from ``objective_seed`` and the call count;
+    ``draws`` (``[Q, M]``) passes them in instead (the tests feed the JAX
+    package's, whose threefry stream torch cannot reproduce)."""
+
+    name = "rank_xendcg"
+    is_ranking = True
+    row_elementwise = False
+    is_stochastic = True
+    is_constant_hessian = False
+    renew_leaves = False
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.seed = int(config.get("objective_seed", 5) or 5)
+        self._calls = 0
+        self._gen = None
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        phi = (2.0 ** np.asarray(metadata.label, np.float64)) - 1.0
+        self._host["row_phi"] = phi.astype(np.float32)
+        if self.weight is not None:
+            self._host["weight"] = np.asarray(self.weight, np.float32)
+
+    def _draws(self, shape, device) -> torch.Tensor:
+        if self._gen is None or self._gen.device != device:
+            self._gen = torch.Generator(device=device)
+        # within 32 bits: the CPU generator keeps only the low 32 of a seed
+        self._gen.manual_seed((self.seed * 1_000_003 + self._calls)
+                              & 0xFFFF_FFFF)
+        return torch.empty(shape, dtype=torch.float32,
+                           device=device).exponential_(generator=self._gen)
+
+    def get_gradients(self, score, label=None, weight=None, draws=None):
+        self._check_args(label, weight)
+        a = self._arrays(score.device)
+        idx, mask = a["query_index"], a["query_mask"]
+        s = torch.where(mask, score[idx], -torch.inf)
+        phi = torch.where(mask, a["row_phi"][idx], 0.0)
+        gam = self._draws(phi.shape, score.device) if draws is None \
+            else draws
+        self._calls += 1
+        rho = phi / torch.clamp(gam, min=_EPS)
+        denom = torch.where(mask, rho, 0.0).sum(dim=1, keepdim=True)
+        target = rho / torch.clamp(denom, min=_EPS)
+        p = torch.where(mask, torch.softmax(s, dim=1), 0.0)
+        grad = self._to_rows(a, p - torch.where(mask, target, 0.0))
+        hess = torch.clamp(self._to_rows(a, p * (1.0 - p)), min=_EPS)
+        return _weighted(grad, hess, a.get("weight"))
+
+
 # the objectives the port trains, by canonical name (config.py)
 OBJECTIVES = {
-    "regression": RegressionL2, "huber": RegressionHuber,
-    "fair": RegressionFair, "poisson": RegressionPoisson,
-    "gamma": RegressionGamma, "tweedie": RegressionTweedie,
-    "binary": BinaryLogloss, "multiclass": MulticlassSoftmax,
-    "multiclassova": MulticlassOVA, "xentropy": CrossEntropy,
-    "xentlambda": CrossEntropyLambda,
+    "regression": RegressionL2, "regression_l1": RegressionL1,
+    "huber": RegressionHuber, "fair": RegressionFair,
+    "poisson": RegressionPoisson, "quantile": RegressionQuantile,
+    "mape": RegressionMAPE, "gamma": RegressionGamma,
+    "tweedie": RegressionTweedie, "binary": BinaryLogloss,
+    "multiclass": MulticlassSoftmax, "multiclassova": MulticlassOVA,
+    "xentropy": CrossEntropy, "xentlambda": CrossEntropyLambda,
+    "lambdarank": LambdarankNDCG, "rank_xendcg": RankXENDCG,
 }
 
 
 def create_objective(name: str, config) -> Objective:
     """The objective of a canonical name (``Config`` resolves aliases)."""
     if name not in OBJECTIVES:
-        raise NotImplementedError(
-            f"objective {name!r} is not in the PyTorch port yet (ROADMAP "
-            "A12b)")
+        raise ValueError(f"Unknown objective: {name!r}")
     return OBJECTIVES[name](config)

@@ -762,3 +762,81 @@ def test_quantized_train_on_card_matches_cpu(dev):
         np.testing.assert_array_equal(a.split_feature[:n], b.split_feature[:n])
         np.testing.assert_array_equal(a.split_bin[:n], b.split_bin[:n])
     np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-5)
+
+
+def _rank_data(nq, seed):
+    rng = np.random.RandomState(seed)
+    sizes = rng.randint(20, 120, nq)
+    n = int(sizes.sum())
+    X = rng.randn(n, 8).astype(np.float32)
+    rel = X[:, 0] - 0.5 * X[:, 1] + 0.6 * rng.randn(n)
+    y = np.digitize(rel, np.quantile(rel, [0.5, 0.75, 0.9, 0.97]))
+    return X, y.astype(np.float64), sizes
+
+
+def test_lambdarank_tied_first_iteration_card_matches_cpu(dev):
+    """The first iteration's scores all tie: the card's stable sort keeps
+    document order as the CPU's does, so its lambdarank gradients equal
+    the CPU's; three rounds on the compact grower (external gradients, K1
+    and K2) grow the CPU's trees."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.dataset import Metadata
+    from lightgbm_tpu_torch.objectives import create_objective
+    X, y, sizes = _rank_data(300, seed=5)
+    n = len(y)
+    md = Metadata(n)
+    md.set_label(y)
+    md.set_group(sizes)
+    cfg = Config({"objective": "lambdarank"})
+    obj = create_objective("lambdarank", cfg)
+    obj.init(md, n)
+    gg, hg = obj.get_gradients(torch.zeros(n, device=dev))
+    gc, hc = obj.get_gradients(torch.zeros(n))
+    np.testing.assert_allclose(gg.cpu().numpy(), gc.numpy(), rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_allclose(hg.cpu().numpy(), hc.numpy(), rtol=1e-6,
+                               atol=1e-7)
+    p = {"objective": "lambdarank", "num_leaves": 31, "verbosity": -1,
+         "tpu_grower": "compact", "min_data_in_leaf": 50}
+    _kernels.reset_counts()
+    bg = lgt.train(dict(p, device_type="cuda"),
+                   lgt.Dataset(X, y, group=sizes), 3)
+    launches = dict(_kernels.LAUNCHES)
+    plain = dict(_kernels.PLAIN_CALLS)
+    bc = lgt.train(dict(p, device_type="cpu"),
+                   lgt.Dataset(X, y, group=sizes), 3)
+    assert bg._gbdt.use_compact and bg._gbdt._ext_grads
+    assert launches["fused_split"] > 0 and launches["histogram"] > 0
+    assert sum(plain.values()) == 0
+    np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-4)
+
+
+@pytest.mark.parametrize("grower", ["compact", "masked"])
+def test_renewal_card_matches_cpu(dev, grower):
+    """renew_leaf_quantile on the card equals the CPU's (unit weights and
+    weights on a 1/64 grid); quantile training on each grower grows the
+    CPU's trees with the same renewed leaves."""
+    from lightgbm_tpu_torch.ops.renew import renew_leaf_quantile
+    rng = np.random.RandomState(6)
+    n, L = 200_000, 255
+    res = torch.from_numpy((rng.randint(-500, 500, n) / 16.0).astype(
+        np.float32))
+    leaf = torch.from_numpy(rng.randint(0, L - 5, n).astype(np.int32))
+    for w in (torch.ones(n), torch.from_numpy(
+            (rng.randint(0, 64, n) / 64.0).astype(np.float32))):
+        got = renew_leaf_quantile(res.to(dev), w.to(dev), leaf.to(dev), L,
+                                  0.9)
+        want = renew_leaf_quantile(res, w, leaf, L, 0.9)
+        assert torch.equal(got.cpu(), want)
+    X = rng.randn(30_000, 6).astype(np.float32)
+    y = 2.0 * X[:, 0] - X[:, 1] + rng.standard_t(3, 30_000)
+    p = {"objective": "quantile", "alpha": 0.8, "num_leaves": 31,
+         "verbosity": -1, "tpu_grower": grower}
+    bg = lgt.train(dict(p, device_type="cuda"), lgt.Dataset(X, y), 3)
+    bc = lgt.train(dict(p, device_type="cpu"), lgt.Dataset(X, y), 3)
+    assert bg._gbdt.use_compact == (grower == "compact")
+    for a, b in zip(bg._gbdt.models, bc._gbdt.models):
+        n_ = a.num_nodes
+        np.testing.assert_array_equal(a.split_feature[:n_],
+                                      b.split_feature[:n_])
+    np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-4)

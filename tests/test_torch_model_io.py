@@ -14,8 +14,9 @@ package and stock LightGBM, on the CPU.
   ``LoadedGBDT`` and predicts what the port predicts within 1e-6;
 * save -> load -> predict round-trips within 1e-6 (the loaded model routes
   raw float64 values on the host, the trained one bins on the device);
-* texts outside the port's slices (ranking, quantile, linear trees)
-  raise, naming their ROADMAP item.
+* stock LightGBM's ranking golden and a quantile text load and predict;
+  texts outside the port's slices (linear trees) raise, naming their
+  ROADMAP item.
 """
 import os
 
@@ -221,20 +222,36 @@ def test_port_text_loads_in_jax_and_round_trips(tmp_path):
                                atol=1e-7)
 
 
-@pytest.mark.parametrize("case,item", [("ranking", "A12b"),
-                                       ("quantile", "A12b"),
-                                       ("linear", "A9")])
-def test_texts_outside_the_slice_raise(case, item):
-    """Stock LightGBM's ranking golden, and the binary golden turned into a
-    quantile model and into one with a linear tree."""
+@pytest.mark.parametrize("case", ["ranking", "quantile"])
+def test_ranking_and_quantile_texts_load_and_predict(case):
+    """Stock LightGBM's ranking golden predicts its golden predictions; the
+    binary golden turned into a quantile model predicts its raw scores.
+    Both predict what the JAX package's loader predicts."""
     if case == "ranking":
-        _, _, _, text = _golden("ranking")
+        X, _, pred, text = _golden("ranking")
     else:
-        _, _, _, text = _golden()
-        text = (text.replace("objective=binary sigmoid:1",
-                             "objective=quantile")
-                if case == "quantile"
-                else text.replace("is_linear=0", "is_linear=1", 1))
+        X, _, _, text = _golden()
+        pred = lgb.Booster(model_str=text).predict(X, raw_score=True)
+        text = text.replace("objective=binary sigmoid:1",
+                            "objective=quantile alpha:0.7")
+    bst = lgt.Booster(model_str=text)
+    assert bst._gbdt.objective.name == ("lambdarank" if case == "ranking"
+                                        else "quantile")
+    assert bst.num_trees() == 12
+    got = np.asarray(bst.predict(X), np.float64)
+    np.testing.assert_allclose(got, pred, rtol=1e-5, atol=2e-6)
+    np.testing.assert_allclose(bst.predict(X),
+                               lgb.Booster(model_str=text).predict(X),
+                               atol=1e-7)
+    if case == "quantile":
+        assert bst._gbdt.objective.alpha == 0.7
+
+
+@pytest.mark.parametrize("case,item", [("linear", "A9")])
+def test_texts_outside_the_slice_raise(case, item):
+    """The binary golden turned into a model with a linear tree."""
+    _, _, _, text = _golden()
+    text = text.replace("is_linear=0", "is_linear=1", 1)
     with pytest.raises(NotImplementedError, match=item):
         lgt.Booster(model_str=text)
 
