@@ -43,7 +43,7 @@ non-zero):
    (make_higgs_like, 10.5M x 28 with a 10% validation split, 255 leaves,
    255 bins) for one warm-up round and R timed rounds, with the launch
    counts of its kernels K1 and K2 (> 0), the plain versions' call counts
-   (0), the host syncs inside one tree (0), and a torch.profiler trace of
+   (0), the host syncs in each later tree (0), and a torch.profiler trace of
    one more tree (device time, idle share, launches, and K1's and K2's
    device ms in that tree beside their byte bounds from its node counts);
 6. quantized-gradient training on the same constructed datasets
@@ -64,7 +64,7 @@ non-zero):
    rows binned at max_bin=63 with tpu_grower=masked and the sublane layout
    (K3 only), 63 leaves, 1 warm-up and 2 timed rounds: iterations/s, AUC
    (> 0.7), K3's launches (> 0) and K1's and K2's (0), plain calls (0),
-   host syncs inside one tree (0), and a profiled tree with K3's device ms
+   host syncs in each later tree (0), and a profiled tree with K3's device ms
    beside its byte bound for that tree;
 8. the card against the CPU on the compact path: the same training at
    100k x 28, 31 leaves, 3 rounds, with device_type="cuda" and "cpu";
@@ -74,17 +74,17 @@ non-zero):
    learning rate 0.1, min_data_in_leaf 20) with 2k more rows for
    validation, tpu_hist_layout="sublane", 20 rounds: iterations/s, AUC
    (> 0.7), K3's launches (> 0) and K1's and K2's (0), the plain versions'
-   calls (0), the host syncs inside one tree (0), a one-tree profile; then
+   calls (0), the host syncs in each later tree (0), a one-tree profile; then
    the same training on the CPU and on the card with the lane layout (K1),
    predictions within 1e-4, and save_model -> Booster(model_file=...) ->
    predict within 1e-6, and a profiled tree with K3's device ms beside its
    byte bound;
 10. the masked grower with multiclass and categorical splits: the same 20k
    rows with the multiclass label and categorical columns, max_bin=63, 63
-   leaves, sublane, 20 rounds: iterations/s, K3's launches (> 0) and K1's
-   and K2's (0), host syncs inside one tree (0); save_model ->
+   leaves, sublane, 4 rounds: iterations/s, K3's launches (> 0) and K1's
+   and K2's (0), host syncs in each later tree (0); save_model ->
    Booster(model_file=...) -> predict (1e-6); the card against the CPU,
-   reported at 20 rounds beside a CPU control that nudges the row weights
+   reported at 4 rounds beside a CPU control that nudges the row weights
    by 1e-6, and held within 1e-4 at 3 rounds on weighted rows, where the
    control agrees; one objective=regression run with the categorical
    columns on the card against the CPU (1e-4);
@@ -95,7 +95,7 @@ non-zero):
    objective=multiclass, 255 leaves, 255 bins, 1 warm-up and 2 timed
    rounds (5 trees a round): iterations/s and trees/s, validation
    multi_logloss (below ln 5) and multi_error, K1's and K2's launches (> 0),
-   K3's (0), plain calls (0), host syncs inside one tree (0), one-hot and
+   K3's (0), plain calls (0), host syncs in each later tree (0), one-hot and
    sorted categorical splits (each > 0), the record's width; K2 on a
    sorted categorical split of the grown trees (its 8-word bitset) over the
    whole wider record array against its plain version, timed; a profiled
@@ -110,7 +110,7 @@ non-zero):
    enable_bundle), 1 warm-up and 2 timed rounds (EFB line: construct s and
    its planning part, bundled features and stored columns, record bytes,
    iterations/s, AUC above chance, K1's and K2's launches (> 0), K3's (0),
-   plain calls (0), host syncs inside one tree (0), and a profiled tree
+   plain calls (0), host syncs in each later tree (0), and a profiled tree
    with K1's and K2's device ms beside their byte bounds); then
    (EFB_CHECKS) K2's copy-back variant against its plain version and
    against its dual variant on the bundled records at the first tree's
@@ -149,7 +149,35 @@ non-zero):
    reloaded model (1e-6); the card against the CPU for lambdarank on the
    compact grower (100k rows, 833 queries), rank_xendcg (the same draws on
    both) and lambdarank with positions on the masked grower (20k rows), 31
-   leaves, 3 rounds (1e-4, differing splits counted).
+   leaves, 3 rounds (1e-4, differing splits counted);
+15. the tuned training loop (TUNED, run right after RENEW on MAIN's
+   datasets with their binary labels): the compact path's parameters with
+   LightGBM's examples/binary_classification/train.conf sampling
+   (feature_fraction 0.8, bagging_fraction 0.8, bagging_freq 5),
+   feature_fraction_bynode 0.8, early_stopping_round 50 and a
+   reset_parameter learning-rate schedule, 1 warm-up and 5 timed rounds
+   (reused bags, then a fresh draw) and a profiled tree: iterations/s, AUC
+   (> 0.7), the compact grower, K1's and K2's launches (> 0), K3's (0),
+   plain calls (0), host syncs in the tree step (the gradients and bag,
+   the by-node draws and the grower: 0), the bag draw's and the by-node
+   draws' ms, the in-bag share, K1's and K2's device ms a tree beside their byte bounds
+   (raw rows); then TUNED_CHECKS: K2 (mode 1 and a reused-bag tree's root
+   split) and K1 at the root on the run's bagged records against their
+   plain versions (records byte-equal, in-bag and raw counts exact, in-bag
+   below raw; grad and hess bit-equal on dyadic records and, for K1, within
+   f32's summation error on the run's own gradients), timed beside
+   argsort + index_select and index_add_; GOSS's
+   selection at the run's row count on the card against the CPU, row for
+   row, timed; the card against the CPU with the same draws for uniform,
+   balanced (lane and, K3 on a bagged mask, sublane) and by-query bagging,
+   GOSS, feature_fraction with
+   feature_fraction_bynode on both growers and bagged quantized renewal
+   (100k x 28 compact, 20k x 28 masked, 31 leaves; 1e-4, differing splits
+   counted); early stopping at the same best iteration on both; a custom
+   objective (hand-written logloss) against the built-in binary without
+   boost-from-average (1e-4); init_model, card against CPU (1e-4), its
+   5-tree text reloaded (1e-6); a rollback's validation scores against
+   the 2-round model (1e-5).
 
 Each profiled tree must hold as many launches of each kernel as its wrapper
 counted in that round; a short trace is repeated. The line before the last
@@ -164,6 +192,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -289,33 +318,49 @@ def close_rel(kern, plain, abs_hist, what, rel):
     return float((kern - plain).abs().max())
 
 
-@contextlib.contextmanager
-def syncs_in_second_tree(module, name, out):
-    """Count the host syncs inside the second call of the grower
-    ``module.name`` (torch's sync debug mode), into ``out["in_tree"]``."""
-    grow = getattr(module, name)
-    calls = [0]
+# a compact tree step: the iteration's gradients, bag and quantized codes,
+# then the tree
+COMPACT_STEP = ["_begin_compact_iter", "_grow_compact"]
 
-    def counted(*a, **kw):
-        calls[0] += 1
-        if calls[0] != 2:
-            return grow(*a, **kw)
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                res = grow(*a, **kw)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        out["in_tree"] = sum("called a synchronizing" in str(w.message)
-                             for w in caught)
-        return res
-    setattr(module, name, counted)
+
+@contextlib.contextmanager
+def count_syncs(owner, names, out):
+    """Count the host syncs (torch's sync debug mode) inside every call of
+    the functions ``names`` of ``owner`` after each one's first call: per
+    name into ``out[name]``, all together into ``out["in_tree"]``, and the
+    calls made into ``out["calls"]``."""
+    orig = {name: getattr(owner, name) for name in names}
+    calls = {name: 0 for name in names}
+
+    def counted(name):
+        fn = orig[name]
+
+        def run(*a, **kw):
+            calls[name] += 1
+            if calls[name] == 1:
+                return fn(*a, **kw)
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    res = fn(*a, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            n = sum("called a synchronizing" in str(w.message)
+                    for w in caught)
+            out[name] = out.get(name, 0) + n
+            out["in_tree"] = out.get("in_tree", 0) + n
+            return res
+        return run
+    for name in names:
+        setattr(owner, name, counted(name))
     try:
         yield
     finally:
-        setattr(module, name, grow)
+        for name in names:
+            setattr(owner, name, orig[name])
+    out["calls"] = calls
 
 
 def compare_boosters(a, b, X):
@@ -885,7 +930,7 @@ def phase_main_path(lgt, rows, rounds, results):
     timer.order = 5
 
     _kernels.reset_counts()
-    with syncs_in_second_tree(gbdt_mod, "grow_tree_compact", syncs):
+    with count_syncs(gbdt_mod, ["grow_tree_compact"], syncs):
         t1 = time.perf_counter()
         ds = lgt.Dataset(Xt, yt)
         dv = ds.create_valid(Xv, yv)
@@ -961,9 +1006,9 @@ def phase_quant(lgt, results):
 
     evals = {}
     _kernels.reset_counts()
-    # the host syncs of the whole tree step: the discretizer runs in
-    # _grow_compact, before the grower
-    with syncs_in_second_tree(gbdt_mod.GBDT, "_grow_compact", syncs):
+    # the host syncs of the whole tree step: the iteration's gradients and
+    # the discretizer (_begin_compact_iter), then the tree
+    with count_syncs(gbdt_mod.GBDT, COMPACT_STEP, syncs):
         t_start = time.perf_counter()
         bst = lgt.train(params, ds, 1 + rounds, valid_sets=[dv],
                         callbacks=[timer, lgt.record_evaluation(evals)])
@@ -1240,7 +1285,7 @@ def phase_masked_large(lgt, rows, results):
     construct_s = time.perf_counter() - t1
     evals = {}
     _kernels.reset_counts()
-    with syncs_in_second_tree(gbdt_mod, "grow_tree", syncs):
+    with count_syncs(gbdt_mod, ["grow_tree"], syncs):
         bst = lgt.train(params, ds, 1 + rounds, valid_sets=[dv],
                         callbacks=[timer, lgt.record_evaluation(evals)])
     launches = dict(_kernels.LAUNCHES)
@@ -1295,7 +1340,7 @@ def phase_masked(lgt, results):
 
     evals = {}
     _kernels.reset_counts()
-    with syncs_in_second_tree(gbdt_mod, "grow_tree", syncs):
+    with count_syncs(gbdt_mod, ["grow_tree"], syncs):
         t_start = time.perf_counter()
         ds = lgt.Dataset(Xt, yt)
         bst = lgt.train(dict(params, device_type="cuda"), ds, rounds,
@@ -1476,7 +1521,7 @@ def phase_multiclass(lgt, rows, results):
     construct_s = time.perf_counter() - t1
     evals = {}
     _kernels.reset_counts()
-    with syncs_in_second_tree(gbdt_mod, "grow_tree_compact", syncs):
+    with count_syncs(gbdt_mod, ["grow_tree_compact"], syncs):
         bst = lgt.train(dict(MC_PARAMS, device_type="cuda"), ds, 1 + rounds,
                         valid_sets=[dv],
                         callbacks=[timer, lgt.record_evaluation(evals)])
@@ -1561,12 +1606,18 @@ def multiclass_cpu_vs_card(lgt):
     return out
 
 
+# the multiclass masked path's rounds: cut from 20 (173-192 s of the
+# smoke on the H100) to keep the whole smoke within its time limit
+MC_MASKED_ROUNDS = 4
+
+
 def phase_multiclass_masked(lgt, results):
     """The masked grower with multiclass and categorical splits: the
     serving bench's 20k x 28 rows (bench.py:769-776) with the multiclass
     case's label and categorical columns, max_bin=63, 63 leaves, the
-    sublane layout (K3), 20 rounds; the saved and reloaded model; the
-    card against the CPU, reported at 20 rounds beside a CPU control (the
+    sublane layout (K3), MC_MASKED_ROUNDS rounds; the saved and reloaded
+    model; the card against the CPU, reported at those rounds beside a CPU
+    control (the
     CPU against itself with the rows weighted 1 + 1e-6 x noise) and checked
     at 3 rounds on weighted rows (tie_free_weights), where the same control
     agrees; and one
@@ -1574,7 +1625,7 @@ def phase_multiclass_masked(lgt, results):
     against the CPU."""
     from lightgbm_tpu_torch import _kernels
     from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
-    rounds = 20
+    rounds = MC_MASKED_ROUNDS
     X, _, logits = make_higgs_like(22_000, 28, with_logits=True)
     X, y = make_higgs_multiclass_like(X, logits)
     Xt, yt, Xv, yv = X[:20_000], y[:20_000], X[20_000:], y[20_000:]
@@ -1593,7 +1644,7 @@ def phase_multiclass_masked(lgt, results):
 
     evals = {}
     _kernels.reset_counts()
-    with syncs_in_second_tree(gbdt_mod, "grow_tree", syncs):
+    with count_syncs(gbdt_mod, ["grow_tree"], syncs):
         ds = dataset(Xt, yt)
         bst = lgt.train(dict(params, device_type="cuda"), ds, rounds,
                         valid_sets=[ds.create_valid(Xv, yv)],
@@ -1631,7 +1682,7 @@ def phase_multiclass_masked(lgt, results):
     def train(dev, w, n_rounds):
         return lgt.train(dict(params, device_type=dev), dataset(Xt, yt, w),
                          n_rounds)
-    # reported, not checked, at the run's 20 rounds: the card against the
+    # reported, not checked, at the run's rounds: the card against the
     # CPU, and the CPU against itself on rows weighted 1 + 1e-6 x noise. A
     # model this deep is bistable (exact ties of the sorted scan, then near
     # ties), so where the CPU control parts, the card may part as well
@@ -1664,7 +1715,7 @@ def phase_multiclass_masked(lgt, results):
     reg_cpu = lgt.train(dict(reg, device_type="cpu"),
                         dataset(Xt, logits[:20_000]), 10)
     reg_diff, _ = compare_boosters(reg_card, reg_cpu, X)
-    cmp = {"rounds_20": {"card_vs_cpu": deep_card,
+    cmp = {f"rounds_{rounds}": {"card_vs_cpu": deep_card,
                          "cpu_vs_nudged_cpu": deep_control},
            "rounds_3_weighted": {"card_vs_cpu": [cpu_diff, cpu_differ],
                                  "cpu_vs_nudged_cpu": control},
@@ -2162,7 +2213,7 @@ def phase_efb(lgt, results):
     _kernels.reset_counts()
     dataset_mod._plan_efb = timed_plan
     try:
-        with syncs_in_second_tree(gbdt_mod, "grow_tree_compact", syncs):
+        with count_syncs(gbdt_mod, ["grow_tree_compact"], syncs):
             t1 = time.perf_counter()
             ds = lgt.Dataset(X[:-n_val], y[:-n_val], params=params)
             dv = ds.create_valid(Xv, yv)
@@ -2499,8 +2550,9 @@ def phase_rank(lgt, results):
     timer.order = 5
 
     _kernels.reset_counts()
-    # the host syncs of the whole tree step, the gradients included
-    with syncs_in_second_tree(gbdt_mod.GBDT, "_grow_compact", syncs):
+    # the host syncs of the whole tree step: the lambdarank gradients
+    # (_begin_compact_iter), then the tree
+    with count_syncs(gbdt_mod.GBDT, COMPACT_STEP, syncs):
         t1 = time.perf_counter()
         ds = lgt.Dataset(Xt, yt, group=gt)
         dv = ds.create_valid(Xv, yv, group=gv)
@@ -2628,7 +2680,7 @@ def phase_renew(lgt, results):
     RENEW_CHECKS (renew_cpu_vs_card)."""
     from lightgbm_tpu_torch import _kernels
     from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
-    ds, dv = results.pop("main_datasets")
+    ds, dv = results["main_datasets"]
     _, _, logits, n_val = results["higgs"]
     ds._inner.metadata.set_label(logits[:-n_val])
     dv._inner.metadata.set_label(logits[-n_val:])
@@ -2655,7 +2707,8 @@ def phase_renew(lgt, results):
     _kernels.reset_counts()
     gbdt_mod.renew_leaf_quantile = recorded_renew
     try:
-        with syncs_in_second_tree(gbdt_mod.GBDT, "_grow_compact", syncs):
+        # the iteration's gradients, then the tree
+        with count_syncs(gbdt_mod.GBDT, COMPACT_STEP, syncs):
             t_start = time.perf_counter()
             bst = lgt.train(params, ds, 1 + rounds, valid_sets=[dv],
                             callbacks=[timer, lgt.record_evaluation(evals)])
@@ -2702,11 +2755,521 @@ def phase_renew(lgt, results):
                             if k != "histogram_sublane"}}
     print("RENEW", json.dumps(out), flush=True)
     out["profile"] = prof
-    del bst, ds, dv, gbdt
+    del bst, gbdt
     checks = {"cpu_vs_card": renew_cpu_vs_card(lgt)}
     print("RENEW_CHECKS", json.dumps(checks), flush=True)
     out["checks"] = checks
     results["renew"] = out
+
+
+TUNED_ROUNDS = 5               # timed rounds after one warm-up round
+TUNED_PARAMS = {"objective": "binary", "metric": "auc", "num_leaves": 255,
+                "max_bin": 255, "learning_rate": 0.1,
+                "min_data_in_leaf": 100, "verbosity": -1,
+                # LightGBM's examples/binary_classification/train.conf
+                "feature_fraction": 0.8, "bagging_fraction": 0.8,
+                "bagging_freq": 5,
+                "feature_fraction_bynode": 0.8, "early_stopping_round": 50}
+
+
+@contextlib.contextmanager
+def seamed_draws():
+    """Every GBDT made inside takes its row and by-node draws from numpy
+    (the seams of boosting/sample_strategy.py and GBDT.bynode_draws), so
+    that the card and the CPU sample the same rows and features."""
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    init = gbdt_mod.GBDT.__init__
+
+    def rows(seed, size):
+        return torch.from_numpy(np.random.RandomState(seed).rand(size)
+                                .astype(np.float32))
+
+    def nodes(t, n_rows, feats):
+        return torch.from_numpy(np.random.RandomState(10_000 + t).rand(
+            n_rows, feats).astype(np.float32))
+
+    def patched(self, *a, **kw):
+        init(self, *a, **kw)
+        self.sample_strategy.draws = rows
+        self.bynode_draws = nodes
+    gbdt_mod.GBDT.__init__ = patched
+    try:
+        yield
+    finally:
+        gbdt_mod.GBDT.__init__ = init
+
+
+def raw_count_tree(gbdt, host):
+    """A view of a compact host tree whose leaf and internal counts are its
+    raw rows (the training records routed through it), not its in-bag
+    rows: the rows K1 and K2 move. Its byte bounds count what the kernels
+    must move under bagging."""
+    import copy as copy_mod
+    leaf = gbdt._routed_leaves(gbdt.host_tree_arrays(host),
+                               gbdt._routing_binned(), host.max_depth)
+    leaf_n = np.bincount(leaf.cpu().numpy(), minlength=host.num_leaves
+                         ).astype(np.float64)
+    internal = np.zeros(max(host.num_nodes, 1), np.float64)
+
+    def rows(child):
+        if child < 0:
+            return leaf_n[-child - 1]
+        internal[child] = rows(int(host.left_child[child])) \
+            + rows(int(host.right_child[child]))
+        return internal[child]
+    if host.num_nodes:
+        rows(0)
+    out = copy_mod.copy(host)
+    out.leaf_count, out.internal_count = leaf_n, internal
+    return out
+
+
+def dyadic_records(work, layout):
+    """A copy of a record array with its grad and hess columns rounded to
+    multiples of 1/64: every partial sum of a bin is then exact in f32
+    (the in-bag column, and so the bag, unchanged)."""
+    out = work.clone()
+    o = layout.grad_off
+    gh = out[:, o:o + 8].contiguous().view(torch.float32)
+    out[:, o:o + 8] = (torch.round(gh * 64.0) / 64.0).view(torch.uint8)
+    return out
+
+
+def check_tuned_kernels(bst):
+    """K2 (mode 1, and the last tree's root split: a reused-bag tree) and
+    K1 at the root on the TUNED run's bagged records against their plain
+    versions: records byte-equal, the in-bag and raw count channels
+    exactly equal with in-bag below raw, and grad and hess bit-equal
+    (hist_close at rel 0) on the records with their gradients rounded to
+    multiples of 1/64 (dyadic_records: a 9.45M-row root sums tens of
+    thousands of rows a bin, where two f32 summation orders part by more
+    than 1e-5 relative); K1 at the root on the run's own gradients within
+    a tolerance derived from f32 summation, its largest relative error
+    reported beside it. Each kernel timed beside its plain version and
+    library call."""
+    from lightgbm_tpu_torch.ops.compact import record_channels
+    from lightgbm_tpu_torch.ops.fused_split import (fused_split,
+                                                    fused_split_plain)
+    from lightgbm_tpu_torch.ops.pallas_histogram import (
+        record_histogram, record_histogram_plain)
+    from lightgbm_tpu_torch.ops.split import go_left_pred
+    gbdt = bst._gbdt
+    layout = gbdt.layout
+    B = gbdt.grower_params.num_bins
+    F = layout.num_features
+    dev = gbdt.device
+    n = gbdt.num_data
+    run_work = gbdt.work
+    work = dyadic_records(run_work, layout)
+    scratch = torch.zeros_like(work)
+    bag = gbdt._bag_col()
+    in_bag = int((bag != 0).sum())
+    check(0 < in_bag < n and set(torch.unique(bag).tolist()) == {0.0, 1.0},
+          "the TUNED records hold no 0/1 bag")
+    tree = gbdt.models[-1]
+    absw = abs_grad(work, layout)
+    seg_args = (1, 0, n, 0, 0, 0, 0, 0, 0, None, layout, B)
+    line = {"rows": n, "in_bag_rows": in_bag}
+    _, _, hk = fused_split(work, scratch, *seg_args)
+    _, _, hp = fused_split_plain(work, scratch, *seg_args)
+    _, _, habs = fused_split_plain(absw, scratch, *seg_args)
+    worst = hist_close(hk, hp, habs, "K2 mode 1 on the bagged records",
+                       rel=0)
+    check(int(hk[0, :, 2].sum()) == in_bag and int(hk[0, :, 3].sum()) == n,
+          "K2 mode 1: the in-bag or raw count channel is off")
+    check(bool((hk[..., 2] <= hk[..., 3]).all())
+          and bool((hk[..., 2] < hk[..., 3]).any()),
+          "K2 mode 1: the in-bag counts are not below the raw counts")
+    f, b = int(tree.split_feature[0]), int(tree.split_bin[0])
+    dl, nan = int(tree.default_left[0]), int(gbdt.nan_bin_arr[f])
+    gl = go_left_pred(work[:, f], b, bool(dl), nan, False,
+                      torch.zeros(8, dtype=torch.int32, device=dev))
+    n_left = int(gl.sum())
+    root_args = (0, 0, n, n_left, f, b, dl, nan, 0, None, layout, B)
+    before = (work.clone(), scratch.clone())
+    wk, sk = before[0].clone(), before[1].clone()
+    _, _, hk = fused_split(wk, sk, *root_args)
+    wp, spl = before[0].clone(), before[1].clone()
+    _, _, hp = fused_split_plain(wp, spl, *root_args)
+    torch.cuda.synchronize()
+    check_split((wk, sk), (wp, spl), before, 0, n, n_left, 0, layout,
+                "K2 at the reused-bag tree's root split")
+    # the smaller child's |grad| histogram, for the tolerance
+    _, _, habs = fused_split_plain(abs_grad(before[0], layout),
+                                   before[1].clone(), *root_args)
+    worst = max(worst, hist_close(hk, hp, habs, "K2 at the root split",
+                                  rel=0))
+    check(bool((hk[..., 2] < hk[..., 3]).any()), "K2 at the root split: "
+          "the smaller child's in-bag counts equal its raw counts")
+    line["root_split"] = {"feature": f, "n_left": n_left,
+                          "smaller_in_bag": int(hk[0, :, 2].sum()),
+                          "smaller_rows": int(hk[0, :, 3].sum())}
+    del wk, sk, wp, spl, before, habs
+    n_small = min(n_left, n - n_left)
+    calls = [0]
+
+    def alternating():
+        fused_split(work, scratch, *root_args, side=calls[0] % 2)
+        calls[0] += 1
+
+    def library():
+        perm = torch.argsort(gl.to(torch.uint8), stable=True)
+        torch.index_select(work, 0, perm, out=scratch)
+    row_bytes = record_row_bytes(layout)
+    line["k2"] = {
+        "ms": time_ms(alternating),
+        "plain_ms": time_ms(lambda: fused_split_plain(
+            work, scratch, *root_args), 3, 1),
+        "library_ms": time_ms(library, 4, 2),
+        "bound_ms": 1e3 * (2 * n * layout.num_real_cols
+                           + n_small * row_bytes) / HBM_BYTES_PER_S}
+    # K1 alone at the root of what the timing calls left: all the records
+    seg = torch.tensor([0, n, 0], dtype=torch.int32, device=dev)
+    hk = record_histogram(work, scratch, seg, layout, B)
+    hp = record_histogram_plain(work, scratch, seg, layout, B)
+    habs = record_histogram_plain(abs_grad(work, layout), scratch, seg,
+                                  layout, B)
+    worst = max(worst, hist_close(hk, hp, habs, "K1 at the bagged root",
+                                  rel=0))
+    check(int(hk[0, :, 2].sum()) == in_bag and int(hk[0, :, 3].sum()) == n,
+          "K1: the in-bag or raw count channel is off")
+    # the run's own gradients: counts exact, the sums within f32's
+    # summation error. Summing m addends in f32 rounds each partial sum, at
+    # most u = 2^-24 of sum|addends|; as a random walk that is sqrt(m) u,
+    # and two orders part by sqrt(2m) u. Five of those bound the largest of
+    # the F x B x 2 cells, m the fullest bin's row count
+    rk = record_histogram(run_work, scratch, seg, layout, B)
+    rp = record_histogram_plain(run_work, scratch, seg, layout, B)
+    rabs = record_histogram_plain(abs_grad(run_work, layout), scratch, seg,
+                                  layout, B)
+    run_rel = 5 * math.sqrt(2 * float(rp[..., 3].max())) * 2.0 ** -24
+    hist_close(rk, rp, rabs, "K1 on the run's bagged records", rel=run_rel)
+    line["run_gradients_max_rel_err"] = float(
+        ((rk - rp)[..., :2].abs() / (rabs[..., :2] + 1e-30)).max())
+    line["run_gradients_rel_tolerance"] = run_rel
+    del rk, rp, rabs
+    flat = (work[:, :F].to(torch.int64)
+            + torch.arange(F, device=dev) * B).reshape(-1)
+    src = record_channels(work, layout)[:, None, :].expand(
+        n, F, 4).reshape(-1, 4)
+    lib_out = torch.zeros(F * B, 4, dtype=torch.float32, device=dev)
+
+    def lib():
+        lib_out.zero_()
+        lib_out.index_add_(0, flat, src)
+    line["k1"] = {
+        "ms": time_ms(lambda: record_histogram(work, scratch, seg, layout,
+                                               B)),
+        "plain_ms": time_ms(lambda: record_histogram_plain(
+            work, scratch, seg, layout, B), 3, 1),
+        "library_ms": time_ms(lib, 3, 1),
+        "bound_ms": 1e3 * (n * row_bytes + F * B * 16) / HBM_BYTES_PER_S}
+    line["max_abs_err"] = worst
+    del work, run_work, scratch, flat, src, lib_out, hk, hp, habs, absw
+    return line
+
+
+def check_goss_selection(bst):
+    """GOSS's selection on the card at the TUNED run's row count, on its
+    gradients (the records' order): timed, and equal row for row to the
+    plain selection (the same function on the CPU) on the same magnitudes
+    and draws."""
+    from lightgbm_tpu_torch.boosting.sample_strategy import GOSSStrategy
+    from lightgbm_tpu_torch.config import Config
+    gbdt = bst._gbdt
+    n = gbdt.num_data
+    g, h = gbdt._gradients(gbdt.train_score, gbdt._col(gbdt._cx_label),
+                           None)
+    cfg = Config({"data_sample_strategy": "goss", "learning_rate": 0.1})
+    u = torch.from_numpy(np.random.RandomState(5).rand(n)
+                         .astype(np.float32))
+    draws = {"cuda": u.to(g.device), "cpu": u}
+    masks = {}
+    for dev, gg, hh in (("cuda", g, h), ("cpu", g.cpu(), h.cpu())):
+        strat = GOSSStrategy(cfg, n, None, torch.device(dev))
+        strat.draws = lambda seed, size, u_=draws[dev]: u_
+        masks[dev] = (strat.bag_mask(10, gg, hh), strat.amplify)
+        if dev == "cuda":
+            syncs = {}
+            with count_syncs(GOSSStrategy, ["bag_mask"], syncs):
+                for _ in range(2):
+                    strat.bag_mask(10, gg, hh)
+            dev_ms, launches = device_profile(
+                lambda: strat.bag_mask(10, gg, hh))
+            ms = time_ms(lambda: strat.bag_mask(10, gg, hh), 5, 1)
+    (mc, ac), (mp, ap) = masks["cuda"], masks["cpu"]
+    check(torch.equal(mc.cpu(), mp) and torch.equal(ac.cpu(), ap),
+          "GOSS on the card selects other rows than on the CPU")
+    kept = float(mp.mean())
+    check(0.2 < kept < 0.35, f"GOSS kept {kept} of the rows")
+    check(syncs.get("bag_mask") == 0, "host syncs in GOSS's selection")
+    return {"rows": n, "kept_share": kept, "ms": ms, "device_ms": dev_ms,
+            "launches": launches, "host_syncs": syncs.get("bag_mask")}
+
+
+def tuned_cpu_vs_card(lgt):
+    """The card against the CPU with the same draws (seamed_draws): 100k x
+    28 on the compact grower, 20k x 28 on the masked one, 31 leaves;
+    predictions within 1e-4, differing splits counted. The sublane case
+    runs K3 on a bagged mask channel."""
+    from lightgbm_tpu_torch import _kernels
+    out = {}
+    X, y = make_higgs_like(100_000, 28, seed=21)
+    Xm, ym = X[:20_000], y[:20_000]
+    base = {"objective": "binary", "num_leaves": 31, "verbosity": -1}
+    cases = [
+        ("bagging_compact", X, y, 5, {"bagging_fraction": 0.7,
+                                      "bagging_freq": 2}, None),
+        ("balanced_masked", Xm, ym, 3, {"bagging_fraction": 0.8,
+                                        "bagging_freq": 1,
+                                        "pos_bagging_fraction": 0.5,
+                                        "neg_bagging_fraction": 0.9}, None),
+        # K3 on a bagged mask channel
+        ("balanced_sublane_masked", Xm, ym, 3, {
+            "bagging_fraction": 0.8, "bagging_freq": 1,
+            "pos_bagging_fraction": 0.5, "neg_bagging_fraction": 0.9,
+            "max_bin": 63, "tpu_hist_layout": "sublane"}, None),
+        ("by_query_masked", Xm, ym, 3, {"bagging_fraction": 0.6,
+                                        "bagging_freq": 1,
+                                        "bagging_by_query": True},
+         np.full(200, 100)),
+        ("goss_compact", X, y, 6, {"data_sample_strategy": "goss",
+                                   "learning_rate": 0.3}, None),
+        ("feature_fraction_compact", X, y, 3, {
+            "feature_fraction": 0.7, "feature_fraction_bynode": 0.6,
+            "tpu_grower": "compact"}, None),
+        ("feature_fraction_masked", Xm, ym, 3, {
+            "feature_fraction": 0.7, "feature_fraction_bynode": 0.6,
+            "tpu_grower": "masked"}, None),
+        ("bagging_quant_renew_compact", X, y, 3, {
+            "bagging_fraction": 0.7, "bagging_freq": 1,
+            "use_quantized_grad": True, "stochastic_rounding": False,
+            "quant_train_renew_leaf": True}, None)]
+    with seamed_draws():
+        for name, Xc, yc, rounds, extra, group in cases:
+            _kernels.reset_counts()
+            boosters = {"cuda": lgt.train(dict(base, device_type="cuda",
+                                               **extra),
+                                          lgt.Dataset(Xc, yc, group=group),
+                                          rounds)}
+            launches = dict(_kernels.LAUNCHES)
+            check(sum(_kernels.PLAIN_CALLS.values()) == 0,
+                  f"{name}: a plain version ran on the card")
+            if "sublane" in name:
+                check(launches["histogram_sublane"] > 0
+                      and launches["histogram"] == 0,
+                      f"{name}: not on K3 alone: {launches}")
+            boosters["cpu"] = lgt.train(dict(base, device_type="cpu",
+                                             **extra),
+                                        lgt.Dataset(Xc, yc, group=group),
+                                        rounds)
+            want_compact = "masked" not in name
+            check(boosters["cuda"]._gbdt.use_compact == want_compact,
+                  f"{name}: wrong grower")
+            diff, differ = compare_boosters(boosters["cuda"],
+                                            boosters["cpu"], Xc)
+            check(diff <= 1e-4, f"{name}: card vs CPU predictions differ "
+                  f"by {diff}")
+            out[name] = {"rows": len(Xc), "rounds": rounds,
+                         "max_abs_pred_diff": diff,
+                         "differing_splits": differ,
+                         "launches": {k: v for k, v in launches.items()
+                                      if v}}
+    return out
+
+
+def tuned_api_checks(lgt):
+    """Early stopping, a custom objective, continued training and a
+    rollback on the card (100k x 28 rows, 20k more for validation, 31
+    leaves), each against the CPU or its definition."""
+    out = {}
+    X, y = make_higgs_like(120_000, 28, seed=23)
+    Xt, yt, Xv, yv = X[:100_000], y[:100_000], X[100_000:], y[100_000:]
+    base = {"objective": "binary", "num_leaves": 31, "verbosity": -1}
+
+    def data(free=True):
+        ds = lgt.Dataset(Xt, yt, free_raw_data=free)
+        dv = ds.create_valid(Xv, yv)
+        dv.free_raw_data = free
+        return ds, dv
+    # a run built to stop: a large learning rate and small leaves overfit
+    # 20k rows in a few rounds
+    stop = {}
+    for dev in ("cuda", "cpu"):
+        ds = lgt.Dataset(Xt[:20_000], yt[:20_000])
+        stop[dev] = lgt.train(dict(base, device_type=dev, learning_rate=0.9,
+                                   num_leaves=63, min_data_in_leaf=5,
+                                   tpu_grower="compact",
+                                   metric="binary_logloss",
+                                   early_stopping_round=3),
+                              ds, 40, valid_sets=[ds.create_valid(Xv, yv)])
+    best = {dev: b.best_iteration for dev, b in stop.items()}
+    check(0 < best["cuda"] == best["cpu"] < 40, f"early stopping: {best}")
+    out["early_stopping"] = {"best_iteration": best,
+                             "best_score": stop["cuda"].best_score[
+                                 "valid_0"]["binary_logloss"]}
+
+    def logloss(preds, data):
+        p = 1.0 / (1.0 + np.exp(-preds))
+        return p - data.get_label(), p * (1.0 - p)
+    fb = lgt.Booster(dict(base, device_type="cuda"), lgt.Dataset(Xt, yt))
+    for _ in range(3):
+        fb.update(fobj=logloss)
+    ref = lgt.train(dict(base, device_type="cuda", tpu_grower="masked",
+                         boost_from_average=False), lgt.Dataset(Xt, yt), 3)
+    fobj_diff = float(np.abs(fb.predict(Xv) - ref.predict(Xv)).max())
+    check(not fb._gbdt.use_compact, "fobj did not move the run to the "
+          "masked grower")
+    check(fobj_diff <= 1e-4, f"fobj vs built-in binary: {fobj_diff}")
+    out["fobj"] = {"grower": "masked", "max_abs_pred_diff": fobj_diff}
+
+    cont = {}
+    for dev in ("cuda", "cpu"):
+        ds, dv = data(free=False)
+        first = lgt.train(dict(base, device_type=dev), ds, 3)
+        ds2, dv2 = data(free=False)
+        cont[dev] = lgt.train(dict(base, device_type=dev), ds2, 2,
+                              init_model=first, valid_sets=[dv2])
+    cdiff = float(np.abs(cont["cuda"].predict(Xv)
+                         - cont["cpu"].predict(Xv)).max())
+    text = cont["cuda"].model_to_string()
+    back = lgt.Booster(model_str=text)
+    reload_diff = float(np.abs(back.predict(Xv)
+                               - cont["cuda"].predict(Xv)).max())
+    check(cont["cuda"]._gbdt.use_compact, "continued run not compact")
+    check(cdiff <= 1e-4, f"init_model: card vs CPU {cdiff}")
+    check(back.num_trees() == 5 and text.count("\nTree=") == 5,
+          "the continued model's text does not hold 5 trees")
+    check(reload_diff <= 1e-6, f"continued model reload {reload_diff}")
+    out["init_model"] = {"max_abs_pred_diff": cdiff, "trees": 5,
+                         "reload_max_abs_diff": reload_diff}
+
+    ds, dv = data()
+    rb = lgt.Booster(dict(base, device_type="cuda"), ds)
+    rb.add_valid(dv, "v")
+    for _ in range(3):
+        rb.update()
+    rb.rollback_one_iter()
+    vs = rb._gbdt.valid_sets[0].score[0].cpu().numpy()
+    two = lgt.train(dict(base, device_type="cuda"), lgt.Dataset(Xt, yt), 2)
+    rb_diff = float(np.abs(vs - two.predict(Xv, raw_score=True)).max())
+    check(rb.current_iteration() == 2 and rb_diff <= 1e-5,
+          f"rollback: validation scores off the 2-round model by {rb_diff}")
+    out["rollback"] = {"max_abs_raw_diff": rb_diff}
+    return out
+
+
+def phase_tuned(lgt, results):
+    """The tuned training loop on the compact path: MAIN's constructed
+    datasets (binary labels again after RENEW) and parameters with
+    LightGBM's examples/binary_classification/train.conf sampling
+    (feature_fraction 0.8, bagging_fraction 0.8, bagging_freq 5),
+    feature_fraction_bynode 0.8, early_stopping_round 50 on the validation
+    set and a learning-rate schedule (reset_parameter), 1 warm-up and
+    TUNED_ROUNDS timed rounds (reused bags, then one fresh draw) and a
+    profiled tree (its bounds from the raw rows). Then TUNED_CHECKS:
+    check_tuned_kernels, check_goss_selection, tuned_cpu_vs_card and
+    tuned_api_checks."""
+    from lightgbm_tpu_torch import _kernels
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    ds, dv = results.pop("main_datasets")
+    _, y, _, n_val = results["higgs"]
+    ds._inner.metadata.set_label(y[:-n_val])
+    dv._inner.metadata.set_label(y[-n_val:])
+    rounds = TUNED_ROUNDS
+    syncs = {}
+    ends = []
+
+    def timer(env):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+    timer.order = 5
+
+    evals = {}
+    _kernels.reset_counts()
+    steps = COMPACT_STEP + ["_bynode_uniforms"]
+    with count_syncs(gbdt_mod.GBDT, steps, syncs):
+        t_start = time.perf_counter()
+        bst = lgt.train(dict(TUNED_PARAMS, device_type="cuda"), ds,
+                        1 + rounds, valid_sets=[dv],
+                        callbacks=[timer, lgt.record_evaluation(evals),
+                                   lgt.reset_parameter(
+                                       learning_rate=lambda i:
+                                       0.1 * 0.99 ** i)])
+    launches = dict(_kernels.LAUNCHES)
+    plain_calls = dict(_kernels.PLAIN_CALLS)
+    gbdt = bst._gbdt
+    check(len(ends) == 1 + rounds, f"trained {len(ends)} rounds")
+    it_s = rounds / (ends[-1] - ends[0])
+    auc = evals["valid_0"]["auc"][-1]
+    strat = gbdt.sample_strategy
+    in_bag = float((gbdt._bag_col() != 0).float().mean())
+    check(gbdt.use_compact and strat.enabled,
+          "the tuned run did not bag on the compact grower")
+    for k in ("histogram", "fused_split"):
+        check(launches[k] > 0, f"kernel {k} was not launched on the TUNED "
+              "path")
+    check(launches["histogram_sublane"] == 0, "K3 ran on the TUNED path")
+    for k, v in plain_calls.items():
+        check(v == 0, f"plain version of {k} ran {v} times on the card")
+    check(np.isfinite(auc) and auc > 0.7, f"TUNED validation AUC {auc}")
+    tree_syncs = syncs.get("in_tree")
+    check(tree_syncs == 0, f"host syncs in the tuned tree step: {syncs}")
+    check(0.75 < in_bag < 0.85, f"in-bag share {in_bag}")
+    shrink = [m.shrinkage for m in gbdt.models]
+    check(np.allclose(shrink, [0.1 * 0.99 ** i for i in range(len(shrink))],
+                      rtol=1e-6), f"learning-rate schedule {shrink}")
+    # the bag draw at a fresh round and one tree's by-node draws: ms on
+    # the device from CUDA events (a trace this short can lose its few
+    # device events), launches from the profiler
+    def bag_draw():
+        strat.bag_mask(5 * strat.freq, None, None)
+
+    def node_draw():
+        gbdt._bynode_uniforms(gbdt.num_total_trees)
+    bag_launches = device_profile(bag_draw)[1]
+    node_launches = device_profile(node_draw)[1]
+    bag_ms, node_ms = time_ms(bag_draw), time_ms(node_draw)
+    tree_s = 1.0 / it_s
+    prof = profile_tree(bst, tree_s)
+    raw_tree = raw_count_tree(gbdt, gbdt.models[-1])
+    raw_bounds = tree_byte_bounds(raw_tree, gbdt.layout)
+    for k, v in raw_bounds.items():
+        prof["kernels"][k]["bytes"] = v
+        prof["kernels"][k]["bound_ms"] = 1e3 * v / HBM_BYTES_PER_S
+    out = {"train_rows": gbdt.num_data, "valid_rows": dv.num_data(),
+           "rounds_timed": rounds, "iterations_per_s": it_s,
+           "round_s": np.diff(ends).tolist(),
+           "first_round_s": ends[0] - t_start, "construct_s": "reused",
+           "valid_auc": auc, "valid_auc_by_round": evals["valid_0"]["auc"],
+           "grower": "compact", "launches": launches,
+           "plain_calls": plain_calls, "host_syncs_in_tree": tree_syncs,
+           "host_syncs_by_step": syncs, "num_trees": bst.num_trees(),
+           "in_bag_share": in_bag, "shrinkage": shrink,
+           "bag_draw_ms": bag_ms, "bag_draw_launches": bag_launches,
+           "bynode_draw_ms": node_ms,
+           "bynode_draw_launches": node_launches,
+           # the profiled tree's root: in-bag rows over raw rows
+           "root_in_bag_share": float(gbdt.models[-1].internal_count[0]
+                                      / raw_tree.internal_count[0]),
+           "tree_kernel_launches": prof["kernel_launches"],
+           "tree_device_s": prof["device_s"], "tree_wall_s": tree_s,
+           "tree_device_idle_share": prof["device_idle_share"],
+           "tree_kernels": {k: {"device_ms": v["device_ms"],
+                                "launches": v["launches"],
+                                "bound_ms": v.get("bound_ms")}
+                            for k, v in prof["kernels"].items()
+                            if k != "histogram_sublane"}}
+    print("TUNED", json.dumps(out), flush=True)
+    out["profile"] = prof
+    checks = {"kernels": check_tuned_kernels(bst),
+              "goss": check_goss_selection(bst)}
+    del bst, gbdt, ds, dv
+    checks["cpu_vs_card"] = tuned_cpu_vs_card(lgt)
+    checks["api"] = tuned_api_checks(lgt)
+    print("TUNED_CHECKS", json.dumps(checks), flush=True)
+    out["checks"] = checks
+    results["tuned"] = out
 
 
 def main() -> int:
@@ -2746,6 +3309,7 @@ def main() -> int:
                                                results)),
               ("quant", lambda: phase_quant(lgt, results)),
               ("renew", lambda: phase_renew(lgt, results)),
+              ("tuned", lambda: phase_tuned(lgt, results)),
               ("rank", lambda: phase_rank(lgt, results)),
               ("masked_large", lambda: phase_masked_large(lgt, args.rows,
                                                           results)),
@@ -2784,6 +3348,9 @@ def main() -> int:
     rkk = rk["checks"]["kernels"]
     rn = results["renew"]
     rn_tree = rn["profile"]["kernels"]
+    tn = results["tuned"]
+    tn_tree = tn["profile"]["kernels"]
+    tnk = tn["checks"]["kernels"]
 
     def ranking_path(kern):
         """A kernel on the RANK path (F = 137): its launches there, its
@@ -2802,6 +3369,18 @@ def main() -> int:
         return {"launches": rn["launches"][kern],
                 "tree_device_ms": rn_tree[kern]["device_ms"],
                 "tree_bound_ms": rn_tree[kern]["bound_ms"]}
+
+    def tuned_path(kern):
+        """A kernel on the TUNED path (bagged records): its launches there,
+        its times at the bagged root (K1) or a reused-bag tree's root split
+        (K2) against its plain version, bound and library call, and one
+        tree's device ms beside its byte bound (raw rows)."""
+        key = "k1" if kern == "histogram" else "k2"
+        return {"launches": tn["launches"][kern],
+                "max_abs_err": tnk["max_abs_err"], **tnk[key],
+                "bound_by": "bytes",
+                "tree_device_ms": tn_tree[kern]["device_ms"],
+                "tree_bound_ms": tn_tree[kern]["bound_ms"]}
 
     def multiclass_path(kern, tree_kernels, launches, rounds, extra=None):
         """A kernel's numbers on a multiclass path: launches a round (K
@@ -2856,7 +3435,8 @@ def main() -> int:
                    "tree_device_ms": qt_tree["histogram"]["device_ms"],
                    "tree_bound_ms": qt_tree["histogram"]["bound_ms"]},
          "ranking": ranking_path("histogram"),
-         "renew": renew_path("histogram")},
+         "renew": renew_path("histogram"),
+         "tuned": tuned_path("histogram")},
         {"name": "fused_split", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/fused_split.cu",
          "replaces": "lightgbm_tpu/ops/fused_split.py:198",
@@ -2908,7 +3488,8 @@ def main() -> int:
                    "tree_bound_ms": qt_tree["fused_split"]["bound_ms"],
                    "efb_copy_back": efb_k["quant_copy_back"]},
          "ranking": ranking_path("fused_split"),
-         "renew": renew_path("fused_split")},
+         "renew": renew_path("fused_split"),
+         "tuned": tuned_path("fused_split")},
         {"name": "histogram_sublane", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/histogram_sublane.cu",
          "replaces": "lightgbm_tpu/ops/pallas_histogram.py:170",
@@ -2929,7 +3510,8 @@ def main() -> int:
          "large_tree_launches": k3_large["launches"],
          "multiclass_masked": multiclass_path(
              "histogram_sublane", None, mc_masked["launches"],
-             mc_masked["rounds"])},
+             mc_masked["rounds"]),
+         "tuned_launches": tn["launches"]["histogram_sublane"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -11,11 +11,13 @@ The port imports nothing of the JAX package.
 from __future__ import annotations
 
 from .basic import Booster, Dataset
-from .callback import log_evaluation, record_evaluation
+from .callback import (EarlyStopException, early_stopping, log_evaluation,
+                       record_evaluation, reset_parameter)
 from .config import Config
 from .engine import train
 
 __version__ = "0.1.0"
 
-__all__ = ["Booster", "Config", "Dataset", "log_evaluation",
-           "record_evaluation", "train"]
+__all__ = ["Booster", "Config", "Dataset", "EarlyStopException",
+           "early_stopping", "log_evaluation", "record_evaluation",
+           "reset_parameter", "train"]

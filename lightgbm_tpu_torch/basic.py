@@ -2,29 +2,35 @@
 
 Counterpart of ``lightgbm_tpu/basic.py`` (reference:
 python-package/lightgbm/basic.py): a lazily constructed ``Dataset`` and a
-``Booster`` with ``update``, ``predict``, ``eval_train``/``eval_valid``,
-``current_iteration`` and model text (``save_model``, ``model_to_string``,
-``dump_model``; ``Booster(model_file=...)`` / ``Booster(model_str=...)``
-loads text written by the port, the JAX package or stock LightGBM, and
-predicts on the host, see ``model_io.py``). The device comes from the
+``Booster`` with ``update`` (``fobj``: a custom objective),
+``rollback_one_iter``, ``reset_parameter``, ``predict``,
+``eval_train``/``eval_valid`` (``feval``: custom metrics),
+``current_iteration``, ``feature_importance`` and model text
+(``save_model``, ``model_to_string``, ``dump_model``;
+``Booster(model_file=...)`` / ``Booster(model_str=...)`` loads text written
+by the port, the JAX package or stock LightGBM, and predicts on the host,
+see ``model_io.py``). A Booster continued from a loaded model
+(``train(init_model=...)``) keeps the loaded trees, which predict on the
+host and are written first in its model text. The device comes from the
 ``device_type`` parameter (default ``cuda``; ``cpu`` runs the plain PyTorch
 versions of the kernels) and is never chosen silently: ``cuda`` without a
 visible card raises.
 
-Not here yet: ``cv``, refit, custom objectives and metrics, continued
-training, sklearn and the CLI (ROADMAP A8, A16).
+Not here yet: ``cv``, refit, sklearn and the CLI (ROADMAP A10, A16).
 """
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from .config import Config, alias_table, resolve_device
 from .io.dataset import BinnedDataset
 from .metrics import create_metrics
-from .model_io import booster_to_dict, booster_to_string, load_booster
+from .model_io import (booster_to_dict, booster_to_string, load_booster,
+                       merge_model_texts)
 from .objectives import create_objective
 
 _DATASET_PARAM_KEYS = ("max_bin", "min_data_in_bin", "bin_construct_sample_cnt",
@@ -151,6 +157,11 @@ class Dataset:
             return self._inner.metadata.group
         return self.group
 
+    def get_weight(self):
+        if self._inner is not None:
+            return self._inner.metadata.weight
+        return self.weight
+
     def num_data(self) -> int:
         if self._inner is not None:
             return self._inner.num_data
@@ -174,6 +185,9 @@ class Booster:
         self._valid_names: List[str] = []
         self._train_data_name = "training"
         self.best_iteration = -1
+        self.best_score: Dict = {}
+        self._custom_objective: Optional[Callable] = None
+        self._pre_model = None
         if train_set is None:
             if model_file is None and model_str is None:
                 raise ValueError("need at least one of train_set, model_file "
@@ -193,11 +207,16 @@ class Booster:
         train_set._update_params(self.params)
         train_set.construct()
         self.train_set = train_set
+        objective = self.config.objective
+        if callable(objective):
+            # a custom objective in the parameters (reference: basic.py
+            # Booster.__init__, the JAX package's _custom_objective)
+            self._custom_objective = objective
         from .boosting import create_boosting
         self._gbdt = create_boosting(
             self.config, train_set._inner,
-            create_objective(self.config.objective, self.config),
-            self.device)
+            None if callable(objective) or objective == "custom"
+            else create_objective(objective, self.config), self.device)
         self._gbdt.set_train_metrics(
             create_metrics(self.config.metric, self.config))
 
@@ -214,7 +233,25 @@ class Booster:
         self._valid_names = []
         self._train_data_name = "training"
         self.best_iteration = -1
+        self.best_score = {}
+        self._custom_objective = None
+        self._pre_model = None
         return self
+
+    # -- continued training (reference: init_model -> gbdt.cpp:250-258) -----
+    def _attach_pre_model(self, pre_model, pre_train_raw: np.ndarray
+                          ) -> None:
+        """Seed the train scores with a loaded model's ``[K, N]`` raw
+        predictions and keep its trees for prediction and model text
+        (reference: ``_attach_pre_model``, ``lightgbm_tpu/basic.py:
+        504-518``)."""
+        self._gbdt.add_init_scores(pre_train_raw)
+        self._pre_model = pre_model
+
+    def _seed_valid_scores(self, which: int, pre_raw: np.ndarray) -> None:
+        vs = self._gbdt.valid_sets[which]
+        vs.score[:, :pre_raw.shape[1]] += torch.from_numpy(
+            np.asarray(pre_raw, np.float32)).to(vs.score.device)
 
     def add_valid(self, data: Dataset, name: str) -> "Booster":
         """(reference: Booster.add_valid, basic.py:3963)"""
@@ -235,22 +272,83 @@ class Booster:
         return self
 
     def update(self, train_set: Optional[Dataset] = None,
-               fobj=None) -> bool:
+               fobj: Optional[Callable] = None) -> bool:
         """One boosting iteration; True if no further split was possible
-        (reference: Booster.update, basic.py:4092)."""
-        if train_set is not None or fobj is not None \
-                or self.train_set is None:
+        (reference: Booster.update, basic.py:4092). ``fobj(preds,
+        train_set) -> (grad, hess)``: a custom objective, given the raw
+        scores (``[n, K]`` for K trees an iteration) and returning the
+        gradients in the dataset's row order. A model loaded from text
+        has no training state, as in the JAX package."""
+        if train_set is not None:
             raise NotImplementedError(
-                "update(train_set=..., fobj=...) and training a loaded model "
-                "further are not in the PyTorch port yet (ROADMAP A8)")
-        return self._gbdt.train_one_iter()
+                "changing train_set on update is not supported")
+        fobj = fobj or self._custom_objective
+        if fobj is None:
+            return self._gbdt.train_one_iter()
+        grad, hess = _call_custom_objective(fobj, self)
+        return self._gbdt.train_one_iter(grad, hess)
 
-    def eval_train(self):
-        return [(self._train_data_name, m, v, hb)
-                for (_, m, v, hb) in self._gbdt.eval_train()]
+    def rollback_one_iter(self) -> "Booster":
+        """Remove the last iteration's trees (reference:
+        Booster.rollback_one_iter)."""
+        self._gbdt.rollback_one_iter()
+        return self
 
-    def eval_valid(self):
-        return self._gbdt.eval_valid()
+    def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
+        """Change parameters for the next iterations (reference:
+        Booster.reset_parameter -> GBDT::ResetConfig, gbdt.cpp:795):
+        ``learning_rate``, ``num_leaves``, ``max_depth``,
+        ``lambda_l1``/``lambda_l2``, ``min_data_in_leaf``,
+        ``min_sum_hessian_in_leaf``, ``min_gain_to_split``,
+        ``max_delta_step`` and ``feature_fraction`` (and their aliases)
+        take effect. The JAX package's engine-registry knobs (its XLA
+        step ladder, histogram engines and fused block size) have no
+        counterpart in the port; other parameters are recorded in the
+        model text's parameters and change nothing."""
+        self.params.update(params)
+        self.config.set(params)
+        self.config.check_supported()
+        self._gbdt.reset_config(self.config)
+        return self
+
+    def eval_train(self, feval=None):
+        out = [(self._train_data_name, m, v, hb)
+               for (_, m, v, hb) in self._gbdt.eval_train()]
+        if feval is not None:
+            out.extend(self._eval_custom(feval, self._train_data_name,
+                                         None))
+        return out
+
+    def eval_valid(self, feval=None):
+        out = self._gbdt.eval_valid()
+        if feval is not None:
+            for i, name in enumerate(self._valid_names):
+                out.extend(self._eval_custom(feval, name, i))
+        return out
+
+    def _eval_custom(self, feval, name: str, which: Optional[int]):
+        """``feval(preds, data) -> (name, value, higher_better)`` or a list
+        of them, on the raw scores (``[n, K]`` for K trees an iteration) in
+        the dataset's row order (reference: ``_eval_custom``,
+        ``lightgbm_tpu/basic.py:789-822``); ``which``: the validation
+        set's index, None for the training data."""
+        fevals = feval if isinstance(feval, (list, tuple)) else [feval]
+        gbdt = self._gbdt
+        if which is None:
+            raw = gbdt.train_score_original_order()
+            data = self.train_set
+        else:
+            vs = gbdt.valid_sets[which]
+            raw = vs.score.cpu().numpy()
+            data = _DatasetView(vs.dataset)
+        preds = raw[0] if raw.shape[0] == 1 else raw.T
+        out = []
+        for f in fevals:
+            res = f(preds, data)
+            for metric, value, hb in (res if isinstance(res, list)
+                                      else [res]):
+                out.append((name, metric, value, hb))
+        return out
 
     def predict(self, data, start_iteration: int = 0,
                 num_iteration: Optional[int] = None,
@@ -267,19 +365,67 @@ class Booster:
         if num_iteration is None and self.best_iteration > 0:
             num_iteration = self.best_iteration
         arr = np.asarray(_maybe_series(data))
-        raw = self._gbdt.predict_raw_matrix(arr, num_iteration,
-                                            start_iteration)
+        (pre, pre_start, pre_cut, own_start, own_cut, pre_empty,
+         own_empty) = self._global_tree_window(start_iteration,
+                                               num_iteration)
+        raw = (self._gbdt.predict_raw_matrix(arr, own_cut, own_start)
+               if not own_empty else None)
+        if not pre_empty:
+            pre_raw = pre.predict_raw_matrix(arr, pre_cut, pre_start)
+            raw = pre_raw if raw is None else raw + pre_raw
+        if raw is None:
+            raw = np.zeros((self._gbdt.num_class,
+                            np.atleast_2d(arr).shape[0]), np.float32)
         raw = raw[0] if raw.shape[0] == 1 else raw.T
         objective = self._gbdt.objective
         if raw_score or objective is None:
             return raw
         return np.asarray(objective.convert_output(raw))
 
+    def _global_tree_window(self, start_iteration: int,
+                            num_iteration: Optional[int]):
+        """Split an iteration window over the loaded model's trees, then
+        this booster's own (reference: ``_global_tree_window``,
+        ``lightgbm_tpu/basic.py:911-933``): ``(pre, pre_start, pre_cut,
+        own_start, own_cut, pre_empty, own_empty)``, a None cut meaning
+        to the end."""
+        pre = self._pre_model
+        pre_iters = pre.current_iteration() if pre is not None else 0
+        end = (start_iteration + num_iteration
+               if num_iteration is not None and num_iteration > 0 else None)
+        pre_start = min(start_iteration, pre_iters)
+        pre_cut = (max(min(end, pre_iters) - pre_start, 0)
+                   if end is not None else None)
+        own_start = max(start_iteration - pre_iters, 0)
+        own_cut = (max(end - pre_iters - own_start, 0)
+                   if end is not None else None)
+        pre_empty = pre is None or pre_start >= pre_iters or pre_cut == 0
+        return (pre, pre_start, pre_cut, own_start, own_cut, pre_empty,
+                own_cut == 0)
+
     def current_iteration(self) -> int:
-        return self._gbdt.current_iteration()
+        pre = self._pre_model
+        return self._gbdt.current_iteration() + (
+            pre.current_iteration() if pre is not None else 0)
 
     def num_trees(self) -> int:
-        return len(self._gbdt.models)
+        pre = self._pre_model
+        return len(self._gbdt.models) + (
+            len(pre.models) if pre is not None else 0)
+
+    def feature_importance(self, importance_type: str = "split"
+                           ) -> np.ndarray:
+        """Splits (or gains) per feature, over the loaded model's trees too
+        (reference: Booster.feature_importance)."""
+        imp = self._gbdt.feature_importance(importance_type)
+        pre = self._pre_model
+        if pre is not None:
+            pre_imp = pre.feature_importance(importance_type)
+            out = np.zeros(max(len(imp), len(pre_imp)), np.float64)
+            out[:len(imp)] += imp
+            out[:len(pre_imp)] += pre_imp
+            return out
+        return imp
 
     def num_feature(self) -> int:
         return self._gbdt.num_features()
@@ -291,7 +437,17 @@ class Booster:
         ``num_iteration``); a loaded model returns its text as read."""
         if num_iteration is None and self.best_iteration > 0:
             num_iteration = self.best_iteration
-        return booster_to_string(self, num_iteration)
+        pre = self._pre_model
+        if pre is None:
+            return booster_to_string(self, num_iteration)
+        # the loaded trees first (reference: models_ holds loaded, then new
+        # trees, gbdt_model_text.cpp)
+        pre_cut = own_cut = None
+        if num_iteration is not None and num_iteration > 0:
+            pre_cut = min(num_iteration, pre.current_iteration())
+            own_cut = max(num_iteration - pre.current_iteration(), 0)
+        return merge_model_texts(pre, booster_to_string(self, own_cut),
+                                 pre_num_iteration=pre_cut)
 
     def save_model(self, filename: str,
                    num_iteration: Optional[int] = None) -> "Booster":
@@ -302,4 +458,47 @@ class Booster:
     def dump_model(self, num_iteration: Optional[int] = None
                    ) -> Dict[str, Any]:
         """The model as a JSON-ready dict (reference: GBDT::DumpModel)."""
+        if self._pre_model is not None:
+            raise NotImplementedError(
+                "dump_model of a continued model is not in the PyTorch "
+                "port yet (ROADMAP A9); save_model writes its text")
         return booster_to_dict(self, num_iteration)
+
+
+class _DatasetView:
+    """The label, weight and groups of a validation set, for ``feval``."""
+
+    def __init__(self, inner: BinnedDataset):
+        self._inner = inner
+
+    def get_label(self):
+        return self._inner.metadata.label
+
+    def get_weight(self):
+        return self._inner.metadata.weight
+
+    def get_group(self):
+        return self._inner.metadata.group
+
+
+def _call_custom_objective(fobj: Callable, booster: Booster):
+    """``fobj(preds, train_set) -> (grad, hess)`` on the raw train scores
+    in the dataset's row order, ``[n, K]`` for K trees an iteration; the
+    gradients come back ``[n, K]`` or flat (reference:
+    ``_call_custom_objective``, ``lightgbm_tpu/basic.py:1414-1431``).
+    Reads the scores on the host: a custom objective's contract."""
+    gbdt = booster._gbdt
+    raw = gbdt.train_score_original_order()
+    preds = raw[0] if raw.shape[0] == 1 else raw.T
+    grad, hess = fobj(preds, booster.train_set)
+    grad = np.asarray(grad, np.float32)
+    hess = np.asarray(hess, np.float32)
+    k, n = gbdt.num_class, gbdt.num_data
+    if grad.size != k * n or hess.size != k * n:
+        raise ValueError(f"gradient size {grad.size} and hessian size "
+                         f"{hess.size} must be num_class * num_data = "
+                         f"{k * n}")
+    if k > 1:
+        grad = grad.reshape(n, k).T
+        hess = hess.reshape(n, k).T
+    return grad, hess

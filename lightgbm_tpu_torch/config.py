@@ -51,6 +51,9 @@ PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...]]] = {
     "bagging_freq": (0, int, ("subsample_freq",)),
     "bagging_seed": (3, int, ("bagging_fraction_seed",)),
     "bagging_by_query": (False, bool, ()),
+    # GOSS (data_sample_strategy=goss; reference: config.h top_rate/other_rate)
+    "top_rate": (0.2, float, ()),
+    "other_rate": (0.1, float, ()),
     "feature_fraction": (1.0, float, ("sub_feature", "colsample_bytree")),
     "feature_fraction_bynode": (1.0, float, ("sub_feature_bynode", "colsample_bynode")),
     "feature_fraction_seed": (2, int, ()),
@@ -59,6 +62,7 @@ PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...]]] = {
     "early_stopping_round": (0, int, (
         "early_stopping_rounds", "early_stopping", "n_iter_no_change")),
     "first_metric_only": (False, bool, ()),
+    "early_stopping_min_delta": (0.0, float, ()),
     "max_delta_step": (0.0, float, ("max_tree_output", "max_leaf_output")),
     "lambda_l1": (0.0, float, ("reg_alpha", "l1_regularization")),
     "lambda_l2": (0.0, float, ("reg_lambda", "lambda", "l2_regularization")),
@@ -148,6 +152,10 @@ OBJECTIVE_ALIASES: Dict[str, str] = {
     "xe_ndcg_mart": "rank_xendcg", "xendcg_mart": "rank_xendcg",
 }
 
+# a custom objective, whose gradients come from ``fobj``: ``objective`` is
+# then "custom" (or the callable itself)
+CUSTOM_OBJECTIVES = ("custom", "none", "null", "na")
+
 METRIC_ALIASES: Dict[str, str] = {
     "l1": "l1", "mean_absolute_error": "l1", "mae": "l1", "regression_l1": "l1",
     "l2": "l2", "mean_squared_error": "l2", "mse": "l2", "regression_l2": "l2",
@@ -208,6 +216,8 @@ def alias_table() -> Dict[str, str]:
 def _coerce(name: str, value: Any, typ: type) -> Any:
     if value is None:
         return None
+    if name == "objective" and callable(value):
+        return value                  # a custom objective function
     if typ is bool:
         if isinstance(value, str):
             return value.lower() in ("true", "1", "+", "yes")
@@ -254,10 +264,14 @@ class Config:
 
     def _check_consistency(self) -> None:
         obj = self.objective
-        if isinstance(obj, str):
+        if isinstance(obj, str) and obj.lower() in CUSTOM_OBJECTIVES:
+            self.objective = "custom"
+        elif isinstance(obj, str):
             if obj.lower() not in OBJECTIVE_ALIASES:
                 log.fatal(f"Unknown objective: {obj!r}")
             self.objective = OBJECTIVE_ALIASES[obj.lower()]
+        elif not callable(obj):
+            log.fatal(f"Unknown objective: {obj!r}")
         if self.boosting == "goss":
             self.boosting = "gbdt"
             self.data_sample_strategy = "goss"
@@ -267,6 +281,10 @@ class Config:
             self.boosting = "rf"
         if self.boosting not in ("gbdt", "dart", "rf"):
             log.fatal(f"Unknown boosting type: {self.boosting}")
+        self.data_sample_strategy = str(self.data_sample_strategy).lower()
+        if self.data_sample_strategy not in ("bagging", "goss"):
+            log.fatal("Unknown data_sample_strategy: "
+                      f"{self.data_sample_strategy}")
         dev = str(self.device_type).lower()
         if dev not in DEVICE_ALIASES:
             raise ValueError(
@@ -280,8 +298,12 @@ class Config:
                 and self.num_class != 1:
             log.fatal("Number of classes must be 1 for non-multiclass "
                       "training")
-        if self.bagging_freq > 0 and not 0.0 < self.bagging_fraction < 1.0:
+        if self.bagging_freq > 0 and not 0.0 < self.bagging_fraction < 1.0 \
+                and self.data_sample_strategy == "bagging" \
+                and not self.bagging_by_query:
             self.bagging_freq = 0
+        if self.early_stopping_round < 0:
+            self.early_stopping_round = 0
         if self.num_leaves < 2:
             self.num_leaves = 2
         if self.max_bin < 2:
@@ -308,34 +330,22 @@ class Config:
             need(str(self.tree_learner).lower() != "serial",
                  f"tree_learner={self.tree_learner!r}", "A18")
             need(self.num_machines > 1, "num_machines>1", "A18")
-            need(bool(self.input_model), "input_model (continued training)",
-                 "A8/A9")
             need(self.boosting != "gbdt", f"boosting={self.boosting!r}",
-                 "A14")
-            need(self.data_sample_strategy != "bagging",
-                 f"data_sample_strategy={self.data_sample_strategy!r}",
-                 "A14")
-            need(self.bagging_freq > 0 or self.pos_bagging_fraction < 1.0
-                 or self.neg_bagging_fraction < 1.0 or self.bagging_by_query,
-                 "bagging", "A14")
-            need(self.feature_fraction < 1.0, "feature_fraction<1", "A14")
-            need(self.feature_fraction_bynode < 1.0,
-                 "feature_fraction_bynode<1", "A14")
-            need(self.extra_trees, "extra_trees", "A14")
+                 "A14b")
+            need(self.extra_trees, "extra_trees", "A14b")
             need(self.monotone_constraints is not None,
-                 "monotone_constraints", "A14")
+                 "monotone_constraints", "A14b")
             need(self.interaction_constraints not in (None, "", []),
-                 "interaction_constraints", "A14")
+                 "interaction_constraints", "A14b")
             need(self.cegb_penalty_split > 0.0
                  or self.cegb_penalty_feature_lazy is not None
                  or self.cegb_penalty_feature_coupled is not None,
-                 "cost-effective gradient boosting", "A14")
-            need(bool(self.forcedsplits_filename), "forced splits", "A14")
-            need(self.path_smooth > 0.0, "path_smooth", "A14")
+                 "cost-effective gradient boosting", "A14b")
+            need(bool(self.forcedsplits_filename), "forced splits", "A14b")
+            need(self.path_smooth > 0.0, "path_smooth", "A14b")
             need(self.feature_contri not in (None, "", []),
-                 "feature_contri", "A14")
-            need(self.linear_tree, "linear_tree", "A14")
-            need(self.early_stopping_round > 0, "early stopping", "A8")
+                 "feature_contri", "A14b")
+            need(self.linear_tree, "linear_tree", "A14b")
             # the CUDA histograms add f32 atomics in no fixed order
             need(self.deterministic, "deterministic histograms", "B1/B2")
         if todo:

@@ -15,9 +15,10 @@ A categorical split's text holds a bitset of category VALUES
 bins: writing maps each set bin through the mapper's bin-to-category table
 (``_bitset_cats``). A loaded model predicts on the host in float64 numpy
 (``LoadedGBDT.predict_raw_matrix``), as the JAX package's loaded models do:
-the text holds raw-value thresholds and category values, not bins. Linear
-trees, C++ export (``to_if_else``) and the merge of continued-training
-texts (ROADMAP A9) raise.
+the text holds raw-value thresholds and category values, not bins. A
+continued model's text is the loaded model's tree blocks, then the new
+ones, under the new model's header and footer (``merge_model_texts``).
+Linear trees and C++ export (``to_if_else``) raise (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -239,9 +240,9 @@ def booster_to_dict(booster, num_iteration: Optional[int] = None
 # parser Tree::Tree(const char*), src/io/tree.cpp)
 # ---------------------------------------------------------------------------
 class LoadedTree:
-    __slots__ = ("num_leaves", "num_nodes", "split_feature", "threshold",
-                 "decision_type", "left_child", "right_child", "leaf_value",
-                 "cat_boundaries", "cat_threshold")
+    __slots__ = ("num_leaves", "num_nodes", "split_feature", "split_gain",
+                 "threshold", "decision_type", "left_child", "right_child",
+                 "leaf_value", "cat_boundaries", "cat_threshold")
 
     def route(self, x: np.ndarray) -> np.ndarray:
         """Leaf index per row of raw float64 values, node by node
@@ -312,8 +313,11 @@ class LoadedGBDT:
         self.original_text = model_str
         header: List[str] = []
         chunks: List[List[str]] = []
-        for line in model_str.split("\n"):
+        lines = model_str.split("\n")
+        footer: List[str] = []
+        for i, line in enumerate(lines):
             if line.strip() == "end of trees":
+                footer = lines[i:]
                 break
             if line.startswith("Tree="):
                 chunks.append([line])
@@ -321,6 +325,13 @@ class LoadedGBDT:
                 chunks[-1].append(line)
             else:
                 header.append(line)
+        # the pieces a continued model's text re-emits (merge_model_texts)
+        self._header_lines = [ln for ln in header
+                              if not ln.startswith("tree_sizes=")]
+        while self._header_lines and not self._header_lines[-1].strip():
+            self._header_lines.pop()
+        self._tree_chunks = chunks
+        self._footer_lines = footer
         hdr = _parse_block(header)
         self.num_class = int(hdr.get(
             "num_tree_per_iteration", hdr.get("num_class", 1)))
@@ -346,6 +357,7 @@ class LoadedGBDT:
                     "linear trees in model text are not in the PyTorch port "
                     "yet (ROADMAP A9)")
             t.split_feature = _arr(d, "split_feature", np.int32, nn)
+            t.split_gain = _arr(d, "split_gain", np.float64, nn)
             t.threshold = _arr(d, "threshold", np.float64, nn)
             t.left_child = _arr(d, "left_child", np.int32, nn)
             t.right_child = _arr(d, "right_child", np.int32, nn)
@@ -379,6 +391,91 @@ class LoadedGBDT:
         if self.average_output:
             out /= max(len(models) // k, 1)
         return out.astype(np.float32)
+
+    def feature_importance(self, importance_type: str = "split"
+                           ) -> np.ndarray:
+        """Splits (or summed gains) per feature over the loaded trees."""
+        if importance_type not in ("split", "gain"):
+            raise ValueError(f"importance_type={importance_type!r}: "
+                             "'split' or 'gain'")
+        out = np.zeros(self.num_features(), np.float64)
+        for t in self.models:
+            np.add.at(out, t.split_feature[:t.num_nodes],
+                      1.0 if importance_type == "split"
+                      else t.split_gain[:t.num_nodes])
+        return out
+
+
+def _emit_loaded(header_lines, chunks, models, footer_lines,
+                 feature_names) -> str:
+    """A parsed model's text again: its header with new ``tree_sizes``, the
+    tree blocks renumbered (leaf values written from ``models``), and its
+    footer with the split importances
+    recomputed over ``models`` (reference: ``_emit_loaded``,
+    ``lightgbm_tpu/model_io.py:643-687``)."""
+    blocks = []
+    for i, (chunk, t) in enumerate(zip(chunks, models)):
+        out = []
+        for line in chunk:
+            if line.startswith("Tree="):
+                out.append(f"Tree={i}")
+            elif line.startswith("leaf_value="):
+                out.append("leaf_value=" + " ".join(
+                    _fmt(v) for v in t.leaf_value))
+            else:
+                out.append(line)
+        while out and not out[-1].strip():
+            out.pop()
+        blocks.append("\n".join(out) + "\n")
+    header = list(header_lines)
+    header.append("tree_sizes=" + " ".join(str(len(b) + 1) for b in blocks))
+    header.append("")
+    imp = np.zeros(0, np.float64)
+    for t in models:
+        if t.num_nodes:
+            f = t.split_feature[:t.num_nodes]
+            if f.max() >= len(imp):
+                imp = np.pad(imp, (0, int(f.max()) + 1 - len(imp)))
+            np.add.at(imp, f, 1.0)
+    footer = []
+    in_imp = False
+    for line in footer_lines:
+        if line.strip() == "feature_importances:":
+            in_imp = True
+            footer.append(line)
+            for j in np.argsort(-imp, kind="stable"):
+                if imp[j] > 0:
+                    name = (feature_names[j] if j < len(feature_names)
+                            else f"Column_{j}")
+                    footer.append(f"{name}={int(imp[j])}")
+            continue
+        if in_imp:
+            if "=" in line and not line.startswith("["):
+                continue                  # the old importance lines
+            in_imp = False
+        footer.append(line)
+    return "\n".join(header) + "\n" + "\n".join(blocks) \
+        + "\n".join(footer)
+
+
+def merge_model_texts(pre, new_text: str,
+                      pre_num_iteration: Optional[int] = None) -> str:
+    """A continued model's text: the loaded model's tree blocks (the first
+    ``pre_num_iteration`` iterations of them, None: all), then those of
+    ``new_text``, under ``new_text``'s header and footer, so that stock
+    LightGBM and the JAX package load it (reference:
+    ``merge_model_texts``, ``lightgbm_tpu/model_io.py:697-712``). ``pre``:
+    a ``LoadedGBDT`` or model text."""
+    if not isinstance(pre, LoadedGBDT):
+        pre = LoadedGBDT(pre)
+    new = LoadedGBDT(new_text)
+    take = len(pre.models)
+    if pre_num_iteration is not None:
+        take = pre_num_iteration * max(pre.num_class, 1)
+    return _emit_loaded(new._header_lines,
+                        pre._tree_chunks[:take] + new._tree_chunks,
+                        pre.models[:take] + new.models,
+                        new._footer_lines, new.feature_names)
 
 
 def _objective_from_string(obj_str: str):

@@ -22,9 +22,13 @@ sorted categorical splits, each leaf caches its best split's bin bitset
 and whether it is a sorted one (whose children's outputs take ``lambda_l2 +
 cat_l2``), and the partition routes by the bitset through the same
 predicate as the numerical split (``go_left_pred`` selects on the device).
-Not here yet: by-node feature sampling, interaction and monotone
-constraints, CEGB, forced splits, extra trees, voting and the data-parallel
-reduction (ROADMAP A14/A18). The JAX package's compile ladder (leaf rungs,
+By-node feature sampling (``params.bynode_fraction`` < 1): each leaf scans
+only its own sample of the tree's features, drawn from row ``j`` of a
+``[2L-1, F]`` uniform tensor made before the tree (``node_feature_mask``):
+row 0 for the root, rows ``2k+1`` and ``2k+2`` for the children of split
+``k``, as the JAX grower folds ``j`` into its by-node key. Not here yet:
+interaction and monotone constraints, CEGB, forced splits, extra trees
+(ROADMAP A14b), voting and the data-parallel reduction (A18). The JAX package's compile ladder (leaf rungs,
 depth buckets) fixes XLA jit keys and has no counterpart in eager PyTorch:
 trees grow at the exact ``num_leaves``.
 """
@@ -76,6 +80,8 @@ class GrowerParams(NamedTuple):
     # columns, and the widest bundled feature's bin count
     efb_virtual: int = 0
     efb_bmax: int = 0
+    # feature_fraction_bynode: the share of the tree's features a leaf scans
+    bynode_fraction: float = 1.0
 
     def split_params(self) -> SplitParams:
         return SplitParams(
@@ -133,6 +139,18 @@ def _split_rows(sp) -> Tuple[torch.Tensor, torch.Tensor]:
     return fl, it
 
 
+def node_feature_mask(feat_mask: torch.Tensor, uniforms: torch.Tensor,
+                      fraction: float) -> torch.Tensor:
+    """The features a leaf scans (``[..., F]`` bool): ``feat_mask`` where
+    its uniform draw is below ``fraction``, or all of ``feat_mask`` when
+    that keeps none (reference: ``node_feature_mask``,
+    ``lightgbm_tpu/ops/grower.py:323-341``; a Bernoulli sample where
+    LightGBM's ColSampler::GetByNode draws an exact count)."""
+    keep = uniforms < fraction
+    keep = keep | ~(keep & feat_mask).any(dim=-1, keepdim=True)
+    return feat_mask & keep
+
+
 def child_l2(params: GrowerParams, cat_l2_flag: torch.Tensor):
     """The L2 of a split's children: ``lambda_l2 + cat_l2`` below a sorted
     categorical split (reference: the categorical branch's l2)."""
@@ -144,7 +162,8 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               nan_bin_arr: torch.Tensor, has_nan_arr: torch.Tensor,
               feat_mask: torch.Tensor, params: GrowerParams,
               binned_t: Optional[torch.Tensor] = None,
-              is_cat_arr: Optional[torch.Tensor] = None
+              is_cat_arr: Optional[torch.Tensor] = None,
+              bynode_u: Optional[torch.Tensor] = None
               ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree over ``binned [N, F]`` (uint8) with per-row ``grad``,
     ``hess`` (already multiplied by weights and bag mask) and
@@ -153,7 +172,9 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     ``binned_t`` is the same matrix feature-major (``[F, N]``), which the
     partition reads a feature row of and the sublane layout's K3 takes; a
     trainer makes it once, else it is made here. ``is_cat_arr [F]`` bool
-    marks the categorical features (None: all numerical)."""
+    marks the categorical features (None: all numerical). ``bynode_u``
+    ``[2L-1, F]``: the tree's by-node draws when ``params.bynode_fraction``
+    < 1 (see ``node_feature_mask``)."""
     dev = binned.device
     n, f = binned.shape
     L = params.num_leaves
@@ -172,9 +193,15 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         ch = torch.stack([grad * mask, hess * mask, cnt * mask], dim=1)
         return histogram(binned, ch, B, params.hist_layout, binned_t)
 
-    def scan(hist, pg, ph, pc, depth):
+    def leaf_mask(rows):
+        if params.bynode_fraction >= 1.0:
+            return feat_mask
+        return node_feature_mask(feat_mask, bynode_u[rows],
+                                 params.bynode_fraction)
+
+    def scan(hist, pg, ph, pc, depth, fm):
         sp = best_split(hist, pg, ph, pc, num_bins_arr, nan_bin_arr,
-                        has_nan_arr, feat_mask, spp, is_cat_arr)
+                        has_nan_arr, fm, spp, is_cat_arr)
         return sp._replace(gain=depth_gate(sp.gain, depth, params.max_depth))
 
     # ---- root ----
@@ -183,7 +210,7 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     root_out = leaf_output(root_g, root_h, spp)
     zero = torch.zeros(1, dtype=i64, device=dev)
     sp0 = scan(root_hist[None], root_g[None], root_h[None], root_c[None],
-               zero)
+               zero, leaf_mask(slice(0, 1)))
     fl0, it0 = _split_rows(sp0)
     leaf_f = torch.zeros((L, 8), dtype=torch.float32, device=dev)
     leaf_f[:, _BG] = _NEG_INF
@@ -249,7 +276,8 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         # ---- best splits of both children ----
         depth = ri[_DEPTH] + 1
         sp2 = scan(torch.stack([hist_left, hist_right]), torch.stack([lg, rg]),
-                   torch.stack([lh, rh]), torch.stack([lc, rc]), depth)
+                   torch.stack([lh, rh]), torch.stack([lc, rc]), depth,
+                   leaf_mask(slice(2 * k + 1, 2 * k + 3)))
         spf, spi = _split_rows(sp2)
         l2 = child_l2(params, ri[_BCL2]) if any_cat else None
         lw = leaf_output(lg, lh, spp, l2)

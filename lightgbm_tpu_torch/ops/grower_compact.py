@@ -46,9 +46,13 @@ child, the cached leaf histograms and parent minus smaller -- is exact
 int32. The scan dequantizes with the round's scales (0-d device tensors);
 the root sums are an int sum, then a cast to f32, then the multiply.
 
-Not here yet (ROADMAP A14-A18): monotone constraints and their
-intermediate rescans, CEGB, by-node sampling, the narrowed (16-bit)
-quantized histogram, data-parallel reductions.
+By-node feature sampling (``params.bynode_fraction`` < 1, ``bynode_u``):
+as in the masked grower (``ops/grower.py`` ``node_feature_mask``), over the
+scan space's features.
+
+Not here yet: monotone constraints and their intermediate rescans, CEGB
+(ROADMAP A14b), the narrowed (16-bit) quantized histogram (A7c),
+data-parallel reductions (A18).
 """
 from __future__ import annotations
 
@@ -61,7 +65,8 @@ from .compact import RowLayout, segments_to_leaf_vectors
 from .fused_split import fused_split
 from .grower import (_BG, _BLC, _BLG, _BLH, _GAIN, _LC, _LEFT, _LG, _LH,
                      _LOUT, _NC, _NG, _NH, _RIGHT, _SDL, _SB, _SF,
-                     GrowerParams, TreeArrays, _split_rows, child_l2)
+                     GrowerParams, TreeArrays, _split_rows, child_l2,
+                     node_feature_mask)
 from .split import (_NEG_INF, apply_efb_bitset, best_split, depth_gate,
                     extend_hist_efb, leaf_output)
 
@@ -89,7 +94,8 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
                       has_nan_arr: torch.Tensor, feat_mask: torch.Tensor,
                       layout: RowLayout, params: GrowerParams, n_real: int,
                       is_cat_arr: Optional[torch.Tensor] = None,
-                      efb: Optional[EfbLayout] = None, quant_scales=None):
+                      efb: Optional[EfbLayout] = None, quant_scales=None,
+                      bynode_u: Optional[torch.Tensor] = None):
     """Grow one tree. Returns ``(TreeArrays, row_leaf [N], work, scratch,
     leaf_start [L], leaf_nrows [L])``, the per-row outputs in the post-tree
     row order; ``work`` and ``scratch`` are updated in place. The
@@ -97,7 +103,9 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
     entries); ``is_cat_arr`` bool marks the categorical ones (None: the
     scan is numerical). ``efb``: the ``EfbLayout``, or None when nothing is
     bundled. ``quant_scales``: ``(g_scale, h_scale)`` 0-d f32 tensors when
-    the records carry quantized codes (int32 histograms), else None."""
+    the records carry quantized codes (int32 histograms), else None.
+    ``bynode_u`` ``[2L-1, F + params.efb_virtual]``: the tree's by-node
+    draws when ``params.bynode_fraction`` < 1."""
     dev = work.device
     n = n_real
     L = params.num_leaves
@@ -116,12 +124,18 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
     else:
         route = None
 
-    def scan(hist, pg, ph, pc, depth):
+    def scan(hist, pg, ph, pc, depth, rows):
+        """The best splits of the leaves of ``hist``; ``rows``: their rows
+        of ``bynode_u``."""
+        fm = feat_mask
+        if params.bynode_fraction < 1.0:
+            fm = node_feature_mask(feat_mask, bynode_u[rows],
+                                   params.bynode_fraction)
         if efb is not None:
             hist = extend_hist_efb(hist, efb, params.efb_virtual,
                                    params.efb_bmax)
         sp = best_split(hist, pg, ph, pc, num_bins_arr, nan_bin_arr,
-                        has_nan_arr, feat_mask, spp, is_cat_arr, quant_scales)
+                        has_nan_arr, fm, spp, is_cat_arr, quant_scales)
         if efb is not None:
             sp = apply_efb_bitset(sp, efb, F, B)
         return sp._replace(gain=depth_gate(sp.gain, depth, params.max_depth))
@@ -140,7 +154,7 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
         root_h = root_h * quant_scales[1]
     root_out = leaf_output(root_g, root_h, spp)
     sp0 = scan(root_hist[None], root_g[None], root_h[None], root_c[None],
-               zero)
+               zero, slice(0, 1))
     fl0, it0 = _split_rows(sp0)
 
     leaf_f = torch.zeros((L, 8), dtype=torch.float32, device=dev)
@@ -279,7 +293,8 @@ def _split_step(st: CompactState, k: int, work, scratch, layout, B,
     # ---- best splits of both children ----
     depth = ri[_DEPTH] + 1
     sp = scan(torch.stack([hist_left, hist_right]), torch.stack([lg, rg]),
-              torch.stack([lh, rh]), torch.stack([lc, rc]), depth)
+              torch.stack([lh, rh]), torch.stack([lc, rc]), depth,
+              slice(2 * k + 1, 2 * k + 3))
     spf, spi = _split_rows(sp)
     l2 = child_l2(params, ri[_BCL2]) if any_cat else None
     lw = leaf_output(lg, lh, spp, l2)

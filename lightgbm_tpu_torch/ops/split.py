@@ -22,7 +22,7 @@ the host, and Python branches only on static shapes and parameters. The
 sorted scan's ``min_data_per_group`` gate, a sequential ``lax.scan`` in the
 JAX package, is here a handful of tensor ops (see ``_group_gate``) rather
 than a loop of launches over the prefix positions. Monotone, CEGB,
-path-smoothing and extra-trees scans are ROADMAP A14.
+path-smoothing and extra-trees scans are ROADMAP A14b.
 """
 from __future__ import annotations
 
@@ -100,7 +100,7 @@ def leaf_gain(sum_grad, sum_hess, p: SplitParams,
 
 def child_output(sum_grad, sum_hess, p: SplitParams):
     """Child output at split time. Path smoothing and monotone clipping
-    are ROADMAP A14, so this is the plain leaf output."""
+    are ROADMAP A14b, so this is the plain leaf output."""
     return leaf_output(sum_grad, sum_hess, p)
 
 
@@ -213,7 +213,7 @@ def best_split(
     num_bins: torch.Tensor,      # [F] int
     nan_bin: torch.Tensor,       # [F] int
     has_nan_bin: torch.Tensor,   # [F] bool
-    feat_mask: torch.Tensor,     # [F] bool
+    feat_mask: torch.Tensor,     # [F] or [..., F] bool (a leaf's own)
     p: SplitParams,
     is_cat: Optional[torch.Tensor] = None,   # [F] bool; None: numerical
     quant_scales=None,           # (g_scale, h_scale) 0-d f32 tensors
@@ -271,7 +271,7 @@ def best_split(
     pc = parent_count[..., None, None]
     gain_shift0 = leaf_gain(parent_grad, parent_hess, p) + p.min_gain_to_split
     gain_shift = gain_shift0[..., None, None]
-    fmask = feat_mask.to(dev)[:, None]
+    fmask = feat_mask.to(dev)[..., None]
 
     def dir_score(lg, lh, lc, extra_valid):
         rg, rh, rc = pg - lg, ph - lh, pc - lc
@@ -373,7 +373,7 @@ def _sorted_cat_split(hist, is_cat, num_bins, feat_mask, parent_grad,
     g, h, c = hist[..., 0], hist[..., 1], hist[..., 2]
     l2c = p.lambda_l2 + p.cat_l2
     sort_mode = is_cat & (num_bins > p.max_cat_to_onehot) & feat_mask  # [F]
-    elig = sort_mode[:, None] & (c >= p.cat_smooth)                 # [.., F, B]
+    elig = sort_mode[..., None] & (c >= p.cat_smooth)                 # [.., F, B]
     used_bin = elig.sum(dim=-1)                                     # [.., F]
     ratio = torch.where(elig, g / (h + p.cat_smooth),
                         torch.full_like(g, float("inf")))
@@ -396,7 +396,7 @@ def _sorted_cat_split(hist, is_cat, num_bins, feat_mask, parent_grad,
     lr = pre[..., 3] if k > 3 else lc
     max_num_cat = torch.clamp((used_bin + 1) // 2, max=mct)
     in_range = ((ts <= used_bin[..., None]) & (ts <= max_num_cat[..., None])
-                & sort_mode[:, None])[..., None]                    # [.., F, T, 1]
+                & sort_mode[..., None])[..., None]                    # [.., F, T, 1]
 
     def lead(x):
         return x[..., None, None, None]

@@ -840,3 +840,124 @@ def test_renewal_card_matches_cpu(dev, grower):
         np.testing.assert_array_equal(a.split_feature[:n_],
                                       b.split_feature[:n_])
     np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-4)
+
+
+def _amp_records(n, f, b, dev, seed):
+    """Records whose in-bag column is a GOSS-like weight: 0 out of bag, 1
+    or an amplification (8) in bag, so the in-bag count channel (rows with
+    a non-zero weight) differs from the raw count."""
+    layout, work = _records(n, f, b, dev, seed)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    u = torch.rand(n, generator=g, device=dev)
+    w = torch.where(u < 0.3, 0.0, torch.where(u < 0.4, 8.0, 1.0))
+    work[:, layout.cnt_off:layout.cnt_off + 4] = w.contiguous().view(
+        torch.uint8).reshape(n, 4)
+    return layout, work
+
+
+@pytest.mark.parametrize("mode,start,count", [(1, 0, 300_000),
+                                              (0, 0, 300_000),
+                                              (0, 12_345, 100_001)])
+def test_fused_split_on_bagged_records(dev, mode, start, count):
+    """K2 and its K1 on records whose in-bag weights are 0, 1 and 8: the
+    children byte-equal, the in-bag count exact and below the raw count."""
+    n, f, b = 300_000, 28, 256
+    layout, work = _amp_records(n, f, b, dev, 41)
+    scratch = torch.zeros_like(work)
+    col = work[start:start + count, 3]
+    n_left = int((col <= 100).sum())
+    args = (mode, start, count, n_left, 3, 100, 0, 0, 0, None, layout, b)
+    wk, sk = work.clone(), scratch.clone()
+    wp, sp = work.clone(), scratch.clone()
+    _, _, hk = fused_split(wk, sk, *args)
+    _, _, hp = fused_split_plain(wp, sp, *args)
+    _, _, habs = fused_split_plain(_abs_grad(work, layout), scratch.clone(),
+                                   *args)
+    torch.cuda.synchronize()
+    _close(hk, hp, habs)
+    assert bool((hk[..., 2] <= hk[..., 3]).all())
+    assert bool((hk[..., 2] < hk[..., 3]).any())
+    if mode == 0:
+        assert torch.equal(wk[start:start + n_left], wp[start:start + n_left])
+        assert torch.equal(sk[start + n_left:start + count],
+                           sp[start + n_left:start + count])
+    seg = torch.tensor([start, count, 0], dtype=torch.int32, device=dev)
+    rk = record_histogram(work, scratch, seg, layout, b)
+    rp = record_histogram_plain(work, scratch, seg, layout, b)
+    _close(rk, rp, record_histogram_plain(_abs_grad(work, layout), scratch,
+                                          seg, layout, b))
+    in_bag = work[start:start + count, layout.cnt_off:layout.cnt_off + 4] \
+        .contiguous().view(torch.float32) != 0
+    assert int(rk[0, :, 2].sum()) == int(in_bag.sum())
+    assert int(rk[0, :, 3].sum()) == count
+
+
+def _numpy_draws(gbdt):
+    """The same draws on the card and the CPU (the seams)."""
+    gbdt.sample_strategy.draws = lambda seed, size: torch.from_numpy(
+        np.random.RandomState(seed).rand(size).astype(np.float32))
+    gbdt.bynode_draws = lambda t, rows, feats: torch.from_numpy(
+        np.random.RandomState(1000 + t).rand(rows, feats).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", ["bagging", "goss", "balanced",
+                                  "balanced_sublane", "bynode_masked",
+                                  "bynode_compact"])
+def test_sampled_train_on_card_matches_cpu(dev, case, monkeypatch):
+    """Sampled training on the card against the CPU with the same draws:
+    the same trees, predictions within 1e-4."""
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    init = gbdt_mod.GBDT.__init__
+
+    def patched(self, *a, **kw):
+        init(self, *a, **kw)
+        _numpy_draws(self)
+    monkeypatch.setattr(gbdt_mod.GBDT, "__init__", patched)
+    rng = np.random.RandomState(8)
+    X = rng.randn(80_000, 10).astype(np.float32)
+    y = (X[:, 0] - 0.5 * X[:, 3] + 0.4 * rng.randn(80_000) > 0).astype(
+        np.float64)
+    extra = {"bagging": {"bagging_fraction": 0.7, "bagging_freq": 2},
+             "goss": {"data_sample_strategy": "goss",
+                      "learning_rate": 0.34},
+             "balanced": {"bagging_fraction": 0.9, "bagging_freq": 1,
+                          "pos_bagging_fraction": 0.5},
+             # K3 on a bagged mask channel
+             "balanced_sublane": {"bagging_fraction": 0.9, "bagging_freq": 1,
+                                  "pos_bagging_fraction": 0.5,
+                                  "max_bin": 63, "tpu_hist_layout": "sublane"},
+             "bynode_masked": {"feature_fraction_bynode": 0.5,
+                               "feature_fraction": 0.8,
+                               "tpu_grower": "masked"},
+             "bynode_compact": {"feature_fraction_bynode": 0.5,
+                                "feature_fraction": 0.8}}[case]
+    p = dict({"objective": "binary", "num_leaves": 31, "verbosity": -1},
+             **extra)
+    _kernels.reset_counts()
+    bg = lgt.train(dict(p, device_type="cuda"), lgt.Dataset(X, y), 5)
+    assert sum(_kernels.PLAIN_CALLS.values()) == 0
+    if case == "balanced_sublane":
+        assert _kernels.LAUNCHES["histogram_sublane"] > 0
+        assert _kernels.LAUNCHES["histogram"] == 0
+    bc = lgt.train(dict(p, device_type="cpu"), lgt.Dataset(X, y), 5)
+    assert bg._gbdt.use_compact == (case not in ("balanced",
+                                                 "balanced_sublane",
+                                                 "bynode_masked"))
+    for a, b in zip(bg._gbdt.models, bc._gbdt.models):
+        n_ = a.num_nodes
+        np.testing.assert_array_equal(a.split_feature[:n_],
+                                      b.split_feature[:n_])
+    np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-4)
+
+
+def test_goss_threshold_on_card_past_2_24(dev):
+    """GOSS's threshold on more elements than torch.quantile takes, equal
+    on the card and the CPU."""
+    from lightgbm_tpu_torch.boosting.sample_strategy import linear_quantile
+    x = torch.rand((1 << 24) + 1001, generator=torch.Generator().manual_seed(
+        3))
+    x[:1000] = x[0]
+    for q in (0.0, 0.8, 0.999999, 1.0):
+        assert float(linear_quantile(x.to(dev), q)) \
+            == float(linear_quantile(x, q))
