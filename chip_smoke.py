@@ -83,24 +83,24 @@ non-zero):
    rows with the multiclass label and categorical columns, max_bin=63, 63
    leaves, sublane, 4 rounds: iterations/s, K3's launches (> 0) and K1's
    and K2's (0), host syncs in each later tree (0); save_model ->
-   Booster(model_file=...) -> predict (1e-6); the card against the CPU,
-   reported at 4 rounds beside a CPU control that nudges the row weights
-   by 1e-6, and held within 1e-4 at 3 rounds on weighted rows, where the
-   control agrees; one objective=regression run with the categorical
+   Booster(model_file=...) -> predict (1e-6); the card against the CPU
+   held within 1e-4 at 3 rounds on weighted rows, beside a CPU control
+   that nudges the row weights by 1e-6 and agrees there; one
+   objective=regression run with the categorical
    columns on the card against the CPU (1e-4);
 11. the multiclass compact path at the main path's row count: the same
    Higgs-shaped rows with a 5-class label cut from the generator's logits
    and five categorical columns (four of 32 codes for the sorted scan, one
    of 3 for the one-hot scan; make_higgs_multiclass_like),
-   objective=multiclass, 255 leaves, 255 bins, 1 warm-up and 2 timed
-   rounds (5 trees a round): iterations/s and trees/s, validation
+   objective=multiclass, 255 leaves, 255 bins, 1 warm-up and 1 timed
+   round (5 trees a round): iterations/s and trees/s, validation
    multi_logloss (below ln 5) and multi_error, K1's and K2's launches (> 0),
    K3's (0), plain calls (0), host syncs in each later tree (0), one-hot and
    sorted categorical splits (each > 0), the record's width; K2 on a
    sorted categorical split of the grown trees (its 8-word bitset) over the
    whole wider record array against its plain version, timed; a profiled
    tree with K1's and K2's device ms beside their byte bounds; and the
-   card against the CPU at 100k rows, 31 leaves, 3 rounds, on weighted rows
+   card against the CPU at 70k rows, 31 leaves, 1 round, on weighted rows
    (tie_free_weights: every class probability within 1e-4);
 12. Exclusive Feature Bundling on the compact grower at the Allstate shape
    of the repo's sparse benchmark (make_allstate_like, 500k x 4228 one-hot
@@ -119,7 +119,7 @@ non-zero):
    beside the root's smaller-child histogram alone (the rest of each is its
    partition); K1 on the wide records against its plain version
    (bit-equal), timed beside index_add_; the saved and reloaded model within 1e-6; and the card against the CPU on
-   a narrower one-hot shape (100k x 320 plus 4 dense columns, 31 leaves, 3
+   a narrower one-hot shape (50k x 320 plus 4 dense columns, 31 leaves, 2
    rounds) within 1e-4; and K2's quant mode in copy-back at the bundled
    root split against its plain version (byte-equal, int32 exact), timed
    (EFB_CHECKS' quant_copy_back, the bundled part of QUANT_CHECKS);
@@ -130,7 +130,7 @@ non-zero):
    launches (> 0), plain calls (0), host syncs in a tree step (0), the
    renewal's device ms and launches a tree; then RENEW_CHECKS: the card
    against the CPU for regression_l1, quantile and mape on the compact
-   grower (100k x 28) and the masked grower (20k x 28), 31 leaves, 3
+   grower (100k x 28) and the masked grower (20k x 28), 31 leaves, 2
    rounds (1e-4, differing splits counted);
 14. learning to rank (RANK, run right after RENEW) at the repo's MS-LTR
    configuration (make_msltr_like, 2.27M x 137, 120 documents a query,
@@ -147,9 +147,9 @@ non-zero):
    run's gradients within hist_close, on dyadic channels bit-equal),
    timed beside stable argsort + index_select and index_add_; the
    reloaded model (1e-6); the card against the CPU for lambdarank on the
-   compact grower (100k rows, 833 queries), rank_xendcg (the same draws on
-   both) and lambdarank with positions on the masked grower (20k rows), 31
-   leaves, 3 rounds (1e-4, differing splits counted);
+   compact grower (70k rows, 583 queries), rank_xendcg (the same draws on
+   both) and lambdarank with positions on the masked grower (10k rows), 31
+   leaves, 2 rounds (1e-4, differing splits counted);
 15. the tuned training loop (TUNED, run right after RENEW on MAIN's
    datasets with their binary labels): the compact path's parameters with
    LightGBM's examples/binary_classification/train.conf sampling
@@ -172,12 +172,33 @@ non-zero):
    balanced (lane and, K3 on a bagged mask, sublane) and by-query bagging,
    GOSS, feature_fraction with
    feature_fraction_bynode on both growers and bagged quantized renewal
-   (100k x 28 compact, 20k x 28 masked, 31 leaves; 1e-4, differing splits
-   counted); early stopping at the same best iteration on both; a custom
+   (100k x 28 compact, 20k x 28 masked, 31 leaves, 2-3 rounds, GOSS 4;
+   1e-4, differing splits counted); early stopping at the same best iteration on both; a custom
    objective (hand-written logloss) against the built-in binary without
    boost-from-average (1e-4); init_model, card against CPU (1e-4), its
    5-tree text reloaded (1e-6); a rollback's validation scores against
-   the 2-round model (1e-5).
+   the 2-round model (1e-5);
+16. monotone and interaction constraints (CONSTRAINED, run right after
+   TUNED on MAIN's datasets with their binary labels): MAIN's parameters
+   with monotone_constraints (the sign of the generator's w1 on the 8
+   features with the largest |w1|), monotone_constraints_method
+   intermediate and four interaction groups of 7 features, 1 warm-up and
+   3 timed rounds and a profiled tree: iterations/s beside MAIN's,
+   launches a split, the walk kernel's launches (one a split) and device
+   ms a tree, the batched rescans' device ms and launches a tree (their
+   profiler ranges), the flagged leaves a tree (> 0), K1's and
+   K2's launches (> 0), plain calls (0), host syncs in the tree step (0);
+   the walk kernel against its plain version on every split's state of
+   one more tree (flags and bounds equal), timed; a sweep of each
+   constrained feature over its bin bounds on 1,000 validation rows (no
+   prediction moves against the direction); then CONSTRAINED_CHECKS: the
+   card against the CPU on weighted rows for basic monotone on both
+   growers, intermediate, monotone_penalty, interaction constraints on
+   both growers, path_smooth, extra trees (numpy's words on both),
+   feature_contri, CEGB split and coupled on the compact grower, and lazy
+   CEGB on the masked grower with the sublane layout (K3); 100k x 28
+   compact, 20k x 28 masked, 15 leaves, 2 rounds (1e-4, 0 differing
+   splits).
 
 Each profiled tree must hold as many launches of each kernel as its wrapper
 counted in that round; a short trace is repeated. The line before the last
@@ -207,16 +228,18 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 RECORD_ROW_BYTES = 64          # bins + channels: two 32-byte sectors a row
 
 
-def make_higgs_like(n, f, seed=7, with_logits=False):
+def make_higgs_like(n, f, seed=7, with_logits=False, with_w1=False):
     """Dense float features + nonlinear binary target (Higgs-shaped); with
-    ``with_logits`` also the logits the target is cut from."""
+    ``with_logits`` also the logits the target is cut from, with
+    ``with_w1`` also the linear part's weights (last)."""
     rng = np.random.RandomState(seed)
     X = rng.randn(n, f).astype(np.float32)
     w1 = rng.randn(f) / np.sqrt(f)
     w2 = rng.randn(f) / np.sqrt(f)
     logits = X @ w1 + 0.7 * np.abs(X @ w2) - 0.4 + 0.5 * rng.randn(n)
     y = (logits > 0).astype(np.float64)
-    return (X, y, logits) if with_logits else (X, y)
+    out = (X, y, logits) if with_logits else (X, y)
+    return out + (w1,) if with_w1 else out
 
 
 # the multiclass case's categorical columns: four cut into 32 quantile codes
@@ -361,6 +384,21 @@ def count_syncs(owner, names, out):
         for name in names:
             setattr(owner, name, orig[name])
     out["calls"] = calls
+
+
+def shared_datasets(lgt):
+    """One binned Dataset per (rows, max_bin, query groups) for the card
+    and the CPU runs of a check's cases: binning is host work that no
+    option of these cases changes."""
+    cache = {}
+
+    def get(X, y, max_bin=255, group=None, **kw):
+        key = (len(X), max_bin, group is not None)
+        if key not in cache:
+            cache[key] = lgt.Dataset(X, y, group=group,
+                                     params={"max_bin": max_bin}, **kw)
+        return cache[key]
+    return get
 
 
 def compare_boosters(a, b, X):
@@ -913,7 +951,8 @@ def phase_main_path(lgt, rows, rounds, results):
     from lightgbm_tpu_torch import _kernels
     from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
     t0 = time.perf_counter()
-    X, y, logits = make_higgs_like(rows, 28, with_logits=True)
+    X, y, logits, w1 = make_higgs_like(rows, 28, with_logits=True,
+                                       with_w1=True)
     n_val = rows // 10
     Xt, yt, Xv, yv = X[:-n_val], y[:-n_val], X[-n_val:], y[-n_val:]
     gen_s = time.perf_counter() - t0
@@ -974,6 +1013,8 @@ def phase_main_path(lgt, rows, rounds, results):
     results["main"] = out
     # the large-N masked and the multiclass phases train on the same rows
     results["higgs"] = (X, y, logits, n_val)
+    # CONSTRAINED's monotone directions
+    results["higgs_w1"] = w1
 
 
 QUANT_ROUNDS = 2                 # timed rounds after one warm-up round
@@ -1494,9 +1535,10 @@ def phase_multiclass(lgt, rows, results):
     path's row count: the main path's Higgs-shaped rows (no second
     generation) with a 5-class label and five categorical columns
     (make_higgs_multiclass_like), objective=multiclass, 255 leaves, 255
-    bins, 10% validation, 1 warm-up and 2 timed rounds (5 trees a round);
-    then K2 on a grown categorical split, a profiled round, and the card
-    against the CPU at 100k rows."""
+    bins, 10% validation, 1 warm-up and 1 timed round (5 trees a round;
+    one round keeps the smoke within its time); then K2 on a grown
+    categorical split, a profiled round, and the card against the CPU at
+    70k rows."""
     from lightgbm_tpu_torch import _kernels
     from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
     X, _, logits, n_val = results.pop("higgs")
@@ -1504,7 +1546,7 @@ def phase_multiclass(lgt, rows, results):
     X, y = make_higgs_multiclass_like(X, logits)
     label_s = time.perf_counter() - t0
     Xt, yt, Xv, yv = X[:-n_val], y[:-n_val], X[-n_val:], y[-n_val:]
-    rounds = 2
+    rounds = 1
     syncs = {}
     ends = []
 
@@ -1583,21 +1625,23 @@ def tie_free_weights(n, seed=13):
 
 
 def multiclass_cpu_vs_card(lgt):
-    """The multiclass phase's configuration at 100k rows, 31 leaves and 3
-    rounds, on weighted rows (tie_free_weights), on the card and on the
-    CPU: every class probability within 1e-4."""
-    X, _, logits = make_higgs_like(100_000, 28, seed=11, with_logits=True)
+    """The multiclass phase's configuration at 70k rows (the compact
+    grower still takes it), 31 leaves and 1 round of 5 trees (sized for the
+    smoke's time), on weighted rows (tie_free_weights), on the card and on the
+    CPU: every class probability within 1e-4, differing splits counted."""
+    X, _, logits = make_higgs_like(70_000, 28, seed=11, with_logits=True)
     X, y = make_higgs_multiclass_like(X, logits)
     w = tie_free_weights(len(y))
     params = dict(MC_PARAMS, num_leaves=31)
     boosters = {dev: lgt.train(dict(params, device_type=dev),
                                lgt.Dataset(X, y, weight=w,
                                            categorical_feature=MC_CATS),
-                               3) for dev in ("cuda", "cpu")}
-    check(boosters["cuda"]._gbdt.use_compact, "100k rows did not take the "
+                               1) for dev in ("cuda", "cpu")}
+    check(boosters["cuda"]._gbdt.use_compact, "70k rows did not take the "
           "compact grower")
     diff, differ = compare_boosters(boosters["cuda"], boosters["cpu"], X)
-    out = {"rows": 100_000, "weighted": True, "max_abs_prob_diff": diff,
+    out = {"rows": 70_000, "rounds": 1, "weighted": True,
+           "max_abs_prob_diff": diff,
            "differing_splits": differ,
            "categorical_splits": categorical_split_counts(boosters["cuda"])}
     print("MULTICLASS_CPU_VS_CARD", json.dumps(out), flush=True)
@@ -1616,11 +1660,11 @@ def phase_multiclass_masked(lgt, results):
     serving bench's 20k x 28 rows (bench.py:769-776) with the multiclass
     case's label and categorical columns, max_bin=63, 63 leaves, the
     sublane layout (K3), MC_MASKED_ROUNDS rounds; the saved and reloaded
-    model; the card against the CPU, reported at those rounds beside a CPU
-    control (the
-    CPU against itself with the rows weighted 1 + 1e-6 x noise) and checked
-    at 3 rounds on weighted rows (tie_free_weights), where the same control
-    agrees; and one
+    model; the card against the CPU, checked at 3 rounds on weighted rows
+    (tie_free_weights) beside a CPU control (the CPU against itself with
+    the rows weighted 1 + 1e-6 x noise), which agrees there (no comparison
+    at the run's rounds: a model this deep is bistable, PERF.md section
+    6); and one
     objective=regression run with the categorical columns on the card
     against the CPU."""
     from lightgbm_tpu_torch import _kernels
@@ -1682,15 +1726,8 @@ def phase_multiclass_masked(lgt, results):
     def train(dev, w, n_rounds):
         return lgt.train(dict(params, device_type=dev), dataset(Xt, yt, w),
                          n_rounds)
-    # reported, not checked, at the run's rounds: the card against the
-    # CPU, and the CPU against itself on rows weighted 1 + 1e-6 x noise. A
-    # model this deep is bistable (exact ties of the sorted scan, then near
-    # ties), so where the CPU control parts, the card may part as well
     w = tie_free_weights(len(yt))
     nudged = 1.0 + 1e-6 * np.random.RandomState(17).randn(len(yt))
-    cpu = train("cpu", None, rounds)
-    deep_card = compare_boosters(bst, cpu, X)
-    deep_control = compare_boosters(train("cpu", nudged, rounds), cpu, X)
     # checked: 3 rounds on weighted rows (tie_free_weights), as the compact
     # phase compares, where the same CPU control shows the comparison is
     # well posed
@@ -1710,14 +1747,12 @@ def phase_multiclass_masked(lgt, results):
            "verbosity": -1}
     _kernels.reset_counts()
     reg_card = lgt.train(dict(reg, device_type="cuda"),
-                         dataset(Xt, logits[:20_000]), 10)
+                         dataset(Xt, logits[:20_000]), 5)
     reg_launches = dict(_kernels.LAUNCHES)
     reg_cpu = lgt.train(dict(reg, device_type="cpu"),
-                        dataset(Xt, logits[:20_000]), 10)
+                        dataset(Xt, logits[:20_000]), 5)
     reg_diff, _ = compare_boosters(reg_card, reg_cpu, X)
-    cmp = {f"rounds_{rounds}": {"card_vs_cpu": deep_card,
-                         "cpu_vs_nudged_cpu": deep_control},
-           "rounds_3_weighted": {"card_vs_cpu": [cpu_diff, cpu_differ],
+    cmp = {"rounds_3_weighted": {"card_vs_cpu": [cpu_diff, cpu_differ],
                                  "cpu_vs_nudged_cpu": control},
            "reload_max_abs_prob_diff": reload_diff,
            "regression_cpu_max_abs_pred_diff": reg_diff,
@@ -1742,19 +1777,38 @@ KERNEL_FUNCTIONS = {"histogram": ("hist_kernel",),
                     "fused_split": ("prep_kernel", "partition_kernel",
                                     "copyback_kernel"),
                     "histogram_sublane": ("hist_sublane_kernel",
-                                          "hist_sublane_small_kernel")}
+                                          "hist_sublane_small_kernel"),
+                    "monotone_walk": ("monotone_walk_kernel",)}
 # of those, the ones of which exactly one runs for each launch a wrapper
 # counts (K2's partition does not run for the root's histogram, mode 1)
 ENTRY_FUNCTIONS = {"histogram": ("hist_kernel",),
                    "fused_split": ("prep_kernel",),
                    "histogram_sublane": ("hist_sublane_kernel",
-                                         "hist_sublane_small_kernel")}
+                                         "hist_sublane_small_kernel"),
+                   "monotone_walk": ("monotone_walk_kernel",)}
 
 
 # the device function of a kernel mode that has its own instantiation (the
 # profiler's demangled name, spaces removed): K1's integer variant. K2's
 # quant mode runs the same partition functions as its f32 mode
 MODE_FUNCTIONS = {"histogram/quant": "hist_kernel<true,true>"}
+
+
+# the port's profiler ranges (ops/grower_compact.py)
+PROFILER_RANGES = ("monotone_rescan",)
+
+
+def is_range(event):
+    """A profiler range's event (host or device side), not an op or a
+    kernel."""
+    return event.name in PROFILER_RANGES
+
+
+def in_spans(spans, t):
+    """Whether time ``t`` lies in one of the sorted, disjoint ``spans``."""
+    import bisect
+    i = bisect.bisect_right(spans, (t, float("inf"))) - 1
+    return i >= 0 and t <= spans[i][1]
 
 
 def _named(name, fns):
@@ -1884,7 +1938,9 @@ def profile_tree(bst, tree_s, grower=None):
         by_name = {}
         launches = 0
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
+            # a profiler range (ops/grower_compact.py's monotone_rescan) has
+            # a device-side span too: its kernels are counted by name
+            if e.device_type == DeviceType.CUDA and not is_range(e):
                 us, n = by_name.get(e.name, (0.0, 0))
                 by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
             elif e.name == "cudaLaunchKernel":
@@ -1934,6 +1990,25 @@ def profile_tree(bst, tree_s, grower=None):
             entry["bytes"] = bounds[kern]
             entry["bound_ms"] = 1e3 * bounds[kern] / HBM_BYTES_PER_S
         line.setdefault("kernels", {})[kern] = entry
+    # the port's profiler ranges: the device ms of the kernels inside each
+    # range's device-side spans (one stream: a span holds only its own
+    # kernels), the launches inside its host-side ranges
+    for rng in PROFILER_RANGES:
+        spans = {dev: sorted((e.time_range.start, e.time_range.end)
+                             for e in prof.events() if e.name == rng
+                             and (e.device_type == DeviceType.CUDA) == dev)
+                 for dev in (True, False)}
+        if not spans[False]:
+            continue
+        line.setdefault("ranges", {})[rng] = {
+            "count": len(spans[False]),
+            "device_ms": 1e-3 * sum(
+                e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA and not is_range(e)
+                and in_spans(spans[True], e.time_range.start)),
+            "launches": sum(1 for e in prof.events()
+                            if e.name == "cudaLaunchKernel"
+                            and in_spans(spans[False], e.time_range.start))}
     # a mode's launches in the trace against its wrappers' count
     line["modes"] = {m: {"counted": n} for m, n in counted_modes.items()}
     for m in MODE_FUNCTIONS:
@@ -2147,11 +2222,11 @@ def check_efb_kernels(bst):
 
 
 def efb_cpu_vs_card(lgt):
-    """A narrower one-hot shape (100,000 x 320 one-hot in blocks of 8, plus
-    4 dense columns), 31 leaves, 3 rounds, default parameters: bundled on
-    both, the card within 1e-4 of the CPU."""
+    """A narrower one-hot shape (50,000 x 320 one-hot in blocks of 8, plus
+    4 dense columns; sized for the smoke's time), 31 leaves, 2 rounds, default parameters: bundled on both, the card within
+    1e-4 of the CPU, differing splits counted."""
     rng = np.random.RandomState(21)
-    n, groups = 100_000, 40
+    n, groups = 50_000, 40
     cats = rng.randint(0, 8, (n, groups))
     X = np.zeros((n, groups * 8), np.float32)
     for gi in range(groups):
@@ -2161,7 +2236,7 @@ def efb_cpu_vs_card(lgt):
          ).astype(float)
     params = {"objective": "binary", "num_leaves": 31, "verbosity": -1}
     boosters = {dev: lgt.train(dict(params, device_type=dev),
-                               lgt.Dataset(X, y), 3)
+                               lgt.Dataset(X, y), 2)
                 for dev in ("cuda", "cpu")}
     for b in boosters.values():
         check(b._gbdt._efb is not None, "the one-hot check did not bundle")
@@ -2490,15 +2565,16 @@ def same_xendcg_draws():
 
 
 def rank_cpu_vs_card(lgt):
-    """The card against the CPU: lambdarank on the compact grower at 100k
-    MS-LTR-shaped rows (833 queries), rank_xendcg (the same draws on both)
-    and lambdarank with positions on the masked grower at 20k rows; 31
-    leaves, 3 rounds; predictions within 1e-4, differing splits
-    counted."""
+    """The card against the CPU: lambdarank on the compact grower at 70k
+    MS-LTR-shaped rows (583 queries), rank_xendcg (the same draws on both)
+    and lambdarank with positions on the masked grower at 10k rows; 31
+    leaves, 2 rounds; predictions within 1e-4, differing splits
+    counted. (The CPU half of this check takes most of its time: rows
+    and rounds are sized for the smoke's limit.)"""
     out = {}
-    cases = (("lambdarank_compact", 100_000, {"tpu_grower": "compact"}),
-             ("rank_xendcg_masked", 20_000, {"objective": "rank_xendcg"}),
-             ("lambdarank_position_masked", 20_000, {}))
+    cases = (("lambdarank_compact", 70_000, {"tpu_grower": "compact"}),
+             ("rank_xendcg_masked", 10_000, {"objective": "rank_xendcg"}),
+             ("lambdarank_position_masked", 10_000, {}))
     for name, rows, extra in cases:
         X, y, group = make_msltr_like(rows, RANK_FEATURES, seed=23)
         params = dict(RANK_PARAMS, num_leaves=31, **extra)
@@ -2510,7 +2586,7 @@ def rank_cpu_vs_card(lgt):
             for dev in ("cuda", "cpu"):
                 boosters[dev] = lgt.train(
                     dict(params, device_type=dev),
-                    lgt.Dataset(X, y, group=group, **kw), 3)
+                    lgt.Dataset(X, y, group=group, **kw), 2)
         check(boosters["cuda"]._gbdt.use_compact == (rows >= 65_536),
               f"{name}: the wrong grower")
         diff, differ = compare_boosters(boosters["cuda"], boosters["cpu"], X)
@@ -2646,17 +2722,18 @@ RENEW_ROUNDS = 2               # timed rounds after one warm-up round
 def renew_cpu_vs_card(lgt):
     """The card against the CPU for regression_l1, quantile (alpha 0.9)
     and mape on the compact grower (100k x 28) and the masked grower (20k x
-    28), the generator's logits as the label, 31 leaves, 3 rounds;
-    predictions within 1e-4, differing splits counted."""
+    28), the generator's logits as the label, 31 leaves, 2 rounds (sized
+    for the smoke's time); predictions within 1e-4, differing splits
+    counted."""
     out = {}
     for grower, rows in (("compact", 100_000), ("masked", 20_000)):
         X, _, logits = make_higgs_like(rows, 28, seed=19, with_logits=True)
+        ds = lgt.Dataset(X, logits)
         for objective in ("regression_l1", "quantile", "mape"):
             params = {"objective": objective, "alpha": 0.9,
                       "num_leaves": 31, "verbosity": -1,
                       "tpu_grower": grower}
-            boosters = {dev: lgt.train(dict(params, device_type=dev),
-                                       lgt.Dataset(X, logits), 3)
+            boosters = {dev: lgt.train(dict(params, device_type=dev), ds, 2)
                         for dev in ("cuda", "cpu")}
             check(boosters["cuda"]._gbdt.use_compact
                   == (grower == "compact"), f"{objective}: wrong grower")
@@ -2774,9 +2851,10 @@ TUNED_PARAMS = {"objective": "binary", "metric": "auc", "num_leaves": 255,
 
 @contextlib.contextmanager
 def seamed_draws():
-    """Every GBDT made inside takes its row and by-node draws from numpy
-    (the seams of boosting/sample_strategy.py and GBDT.bynode_draws), so
-    that the card and the CPU sample the same rows and features."""
+    """Every GBDT made inside takes its row, by-node and extra-trees draws
+    from numpy (the seams of boosting/sample_strategy.py,
+    GBDT.bynode_draws and GBDT.extra_draws), so that the card and the CPU
+    sample the same rows, features and thresholds."""
     from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
     init = gbdt_mod.GBDT.__init__
 
@@ -2788,10 +2866,20 @@ def seamed_draws():
         return torch.from_numpy(np.random.RandomState(10_000 + t).rand(
             n_rows, feats).astype(np.float32))
 
+    def extra(t, leaves, feats, intermediate):
+        rs = np.random.RandomState(20_000 + t)
+        shapes = [(2 * leaves - 1,)] * 2
+        if intermediate:
+            shapes += [(leaves - 1, leaves)] * 2
+        return tuple(torch.from_numpy(rs.randint(
+            0, 1 << 32, size=(*sh, feats, 2), dtype=np.int64))
+            for sh in shapes)
+
     def patched(self, *a, **kw):
         init(self, *a, **kw)
         self.sample_strategy.draws = rows
         self.bynode_draws = nodes
+        self.extra_draws = extra
     gbdt_mod.GBDT.__init__ = patched
     try:
         yield
@@ -3009,48 +3097,52 @@ def check_goss_selection(bst):
 
 def tuned_cpu_vs_card(lgt):
     """The card against the CPU with the same draws (seamed_draws): 100k x
-    28 on the compact grower, 20k x 28 on the masked one, 31 leaves;
-    predictions within 1e-4, differing splits counted. The sublane case
-    runs K3 on a bagged mask channel."""
+    28 on the compact grower, 20k x 28 on the masked one, 31 leaves, 2-3
+    rounds (GOSS 4 at learning rate 0.5, two past its warm-up; each case
+    still holds a reused bag or a fresh draw); predictions
+    within 1e-4, differing splits counted. The sublane case runs K3 on a
+    bagged mask channel."""
     from lightgbm_tpu_torch import _kernels
     out = {}
     X, y = make_higgs_like(100_000, 28, seed=21)
     Xm, ym = X[:20_000], y[:20_000]
     base = {"objective": "binary", "num_leaves": 31, "verbosity": -1}
     cases = [
-        ("bagging_compact", X, y, 5, {"bagging_fraction": 0.7,
+        ("bagging_compact", X, y, 3, {"bagging_fraction": 0.7,
                                       "bagging_freq": 2}, None),
-        ("balanced_masked", Xm, ym, 3, {"bagging_fraction": 0.8,
+        ("balanced_masked", Xm, ym, 2, {"bagging_fraction": 0.8,
                                         "bagging_freq": 1,
                                         "pos_bagging_fraction": 0.5,
                                         "neg_bagging_fraction": 0.9}, None),
         # K3 on a bagged mask channel
-        ("balanced_sublane_masked", Xm, ym, 3, {
+        ("balanced_sublane_masked", Xm, ym, 2, {
             "bagging_fraction": 0.8, "bagging_freq": 1,
             "pos_bagging_fraction": 0.5, "neg_bagging_fraction": 0.9,
             "max_bin": 63, "tpu_hist_layout": "sublane"}, None),
-        ("by_query_masked", Xm, ym, 3, {"bagging_fraction": 0.6,
+        ("by_query_masked", Xm, ym, 2, {"bagging_fraction": 0.6,
                                         "bagging_freq": 1,
                                         "bagging_by_query": True},
          np.full(200, 100)),
-        ("goss_compact", X, y, 6, {"data_sample_strategy": "goss",
-                                   "learning_rate": 0.3}, None),
-        ("feature_fraction_compact", X, y, 3, {
+        ("goss_compact", X, y, 4, {"data_sample_strategy": "goss",
+                                   "learning_rate": 0.5}, None),
+        ("feature_fraction_compact", X, y, 2, {
             "feature_fraction": 0.7, "feature_fraction_bynode": 0.6,
             "tpu_grower": "compact"}, None),
-        ("feature_fraction_masked", Xm, ym, 3, {
+        ("feature_fraction_masked", Xm, ym, 2, {
             "feature_fraction": 0.7, "feature_fraction_bynode": 0.6,
             "tpu_grower": "masked"}, None),
-        ("bagging_quant_renew_compact", X, y, 3, {
+        ("bagging_quant_renew_compact", X, y, 2, {
             "bagging_fraction": 0.7, "bagging_freq": 1,
             "use_quantized_grad": True, "stochastic_rounding": False,
             "quant_train_renew_leaf": True}, None)]
     with seamed_draws():
+        dataset = shared_datasets(lgt)
         for name, Xc, yc, rounds, extra, group in cases:
+            ds = dataset(Xc, yc, extra.get("max_bin", 255), group)
             _kernels.reset_counts()
             boosters = {"cuda": lgt.train(dict(base, device_type="cuda",
                                                **extra),
-                                          lgt.Dataset(Xc, yc, group=group),
+                                          ds,
                                           rounds)}
             launches = dict(_kernels.LAUNCHES)
             check(sum(_kernels.PLAIN_CALLS.values()) == 0,
@@ -3061,7 +3153,7 @@ def tuned_cpu_vs_card(lgt):
                       f"{name}: not on K3 alone: {launches}")
             boosters["cpu"] = lgt.train(dict(base, device_type="cpu",
                                              **extra),
-                                        lgt.Dataset(Xc, yc, group=group),
+                                        ds,
                                         rounds)
             want_compact = "masked" not in name
             check(boosters["cuda"]._gbdt.use_compact == want_compact,
@@ -3169,10 +3261,10 @@ def phase_tuned(lgt, results):
     TUNED_ROUNDS timed rounds (reused bags, then one fresh draw) and a
     profiled tree (its bounds from the raw rows). Then TUNED_CHECKS:
     check_tuned_kernels, check_goss_selection, tuned_cpu_vs_card and
-    tuned_api_checks."""
+    tuned_api_checks. CONSTRAINED takes the datasets next."""
     from lightgbm_tpu_torch import _kernels
     from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
-    ds, dv = results.pop("main_datasets")
+    ds, dv = results["main_datasets"]
     _, y, _, n_val = results["higgs"]
     ds._inner.metadata.set_label(y[:-n_val])
     dv._inner.metadata.set_label(y[-n_val:])
@@ -3272,6 +3364,280 @@ def phase_tuned(lgt, results):
     results["tuned"] = out
 
 
+CONSTRAINED_ROUNDS = 3         # timed rounds after one warm-up round
+# the four interaction groups of the Higgs-shaped features
+INTERACTION_GROUPS = [list(range(0, 7)), list(range(7, 14)),
+                      list(range(14, 21)), list(range(21, 28))]
+
+
+def constrained_params(w1):
+    """MAIN's parameters with monotone constraints (the sign of the
+    generator's w1 on the 8 features with the largest |w1|, 0 elsewhere),
+    the intermediate method and the four interaction groups."""
+    top = np.argsort(-np.abs(w1))[:8]
+    mono = np.zeros(len(w1), np.int64)
+    mono[top] = np.sign(w1[top]).astype(np.int64)
+    return {"objective": "binary", "metric": "auc", "num_leaves": 255,
+            "max_bin": 255, "learning_rate": 0.1, "min_data_in_leaf": 100,
+            "verbosity": -1, "monotone_constraints": mono.tolist(),
+            "monotone_constraints_method": "intermediate",
+            "interaction_constraints": INTERACTION_GROUPS}
+
+
+def monotone_sweep(bst, X, mono):
+    """Each constrained feature swept over its bin upper bounds on the rows
+    ``X``: the largest step of any row's raw prediction against the
+    feature's direction (0 when every prediction moves only with it)."""
+    worst = 0.0
+    for j in np.nonzero(mono)[0]:
+        bounds = bst._gbdt.mappers[j].bin_upper_bounds
+        values = bounds[np.isfinite(bounds)]
+        Xs = np.repeat(X[None], len(values), axis=0)      # [V, R, F]
+        Xs[:, :, j] = values[:, None]
+        preds = bst.predict(Xs.reshape(-1, X.shape[1]), raw_score=True)
+        steps = np.diff(preds.reshape(len(values), -1), axis=0) * mono[j]
+        worst = max(worst, float(-steps.min(initial=0.0)))
+    return worst
+
+
+def check_walk_kernel(bst):
+    """The walk kernel against its plain version on the states of one more
+    CONSTRAINED tree: every split's walk inputs are recorded (device
+    copies), then the kernel runs on a card copy and the plain version on a
+    CPU copy of each: flags and tightened bounds equal. The kernel's and
+    the plain version's ms on the split that flagged the most leaves."""
+    from lightgbm_tpu_torch.ops import grower_compact as gc_mod
+    from lightgbm_tpu_torch.ops import monotone as mono_mod
+    walk = gc_mod.monotone_walk
+    states = []
+
+    def recording(node_i, leaf_f, *a):
+        states.append((node_i.clone(), leaf_f.clone(),
+                       *[x.clone() if torch.is_tensor(x) else x for x in a]))
+        return walk(node_i, leaf_f, *a)
+    gc_mod.monotone_walk = recording
+    try:
+        bst.update()
+    finally:
+        gc_mod.monotone_walk = walk
+    torch.cuda.synchronize()
+    flagged, worst, best = [], 0.0, None
+    for st in states:
+        node_i, leaf_f = st[0], st[1]
+        lk, lp = leaf_f.clone(), leaf_f.cpu()
+        fk = mono_mod.monotone_walk(node_i, lk, *st[2:])
+        fp = mono_mod.monotone_walk_plain(
+            node_i.cpu(), lp, *[x.cpu() if torch.is_tensor(x) else x
+                                for x in st[2:]])
+        check(torch.equal(fk.cpu(), fp), "walk kernel flags differ from its "
+              "plain version")
+        check(torch.equal(lk.cpu(), lp), "walk kernel bounds differ from "
+              "its plain version")
+        n = int(fp.sum())
+        flagged.append(n)
+        if best is None or n > flagged[best]:
+            best = len(flagged) - 1
+    st = states[best]
+    node_i, leaf_f = st[0], st[1]
+    cpu_args = [x.cpu() if torch.is_tensor(x) else x for x in st[2:]]
+    lt = leaf_f.clone()
+    kernel_ms = time_ms(lambda: mono_mod.monotone_walk(node_i, lt, *st[2:]),
+                        reps=50)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        mono_mod.monotone_walk_plain(node_i.cpu(), leaf_f.cpu(), *cpu_args)
+    plain_ms = (time.perf_counter() - t0) * 200
+    L = leaf_f.shape[0]
+    # the bytes the walk must move: the node and leaf tables and the
+    # directions read once, the bounds and flags written once
+    nbytes = (node_i.numel() * 8 + leaf_f.numel() * 4
+              + st[2].numel() * 8 + L * 8 + L)
+    return {"states": len(states), "flagged_a_split_max": flagged[best],
+            "flagged_a_tree": int(sum(flagged)), "max_abs_err": 0.0,
+            "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bytes": nbytes,
+            "leaves": L}
+
+
+def constrained_cpu_vs_card(lgt):
+    """The card against the CPU, one case each: 100k x 28 on the compact
+    grower, 20k x 28 on the masked one, 15 leaves, 2 rounds, on
+    continuously weighted rows (tie_free_weights); the extra-trees case
+    with numpy's words on both (seamed_draws). Predictions within 1e-4
+    and 0 differing splits; each case's wall seconds."""
+    from lightgbm_tpu_torch import _kernels
+    X, y = make_higgs_like(100_000, 28, seed=31)
+    w = tie_free_weights(len(y), seed=17)
+    mono = [1, -1, 0, 1, 0, 0, -1, 0] + [0] * 20
+    base = {"objective": "binary", "num_leaves": 15, "verbosity": -1}
+    cases = [
+        ("monotone_basic_compact", {"monotone_constraints": mono}),
+        ("monotone_basic_masked", {"monotone_constraints": mono,
+                                   "tpu_grower": "masked"}),
+        ("monotone_intermediate_compact", {
+            "monotone_constraints": mono,
+            "monotone_constraints_method": "intermediate"}),
+        ("monotone_penalty_compact", {"monotone_constraints": mono,
+                                      "monotone_penalty": 1.5}),
+        ("interaction_compact", {
+            "interaction_constraints": INTERACTION_GROUPS}),
+        ("interaction_masked", {"interaction_constraints":
+                                INTERACTION_GROUPS, "tpu_grower": "masked"}),
+        ("path_smooth_compact", {"path_smooth": 2.0}),
+        ("extra_trees_compact", {"extra_trees": True}),
+        ("feature_contri_compact", {"feature_contri": [1.0, 0.5] * 14}),
+        ("cegb_compact", {"cegb_penalty_split": 1e-4,
+                          "cegb_penalty_feature_coupled": [0.5] * 28}),
+        # K3 (sublane) with lazy costs: the masked grower
+        ("cegb_lazy_sublane_masked", {"cegb_penalty_feature_lazy":
+                                      [0.01] * 28, "max_bin": 63,
+                                      "tpu_hist_layout": "sublane"})]
+    out = {}
+    dataset = shared_datasets(lgt)
+    with seamed_draws():
+        for name, extra in cases:
+            t0 = time.perf_counter()
+            n = 20_000 if "masked" in name else len(y)
+            Xc, yc, wc = X[:n], y[:n], w[:n]
+            ds = dataset(Xc, yc, extra.get("max_bin", 255), weight=wc)
+            _kernels.reset_counts()
+            params = dict(base, **extra)
+            boosters = {"cuda": lgt.train(
+                dict(params, device_type="cuda"), ds, 2)}
+            launches = dict(_kernels.LAUNCHES)
+            check(sum(_kernels.PLAIN_CALLS.values()) == 0,
+                  f"{name}: a plain version ran on the card")
+            if "sublane" in name:
+                check(launches["histogram_sublane"] > 0
+                      and launches["histogram"] == 0,
+                      f"{name}: not on K3 alone: {launches}")
+            if "intermediate" in name:
+                check(launches["monotone_walk"]
+                      == 2 * (params["num_leaves"] - 1),
+                      f"{name}: {launches['monotone_walk']} walks")
+            boosters["cpu"] = lgt.train(
+                dict(params, device_type="cpu"), ds, 2)
+            check(boosters["cuda"]._gbdt.use_compact == ("masked" not in name),
+                  f"{name}: the wrong grower")
+            diff, differ = compare_boosters(boosters["cuda"], boosters["cpu"],
+                                            Xc)
+            check(diff <= 1e-4 and differ == 0,
+                  f"{name}: card vs CPU predictions differ by {diff}, "
+                  f"{differ} differing splits")
+            out[name] = {"rows": n, "max_abs_pred_diff": diff,
+                         "differing_splits": differ,
+                         "launches": {k: v for k, v in launches.items()
+                                      if v},
+                         "s": time.perf_counter() - t0}
+    return out
+
+
+def phase_constrained(lgt, results):
+    """Monotone and interaction constraints on the compact path: MAIN's
+    constructed datasets (binary labels, as TUNED left them) and
+    parameters with the monotone directions of constrained_params, the
+    intermediate method and the four interaction groups; 1 warm-up and
+    CONSTRAINED_ROUNDS timed rounds, a profiled tree (the walk kernel's
+    device ms, and the rescans' from their profiler ranges), one more tree
+    whose walk states check the walk kernel, and the monotone sweep. Then
+    CONSTRAINED_CHECKS: constrained_cpu_vs_card."""
+    from lightgbm_tpu_torch import _kernels
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    ds, dv = results.pop("main_datasets")
+    X, _, _, n_val = results["higgs"]
+    params = constrained_params(results["higgs_w1"])
+    mono = np.asarray(params["monotone_constraints"])
+    rounds = CONSTRAINED_ROUNDS
+    syncs = {}
+    ends = []
+    flagged = []
+
+    def timer(env):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        flagged.append(int(env.model._gbdt.tree_stats["rescan_flagged"]))
+    timer.order = 5
+
+    evals = {}
+    _kernels.reset_counts()
+    with count_syncs(gbdt_mod.GBDT, COMPACT_STEP, syncs):
+        t_start = time.perf_counter()
+        bst = lgt.train(dict(params, device_type="cuda"), ds, 1 + rounds,
+                        valid_sets=[dv],
+                        callbacks=[timer, lgt.record_evaluation(evals)])
+    launches = dict(_kernels.LAUNCHES)
+    plain_calls = dict(_kernels.PLAIN_CALLS)
+    gbdt = bst._gbdt
+    L = gbdt.grower_params.num_leaves
+    check(len(ends) == 1 + rounds, f"trained {len(ends)} rounds")
+    it_s = rounds / (ends[-1] - ends[0])
+    auc = evals["valid_0"]["auc"][-1]
+    check(gbdt.use_compact and gbdt.grower_params.mono_intermediate,
+          "CONSTRAINED did not run the intermediate method on the compact "
+          "grower")
+    for k in ("histogram", "fused_split", "monotone_walk"):
+        check(launches[k] > 0, f"kernel {k} was not launched on the "
+              "CONSTRAINED path")
+    check(launches["monotone_walk"] == (1 + rounds) * (L - 1),
+          f"the walk launched {launches['monotone_walk']} times in "
+          f"{1 + rounds} trees of {L - 1} splits")
+    check(launches["histogram_sublane"] == 0, "K3 ran on CONSTRAINED")
+    for k, v in plain_calls.items():
+        check(v == 0, f"plain version of {k} ran {v} times on the card")
+    check(np.isfinite(auc) and auc > 0.6, f"CONSTRAINED validation AUC {auc}")
+    check(syncs.get("in_tree") == 0,
+          f"host syncs in the constrained tree step: {syncs}")
+    check(min(flagged) > 0, f"flagged leaves a tree {flagged}")
+    tree_s = 1.0 / it_s
+    prof = profile_tree(bst, tree_s)
+    rescan = prof["ranges"]["monotone_rescan"]
+    walk = check_walk_kernel(bst)
+    Xs = X[-n_val:][:1000]
+    worst = monotone_sweep(bst, Xs, mono)
+    check(worst == 0.0, f"a constrained feature moved a prediction against "
+          f"its direction by {worst}")
+    main = results["main"]
+    out = {"train_rows": gbdt.num_data, "valid_rows": dv.num_data(),
+           "rounds_timed": rounds, "iterations_per_s": it_s,
+           "main_iterations_per_s": main["iterations_per_s"],
+           "vs_main": it_s / main["iterations_per_s"],
+           "round_s": np.diff(ends).tolist(),
+           "first_round_s": ends[0] - t_start, "construct_s": "reused",
+           "valid_auc": auc, "valid_auc_by_round": evals["valid_0"]["auc"],
+           "main_valid_auc_by_round": main["valid_auc_by_round"],
+           "monotone_constraints": mono.tolist(),
+           "launches": launches, "plain_calls": plain_calls,
+           "host_syncs_in_tree": syncs.get("in_tree"),
+           "host_syncs_by_step": syncs, "num_trees": bst.num_trees(),
+           "flagged_leaves_by_tree": flagged,
+           "walk_launches_a_tree": launches["monotone_walk"] / (1 + rounds),
+           "walk_device_ms_a_tree":
+               prof["kernels"]["monotone_walk"]["device_ms"],
+           "rescan_device_ms_a_tree": rescan["device_ms"],
+           "rescan_launches_a_tree": rescan["launches"],
+           "rescan_launches_a_split": rescan["launches"] / rescan["count"],
+           "tree_kernel_launches": prof["kernel_launches"],
+           "launches_a_split": prof["kernel_launches"] / (L - 1),
+           "main_launches_a_split": main["profile"]["kernel_launches"]
+           / (L - 1),
+           "tree_device_s": prof["device_s"], "tree_wall_s": tree_s,
+           "tree_device_idle_share": prof["device_idle_share"],
+           "tree_kernels": {k: {"device_ms": v["device_ms"],
+                                "launches": v["launches"],
+                                "bound_ms": v.get("bound_ms")}
+                            for k, v in prof["kernels"].items()
+                            if k != "histogram_sublane"},
+           "walk_kernel": walk, "monotone_sweep_rows": len(Xs),
+           "monotone_sweep_worst_step": worst}
+    print("CONSTRAINED", json.dumps(out), flush=True)
+    out["profile"] = prof
+    del bst, gbdt, ds, dv
+    checks = {"cpu_vs_card": constrained_cpu_vs_card(lgt)}
+    print("CONSTRAINED_CHECKS", json.dumps(checks), flush=True)
+    out["checks"] = checks
+    results["constrained"] = out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=10_500_000,
@@ -3310,6 +3676,7 @@ def main() -> int:
               ("quant", lambda: phase_quant(lgt, results)),
               ("renew", lambda: phase_renew(lgt, results)),
               ("tuned", lambda: phase_tuned(lgt, results)),
+              ("constrained", lambda: phase_constrained(lgt, results)),
               ("rank", lambda: phase_rank(lgt, results)),
               ("masked_large", lambda: phase_masked_large(lgt, args.rows,
                                                           results)),
@@ -3351,6 +3718,15 @@ def main() -> int:
     tn = results["tuned"]
     tn_tree = tn["profile"]["kernels"]
     tnk = tn["checks"]["kernels"]
+    cn = results["constrained"]
+    cn_tree = cn["profile"]["kernels"]
+
+    def constrained_path(kern):
+        """A kernel on the CONSTRAINED path: its launches there and one
+        tree's device ms beside its byte bound."""
+        return {"launches": cn["launches"][kern],
+                "tree_device_ms": cn_tree[kern]["device_ms"],
+                "tree_bound_ms": cn_tree[kern].get("bound_ms")}
 
     def ranking_path(kern):
         """A kernel on the RANK path (F = 137): its launches there, its
@@ -3436,7 +3812,8 @@ def main() -> int:
                    "tree_bound_ms": qt_tree["histogram"]["bound_ms"]},
          "ranking": ranking_path("histogram"),
          "renew": renew_path("histogram"),
-         "tuned": tuned_path("histogram")},
+         "tuned": tuned_path("histogram"),
+         "constrained": constrained_path("histogram")},
         {"name": "fused_split", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/fused_split.cu",
          "replaces": "lightgbm_tpu/ops/fused_split.py:198",
@@ -3489,7 +3866,8 @@ def main() -> int:
                    "efb_copy_back": efb_k["quant_copy_back"]},
          "ranking": ranking_path("fused_split"),
          "renew": renew_path("fused_split"),
-         "tuned": tuned_path("fused_split")},
+         "tuned": tuned_path("fused_split"),
+         "constrained": constrained_path("fused_split")},
         {"name": "histogram_sublane", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/histogram_sublane.cu",
          "replaces": "lightgbm_tpu/ops/pallas_histogram.py:170",
@@ -3511,7 +3889,24 @@ def main() -> int:
          "multiclass_masked": multiclass_path(
              "histogram_sublane", None, mc_masked["launches"],
              mc_masked["rounds"]),
-         "tuned_launches": tn["launches"]["histogram_sublane"]},
+         "tuned_launches": tn["launches"]["histogram_sublane"],
+         "constrained_checks_launches": cn["checks"]["cpu_vs_card"][
+             "cegb_lazy_sublane_masked"]["launches"]["histogram_sublane"]},
+        # the intermediate monotone method's walk: no Pallas kernel, the
+        # JAX package's XLA while-loops (grower_compact.py:859-991)
+        {"name": "monotone_walk", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/monotone_walk.cu",
+         "replaces": "lightgbm_tpu/ops/grower_compact.py:859",
+         "launches": cn["launches"]["monotone_walk"],
+         "max_abs_err": cn["walk_kernel"]["max_abs_err"],
+         "ms": cn["walk_kernel"]["ms"],
+         "plain_ms": cn["walk_kernel"]["plain_ms"],
+         "bound_ms": cn["walk_kernel"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None,
+         "states_checked": cn["walk_kernel"]["states"],
+         "launches_a_tree": cn["walk_launches_a_tree"],
+         "tree_device_ms": cn["walk_device_ms_a_tree"],
+         "rescan_device_ms_a_tree": cn["rescan_device_ms_a_tree"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

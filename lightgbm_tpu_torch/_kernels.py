@@ -53,6 +53,10 @@ KERNELS = {
         "lgbt_hist_sublane": [_P, _L, _P, _I, _L, _I, _I, _I, _P, _I, _I,
                               _I, _I, _I, _I, _I, _P],
     }),
+    "monotone_walk": ("monotone_walk.cu", {
+        "lgbt_monotone_walk": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P,
+                               _P, _P, _P, _P, _P, _I, _I, _P],
+    }),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -9,7 +9,7 @@ def create_boosting(config, train_set, objective, device) -> GBDT:
     if config.boosting != "gbdt":
         raise NotImplementedError(
             f"boosting={config.boosting!r} is not in the PyTorch port yet "
-            "(ROADMAP A14b)")
+            "(ROADMAP A14c)")
     return GBDT(config, train_set, objective, device)
 
 

@@ -104,8 +104,26 @@ need them), and validation scores are routed on the device with the device
 copy of the tree. A no-split tree is zeroed before shrinkage, and the init
 score is folded into the first tree's leaves.
 
-Checkpoints, DART/RF and the JAX package's compile ladder are ROADMAP
-A14b-A16 (the ladder has no counterpart in eager PyTorch).
+Constraints and the scan's other options (reference: ``boosting/gbdt.py:
+94-124``, ``:720-843``, ``:901-909``): ``monotone_constraints`` (with
+``monotone_constraints_method`` and ``monotone_penalty``),
+``interaction_constraints``, ``path_smooth``, ``extra_trees``,
+``feature_contri`` and CEGB reach the growers as a ``TreeOptions``. The
+intermediate monotone method runs on the compact grower only (the masked
+grower warns and runs the basic one; ``advanced`` warns and runs
+intermediate); lazy CEGB costs take the masked grower, whose rows keep the
+dataset's order for the ``[F, N]`` charged bitmap. Coupled CEGB costs are
+paid once a model: the features the trees split on persist across trees
+(``_cegb_used``), as does the charged bitmap. Each tree draws its
+extra-trees words on the device from a ``torch.Generator`` seeded from
+``extra_seed`` and the tree's index (the JAX key's ``fold_in(extra_key,
+num_total_trees)``); ``extra_draws`` takes them from outside (the tests
+feed the JAX package's). EFB data with monotone or interaction
+constraints, CEGB or ``feature_contri`` is unbundled first, with a warning.
+
+Checkpoints, DART/RF, forced splits, linear trees and the JAX package's
+compile ladder are ROADMAP A14c-A16 (the ladder has no counterpart in eager
+PyTorch).
 """
 from __future__ import annotations
 
@@ -119,7 +137,8 @@ from ..io.dataset import BinnedDataset
 from ..io.efb import EfbLayout, unbundle
 from ..metrics import Metric
 from ..ops.compact import RowLayout, _u8_to_f32, pack_rows
-from ..ops.grower import GrowerParams, TreeArrays, grow_tree
+from ..ops.grower import (ExtraDraws, GrowerParams, TreeArrays, TreeOptions,
+                          grow_tree)
 from ..ops.grower_compact import grow_tree_compact
 from ..ops.predict import StackedTrees, predict_leaf_batched, \
     predict_raw_batched
@@ -141,6 +160,10 @@ _COMPACT_MAX_ROWS = 1 << 24
 # below this: a near-constant feature's root bin sums up to that many code
 # units (reference: boosting/gbdt.py:1642-1652)
 _QUANT_INT_LIMIT = 1 << 31
+
+# lazy CEGB keeps an [F, N] charged bitmap: at most this many elements
+# (reference: boosting/gbdt.py:770-778)
+_LAZY_CEGB_LIMIT = 1 << 30
 
 _INT_FIELDS = ("split_feature", "split_bin", "default_left", "left_child",
                "right_child", "leaf_parent", "leaf_depth", "cat_bitset")
@@ -237,6 +260,56 @@ def stack_trees(models: Sequence[HostTree], device: torch.device,
         num_nodes=torch.tensor([m.num_nodes for m in models],
                                dtype=torch.int64).to(device),
         **cat)
+
+
+def _parse_monotone(value, num_features: int, feature_names
+                    ) -> Optional[np.ndarray]:
+    """``monotone_constraints`` as ``[F]`` int8 (a list, a comma string or
+    a dict of feature names), None when every entry is 0 (reference:
+    ``_parse_monotone``, ``lightgbm_tpu/boosting/gbdt.py:94-110``)."""
+    if value is None:
+        return None
+    if isinstance(value, str):
+        value = [int(v) for v in value.replace("(", "").replace(")", "")
+                 .split(",") if v.strip()]
+    if isinstance(value, dict):
+        out = np.zeros(num_features, np.int8)
+        for name, v in value.items():
+            out[list(feature_names).index(name)] = int(v)
+        return out if out.any() else None
+    arr = np.asarray(list(value), np.int8)
+    if arr.size != num_features:
+        raise ValueError(
+            f"monotone_constraints has {arr.size} entries for "
+            f"{num_features} features")
+    return arr if arr.any() else None
+
+
+def _parse_interactions(value, num_features: int) -> Optional[np.ndarray]:
+    """``interaction_constraints`` as ``[S, F]`` bool sets (lists of feature
+    indices, or the ``"[0,1],[2,3]"`` string form; reference:
+    ``_parse_interactions``, ``lightgbm_tpu/boosting/gbdt.py:113-124``)."""
+    if value in (None, "", []):
+        return None
+    if isinstance(value, str):
+        import json
+        value = json.loads("[" + value + "]")
+    sets = np.zeros((len(value), num_features), bool)
+    for i, group in enumerate(value):
+        sets[i, np.asarray(list(group), np.int64)] = True
+    return sets
+
+
+def _feature_vector(value, name: str, num_features: int) -> np.ndarray:
+    """A per-feature float parameter (a list, or a comma string as config
+    files give it) as ``[F]`` f32, checked for length."""
+    if isinstance(value, str):
+        value = [float(t) for t in value.split(",") if t.strip()]
+    arr = np.asarray(list(value), np.float32)
+    if arr.size != num_features:
+        raise ValueError(f"{name} must have one entry per feature "
+                         f"({num_features}), got {arr.size}")
+    return arr
 
 
 def _discretize_gradients(grad: torch.Tensor, hess: torch.Tensor,
@@ -408,13 +481,18 @@ class GBDT:
         rows_ok = (float(cfg.get("pos_bagging_fraction", 1.0)) >= 1.0
                    and float(cfg.get("neg_bagging_fraction", 1.0)) >= 1.0
                    and not bool(cfg.get("bagging_by_query", False)))
+        self._parse_options(train_set)
+        # lazy CEGB costs track charged rows in the dataset's order, which
+        # the compact grower permutes (reference: gbdt.py:975-978)
+        rows_ok = rows_ok and self._cegb_lazy_np is None
         can_compact = n < _COMPACT_MAX_ROWS and obj_ok and rows_ok
         if grower == "compact" and not (obj_ok and rows_ok):
             log.warning("tpu_grower=compact requires a row-elementwise "
                         "objective, or a row-coupled one with one tree a "
                         "round, no quantized gradients, no GOSS and no "
-                        "random draws, and neither balanced nor by-query "
-                        "bagging; using the masked grower")
+                        "random draws, neither balanced nor by-query "
+                        "bagging, and no lazy CEGB costs; using the masked "
+                        "grower")
         elif grower == "compact" and not can_compact:
             log.warning(f"tpu_grower=compact supports fewer than "
                         f"{_COMPACT_MAX_ROWS} rows (f32 counts); using the "
@@ -425,6 +503,11 @@ class GBDT:
         # bundle-space scan and routing live there
         self.use_compact = can_compact and (grower == "compact" or (
             grower == "auto" and (n >= _COMPACT_MIN_ROWS or bundled)))
+        if self._mono_intermediate and not self.use_compact:
+            log.warning("monotone_constraints_method='intermediate' runs on "
+                        "the compact grower only; this configuration uses "
+                        "the masked grower with the 'basic' method")
+            self._mono_intermediate = False
         mappers = train_set.mappers
         # prediction and model text work per original feature
         self._pred_nan_arr = torch.from_numpy(
@@ -456,7 +539,16 @@ class GBDT:
             hist_layout=resolve_hist_layout(cfg,
                                             int(train_set.max_num_bins)),
             bynode_fraction=float(cfg.get("feature_fraction_bynode", 1.0)),
+            use_monotone=self._mono_np is not None,
+            monotone_penalty=float(cfg.get("monotone_penalty", 0.0)),
+            mono_intermediate=self._mono_intermediate,
+            path_smooth=float(cfg.get("path_smooth", 0.0)),
+            use_interaction=self._inter_np is not None,
+            use_cegb=self._use_cegb,
+            cegb_split_pen=self._cegb_split_pen,
+            extra_trees=bool(cfg.get("extra_trees", False)),
         )
+        self._setup_options_state()
         self._efb = None
         if train_set.bundle_info is not None:
             is_cat = self._setup_efb(train_set)
@@ -488,6 +580,130 @@ class GBDT:
         self._compact_ready = False
         if not self.use_compact:
             self._setup_masked_state(train_set)
+
+    def _parse_options(self, train_set: BinnedDataset) -> None:
+        """The constraint and option parameters on the host (reference:
+        ``boosting/gbdt.py:720-843``): monotone directions, interaction
+        sets, CEGB's scaled costs, ``feature_contri``."""
+        cfg = self.config
+        nf = len(train_set.mappers)
+        self._mono_np = _parse_monotone(cfg.get("monotone_constraints"), nf,
+                                        train_set.feature_names)
+        self._inter_np = _parse_interactions(
+            cfg.get("interaction_constraints"), nf)
+        method = str(cfg.get("monotone_constraints_method", "basic")).lower()
+        self._mono_intermediate = (self._mono_np is not None
+                                   and method in ("intermediate", "advanced"))
+        if self._mono_np is not None and method == "advanced":
+            log.warning("monotone_constraints_method='advanced' is not "
+                        "implemented; using the 'intermediate' method")
+        tradeoff = float(cfg.get("cegb_tradeoff", 1.0))
+        split_pen = float(cfg.get("cegb_penalty_split", 0.0))
+        coupled = cfg.get("cegb_penalty_feature_coupled")
+        lazy = cfg.get("cegb_penalty_feature_lazy")
+        self._cegb_coupled_np = None if coupled is None else tradeoff * \
+            _feature_vector(coupled, "cegb_penalty_feature_coupled", nf)
+        self._cegb_lazy_np = None
+        if lazy is not None:
+            lz = _feature_vector(lazy, "cegb_penalty_feature_lazy", nf)
+            if nf * train_set.num_data > _LAZY_CEGB_LIMIT:
+                raise ValueError(
+                    "cegb_penalty_feature_lazy needs an [F, N] charged-rows "
+                    f"bitmap; {nf}x{train_set.num_data} exceeds the "
+                    f"supported size (2^30 elements)")
+            self._cegb_lazy_np = tradeoff * lz
+        self._cegb_split_pen = tradeoff * split_pen
+        self._use_cegb = (split_pen > 0.0 or coupled is not None
+                          or lazy is not None)
+        fc = cfg.get("feature_contri")
+        self._contri_np = None if fc is None else _feature_vector(
+            fc, "feature_contri", nf)
+
+    def _setup_options_state(self) -> None:
+        """The options' device tensors and the model-level CEGB state."""
+        dev = self.device
+
+        def t(a, dtype):
+            return None if a is None else torch.from_numpy(
+                np.ascontiguousarray(a)).to(dev, dtype)
+        self._opts = TreeOptions(
+            mono_types=t(self._mono_np, torch.int64),
+            inter_sets=t(self._inter_np, torch.bool),
+            cegb_coupled=t(self._cegb_coupled_np, torch.float32),
+            cegb_lazy=t(self._cegb_lazy_np, torch.float32),
+            feature_contri=t(self._contri_np, torch.float32))
+        # CEGB: the features any tree split on, the (feature, row) pairs
+        # charged (made at the first tree)
+        self._cegb_used = None
+        self._cegb_charged = None
+        self._extra_seed = int(self.config.get("extra_seed", 6))
+        self._extra_gen = None
+        # the extra-trees draws' seam: (tree index, leaves, features,
+        # intermediate) -> ExtraDraws; None draws from a torch.Generator
+        self.extra_draws = None
+        # the last compact tree's counters (ops/grower_compact.py stats)
+        self.tree_stats = {}
+
+    def _tree_options(self, tree_index: int, n_scan: int) -> TreeOptions:
+        """The options of tree ``tree_index`` over ``n_scan`` scan-space
+        features: the model-level CEGB state and the tree's extra-trees
+        draws."""
+        gp = self.grower_params
+        opts = self._opts
+        if gp.use_cegb:
+            if self._cegb_used is None:
+                self._cegb_used = torch.zeros(n_scan, dtype=torch.bool,
+                                              device=self.device)
+            if opts.cegb_lazy is not None and self._cegb_charged is None:
+                self._cegb_charged = torch.zeros(
+                    (n_scan, self.num_data), dtype=torch.bool,
+                    device=self.device)
+            opts = opts._replace(cegb_used=self._cegb_used,
+                                 cegb_charged=self._cegb_charged)
+        if gp.extra_trees:
+            opts = opts._replace(extra=self._extra_words(tree_index, n_scan))
+        return opts
+
+    def _extra_words(self, tree_index: int, f: int) -> ExtraDraws:
+        """Tree ``tree_index``'s extra-trees words (the JAX package's
+        ``fold_in(extra_key, num_total_trees)``): two random 32-bit words
+        for each (node row, feature), for the thresholds, the sorted
+        categorical prefixes and, with the intermediate method, the
+        rescans."""
+        gp = self.grower_params
+        L = gp.num_leaves
+        if self.extra_draws is not None:
+            ex = self.extra_draws(tree_index, L, f, gp.mono_intermediate)
+            return ExtraDraws(*(None if a is None else a.to(
+                self.device, torch.int64) for a in ex))
+        if self._extra_gen is None:
+            self._extra_gen = torch.Generator(device=self.device)
+        # within 32 bits: the CPU generator keeps only the low 32 of a seed
+        self._extra_gen.manual_seed(
+            (self._extra_seed * 1_000_003 + tree_index) & 0xFFFF_FFFF)
+
+        def words(*shape):
+            return torch.randint(0, 1 << 32, (*shape, f, 2),
+                                 generator=self._extra_gen,
+                                 device=self.device, dtype=torch.int64)
+        node = words(2 * L - 1)
+        cat = words(2 * L - 1) if self.is_cat_arr is not None else node
+        if not gp.mono_intermediate:
+            return ExtraDraws(node, cat)
+        rescan = words(L - 1, L)
+        return ExtraDraws(node, cat, rescan, words(L - 1, L)
+                          if self.is_cat_arr is not None else rescan)
+
+    def _note_used_features(self, tree: TreeArrays) -> None:
+        """OR the tree's split features into the model-level CEGB set
+        (reference: ``_tree_used_features``, ``boosting/gbdt.py:175-178``)."""
+        if self._cegb_used is None:
+            return
+        nf = self._cegb_used.shape[0]
+        sf = tree.split_feature
+        hit = torch.zeros(nf + 1, dtype=torch.bool, device=self.device)
+        hit[torch.where(sf >= 0, sf, nf)] = True
+        self._cegb_used |= hit[:nf]
 
     def _setup_quant(self) -> None:
         """Quantized training's parameters and the choice between the int32
@@ -586,12 +802,25 @@ class GBDT:
         chosen, where the run cannot take the compact grower with a
         row-elementwise objective (``tpu_grower=masked``, 2^24 rows or
         more, a row-coupled, stochastic or custom objective, query groups,
-        balanced or by-query bagging;
-        reference: ``_efb_precheck``, ``boosting/gbdt.py:2081-2129``, whose
-        other conditions are parameters the port raises on)."""
+        balanced or by-query bagging, lazy CEGB costs), or where the run
+        has monotone or interaction constraints, CEGB or ``feature_contri``
+        (reference: ``_efb_precheck``, ``boosting/gbdt.py:2081-2129``,
+        whose other conditions are parameters the port raises on)."""
         obj = self.objective
-        if train_set.bundle_info is not None and (
-                grower not in ("compact", "auto") or not can_compact
+        if train_set.bundle_info is None:
+            return
+        cfg = self.config
+        knobs = [name for name in (
+            "monotone_constraints", "interaction_constraints",
+            "feature_contri", "cegb_penalty_feature_coupled",
+            "cegb_penalty_feature_lazy") if cfg.get(name) is not None]
+        if float(cfg.get("cegb_penalty_split", 0.0) or 0.0) != 0.0:
+            knobs.append("cegb_penalty_split")
+        if knobs:
+            _unbundle(train_set, "EFB bundles are not supported with "
+                      f"{', '.join(knobs)}; unbundling the dataset (set "
+                      "enable_bundle=false to skip bundling entirely)")
+        elif (grower not in ("compact", "auto") or not can_compact
                 or not obj.row_elementwise
                 or train_set.metadata.query_boundaries is not None):
             _unbundle(train_set, "EFB bundles need the compact grower and "
@@ -842,12 +1071,15 @@ class GBDT:
         hosts = []
         for k in range(k_total):
             bynode_u = self._bynode_uniforms(len(self.models) + k)
+            opts = self._tree_options(len(self.models) + k,
+                                      int(self.feat_mask.shape[0]))
             if self.use_compact:
                 tree, row_leaf = self._grow_compact(k, begin, feat_mask,
-                                                    bynode_u)
+                                                    bynode_u, opts)
             else:
                 tree, row_leaf = self._grow_masked(k, begin, feat_mask,
-                                                   bynode_u)
+                                                   bynode_u, opts)
+            self._note_used_features(tree)
             # a no-split tree contributes nothing (reference: gbdt.cpp:433)
             lv = torch.where(tree.num_nodes > 0, tree.leaf_value,
                              torch.zeros_like(tree.leaf_value)) * shrink
@@ -915,14 +1147,15 @@ class GBDT:
         return {"g": g, "h": h, "true_g": true_g, "true_h": true_h,
                 "mask": mask}
 
-    def _grow_masked(self, k: int, it: dict, feat_mask, bynode_u):
+    def _grow_masked(self, k: int, it: dict, feat_mask, bynode_u, opts):
         """Tree ``k`` of an iteration on the masked grower: ``(tree,
         row_leaf)`` with the rows in the dataset's order."""
         mask = it["mask"]
         tree, row_leaf = grow_tree(
             self.binned, it["g"][k] * mask, it["h"][k] * mask, mask,
             self.num_bins_arr, self.nan_bin_arr, self.has_nan_arr, feat_mask,
-            self.grower_params, self.binned_t, self.is_cat_arr, bynode_u)
+            self.grower_params, self.binned_t, self.is_cat_arr, bynode_u,
+            opts)
         if self._quant_renew:
             # in-bag true gradient sums a leaf, by each row's leaf
             L = tree.leaf_value.shape[0]
@@ -979,7 +1212,7 @@ class GBDT:
         return {"g": g, "h": h, "quant_scales": quant_scales,
                 "bag": mask, "fresh": strat.last_fresh}
 
-    def _grow_compact(self, k: int, it: dict, feat_mask, bynode_u):
+    def _grow_compact(self, k: int, it: dict, feat_mask, bynode_u, opts):
         """Tree ``k`` of an iteration on the compact grower: ``(tree,
         row_leaf)`` with the rows in the post-tree record order, where
         ``train_score`` then lies too."""
@@ -1020,7 +1253,7 @@ class GBDT:
             self.work, self.scratch, self.num_bins_arr, self.nan_bin_arr,
             self.has_nan_arr, feat_mask, lay, self.grower_params,
             self.num_data, self.is_cat_arr, self._efb, it["quant_scales"],
-            bynode_u)
+            bynode_u, opts, self.tree_stats)
         # the score columns moved with the rows
         self.train_score = self._score_cols()
         if self.objective.renew_leaves:

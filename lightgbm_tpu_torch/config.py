@@ -75,8 +75,11 @@ PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...]]] = {
     "max_cat_to_onehot": (4, int, ()),
     # constraints / cost-effective boosting / forced splits
     "monotone_constraints": (None, object, ("mc", "monotone_constraint")),
+    "monotone_constraints_method": ("basic", str, ("monotone_constraining_method", "mc_method")),
+    "monotone_penalty": (0.0, float, ("monotone_splits_penalty", "ms_penalty", "mc_penalty")),
     "interaction_constraints": (None, object, ()),
     "forcedsplits_filename": ("", str, ("fs", "forced_splits_filename", "forced_splits_file", "forced_splits")),
+    "cegb_tradeoff": (1.0, float, ()),
     "cegb_penalty_split": (0.0, float, ()),
     "cegb_penalty_feature_lazy": (None, object, ()),
     "cegb_penalty_feature_coupled": (None, object, ()),
@@ -331,21 +334,9 @@ class Config:
                  f"tree_learner={self.tree_learner!r}", "A18")
             need(self.num_machines > 1, "num_machines>1", "A18")
             need(self.boosting != "gbdt", f"boosting={self.boosting!r}",
-                 "A14b")
-            need(self.extra_trees, "extra_trees", "A14b")
-            need(self.monotone_constraints is not None,
-                 "monotone_constraints", "A14b")
-            need(self.interaction_constraints not in (None, "", []),
-                 "interaction_constraints", "A14b")
-            need(self.cegb_penalty_split > 0.0
-                 or self.cegb_penalty_feature_lazy is not None
-                 or self.cegb_penalty_feature_coupled is not None,
-                 "cost-effective gradient boosting", "A14b")
-            need(bool(self.forcedsplits_filename), "forced splits", "A14b")
-            need(self.path_smooth > 0.0, "path_smooth", "A14b")
-            need(self.feature_contri not in (None, "", []),
-                 "feature_contri", "A14b")
-            need(self.linear_tree, "linear_tree", "A14b")
+                 "A14c")
+            need(bool(self.forcedsplits_filename), "forced splits", "A14c")
+            need(self.linear_tree, "linear_tree", "A14c")
             # the CUDA histograms add f32 atomics in no fixed order
             need(self.deterministic, "deterministic histograms", "B1/B2")
         if todo:

@@ -26,11 +26,25 @@ By-node feature sampling (``params.bynode_fraction`` < 1): each leaf scans
 only its own sample of the tree's features, drawn from row ``j`` of a
 ``[2L-1, F]`` uniform tensor made before the tree (``node_feature_mask``):
 row 0 for the root, rows ``2k+1`` and ``2k+2`` for the children of split
-``k``, as the JAX grower folds ``j`` into its by-node key. Not here yet:
-interaction and monotone constraints, CEGB, forced splits, extra trees
-(ROADMAP A14b), voting and the data-parallel reduction (A18). The JAX package's compile ladder (leaf rungs,
-depth buckets) fixes XLA jit keys and has no counterpart in eager PyTorch:
-trees grow at the exact ``num_leaves``.
+``k``, as the JAX grower folds ``j`` into its by-node key.
+
+Constraints and the scan's other options (``TreeOptions``; reference:
+``lightgbm_tpu/ops/grower.py:431-487``, ``:662-778``): interaction
+constraints restrict a leaf's features to the union of the constraint sets
+that hold every feature on its path (``leaf_used``), before the by-node
+draw; each leaf carries its monotone bounds (``_CMIN``, ``_CMAX``), which a
+numerical split on a constrained feature tightens at the midpoint of the
+children's outputs (the basic method); the children's outputs are fixed at
+split time, smoothed toward the parent's output (the leaf's own ``_LOUT``)
+and clipped to the parent's bounds. CEGB's coupled costs are paid once a
+model (``cegb_used``), its lazy costs once a (row, feature)
+(``cegb_charged [F, N]``, charged for the parent's in-bag rows at each
+split). Extra trees draw their thresholds from ``[2L-1, F, 2]`` random
+words, rows numbered as the by-node draws. Forced splits, voting and the
+data-parallel reduction are not here (ROADMAP A14c, A18). The JAX
+package's compile ladder (leaf rungs, depth buckets) fixes XLA jit keys
+and has no counterpart in eager PyTorch: trees grow at the exact
+``num_leaves``.
 """
 from __future__ import annotations
 
@@ -39,12 +53,16 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .histogram import histogram
-from .split import (_NEG_INF, SplitParams, best_split, depth_gate,
-                    go_left_pred, leaf_output)
+from .split import (_NEG_INF, SplitParams, best_split, child_output,
+                    depth_gate, go_left_pred, leaf_output)
 
 # columns of the growers' per-leaf float table: sums, cached best split,
-# output
-(_LG, _LH, _LC, _BG, _BLG, _BLH, _BLC, _LOUT) = range(8)
+# output (fixed at split time; path smoothing's parent output for the
+# leaf's children) and monotone output bounds
+(_LG, _LH, _LC, _BG, _BLG, _BLH, _BLC, _LOUT, _CMIN, _CMAX) = range(10)
+_LEAF_F = 10
+# an unbounded leaf's monotone bounds (reference: +-3.4e38)
+_BIG = 3.4e38
 # columns of the per-node tables
 (_SF, _SB, _SDL, _LEFT, _RIGHT) = range(5)
 (_GAIN, _NG, _NH, _NC) = range(4)
@@ -82,6 +100,16 @@ class GrowerParams(NamedTuple):
     efb_bmax: int = 0
     # feature_fraction_bynode: the share of the tree's features a leaf scans
     bynode_fraction: float = 1.0
+    # constraints and the scan's other options (ops/split.py SplitParams);
+    # mono_intermediate: the intermediate monotone method (compact grower)
+    use_monotone: bool = False
+    monotone_penalty: float = 0.0
+    mono_intermediate: bool = False
+    path_smooth: float = 0.0
+    use_interaction: bool = False
+    use_cegb: bool = False
+    cegb_split_pen: float = 0.0
+    extra_trees: bool = False
 
     def split_params(self) -> SplitParams:
         return SplitParams(
@@ -96,11 +124,42 @@ class GrowerParams(NamedTuple):
             cat_smooth=self.cat_smooth,
             max_cat_to_onehot=self.max_cat_to_onehot,
             min_data_per_group=self.min_data_per_group,
+            use_monotone=self.use_monotone,
+            monotone_penalty=self.monotone_penalty,
+            path_smooth=self.path_smooth,
+            use_cegb=self.use_cegb,
+            cegb_split_pen=self.cegb_split_pen,
+            extra_trees=self.extra_trees,
         )
 
     @property
     def bitset_words(self) -> int:
         return -(-self.num_bins // 32)
+
+
+class ExtraDraws(NamedTuple):
+    """A tree's extra-trees draws: two random 32-bit words (int64) for each
+    (row, feature), the row of a node numbered as ``bynode_u``'s (0 the
+    root, ``2k+1`` and ``2k+2`` the children of split ``k``)."""
+    node: torch.Tensor                      # [2L-1, F, 2] thresholds
+    cat: torch.Tensor                       # [2L-1, F, 2] sorted prefixes
+    # the intermediate method's rescans: [L-1, L, F, 2] each, row (k, i)
+    # for leaf i after split k
+    rescan: Optional[torch.Tensor] = None
+    rescan_cat: Optional[torch.Tensor] = None
+
+
+class TreeOptions(NamedTuple):
+    """A tree's constraint and option inputs, each None when off (the
+    switches are in ``GrowerParams``)."""
+    mono_types: Optional[torch.Tensor] = None     # [F] int64 in {-1, 0, 1}
+    inter_sets: Optional[torch.Tensor] = None     # [S, F] bool
+    cegb_coupled: Optional[torch.Tensor] = None   # [F] f32 tradeoff * costs
+    cegb_used: Optional[torch.Tensor] = None      # [F] bool, model-level
+    cegb_lazy: Optional[torch.Tensor] = None      # [F] f32 (masked grower)
+    cegb_charged: Optional[torch.Tensor] = None   # [F, N] bool, model-level
+    feature_contri: Optional[torch.Tensor] = None  # [F] f32
+    extra: Optional[ExtraDraws] = None
 
 
 class TreeArrays(NamedTuple):
@@ -139,16 +198,62 @@ def _split_rows(sp) -> Tuple[torch.Tensor, torch.Tensor]:
     return fl, it
 
 
-def node_feature_mask(feat_mask: torch.Tensor, uniforms: torch.Tensor,
-                      fraction: float) -> torch.Tensor:
-    """The features a leaf scans (``[..., F]`` bool): ``feat_mask`` where
-    its uniform draw is below ``fraction``, or all of ``feat_mask`` when
-    that keeps none (reference: ``node_feature_mask``,
-    ``lightgbm_tpu/ops/grower.py:323-341``; a Bernoulli sample where
-    LightGBM's ColSampler::GetByNode draws an exact count)."""
+def node_feature_mask(feat_mask: torch.Tensor,
+                      uniforms: Optional[torch.Tensor], fraction: float,
+                      used: Optional[torch.Tensor] = None,
+                      inter_sets: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """The features a leaf scans (``[..., F]`` bool; reference:
+    ``node_feature_mask``, ``lightgbm_tpu/ops/grower.py:323-341``). With
+    ``inter_sets [S, F]``, ``feat_mask`` narrows to the union of the
+    constraint sets that hold every feature of ``used [..., F]`` (the
+    features on the leaf's path). Then, with ``fraction`` < 1, a feature
+    stays where its uniform draw is below ``fraction``, or all stay when
+    that keeps none (a Bernoulli sample where LightGBM's
+    ColSampler::GetByNode draws an exact count)."""
+    fm = feat_mask
+    if inter_sets is not None:
+        subset = ~(used[..., None, :] & ~inter_sets).any(dim=-1)   # [.., S]
+        fm = fm & (subset[..., :, None] & inter_sets).any(dim=-2)
+    if fraction >= 1.0:
+        return fm
     keep = uniforms < fraction
-    keep = keep | ~(keep & feat_mask).any(dim=-1, keepdim=True)
-    return feat_mask & keep
+    keep = keep | ~(keep & fm).any(dim=-1, keepdim=True)
+    return fm & keep
+
+
+def lazy_uncharged(charged: torch.Tensor, rows: torch.Tensor
+                   ) -> torch.Tensor:
+    """``[..., F]`` f32: for each row set of ``rows [..., N]`` (bool), its
+    rows not yet charged for each feature (reference: the lazy CEGB
+    matrix-vector product, ``lightgbm_tpu/ops/grower.py:759-768``),
+    counted in int64 over feature chunks of ``charged [F, N]`` so that no
+    ``[F, N]`` f32 copy is made."""
+    f, n = charged.shape
+    lead = rows.shape[:-1]
+    rows = rows.reshape(-1, n)
+    step = max(1, (1 << 26) // max(n * rows.shape[0], 1))
+    parts = [(rows[None] & ~charged[j:j + step, None, :]).sum(dim=-1)
+             for j in range(0, f, step)]
+    return torch.cat(parts).T.reshape(*lead, f).to(torch.float32)
+
+
+def bound_children(mt, act, lw, rw, cminp, cmaxp, intermediate: bool):
+    """The children's monotone bounds after a split on a feature of
+    direction ``mt`` (``act``: the split is applied and numerical): the
+    basic method bounds both at the midpoint of their outputs
+    (BasicLeafConstraints), the intermediate one each by its sibling's
+    output (``lightgbm_tpu/ops/grower_compact.py:638-663``). Returns
+    ``(cmin_l, cmax_l, cmin_r, cmax_r)``."""
+    up, down = act & (mt > 0), act & (mt < 0)
+    if intermediate:
+        at_l, at_r = rw, lw
+    else:
+        at_l = at_r = 0.5 * (lw + rw)
+    return (torch.where(down, torch.maximum(cminp, at_l), cminp),
+            torch.where(up, torch.minimum(cmaxp, at_l), cmaxp),
+            torch.where(up, torch.maximum(cminp, at_r), cminp),
+            torch.where(down, torch.minimum(cmaxp, at_r), cmaxp))
 
 
 def child_l2(params: GrowerParams, cat_l2_flag: torch.Tensor):
@@ -157,13 +262,45 @@ def child_l2(params: GrowerParams, cat_l2_flag: torch.Tensor):
     return params.lambda_l2 + params.cat_l2 * cat_l2_flag.to(torch.float32)
 
 
+def tree_arrays(node_i: torch.Tensor, node_f: torch.Tensor,
+                node_bits: torch.Tensor, leaf_f: torch.Tensor,
+                leaf_i: torch.Tensor, depth_col: int, parent_col: int,
+                num_nodes: torch.Tensor, spp: SplitParams) -> TreeArrays:
+    """The grown tree from the growers' tables. The leaf values are the
+    outputs fixed at split time; the internal values are the nodes' plain
+    leaf outputs (as the reference writes them)."""
+    L = leaf_f.shape[0]
+    nn = num_nodes[0]
+    return TreeArrays(
+        split_feature=node_i[:L - 1, _SF],
+        split_bin=node_i[:L - 1, _SB],
+        cat_bitset=node_bits[:L - 1],
+        split_gain=node_f[:L - 1, _GAIN],
+        default_left=node_i[:L - 1, _SDL] != 0,
+        left_child=node_i[:L - 1, _LEFT],
+        right_child=node_i[:L - 1, _RIGHT],
+        leaf_value=leaf_f[:, _LOUT].clone(),
+        leaf_weight=leaf_f[:, _LH],
+        leaf_count=leaf_f[:, _LC],
+        leaf_parent=leaf_i[:, parent_col],
+        leaf_depth=leaf_i[:, depth_col],
+        internal_value=leaf_output(node_f[:L - 1, _NG], node_f[:L - 1, _NH],
+                                   spp),
+        internal_weight=node_f[:L - 1, _NH],
+        internal_count=node_f[:L - 1, _NC],
+        num_leaves=nn + 1,
+        num_nodes=nn,
+    )
+
+
 def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               cnt_weight: torch.Tensor, num_bins_arr: torch.Tensor,
               nan_bin_arr: torch.Tensor, has_nan_arr: torch.Tensor,
               feat_mask: torch.Tensor, params: GrowerParams,
               binned_t: Optional[torch.Tensor] = None,
               is_cat_arr: Optional[torch.Tensor] = None,
-              bynode_u: Optional[torch.Tensor] = None
+              bynode_u: Optional[torch.Tensor] = None,
+              opts: Optional[TreeOptions] = None
               ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree over ``binned [N, F]`` (uint8) with per-row ``grad``,
     ``hess`` (already multiplied by weights and bag mask) and
@@ -174,7 +311,10 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     trainer makes it once, else it is made here. ``is_cat_arr [F]`` bool
     marks the categorical features (None: all numerical). ``bynode_u``
     ``[2L-1, F]``: the tree's by-node draws when ``params.bynode_fraction``
-    < 1 (see ``node_feature_mask``)."""
+    < 1 (see ``node_feature_mask``). ``opts``: the constraint and option
+    inputs (``TreeOptions``); ``opts.cegb_charged`` is updated in place.
+    The intermediate monotone method is the compact grower's: here
+    ``params.mono_intermediate`` runs the basic method."""
     dev = binned.device
     n, f = binned.shape
     L = params.num_leaves
@@ -183,44 +323,82 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     spp = params.split_params()
     i64 = torch.int64
     any_cat = is_cat_arr is not None
+    o = opts if opts is not None else TreeOptions()
+    mono = o.mono_types if params.use_monotone else None
+    inter = o.inter_sets if params.use_interaction else None
+    extra = o.extra if params.extra_trees else None
+    lazy = o.cegb_lazy if params.use_cegb else None
     if binned_t is None:
         binned_t = binned.T.contiguous()
     grad = grad.to(torch.float32)
     hess = hess.to(torch.float32)
     cnt = cnt_weight.to(torch.float32)
+    bag = cnt_weight != 0
 
     def hist3(mask):
         ch = torch.stack([grad * mask, hess * mask, cnt * mask], dim=1)
         return histogram(binned, ch, B, params.hist_layout, binned_t)
 
-    def leaf_mask(rows):
-        if params.bynode_fraction >= 1.0:
-            return feat_mask
-        return node_feature_mask(feat_mask, bynode_u[rows],
-                                 params.bynode_fraction)
+    def leaf_mask(rows, used):
+        return node_feature_mask(
+            feat_mask, bynode_u[rows] if bynode_u is not None else None,
+            params.bynode_fraction, used, inter)
 
-    def scan(hist, pg, ph, pc, depth, fm):
-        sp = best_split(hist, pg, ph, pc, num_bins_arr, nan_bin_arr,
-                        has_nan_arr, fm, spp, is_cat_arr)
+    def scan(hist, pg, ph, pc, depth, fm, cmn, cmx, pout, pen, rows):
+        sp = best_split(
+            hist, pg, ph, pc, num_bins_arr, nan_bin_arr, has_nan_arr, fm,
+            spp, is_cat_arr, mono_types=mono, cmin=cmn, cmax=cmx,
+            parent_output=pout, depth=depth, cegb_pen=pen,
+            extra_words=extra.node[rows] if extra is not None else None,
+            extra_words_cat=extra.cat[rows] if extra is not None else None,
+            feature_contri=o.feature_contri)
         return sp._replace(gain=depth_gate(sp.gain, depth, params.max_depth))
+
+    # CEGB: coupled costs of the features no tree has split on yet, lazy
+    # costs of the in-bag rows a feature has not been charged for
+    cegb_used = None
+    if params.use_cegb:
+        cegb_used = (o.cegb_used.clone() if o.cegb_used is not None
+                     else torch.zeros(f, dtype=torch.bool, device=dev))
+    coupled = o.cegb_coupled if o.cegb_coupled is not None else \
+        torch.zeros(f, dtype=torch.float32, device=dev)
+    charged = o.cegb_charged
+
+    def cegb_pens(rows):
+        """``[R, F]`` costs of the leaves whose rows are ``rows [R, N]``
+        (None without lazy costs: ``[1, F]``)."""
+        base = (coupled * ~cegb_used)[None]
+        if lazy is None:
+            return base
+        return base + lazy * lazy_uncharged(charged, rows)
 
     # ---- root ----
     root_g, root_h, root_c = grad.sum(), hess.sum(), cnt.sum()
     root_hist = hist3(torch.ones_like(cnt))
     root_out = leaf_output(root_g, root_h, spp)
     zero = torch.zeros(1, dtype=i64, device=dev)
+    big = torch.full((1,), _BIG, device=dev)
     sp0 = scan(root_hist[None], root_g[None], root_h[None], root_c[None],
-               zero, leaf_mask(slice(0, 1)))
+               zero, leaf_mask(slice(0, 1), torch.zeros(
+                   (1, f), dtype=torch.bool, device=dev)),
+               -big, big, root_out[None],
+               cegb_pens(bag[None]) if params.use_cegb else None,
+               slice(0, 1))
     fl0, it0 = _split_rows(sp0)
-    leaf_f = torch.zeros((L, 8), dtype=torch.float32, device=dev)
+    leaf_f = torch.zeros((L, _LEAF_F), dtype=torch.float32, device=dev)
     leaf_f[:, _BG] = _NEG_INF
-    leaf_f[0] = torch.cat([torch.stack([root_g, root_h, root_c]), fl0[0],
-                           root_out[None]])
+    leaf_f[:, _CMIN] = -_BIG
+    leaf_f[:, _CMAX] = _BIG
+    leaf_f[0, :_CMIN] = torch.cat([torch.stack([root_g, root_h, root_c]),
+                                   fl0[0], root_out[None]])
     leaf_i = torch.zeros((L, 8), dtype=i64, device=dev)
     leaf_i[:, _PARENT] = -1
     leaf_i[0, _BF:] = it0[0]
     leaf_hist = torch.zeros((L, f, B, 3), dtype=torch.float32, device=dev)
     leaf_hist[0] = root_hist
+    # the features on each leaf's path (interaction constraints)
+    leaf_used = (torch.zeros((L, f), dtype=torch.bool, device=dev)
+                 if inter is not None else None)
     node_i = torch.zeros((L - 1, 5), dtype=i64, device=dev)
     node_i[:, _SF] = -1
     node_i[:, _LEFT] = -1
@@ -235,6 +413,7 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     row_leaf = torch.zeros(n, dtype=i64, device=dev)
     done = torch.zeros(1, dtype=torch.bool, device=dev)
     num_nodes = torch.zeros(1, dtype=i64, device=dev)
+    f_iota = torch.arange(f, device=dev)
 
     for k in range(L - 1):
         # ---- FindBestFromAllSplits: leaves 0..k are alive ----
@@ -273,21 +452,48 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         hist_left = torch.where(left_smaller, hist_small, hist_large)
         hist_right = torch.where(left_smaller, hist_large, hist_small)
 
+        # ---- the children's outputs (fixed now, under the parent's bounds
+        # and smoothed toward its output) and monotone bounds ----
+        l2 = child_l2(params, ri[_BCL2]) if any_cat else None
+        cminp, cmaxp, poutp = rf[_CMIN], rf[_CMAX], rf[_LOUT]
+        lw = child_output(lg, lh, lc, spp, l2, poutp, cminp, cmaxp)
+        rw = child_output(rg, rh, rc, spp, l2, poutp, cminp, cmaxp)
+        # [2, 2]: (cmin, cmax) of the left and the right child
+        if mono is not None:
+            act = applied & ~f_cat if any_cat else applied
+            bounds = bound_children(mono.index_select(0, f_), act, lw, rw,
+                                    cminp, cmaxp, False)
+            bnd = torch.stack([x.reshape(()) for x in bounds]).reshape(2, 2)
+        else:
+            bnd = rf[_CMIN:_CMAX + 1].expand(2, 2)
+        used_child = None
+        if inter is not None:
+            used_child = leaf_used.index_select(0, best)[0] | (f_iota == f_)
+        if params.use_cegb:
+            cegb_used = cegb_used | (applied & (f_iota == f_))
+        rows2 = None
+        if lazy is not None:
+            rows2 = torch.stack([row_leaf == best,
+                                 row_leaf == new_leaf]) & bag
+            # the parent's in-bag rows are charged for the split feature
+            charged.index_copy_(0, f_, charged.index_select(0, f_) | (
+                applied & (rows2[0] | rows2[1]))[None])
+
         # ---- best splits of both children ----
         depth = ri[_DEPTH] + 1
         sp2 = scan(torch.stack([hist_left, hist_right]), torch.stack([lg, rg]),
                    torch.stack([lh, rh]), torch.stack([lc, rc]), depth,
-                   leaf_mask(slice(2 * k + 1, 2 * k + 3)))
+                   leaf_mask(slice(2 * k + 1, 2 * k + 3), used_child),
+                   bnd[:, 0], bnd[:, 1], torch.stack([lw, rw]),
+                   cegb_pens(rows2) if params.use_cegb else None,
+                   slice(2 * k + 1, 2 * k + 3))
         spf, spi = _split_rows(sp2)
-        l2 = child_l2(params, ri[_BCL2]) if any_cat else None
-        lw = leaf_output(lg, lh, spp, l2)
-        rw = leaf_output(rg, rh, spp, l2)
 
         # ---- the two leaves' new rows, kept as they were when not applied
         idx = torch.cat([best, torch.full_like(best, new_leaf)])
         new_f = torch.cat([torch.stack([torch.stack([lg, lh, lc]),
                                         torch.stack([rg, rh, rc])]),
-                           spf, torch.stack([lw, rw])[:, None]], dim=1)
+                           spf, torch.stack([lw, rw])[:, None], bnd], dim=1)
         nodev = torch.full_like(best, k)
         depth1 = depth.reshape(1)
         new_i = torch.stack([torch.cat([nodev, zero, depth1, spi[0]]),
@@ -299,6 +505,9 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         leaf_hist.index_copy_(0, idx, torch.where(
             applied.reshape(1, 1, 1, 1), torch.stack([hist_left, hist_right]),
             leaf_hist.index_select(0, idx)))
+        if used_child is not None:
+            leaf_used.index_copy_(0, idx, torch.where(
+                applied, used_child, leaf_used.index_select(0, idx)))
         if any_cat:
             leaf_bits.index_copy_(0, idx, torch.where(
                 applied, sp2.cat_bitset, leaf_bits.index_select(0, idx)))
@@ -318,24 +527,6 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                                 node_f[k])
         num_nodes = num_nodes + applied.to(i64)
 
-    nn = num_nodes[0]
-    tree = TreeArrays(
-        split_feature=node_i[:, _SF],
-        split_bin=node_i[:, _SB],
-        cat_bitset=node_bits[:L - 1],
-        split_gain=node_f[:, _GAIN],
-        default_left=node_i[:, _SDL] != 0,
-        left_child=node_i[:, _LEFT],
-        right_child=node_i[:, _RIGHT],
-        leaf_value=leaf_f[:, _LOUT].clone(),
-        leaf_weight=leaf_f[:, _LH],
-        leaf_count=leaf_f[:, _LC],
-        leaf_parent=leaf_i[:, _PARENT],
-        leaf_depth=leaf_i[:, _DEPTH],
-        internal_value=leaf_output(node_f[:, _NG], node_f[:, _NH], spp),
-        internal_weight=node_f[:, _NH],
-        internal_count=node_f[:, _NC],
-        num_leaves=nn + 1,
-        num_nodes=nn,
-    )
+    tree = tree_arrays(node_i, node_f, node_bits, leaf_f, leaf_i, _DEPTH,
+                       _PARENT, num_nodes, spp)
     return tree, row_leaf

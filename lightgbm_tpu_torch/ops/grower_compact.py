@@ -50,8 +50,22 @@ By-node feature sampling (``params.bynode_fraction`` < 1, ``bynode_u``):
 as in the masked grower (``ops/grower.py`` ``node_feature_mask``), over the
 scan space's features.
 
-Not here yet: monotone constraints and their intermediate rescans, CEGB
-(ROADMAP A14b), the narrowed (16-bit) quantized histogram (A7c),
+Constraints and the scan's other options (``opts``, an ``ops/grower.py``
+``TreeOptions``; reference: ``lightgbm_tpu/ops/grower_compact.py:67-110``,
+``:623-680``, ``:789-802``): as in the masked grower, without the lazy
+CEGB costs (those take the masked grower). With
+``params.mono_intermediate`` (the intermediate monotone method) a split
+bounds each child by its sibling's output, then walks the tree
+(``ops/monotone.py``: one launch of the walk kernel, no read back to the
+host) to tighten the bounds of the leaves next to the new split, and
+rescans the leaves whose bounds moved: one batched scan of every live
+leaf's cached histogram, its cached split kept where no bound moved
+(``torch.where``). A rescan reuses the leaf's scan-time feature mask
+(``leaf_fmask``) and draws its extra-trees words from
+``opts.extra.rescan[k]``. These options never meet EFB: the trainer
+unbundles first.
+
+Not here yet: the narrowed (16-bit) quantized histogram (ROADMAP A7c),
 data-parallel reductions (A18).
 """
 from __future__ import annotations
@@ -63,30 +77,34 @@ import torch
 from ..io.efb import EfbLayout
 from .compact import RowLayout, segments_to_leaf_vectors
 from .fused_split import fused_split
-from .grower import (_BG, _BLC, _BLG, _BLH, _GAIN, _LC, _LEFT, _LG, _LH,
-                     _LOUT, _NC, _NG, _NH, _RIGHT, _SDL, _SB, _SF,
-                     GrowerParams, TreeArrays, _split_rows, child_l2,
-                     node_feature_mask)
-from .split import (_NEG_INF, apply_efb_bitset, best_split, depth_gate,
-                    extend_hist_efb, leaf_output)
+from .grower import (_BG, _BIG, _BLC, _BLG, _BLH, _CMAX, _CMIN, _LC,
+                     _LEAF_F, _LEFT, _LG, _LH, _LOUT, _RIGHT, _SF,
+                     GrowerParams, TreeOptions, _split_rows, bound_children,
+                     child_l2, node_feature_mask, tree_arrays)
+from .monotone import _NODE_I, _NPAR, monotone_walk
+from .split import (_NEG_INF, apply_efb_bitset, best_split, child_output,
+                    depth_gate, extend_hist_efb, leaf_output)
 
 # columns of the compact grower's per-leaf int table: segment, tree links,
-# cached best split
+# cached best split, under a monotone split (the intermediate method)
 (_START, _NROWS, _SIDE, _PARENT, _PSIDE, _DEPTH, _BF, _BB, _BDL,
- _BLR, _BCL2) = range(11)
+ _BLR, _BCL2, _INMONO) = range(12)
 
 
 class CompactState(NamedTuple):
     """The grower's device state between splits."""
-    leaf_f: torch.Tensor      # [L, 8] f32 per-leaf sums, cached best split
-    leaf_i: torch.Tensor      # [L, 11] int64 segment, tree links, best split
+    leaf_f: torch.Tensor      # [L, 10] f32 sums, cached split, output, bounds
+    leaf_i: torch.Tensor      # [L, 12] int64 segment, tree links, best split
     leaf_hist: torch.Tensor   # [L, F, B, 4] per-leaf histograms (f32/int32)
-    node_i: torch.Tensor      # [L-1, 5] int64 split feature/bin/dl, children
+    node_i: torch.Tensor      # [L-1, 7] int64 split, children, parent, cat
     node_f: torch.Tensor      # [L-1, 4] f32 gain and node sums
     leaf_bits: torch.Tensor   # [L, W] int32 cached categorical bitsets
     node_bits: torch.Tensor   # [L-1, W] int32 node categorical bitsets
     done: torch.Tensor        # [1] bool
     num_nodes: torch.Tensor   # [1] int64
+    leaf_used: Optional[torch.Tensor]   # [L, F] bool path features
+    leaf_fmask: Optional[torch.Tensor]  # [L, F] bool scan-time masks
+    cegb_used: Optional[torch.Tensor]   # [F] bool
 
 
 def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
@@ -95,7 +113,9 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
                       layout: RowLayout, params: GrowerParams, n_real: int,
                       is_cat_arr: Optional[torch.Tensor] = None,
                       efb: Optional[EfbLayout] = None, quant_scales=None,
-                      bynode_u: Optional[torch.Tensor] = None):
+                      bynode_u: Optional[torch.Tensor] = None,
+                      opts: Optional[TreeOptions] = None,
+                      stats: Optional[dict] = None):
     """Grow one tree. Returns ``(TreeArrays, row_leaf [N], work, scratch,
     leaf_start [L], leaf_nrows [L])``, the per-row outputs in the post-tree
     row order; ``work`` and ``scratch`` are updated in place. The
@@ -105,16 +125,24 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
     bundled. ``quant_scales``: ``(g_scale, h_scale)`` 0-d f32 tensors when
     the records carry quantized codes (int32 histograms), else None.
     ``bynode_u`` ``[2L-1, F + params.efb_virtual]``: the tree's by-node
-    draws when ``params.bynode_fraction`` < 1."""
+    draws when ``params.bynode_fraction`` < 1. ``opts``: the constraint and
+    option inputs (``TreeOptions``, no lazy CEGB costs). ``stats``: a
+    caller's dict that takes, with the intermediate method,
+    ``"rescan_flagged"``: the tree's flagged (rescanned) leaves summed over
+    its splits, a 0-d int64 device tensor."""
     dev = work.device
     n = n_real
     L = params.num_leaves
     B = params.num_bins
     F = layout.num_features
+    fs = int(num_bins_arr.shape[0])          # scan-space features
     W = params.bitset_words
     spp = params.split_params()
     i64 = torch.int64
     quant = quant_scales is not None
+    o = opts if opts is not None else TreeOptions()
+    inter = o.inter_sets if params.use_interaction else None
+    extra = o.extra if params.extra_trees else None
 
     # routing: (stored column, bitset flag, original feature) of a scan index
     if efb is not None:
@@ -124,21 +152,37 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
     else:
         route = None
 
-    def scan(hist, pg, ph, pc, depth, rows):
-        """The best splits of the leaves of ``hist``; ``rows``: their rows
-        of ``bynode_u``."""
-        fm = feat_mask
-        if params.bynode_fraction < 1.0:
-            fm = node_feature_mask(feat_mask, bynode_u[rows],
-                                   params.bynode_fraction)
+    def leaf_mask(rows, used):
+        """The features of the leaves whose by-node draws are ``rows`` and
+        whose paths used ``used``."""
+        return node_feature_mask(
+            feat_mask, bynode_u[rows] if bynode_u is not None else None,
+            params.bynode_fraction, used, inter)
+
+    def scan(hist, pg, ph, pc, depth, fm, cmn, cmx, pout, pen, words):
+        """The best splits of the leaves of ``hist``; ``words``: their
+        extra-trees words (threshold, sorted prefix) or None."""
         if efb is not None:
             hist = extend_hist_efb(hist, efb, params.efb_virtual,
                                    params.efb_bmax)
-        sp = best_split(hist, pg, ph, pc, num_bins_arr, nan_bin_arr,
-                        has_nan_arr, fm, spp, is_cat_arr, quant_scales)
+        sp = best_split(
+            hist, pg, ph, pc, num_bins_arr, nan_bin_arr, has_nan_arr, fm,
+            spp, is_cat_arr, quant_scales,
+            mono_types=o.mono_types if params.use_monotone else None,
+            cmin=cmn, cmax=cmx, parent_output=pout, depth=depth,
+            cegb_pen=pen, extra_words=words[0] if words else None,
+            extra_words_cat=words[1] if words else None,
+            feature_contri=o.feature_contri)
         if efb is not None:
             sp = apply_efb_bitset(sp, efb, F, B)
         return sp._replace(gain=depth_gate(sp.gain, depth, params.max_depth))
+
+    cegb_used = None
+    if params.use_cegb:
+        cegb_used = (o.cegb_used.clone() if o.cegb_used is not None
+                     else torch.zeros(fs, dtype=torch.bool, device=dev))
+    coupled = o.cegb_coupled if o.cegb_coupled is not None else \
+        torch.zeros(fs, dtype=torch.float32, device=dev)
 
     # ---- root: the fused kernel's histogram-only mode ----
     zero = torch.zeros(1, dtype=i64, device=dev)
@@ -153,42 +197,61 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
         root_g = root_g * quant_scales[0]
         root_h = root_h * quant_scales[1]
     root_out = leaf_output(root_g, root_h, spp)
+    big = torch.full((1,), _BIG, device=dev)
+    root_fm = leaf_mask(slice(0, 1), torch.zeros((1, fs), dtype=torch.bool,
+                                                 device=dev))
     sp0 = scan(root_hist[None], root_g[None], root_h[None], root_c[None],
-               zero, slice(0, 1))
+               zero, root_fm, -big, big, root_out[None],
+               (coupled * ~cegb_used)[None] if params.use_cegb else None,
+               None if extra is None else (extra.node[:1], extra.cat[:1]))
     fl0, it0 = _split_rows(sp0)
 
-    leaf_f = torch.zeros((L, 8), dtype=torch.float32, device=dev)
+    leaf_f = torch.zeros((L, _LEAF_F), dtype=torch.float32, device=dev)
     leaf_f[:, _BG] = _NEG_INF
-    leaf_f[0] = torch.cat([torch.stack([root_g, root_h, root_c]), fl0[0],
-                           root_out[None]])
-    leaf_i = torch.zeros((L, 11), dtype=i64, device=dev)
+    leaf_f[:, _CMIN] = -_BIG
+    leaf_f[:, _CMAX] = _BIG
+    leaf_f[0, :_CMIN] = torch.cat([torch.stack([root_g, root_h, root_c]),
+                                   fl0[0], root_out[None]])
+    leaf_i = torch.zeros((L, 12), dtype=i64, device=dev)
     leaf_i[:, _PARENT] = -1
     # fill_ of a slice, not a scalar setitem: the latter copies through the
     # host and synchronizes
     leaf_i[0:1, _NROWS].fill_(n)
-    leaf_i[0, _BF:] = it0[0]
+    leaf_i[0, _BF:_INMONO] = it0[0]
     leaf_hist = torch.zeros((L, F, B, 4), dtype=root_hist.dtype, device=dev)
     leaf_hist[0] = root_hist
-    node_i = torch.zeros((max(L - 1, 1), 5), dtype=i64, device=dev)
+    node_i = torch.zeros((max(L - 1, 1), _NODE_I), dtype=i64, device=dev)
     node_i[:, _SF] = -1
     node_i[:, _LEFT] = -1
     node_i[:, _RIGHT] = -1
+    node_i[:, _NPAR] = -1
     node_f = torch.zeros((max(L - 1, 1), 4), dtype=torch.float32, device=dev)
     leaf_bits = torch.zeros((L, W), dtype=torch.int32, device=dev)
     if route is not None:
         leaf_bits[0] = sp0.cat_bitset[0]
+    leaf_used = (torch.zeros((L, fs), dtype=torch.bool, device=dev)
+                 if inter is not None else None)
+    leaf_fmask = None
+    if params.mono_intermediate:
+        leaf_fmask = torch.zeros((L, fs), dtype=torch.bool, device=dev)
+        leaf_fmask[0] = root_fm.reshape(-1, fs)[0]
     st = CompactState(leaf_f, leaf_i, leaf_hist, node_i, node_f, leaf_bits,
                       torch.zeros((max(L - 1, 1), W), dtype=torch.int32,
                                   device=dev),
                       torch.zeros(1, dtype=torch.bool, device=dev),
-                      torch.zeros(1, dtype=i64, device=dev))
+                      torch.zeros(1, dtype=i64, device=dev),
+                      leaf_used, leaf_fmask, cegb_used)
 
+    flagged = (torch.zeros((), dtype=i64, device=dev)
+               if params.mono_intermediate else None)
     for k in range(L - 1):
         st = _split_step(st, k, work, scratch, layout, B, nan_bin_arr,
-                         is_cat_arr is not None, route, scan, params, quant)
+                         is_cat_arr, route, scan, leaf_mask, params, quant,
+                         o, coupled, extra, flagged)
+    if flagged is not None and stats is not None:
+        stats["rescan_flagged"] = flagged
 
-    leaf_f, leaf_i, node_i, node_f = st.leaf_f, st.leaf_i, st.node_i, \
-        st.node_f
+    leaf_i = st.leaf_i
     leaf_start = leaf_i[:, _START]
     leaf_nrows = leaf_i[:, _NROWS]
     if params.fused_dual:
@@ -197,48 +260,30 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
                                                leaf_i[:, _SIDE], n)
         torch.where((row_side != 0)[:, None], scratch[:n], work[:n],
                     out=work[:n])
-    nn = st.num_nodes[0]
-    leaf_value = leaf_f[:, _LOUT].clone()
-    tree = TreeArrays(
-        split_feature=node_i[:L - 1, _SF],
-        split_bin=node_i[:L - 1, _SB],
-        cat_bitset=st.node_bits[:L - 1],
-        split_gain=node_f[:L - 1, _GAIN],
-        default_left=node_i[:L - 1, _SDL] != 0,
-        left_child=node_i[:L - 1, _LEFT],
-        right_child=node_i[:L - 1, _RIGHT],
-        leaf_value=leaf_value,
-        leaf_weight=leaf_f[:, _LH],
-        leaf_count=leaf_f[:, _LC],
-        leaf_parent=leaf_i[:, _PARENT],
-        leaf_depth=leaf_i[:, _DEPTH],
-        internal_value=leaf_output(node_f[:L - 1, _NG], node_f[:L - 1, _NH],
-                                   spp),
-        internal_weight=node_f[:L - 1, _NH],
-        internal_count=node_f[:L - 1, _NC],
-        num_leaves=nn + 1,
-        num_nodes=nn,
-    )
+    tree = tree_arrays(st.node_i, st.node_f, st.node_bits, st.leaf_f,
+                       leaf_i, _DEPTH, _PARENT, st.num_nodes, spp)
     row_leaf, _ = segments_to_leaf_vectors(leaf_start, leaf_nrows,
-                                           leaf_value, n)
+                                           tree.leaf_value, n)
     return tree, row_leaf, work, scratch, leaf_start, leaf_nrows
 
 
 def _split_step(st: CompactState, k: int, work, scratch, layout, B,
-                nan_bin_arr, any_cat, route, scan, params,
-                quant: bool) -> CompactState:
+                nan_bin_arr, is_cat_arr, route, scan, leaf_mask, params,
+                quant: bool, o: TreeOptions, coupled, extra,
+                flagged) -> CompactState:
     """Split number ``k``: node ``k`` splits the best leaf into itself (left
-    child) and leaf ``k + 1`` (right child). ``any_cat``: the scan has
-    categorical features; ``route``: (stored column, bitset flag, original
-    feature) arrays over scan indices (the first or last None: the scan
-    index itself), or None when every split is numerical. ``quant``: the
-    histograms are int32 (quantized codes)."""
+    child) and leaf ``k + 1`` (right child). ``route``: (stored column,
+    bitset flag, original feature) arrays over scan indices (the first or
+    last None: the scan index itself), or None when every split is
+    numerical. ``quant``: the histograms are int32 (quantized codes)."""
     i64 = torch.int64
     spp = params.split_params()
     (leaf_f, leaf_i, leaf_hist, node_i, node_f, leaf_bits, node_bits, done,
-     num_nodes) = st
+     num_nodes, leaf_used, leaf_fmask, cegb_used) = st
     node = k
     new_leaf = k + 1
+    any_cat = is_cat_arr is not None
+    mono = o.mono_types if params.use_monotone else None
 
     # ---- FindBestFromAllSplits: leaves 0..k are alive ----
     best = torch.argmax(leaf_f[:k + 1, _BG]).reshape(1)
@@ -290,15 +335,41 @@ def _split_step(st: CompactState, k: int, work, scratch, layout, B,
     hist_left = torch.where(ls, hist_small, hist_large)
     hist_right = torch.where(ls, hist_large, hist_small)
 
+    # ---- the children's outputs (fixed now, under the parent's bounds and
+    # smoothed toward its output) and monotone bounds ----
+    l2 = child_l2(params, ri[_BCL2]) if any_cat else None
+    cminp, cmaxp, poutp = rf[_CMIN], rf[_CMAX], rf[_LOUT]
+    lw = child_output(lg, lh, lc, spp, l2, poutp, cminp, cmaxp)
+    rw = child_output(rg, rh, rc, spp, l2, poutp, cminp, cmaxp)
+    split_cat = is_cat_arr.index_select(0, f_) if any_cat else None
+    # [2, 2]: (cmin, cmax) of the left and the right child
+    if mono is not None:
+        mt = mono.index_select(0, f_)
+        bounds = bound_children(
+            mt, applied & ~split_cat if any_cat else applied, lw, rw, cminp,
+            cmaxp, params.mono_intermediate)
+        bnd = torch.stack([x.reshape(()) for x in bounds]).reshape(2, 2)
+    else:
+        bnd = rf[_CMIN:_CMAX + 1].expand(2, 2)
+    used_child = None
+    if leaf_used is not None:
+        f_iota = torch.arange(coupled.shape[0], device=f_.device)
+        used_child = leaf_used.index_select(0, best)[0] | (f_iota == f_)
+    if cegb_used is not None:
+        f_iota = torch.arange(coupled.shape[0], device=f_.device)
+        cegb_used = cegb_used | (applied & (f_iota == f_))
+
     # ---- best splits of both children ----
     depth = ri[_DEPTH] + 1
+    rows = slice(2 * k + 1, 2 * k + 3)
+    fm2 = leaf_mask(rows, used_child)
     sp = scan(torch.stack([hist_left, hist_right]), torch.stack([lg, rg]),
-              torch.stack([lh, rh]), torch.stack([lc, rc]), depth,
-              slice(2 * k + 1, 2 * k + 3))
+              torch.stack([lh, rh]), torch.stack([lc, rc]), depth, fm2,
+              bnd[:, 0], bnd[:, 1], torch.stack([lw, rw]),
+              (coupled * ~cegb_used)[None] if cegb_used is not None
+              else None,
+              None if extra is None else (extra.node[rows], extra.cat[rows]))
     spf, spi = _split_rows(sp)
-    l2 = child_l2(params, ri[_BCL2]) if any_cat else None
-    lw = leaf_output(lg, lh, spp, l2)
-    rw = leaf_output(rg, rh, spp, l2)
 
     # ---- the two leaves' new rows, kept as they were when not applied ----
     idx = torch.cat([best, torch.full_like(best, new_leaf)])
@@ -306,15 +377,20 @@ def _split_step(st: CompactState, k: int, work, scratch, layout, B,
     old_i = leaf_i.index_select(0, idx)
     new_f = torch.cat([torch.stack([torch.stack([lg, lh, lc]),
                                     torch.stack([rg, rh, rc])]),
-                       spf, torch.stack([lw, rw])[:, None]], dim=1)
+                       spf, torch.stack([lw, rw])[:, None], bnd], dim=1)
     depth1 = depth.reshape(1)
     nodev = torch.full_like(best, node)
     # the right child lies in the other array (copy-back: in work)
     side_r = 1 - side_p if params.fused_dual else side_p
+    # under a monotone split: the new split's feature is constrained, or the
+    # parent was under one already (the intermediate method's walk)
+    in_mono = ri[_INMONO:_INMONO + 1]
+    if mono is not None:
+        in_mono = ((mt != 0) | (in_mono != 0)).to(i64)
     new_i = torch.stack([
-        torch.cat([s_, n_left, side_p, nodev, zero, depth1, spi[0]]),
+        torch.cat([s_, n_left, side_p, nodev, zero, depth1, spi[0], in_mono]),
         torch.cat([s_ + n_left, m - n_left, side_r, nodev, zero + 1,
-                   depth1, spi[1]])])
+                   depth1, spi[1], in_mono])])
     leaf_f.index_copy_(0, idx, torch.where(applied, new_f, old_f))
     leaf_i.index_copy_(0, idx, torch.where(applied, new_i, old_i))
     old_h = leaf_hist.index_select(0, idx)
@@ -325,20 +401,65 @@ def _split_step(st: CompactState, k: int, work, scratch, layout, B,
         leaf_bits.index_copy_(0, idx, torch.where(
             applied, sp.cat_bitset, leaf_bits.index_select(0, idx)))
         node_bits[node] = torch.where(applied, bits, node_bits[node])
+    if leaf_used is not None:
+        leaf_used.index_copy_(0, idx, torch.where(
+            applied, used_child, leaf_used.index_select(0, idx)))
+    if leaf_fmask is not None:
+        leaf_fmask.index_copy_(0, idx, torch.where(
+            applied, fm2.expand(2, -1), leaf_fmask.index_select(0, idx)))
 
     # ---- record the split; wire the parent's child pointer ----
     p = ri[_PARENT:_PARENT + 1]
     pside = ri[_PSIDE:_PSIDE + 1]
     flat = node_i.view(-1)
-    slot = torch.clamp(p, min=0) * 5 + _LEFT + pside
+    slot = torch.clamp(p, min=0) * _NODE_I + _LEFT + pside
     wire = applied & (p >= 0)
     flat.index_copy_(0, slot, torch.where(wire, torch.full_like(p, node),
                                           flat.index_select(0, slot)))
     node_i[node] = torch.where(applied, torch.cat([
-        f_orig, b_, dl, -(best + 1), torch.full_like(best, -(new_leaf + 1))]),
-        node_i[node])
+        f_orig, b_, dl, -(best + 1), torch.full_like(best, -(new_leaf + 1)),
+        p, split_cat.to(i64) if any_cat else zero]), node_i[node])
     node_f[node] = torch.where(applied, torch.stack([gain[0], pg, ph, pc]),
                                torch.zeros_like(node_f[node]))
     num_nodes = num_nodes + applied.to(i64)
+
+    if params.mono_intermediate:
+        _intermediate(k, node_i, leaf_f, leaf_i, leaf_hist, leaf_bits,
+                      leaf_fmask, mono, applied & (in_mono[0] != 0), p, f_,
+                      b_, lw, rw, scan, cegb_used, coupled, extra, route,
+                      flagged)
     return CompactState(leaf_f, leaf_i, leaf_hist, node_i, node_f, leaf_bits,
-                        node_bits, done, num_nodes)
+                        node_bits, done, num_nodes, leaf_used, leaf_fmask,
+                        cegb_used)
+
+
+def _intermediate(k, node_i, leaf_f, leaf_i, leaf_hist, leaf_bits,
+                  leaf_fmask, mono, eff, p, f_, b_, lw, rw, scan, cegb_used,
+                  coupled, extra, route, flagged) -> None:
+    """The intermediate method after split ``k`` (reference:
+    ``lightgbm_tpu/ops/grower_compact.py:830-1041``): the walk tightens the
+    bounds of the leaves next to the new split (``eff``: the split is
+    applied and under a monotone split), then the live leaves are rescanned
+    in one batch (a profiler range, ``monotone_rescan``) and each flagged
+    leaf takes its new best split; ``flagged`` counts the flagged leaves."""
+    flags = monotone_walk(node_i, leaf_f, mono, eff, p, f_, b_, lw, rw, k)
+    flagged += flags.sum()
+    with torch.profiler.record_function("monotone_rescan"):
+        live = k + 2
+        fl = flags[:live, None]
+        lf, li = leaf_f[:live], leaf_i[:live]
+        sp = scan(leaf_hist[:live], lf[:, _LG], lf[:, _LH], lf[:, _LC],
+                  li[:, _DEPTH], leaf_fmask[:live], lf[:, _CMIN],
+                  lf[:, _CMAX], lf[:, _LOUT],
+                  (coupled * ~cegb_used)[None] if cegb_used is not None
+                  else None,
+                  None if extra is None else (extra.rescan[k, :live],
+                                              extra.rescan_cat[k, :live]))
+        spf, spi = _split_rows(sp)
+        leaf_f[:live, _BG:_BLC + 1] = torch.where(fl, spf,
+                                                  lf[:, _BG:_BLC + 1])
+        leaf_i[:live, _BF:_BCL2 + 1] = torch.where(fl, spi,
+                                                   li[:, _BF:_BCL2 + 1])
+        if route is not None:
+            leaf_bits[:live] = torch.where(fl, sp.cat_bitset,
+                                           leaf_bits[:live])

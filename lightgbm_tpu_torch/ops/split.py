@@ -21,8 +21,21 @@ call. Everything stays on the device; nothing here reads a value back to
 the host, and Python branches only on static shapes and parameters. The
 sorted scan's ``min_data_per_group`` gate, a sequential ``lax.scan`` in the
 JAX package, is here a handful of tensor ops (see ``_group_gate``) rather
-than a loop of launches over the prefix positions. Monotone, CEGB,
-path-smoothing and extra-trees scans are ROADMAP A14b.
+than a loop of launches over the prefix positions.
+
+The scan's other options (``lightgbm_tpu/ops/split.py:349-409``,
+``:563-595``): with monotone constraints or path smoothing the gains are
+taken at the realized child outputs (smoothed toward the parent's output,
+clipped to the leaf's ``[cmin, cmax]``); a numerical or one-hot candidate on
+a constrained feature whose outputs run against its direction is vetoed,
+and its gain is scaled by the depth penalty; CEGB subtracts each feature's
+remaining coupled (and lazy) cost and the split cost times the leaf's
+count; ``feature_contri`` scales positive gains. Extra trees evaluate one
+random threshold a feature (and one random prefix size in the sorted
+categorical scan): the draw is two random 32-bit words a feature, turned
+into an integer below the feature's span at scan time exactly as
+``jax.random.randint`` turns its two words into one (``extra_threshold``),
+so the tests can feed the JAX package's words and get its thresholds.
 """
 from __future__ import annotations
 
@@ -51,6 +64,19 @@ class SplitParams(NamedTuple):
     cat_smooth: float = 10.0
     max_cat_to_onehot: int = 4
     min_data_per_group: float = 100.0
+    # monotone constraints (reference: BasicLeafConstraints,
+    # monotone_constraints.hpp:465) and their split-gain penalty (:357)
+    use_monotone: bool = False
+    monotone_penalty: float = 0.0
+    # path smoothing (CalculateSplittedLeafOutput USE_SMOOTHING)
+    path_smooth: float = 0.0
+    # cost-effective gradient boosting: tradeoff * cegb_penalty_split
+    # (cost_effective_gradient_boosting.hpp DeltaGain)
+    use_cegb: bool = False
+    cegb_split_pen: float = 0.0
+    # one random threshold a feature (USE_RAND in
+    # FindBestThresholdSequentially)
+    extra_trees: bool = False
 
 
 class SplitResult(NamedTuple):
@@ -98,10 +124,51 @@ def leaf_gain(sum_grad, sum_hess, p: SplitParams,
     return (t * t) / (sum_hess + l2 + _EPS)
 
 
-def child_output(sum_grad, sum_hess, p: SplitParams):
-    """Child output at split time. Path smoothing and monotone clipping
-    are ROADMAP A14b, so this is the plain leaf output."""
-    return leaf_output(sum_grad, sum_hess, p)
+def gain_given_output(sum_grad, sum_hess, w, p: SplitParams, l2=None):
+    """A leaf's gain at a fixed output ``w`` (GetLeafGainGivenOutput), for
+    outputs that smoothing or clipping moved off the optimum."""
+    if l2 is None:
+        l2 = p.lambda_l2
+    sg = threshold_l1(sum_grad, p.lambda_l1)
+    return -(2.0 * sg * w + (sum_hess + l2) * w * w)
+
+
+def child_output(sum_grad, sum_hess, cnt, p: SplitParams, l2=None,
+                 parent_output=0.0, cmin=None, cmax=None):
+    """A child's output at split time (CalculateSplittedLeafOutput): the
+    leaf output, smoothed toward ``parent_output`` by ``cnt / path_smooth``,
+    then clipped to the monotone bounds ``[cmin, cmax]``."""
+    w = leaf_output(sum_grad, sum_hess, p, l2)
+    if p.path_smooth > 0.0:
+        ratio = cnt / p.path_smooth
+        w = w * ratio / (ratio + 1.0) + parent_output / (ratio + 1.0)
+    if p.use_monotone and cmin is not None:
+        w = torch.minimum(torch.maximum(w, cmin), cmax)
+    return w
+
+
+def monotone_penalty_factor(depth: torch.Tensor, penalty: float
+                            ) -> torch.Tensor:
+    """The gain factor of a split on a constrained feature at ``depth``
+    (ComputeMonotoneSplitGainPenalty, monotone_constraints.hpp:357)."""
+    d = depth.to(torch.float32)
+    if penalty <= 1.0:
+        out = 1.0 - penalty / torch.exp2(d) + _EPS
+    else:
+        out = 1.0 - torch.exp2(penalty - 1.0 - d) + _EPS
+    return torch.where(penalty >= d + 1.0, torch.full_like(out, _EPS), out)
+
+
+def extra_threshold(words: torch.Tensor, span: torch.Tensor) -> torch.Tensor:
+    """An integer in ``[0, max(span, 1))`` from two random 32-bit words
+    ``words[..., 0]`` (high) and ``words[..., 1]`` (low), int64 tensors, by
+    the arithmetic of ``jax.random.randint`` (two words, each reduced modulo
+    the span, the high one times ``2^32 mod span``)."""
+    span = torch.clamp(span.to(torch.int64), min=1)
+    mult = torch.remainder(torch.full_like(span, 1 << 16), span)
+    mult = torch.remainder(mult * mult, span)
+    return torch.remainder(torch.remainder(words[..., 0], span) * mult
+                           + torch.remainder(words[..., 1], span), span)
 
 
 def depth_gate(gain: torch.Tensor, depth, max_depth: int) -> torch.Tensor:
@@ -217,13 +284,31 @@ def best_split(
     p: SplitParams,
     is_cat: Optional[torch.Tensor] = None,   # [F] bool; None: numerical
     quant_scales=None,           # (g_scale, h_scale) 0-d f32 tensors
+    *,
+    mono_types: Optional[torch.Tensor] = None,    # [F] int in {-1, 0, 1}
+    cmin: Optional[torch.Tensor] = None,          # [...] output bounds
+    cmax: Optional[torch.Tensor] = None,
+    parent_output: Optional[torch.Tensor] = None,  # [...] (path_smooth)
+    depth: Optional[torch.Tensor] = None,         # [...] (monotone_penalty)
+    cegb_pen: Optional[torch.Tensor] = None,      # [..., F] feature costs
+    extra_words: Optional[torch.Tensor] = None,   # [..., F, 2] (extra_trees)
+    extra_words_cat: Optional[torch.Tensor] = None,  # [..., F, 2]
+    feature_contri: Optional[torch.Tensor] = None,  # [F] gain factors
 ) -> SplitResult:
     """Best (feature, threshold, missing direction) for each leaf; with
     ``is_cat``, also the best categorical split (one-hot or sorted) of the
     categorical features. With ``quant_scales`` the histogram holds int32
     sums of quantized-gradient codes, dequantized here before any gain
     (reference: ``best_split(quant_scales=)``, ``lightgbm_tpu/ops/split.py:
-    300-312``)."""
+    300-312``), so the constrained gains below take dequantized sums.
+
+    The keyword arguments are the scan's other options (module docstring),
+    each used when its ``SplitParams`` switch is on: ``mono_types``,
+    ``cmin``/``cmax`` (``use_monotone``), ``parent_output``
+    (``path_smooth``), ``depth`` (``monotone_penalty``), ``cegb_pen``
+    (``use_cegb``; None counts as zero), ``extra_words`` and
+    ``extra_words_cat`` (``extra_trees``: the numerical/one-hot threshold's
+    and the sorted prefix size's words), ``feature_contri`` (None: off)."""
     if quant_scales is not None:
         hist = dequantize_hist(hist, *quant_scales)
     f, b, k = hist.shape[-3:]
@@ -266,12 +351,33 @@ def best_split(
         tmask = torch.where(cat_b, onehot_ok & (t_iota < nb), tmask)
         dir2_ok = dir2_ok & ~cat_b
 
+    if p.extra_trees:
+        # one random candidate threshold a feature: a numerical threshold
+        # below num_bins - 1, a one-hot category any bin
+        hi = nb[:, 0] - 1 if is_cat is None else torch.where(
+            is_cat.to(dev), nb[:, 0], nb[:, 0] - 1)
+        pick = t_iota == extra_threshold(extra_words, hi)[..., None]
+        tmask = tmask & pick
+        dir2_ok = dir2_ok & pick
+
     pg = parent_grad[..., None, None]
     ph = parent_hess[..., None, None]
     pc = parent_count[..., None, None]
     gain_shift0 = leaf_gain(parent_grad, parent_hess, p) + p.min_gain_to_split
     gain_shift = gain_shift0[..., None, None]
     fmask = feat_mask.to(dev)[..., None]
+    constrained = p.use_monotone or p.path_smooth > 0.0
+    if constrained:
+        po = (parent_output if parent_output is not None
+              else torch.zeros_like(parent_grad))[..., None, None]
+        cmn = cmin[..., None, None] if p.use_monotone else None
+        cmx = cmax[..., None, None] if p.use_monotone else None
+    mt = (mono_types.to(dev)[:, None] if p.use_monotone
+          and mono_types is not None else None)
+    pen_f = (cegb_pen[..., None] if p.use_cegb and cegb_pen is not None
+             else None)
+    contri = (feature_contri.to(dev)[:, None] if feature_contri is not None
+              else None)
 
     def dir_score(lg, lh, lc, extra_valid):
         rg, rh, rc = pg - lg, ph - lh, pc - lc
@@ -279,7 +385,27 @@ def best_split(
                  & (lc >= p.min_data_in_leaf) & (rc >= p.min_data_in_leaf)
                  & (lh >= p.min_sum_hessian_in_leaf)
                  & (rh >= p.min_sum_hessian_in_leaf))
-        gain = leaf_gain(lg, lh, p) + leaf_gain(rg, rh, p) - gain_shift
+        if constrained:
+            # gains at the realized (smoothed, clipped) outputs
+            lw = child_output(lg, lh, lc, p, None, po, cmn, cmx)
+            rw = child_output(rg, rh, rc, p, None, po, cmn, cmx)
+            gain = gain_given_output(lg, lh, lw, p) \
+                + gain_given_output(rg, rh, rw, p) - gain_shift
+            if mt is not None:
+                valid = valid & ~((mt > 0) & (lw > rw)) \
+                    & ~((mt < 0) & (lw < rw))
+                if p.monotone_penalty > 0.0:
+                    pen = monotone_penalty_factor(
+                        depth, p.monotone_penalty)[..., None, None]
+                    gain = torch.where(mt != 0, gain * pen, gain)
+        else:
+            gain = leaf_gain(lg, lh, p) + leaf_gain(rg, rh, p) - gain_shift
+        if p.use_cegb:
+            if pen_f is not None:
+                gain = gain - pen_f
+            gain = gain - p.cegb_split_pen * pc
+        if contri is not None:
+            gain = torch.where(gain > 0, gain * contri, gain)
         return torch.where(valid, gain, torch.full_like(gain, _NEG_INF))
 
     score1 = dir_score(left1[0], left1[1], left1[2], tmask)
@@ -318,7 +444,10 @@ def best_split(
     out = out._replace(cat_bitset=pack_bin_bitset(onehot))
     srt = _sorted_cat_split(hist, is_cat.to(dev), num_bins.to(dev),
                             feat_mask.to(dev), parent_grad, parent_hess,
-                            parent_count, gain_shift0, p)
+                            parent_count, gain_shift0, p,
+                            po[..., 0, 0] if constrained else None,
+                            cmin, cmax, cegb_pen, extra_words_cat,
+                            feature_contri)
     if srt is None:
         return out
     use = srt.gain > out.gain
@@ -360,11 +489,15 @@ def _group_gate(lc_t, cond, min_data_per_group: float) -> torch.Tensor:
 
 def _sorted_cat_split(hist, is_cat, num_bins, feat_mask, parent_grad,
                       parent_hess, parent_count, gain_shift,
-                      p: SplitParams) -> Optional[SplitResult]:
+                      p: SplitParams, parent_output=None, cmin=None,
+                      cmax=None, cegb_pen=None, extra_words=None,
+                      feature_contri=None) -> Optional[SplitResult]:
     """Best sorted-many-category split over all features of each leaf
     (``_sorted_cat_split`` of the JAX package); None when no prefix size can
     exist (static). ``hist``: ``[..., F, B, K]``; the channels are sorted,
-    summed and read together."""
+    summed and read together. The options as in ``best_split``, with no
+    monotone veto or penalty (the reference's categorical branch has
+    none)."""
     *batch, f, b, k = hist.shape
     mct = int(min(p.max_cat_threshold, b))
     if mct <= 0 or b <= 1:
@@ -411,8 +544,30 @@ def _sorted_cat_split(hist, is_cat, num_bins, feat_mask, parent_grad,
                       ended[..., :-1, :]], dim=-2)
     cond = in_range & ~dead & left_ok & ~brk
     evald = _group_gate(lc, cond, p.min_data_per_group)
-    gains = leaf_gain(lg, lh, p, l2c) + leaf_gain(rg, rh, p, l2c) \
-        - lead(gain_shift)
+    if p.use_monotone or p.path_smooth > 0.0:
+        po = lead(parent_output)
+        cmn = lead(cmin) if p.use_monotone else None
+        cmx = lead(cmax) if p.use_monotone else None
+        lw = child_output(lg, lh, lc, p, l2c, po, cmn, cmx)
+        rw = child_output(rg, rh, rc, p, l2c, po, cmn, cmx)
+        gains = gain_given_output(lg, lh, lw, p, l2c) \
+            + gain_given_output(rg, rh, rw, p, l2c) - lead(gain_shift)
+    else:
+        gains = leaf_gain(lg, lh, p, l2c) + leaf_gain(rg, rh, p, l2c) \
+            - lead(gain_shift)
+    if p.use_cegb:
+        if cegb_pen is not None:
+            gains = gains - cegb_pen[..., None, None]
+        gains = gains - p.cegb_split_pen * pc
+    if feature_contri is not None:
+        gains = torch.where(gains > 0,
+                            gains * feature_contri[:, None, None], gains)
+    if p.extra_trees:
+        # one random prefix size a feature
+        rnd = extra_threshold(extra_words, max_num_cat)
+        gains = torch.where(
+            torch.arange(mct, device=dev)[:, None] == rnd[..., None, None],
+            gains, torch.full_like(gains, _NEG_INF))
     gains = torch.where(evald, gains, torch.full_like(gains, _NEG_INF))
 
     flat = gains.reshape(*batch, f * mct * 2)

@@ -36,6 +36,11 @@ from lightgbm_tpu_torch.io import dataset as tds
 from lightgbm_tpu_torch.ops import split as tsplit
 from lightgbm_tpu_torch.ops.grower import GrowerParams, grow_tree
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's spin-waiting OpenMP threads would slow the CPU
+# paths' many small ops a hundredfold
+torch.set_num_threads(1)
+
 BASE = {"num_leaves": 15, "learning_rate": 0.1, "min_data_in_leaf": 20,
         "min_data_per_group": 20, "cat_smooth": 2.0, "verbosity": -1}
 

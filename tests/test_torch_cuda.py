@@ -517,7 +517,7 @@ def test_masked_train_on_card_matches_cpu(dev):
     plain = dict(_kernels.PLAIN_CALLS)
     bc = lgt.train(dict(p, device_type="cpu"), lgt.Dataset(X, y), 3)
     assert launches == {"histogram": 0, "fused_split": 0,
-                        "histogram_sublane": 3 * 31}
+                        "histogram_sublane": 3 * 31, "monotone_walk": 0}
     assert sum(plain.values()) == 0
     np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-4)
 
@@ -547,7 +547,8 @@ def test_masked_grower_past_the_compact_bound(dev):
         assert sum(_kernels.PLAIN_CALLS.values()) == 0
         assert not boosters[layout]._gbdt.use_compact
     assert launches["sublane"] == {"histogram": 0, "fused_split": 0,
-                                   "histogram_sublane": 63}
+                                   "histogram_sublane": 63,
+                                   "monotone_walk": 0}
     assert launches["lane"]["histogram"] == 63
     assert launches["lane"]["fused_split"] == 0
     ts, tl = (b._gbdt.models[0] for b in boosters.values())
@@ -609,10 +610,10 @@ def test_categorical_train_on_card_matches_cpu(dev, grower, objective):
     per_run = 3 * k * 31
     if grower == "compact":
         assert launches == {"histogram": per_run, "fused_split": per_run,
-                            "histogram_sublane": 0}
+                            "histogram_sublane": 0, "monotone_walk": 0}
     else:
         assert launches == {"histogram": 0, "fused_split": 0,
-                            "histogram_sublane": per_run}
+                            "histogram_sublane": per_run, "monotone_walk": 0}
     assert sum(plain.values()) == 0
     assert any(t.cat_bitset[:t.num_nodes].any() for t in bg._gbdt.models)
     np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-4)
@@ -961,3 +962,131 @@ def test_goss_threshold_on_card_past_2_24(dev):
     for q in (0.0, 0.8, 0.999999, 1.0):
         assert float(linear_quantile(x.to(dev), q)) \
             == float(linear_quantile(x, q))
+
+
+def _random_walk_state(L, F, seed, dev):
+    """A random valid tree of L leaves grown split by split (each split
+    takes a random leaf; random features, thresholds and categorical
+    flags; random directions), its leaf table's gains and bounds, and the
+    walk's inputs for its last split: (node_i, leaf_f, mono, eff, parent,
+    feature, threshold, lw, rw, node)."""
+    from lightgbm_tpu_torch.ops import monotone as mono_mod
+    rng = np.random.RandomState(seed)
+    node_i = np.full((max(L - 1, 1), mono_mod._NODE_I), -1, np.int64)
+    leaf_parent = np.full(L, -1, np.int64)
+    leaf_side = np.zeros(L, np.int64)
+    for k in range(L - 1):
+        best = rng.randint(0, k + 1)
+        p = leaf_parent[best]
+        if p >= 0:
+            node_i[p, 3 + leaf_side[best]] = k
+        node_i[k, :5] = [rng.randint(0, F), rng.randint(0, 32), 0,
+                         -(best + 1), -(k + 2)]
+        node_i[k, mono_mod._NPAR] = p
+        node_i[k, mono_mod._NCAT] = int(rng.rand() < 0.1)
+        leaf_parent[best] = leaf_parent[k + 1] = k
+        leaf_side[best], leaf_side[k + 1] = 0, 1
+    leaf_f = np.zeros((L, 10), np.float32)
+    leaf_f[:, 3] = np.where(rng.rand(L) < 0.2, -1e30, rng.randn(L))
+    leaf_f[:, 8] = np.where(rng.rand(L) < 0.5, -3.4e38, -rng.rand(L))
+    leaf_f[:, 9] = np.where(rng.rand(L) < 0.5, 3.4e38, rng.rand(L))
+    mono = rng.randint(-1, 2, F).astype(np.int64)
+    k = max(L - 2, 0)
+    t = lambda a, dt=torch.int64: torch.as_tensor(a, dtype=dt, device=dev)
+    return (t(node_i), t(leaf_f, torch.float32), t(mono),
+            t([L > 1], torch.bool), t([node_i[k, mono_mod._NPAR]]),
+            t([node_i[k, 0]]), t([node_i[k, 1]]),
+            t(rng.randn() * 0.3, torch.float32),
+            t(rng.randn() * 0.3, torch.float32), k)
+
+
+@pytest.mark.parametrize("L,F", [(2, 3), (7, 2), (31, 4), (255, 28),
+                                 (1024, 8)])
+def test_monotone_walk_kernel_matches_plain(dev, L, F):
+    """The walk kernel against its plain version on random valid trees
+    with monotone ancestors (and the degenerate two-leaf tree, whose root
+    split has no ancestor): flags and tightened bounds equal."""
+    from lightgbm_tpu_torch.ops import monotone as mono_mod
+    moved = 0
+    for seed in range(20):
+        st = _random_walk_state(L, F, seed, dev)
+        node_i, leaf_f = st[0], st[1]
+        lk, lp = leaf_f.clone(), leaf_f.cpu()
+        _kernels.reset_counts()
+        fk = mono_mod.monotone_walk(node_i, lk, *st[2:])
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["monotone_walk"] == 1
+        fp = mono_mod.monotone_walk_plain(
+            node_i.cpu(), lp, *[x.cpu() if torch.is_tensor(x) else x
+                                for x in st[2:]])
+        assert torch.equal(fk.cpu(), fp)
+        assert torch.equal(lk.cpu(), lp)
+        moved += int(fp.sum())
+    assert moved > 0 or L == 2
+
+
+def _dyadic_binary(monkeypatch):
+    """Binary gradients on a 1/64 grid: every histogram sum exact on the
+    card and the CPU alike."""
+    from lightgbm_tpu_torch import objectives
+    own = objectives.BinaryLogloss.get_gradients
+
+    def rounded(self, score, label, weight=None):
+        g, h = own(self, score, label, weight)
+        return (torch.round(g * 64) / 64,
+                torch.clamp(torch.round(h * 64), min=1) / 64)
+    monkeypatch.setattr(objectives.BinaryLogloss, "get_gradients", rounded)
+
+
+@pytest.mark.parametrize("grower", ["compact", "masked"])
+def test_constrained_train_on_card_matches_cpu(dev, grower, monkeypatch):
+    """Monotone (intermediate on the compact grower, basic on the masked
+    one) and interaction constraints with path smoothing, extra trees (the
+    same words on both, through ``GBDT.extra_draws``), ``feature_contri``
+    and CEGB: the card grows the CPU's trees (0 differing splits), the
+    walk kernel once a split on the compact grower, no plain version on
+    the card."""
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    _dyadic_binary(monkeypatch)
+    init = gbdt_mod.GBDT.__init__
+
+    def words(t, leaves, feats, intermediate):
+        rs = np.random.RandomState(30_000 + t)
+        shapes = [(2 * leaves - 1,)] * 2 + (
+            [(leaves - 1, leaves)] * 2 if intermediate else [])
+        return tuple(torch.from_numpy(rs.randint(
+            0, 1 << 32, size=(*sh, feats, 2), dtype=np.int64))
+            for sh in shapes)
+
+    def patched(self, *a, **kw):
+        init(self, *a, **kw)
+        self.extra_draws = words
+    monkeypatch.setattr(gbdt_mod.GBDT, "__init__", patched)
+    rng = np.random.RandomState(12)
+    n = 80_000 if grower == "compact" else 20_000
+    X = rng.randn(n, 8).astype(np.float32)
+    y = (X[:, 0] - 0.5 * X[:, 3] + 0.4 * rng.randn(n) > 0).astype(float)
+    p = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+         "tpu_grower": grower, "monotone_constraints": [1, 0, 0, -1, 0, 1,
+                                                        0, 0],
+         "monotone_constraints_method": "intermediate",
+         "interaction_constraints": [[0, 1, 2, 3], [3, 4, 5, 6, 7]],
+         "path_smooth": 1.0, "cegb_penalty_split": 1e-4,
+         "extra_trees": True, "feature_contri": [1.0, 0.5] * 4}
+    if grower == "masked":
+        p["cegb_penalty_feature_lazy"] = [0.01] * 8
+    _kernels.reset_counts()
+    bg = lgt.train(dict(p, device_type="cuda"), lgt.Dataset(X, y), 3)
+    launches = dict(_kernels.LAUNCHES)
+    assert sum(_kernels.PLAIN_CALLS.values()) == 0
+    bc = lgt.train(dict(p, device_type="cpu"), lgt.Dataset(X, y), 3)
+    assert bg._gbdt.use_compact == (grower == "compact")
+    assert launches["monotone_walk"] == (3 * 30 if grower == "compact"
+                                         else 0)
+    for a, b in zip(bg._gbdt.models, bc._gbdt.models):
+        n_ = a.num_nodes
+        assert b.num_nodes == n_
+        np.testing.assert_array_equal(a.split_feature[:n_],
+                                      b.split_feature[:n_])
+        np.testing.assert_array_equal(a.split_bin[:n_], b.split_bin[:n_])
+    np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-5)

@@ -3,9 +3,10 @@ the bundle-space scan and routing of the compact grower, K2's copy-back
 variant) on the CPU against the JAX package.
 
 The data are one-hot blocks (the generator of ``tests/test_efb.py``): 40
-groups of 8 exclusive columns plus dense columns, 3,000 rows. 40 groups, not
-fewer: the planner bundles only when at least 256 features would share
-columns (``plan_bundles``' ``min_features``), as in the JAX package.
+groups of 8 exclusive columns plus dense columns, 3,000 rows (1,500 in the
+training cases). 40 groups, not fewer: the planner bundles only when at
+least 256 features would share columns (``plan_bundles``' ``min_features``),
+as in the JAX package.
 
 * planning, the bundled matrix and ``unbundle`` are equal to the JAX
   package's, field for field and byte for byte;
@@ -18,9 +19,11 @@ columns (``plan_bundles``' ``min_features``), as in the JAX package.
   split for split in original feature ids and bins, predictions within
   1e-5) and the fused kernel in interpret mode, which the JAX package runs
   in its copy-back variant on bundled data (``tpu_fused=on``,
-  ``tpu_fused_interpret=True``: its hi/lo-bf16 histogram moves a gain in the
-  fifth digit, so predictions within 1e-4), for binary, multiclass, a
-  categorical passthrough column and a NaN-bearing dense column;
+  ``tpu_fused_interpret=True``, one row block a contraction,
+  ``tpu_hist_mbatch=1``, which keeps its interpret-mode program small: its
+  hi/lo-bf16 histogram moves a gain in the fifth digit, so predictions
+  within 1e-4), for binary, multiclass, a categorical passthrough column and
+  a NaN-bearing dense column, two rounds;
 * bundled against ``enable_bundle=False`` on the port, model text against
   the JAX package's, validation sets, and the unbundling fallbacks
   (``tpu_grower=masked``, and from the compact grower's row bound on, C1).
@@ -42,6 +45,11 @@ from lightgbm_tpu_torch.convert import booster_from_arrays, dataset_from_arrays
 from lightgbm_tpu_torch.io import efb
 from lightgbm_tpu_torch.ops.split import (SplitResult, apply_efb_bitset,
                                           extend_hist_efb)
+
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's spin-waiting OpenMP threads would slow the CPU
+# paths' many small ops a hundredfold
+torch.set_num_threads(1)
 
 BASE = {"objective": "binary", "num_leaves": 15, "min_data_in_leaf": 10,
         "verbosity": -1}
@@ -275,13 +283,13 @@ _CASES = {
 _ORACLES = {
     "xla": ({"tpu_fused": "off"}, 1e-5),
     "fused_copyback": ({"tpu_fused": "on", "tpu_fused_interpret": True,
-                        "tpu_fused_block": 128}, 1e-4),
+                        "tpu_fused_block": 128, "tpu_hist_mbatch": 1}, 1e-4),
 }
 
 
 def _case_data(case):
     params, data_kw = _CASES[case]
-    X, y, score = _onehot_data(seed=3, **data_kw)
+    X, y, score = _onehot_data(n=1500, seed=3, **data_kw)
     if case == "multiclass":
         y = np.digitize(score, np.quantile(score, [1 / 3, 2 / 3])).astype(
             np.float64)
@@ -297,7 +305,7 @@ def test_train_matches_reference(case, oracle):
     variant; its plain version on the CPU)."""
     p, X, y, cat = _case_data(case)
     extra, tol = _ORACLES[oracle]
-    rounds = 3
+    rounds = 2
     jds = lgb.Dataset(X, label=y, categorical_feature=cat)
     bj = lgb.train(dict(p, **extra), jds, rounds)
     _kernels.reset_counts()

@@ -28,6 +28,11 @@ from lightgbm_tpu_torch.ops.compact import (RowLayout, pack_rows,
                                             unpack_rows)
 from lightgbm_tpu_torch.ops.fused_split import fused_split
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's spin-waiting OpenMP threads would slow the CPU
+# paths' many small ops a hundredfold
+torch.set_num_threads(1)
+
 I32 = jnp.int32
 PAD = 256
 
@@ -307,7 +312,8 @@ def test_copy_back_matches_dual_and_reference(start, count, smaller_left, f):
     dual variant leaves once its two arrays are merged, every row outside
     the segment keeps its bytes, the histogram is the dual variant's bit
     for bit, and ``work`` equals the JAX kernel's copy-back variant in
-    interpret mode (f = 140: a record wider than 128 bytes)."""
+    interpret mode (f = 140: a record wider than 128 bytes; one row block
+    a contraction, ``mbatch=1``: the same sums, a smaller program)."""
     n, b = 2000, 256
     jl, tl, work0 = _records(n, f, b, seed=start + count + f)
     other0 = pack_rows(*(torch.from_numpy(a) for a in
@@ -340,7 +346,7 @@ def test_copy_back_matches_dual_and_reference(start, count, smaller_left, f):
         *(jnp.asarray(v, I32) for v in (start, count, n_left, feat, bin_, 0,
                                         0, 0)),
         jnp.asarray(np.zeros(8, np.uint32)), jl, b, 128, 8, interpret=True,
-        dual=False, **kw)
+        dual=False, mbatch=1, **kw)
     np.testing.assert_array_equal(cb_w, np.asarray(rw)[:n])
     aw = torch.from_numpy(_abs_grad(cb_w, tl))
     s, c = _child_range(start, count, n_left, smaller_left)

@@ -25,6 +25,11 @@ from lightgbm_tpu_torch.ops.pallas_histogram import (pallas_histogram,
                                                      record_histogram)
 from lightgbm_tpu_torch.ops.compact import RowLayout, pack_rows
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's spin-waiting OpenMP threads would slow the CPU
+# paths' many small ops a hundredfold
+torch.set_num_threads(1)
+
 N, F = 3000, 5
 
 

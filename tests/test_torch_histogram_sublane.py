@@ -34,6 +34,11 @@ from lightgbm_tpu_torch.ops.pallas_histogram import (
     sublane_active_lanes, sublane_geometry, sublane_small_geometry,
     sublane_tile_geometry)
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's spin-waiting OpenMP threads would slow the CPU
+# paths' many small ops a hundredfold
+torch.set_num_threads(1)
+
 N = 1000   # not a multiple of the 256-row block
 
 

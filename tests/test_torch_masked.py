@@ -30,6 +30,11 @@ from lightgbm_tpu.ops.grower import grow_tree as jax_grow_tree
 from lightgbm_tpu_torch import _kernels
 from lightgbm_tpu_torch.ops.grower import GrowerParams, grow_tree
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's spin-waiting OpenMP threads would slow the CPU
+# paths' many small ops a hundredfold
+torch.set_num_threads(1)
+
 BASE = {"objective": "binary", "learning_rate": 0.1, "min_data_in_leaf": 20,
         "verbosity": -1}
 

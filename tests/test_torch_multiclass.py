@@ -40,6 +40,11 @@ from lightgbm_tpu_torch.objectives import create_objective
 
 from test_torch_categorical import assert_same_trees
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's spin-waiting OpenMP threads would slow the CPU
+# paths' many small ops a hundredfold
+torch.set_num_threads(1)
+
 N = 600
 
 
@@ -204,7 +209,10 @@ def test_train_multiclass_matches_jax(grower, objective):
 def test_train_multiclass_matches_fused_kernel_interpret():
     X, y = _mc_data(1203, seed=4)
     p = dict(MC_BASE, objective="multiclass", tpu_grower="compact")
-    bj = lgb.train(dict(p, tpu_fused_interpret=True, tpu_fused_block=128),
+    # one row block a contraction (tpu_hist_mbatch=1): a smaller
+    # interpret-mode program
+    bj = lgb.train(dict(p, tpu_fused_interpret=True, tpu_fused_block=128,
+                        tpu_hist_mbatch=1),
                    lgb.Dataset(X, label=y, categorical_feature=MC_CAT), 3)
     bt = lgt.train(dict(p, device_type="cpu"),
                    lgt.Dataset(X, y, categorical_feature=MC_CAT), 3)

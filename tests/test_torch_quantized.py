@@ -55,6 +55,11 @@ from lightgbm_tpu_torch.ops.fused_split import fused_split_plain
 from lightgbm_tpu_torch.ops.histogram import _xla_histogram
 from lightgbm_tpu_torch.ops.pallas_histogram import record_histogram
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's spin-waiting OpenMP threads would slow the CPU
+# paths' many small ops a hundredfold
+torch.set_num_threads(1)
+
 I32 = jnp.int32
 PAD = 256
 BASE = {"objective": "binary", "num_leaves": 15, "min_data_in_leaf": 20,
@@ -299,9 +304,12 @@ def _assert_same_trees(tj, tt):
                                    rtol=2e-5, atol=2e-6)
 
 
+# the interpret-mode oracle contracts one row block at a time
+# (tpu_hist_mbatch=1): the same int32 sums, a program a fraction the size
 _ORACLES = {"xla": {"tpu_fused": "off"},
             "fused_interpret": {"tpu_fused": "on",
-                                "tpu_fused_interpret": True}}
+                                "tpu_fused_interpret": True,
+                                "tpu_hist_mbatch": 1}}
 
 
 def _train_both(X, y, params, jax_extra, rounds=3, jax_params=None):
@@ -428,10 +436,10 @@ def _onehot(n=3000, groups=40, card=8, dense=4, seed=3):
 @pytest.mark.parametrize("oracle", sorted(_ORACLES))
 def test_bundled_int_path_matches_reference(oracle):
     """EFB-bundled data runs the int path too: the virtual features'
-    histograms stay int32 (``extend_hist_efb``)."""
-    X, y = _onehot()
+    histograms stay int32 (``extend_hist_efb``); 1,500 rows, 2 rounds."""
+    X, y = _onehot(n=1500)
     p = dict(BASE, min_data_in_leaf=10)
-    bj, bt = _train_both(X, y, p, _ORACLES[oracle])
+    bj, bt = _train_both(X, y, p, _ORACLES[oracle], rounds=2)
     gb = bt._gbdt
     assert gb._efb is not None and gb._quant_int
     assert bj._gbdt._efb is not None

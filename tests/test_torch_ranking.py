@@ -39,6 +39,11 @@ from lightgbm_tpu_torch.io.dataset import Metadata
 from lightgbm_tpu_torch.metrics import create_metrics
 from lightgbm_tpu_torch.objectives import RankXENDCG, create_objective
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's spin-waiting OpenMP threads would slow the CPU
+# paths' many small ops a hundredfold
+torch.set_num_threads(1)
+
 
 def _queries(nq, seed, lo=3, hi=40):
     rng = np.random.RandomState(seed)

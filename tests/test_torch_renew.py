@@ -35,6 +35,11 @@ from lightgbm_tpu_torch.io.dataset import Metadata
 from lightgbm_tpu_torch.objectives import OBJECTIVES, create_objective
 from lightgbm_tpu_torch.ops.renew import renew_leaf_quantile
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's spin-waiting OpenMP threads would slow the CPU
+# paths' many small ops a hundredfold
+torch.set_num_threads(1)
+
 RENEW = ["regression_l1", "quantile", "mape"]
 
 

@@ -25,6 +25,11 @@ import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch import _kernels
 from lightgbm_tpu_torch.config import Config
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's spin-waiting OpenMP threads would slow the CPU
+# paths' many small ops a hundredfold
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "lightgbm_tpu_torch")
 
@@ -161,21 +166,15 @@ def test_parameters_of_the_ranking_and_renewal_slice_train(params):
 
 @pytest.mark.parametrize("params,item", [
     ({"tree_learner": "data"}, "A18"),
-    ({"extra_trees": True}, "A14b"),
-    ({"monotone_constraints": [1, 0, 0]}, "A14b"),
-    ({"interaction_constraints": [[0, 1]]}, "A14b"),
-    ({"cegb_penalty_split": 0.1}, "A14b"),
-    ({"forcedsplits_filename": "f.json"}, "A14b"),
-    ({"linear_tree": True}, "A14b"),
+    ({"forcedsplits_filename": "f.json"}, "A14c"),
+    ({"linear_tree": True}, "A14c"),
     ({"max_bin": 511}, "A3"),
     ({"tpu_bin_pack4": True}, "A15b"),
-    ({"path_smooth": 0.5}, "A14b"),
     ({"deterministic": True}, "B1/B2"),
-    ({"feature_contri": [1.0, 0.5, 1.0]}, "A14b"),
     ({"num_machines": 2}, "A18"),
-    ({"boosting": "dart"}, "A14b"),
+    ({"boosting": "dart"}, "A14c"),
     ({"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
-     "A14b"),
+     "A14c"),
 ])
 def test_parameters_outside_the_slice_raise(params, item):
     X, y = _data()
@@ -183,6 +182,32 @@ def test_parameters_outside_the_slice_raise(params, item):
               "verbosity": -1}, **params)
     with pytest.raises(NotImplementedError, match=item):
         lgt.train(p, lgt.Dataset(X, y), 1)
+
+
+@pytest.mark.parametrize("params", [
+    {"extra_trees": True},
+    {"monotone_constraints": [1, 0, 0]},
+    {"monotone_constraints": "1,0,-1", "monotone_penalty": 1.0,
+     "monotone_constraints_method": "intermediate"},
+    {"interaction_constraints": [[0, 1]]},
+    {"interaction_constraints": "[0,1],[1,2]"},
+    {"cegb_penalty_split": 0.1},
+    {"cegb_penalty_feature_coupled": [1.0, 0.0, 2.0]},
+    {"cegb_penalty_feature_lazy": "0.1,0.1,0.1"},
+    {"path_smooth": 0.5},
+    {"feature_contri": [1.0, 0.5, 1.0]},
+], ids=["extra_trees", "monotone", "monotone_intermediate", "interaction",
+        "interaction_string", "cegb_split", "cegb_coupled", "cegb_lazy",
+        "path_smooth", "feature_contri"])
+def test_split_options_train(params):
+    """The options of the tenth slice (ROADMAP A14b) train; their parity
+    with the JAX package is in tests/test_torch_constraints.py."""
+    X, y = _data()
+    p = dict({"objective": "binary", "device_type": "cpu",
+              "verbosity": -1}, **params)
+    bst = lgt.train(p, lgt.Dataset(X, y), 2)
+    assert bst.num_trees() == 2
+    assert np.all(np.isfinite(bst.predict(X)))
 
 
 @pytest.mark.parametrize("value", [True, "true", False])

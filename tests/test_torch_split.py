@@ -15,6 +15,11 @@ import torch
 from lightgbm_tpu.ops import split as jsplit
 from lightgbm_tpu_torch.ops import split as tsplit
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's spin-waiting OpenMP threads would slow the CPU
+# paths' many small ops a hundredfold
+torch.set_num_threads(1)
+
 F, B = 6, 64
 
 
@@ -133,7 +138,7 @@ def test_leaf_output_and_gain(kw):
             atol=1e-7)
     np.testing.assert_allclose(
         tsplit.child_output(torch.from_numpy(g), torch.from_numpy(h),
-                            tp).numpy(),
+                            torch.ones(50), tp).numpy(),
         np.asarray(jsplit.child_output(jnp.asarray(g), jnp.asarray(h),
                                        jnp.ones(50), jp)), rtol=1e-6,
         atol=1e-7)

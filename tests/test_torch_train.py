@@ -31,6 +31,11 @@ from lightgbm_tpu_torch.convert import booster_from_arrays, dataset_from_arrays
 from lightgbm_tpu_torch.io.dataset import Metadata
 from lightgbm_tpu_torch.objectives import BinaryLogloss
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's spin-waiting OpenMP threads would slow the CPU
+# paths' many small ops a hundredfold
+torch.set_num_threads(1)
+
 BASE = {"objective": "binary", "num_leaves": 15, "learning_rate": 0.1,
         "min_data_in_leaf": 20, "verbosity": -1}
 
