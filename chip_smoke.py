@@ -147,9 +147,10 @@ non-zero):
    run's gradients within hist_close, on dyadic channels bit-equal),
    timed beside stable argsort + index_select and index_add_; the
    reloaded model (1e-6); the card against the CPU for lambdarank on the
-   compact grower (70k rows, 583 queries), rank_xendcg (the same draws on
-   both) and lambdarank with positions on the masked grower (10k rows), 31
-   leaves, 2 rounds (1e-4, differing splits counted);
+   compact grower (tpu_grower=compact, 35k rows, 292 queries), rank_xendcg
+   (the same draws on both) and lambdarank with positions on the masked
+   grower (10k rows), 31 leaves, 2 rounds, one binned Dataset a case
+   (1e-4, differing splits counted);
 15. the tuned training loop (TUNED, run right after RENEW on MAIN's
    datasets with their binary labels): the compact path's parameters with
    LightGBM's examples/binary_classification/train.conf sampling
@@ -198,7 +199,35 @@ non-zero):
    feature_contri, CEGB split and coupled on the compact grower, and lazy
    CEGB on the masked grower with the sublane layout (K3); 100k x 28
    compact, 20k x 28 masked, 15 leaves, 2 rounds (1e-4, 0 differing
-   splits).
+   splits);
+17. DART (run right after CONSTRAINED on MAIN's datasets): MAIN's
+   parameters with boosting=dart and LightGBM's DART defaults but
+   skip_drop=0 (drop_rate 0.1, max_drop 50, drop_seed 4), 1 warm-up and 5
+   timed rounds: iterations/s beside MAIN's, the trees dropped in each
+   round (some round drops), the compact grower, K1's and K2's launches
+   (> 0), K3's (0), plain calls (0), host syncs in the tree step (0) and in
+   the drop routing and its uploads (reported); a profiled round with
+   the drop and normalise routing's device ms and launches (the profiler
+   ranges dart_drop and dart_normalize) and K1's and K2's device ms
+   beside their byte bounds; the reloaded model (1e-6);
+18. random forest (RF): the same datasets, boosting=rf with
+   bagging_fraction 0.632, bagging_freq 1, feature_fraction 0.8, 255
+   leaves, 1 warm-up and 3 timed rounds on the masked grower (K1 dense,
+   the lane layout of tpu_hist_layout=auto at 255 bins; one launch a
+   leaf): iterations/s, validation AUC (> 0.7), K2's and K3's launches
+   (0), plain calls (0), host syncs in the grower (0), a profiled tree
+   with K1's device ms beside its byte bound, average_output in the saved
+   text and the reloaded model (1e-6);
+19. A14C_CHECKS: the card against the CPU on weighted rows
+   (tie_free_weights), 15 leaves, 3 rounds: DART on the compact grower
+   (70k x 28, drop_rate 0.5, the same drops on both), DART, RF (numpy's
+   bags on both), forced splits (their first splits checked) and linear
+   leaves (a regression on 20k rows, a tenth of two columns NaN,
+   gradients on a 1/64 grid; the fit's host seconds a tree) on the masked
+   grower (1e-4, 0 differing splits);
+20. TRACE_CHECK (last): the profiler's raw events, which every profiled
+   number above reads, against torch's public prof.events() on a small
+   trace (the same kernels, calls and launches).
 
 Each profiled tree must hold as many launches of each kernel as its wrapper
 counted in that round; a short trace is repeated. The line before the last
@@ -1794,14 +1823,90 @@ ENTRY_FUNCTIONS = {"histogram": ("hist_kernel",),
 MODE_FUNCTIONS = {"histogram/quant": "hist_kernel<true,true>"}
 
 
-# the port's profiler ranges (ops/grower_compact.py)
-PROFILER_RANGES = ("monotone_rescan",)
+# the port's profiler ranges (ops/grower_compact.py, boosting/dart.py)
+PROFILER_RANGES = ("monotone_rescan", "dart_drop", "dart_normalize")
 
 
-def is_range(event):
-    """A profiler range's event (host or device side), not an op or a
-    kernel."""
-    return event.name in PROFILER_RANGES
+def trace_events(prof):
+    """A finished trace's events as ``(name, on the device, start us, end
+    us)``, read from the profiler's raw results: torch's ``prof.events()``
+    builds a tree of Python objects first, tens of seconds of host time for
+    the 200k events of a traced tree (its filter of hidden events kept)."""
+    from torch.autograd import DeviceType
+    raw = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    check(raw is not None and hasattr(raw, "events")
+          and hasattr(raw, "trace_start_ns"),
+          f"torch {torch.__version__}'s profiler has no kineto_results: "
+          "trace_events cannot read the raw events")
+    # times from the trace's start, in exact integer ns first: an epoch
+    # time in ns is past 2^53, and a float64 of it steps by 256 ns
+    t0 = raw.trace_start_ns()
+    return [(e.name(), e.device_type() == DeviceType.CUDA,
+             (e.start_ns() - t0) * 1e-3, (e.end_ns() - t0) * 1e-3)
+            for e in raw.events()
+            if not getattr(e, "is_hidden_event", lambda: False)()]
+
+
+def event_totals(events):
+    """Per device kernel's name its (calls, device us), and the
+    ``cudaLaunchKernel`` calls, of ``(name, on the device, start, end)``
+    events, as ``profile_tree`` counts them."""
+    by_name, launches = {}, 0
+    for name, cuda, start, end in events:
+        if cuda and name not in PROFILER_RANGES:
+            n, us = by_name.get(name, (0, 0.0))
+            by_name[name] = (n + 1, us + end - start)
+        elif name == "cudaLaunchKernel":
+            launches += 1
+    return by_name, launches
+
+
+def phase_trace_check(results):
+    """TRACE_CHECK: ``trace_events`` (the profiler's raw events, a private
+    attribute of torch's profiler) against torch's public ``prof.events()``
+    on a small trace with a profiler range: the same kernels, calls and
+    launches, and device us within 0.01 us an event. Every profiled number
+    of the run comes from ``trace_events``, so a torch that counts its raw
+    events otherwise fails the run here."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.zeros(1 << 16, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # a trace late in a process loses its first device activities (on
+        # an H100, 40 of 64 adds at the end of this script): warm up first,
+        # as profile_tree does
+        for _ in range(256):
+            x.add_(1.0)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        for _ in range(64):
+            x.add_(1.0)
+        with torch.profiler.record_function(PROFILER_RANGES[-1]):
+            x.mul_(0.5)
+            torch.cumsum(x, 0)
+        torch.cuda.synchronize()
+    raw, raw_launches = event_totals(trace_events(prof))
+    public, public_launches = event_totals(
+        (e.name, e.device_type == DeviceType.CUDA, e.time_range.start,
+         e.time_range.end) for e in prof.events())
+    # the host's launches are all there; the device's kernels at least
+    # those after the warm-up
+    check(sum(n for n, _ in raw.values()) >= 67 and raw_launches >= 323,
+          f"the trace check's trace is short: {raw}, {raw_launches}")
+    check({k: n for k, (n, _) in raw.items()}
+          == {k: n for k, (n, _) in public.items()}
+          and raw_launches == public_launches,
+          f"raw trace events {raw} ({raw_launches} launches) against "
+          f"prof.events() {public} ({public_launches})")
+    worst = max(abs(raw[k][1] - public[k][1]) / raw[k][0] for k in raw)
+    check(worst <= 0.01, f"raw trace events' device us differ from "
+          f"prof.events()' by {worst} us an event")
+    out = {"kernels": len(raw), "calls": sum(n for n, _ in raw.values()),
+           "launches": raw_launches, "worst_us_an_event": worst}
+    print("TRACE_CHECK", json.dumps(out), flush=True)
+    results["trace_check"] = out
 
 
 def in_spans(spans, t):
@@ -1853,20 +1958,25 @@ def tree_byte_bounds(tree, layout):
             "fused_split": float(2 * cnt.sum() * layout.num_real_cols)}
 
 
-def masked_tree_k3_bytes(tree, gbdt, k=3):
-    """K3's byte bound for one masked tree: the grower launches K3 once for
-    the root and once a split (num_leaves launches, the unapplied splits
-    included), each over all N rows. A launch must read the N x 4K bytes of
-    channels (the zeroed ones tell it which rows are live), the bins of its
-    live rows (F bytes a row: all N at the root, the smaller child's rows
-    at a split) and write the F x B x K f32 output:
-    bytes = L (4 N K + 4 F B K) + (N + sum of smaller-child rows) F."""
+def masked_tree_hist_bytes(tree, gbdt, k=3):
+    """The histogram kernel's byte bound for one masked tree (K3 with the
+    sublane layout, K1 dense with the lane one): the grower launches it
+    once for the root and once a split (num_leaves launches, the unapplied
+    splits included), each over all N rows. The channels are ``grad *
+    mask``, ``hess * mask`` and ``mask`` (``ops/grower.py``), so a row
+    outside the leaf has g = h = 0: a launch must read the 4-byte mask
+    channel of every row (it tells the launch which rows are live), the
+    other K - 1 channels and the F bins of its live rows only (all N at the
+    root, the smaller child's rows at a split) and write the F x B x K f32
+    output:
+    bytes = L (4 N + 4 F B K) + (4 (K - 1) + F) (N + smaller-child rows)."""
     n = gbdt.num_data
     f = gbdt.binned_t.shape[0]
     b = gbdt.grower_params.num_bins
     launches = gbdt.grower_params.num_leaves
     _, smaller = smaller_child_rows(tree)
-    return float(launches * (4 * n * k + 4 * f * b * k) + (n + smaller) * f)
+    return float(launches * (4 * n + 4 * f * b * k)
+                 + (4 * (k - 1) + f) * (n + smaller))
 
 
 def profile_tree(bst, tree_s, grower=None):
@@ -1882,7 +1992,6 @@ def profile_tree(bst, tree_s, grower=None):
     than its wrapper counted in it (the profiler now and then drops device
     events) is thrown away and the round repeated, three rounds at most;
     the masked path launches K3 once a leaf."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from lightgbm_tpu_torch import _kernels
@@ -1935,16 +2044,11 @@ def profile_tree(bst, tree_s, grower=None):
                 setattr(module, name, grow)
         wall, counted, counted_modes = (box["wall"], box["counted"],
                                         box["modes"])
-        by_name = {}
-        launches = 0
-        for e in prof.events():
-            # a profiler range (ops/grower_compact.py's monotone_rescan) has
-            # a device-side span too: its kernels are counted by name
-            if e.device_type == DeviceType.CUDA and not is_range(e):
-                us, n = by_name.get(e.name, (0.0, 0))
-                by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-            elif e.name == "cudaLaunchKernel":
-                launches += 1
+        events = trace_events(prof)
+        # a profiler range (ops/grower_compact.py's monotone_rescan) has a
+        # device-side span too: its kernels are counted by name
+        totals, launches = event_totals(events)
+        by_name = {name: (us, n) for name, (n, us) in totals.items()}
         traced = {k: sum(n for name, (_, n) in by_name.items()
                          if _named(name, fns))
                   for k, fns in ENTRY_FUNCTIONS.items()}
@@ -1978,9 +2082,9 @@ def profile_tree(bst, tree_s, grower=None):
     if gbdt.use_compact:
         bounds = tree_byte_bounds(tree, gbdt.layout)
     elif gbdt.grower_params.hist_layout == "sublane":
-        bounds = {"histogram_sublane": masked_tree_k3_bytes(tree, gbdt)}
+        bounds = {"histogram_sublane": masked_tree_hist_bytes(tree, gbdt)}
     else:
-        bounds = {}
+        bounds = {"histogram": masked_tree_hist_bytes(tree, gbdt)}
     for kern, fns in KERNEL_FUNCTIONS.items():
         hits = [(us, n) for name, (us, n) in by_name.items()
                 if _named(name, fns)]
@@ -1994,21 +2098,20 @@ def profile_tree(bst, tree_s, grower=None):
     # range's device-side spans (one stream: a span holds only its own
     # kernels), the launches inside its host-side ranges
     for rng in PROFILER_RANGES:
-        spans = {dev: sorted((e.time_range.start, e.time_range.end)
-                             for e in prof.events() if e.name == rng
-                             and (e.device_type == DeviceType.CUDA) == dev)
+        spans = {dev: sorted((start, end) for name, cuda, start, end
+                             in events if name == rng and cuda == dev)
                  for dev in (True, False)}
         if not spans[False]:
             continue
         line.setdefault("ranges", {})[rng] = {
             "count": len(spans[False]),
             "device_ms": 1e-3 * sum(
-                e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == DeviceType.CUDA and not is_range(e)
-                and in_spans(spans[True], e.time_range.start)),
-            "launches": sum(1 for e in prof.events()
-                            if e.name == "cudaLaunchKernel"
-                            and in_spans(spans[False], e.time_range.start))}
+                end - start for name, cuda, start, end in events
+                if cuda and name not in PROFILER_RANGES
+                and in_spans(spans[True], start)),
+            "launches": sum(1 for name, cuda, start, _ in events
+                            if name == "cudaLaunchKernel"
+                            and in_spans(spans[False], start))}
     # a mode's launches in the trace against its wrappers' count
     line["modes"] = {m: {"counted": n} for m, n in counted_modes.items()}
     for m in MODE_FUNCTIONS:
@@ -2235,8 +2338,8 @@ def efb_cpu_vs_card(lgt):
     y = (X @ (rng.randn(X.shape[1]) * 0.5) + 0.4 * rng.randn(n) > 0
          ).astype(float)
     params = {"objective": "binary", "num_leaves": 31, "verbosity": -1}
-    boosters = {dev: lgt.train(dict(params, device_type=dev),
-                               lgt.Dataset(X, y), 2)
+    ds = lgt.Dataset(X, y)
+    boosters = {dev: lgt.train(dict(params, device_type=dev), ds, 2)
                 for dev in ("cuda", "cpu")}
     for b in boosters.values():
         check(b._gbdt._efb is not None, "the one-hot check did not bundle")
@@ -2411,7 +2514,6 @@ def split_queries(X, y, group, frac=0.1):
 def device_profile(fn, reps=3):
     """(device ms, kernel launches) of one call of fn: a torch.profiler
     trace of ``reps`` calls after one untraced call."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -2420,9 +2522,9 @@ def device_profile(fn, reps=3):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
-    launches = sum(1 for e in prof.events() if e.name == "cudaLaunchKernel")
+    events = trace_events(prof)
+    dev_us = sum(end - start for _, cuda, start, end in events if cuda)
+    launches = sum(1 for name, *_ in events if name == "cudaLaunchKernel")
     return dev_us * 1e-3 / reps, launches / reps
 
 
@@ -2565,14 +2667,15 @@ def same_xendcg_draws():
 
 
 def rank_cpu_vs_card(lgt):
-    """The card against the CPU: lambdarank on the compact grower at 70k
-    MS-LTR-shaped rows (583 queries), rank_xendcg (the same draws on both)
-    and lambdarank with positions on the masked grower at 10k rows; 31
-    leaves, 2 rounds; predictions within 1e-4, differing splits
-    counted. (The CPU half of this check takes most of its time: rows
-    and rounds are sized for the smoke's limit.)"""
+    """The card against the CPU: lambdarank on the compact grower
+    (tpu_grower=compact) at 35k MS-LTR-shaped rows (292 queries),
+    rank_xendcg (the same draws on both) and lambdarank with positions on
+    the masked grower at 10k rows; 31 leaves, 2 rounds, one binned Dataset
+    a case for both; predictions within 1e-4, differing splits counted.
+    (The CPU half of this check takes most of its time: rows and rounds
+    are sized for the smoke's limit.)"""
     out = {}
-    cases = (("lambdarank_compact", 70_000, {"tpu_grower": "compact"}),
+    cases = (("lambdarank_compact", 35_000, {"tpu_grower": "compact"}),
              ("rank_xendcg_masked", 10_000, {"objective": "rank_xendcg"}),
              ("lambdarank_position_masked", 10_000, {}))
     for name, rows, extra in cases:
@@ -2581,13 +2684,13 @@ def rank_cpu_vs_card(lgt):
         kw = {}
         if "position" in name:
             kw["position"] = np.concatenate([np.arange(s) for s in group])
+        ds = lgt.Dataset(X, y, group=group, **kw)
         boosters = {}
         with same_xendcg_draws():
             for dev in ("cuda", "cpu"):
-                boosters[dev] = lgt.train(
-                    dict(params, device_type=dev),
-                    lgt.Dataset(X, y, group=group, **kw), 2)
-        check(boosters["cuda"]._gbdt.use_compact == (rows >= 65_536),
+                boosters[dev] = lgt.train(dict(params, device_type=dev), ds,
+                                          2)
+        check(boosters["cuda"]._gbdt.use_compact == ("compact" in name),
               f"{name}: the wrong grower")
         diff, differ = compare_boosters(boosters["cuda"], boosters["cpu"], X)
         check(diff <= 1e-4, f"{name}: card vs CPU predictions differ by "
@@ -3543,7 +3646,7 @@ def phase_constrained(lgt, results):
     CONSTRAINED_CHECKS: constrained_cpu_vs_card."""
     from lightgbm_tpu_torch import _kernels
     from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
-    ds, dv = results.pop("main_datasets")
+    ds, dv = results["main_datasets"]
     X, _, _, n_val = results["higgs"]
     params = constrained_params(results["higgs_w1"])
     mono = np.asarray(params["monotone_constraints"])
@@ -3638,6 +3741,345 @@ def phase_constrained(lgt, results):
     results["constrained"] = out
 
 
+# ---- A14c: DART, random forest, forced splits, linear leaves ------------
+
+A14C_PARAMS = {"objective": "binary", "metric": "auc", "num_leaves": 255,
+               "max_bin": 255, "learning_rate": 0.1, "min_data_in_leaf": 100,
+               "verbosity": -1}
+DART_ROUNDS = 5                # timed rounds after one warm-up round
+# LightGBM's DART defaults (drop_rate 0.1, max_drop 50, drop_seed 4) but
+# skip_drop 0: every round after the first draws its drops
+DART_PARAMS = dict(A14C_PARAMS, boosting="dart", skip_drop=0.0)
+RF_ROUNDS = 3                  # timed rounds after one warm-up round
+# 0.632: the share of distinct rows in a bootstrap sample
+RF_PARAMS = dict(A14C_PARAMS, boosting="rf", bagging_fraction=0.632,
+                 bagging_freq=1, feature_fraction=0.8)
+
+
+def reload_diff(lgt, bst, X):
+    """Max |difference| between the booster's predictions of ``X`` and
+    those of its saved and reloaded model text, and the text."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.txt")
+        bst.save_model(path)
+        text = open(path).read()
+        loaded = lgt.Booster(model_file=path)
+    return float(np.abs(loaded.predict(X) - bst.predict(X)).max()), text
+
+
+def phase_dart(lgt, results):
+    """DART on the compact path: MAIN's constructed datasets (binary labels)
+    and parameters with boosting=dart (DART_PARAMS), 1 warm-up and
+    DART_ROUNDS timed rounds: iterations/s beside MAIN's, the trees dropped
+    in each round (some round drops), K1's and K2's launches (> 0), K3's
+    (0), plain calls (0), host syncs in the tree step (0) and in the drop
+    routing; then a profiled round with the drop and normalise routing's
+    device ms and launches (its profiler ranges) and K1's and K2's device
+    ms beside their byte bounds; the reloaded model (1e-6)."""
+    from lightgbm_tpu_torch import _kernels
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    ds, dv = results["main_datasets"]
+    X, _, _, n_val = results["higgs"]
+    rounds = DART_ROUNDS
+    syncs, route_syncs = {}, {}
+    ends, dropped = [], []
+
+    def timer(env):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        dropped.append(list(env.model._gbdt.last_drop))
+    timer.order = 5
+
+    evals = {}
+    _kernels.reset_counts()
+    with count_syncs(gbdt_mod.GBDT, COMPACT_STEP, syncs), \
+            count_syncs(gbdt_mod.GBDT, ["host_tree_arrays",
+                                        "apply_tree_to_scores"],
+                        route_syncs):
+        t_start = time.perf_counter()
+        bst = lgt.train(dict(DART_PARAMS, device_type="cuda"), ds,
+                        1 + rounds, valid_sets=[dv],
+                        callbacks=[timer, lgt.record_evaluation(evals)])
+    launches = dict(_kernels.LAUNCHES)
+    plain_calls = dict(_kernels.PLAIN_CALLS)
+    gbdt = bst._gbdt
+    check(len(ends) == 1 + rounds, f"trained {len(ends)} rounds")
+    it_s = rounds / (ends[-1] - ends[0])
+    auc = evals["valid_0"]["auc"][-1]
+    check(gbdt.use_compact, "DART did not take the compact grower")
+    for k in ("histogram", "fused_split"):
+        check(launches[k] > 0, f"kernel {k} was not launched on the DART "
+              "path")
+    check(launches["histogram_sublane"] == 0, "K3 ran on the DART path")
+    for k, v in plain_calls.items():
+        check(v == 0, f"plain version of {k} ran {v} times on the card")
+    check(syncs.get("in_tree") == 0,
+          f"host syncs in the DART tree step: {syncs}")
+    check(sum(map(len, dropped)) > 0, f"no round dropped a tree: {dropped}")
+    check(np.isfinite(auc) and auc > 0.7, f"DART validation AUC {auc}")
+    prof = profile_tree(bst, 1.0 / it_s)
+    routing = {rng: prof.get("ranges", {}).get(
+        rng, {"count": 0, "device_ms": 0.0, "launches": 0})
+        for rng in ("dart_drop", "dart_normalize")}
+    profiled_drop = list(gbdt.last_drop)
+    Xp = X[-n_val:][:20_000]
+    diff, _ = reload_diff(lgt, bst, Xp)
+    check(diff <= 1e-6, f"reloaded DART model differs by {diff}")
+    main = results["main"]
+    out = {"train_rows": gbdt.num_data, "valid_rows": dv.num_data(),
+           "rounds_timed": rounds, "iterations_per_s": it_s,
+           "main_iterations_per_s": main["iterations_per_s"],
+           "vs_main": it_s / main["iterations_per_s"],
+           "round_s": np.diff(ends).tolist(),
+           "first_round_s": ends[0] - t_start, "construct_s": "reused",
+           "dropped_by_round": dropped,
+           "profiled_round_dropped": profiled_drop,
+           "routing_device_ms": {k: v["device_ms"]
+                                 for k, v in routing.items()},
+           "routing_launches": {k: v["launches"]
+                                for k, v in routing.items()},
+           "routing_host_syncs": route_syncs.get("in_tree"),
+           "routing_host_syncs_by_step": route_syncs,
+           "valid_auc": auc, "valid_auc_by_round": evals["valid_0"]["auc"],
+           "main_valid_auc_by_round": main["valid_auc_by_round"],
+           "launches": launches, "plain_calls": plain_calls,
+           "host_syncs_in_tree": syncs.get("in_tree"),
+           "host_syncs_by_step": syncs, "num_trees": bst.num_trees(),
+           "shrinkage_by_tree": [m.shrinkage for m in gbdt.models],
+           "tree_kernel_launches": prof["kernel_launches"],
+           "tree_device_s": prof["device_s"], "tree_wall_s": 1.0 / it_s,
+           "tree_device_idle_share": prof["device_idle_share"],
+           "tree_kernels": {k: {"device_ms": v["device_ms"],
+                                "launches": v["launches"],
+                                "bound_ms": v.get("bound_ms")}
+                            for k, v in prof["kernels"].items()
+                            if k != "histogram_sublane"},
+           "reload_max_abs_diff": diff}
+    print("DART", json.dumps(out), flush=True)
+    out["profile"] = prof
+    results["dart"] = out
+
+
+def phase_rf(lgt, results):
+    """Random forest on the masked grower: MAIN's constructed datasets and
+    parameters with boosting=rf (RF_PARAMS: bagging 0.632 every round,
+    feature_fraction 0.8), 1 warm-up and RF_ROUNDS timed rounds:
+    iterations/s, K1 (dense: the lane layout of tpu_hist_layout=auto at
+    255 bins) launches (> 0), K2's and K3's (0), plain calls (0), host
+    syncs in the tree step; a profiled tree with K1's device ms beside its
+    byte bound; average_output in the reloaded text, predictions within
+    1e-6. The datasets are released after it."""
+    from lightgbm_tpu_torch import _kernels
+    from lightgbm_tpu_torch.boosting import rf as rf_mod
+    ds, dv = results.pop("main_datasets")
+    X, _, _, n_val = results["higgs"]
+    rounds = RF_ROUNDS
+    syncs = {}
+    ends = []
+
+    def timer(env):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+    timer.order = 5
+
+    evals = {}
+    _kernels.reset_counts()
+    with count_syncs(rf_mod, ["grow_tree"], syncs):
+        t_start = time.perf_counter()
+        bst = lgt.train(dict(RF_PARAMS, device_type="cuda"), ds, 1 + rounds,
+                        valid_sets=[dv],
+                        callbacks=[timer, lgt.record_evaluation(evals)])
+    launches = dict(_kernels.LAUNCHES)
+    plain_calls = dict(_kernels.PLAIN_CALLS)
+    gbdt = bst._gbdt
+    L = gbdt.grower_params.num_leaves
+    check(len(ends) == 1 + rounds, f"trained {len(ends)} rounds")
+    it_s = rounds / (ends[-1] - ends[0])
+    auc = evals["valid_0"]["auc"][-1]
+    check(not gbdt.use_compact and gbdt.grower_params.hist_layout == "lane",
+          "RF did not take the masked grower with the lane layout")
+    check(launches["histogram"] == (1 + rounds) * L,
+          f"K1 launched {launches['histogram']} times in {1 + rounds} "
+          f"masked trees of {L} leaves")
+    check(launches["fused_split"] == 0 and launches["histogram_sublane"] == 0,
+          f"K2 or K3 ran on the RF path: {launches}")
+    for k, v in plain_calls.items():
+        check(v == 0, f"plain version of {k} ran {v} times on the card")
+    check(syncs.get("in_tree") == 0, f"host syncs in the RF grower: {syncs}")
+    check(np.isfinite(auc) and auc > 0.7, f"RF validation AUC {auc}")
+    prof = profile_tree(bst, 1.0 / it_s)
+    Xp = X[-n_val:][:20_000]
+    diff, text = reload_diff(lgt, bst, Xp)
+    head = text.split("Tree=0")[0].splitlines()
+    check("average_output" in head, "no average_output in the RF text")
+    check(diff <= 1e-6, f"reloaded RF model differs by {diff}")
+    k1 = prof["kernels"]["histogram"]
+    out = {"train_rows": gbdt.num_data, "valid_rows": dv.num_data(),
+           "rounds_timed": rounds, "iterations_per_s": it_s,
+           "main_iterations_per_s": results["main"]["iterations_per_s"],
+           "round_s": np.diff(ends).tolist(),
+           "first_round_s": ends[0] - t_start, "construct_s": "reused",
+           "valid_auc": auc, "valid_auc_by_round": evals["valid_0"]["auc"],
+           "launches": launches, "plain_calls": plain_calls,
+           "host_syncs_in_grower": syncs.get("in_tree"),
+           "num_trees": bst.num_trees(),
+           "average_output_in_text": True, "reload_max_abs_diff": diff,
+           "tree_kernel_launches": prof["kernel_launches"],
+           "tree_device_s": prof["device_s"], "tree_wall_s": 1.0 / it_s,
+           "tree_device_idle_share": prof["device_idle_share"],
+           "k1_tree_device_ms": k1["device_ms"],
+           "k1_tree_launches": k1["launches"],
+           "k1_tree_bound_ms": k1.get("bound_ms")}
+    print("RF", json.dumps(out), flush=True)
+    out["profile"] = prof
+    results["rf"] = out
+    del bst, gbdt, ds, dv
+
+
+@contextlib.contextmanager
+def dyadic_regression():
+    """The L2 regression objective's weighted gradients and hessians
+    rounded to a 1/64 grid (a hessian at least 1/64) on every device: every
+    histogram sum of every round is then exact in f32 whatever the order
+    of the card's atomics, and the card and the CPU see the same values
+    (the linear fit takes them too)."""
+    from lightgbm_tpu_torch.objectives import RegressionL2
+    own = RegressionL2.get_gradients
+
+    def rounded(self, score, label, weight=None):
+        g, h = own(self, score, label, weight)
+        return (torch.round(g * 64) / 64,
+                torch.clamp(torch.round(h * 64), min=1) / 64)
+    RegressionL2.get_gradients = rounded
+    try:
+        yield
+    finally:
+        RegressionL2.get_gradients = own
+
+
+def first_differing_split(a, b):
+    """The first node, in tree order, where two boosters' splits differ,
+    with each one's split and recorded gain (None where none differs)."""
+    for t, (ta, tb) in enumerate(zip(a._gbdt.models, b._gbdt.models)):
+        for i in range(min(ta.num_nodes, tb.num_nodes)):
+            sa = (int(ta.split_feature[i]), int(ta.split_bin[i]),
+                  bool(ta.default_left[i]))
+            sb = (int(tb.split_feature[i]), int(tb.split_bin[i]),
+                  bool(tb.default_left[i]))
+            if sa != sb:
+                return {"tree": t, "node": i, "a": sa, "b": sb,
+                        "a_gain": float(ta.split_gain[i]),
+                        "b_gain": float(tb.split_gain[i])}
+    return None
+
+
+def a14c_cpu_vs_card(lgt):
+    """The card against the CPU on one shared dataset, one case each, on
+    weighted rows (tie_free_weights), 15 leaves: DART on the compact grower
+    (70k x 28, 3 rounds, drop_rate 0.5: the same drops on both), DART,
+    RF (numpy's bags on both, seamed_draws), forced splits on the masked
+    grower (20k x 28, 3 rounds), and linear leaves on a regression (20k
+    rows with a tenth of two columns NaN, a label linear in those two
+    columns plus a step and noise, gradients on a 1/64 grid
+    (dyadic_regression), 3 rounds; the fit's host seconds a tree).
+    Predictions within 1e-4 and 0 differing splits (a failure names the
+    first differing node and both devices' gains there); each case's
+    wall s."""
+    from lightgbm_tpu_torch import _kernels
+    X, y = make_higgs_like(70_000, 28, seed=41)
+    w = tie_free_weights(len(y), seed=19)
+    Xn = X[:20_000].astype(np.float64)
+    rng = np.random.RandomState(43)
+    y_lin = np.clip(1.5 * Xn[:, 0] - Xn[:, 2] + np.where(Xn[:, 5] > 0, 0.75,
+                                                         -0.75)
+                    + 0.3 * rng.randn(len(Xn)), -6.0, 6.0)
+    for j in (0, 2):
+        Xn[rng.rand(len(Xn)) < 0.1, j] = np.nan
+    base = {"objective": "binary", "num_leaves": 15, "verbosity": -1}
+    dart = {"boosting": "dart", "drop_rate": 0.5, "skip_drop": 0.0}
+    forced = {"feature": 0, "threshold": 0.0,
+              "left": {"feature": 2, "threshold": -0.5},
+              "right": {"feature": 5, "threshold": 0.25}}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, seamed_draws():
+        fpath = os.path.join(tmp, "forced.json")
+        with open(fpath, "w") as fh:
+            json.dump(forced, fh)
+        cases = [("dart_compact", len(y), dart),
+                 ("dart_masked", 20_000, dict(dart, tpu_grower="masked")),
+                 ("rf_masked", 20_000, {"boosting": "rf",
+                                        "bagging_fraction": 0.632,
+                                        "bagging_freq": 1,
+                                        "feature_fraction": 0.8}),
+                 ("forced_masked", 20_000,
+                  {"forcedsplits_filename": fpath}),
+                 ("linear_masked", 20_000, {"objective": "regression",
+                                            "linear_tree": True,
+                                            "linear_lambda": 0.1})]
+        datasets = {}
+        for name, n, extra in cases:
+            t0 = time.perf_counter()
+            linear = "linear" in name
+            Xc = Xn if linear else X[:n]
+            key = (n, linear)
+            if key not in datasets:
+                datasets[key] = lgt.Dataset(Xc, y_lin if linear else y[:n],
+                                            weight=w[:n],
+                                            params={"linear_tree": linear})
+            ds = datasets[key]
+            params = dict(base, **extra)
+            boosters = {}
+            _kernels.reset_counts()
+            with (dyadic_regression() if linear
+                  else contextlib.nullcontext()):
+                for dev in ("cuda", "cpu"):
+                    boosters[dev] = lgt.train(dict(params, device_type=dev),
+                                              ds, 3)
+                    if dev == "cuda":
+                        launches = dict(_kernels.LAUNCHES)
+                        check(sum(_kernels.PLAIN_CALLS.values()) == 0,
+                              f"{name}: a plain version ran on the card")
+            card = boosters["cuda"]._gbdt
+            check(card.use_compact == ("compact" in name),
+                  f"{name}: the wrong grower")
+            diff, differ = compare_boosters(boosters["cuda"], boosters["cpu"],
+                                            Xc)
+            check(diff <= 1e-4 and differ == 0,
+                  f"{name}: card vs CPU predictions differ by {diff}, "
+                  f"{differ} differing splits; the first (a: the card, b: "
+                  f"the CPU): {first_differing_split(*boosters.values())}")
+            entry = {"rows": n, "max_abs_pred_diff": diff,
+                     "differing_splits": differ,
+                     "launches": {k: v for k, v in launches.items() if v},
+                     "s": time.perf_counter() - t0}
+            if "dart" in name:
+                drops = [boosters[d]._gbdt.tree_weight for d in boosters]
+                check(drops[0] == drops[1], f"{name}: the drops differ")
+                check(any(m.shrinkage < 0.1 for m in card.models),
+                      f"{name}: no round dropped a tree")
+            if "forced" in name:
+                check(all((m.split_feature[:3] == [0, 2, 5]).all()
+                          and (m.split_gain[:3] == 0).all()
+                          for m in card.models), f"{name}: the forced "
+                      "splits did not come first")
+            if linear:
+                check(any(m.is_linear and any(m.leaf_features)
+                          for m in card.models),
+                      f"{name}: no leaf fitted a linear model")
+                entry["fit_host_s_a_tree"] = (card.linear_fit_s
+                                              / len(card.models))
+                entry["nan_rows"] = int(np.isnan(Xc).any(axis=1).sum())
+            out[name] = entry
+    return out
+
+
+def phase_a14c_checks(lgt, results):
+    """A14C_CHECKS: a14c_cpu_vs_card."""
+    checks = {"cpu_vs_card": a14c_cpu_vs_card(lgt)}
+    print("A14C_CHECKS", json.dumps(checks), flush=True)
+    results["a14c_checks"] = checks
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=10_500_000,
@@ -3677,6 +4119,9 @@ def main() -> int:
               ("renew", lambda: phase_renew(lgt, results)),
               ("tuned", lambda: phase_tuned(lgt, results)),
               ("constrained", lambda: phase_constrained(lgt, results)),
+              ("dart", lambda: phase_dart(lgt, results)),
+              ("rf", lambda: phase_rf(lgt, results)),
+              ("a14c_checks", lambda: phase_a14c_checks(lgt, results)),
               ("rank", lambda: phase_rank(lgt, results)),
               ("masked_large", lambda: phase_masked_large(lgt, args.rows,
                                                           results)),
@@ -3686,7 +4131,8 @@ def main() -> int:
                   lgt, results)),
               ("multiclass", lambda: phase_multiclass(lgt, args.rows,
                                                       results)),
-              ("efb", lambda: phase_efb(lgt, results))]
+              ("efb", lambda: phase_efb(lgt, results)),
+              ("trace_check", lambda: phase_trace_check(results))]
     for name, run in phases:
         t0 = time.perf_counter()
         run()
@@ -3720,6 +4166,24 @@ def main() -> int:
     tnk = tn["checks"]["kernels"]
     cn = results["constrained"]
     cn_tree = cn["profile"]["kernels"]
+    dt = results["dart"]
+    dt_tree = dt["profile"]["kernels"]
+    rf = results["rf"]
+    rf_tree = rf["profile"]["kernels"]
+    a14c = results["a14c_checks"]["cpu_vs_card"]
+
+    def a14c_path(kern):
+        """A kernel on the DART (compact) and RF (masked) paths: its
+        launches there and one tree's device ms beside its byte bound; its
+        launches in the A14C_CHECKS card runs."""
+        out = {}
+        for name, run, tree in (("dart", dt, dt_tree), ("rf", rf, rf_tree)):
+            out[name] = {"launches": run["launches"][kern],
+                         "tree_device_ms": tree[kern]["device_ms"],
+                         "tree_bound_ms": tree[kern].get("bound_ms")}
+        out["checks_launches"] = {case: v["launches"].get(kern, 0)
+                                  for case, v in a14c.items()}
+        return out
 
     def constrained_path(kern):
         """A kernel on the CONSTRAINED path: its launches there and one
@@ -3813,7 +4277,8 @@ def main() -> int:
          "ranking": ranking_path("histogram"),
          "renew": renew_path("histogram"),
          "tuned": tuned_path("histogram"),
-         "constrained": constrained_path("histogram")},
+         "constrained": constrained_path("histogram"),
+         **a14c_path("histogram")},
         {"name": "fused_split", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/fused_split.cu",
          "replaces": "lightgbm_tpu/ops/fused_split.py:198",
@@ -3867,7 +4332,8 @@ def main() -> int:
          "ranking": ranking_path("fused_split"),
          "renew": renew_path("fused_split"),
          "tuned": tuned_path("fused_split"),
-         "constrained": constrained_path("fused_split")},
+         "constrained": constrained_path("fused_split"),
+         **a14c_path("fused_split")},
         {"name": "histogram_sublane", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/histogram_sublane.cu",
          "replaces": "lightgbm_tpu/ops/pallas_histogram.py:170",
@@ -3891,7 +4357,9 @@ def main() -> int:
              mc_masked["rounds"]),
          "tuned_launches": tn["launches"]["histogram_sublane"],
          "constrained_checks_launches": cn["checks"]["cpu_vs_card"][
-             "cegb_lazy_sublane_masked"]["launches"]["histogram_sublane"]},
+             "cegb_lazy_sublane_masked"]["launches"]["histogram_sublane"],
+         "dart_launches": dt["launches"]["histogram_sublane"],
+         "rf_launches": rf["launches"]["histogram_sublane"]},
         # the intermediate monotone method's walk: no Pallas kernel, the
         # JAX package's XLA while-loops (grower_compact.py:859-991)
         {"name": "monotone_walk", "route": "cuda",

@@ -37,7 +37,8 @@ _DATASET_PARAM_KEYS = ("max_bin", "min_data_in_bin", "bin_construct_sample_cnt",
                        "use_missing", "zero_as_missing", "data_random_seed",
                        "max_bin_by_feature", "device_type", "enable_bundle",
                        "max_conflict_rate", "categorical_feature",
-                       "forcedbins_filename", "tpu_bin_pack4")
+                       "forcedbins_filename", "tpu_bin_pack4",
+                       "linear_tree")
 
 
 def _maybe_series(x):
@@ -120,6 +121,9 @@ class Dataset:
             categorical_feature=cat,
             enable_bundle=bool(cfg.enable_bundle),
             max_conflict_rate=float(cfg.max_conflict_rate),
+            # linear leaves fit on raw values (reference: basic.py:212-214,
+            # LightGBM's dataset.h raw_data_)
+            keep_raw=not self.free_raw_data or bool(cfg.linear_tree),
         )
         md = self._inner.metadata
         if self.label is not None:
@@ -362,8 +366,8 @@ class Booster:
             raise NotImplementedError(
                 "pred_leaf, pred_contrib and prediction early stopping are "
                 "not in the PyTorch port yet (ROADMAP A10, A17)")
-        if num_iteration is None and self.best_iteration > 0:
-            num_iteration = self.best_iteration
+        start_iteration, num_iteration = self._predict_window(
+            start_iteration, num_iteration)
         arr = np.asarray(_maybe_series(data))
         (pre, pre_start, pre_cut, own_start, own_cut, pre_empty,
          own_empty) = self._global_tree_window(start_iteration,
@@ -381,6 +385,22 @@ class Booster:
         if raw_score or objective is None:
             return raw
         return np.asarray(objective.convert_output(raw))
+
+    def _predict_window(self, start_iteration: int,
+                        num_iteration: Optional[int]):
+        """The prediction window's defaults from the booster's parameters
+        (reference: ``_predict_window``, ``lightgbm_tpu/basic.py:934-950``):
+        ``start_iteration_predict`` where ``start_iteration`` is 0, then
+        ``num_iteration_predict`` where ``num_iteration`` is None, else the
+        best iteration of an early-stopped run."""
+        cfg = self.config
+        if start_iteration == 0 and cfg.start_iteration_predict > 0:
+            start_iteration = cfg.start_iteration_predict
+        if num_iteration is None and cfg.num_iteration_predict > 0:
+            num_iteration = cfg.num_iteration_predict
+        if num_iteration is None and self.best_iteration > 0:
+            num_iteration = self.best_iteration
+        return start_iteration, num_iteration
 
     def _global_tree_window(self, start_iteration: int,
                             num_iteration: Optional[int]):

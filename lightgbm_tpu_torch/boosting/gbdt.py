@@ -121,12 +121,23 @@ num_total_trees)``); ``extra_draws`` takes them from outside (the tests
 feed the JAX package's). EFB data with monotone or interaction
 constraints, CEGB or ``feature_contri`` is unbundled first, with a warning.
 
-Checkpoints, DART/RF, forced splits, linear trees and the JAX package's
-compile ladder are ROADMAP A14c-A16 (the ladder has no counterpart in eager
-PyTorch).
+Boosting modes and tree options (reference: ``boosting/gbdt.py:800-834``,
+``:983-987``): ``boosting=dart`` (``dart.py``) and ``boosting=rf``
+(``rf.py``) subclass GBDT; RF, forced splits (``forcedsplits_filename``, a
+host schedule of (leaf, feature, bin) that the masked grower applies first)
+and linear leaves (``linear_tree``, ``linear.py``: a per-leaf ridge fit on
+the host from one copy of the tree's row leaves and gradients) run on the
+masked grower, whose rows keep the dataset's order. ``apply_tree_to_scores``
+adds a multiple of a host tree to the train scores, the validation scores or
+both (rollback, DART's drops); a model with ``average_output`` (RF) predicts
+the mean of its iterations.
+
+Checkpoints and the JAX package's compile ladder are ROADMAP A16 (the ladder
+has no counterpart in eager PyTorch).
 """
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -145,6 +156,7 @@ from ..ops.predict import StackedTrees, predict_leaf_batched, \
 from ..ops.renew import renew_leaf_quantile
 from ..ops.split import leaf_output
 from ..utils import log
+from .linear import add_bias_linear, fit_linear_leaves, linear_leaf_outputs
 from .sample_strategy import GOSSStrategy, create_sample_strategy
 
 # tpu_grower=auto takes the compact grower from this many rows on
@@ -179,7 +191,9 @@ class HostTree:
                  "default_left", "left_child", "right_child", "leaf_value",
                  "leaf_weight", "leaf_count", "leaf_parent", "leaf_depth",
                  "internal_value", "internal_weight", "internal_count",
-                 "num_leaves", "num_nodes", "shrinkage")
+                 "num_leaves", "num_nodes", "shrinkage",
+                 # linear leaves (linear.py)
+                 "is_linear", "leaf_const", "leaf_features", "leaf_coeff")
 
     def __init__(self, fields: dict, shrinkage: float = 1.0):
         for name in self.__slots__:
@@ -191,6 +205,14 @@ class HostTree:
             self.cat_bitset = np.zeros((len(self.split_feature), 1),
                                        np.uint32)
         self.shrinkage = shrinkage
+        self.is_linear = False
+
+    def scale(self, factor: float) -> None:
+        """Scale the tree's outputs (reference: ``HostTree.scale``,
+        ``lightgbm_tpu/boosting/gbdt.py:321-325``, Tree::Shrinkage)."""
+        self.leaf_value = self.leaf_value * factor
+        self.internal_value = self.internal_value * factor
+        self.shrinkage *= factor
 
     @classmethod
     def from_device(cls, tree: TreeArrays, shrinkage: float) -> "HostTree":
@@ -312,6 +334,46 @@ def _feature_vector(value, name: str, num_features: int) -> np.ndarray:
     return arr
 
 
+def _forced_split_schedule(path: str, mappers, num_leaves: int,
+                           device: torch.device):
+    """The forced-splits JSON as ``(leaf, feature, bin)`` int64 tensors of
+    the first splits, or None when it forces none (reference:
+    ``_forced_split_schedule``, ``lightgbm_tpu/boosting/gbdt.py:181-216``,
+    after SerialTreeLearner::ForceSplits): breadth first, leaf ids in the
+    growers' creation order (the left child keeps its parent's id, the right
+    child becomes leaf ``k + 1`` after split ``k``), thresholds through the
+    bin mapper."""
+    import json
+    from collections import deque
+    with open(path) as fh:
+        root = json.load(fh)
+    leaves, feats, bins = [], [], []
+    queue = deque([(root, 0)])
+    k = 0
+    while queue and k < num_leaves - 1:
+        node, leaf = queue.popleft()
+        if node is None or "feature" not in node:
+            continue
+        f = int(node["feature"])
+        m = mappers[f]
+        if m.is_categorical:
+            raise ValueError(
+                "forced splits on categorical features are not supported")
+        leaves.append(leaf)
+        feats.append(f)
+        bins.append(int(m.value_to_bin(np.array([float(node["threshold"])]))
+                        [0]))
+        k += 1
+        if node.get("left"):
+            queue.append((node["left"], leaf))
+        if node.get("right"):
+            queue.append((node["right"], k))
+    if not leaves:
+        return None
+    return tuple(torch.tensor(a, dtype=torch.int64, device=device)
+                 for a in (leaves, feats, bins))
+
+
 def _discretize_gradients(grad: torch.Tensor, hess: torch.Tensor,
                           num_bins: int, stochastic: bool, const_hess: bool,
                           generator: Optional[torch.Generator] = None,
@@ -402,6 +464,14 @@ class _ValidSet:
 class GBDT:
     """Gradient Boosted Decision Trees (reference: class GBDT, gbdt.h)."""
 
+    boosting_type = "gbdt"
+    # RF averages its iterations' outputs instead of summing them
+    average_output = False
+    # lazy CEGB costs (RF declines them, reference: gbdt.py:475, :756-760)
+    _supports_lazy_cegb = True
+    # RF grows every tree on the masked grower
+    _masked_only = False
+
     def __init__(self, config, train_set: BinnedDataset, objective,
                  device: torch.device):
         """``objective`` None: a custom objective, whose gradients every
@@ -412,7 +482,8 @@ class GBDT:
         self.device = device
         self.models: List[HostTree] = []
         self.iter_ = 0
-        self.shrinkage_rate = float(config.get("learning_rate", 0.1))
+        self.learning_rate = float(config.get("learning_rate", 0.1))
+        self.shrinkage_rate = self.learning_rate
         self.num_class = (objective.num_model_per_iteration
                           if objective is not None
                           else int(config.get("num_class", 1)))
@@ -449,6 +520,7 @@ class GBDT:
             dtype=torch.int64).to(device)
         self._pred_nan_arr = self.nan_bin_arr
         self._efb = None
+        self._linear = False
         return self
 
     def feature_is_categorical(self) -> np.ndarray:
@@ -485,8 +557,17 @@ class GBDT:
         # lazy CEGB costs track charged rows in the dataset's order, which
         # the compact grower permutes (reference: gbdt.py:975-978)
         rows_ok = rows_ok and self._cegb_lazy_np is None
-        can_compact = n < _COMPACT_MAX_ROWS and obj_ok and rows_ok
-        if grower == "compact" and not (obj_ok and rows_ok):
+        # RF, linear leaves (fit on raw rows in the dataset's order) and
+        # forced splits run on the masked grower (reference: gbdt.py:983-987)
+        modes_ok = not (self._masked_only or self._linear
+                        or self._forced is not None)
+        can_compact = (n < _COMPACT_MAX_ROWS and obj_ok and rows_ok
+                       and modes_ok)
+        if grower == "compact" and not modes_ok:
+            log.warning(f"tpu_grower=compact does not run "
+                        f"boosting={self.boosting_type}, linear_tree or "
+                        "forced splits; using the masked grower")
+        elif grower == "compact" and not (obj_ok and rows_ok):
             log.warning("tpu_grower=compact requires a row-elementwise "
                         "objective, or a row-coupled one with one tree a "
                         "round, no quantized gradients, no GOSS and no "
@@ -578,6 +659,8 @@ class GBDT:
         # continued model) ride in them, and a custom objective's first
         # call can still move the run to the masked grower
         self._compact_ready = False
+        # seconds of the linear leaves' host fits, over the run
+        self.linear_fit_s = 0.0
         if not self.use_compact:
             self._setup_masked_state(train_set)
 
@@ -601,6 +684,11 @@ class GBDT:
         split_pen = float(cfg.get("cegb_penalty_split", 0.0))
         coupled = cfg.get("cegb_penalty_feature_coupled")
         lazy = cfg.get("cegb_penalty_feature_lazy")
+        if lazy is not None and not self._supports_lazy_cegb:
+            log.warning("cegb_penalty_feature_lazy is not supported with "
+                        f"boosting={self.boosting_type}; the lazy penalty "
+                        "is ignored")
+            lazy = None
         self._cegb_coupled_np = None if coupled is None else tradeoff * \
             _feature_vector(coupled, "cegb_penalty_feature_coupled", nf)
         self._cegb_lazy_np = None
@@ -618,6 +706,22 @@ class GBDT:
         fc = cfg.get("feature_contri")
         self._contri_np = None if fc is None else _feature_vector(
             fc, "feature_contri", nf)
+        fs_path = str(cfg.get("forcedsplits_filename", "") or "")
+        self._forced = (_forced_split_schedule(
+            fs_path, train_set.mappers, int(cfg.get("num_leaves", 31)),
+            self.device) if fs_path else None)
+        linear = bool(cfg.get("linear_tree", False))
+        # (reference: gbdt.py:800-813)
+        self._linear = linear and self.boosting_type == "gbdt"
+        if linear and not self._linear:
+            log.warning(f"linear_tree is not supported with "
+                        f"boosting={self.boosting_type}; training constant "
+                        "leaves")
+        if self._linear and train_set.raw_data is None:
+            raise ValueError(
+                "linear_tree=true needs raw feature values; construct the "
+                "Dataset with the linear_tree parameter set (or "
+                "free_raw_data=False) so they are retained")
 
     def _setup_options_state(self) -> None:
         """The options' device tensors and the model-level CEGB state."""
@@ -1085,12 +1189,17 @@ class GBDT:
                              torch.zeros_like(tree.leaf_value)) * shrink
             tree = tree._replace(leaf_value=lv,
                                  internal_value=tree.internal_value * shrink)
-            self.train_score[k] += lv[row_leaf]
             host = HostTree.from_device(tree, shrink)
-            self._update_valid_scores(tree, host.max_depth, k)
+            if self._linear:
+                self._linear_tree_iter(host, row_leaf, begin, k)
+            else:
+                self.train_score[k] += lv[row_leaf]
+                self._update_valid_scores(tree, host.max_depth, k)
             if first_iter and abs(self._init_scores[k]) > 1e-10:
                 host.leaf_value = host.leaf_value + np.float32(
                     self._init_scores[k])
+                if host.is_linear:
+                    add_bias_linear(host, self._init_scores[k])
             hosts.append(host)
         self.iter_ += 1
         self.models.extend(hosts)
@@ -1104,6 +1213,31 @@ class GBDT:
                         "that meet the split requirements")
             return True
         return False
+
+    def _linear_tree_iter(self, host: HostTree, row_leaf: torch.Tensor,
+                          it: dict, k: int) -> None:
+        """Fit tree ``k``'s linear leaves on the host and add their outputs
+        to the train and validation scores (reference:
+        ``_linear_tree_iter``, ``lightgbm_tpu/boosting/gbdt.py:2413-2450``):
+        the tree's row leaves and in-bag true gradients come to the host in
+        one copy (the masked grower: the dataset's row order)."""
+        if host.num_nodes == 0:
+            host.num_leaves = 1
+        mask = it["mask"]
+        blob = torch.stack([row_leaf.to(torch.float32),
+                            it["true_g"][k] * mask,
+                            it["true_h"][k] * mask]).cpu().numpy()
+        leaf_np = blob[0].astype(np.int64)
+        raw = self.train_set.raw_data
+        t0 = time.perf_counter()
+        fit_linear_leaves(host, raw, leaf_np, blob[1], blob[2],
+                          self.feature_is_categorical(),
+                          float(self.config.get("linear_lambda", 0.0)),
+                          shrinkage=self.shrinkage_rate)
+        self.linear_fit_s += time.perf_counter() - t0
+        self.train_score[k] += torch.from_numpy(linear_leaf_outputs(
+            host, raw, leaf_np).astype(np.float32)).to(self.device)
+        self.apply_tree_to_scores(host, k, 1.0, train=False)
 
     def _leave_compact(self) -> None:
         """Caller-supplied gradients come in the dataset's row order: move a
@@ -1155,7 +1289,7 @@ class GBDT:
             self.binned, it["g"][k] * mask, it["h"][k] * mask, mask,
             self.num_bins_arr, self.nan_bin_arr, self.has_nan_arr, feat_mask,
             self.grower_params, self.binned_t, self.is_cat_arr, bynode_u,
-            opts)
+            opts, self._forced)
         if self._quant_renew:
             # in-bag true gradient sums a leaf, by each row's leaf
             L = tree.leaf_value.shape[0]
@@ -1327,38 +1461,64 @@ class GBDT:
             return self.work[:, :self.layout.num_features]
         return self.binned
 
-    def host_tree_arrays(self, host: HostTree,
-                         factor: float = 1.0) -> TreeArrays:
-        """A host tree's routing arrays on the device, its leaf values times
-        ``factor`` (the fields routing does not read are None)."""
-        dev = self.device
-
-        def t(a, dtype=torch.int64):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+    def host_tree_arrays(self, host: HostTree) -> TreeArrays:
+        """A host tree's routing arrays on the device in one upload (every
+        int, the bitsets' int32 bit patterns too, is exact in float64), its
+        leaf values in float64 (``apply_tree_to_scores`` scales them; the
+        fields routing does not read are None)."""
+        bits = np.ascontiguousarray(host.cat_bitset).view(np.int32)
+        parts = [np.asarray(a, np.float64).reshape(-1) for a in (
+            host.split_feature, host.split_bin, bits, host.default_left,
+            host.left_child, host.right_child, host.leaf_value,
+            [host.num_nodes])]
+        blob = torch.from_numpy(np.concatenate(parts)).to(self.device)
+        sf, sb, cb, dl, lc, rc, lv, nn = torch.split(
+            blob, [len(a) for a in parts])
         return TreeArrays(
-            split_feature=t(host.split_feature),
-            split_bin=t(host.split_bin),
-            cat_bitset=t(host.cat_bitset.view(np.int32), torch.int32),
-            split_gain=None,
-            default_left=t(host.default_left, torch.bool),
-            left_child=t(host.left_child), right_child=t(host.right_child),
-            leaf_value=t(host.leaf_value * np.float32(factor),
-                         torch.float32),
+            split_feature=sf.to(torch.int64), split_bin=sb.to(torch.int64),
+            cat_bitset=cb.to(torch.int32).reshape(bits.shape),
+            split_gain=None, default_left=dl.to(torch.bool),
+            left_child=lc.to(torch.int64), right_child=rc.to(torch.int64),
+            leaf_value=lv,
             leaf_weight=None, leaf_count=None, leaf_parent=None,
             leaf_depth=None, internal_value=None, internal_weight=None,
             internal_count=None, num_leaves=None,
-            num_nodes=torch.tensor(host.num_nodes, device=dev))
+            num_nodes=nn.reshape(()).to(torch.int64))
 
-    def apply_tree_to_scores(self, host: HostTree, k: int,
-                             factor: float) -> None:
-        """Add ``factor`` times a tree's output to the train and validation
-        scores of class ``k`` (reference: ``apply_tree_to_scores``,
-        ``boosting/gbdt.py:2541-2588``)."""
-        tree = self.host_tree_arrays(host, factor)
+    def apply_tree_to_scores(self, host: HostTree, k: int, factor: float,
+                             train: bool = True, valid: bool = True,
+                             tree: Optional[TreeArrays] = None) -> None:
+        """Add ``factor`` times a tree's output to the train scores, the
+        validation scores or both, of class ``k``, routing on the device
+        (reference: ``apply_tree_to_scores``, ``boosting/gbdt.py:
+        2541-2588``); a linear tree's outputs come from the raw rows on the
+        host, as they were added. ``tree`` is ``host_tree_arrays(host)``
+        where a caller routes one tree more than once (DART), so that it
+        is uploaded once."""
+        if tree is None:
+            tree = self.host_tree_arrays(host)
+        # the host's float32 product leaf_value * float32(factor): the
+        # float64 product of a float32 leaf and factor is exact
+        tree = tree._replace(leaf_value=(
+            tree.leaf_value * float(np.float32(factor))).to(torch.float32))
         depth = host.max_depth
-        self.train_score[k] += tree.leaf_value[
-            self._routed_leaves(tree, self._routing_binned(), depth)]
-        self._update_valid_scores(tree, depth, k)
+        if host.is_linear:
+            def add(score, binned, raw):
+                leaf = self._routed_leaves(tree, binned, depth).cpu().numpy()
+                score += torch.from_numpy((linear_leaf_outputs(
+                    host, raw, leaf) * factor).astype(np.float32)).to(
+                        self.device)
+            if train:
+                add(self.train_score[k], self._routing_binned(),
+                    self.train_set.raw_data)
+            for vs in self.valid_sets if valid else ():
+                add(vs.score[k], vs.binned, vs.dataset.raw_data)
+            return
+        if train:
+            self.train_score[k] += tree.leaf_value[
+                self._routed_leaves(tree, self._routing_binned(), depth)]
+        if valid:
+            self._update_valid_scores(tree, depth, k)
 
     def rollback_one_iter(self) -> None:
         """Remove the last iteration's trees and their output from the
@@ -1379,7 +1539,8 @@ class GBDT:
         growers rebuild their per-tree buffers from ``grower_params`` at
         every tree."""
         self.config = config
-        self.shrinkage_rate = float(config.learning_rate)
+        self.learning_rate = float(config.learning_rate)
+        self.shrinkage_rate = self.learning_rate
         self.feature_fraction = float(config.feature_fraction)
         self.grower_params = self.grower_params._replace(
             num_leaves=int(config.num_leaves),
@@ -1450,10 +1611,17 @@ class GBDT:
         elif vb is not None:
             _unbundle(valid_set, f"validation set '{name}': unbundling to "
                       "match the unbundled training layout")
+        if self._linear and valid_set.raw_data is None:
+            raise ValueError(
+                "linear_tree validation sets need raw data; create them "
+                "from the training Dataset (create_valid) with "
+                "free_raw_data=False or the linear_tree param set")
         vs = _ValidSet(valid_set, name, self.num_class, self.device)
         if self.models:
-            vs.score += torch.from_numpy(self.predict_raw_binned(
-                _dense_bins(valid_set))).to(self.device)
+            vs.score += torch.from_numpy(
+                self.predict_raw_matrix(valid_set.raw_data) if self._linear
+                else self.predict_raw_binned(_dense_bins(valid_set))).to(
+                    self.device)
         for m in metrics:
             m.init(valid_set.metadata, valid_set.num_data)
         vs.metrics = list(metrics)
@@ -1526,6 +1694,12 @@ class GBDT:
                              f"expects {len(self.mappers)}")
         return bin_columns(self.mappers, arr, np.uint8)
 
+    def _average_divisor(self, models: Sequence[HostTree]) -> int:
+        """The iterations in a prediction window, by which a model with
+        ``average_output`` divides its sum (reference: ``_average_divisor``,
+        ``boosting/gbdt.py:3183-3193``)."""
+        return max(len(models) // max(self.num_class, 1), 1)
+
     def predict_raw_binned(self, binned: np.ndarray,
                            num_iteration: Optional[int] = None,
                            start_iteration: int = 0) -> np.ndarray:
@@ -1539,11 +1713,33 @@ class GBDT:
         depth = max(m.max_depth for m in models)
         b = torch.from_numpy(np.ascontiguousarray(binned)).to(self.device)
         raw = predict_raw_batched(b, trees, self._pred_nan_arr, depth,
-                                  num_class=self.num_class)
-        return raw.cpu().numpy()
+                                  num_class=self.num_class).cpu().numpy()
+        if self.average_output:
+            raw = raw / self._average_divisor(models)
+        return raw
 
     def predict_raw_matrix(self, arr: np.ndarray,
                            num_iteration: Optional[int] = None,
                            start_iteration: int = 0) -> np.ndarray:
-        return self.predict_raw_binned(self.bin_matrix(arr), num_iteration,
-                                       start_iteration)
+        if not self._linear:
+            return self.predict_raw_binned(self.bin_matrix(arr),
+                                           num_iteration, start_iteration)
+        # linear leaves: each row's leaf by the walk, then leaf_const +
+        # x . coeff on its raw values (reference: boosting/gbdt.py:3529-3549)
+        arr = np.asarray(arr, np.float64)
+        if arr.ndim == 1:
+            arr = arr.reshape(1, -1)
+        models = self._model_window(num_iteration, start_iteration)
+        k = self.num_class
+        out = np.zeros((k, arr.shape[0]), np.float64)
+        if not models:
+            return out.astype(np.float32)
+        trees = stack_trees(models, self.device,
+                            self.feature_is_categorical())
+        b = torch.from_numpy(self.bin_matrix(arr)).to(self.device)
+        leaves = predict_leaf_batched(
+            b, trees, self._pred_nan_arr,
+            max(m.max_depth for m in models)).cpu().numpy()
+        for i, m in enumerate(models):
+            out[i % k] += linear_leaf_outputs(m, arr, leaves[i])
+        return out.astype(np.float32)

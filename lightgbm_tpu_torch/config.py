@@ -14,6 +14,14 @@ Two things differ from the JAX package:
 * Parameters outside what the port implements raise ``NotImplementedError``
   naming the ROADMAP item that will bring them (:meth:`Config.check_supported`)
   instead of being ignored.
+
+Every key of the JAX package's ``PARAMS`` is in one of three places: this
+``PARAMS`` (the keys the port reads), ``REFUSED_PARAMS`` (keys the port
+cannot honour yet: set away from their default they raise, naming their
+ROADMAP item) or ``IGNORED_PARAMS`` (the TPU layout, serving, tracing and
+thread switches, which change no result for the inputs the port takes: they
+are accepted with one debug line). A key in none of them warns "Unknown
+parameter" and is dropped, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -59,6 +67,13 @@ PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...]]] = {
     "feature_fraction_seed": (2, int, ()),
     "extra_trees": (False, bool, ("extra_tree",)),
     "extra_seed": (6, int, ()),
+    # DART (reference: config.h drop_rate ... drop_seed)
+    "drop_rate": (0.1, float, ("rate_drop",)),
+    "max_drop": (50, int, ()),
+    "skip_drop": (0.5, float, ()),
+    "xgboost_dart_mode": (False, bool, ()),
+    "uniform_drop": (False, bool, ()),
+    "drop_seed": (4, int, ()),
     "early_stopping_round": (0, int, (
         "early_stopping_rounds", "early_stopping", "n_iter_no_change")),
     "first_metric_only": (False, bool, ()),
@@ -93,6 +108,7 @@ PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...]]] = {
     "stochastic_rounding": (True, bool, ()),
     # dataset
     "linear_tree": (False, bool, ("linear_trees",)),
+    "linear_lambda": (0.0, float, ()),
     "max_bin": (255, int, ("max_bins",)),
     "max_bin_by_feature": (None, object, ()),
     "min_data_in_bin": (3, int, ()),
@@ -129,6 +145,13 @@ PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...]]] = {
         "ndcg_eval_at", "ndcg_at", "map_eval_at", "map_at")),
     "multi_error_top_k": (1, int, ()),
     "auc_mu_weights": (None, object, ()),
+    # prediction: the default iteration window of Booster.predict;
+    # pred_early_stop is read to be refused (ROADMAP A10)
+    "start_iteration_predict": (0, int, ()),
+    "num_iteration_predict": (-1, int, ()),
+    "pred_early_stop": (False, bool, ()),
+    # model snapshots, read to be refused (ROADMAP A16)
+    "snapshot_freq": (-1, int, ("save_period",)),
     # grower selection knobs shared with the JAX package
     "tpu_grower": ("auto", str, ()),            # auto | compact | masked
     "tpu_hist_layout": ("auto", str, ("hist_layout",)),  # auto|lane|sublane
@@ -136,6 +159,100 @@ PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...]]] = {
     # 0 = auto, 16 = narrowed accumulation (kept at 32 bits here, with a
     # warning, as the JAX package does when its fused kernel is on), 32
     "tpu_quant_hist_bits": (0, int, ("quant_hist_bits",)),
+}
+
+# the JAX package's keys the port cannot honour yet: name -> (default, type,
+# aliases, ROADMAP item). Set away from the default, each raises at
+# check_supported.
+REFUSED_PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...], str]] = {
+    # prediction early stopping and refit (Booster.predict, Booster.refit)
+    "pred_early_stop_freq": (10, int, (), "A10"),
+    "pred_early_stop_margin": (10.0, float, (), "A10"),
+    "refit_decay_rate": (0.9, float, (), "A8"),
+    # distributed learners
+    "top_k": (20, int, ("topk",), "A18"),
+    "pre_partition": (False, bool, ("is_pre_partition",), "A18"),
+    "local_listen_port": (12400, int, ("local_port", "port"), "A18"),
+    "time_out": (120, int, (), "A18"),
+    "machine_list_filename": ("", str, (
+        "machine_list_file", "machine_list", "mlist"), "A18"),
+    "machines": ("", str, ("workers", "nodes"), "A18"),
+    "tpu_mesh_shape": ("", str, ("mesh_shape",), "A18"),
+    "num_shards": (0, int, (), "A18"),
+    # the file loader and checkpoints
+    "two_round": (False, bool, (
+        "two_round_loading", "use_two_round_loading"), "A16"),
+    "header": (False, bool, ("has_header",), "A16"),
+    "label_column": ("", str, ("label",), "A16"),
+    "weight_column": ("", str, ("weight",), "A16"),
+    "group_column": ("", str, (
+        "group", "group_id", "query_column", "query", "query_id"), "A16"),
+    "ignore_column": ("", str, ("ignore_feature", "blacklist"), "A16"),
+    "save_binary": (False, bool, (
+        "is_save_binary", "is_save_binary_file"), "A16"),
+    "precise_float_parser": (False, bool, (), "A16"),
+    "parser_config_file": ("", str, (), "A16"),
+    "tpu_checkpoint_dir": ("", str, ("checkpoint_dir",), "A16"),
+    "tpu_checkpoint_freq": (0, int, ("checkpoint_freq",), "A16"),
+    "tpu_checkpoint_keep": (3, int, ("checkpoint_keep",), "A16"),
+    # serving: quantized leaves change the level engine's outputs
+    "tpu_leaf_quant": ("off", str, (), "A17"),
+    # tooling: injected faults
+    "tpu_fault_spec": ("", str, (), "A19"),
+}
+
+# the JAX package's keys that change no result for the inputs the port
+# takes: its TPU layout and engine switches, serving, tracing and metrics,
+# threads and devices, the CLI's output switches, and output_model (read
+# only with snapshot_freq, which is refused). name -> aliases; accepted
+# with one debug line.
+IGNORED_PARAMS: Dict[str, Tuple[str, ...]] = {
+    "stop_check_freq": (), "force_col_wise": (), "force_row_wise": (),
+    "is_enable_sparse": ("is_sparse", "enable_sparse", "sparse"),
+    "feature_pre_filter": (),
+    "predict_raw_score": ("is_predict_raw_score", "predict_rawscore",
+                          "raw_score"),
+    "predict_leaf_index": ("is_predict_leaf_index", "leaf_index"),
+    "predict_contrib": ("is_predict_contrib", "contrib"),
+    "predict_disable_shape_check": (),
+    "is_provide_training_metric": ("training_metric", "is_training_metric",
+                                   "train_metric"),
+    "output_model": ("model_output", "model_out"),
+    "gpu_platform_id": (), "gpu_device_id": (), "gpu_use_dp": (),
+    "num_gpu": (),
+    "tpu_hist_impl": (), "tpu_trace_dir": (), "tpu_trace_mode": ("trace_mode",),
+    "tpu_metrics_path": ("metrics_path",),
+    "tpu_flight_buffer": ("flight_buffer",),
+    "tpu_metrics_port": ("metrics_port",),
+    "tpu_rank_stats_every": ("rank_stats_every",),
+    "tpu_straggler_factor": ("straggler_factor",),
+    "tpu_part_block": (), "tpu_hist_block": (),
+    "tpu_hist_mbatch": ("hist_mbatch",), "tpu_autotune": ("autotune",),
+    "tpu_autotune_cache": ("autotune_cache",), "tpu_hist_scatter": (),
+    "tpu_step_buckets": ("step_buckets",),
+    "tpu_compile_cache_dir": ("compile_cache_dir",),
+    "tpu_hist_overlap": ("hist_overlap",), "tpu_fused": (),
+    "tpu_fused_block": (), "tpu_fused_interpret": (),
+    "tpu_predict_tbatch": ("predict_tbatch",),
+    "tpu_predict_buckets": ("predict_buckets",),
+    "tpu_predict_engine": (), "tpu_level_depth_cap": (),
+    "tpu_serve_tick_ms": ("serve_tick_ms",),
+    "tpu_serve_queue_max": ("serve_queue_max",),
+    "tpu_serve_deadline_ms": ("serve_deadline_ms",),
+    "tpu_serve_warm_max_rows": ("serve_warm_max_rows",),
+    "tpu_serve_featurize": ("serve_featurize",),
+    "tpu_serve_endpoints": ("serve_endpoints",),
+    "tpu_serve_background_kinds": ("serve_background_kinds",),
+    "tpu_shap_tables": (), "tpu_shap_table_mb": (),
+    "tpu_drift_flush_every": ("drift_flush_every",),
+    "tpu_drift_psi_threshold": ("drift_psi_threshold",),
+    "tpu_drift_score_bins": ("drift_score_bins",),
+    "tpu_drift_bins": ("drift_bins",),
+    "tpu_drift_min_rows": ("drift_min_rows",),
+    "tpu_serve_slo_ms": ("serve_slo_ms",),
+    "tpu_serve_slo_target": ("serve_slo_target",),
+    "tpu_collective_deadline_s": ("collective_deadline",),
+    "tpu_collective_retries": (),
 }
 
 OBJECTIVE_ALIASES: Dict[str, str] = {
@@ -210,6 +327,12 @@ for _name, (_d, _t, _aliases) in PARAMS.items():
     _ALIAS_TABLE[_name] = _name
     for _a in _aliases:
         _ALIAS_TABLE[_a] = _name
+# the refused and the ignored keys' names and aliases
+_OTHER_ALIASES: Dict[str, str] = {}
+for _name, _aliases in [(k, v[2]) for k, v in REFUSED_PARAMS.items()] \
+        + list(IGNORED_PARAMS.items()):
+    for _a in (_name,) + _aliases:
+        _OTHER_ALIASES[_a] = _name
 
 
 def alias_table() -> Dict[str, str]:
@@ -240,6 +363,8 @@ class Config:
     def __init__(self, params: Optional[Dict[str, Any]] = None):
         for name, (default, _typ, _aliases) in PARAMS.items():
             setattr(self, name, copy.copy(default))
+        # REFUSED_PARAMS keys that were set, by canonical name
+        self.refused: Dict[str, Any] = {}
         if params:
             self.set(params)
 
@@ -249,7 +374,14 @@ class Config:
         for key, value in params.items():
             canon = _ALIAS_TABLE.get(key)
             if canon is None:
-                log.warning(f"Unknown parameter: {key}")
+                other = _OTHER_ALIASES.get(key)
+                if other in REFUSED_PARAMS:
+                    self.refused[other] = value
+                elif other is not None:
+                    log.debug(f"Parameter {key} changes nothing in the "
+                              "PyTorch port; ignored")
+                else:
+                    log.warning(f"Unknown parameter: {key}")
                 continue
             if canon in resolved and key != canon:
                 continue
@@ -329,14 +461,16 @@ class Config:
         need(self.tpu_bin_pack4, "tpu_bin_pack4", "A15b")
         need(bool(self.forcedbins_filename), "forced bins", "A3")
         need(self.max_bin > 255, "max_bin>255", "A3")
+        for name, value in self.refused.items():
+            default, typ, _aliases, item = REFUSED_PARAMS[name]
+            need(_coerce(name, value, typ) != default,
+                 f"{name}={value!r}", item)
         if not dataset_only:
             need(str(self.tree_learner).lower() != "serial",
                  f"tree_learner={self.tree_learner!r}", "A18")
             need(self.num_machines > 1, "num_machines>1", "A18")
-            need(self.boosting != "gbdt", f"boosting={self.boosting!r}",
-                 "A14c")
-            need(bool(self.forcedsplits_filename), "forced splits", "A14c")
-            need(self.linear_tree, "linear_tree", "A14c")
+            need(self.pred_early_stop, "pred_early_stop", "A10")
+            need(self.snapshot_freq > 0, "snapshot_freq", "A16")
             # the CUDA histograms add f32 atomics in no fixed order
             need(self.deterministic, "deterministic histograms", "B1/B2")
         if todo:

@@ -334,16 +334,7 @@ def bin_columns(mappers: Sequence[BinMapper], arr: np.ndarray,
                    key=lambda j: len(bounds[j]))
     big = [j for j in num_cols if len(bounds[j]) > _SMALL_BOUNDS]
 
-    if workers is None:
-        workers = min(16, os.cpu_count() or 1)
-    if n * len(live) < (1 << 21):
-        workers = 1          # pool overhead beats tiny inputs
-    if workers > 1:
-        # shrink chunks until every worker has a few to keep busy
-        row_chunk = max(4096, min(row_chunk, -(-n // (2 * workers))))
-
-    def _do_chunk(r0: int) -> None:
-        r1 = min(n, r0 + row_chunk)
+    def _do_chunk(r0: int, r1: int) -> None:
         chunk = arr[r0:r1]
         nan_mask = np.isnan(chunk)
         any_nan = bool(nan_mask.any())
@@ -375,15 +366,31 @@ def bin_columns(mappers: Sequence[BinMapper], arr: np.ndarray,
                 b = np.where(nan_mask[:, cols], nan_bins[cols], b)
             out[r0:r1, cols] = b
 
-    starts = list(range(0, n, row_chunk))
+    map_row_chunks(_do_chunk, n, n * len(live), row_chunk, workers)
+    return out
+
+
+def map_row_chunks(fn, n: int, work: int, row_chunk: int = 1 << 18,
+                   workers: Optional[int] = None) -> list:
+    """``fn(r0, r1)`` over ``n`` rows in blocks of at most ``row_chunk``,
+    its results in row order. With ``work`` (the elements the call
+    touches) of 2^21 or more, the blocks run on a thread pool of
+    ``workers`` threads (default ``min(16, cpu count)``; numpy releases
+    the GIL in its kernels), shrunk until every thread has a few of at
+    least 4,096 rows; below it the pool's overhead beats the gain."""
+    if workers is None:
+        workers = min(16, os.cpu_count() or 1)
+    if work < (1 << 21):
+        workers = 1
+    if workers > 1:
+        row_chunk = max(4096, min(row_chunk, -(-n // (2 * workers))))
+    starts = range(0, max(n, 1), row_chunk)
     if workers > 1 and len(starts) > 1:
         from concurrent.futures import ThreadPoolExecutor
         with ThreadPoolExecutor(max_workers=workers) as pool:
-            list(pool.map(_do_chunk, starts))
-    else:
-        for r0 in starts:
-            _do_chunk(r0)
-    return out
+            return list(pool.map(
+                lambda r0: fn(r0, min(n, r0 + row_chunk)), starts))
+    return [fn(r0, min(n, r0 + row_chunk)) for r0 in starts]
 
 
 def find_bin_categorical(sample_values: np.ndarray, max_bin: int,

@@ -136,6 +136,9 @@ class BinnedDataset:
         self.categorical_features: List[int] = []
         # EFB layout of the stored columns (None: one column a feature)
         self.bundle_info: Optional[BundleInfo] = None
+        # the raw rows in float64, in the original order, kept for linear
+        # leaves (construct's keep_raw)
+        self.raw_data: Optional[np.ndarray] = None
 
     @staticmethod
     def construct(
@@ -153,6 +156,7 @@ class BinnedDataset:
         categorical_feature: Optional[Sequence[Union[int, str]]] = None,
         enable_bundle: bool = True,
         max_conflict_rate: float = 1e-4,
+        keep_raw: bool = False,
     ) -> "BinnedDataset":
         arr = _to_2d_float(data)
         n, f = arr.shape
@@ -207,6 +211,8 @@ class BinnedDataset:
                              f"into {info.n_columns} stored columns")
         ds.binned = binned
         ds.metadata = Metadata(n)
+        if keep_raw:
+            ds.raw_data = arr.astype(np.float64, copy=False)
         return ds
 
     @property

@@ -41,6 +41,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 
 from ..utils import log
+from .binning import map_row_chunks
 
 
 class BundleInfo(NamedTuple):
@@ -300,7 +301,13 @@ def bundle_matrix(binned: np.ndarray, info: BundleInfo,
     feature instead of materializing [N, F] first; this dense variant serves
     the in-memory path.)"""
     n = binned.shape[0]
-    out, conflicts = bundle_chunk(binned, info, default_bins)
+    # row blocks on a thread pool, as bin_columns bins its rows
+    parts = map_row_chunks(
+        lambda r0, r1: bundle_chunk(binned[r0:r1], info, default_bins),
+        n, binned.size)
+    out = parts[0][0] if len(parts) == 1 else np.concatenate(
+        [p[0] for p in parts])
+    conflicts = sum(p[1] for p in parts)
     allowed = conflict_allowance(info, n, max_conflict_rate)
     if conflicts > allowed:
         return None

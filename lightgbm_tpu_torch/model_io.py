@@ -18,7 +18,11 @@ bins: writing maps each set bin through the mapper's bin-to-category table
 the text holds raw-value thresholds and category values, not bins. A
 continued model's text is the loaded model's tree blocks, then the new
 ones, under the new model's header and footer (``merge_model_texts``).
-Linear trees and C++ export (``to_if_else``) raise (ROADMAP A9).
+Linear trees carry their block (``is_linear=1``, ``leaf_const``,
+``num_features``, ``leaf_features``, ``leaf_coeff``; reference: Tree::
+ToString, src/io/tree.cpp) and predict from raw values; a random forest's
+header says ``average_output``, and its predictions are the mean of its
+iterations. C++ export (``to_if_else``) is ROADMAP A9.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from .boosting.linear import linear_leaf_outputs
 from .config import Config
 from .io.binning import MISSING_NAN
 from .objectives import create_objective
@@ -94,6 +99,19 @@ def _tree_to_text(host, tree_idx: int, mappers) -> str:
     num_cat = len(cat_boundaries) - 1
     cat_lines = ([f"cat_boundaries={join(cat_boundaries)}",
                   f"cat_threshold={join(cat_words)}"] if num_cat else [])
+    if host.is_linear:
+        # (reference: Tree::ToString's linear block, src/io/tree.cpp:377-399)
+        linear_lines = [
+            "is_linear=1",
+            "leaf_const=" + join(_fmt(v) for v in host.leaf_const[:nl]),
+            "num_features=" + join(len(host.leaf_features[i])
+                                   for i in range(nl)),
+            "leaf_features=" + join(f for i in range(nl)
+                                    for f in host.leaf_features[i]),
+            "leaf_coeff=" + join(_fmt(c) for i in range(nl)
+                                 for c in host.leaf_coeff[i])]
+    else:
+        linear_lines = ["is_linear=0"]
     return "\n".join([
         f"Tree={tree_idx}",
         f"num_leaves={nl}",
@@ -113,7 +131,7 @@ def _tree_to_text(host, tree_idx: int, mappers) -> str:
                                   for i in range(nn)),
         "internal_count=" + counts(host.internal_count, nn),
         *cat_lines,
-        "is_linear=0",
+        *linear_lines,
         f"shrinkage={host.shrinkage:g}",
         "",
     ])
@@ -144,6 +162,7 @@ def booster_to_string(booster, num_iteration: Optional[int] = None) -> str:
         "label_index=0",
         f"max_feature_idx={len(mappers) - 1}",
         f"objective={_objective_string(gbdt)}",
+        *(["average_output"] if gbdt.average_output else []),
         "feature_names=" + " ".join(gbdt.feature_names),
         "feature_infos=" + " ".join(feature_infos),
         "tree_sizes=" + " ".join(str(len(b) + 1) for b in blocks),
@@ -227,7 +246,7 @@ def booster_to_dict(booster, num_iteration: Optional[int] = None
         "label_index": 0,
         "max_feature_idx": len(gbdt.mappers) - 1,
         "objective": _objective_string(gbdt),
-        "average_output": False,
+        "average_output": gbdt.average_output,
         "feature_names": list(gbdt.feature_names),
         "monotone_constraints": [],
         "feature_infos": {},
@@ -242,7 +261,8 @@ def booster_to_dict(booster, num_iteration: Optional[int] = None
 class LoadedTree:
     __slots__ = ("num_leaves", "num_nodes", "split_feature", "split_gain",
                  "threshold", "decision_type", "left_child", "right_child",
-                 "leaf_value", "cat_boundaries", "cat_threshold")
+                 "leaf_value", "cat_boundaries", "cat_threshold",
+                 "is_linear", "leaf_const", "leaf_features", "leaf_coeff")
 
     def route(self, x: np.ndarray) -> np.ndarray:
         """Leaf index per row of raw float64 values, node by node
@@ -352,10 +372,18 @@ class LoadedGBDT:
                                     num_cat + 1)
             t.cat_threshold = (_arr(d, "cat_threshold", np.uint32, 0)
                                if num_cat else np.zeros(0, np.uint32))
-            if int(d.get("is_linear", "0") or 0):
-                raise NotImplementedError(
-                    "linear trees in model text are not in the PyTorch port "
-                    "yet (ROADMAP A9)")
+            t.is_linear = bool(int(d.get("is_linear", "0") or 0))
+            if t.is_linear:
+                t.leaf_const = _arr(d, "leaf_const", np.float64,
+                                    t.num_leaves)
+                counts = _arr(d, "num_features", np.int64, t.num_leaves)
+                ends = np.cumsum(counts)
+                feats = _arr(d, "leaf_features", np.int64, 0)
+                coeffs = _arr(d, "leaf_coeff", np.float64, 0)
+                t.leaf_features = [feats[e - c:e].tolist()
+                                   for c, e in zip(counts, ends)]
+                t.leaf_coeff = [coeffs[e - c:e].tolist()
+                                for c, e in zip(counts, ends)]
             t.split_feature = _arr(d, "split_feature", np.int32, nn)
             t.split_gain = _arr(d, "split_gain", np.float64, nn)
             t.threshold = _arr(d, "threshold", np.float64, nn)
@@ -387,7 +415,9 @@ class LoadedGBDT:
             models = models[:num_iteration * k]
         out = np.zeros((k, arr.shape[0]), np.float64)
         for i, t in enumerate(models):
-            out[i % k] += t.leaf_value[t.route(arr)]
+            leaf = t.route(arr)
+            out[i % k] += (linear_leaf_outputs(t, arr, leaf) if t.is_linear
+                           else t.leaf_value[leaf])
         if self.average_output:
             out /= max(len(models) // k, 1)
         return out.astype(np.float32)

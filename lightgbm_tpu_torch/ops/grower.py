@@ -40,8 +40,12 @@ and clipped to the parent's bounds. CEGB's coupled costs are paid once a
 model (``cegb_used``), its lazy costs once a (row, feature)
 (``cegb_charged [F, N]``, charged for the parent's in-bag rows at each
 split). Extra trees draw their thresholds from ``[2L-1, F, 2]`` random
-words, rows numbered as the by-node draws. Forced splits, voting and the
-data-parallel reduction are not here (ROADMAP A14c, A18). The JAX
+words, rows numbered as the by-node draws. Forced splits (``forced``, the
+host schedule of ``boosting/gbdt.py`` ``_forced_split_schedule``; reference:
+``lightgbm_tpu/ops/grower.py:554-586``): split ``k`` of the schedule takes
+its (leaf, feature, bin) whatever the gains, its left sums a cumulative read
+of that feature's row of the leaf's histogram, default right and gain 0.
+Voting and the data-parallel reduction are not here (ROADMAP A18). The JAX
 package's compile ladder (leaf rungs, depth buckets) fixes XLA jit keys
 and has no counterpart in eager PyTorch: trees grow at the exact
 ``num_leaves``.
@@ -300,7 +304,9 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               binned_t: Optional[torch.Tensor] = None,
               is_cat_arr: Optional[torch.Tensor] = None,
               bynode_u: Optional[torch.Tensor] = None,
-              opts: Optional[TreeOptions] = None
+              opts: Optional[TreeOptions] = None,
+              forced: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]] = None
               ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree over ``binned [N, F]`` (uint8) with per-row ``grad``,
     ``hess`` (already multiplied by weights and bag mask) and
@@ -313,6 +319,8 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     ``[2L-1, F]``: the tree's by-node draws when ``params.bynode_fraction``
     < 1 (see ``node_feature_mask``). ``opts``: the constraint and option
     inputs (``TreeOptions``); ``opts.cegb_charged`` is updated in place.
+    ``forced``: ``(leaf, feature, bin)`` int64 tensors of the splits that
+    come first, whatever their gains.
     The intermediate monotone method is the compact grower's: here
     ``params.mono_intermediate`` runs the basic method."""
     dev = binned.device
@@ -416,8 +424,11 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     f_iota = torch.arange(f, device=dev)
 
     for k in range(L - 1):
-        # ---- FindBestFromAllSplits: leaves 0..k are alive ----
-        best = torch.argmax(leaf_f[:k + 1, _BG]).reshape(1)
+        # ---- FindBestFromAllSplits: leaves 0..k are alive; a forced split
+        # takes its scheduled leaf ----
+        is_forced = forced is not None and k < forced[0].shape[0]
+        best = (forced[0][k:k + 1] if is_forced
+                else torch.argmax(leaf_f[:k + 1, _BG]).reshape(1))
         rf = leaf_f.index_select(0, best)[0]
         ri = leaf_i.index_select(0, best)[0]
         gain = rf[_BG:_BG + 1]
@@ -425,12 +436,22 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         applied = valid & ~done
         done = done | ~valid
         new_leaf = k + 1
-        f_ = ri[_BF:_BF + 1]
-        b_ = ri[_BB:_BB + 1]
-        dl = ri[_BDL:_BDL + 1]
+        if is_forced:
+            applied = torch.ones_like(applied)
+            done = torch.zeros_like(done)
+            gain = torch.zeros_like(gain)
+            f_ = forced[1][k:k + 1]
+            b_ = forced[2][k:k + 1]
+            dl = torch.zeros_like(f_)
+        else:
+            f_ = ri[_BF:_BF + 1]
+            b_ = ri[_BB:_BB + 1]
+            dl = ri[_BDL:_BDL + 1]
 
         if any_cat:
             bits = leaf_bits.index_select(0, best)[0]
+            if is_forced:
+                bits = torch.zeros_like(bits)
             f_cat = is_cat_arr.index_select(0, f_)
         else:
             bits, f_cat = None, False
@@ -443,7 +464,13 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
         # ---- the smaller child's histogram; the larger is parent - it ----
         pg, ph, pc = rf[_LG], rf[_LH], rf[_LC]
-        lg, lh, lc = rf[_BLG], rf[_BLH], rf[_BLC]
+        if is_forced:
+            # the forced bin's left sums: a cumulative read of the feature's
+            # row of the leaf's histogram
+            frow = leaf_hist.index_select(0, best)[0].index_select(0, f_)[0]
+            lg, lh, lc = torch.cumsum(frow, dim=0).index_select(0, b_)[0]
+        else:
+            lg, lh, lc = rf[_BLG], rf[_BLH], rf[_BLC]
         rg, rh, rc = pg - lg, ph - lh, pc - lc
         left_smaller = lc <= rc
         small = torch.where(left_smaller, best, new_leaf)
@@ -454,7 +481,8 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
         # ---- the children's outputs (fixed now, under the parent's bounds
         # and smoothed toward its output) and monotone bounds ----
-        l2 = child_l2(params, ri[_BCL2]) if any_cat else None
+        l2 = (child_l2(params, ri[_BCL2] * (not is_forced)) if any_cat
+              else None)
         cminp, cmaxp, poutp = rf[_CMIN], rf[_CMAX], rf[_LOUT]
         lw = child_output(lg, lh, lc, spp, l2, poutp, cminp, cmaxp)
         rw = child_output(rg, rh, rc, spp, l2, poutp, cminp, cmaxp)

@@ -1090,3 +1090,91 @@ def test_constrained_train_on_card_matches_cpu(dev, grower, monkeypatch):
                                       b.split_feature[:n_])
         np.testing.assert_array_equal(a.split_bin[:n_], b.split_bin[:n_])
     np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["dart_compact", "dart_masked",
+                                  "rf_masked"])
+def test_boosting_modes_on_card_match_cpu(dev, case, monkeypatch):
+    """DART (the same drops on both: numpy's drop_seed stream) and random
+    forest (the same bags on both, through ``sample_strategy.draws``): the
+    card grows the CPU's trees on dyadic gradients, no plain version on
+    the card, and DART's drops route on the card."""
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    _dyadic_binary(monkeypatch)
+    init = gbdt_mod.GBDT.__init__
+
+    def patched(self, *a, **kw):
+        init(self, *a, **kw)
+        _numpy_draws(self)
+    monkeypatch.setattr(gbdt_mod.GBDT, "__init__", patched)
+    rng = np.random.RandomState(14)
+    n = 80_000 if case == "dart_compact" else 20_000
+    X = rng.randn(n, 8).astype(np.float32)
+    y = (X[:, 0] - 0.5 * X[:, 3] + 0.4 * rng.randn(n) > 0).astype(float)
+    p = {"objective": "binary", "num_leaves": 31, "verbosity": -1}
+    if case.startswith("dart"):
+        p.update(boosting="dart", drop_rate=0.5, skip_drop=0.0,
+                 tpu_grower=case.split("_")[1])
+    else:
+        p.update(boosting="rf", bagging_fraction=0.632, bagging_freq=1,
+                 feature_fraction=0.8)
+    _kernels.reset_counts()
+    bg = lgt.train(dict(p, device_type="cuda"), lgt.Dataset(X, y), 4)
+    assert sum(_kernels.PLAIN_CALLS.values()) == 0
+    assert _kernels.LAUNCHES["histogram"] > 0
+    bc = lgt.train(dict(p, device_type="cpu"), lgt.Dataset(X, y), 4)
+    assert bg._gbdt.use_compact == (case == "dart_compact")
+    if case.startswith("dart"):
+        assert bg._gbdt.tree_weight == bc._gbdt.tree_weight
+        assert any(m.shrinkage < 0.1 for m in bg._gbdt.models)
+    for a, b in zip(bg._gbdt.models, bc._gbdt.models):
+        n_ = a.num_nodes
+        assert b.num_nodes == n_
+        np.testing.assert_array_equal(a.split_feature[:n_],
+                                      b.split_feature[:n_])
+        np.testing.assert_array_equal(a.split_bin[:n_], b.split_bin[:n_])
+    np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-5)
+
+
+def test_linear_tree_on_card_matches_cpu(dev, monkeypatch):
+    """Linear leaves on a regression (a label linear in two columns, a
+    tenth of them NaN, plus a step and noise) with its weighted gradients
+    and hessians on a 1/64 grid, so every histogram sum is exact: the card
+    grows the CPU's trees, fits the same leaves and predicts within
+    1e-5, with no plain version on the card."""
+    from lightgbm_tpu_torch import objectives
+    own = objectives.RegressionL2.get_gradients
+
+    def rounded(self, score, label, weight=None):
+        g, h = own(self, score, label, weight)
+        return (torch.round(g * 64) / 64,
+                torch.clamp(torch.round(h * 64), min=1) / 64)
+    monkeypatch.setattr(objectives.RegressionL2, "get_gradients", rounded)
+    rng = np.random.RandomState(15)
+    n = 20_000
+    X = rng.randn(n, 8)
+    y = (1.5 * X[:, 0] - X[:, 2] + np.where(X[:, 5] > 0, 0.75, -0.75)
+         + 0.3 * rng.randn(n))
+    for j in (0, 2):
+        X[rng.rand(n) < 0.1, j] = np.nan
+    w = rng.uniform(0.5, 1.5, n)
+    p = {"objective": "regression", "num_leaves": 31, "linear_tree": True,
+         "linear_lambda": 0.1, "verbosity": -1}
+
+    def ds():
+        return lgt.Dataset(X, y, weight=w, params={"linear_tree": True})
+    _kernels.reset_counts()
+    bg = lgt.train(dict(p, device_type="cuda"), ds(), 4)
+    assert sum(_kernels.PLAIN_CALLS.values()) == 0
+    assert _kernels.LAUNCHES["histogram"] > 0
+    bc = lgt.train(dict(p, device_type="cpu"), ds(), 4)
+    assert not bg._gbdt.use_compact
+    assert any(m.is_linear and any(m.leaf_features)
+               for m in bg._gbdt.models)
+    for a, b in zip(bg._gbdt.models, bc._gbdt.models):
+        n_ = a.num_nodes
+        assert b.num_nodes == n_
+        np.testing.assert_array_equal(a.split_feature[:n_],
+                                      b.split_feature[:n_])
+        np.testing.assert_array_equal(a.split_bin[:n_], b.split_bin[:n_])
+    np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-5)

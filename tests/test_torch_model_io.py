@@ -14,9 +14,8 @@ package and stock LightGBM, on the CPU.
   ``LoadedGBDT`` and predicts what the port predicts within 1e-6;
 * save -> load -> predict round-trips within 1e-6 (the loaded model routes
   raw float64 values on the host, the trained one bins on the device);
-* stock LightGBM's ranking golden and a quantile text load and predict;
-  texts outside the port's slices (linear trees) raise, naming their
-  ROADMAP item.
+* stock LightGBM's ranking golden, a quantile text and a text with a
+  linear tree load and predict as the JAX package's loader does.
 """
 import os
 
@@ -249,11 +248,29 @@ def test_ranking_and_quantile_texts_load_and_predict(case):
 
 @pytest.mark.parametrize("case,item", [("linear", "A9")])
 def test_texts_outside_the_slice_raise(case, item):
-    """The binary golden turned into a model with a linear tree."""
-    _, _, _, text = _golden()
-    text = text.replace("is_linear=0", "is_linear=1", 1)
+    """The binary golden turned into a model whose first tree is linear
+    (one coefficient a leaf, on feature 0 or 1; the golden's NaNs fall back
+    to the constant leaf value): it loads and predicts what the JAX
+    package's loader predicts; ``dump_model`` of a loaded model still
+    raises, naming its ROADMAP item."""
+    X, _, _, text = _golden()
+    block = text.split("Tree=1")[0].split("Tree=0")[1]
+    nl = int(block.split("num_leaves=")[1].split()[0])
+    linear = "\n".join([
+        "is_linear=1",
+        "leaf_const=" + " ".join(f"{0.01 * i:g}" for i in range(nl)),
+        "num_features=" + " ".join("1" for _ in range(nl)),
+        "leaf_features=" + " ".join(str(i % 2) for i in range(nl)),
+        "leaf_coeff=" + " ".join(f"{0.05 * (i + 1):g}" for i in range(nl))])
+    text = text.replace("is_linear=0", linear, 1)
+    assert np.isnan(X[:, :2]).any()
+    bst = lgt.Booster(model_str=text)
+    assert bst._gbdt.models[0].is_linear
+    np.testing.assert_allclose(bst.predict(X),
+                               lgb.Booster(model_str=text).predict(X),
+                               atol=1e-7)
     with pytest.raises(NotImplementedError, match=item):
-        lgt.Booster(model_str=text)
+        bst.dump_model()
 
 
 def test_bad_model_inputs_raise(jax_and_carried):

@@ -8,7 +8,9 @@
 * the device is explicit: ``cuda`` (the default) without a card raises,
   never falling back to the CPU; unknown devices raise;
 * parameters outside the port's slices raise NotImplementedError naming the
-  ROADMAP item that brings them; those of the last slice ported train.
+  ROADMAP item that brings them; those of the last slice ported train;
+  every key of the JAX package's ``PARAMS`` (read from its config.py with
+  ``ast``) is read, refused or ignored by the port, never dropped unseen.
 """
 import importlib
 import os
@@ -166,15 +168,16 @@ def test_parameters_of_the_ranking_and_renewal_slice_train(params):
 
 @pytest.mark.parametrize("params,item", [
     ({"tree_learner": "data"}, "A18"),
-    ({"forcedsplits_filename": "f.json"}, "A14c"),
-    ({"linear_tree": True}, "A14c"),
     ({"max_bin": 511}, "A3"),
     ({"tpu_bin_pack4": True}, "A15b"),
     ({"deterministic": True}, "B1/B2"),
     ({"num_machines": 2}, "A18"),
-    ({"boosting": "dart"}, "A14c"),
-    ({"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
-     "A14c"),
+    ({"pred_early_stop": True}, "A10"),
+    ({"snapshot_freq": 2}, "A16"),
+    ({"save_period": 5}, "A16"),
+    ({"top_k": 30}, "A18"),
+    ({"refit_decay_rate": 0.5}, "A8"),
+    ({"header": True}, "A16"),
 ])
 def test_parameters_outside_the_slice_raise(params, item):
     X, y = _data()
@@ -222,3 +225,69 @@ def test_enable_bundle_trains(value):
                      "max_conflict_rate": 0.0}, lgt.Dataset(X, y), 2)
     assert bst.num_trees() == 2
     assert np.all(np.isfinite(bst.predict(X)))
+
+
+def _reference_params():
+    """The JAX package's ``PARAMS`` (name -> (default, type, aliases)), read
+    from ``lightgbm_tpu/config.py`` as a file with ``ast``: no import."""
+    import ast
+    tree = ast.parse(open(os.path.join(ROOT, "lightgbm_tpu",
+                                       "config.py")).read())
+    for node in tree.body:
+        target = (node.targets[0] if isinstance(node, ast.Assign)
+                  else getattr(node, "target", None))
+        if getattr(target, "id", None) == "PARAMS":
+            return {ast.literal_eval(k): (ast.literal_eval(v.elts[0]),
+                                          v.elts[1].id,
+                                          ast.literal_eval(v.elts[2]))
+                    for k, v in zip(node.value.keys, node.value.values)}
+    raise AssertionError("no PARAMS in lightgbm_tpu/config.py")
+
+
+def test_every_reference_parameter_has_a_place():
+    """Each key of the JAX package's ``PARAMS`` is read by the port, refused
+    away from its default (naming its ROADMAP item) or ignored as changing
+    no result: none is dropped unseen. The refused keys keep the
+    reference's defaults and aliases."""
+    from lightgbm_tpu_torch.config import (IGNORED_PARAMS, PARAMS,
+                                           REFUSED_PARAMS)
+    ref = _reference_params()
+    assert len(ref) > 150
+    homes = [set(PARAMS), set(REFUSED_PARAMS), set(IGNORED_PARAMS)]
+    for name in ref:
+        assert sum(name in h for h in homes) == 1, name
+    for name, (default, _typ, aliases, item) in REFUSED_PARAMS.items():
+        assert default == ref[name][0] and aliases == ref[name][2], name
+        assert re.fullmatch(r"A\d+[a-z]?", item), name
+    for name, aliases in IGNORED_PARAMS.items():
+        assert aliases == ref[name][2], name
+    for name in ("drop_rate", "max_drop", "skip_drop", "uniform_drop",
+                 "xgboost_dart_mode", "drop_seed", "linear_lambda",
+                 "start_iteration_predict", "num_iteration_predict"):
+        assert PARAMS[name][0] == ref[name][0], name
+        assert PARAMS[name][2] == ref[name][2], name
+
+
+def test_parameter_homes_act():
+    """A DART key is read (not dropped), a refused key set to its default
+    passes, an ignored key is accepted quietly, an unknown key warns."""
+    cfg = Config({"rate_drop": 0.5, "top_k": 20, "tpu_fused": "off",
+                  "label": ""})
+    assert cfg.drop_rate == 0.5
+    cfg.check_supported()
+    with pytest.raises(NotImplementedError, match="A18"):
+        Config({"topk": 21}).check_supported()
+    with pytest.raises(NotImplementedError, match="A16"):
+        Config({"label": "name:y"}).check_supported(dataset_only=True)
+    import logging
+    seen = []
+    handler = logging.Handler()
+    handler.emit = lambda record: seen.append(record.getMessage())
+    logger = logging.getLogger("lightgbm_tpu_torch")
+    logger.addHandler(handler)
+    try:
+        Config({"tpu_step_buckets": "off", "no_such_key": 1})
+    finally:
+        logger.removeHandler(handler)
+    assert any("Unknown parameter: no_such_key" in m for m in seen)
+    assert not any("tpu_step_buckets" in m and "Unknown" in m for m in seen)

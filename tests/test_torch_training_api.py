@@ -519,8 +519,14 @@ def test_reset_parameter_method():
     assert bt._gbdt.models[1].shrinkage == pytest.approx(0.05)
     assert bt._gbdt.models[1].max_depth <= 3
     assert_same_trees(bj._gbdt.models, bt._gbdt.models)
-    with pytest.raises(NotImplementedError, match="A14c"):
-        bt.reset_parameter({"linear_tree": True})
+    # linear_tree is read when training starts: as in the reference, a
+    # reset records it and the next trees keep constant leaves
+    for b in (bj, bt):
+        b.reset_parameter({"linear_tree": True})
+        b.update()
+    assert bt.params["linear_tree"] is True
+    assert not any(m.is_linear for m in bt._gbdt.models)
+    assert_same_trees(bj._gbdt.models, bt._gbdt.models)
 
 
 def test_reset_parameter_callback_checks_lists():
