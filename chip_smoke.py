@@ -46,6 +46,22 @@ non-zero):
    (0), the host syncs in each later tree (0), and a torch.profiler trace of
    one more tree (device time, idle share, launches, and K1's and K2's
    device ms in that tree beside their byte bounds from its node counts);
+   then PREDICT_API on that booster: pred_contrib on 131,072 validation
+   rows through the TreeSHAP kernel (wall s, device ms, launches equal in
+   the trace and the wrapper, contributions summing to the raw score
+   within 1e-4, the deepest path and longest unique path), the kernel
+   against its plain version on 4,096 rows (1e-12 of a cell's |value| plus
+   its bound on |addends|) and on all 131,072 (pred_contrib's output),
+   timed beside it, with its bound (the row-dependent float64 operations
+   or bytes), the card against the CPU on 1,024 rows;
+   pred_leaf on the 1.05M validation rows (the CPU's on a sample; leaf
+   values summed equal the raw score within 1e-5); plain prediction's
+   tree-by-tree adds timed against the batched sum on MAIN's trees tiled
+   to 210; pred_early_stop at
+   margins 1.5 and 0.25, freq 2 (each row's score that of the window it
+   stopped at, the share stopped, the CPU's on a sample, margin 1e9 the
+   plain prediction); refit with decay 0.9 on the validation rows against
+   the CPU's refit (leaf values within 1e-6);
 6. quantized-gradient training on the same constructed datasets
    (QUANT): use_quantized_grad=True with LightGBM's defaults (4 bins,
    stochastic rounding), 1 warm-up and 2 timed rounds and a profiled tree:
@@ -1042,8 +1058,281 @@ def phase_main_path(lgt, rows, rounds, results):
     results["main"] = out
     # the large-N masked and the multiclass phases train on the same rows
     results["higgs"] = (X, y, logits, n_val)
+    # PREDICT_API explains, routes and refits this booster
+    results["main_booster"] = bst
     # CONSTRAINED's monotone directions
     results["higgs_w1"] = w1
+
+
+PREDICT_ROWS = 131_072         # pred_contrib's validation rows
+PREDICT_PLAIN_ROWS = 4_096     # the TreeSHAP kernel against its plain version
+PREDICT_CPU_ROWS = 1_024       # the card against the CPU
+PREDICT_SAMPLE = 16_384        # leaves and early stopping against the CPU
+PREDICT_TILE = 30              # MAIN's trees tiled: a many-tree model
+FP64_OPS_PER_S = 34e12         # H100 SXM float64, NVIDIA data sheet
+
+
+def cpu_twin(bst):
+    """A prediction-only CPU Booster with ``bst``'s trees and bin mappers:
+    the card against the CPU on one model."""
+    from lightgbm_tpu_torch.basic import Booster
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    from lightgbm_tpu_torch.config import Config
+    g = bst._gbdt
+    params = dict(bst.params, device_type="cpu")
+    return Booster._from_gbdt(GBDT.for_prediction(
+        Config(params), g.models, g.mappers, g.objective,
+        torch.device("cpu"), g.feature_names), params)
+
+
+def profile_contrib(bst, X):
+    """(device ms, traced launches, counted launches) of the TreeSHAP kernel
+    in one ``pred_contrib`` call under torch.profiler, after the warm-up
+    ``profile_tree`` uses; a short trace is retried, three times at
+    most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightgbm_tpu_torch import _kernels
+    for _ in range(3):
+        before = _kernels.LAUNCHES["treeshap"]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            warm = torch.zeros(4, device="cuda")
+            for _ in range(256):
+                warm.add_(1.0)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            bst.predict(X, pred_contrib=True)
+            torch.cuda.synchronize()
+        counted = _kernels.LAUNCHES["treeshap"] - before
+        hits = [end - start for name, cuda, start, end in trace_events(prof)
+                if cuda and _named(name, KERNEL_FUNCTIONS["treeshap"])]
+        if len(hits) == counted:
+            return sum(hits) * 1e-3, len(hits), counted
+        print(f"PREDICT_API profile retry: {len(hits)} traced, {counted} "
+              "counted", flush=True)
+    raise AssertionError("three pred_contrib traces each held fewer TreeSHAP "
+                         "launches than the wrapper counted")
+
+
+def time_tree_adds(g, Xv):
+    """Plain prediction's tree-by-tree adds against the batched sum of
+    each walked batch they replaced (``index_add_`` for K > 1 is left
+    out: ``MAIN`` is binary), on ``MAIN``'s trees tiled to
+    ``PREDICT_TILE`` times as many, over the validation rows: ms of
+    ``predict_raw_batched`` and of the same walk summed a batch at a time,
+    in the order batched, adds, adds, batched."""
+    from lightgbm_tpu_torch.boosting.gbdt import stack_trees
+    from lightgbm_tpu_torch.ops import predict as pr
+    models = list(g.models) * PREDICT_TILE
+    trees = stack_trees(models, g.device, g.feature_is_categorical())
+    depth = max(m.max_depth for m in models)
+    b = torch.from_numpy(g.bin_matrix(Xv)).to(g.device)
+    nan = g._pred_nan_arr
+
+    def batched(tbatch=16):
+        scores = torch.zeros((1, len(b)), dtype=torch.float32,
+                             device=g.device)
+        rows = pr._CHUNK_ELEMS // tbatch
+        for r0 in range(0, len(b), rows):
+            part, acc = b[r0:r0 + rows], scores[:, r0:r0 + rows]
+            for t0 in range(0, trees.num_trees, tbatch):
+                sub = trees.slice(t0, t0 + tbatch)
+                leaf = pr.predict_leaf_batched(part, sub, nan, depth)
+                acc += sub.leaf_value.gather(1, leaf).sum(dim=0)[None, :]
+        return scores
+
+    def adds():
+        return pr.predict_raw_batched(b, trees, nan, depth)
+    out = {"trees": len(models), "rows": len(b), "batched_ms": [],
+           "adds_ms": []}
+    for name, fn in (("batched", batched), ("adds", adds), ("adds", adds),
+                     ("batched", batched)):
+        out[f"{name}_ms"].append(time_ms(fn, reps=3, warm=1))
+    out["max_abs_diff"] = float((adds() - batched()).abs().max())
+    check(out["max_abs_diff"] <= 1e-5 * len(models), "tree-by-tree adds "
+          "against the batched sum")
+    return out
+
+
+def phase_predict_api(lgt, results):
+    """PREDICT_API on MAIN's booster (10.5M x 28 rows, 255 leaves, 1 + 5
+    rounds and the profiled one): pred_contrib on 131,072 validation rows
+    through the TreeSHAP kernel (wall s, device ms and launches, profiled
+    launches equal to the wrapper's count, contributions summing to the raw
+    score), the kernel
+    against its plain version (4,096 rows, 1e-12 of each cell's |value| plus
+    its bound on |addends|; and pred_contrib's output against the plain
+    version timed at 131,072 rows), the card against the CPU (1,024 rows);
+    pred_leaf on every validation row (leaf values summed equal the raw
+    score; equal to the CPU's on a sample); ``time_tree_adds``;
+    pred_early_stop at margins 1.5 and 0.25, freq 2 (the share
+    of rows stopped, each row's score equal to the window it stopped at,
+    equal to the CPU's; margin 1e9 equal to the plain prediction); refit
+    on the validation rows with decay 0.9 against the CPU's refit (leaf
+    values within 1e-6)."""
+    from lightgbm_tpu_torch import _kernels
+    from lightgbm_tpu_torch.ops import treeshap_device as ts
+    bst = results.pop("main_booster")
+    X, y, _, n_val = results["higgs"]
+    Xv, yv = X[-n_val:], y[-n_val:]
+    Xp = Xv[:PREDICT_ROWS]
+    g = bst._gbdt
+    k, f = g.num_class, Xp.shape[1]
+    cpu = cpu_twin(bst)
+    out = {"trees": bst.num_trees(), "rows": len(Xp)}
+    raw = bst.predict(Xp, raw_score=True)
+
+    # pred_contrib through the kernel: the phase's main path
+    _kernels.reset_counts()
+    t0 = time.perf_counter()
+    phi = bst.predict(Xp, pred_contrib=True)
+    out["contrib_wall_s"] = time.perf_counter() - t0
+    out["launches"] = _kernels.LAUNCHES["treeshap"]
+    check(out["launches"] > 0, "pred_contrib did not launch the TreeSHAP "
+          "kernel")
+    check(_kernels.PLAIN_CALLS["treeshap"] == 0,
+          "pred_contrib ran the plain TreeSHAP on the card")
+    check(phi.shape == (len(Xp), k * (f + 1)) and np.isfinite(phi).all(),
+          f"pred_contrib gave {phi.shape}")
+    out["sum_max_abs_err"] = float(np.abs(phi.sum(1) - raw).max())
+    check(out["sum_max_abs_err"] <= 1e-4, "contributions do not sum to the "
+          f"raw score: {out['sum_max_abs_err']}")
+
+    # the kernel on the window's tables: timed, profiled, against its plain
+    # version and the CPU
+    paths = ts.build_shap_paths(g.models, g._pred_nan_arr.cpu().numpy(),
+                                g.feature_is_categorical(), g.device)
+    out["deepest_path"] = int(paths.path_len.max())
+    out["longest_ulen"] = int(paths.ulen.max())
+    b = torch.from_numpy(g.bin_matrix(Xp)).to(g.device)
+    out["kernel_ms"] = time_ms(lambda: ts.tree_shap(b, paths, k), reps=5,
+                               warm=1)
+    dev_ms, traced, counted = profile_contrib(bst, Xp)
+    out.update(profiled_device_ms=dev_ms, profiled_launches=traced,
+               counted_launches=counted)
+    bs = b[:PREDICT_PLAIN_ROWS]
+    scale = float(paths.leaf_value.abs().sum() + paths.ev.abs().sum())
+    kern = ts.tree_shap(bs, paths, k)
+    plain = ts.tree_shap_plain(bs, paths, k)
+    err = (kern - plain).abs()
+    out["max_abs_err"] = float(err.max())
+    out["max_rel_err"] = float((err / (plain.abs() + scale)).max())
+    check(out["max_rel_err"] <= 1e-12, "TreeSHAP kernel against its plain "
+          f"version: {out['max_rel_err']}")
+    out["kernel_4096_ms"] = time_ms(lambda: ts.tree_shap(bs, paths, k),
+                                    reps=5, warm=1)
+    out["plain_4096_ms"] = time_ms(lambda: ts.tree_shap_plain(bs, paths, k),
+                                   reps=1, warm=0)
+    # the plain version on all the main path's rows, held against what
+    # pred_contrib returned
+    runs = []
+    out["plain_ms"] = time_ms(
+        lambda: runs.append(ts.tree_shap_plain(b, paths, k)), reps=1, warm=0)
+    plain_full = runs[0].reshape(len(Xp), -1).cpu().numpy()
+    ferr = np.abs(phi - plain_full)
+    out["full_max_abs_err"] = float(ferr.max())
+    out["full_max_rel_err"] = float(
+        (ferr / (np.abs(plain_full) + scale)).max())
+    check(out["full_max_rel_err"] <= 1e-12, "pred_contrib against the plain "
+          f"TreeSHAP at {len(Xp)} rows: {out['full_max_rel_err']}")
+    t0 = time.perf_counter()
+    cpu_phi = cpu.predict(Xp[:PREDICT_CPU_ROWS], pred_contrib=True)
+    out["cpu_contrib_s"] = time.perf_counter() - t0
+    cerr = np.abs(phi[:PREDICT_CPU_ROWS] - cpu_phi)
+    out["cpu_max_abs_err"] = float(cerr.max())
+    out["cpu_max_rel_err"] = float((cerr / (np.abs(cpu_phi) + scale)).max())
+    check(out["cpu_max_rel_err"] <= 1e-12, "pred_contrib card against CPU: "
+          f"{out['cpu_max_rel_err']}")
+    nbytes = (b.numel() + len(Xp) * k * (f + 1) * 8
+              + sum(t.numel() * t.element_size() for t in paths
+                    if torch.is_tensor(t)))
+    ops = ts.shap_ops(paths, len(Xp))
+    out.update(bytes=nbytes, fp64_ops=ops,
+               bytes_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+               ops_ms=1e3 * ops / FP64_OPS_PER_S)
+    out["bound_ms"] = max(out["bytes_ms"], out["ops_ms"])
+    out["bound_by"] = ("operations" if out["ops_ms"] >= out["bytes_ms"]
+                       else "bytes")
+
+    # pred_leaf on every validation row
+    t0 = time.perf_counter()
+    leaves = bst.predict(Xv, pred_leaf=True)
+    out["leaf_wall_s"] = time.perf_counter() - t0
+    check(leaves.shape == (n_val, bst.num_trees())
+          and leaves.dtype == np.int32, f"pred_leaf gave {leaves.shape}")
+    check(np.array_equal(leaves[:PREDICT_SAMPLE],
+                         cpu.predict(Xv[:PREDICT_SAMPLE], pred_leaf=True)),
+          "pred_leaf card against CPU")
+    full = bst.predict(Xv, raw_score=True)
+    by_leaf = np.zeros(n_val)
+    for i, m in enumerate(g.models):
+        by_leaf += np.asarray(m.leaf_value, np.float64)[leaves[:, i]]
+    out["leaf_sum_max_abs_err"] = float(np.abs(by_leaf - full).max())
+    check(out["leaf_sum_max_abs_err"] <= 1e-5, "leaf values summed against "
+          f"raw_score: {out['leaf_sum_max_abs_err']}")
+    out["adds"] = time_tree_adds(g, Xv)
+
+    # early stopping with freq 2: a check after every second iteration
+    # (one after the last changes nothing); margin 1.5 (few rows are that
+    # sure after a few trees at learning rate 0.1) and 0.25. Each row's
+    # score is that of the window it stopped at, bit for bit
+    checks = list(range(2, bst.current_iteration(), 2))
+    windows = [bst.predict(Xv, raw_score=True, num_iteration=c)
+               for c in checks]
+    for margin in (1.5, 0.25):
+        stop = dict(pred_early_stop=True, pred_early_stop_margin=margin,
+                    pred_early_stop_freq=2)
+        t0 = time.perf_counter()
+        early = bst.predict(Xv, raw_score=True, **stop)
+        wall = time.perf_counter() - t0
+        want, going = full.copy(), np.ones(n_val, bool)
+        for at in windows:
+            hit = going & (2 * np.abs(at) > margin)
+            want[hit] = at[hit]
+            going &= ~hit
+        bad = np.nonzero(early != want)[0]
+        out[f"early_stop_{margin}"] = {
+            "wall_s": wall, "share_stopped": float(1.0 - going.mean()),
+            "rows_differing": int(len(bad)),
+            "max_abs_diff": float(np.abs(early - want).max())}
+        check(len(bad) == 0, "early-stopped scores against the windows they "
+              f"stopped at (margin {margin}): rows {bad[:4].tolist()}")
+    check(out["early_stop_0.25"]["share_stopped"] > 0,
+          "no row stopped at margin 0.25")
+    stop = dict(pred_early_stop=True, pred_early_stop_margin=1.5,
+                pred_early_stop_freq=2)
+    cpu_early = cpu.predict(Xv[:PREDICT_SAMPLE], raw_score=True, **stop)
+    out["early_stop_cpu_max_abs_err"] = float(np.abs(bst.predict(
+        Xv[:PREDICT_SAMPLE], raw_score=True, **stop) - cpu_early).max())
+    check(out["early_stop_cpu_max_abs_err"] <= 1e-6, "early stopping card "
+          "against CPU")
+    check(np.array_equal(bst.predict(
+        Xv, raw_score=True, **dict(stop, pred_early_stop_margin=1e9)), full),
+        "margin 1e9 against the plain prediction")
+
+    # refit on the validation rows
+    t0 = time.perf_counter()
+    refit = bst.refit(Xv, yv, decay_rate=0.9)
+    out["refit_wall_s"] = time.perf_counter() - t0
+    cpu_refit = cpu.refit(Xv, yv, decay_rate=0.9)
+    # the gradients are f32 on each device (their exp and sigmoid part by
+    # ulps), and a leaf's sum of them cancels: held absolute, the leaves
+    # moving by about 1e-2
+    diff = [np.abs(a.leaf_value - c.leaf_value) for a, c in
+            zip(refit._gbdt.models, cpu_refit._gbdt.models)]
+    out["refit_max_abs_diff"] = max(float(d.max()) for d in diff)
+    out["refit_max_rel_diff"] = max(
+        float((d / np.maximum(np.abs(c.leaf_value), 1e-12)).max())
+        for d, c in zip(diff, cpu_refit._gbdt.models))
+    check(out["refit_max_abs_diff"] <= 1e-6, "refit card against CPU: "
+          f"{out['refit_max_abs_diff']}")
+    moved = max(float(np.abs(a.leaf_value - np.asarray(m.leaf_value)).max())
+                for a, m in zip(refit._gbdt.models, g.models))
+    out["refit_max_leaf_move"] = moved
+    check(moved > 0, "refit moved no leaf")
+    print("PREDICT_API", json.dumps(out), flush=True)
+    results["predict_api"] = out
 
 
 QUANT_ROUNDS = 2                 # timed rounds after one warm-up round
@@ -1807,14 +2096,16 @@ KERNEL_FUNCTIONS = {"histogram": ("hist_kernel",),
                                     "copyback_kernel"),
                     "histogram_sublane": ("hist_sublane_kernel",
                                           "hist_sublane_small_kernel"),
-                    "monotone_walk": ("monotone_walk_kernel",)}
+                    "monotone_walk": ("monotone_walk_kernel",),
+                    "treeshap": ("treeshap_kernel",)}
 # of those, the ones of which exactly one runs for each launch a wrapper
 # counts (K2's partition does not run for the root's histogram, mode 1)
 ENTRY_FUNCTIONS = {"histogram": ("hist_kernel",),
                    "fused_split": ("prep_kernel",),
                    "histogram_sublane": ("hist_sublane_kernel",
                                          "hist_sublane_small_kernel"),
-                   "monotone_walk": ("monotone_walk_kernel",)}
+                   "monotone_walk": ("monotone_walk_kernel",),
+                   "treeshap": ("treeshap_kernel",)}
 
 
 # the device function of a kernel mode that has its own instantiation (the
@@ -4115,6 +4406,7 @@ def main() -> int:
               ("k3", lambda: phase_kernels_k3(args.rows, results)),
               ("main", lambda: phase_main_path(lgt, args.rows, args.rounds,
                                                results)),
+              ("predict_api", lambda: phase_predict_api(lgt, results)),
               ("quant", lambda: phase_quant(lgt, results)),
               ("renew", lambda: phase_renew(lgt, results)),
               ("tuned", lambda: phase_tuned(lgt, results)),
@@ -4171,6 +4463,7 @@ def main() -> int:
     rf = results["rf"]
     rf_tree = rf["profile"]["kernels"]
     a14c = results["a14c_checks"]["cpu_vs_card"]
+    pa = results["predict_api"]
 
     def a14c_path(kern):
         """A kernel on the DART (compact) and RF (masked) paths: its
@@ -4375,6 +4668,22 @@ def main() -> int:
          "launches_a_tree": cn["walk_launches_a_tree"],
          "tree_device_ms": cn["walk_device_ms_a_tree"],
          "rescan_device_ms_a_tree": cn["rescan_device_ms_a_tree"]},
+        # pred_contrib's exact TreeSHAP: no Pallas kernel, the JAX
+        # package's XLA program (and its host recursion, ops/treeshap.py)
+        {"name": "treeshap", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/treeshap.cu",
+         "replaces": "lightgbm_tpu/ops/treeshap_device.py:248",
+         "launches": pa["launches"], "max_abs_err": pa["max_abs_err"],
+         "ms": pa["kernel_ms"], "plain_ms": pa["plain_ms"],
+         "bound_ms": pa["bound_ms"], "bound_by": pa["bound_by"],
+         "library_ms": None, "rows": pa["rows"],
+         "max_rel_err": pa["max_rel_err"],
+         "full_max_abs_err": pa["full_max_abs_err"],
+         "profiled_device_ms": pa["profiled_device_ms"],
+         "kernel_4096_ms": pa["kernel_4096_ms"],
+         "plain_4096_ms": pa["plain_4096_ms"],
+         "deepest_path": pa["deepest_path"],
+         "longest_ulen": pa["longest_ulen"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -57,6 +57,10 @@ KERNELS = {
         "lgbt_monotone_walk": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P,
                                _P, _P, _P, _P, _P, _I, _I, _P],
     }),
+    # binned rows, 8 shapes, 16 path tables, output and 3 scratch arrays
+    "treeshap": ("treeshap.cu", {
+        "lgbt_treeshap": [_P, _L, _L] + [_I] * 8 + [_P] * 21,
+    }),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -4,19 +4,22 @@ Counterpart of ``lightgbm_tpu/basic.py`` (reference:
 python-package/lightgbm/basic.py): a lazily constructed ``Dataset`` and a
 ``Booster`` with ``update`` (``fobj``: a custom objective),
 ``rollback_one_iter``, ``reset_parameter``, ``predict``,
-``eval_train``/``eval_valid`` (``feval``: custom metrics),
+``eval_train``/``eval_valid`` (``feval``: custom metrics), ``refit``,
 ``current_iteration``, ``feature_importance`` and model text
 (``save_model``, ``model_to_string``, ``dump_model``;
 ``Booster(model_file=...)`` / ``Booster(model_str=...)`` loads text written
 by the port, the JAX package or stock LightGBM, and predicts on the host,
 see ``model_io.py``). A Booster continued from a loaded model
 (``train(init_model=...)``) keeps the loaded trees, which predict on the
-host and are written first in its model text. The device comes from the
+host and are written first in its model text. ``predict`` also gives leaf
+indices (``pred_leaf``), TreeSHAP contributions (``pred_contrib``: on the
+device for the booster's own trees, on the host for loaded ones) and early
+stopped classification scores (``pred_early_stop``). The device comes from the
 ``device_type`` parameter (default ``cuda``; ``cpu`` runs the plain PyTorch
 versions of the kernels) and is never chosen silently: ``cuda`` without a
 visible card raises.
 
-Not here yet: ``cv``, refit, sklearn and the CLI (ROADMAP A10, A16).
+Not here yet: ``cv``, sklearn and the CLI (ROADMAP A16).
 """
 from __future__ import annotations
 
@@ -27,10 +30,10 @@ import numpy as np
 import torch
 
 from .config import Config, alias_table, resolve_device
-from .io.dataset import BinnedDataset
+from .io.dataset import BinnedDataset, Metadata
 from .metrics import create_metrics
-from .model_io import (booster_to_dict, booster_to_string, load_booster,
-                       merge_model_texts)
+from .model_io import (LoadedGBDT, booster_to_dict, booster_to_string,
+                       load_booster, merge_model_texts)
 from .objectives import create_objective
 
 _DATASET_PARAM_KEYS = ("max_bin", "min_data_in_bin", "bin_construct_sample_cnt",
@@ -39,6 +42,9 @@ _DATASET_PARAM_KEYS = ("max_bin", "min_data_in_bin", "bin_construct_sample_cnt",
                        "max_conflict_rate", "categorical_feature",
                        "forcedbins_filename", "tpu_bin_pack4",
                        "linear_tree")
+# the keyword arguments of Booster.predict beside its named ones
+_EARLY_STOP_KEYS = ("pred_early_stop", "pred_early_stop_margin",
+                    "pred_early_stop_freq")
 
 
 def _maybe_series(x):
@@ -361,30 +367,127 @@ class Booster:
         """Predictions ``[N]``, or ``[N, K]`` for a model of K classes:
         the objective's output (probabilities for the classifiers), or raw
         scores with ``raw_score`` (reference: Booster.predict,
-        basic.py:4701)."""
-        if pred_leaf or pred_contrib or kwargs:
+        ``lightgbm_tpu/basic.py:822-866``). ``pred_leaf``: leaf indices
+        ``[N, T]`` int32 of the window's trees; ``pred_contrib``: TreeSHAP
+        contributions ``[N, K*(F+1)]`` float64, each class's bias last.
+        ``pred_early_stop``, ``pred_early_stop_margin`` and
+        ``pred_early_stop_freq`` override the parameters of the same
+        names."""
+        unknown = sorted(set(kwargs) - set(_EARLY_STOP_KEYS))
+        if unknown:
             raise NotImplementedError(
-                "pred_leaf, pred_contrib and prediction early stopping are "
-                "not in the PyTorch port yet (ROADMAP A10, A17)")
+                f"predict arguments {unknown} are not in the PyTorch port "
+                "yet (ROADMAP A16)")
         start_iteration, num_iteration = self._predict_window(
             start_iteration, num_iteration)
         arr = np.asarray(_maybe_series(data))
         (pre, pre_start, pre_cut, own_start, own_cut, pre_empty,
          own_empty) = self._global_tree_window(start_iteration,
                                                num_iteration)
-        raw = (self._gbdt.predict_raw_matrix(arr, own_cut, own_start)
+        gbdt = self._gbdt
+        if pred_leaf or pred_contrib:
+            arr = np.atleast_2d(arr)
+            method = ("predict_leaf_matrix" if pred_leaf
+                      else "predict_contrib_matrix")
+            parts = []
+            if not pre_empty:
+                parts.append(getattr(pre, method)(arr, pre_cut, pre_start))
+            if not own_empty:
+                parts.append(getattr(gbdt, method)(arr, own_cut, own_start))
+            if pred_leaf:
+                # the loaded base's trees, then the booster's own
+                return (np.concatenate(parts, axis=1) if parts
+                        else np.zeros((arr.shape[0], 0), np.int32))
+            # contributions add over trees
+            return (sum(parts) if parts else np.zeros(
+                (arr.shape[0], gbdt.num_class * (arr.shape[1] + 1))))
+        raw = (gbdt.predict_raw_matrix(arr, own_cut, own_start,
+                                       self._predict_early_stop(kwargs))
                if not own_empty else None)
         if not pre_empty:
             pre_raw = pre.predict_raw_matrix(arr, pre_cut, pre_start)
             raw = pre_raw if raw is None else raw + pre_raw
         if raw is None:
-            raw = np.zeros((self._gbdt.num_class,
-                            np.atleast_2d(arr).shape[0]), np.float32)
+            raw = np.zeros((gbdt.num_class, np.atleast_2d(arr).shape[0]),
+                           np.float32)
         raw = raw[0] if raw.shape[0] == 1 else raw.T
-        objective = self._gbdt.objective
+        objective = gbdt.objective
         if raw_score or objective is None:
             return raw
         return np.asarray(objective.convert_output(raw))
+
+    def _predict_early_stop(self, kwargs):
+        """``(margin, freq)`` of prediction early stopping, or None
+        (reference: ``_predict_early_stop``, ``lightgbm_tpu/basic.py:
+        952-970``): keyword arguments over parameters, and only for a
+        binary objective or K > 1 trees an iteration, as LightGBM's
+        predictor does."""
+        cfg = self.config
+        if not kwargs.get("pred_early_stop", cfg.pred_early_stop):
+            return None
+        gbdt = self._gbdt
+        name = getattr(gbdt.objective, "name", "")
+        if name != "binary" and gbdt.num_class <= 1:
+            return None
+        return (float(kwargs.get("pred_early_stop_margin",
+                                 cfg.pred_early_stop_margin)),
+                int(kwargs.get("pred_early_stop_freq",
+                               cfg.pred_early_stop_freq)))
+
+    def refit(self, data, label, decay_rate: Optional[float] = None,
+              weight=None, **kwargs) -> "Booster":
+        """A new Booster with this model's trees and leaf values re-fit on
+        ``data`` (reference: ``Booster.refit``, ``lightgbm_tpu/basic.py:
+        524-571``; GBDT::RefitTree): gradients once an iteration, from the
+        running f32 score, on the booster's device; each tree routes the
+        rows on their raw values on the host; the leaf sums in float64 give
+        ``decay * old + (1 - decay) * shrinkage * -ThL1(G) / (H + l2)``.
+        ``decay_rate`` defaults to the ``refit_decay_rate`` parameter."""
+        if kwargs:
+            raise TypeError(
+                f"refit got unsupported arguments: {sorted(kwargs)}")
+        cfg = self.config
+        if decay_rate is None:
+            decay_rate = float(cfg.refit_decay_rate)
+        lam1 = float(cfg.get("lambda_l1", 0.0))
+        lam2 = float(cfg.get("lambda_l2", 0.0))
+        loaded = LoadedGBDT(self.model_to_string())
+        obj = loaded.objective
+        if obj is None:
+            raise ValueError("refit requires a model with a known objective")
+        device = self.device or resolve_device(cfg)
+        X = np.asarray(_maybe_series(data), np.float64)
+        y = np.asarray(_maybe_series(label), np.float64)
+        md = Metadata(len(y))
+        md.set_label(y)
+        md.set_weight(_maybe_series(weight))
+        obj.init(md, len(y))
+        label_t = torch.from_numpy(md.label).to(device)
+        weight_t = (None if obj.weight is None else torch.from_numpy(
+            np.asarray(obj.weight, np.float32)).to(device))
+        k = loaded.num_class
+        score = np.zeros((k, len(y)), np.float64)
+        for it in range(len(loaded.models) // k):
+            # gradients once an iteration (reference: gbdt.cpp:279-281)
+            sc = torch.from_numpy(score.astype(np.float32)).to(device)
+            if not obj.row_elementwise:
+                g, h = obj.get_gradients(sc[0])
+            else:
+                g, h = obj.get_gradients(sc[0] if k == 1 else sc, label_t,
+                                         weight_t)
+            g = g.reshape(k, -1).cpu().numpy().astype(np.float64)
+            h = h.reshape(k, -1).cpu().numpy().astype(np.float64)
+            for cls in range(k):
+                t = loaded.models[it * k + cls]
+                leaf = t.route(X)
+                gs = np.bincount(leaf, weights=g[cls], minlength=t.num_leaves)
+                hs = np.bincount(leaf, weights=h[cls], minlength=t.num_leaves)
+                thr = np.sign(gs) * np.maximum(np.abs(gs) - lam1, 0.0)
+                new_val = -thr / (hs + lam2 + 1e-15) * t.shrinkage
+                t.leaf_value = (decay_rate * t.leaf_value
+                                + (1.0 - decay_rate) * new_val)
+                score[cls] += t.leaf_value[leaf]
+        return Booster(model_str=loaded.to_string())
 
     def _predict_window(self, start_iteration: int,
                         num_iteration: Optional[int]):

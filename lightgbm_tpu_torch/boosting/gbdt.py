@@ -1700,32 +1700,53 @@ class GBDT:
         ``boosting/gbdt.py:3183-3193``)."""
         return max(len(models) // max(self.num_class, 1), 1)
 
-    def predict_raw_binned(self, binned: np.ndarray,
-                           num_iteration: Optional[int] = None,
-                           start_iteration: int = 0) -> np.ndarray:
-        """Raw scores [K, N] for already-binned rows."""
+    def _stacked_window(self, num_iteration: Optional[int],
+                        start_iteration: int):
+        """``(models, trees, depth)``: the window's host trees, stacked on
+        the device, and their deepest leaf (``trees`` None and ``depth`` 0
+        for an empty window)."""
         models = self._model_window(num_iteration, start_iteration)
-        n = binned.shape[0]
         if not models:
-            return np.zeros((self.num_class, n), np.float32)
+            return models, None, 0
         trees = stack_trees(models, self.device,
                             self.feature_is_categorical())
-        depth = max(m.max_depth for m in models)
+        return models, trees, max(m.max_depth for m in models)
+
+    def predict_raw_binned(self, binned: np.ndarray,
+                           num_iteration: Optional[int] = None,
+                           start_iteration: int = 0,
+                           early_stop=None) -> np.ndarray:
+        """Raw scores [K, N] for already-binned rows. ``early_stop`` is an
+        optional ``(margin, freq)`` pair (reference:
+        ``lightgbm_tpu/boosting/gbdt.py:3195-3232``): a model with
+        ``average_output`` checks the margin on its sums before dividing,
+        as the reference does."""
+        models, trees, depth = self._stacked_window(num_iteration,
+                                                    start_iteration)
+        if not models:
+            return np.zeros((self.num_class, binned.shape[0]), np.float32)
+        margin, freq = early_stop if early_stop else (0.0, 0)
         b = torch.from_numpy(np.ascontiguousarray(binned)).to(self.device)
-        raw = predict_raw_batched(b, trees, self._pred_nan_arr, depth,
-                                  num_class=self.num_class).cpu().numpy()
+        raw = predict_raw_batched(
+            b, trees, self._pred_nan_arr, depth, num_class=self.num_class,
+            early_stop_margin=float(margin),
+            early_stop_freq=int(freq)).cpu().numpy()
         if self.average_output:
             raw = raw / self._average_divisor(models)
         return raw
 
     def predict_raw_matrix(self, arr: np.ndarray,
                            num_iteration: Optional[int] = None,
-                           start_iteration: int = 0) -> np.ndarray:
+                           start_iteration: int = 0,
+                           early_stop=None) -> np.ndarray:
         if not self._linear:
             return self.predict_raw_binned(self.bin_matrix(arr),
-                                           num_iteration, start_iteration)
+                                           num_iteration, start_iteration,
+                                           early_stop)
         # linear leaves: each row's leaf by the walk, then leaf_const +
         # x . coeff on its raw values (reference: boosting/gbdt.py:3529-3549)
+        if early_stop is not None:
+            log.warning("pred_early_stop is ignored with linear_tree models")
         arr = np.asarray(arr, np.float64)
         if arr.ndim == 1:
             arr = arr.reshape(1, -1)
@@ -1734,12 +1755,46 @@ class GBDT:
         out = np.zeros((k, arr.shape[0]), np.float64)
         if not models:
             return out.astype(np.float32)
-        trees = stack_trees(models, self.device,
-                            self.feature_is_categorical())
-        b = torch.from_numpy(self.bin_matrix(arr)).to(self.device)
-        leaves = predict_leaf_batched(
-            b, trees, self._pred_nan_arr,
-            max(m.max_depth for m in models)).cpu().numpy()
+        leaves = self.predict_leaf_matrix(arr, num_iteration,
+                                          start_iteration)
         for i, m in enumerate(models):
-            out[i % k] += linear_leaf_outputs(m, arr, leaves[i])
+            out[i % k] += linear_leaf_outputs(m, arr, leaves[:, i])
         return out.astype(np.float32)
+
+    def predict_leaf_matrix(self, arr: np.ndarray,
+                            num_iteration: Optional[int] = None,
+                            start_iteration: int = 0) -> np.ndarray:
+        """Leaf indices ``[N, T]`` int32 of the window's trees, by the
+        depth-batched walk (reference: ``lightgbm_tpu/boosting/gbdt.py:
+        3552-3589``)."""
+        binned = self.bin_matrix(arr)
+        models, trees, depth = self._stacked_window(num_iteration,
+                                                    start_iteration)
+        if not models:
+            return np.zeros((binned.shape[0], 0), np.int32)
+        b = torch.from_numpy(binned).to(self.device)
+        leaves = predict_leaf_batched(b, trees, self._pred_nan_arr, depth)
+        return leaves.to(torch.int32).T.cpu().numpy()
+
+    def predict_contrib_matrix(self, arr: np.ndarray,
+                               num_iteration: Optional[int] = None,
+                               start_iteration: int = 0) -> np.ndarray:
+        """Exact TreeSHAP contributions ``[N, K*(F+1)]`` float64, each
+        class's bias last (reference: ``_predict_contrib``,
+        ``lightgbm_tpu/basic.py:1225-1276``): rows binned with the training
+        mappers and routed per original feature (under EFB too), the
+        window's paths built once on the host, then the TreeSHAP op on the
+        device (``ops/treeshap_device.py``; the kernel on a card). Linear
+        trees attribute their constant leaf values, as the reference does;
+        a model with ``average_output`` is not divided, as there."""
+        from ..ops.treeshap_device import build_shap_paths, tree_shap
+        binned = self.bin_matrix(arr)
+        n, f = binned.shape
+        k = self.num_class
+        models = self._model_window(num_iteration, start_iteration)
+        if not models:
+            return np.zeros((n, k * (f + 1)), np.float64)
+        paths = build_shap_paths(models, self._pred_nan_arr.cpu().numpy(),
+                                 self.feature_is_categorical(), self.device)
+        b = torch.from_numpy(binned).to(self.device)
+        return tree_shap(b, paths, k).reshape(n, k * (f + 1)).cpu().numpy()

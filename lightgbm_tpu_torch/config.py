@@ -145,11 +145,15 @@ PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...]]] = {
         "ndcg_eval_at", "ndcg_at", "map_eval_at", "map_at")),
     "multi_error_top_k": (1, int, ()),
     "auc_mu_weights": (None, object, ()),
-    # prediction: the default iteration window of Booster.predict;
-    # pred_early_stop is read to be refused (ROADMAP A10)
+    # prediction: the default iteration window of Booster.predict, and its
+    # early stopping (reference: config.h predict section)
     "start_iteration_predict": (0, int, ()),
     "num_iteration_predict": (-1, int, ()),
     "pred_early_stop": (False, bool, ()),
+    "pred_early_stop_freq": (10, int, ()),
+    "pred_early_stop_margin": (10.0, float, ()),
+    # Booster.refit's default decay (reference: config.h refit_decay_rate)
+    "refit_decay_rate": (0.9, float, ()),
     # model snapshots, read to be refused (ROADMAP A16)
     "snapshot_freq": (-1, int, ("save_period",)),
     # grower selection knobs shared with the JAX package
@@ -165,10 +169,6 @@ PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...]]] = {
 # aliases, ROADMAP item). Set away from the default, each raises at
 # check_supported.
 REFUSED_PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...], str]] = {
-    # prediction early stopping and refit (Booster.predict, Booster.refit)
-    "pred_early_stop_freq": (10, int, (), "A10"),
-    "pred_early_stop_margin": (10.0, float, (), "A10"),
-    "refit_decay_rate": (0.9, float, (), "A8"),
     # distributed learners
     "top_k": (20, int, ("topk",), "A18"),
     "pre_partition": (False, bool, ("is_pre_partition",), "A18"),
@@ -469,7 +469,6 @@ class Config:
             need(str(self.tree_learner).lower() != "serial",
                  f"tree_learner={self.tree_learner!r}", "A18")
             need(self.num_machines > 1, "num_machines>1", "A18")
-            need(self.pred_early_stop, "pred_early_stop", "A10")
             need(self.snapshot_freq > 0, "snapshot_freq", "A16")
             # the CUDA histograms add f32 atomics in no fixed order
             need(self.deterministic, "deterministic histograms", "B1/B2")

@@ -15,7 +15,9 @@ A categorical split's text holds a bitset of category VALUES
 bins: writing maps each set bin through the mapper's bin-to-category table
 (``_bitset_cats``). A loaded model predicts on the host in float64 numpy
 (``LoadedGBDT.predict_raw_matrix``), as the JAX package's loaded models do:
-the text holds raw-value thresholds and category values, not bins. A
+the text holds raw-value thresholds and category values, not bins; its
+leaf indices and TreeSHAP contributions (``ops/treeshap.py``) route the
+same way, and ``to_string`` writes its (refit) leaf values back. A
 continued model's text is the loaded model's tree blocks, then the new
 ones, under the new model's header and footer (``merge_model_texts``).
 Linear trees carry their block (``is_linear=1``, ``leaf_const``,
@@ -34,6 +36,7 @@ from .boosting.linear import linear_leaf_outputs
 from .config import Config
 from .io.binning import MISSING_NAN
 from .objectives import create_objective
+from .utils import log
 
 _MISSING_NAMES = {0: "None", 1: "Zero", 2: "NaN"}
 
@@ -261,14 +264,49 @@ def booster_to_dict(booster, num_iteration: Optional[int] = None
 class LoadedTree:
     __slots__ = ("num_leaves", "num_nodes", "split_feature", "split_gain",
                  "threshold", "decision_type", "left_child", "right_child",
-                 "leaf_value", "cat_boundaries", "cat_threshold",
+                 "leaf_value", "leaf_count", "internal_count", "shrinkage",
+                 "cat_boundaries", "cat_threshold",
                  "is_linear", "leaf_const", "leaf_features", "leaf_coeff")
 
-    def route(self, x: np.ndarray) -> np.ndarray:
-        """Leaf index per row of raw float64 values, node by node
+    def _node_go_left(self, k: int, v: np.ndarray) -> np.ndarray:
+        """Node ``k``'s decision for raw float64 values ``v`` of its feature
         (reference semantics: Tree::NumericalDecision, tree.h:334-351, and
         Tree::CategoricalDecision: a value's integer part goes left when its
         bit is set; NaN and negative values go right)."""
+        dt = int(self.decision_type[k])
+        if dt & 1:
+            ci = int(self.threshold[k])
+            words = self.cat_threshold[self.cat_boundaries[ci]:
+                                       self.cat_boundaries[ci + 1]]
+            iv = np.where(np.isfinite(v), v, -1).astype(np.int64)
+            ok = (iv >= 0) & (iv < 32 * len(words))
+            go_left = np.zeros(len(iv), bool)
+            idx = iv[ok]
+            go_left[ok] = (words[idx // 32] >> (idx % 32)) & 1 > 0
+            return go_left
+        missing_type = (dt >> 2) & 3
+        isnan = np.isnan(v)
+        if missing_type != 2:
+            v = np.where(isnan, 0.0, v)
+        if missing_type == 1:
+            miss = np.abs(v) <= 1e-35
+        elif missing_type == 2:
+            miss = isnan
+        else:
+            miss = np.zeros(len(v), bool)
+        return np.where(miss, bool(dt & 2), v <= self.threshold[k])
+
+    def go_left(self, x: np.ndarray) -> np.ndarray:
+        """``[N, num_nodes]`` bool: every node's decision for every row of
+        raw float64 values (TreeSHAP follows each row's path and prices
+        the other branches)."""
+        out = np.zeros((x.shape[0], self.num_nodes), bool)
+        for k in range(self.num_nodes):
+            out[:, k] = self._node_go_left(k, x[:, self.split_feature[k]])
+        return out
+
+    def route(self, x: np.ndarray) -> np.ndarray:
+        """Leaf index per row of raw float64 values, node by node."""
         n = x.shape[0]
         cur = np.zeros(n, np.int64)
         if self.num_nodes == 0:
@@ -277,31 +315,7 @@ class LoadedTree:
             at = cur == k
             if not at.any():
                 continue
-            v = x[at, self.split_feature[k]]
-            dt = int(self.decision_type[k])
-            if dt & 1:
-                ci = int(self.threshold[k])
-                words = self.cat_threshold[self.cat_boundaries[ci]:
-                                           self.cat_boundaries[ci + 1]]
-                iv = np.where(np.isfinite(v), v, -1).astype(np.int64)
-                ok = (iv >= 0) & (iv < 32 * len(words))
-                go_left = np.zeros(len(iv), bool)
-                idx = iv[ok]
-                go_left[ok] = (words[idx // 32] >> (idx % 32)) & 1 > 0
-                cur[at] = np.where(go_left, self.left_child[k],
-                                   self.right_child[k])
-                continue
-            missing_type = (dt >> 2) & 3
-            isnan = np.isnan(v)
-            if missing_type != 2:
-                v = np.where(isnan, 0.0, v)
-            if missing_type == 1:
-                miss = np.abs(v) <= 1e-35
-            elif missing_type == 2:
-                miss = isnan
-            else:
-                miss = np.zeros(len(v), bool)
-            go_left = np.where(miss, bool(dt & 2), v <= self.threshold[k])
+            go_left = self._node_go_left(k, x[at, self.split_feature[k]])
             cur[at] = np.where(go_left, self.left_child[k],
                                self.right_child[k])
         return -(cur + 1)
@@ -390,6 +404,10 @@ class LoadedGBDT:
             t.left_child = _arr(d, "left_child", np.int32, nn)
             t.right_child = _arr(d, "right_child", np.int32, nn)
             t.leaf_value = _arr(d, "leaf_value", np.float64, t.num_leaves)
+            # TreeSHAP's covers and refit's shrinkage
+            t.leaf_count = _arr(d, "leaf_count", np.float64, t.num_leaves)
+            t.internal_count = _arr(d, "internal_count", np.float64, nn)
+            t.shrinkage = float(d.get("shrinkage", 1.0))
             self.models.append(t)
 
     def current_iteration(self) -> int:
@@ -398,21 +416,38 @@ class LoadedGBDT:
     def num_features(self) -> int:
         return self.max_feature_idx + 1
 
-    def predict_raw_matrix(self, arr: np.ndarray,
-                           num_iteration: Optional[int] = None,
-                           start_iteration: int = 0) -> np.ndarray:
-        """Raw scores ``[K, N]`` (float32) of raw feature rows: tree ``i``
-        adds to class ``i % K``."""
+    def _checked_rows(self, arr) -> np.ndarray:
         arr = np.asarray(arr, np.float64)
         if arr.ndim == 1:
             arr = arr.reshape(1, -1)
         if arr.shape[1] != self.num_features():
             raise ValueError(f"input has {arr.shape[1]} features, model "
                              f"expects {self.num_features()}")
+        return arr
+
+    def _model_window(self, num_iteration: Optional[int] = None,
+                     start_iteration: int = 0) -> List[LoadedTree]:
+        """The trees of an iteration window (None or <= 0: to the end)."""
         k = self.num_class
         models = self.models[max(start_iteration, 0) * k:]
         if num_iteration is not None and num_iteration > 0:
             models = models[:num_iteration * k]
+        return models
+
+    def predict_raw_matrix(self, arr: np.ndarray,
+                           num_iteration: Optional[int] = None,
+                           start_iteration: int = 0,
+                           early_stop=None) -> np.ndarray:
+        """Raw scores ``[K, N]`` (float32) of raw feature rows: tree ``i``
+        adds to class ``i % K``. ``early_stop`` is ignored with a warning,
+        as the reference does on its host path (``lightgbm_tpu/
+        model_io.py:574-580``)."""
+        if early_stop is not None:
+            log.warning("pred_early_stop is ignored for models loaded from "
+                        "file (host prediction path)")
+        arr = self._checked_rows(arr)
+        k = self.num_class
+        models = self._model_window(num_iteration, start_iteration)
         out = np.zeros((k, arr.shape[0]), np.float64)
         for i, t in enumerate(models):
             leaf = t.route(arr)
@@ -421,6 +456,35 @@ class LoadedGBDT:
         if self.average_output:
             out /= max(len(models) // k, 1)
         return out.astype(np.float32)
+
+    def predict_leaf_matrix(self, arr: np.ndarray,
+                            num_iteration: Optional[int] = None,
+                            start_iteration: int = 0) -> np.ndarray:
+        """Leaf indices ``[N, T]`` int32 of the window's trees (reference:
+        ``lightgbm_tpu/model_io.py:602-611``)."""
+        arr = self._checked_rows(arr)
+        models = self._model_window(num_iteration, start_iteration)
+        out = np.zeros((arr.shape[0], len(models)), np.int32)
+        for i, t in enumerate(models):
+            out[:, i] = t.route(arr)
+        return out
+
+    def predict_contrib_matrix(self, arr: np.ndarray,
+                               num_iteration: Optional[int] = None,
+                               start_iteration: int = 0) -> np.ndarray:
+        """TreeSHAP contributions ``[N, K*(F+1)]`` float64 on the host
+        (``ops/treeshap.py``), routed on raw values."""
+        from .ops.treeshap import loaded_booster_contrib
+        return loaded_booster_contrib(
+            self._model_window(num_iteration, start_iteration),
+            self._checked_rows(arr), self.num_class, self.num_features())
+
+    def to_string(self) -> str:
+        """The model's text with its current leaf values (a refit writes
+        its new ones here; reference: ``loaded_to_string``)."""
+        return _emit_loaded(self._header_lines, self._tree_chunks,
+                            self.models, self._footer_lines,
+                            self.feature_names)
 
     def feature_importance(self, importance_type: str = "split"
                            ) -> np.ndarray:

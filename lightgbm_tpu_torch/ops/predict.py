@@ -13,8 +13,13 @@ bit is set in the node's bitset (``_walk_chunk`` there; the predicate of
 in is exactly the one the training partition gave it, so scores match the
 JAX package's walk.
 
+Prediction early stopping (reference: prediction_early_stop.cpp, the JAX
+package's ``predict_raw_batched`` and ``early_stop_tbatch``): every ``freq``
+iterations from the window's start, a row whose margin (``2|score|`` with
+one class, top1 - top2 with K) exceeds ``margin`` stops adding trees.
+
 The serving engines of the JAX package (bucket ladders, the level-order
-relayout, quantized leaves, SHAP) are ROADMAP A10/A17.
+relayout, quantized leaves) are ROADMAP A17.
 """
 from __future__ import annotations
 
@@ -83,30 +88,74 @@ def predict_leaf_batched(binned: torch.Tensor, trees: StackedTrees,
     return -(cur + 1)
 
 
+def early_stop_tbatch(k: int, freq: int, tbatch: int) -> int:
+    """The largest tree batch, ``k * d`` with ``d`` a divisor of ``freq``
+    no larger than ``tbatch`` allows, whose boundaries land on every
+    multiple of ``freq`` iterations (reference: ``early_stop_tbatch``,
+    ``lightgbm_tpu/ops/predict.py:169-190``), so that the margin check runs
+    exactly where the reference's does."""
+    k = max(k, 1)
+    freq = max(freq, 1)
+    best = 1
+    f = 1
+    while f * f <= freq:
+        if freq % f == 0:
+            for d in (f, freq // f):
+                if k * d <= max(tbatch, k) and d > best:
+                    best = d
+        f += 1
+    return k * best
+
+
+def _margin(scores: torch.Tensor) -> torch.Tensor:
+    """The decided margin of ``[K, N]`` scores (reference: ``_margin_of``,
+    ``lightgbm_tpu/ops/predict.py:343-351``): ``2|score|`` for one class,
+    the top score minus the second for K."""
+    if scores.shape[0] == 1:
+        return 2.0 * scores[0].abs()
+    top = torch.topk(scores, 2, dim=0).values
+    return top[0] - top[1]
+
+
 def predict_raw_batched(binned: torch.Tensor, trees: StackedTrees,
                         nan_bin_arr: torch.Tensor, depth: int,
-                        tbatch: int = 16, num_class: int = 1
-                        ) -> torch.Tensor:
+                        tbatch: int = 16, num_class: int = 1,
+                        early_stop_margin: float = 0.0,
+                        early_stop_freq: int = 0) -> torch.Tensor:
     """Raw scores ``[K, N]`` f32 (K = ``num_class``): tree ``t``'s leaf
-    values summed into class ``t % K``, trees added ``tbatch`` at a
-    time."""
+    values added into class ``t % K`` one tree after another, trees walked
+    ``tbatch`` at a time.
+    With ``early_stop_freq > 0`` and ``early_stop_margin > 0`` a row stops
+    adding trees once its margin exceeds ``early_stop_margin`` at a check
+    after a multiple of ``early_stop_freq`` iterations; the batch is then
+    ``early_stop_tbatch(num_class, early_stop_freq, tbatch)``."""
     n = binned.shape[0]
     dev = binned.device
     scores = torch.zeros((num_class, n), dtype=torch.float32, device=dev)
     t_total = trees.num_trees
     if t_total == 0 or n == 0:
         return scores
-    cls = torch.arange(t_total, device=dev) % num_class
+    use_stop = early_stop_freq > 0 and early_stop_margin > 0.0
+    if use_stop:
+        tbatch = early_stop_tbatch(num_class, early_stop_freq, tbatch)
     row_chunk = max(1, _CHUNK_ELEMS // max(tbatch, 1))
     for r0 in range(0, n, row_chunk):
         part = binned[r0:r0 + row_chunk]
         acc = scores[:, r0:r0 + row_chunk]
+        done = (torch.zeros(part.shape[0], dtype=torch.bool, device=dev)
+                if use_stop else None)
         for t0 in range(0, t_total, tbatch):
             sub = trees.slice(t0, t0 + tbatch)
             leaf = predict_leaf_batched(part, sub, nan_bin_arr, depth)
             vals = sub.leaf_value.gather(1, leaf)
-            if num_class == 1:
-                acc += vals.sum(dim=0)[None, :]
-            else:
-                acc.index_add_(0, cls[t0:t0 + tbatch], vals)
+            if use_stop:
+                vals = torch.where(done[None, :], 0.0, vals)
+            # tree by tree, in order: the same f32 sums whatever the batch
+            # (early stopping's batch too), and no atomics on the card
+            for i in range(sub.num_trees):
+                acc[(t0 + i) % num_class] += vals[i]
+            t_end = t0 + sub.num_trees
+            if use_stop and t_end % num_class == 0 \
+                    and (t_end // num_class) % early_stop_freq == 0:
+                done |= _margin(acc) > early_stop_margin
     return scores

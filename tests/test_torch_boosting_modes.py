@@ -455,6 +455,10 @@ def test_prediction_window_from_params(window, dyadic, tmp_path):
 
 
 def test_pred_early_stop_is_refused_where_the_reference_acts(dyadic):
+    """Prediction early stopping, once refused, now acts where the
+    reference acts (its name kept from then): set in the training
+    parameters, or later by ``reset_parameter``, the port stops the same
+    rows as the JAX package, within 1e-5."""
     X, y, _ = _data()
     p = dict(BASE, pred_early_stop=True, pred_early_stop_margin=0.5,
              pred_early_stop_freq=1)
@@ -462,11 +466,18 @@ def test_pred_early_stop_is_refused_where_the_reference_acts(dyadic):
     # the reference stops early on rows with a large margin
     assert np.abs(bj.predict(X) - bj.predict(X, pred_early_stop=False)
                   ).max() > 1e-4
-    with pytest.raises(NotImplementedError, match="A10"):
-        lgt.train(dict(p, device_type="cpu"), lgt.Dataset(X, y), 6)
-    bt = lgt.train(dict(BASE, device_type="cpu"), lgt.Dataset(X, y), 1)
-    with pytest.raises(NotImplementedError, match="A10"):
-        bt.reset_parameter({"pred_early_stop": True})
+    bt = lgt.train(dict(p, device_type="cpu"), lgt.Dataset(X, y), 6)
+    np.testing.assert_allclose(bt.predict(X), bj.predict(X), atol=1e-5)
+    np.testing.assert_allclose(bt.predict(X, pred_early_stop=False),
+                               bj.predict(X, pred_early_stop=False),
+                               atol=1e-5)
+    bt = lgt.train(dict(BASE, device_type="cpu"), lgt.Dataset(X, y), 6)
+    plain = bt.predict(X)
+    bt.reset_parameter({"pred_early_stop": True,
+                        "pred_early_stop_margin": 0.5,
+                        "pred_early_stop_freq": 1})
+    assert np.abs(bt.predict(X) - plain).max() > 1e-4
+    np.testing.assert_allclose(bt.predict(X), bj.predict(X), atol=1e-5)
 
 
 def test_snapshot_freq_is_refused_where_the_reference_acts(tmp_path):

@@ -27,6 +27,9 @@ from lightgbm_tpu_torch.ops.pallas_histogram import (
     pallas_histogram_sublane_plain, record_histogram, record_histogram_plain,
     sublane_small_geometry, sublane_tile_geometry)
 from lightgbm_tpu_torch.ops.split import go_left_pred
+from lightgbm_tpu_torch.ops.treeshap_device import (build_shap_paths,
+                                                    tree_shap,
+                                                    tree_shap_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -517,7 +520,8 @@ def test_masked_train_on_card_matches_cpu(dev):
     plain = dict(_kernels.PLAIN_CALLS)
     bc = lgt.train(dict(p, device_type="cpu"), lgt.Dataset(X, y), 3)
     assert launches == {"histogram": 0, "fused_split": 0,
-                        "histogram_sublane": 3 * 31, "monotone_walk": 0}
+                        "histogram_sublane": 3 * 31, "monotone_walk": 0,
+                        "treeshap": 0}
     assert sum(plain.values()) == 0
     np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-4)
 
@@ -548,7 +552,7 @@ def test_masked_grower_past_the_compact_bound(dev):
         assert not boosters[layout]._gbdt.use_compact
     assert launches["sublane"] == {"histogram": 0, "fused_split": 0,
                                    "histogram_sublane": 63,
-                                   "monotone_walk": 0}
+                                   "monotone_walk": 0, "treeshap": 0}
     assert launches["lane"]["histogram"] == 63
     assert launches["lane"]["fused_split"] == 0
     ts, tl = (b._gbdt.models[0] for b in boosters.values())
@@ -610,10 +614,12 @@ def test_categorical_train_on_card_matches_cpu(dev, grower, objective):
     per_run = 3 * k * 31
     if grower == "compact":
         assert launches == {"histogram": per_run, "fused_split": per_run,
-                            "histogram_sublane": 0, "monotone_walk": 0}
+                            "histogram_sublane": 0, "monotone_walk": 0,
+                            "treeshap": 0}
     else:
         assert launches == {"histogram": 0, "fused_split": 0,
-                            "histogram_sublane": per_run, "monotone_walk": 0}
+                            "histogram_sublane": per_run, "monotone_walk": 0,
+                            "treeshap": 0}
     assert sum(plain.values()) == 0
     assert any(t.cat_bitset[:t.num_nodes].any() for t in bg._gbdt.models)
     np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-4)
@@ -1178,3 +1184,103 @@ def test_linear_tree_on_card_matches_cpu(dev, monkeypatch):
                                       b.split_feature[:n_])
         np.testing.assert_array_equal(a.split_bin[:n_], b.split_bin[:n_])
     np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-5)
+
+
+def _shap_close(kern, plain, paths, rel=1e-12):
+    """Within ``rel`` of each cell's |value| plus a bound on the sum of its
+    |addends| (each leaf adds at most its |value| to a cell, each tree its
+    |expected value| to the bias): the kernel and the plain version add
+    the same float64 terms, in another order."""
+    scale = float(paths.leaf_value.abs().sum() + paths.ev.abs().sum())
+    err = (kern - plain).abs()
+    assert bool((err <= rel * (plain.abs() + scale)).all()), \
+        float(err.max())
+
+
+@pytest.mark.parametrize("case", ["numerical", "categorical", "multiclass",
+                                  "chunked"])
+def test_treeshap_kernel_matches_plain(dev, case, monkeypatch):
+    """The TreeSHAP kernel against its plain version on random trees: a
+    constant tree, features repeated along paths, a 39-step path, NaN bins
+    with both default directions, categorical bitsets of two words (bins
+    past them go right), K = 3 classes; and with the rows launched in
+    chunks of 1,024, as when their scratch would pass its cap."""
+    from lightgbm_tpu_torch.ops import treeshap_device
+    from torch_shap_trees import random_forest, random_rows
+    cat = (1, 3) if case == "categorical" else ()
+    nb = 40 if cat else 16
+    models = random_forest(21, 5, nb, cat=cat, words=2 if cat else 1)
+    k = 3 if case == "multiclass" else 1
+    is_cat = np.isin(np.arange(5), cat)
+    paths = build_shap_paths(models, np.full(5, nb - 1), is_cat, dev)
+    assert int(paths.path_len.max()) > 32
+    if case == "chunked":
+        words = -(-paths.split_feature.shape[1] // 32)
+        monkeypatch.setattr(treeshap_device, "_SCRATCH_BYTES", 1024 * (
+            9 * paths.zfrac.shape[2] + 4 * words))
+    b = torch.from_numpy(random_rows(22, 3000, 5, nb)).to(dev)
+    _kernels.reset_counts()
+    kern = tree_shap(b, paths, k)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["treeshap"] == (3 if case == "chunked" else 1)
+    assert _kernels.PLAIN_CALLS["treeshap"] == 0
+    assert kern.shape == (3000, k, 6)
+    _shap_close(kern, tree_shap_plain(b, paths, k), paths)
+
+
+def _cpu_twin(bst):
+    """A prediction-only CPU Booster with ``bst``'s trees and mappers."""
+    from lightgbm_tpu_torch.basic import Booster
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    from lightgbm_tpu_torch.config import Config
+    g = bst._gbdt
+    params = dict(bst.params, device_type="cpu")
+    return Booster._from_gbdt(GBDT.for_prediction(
+        Config(params), g.models, g.mappers, g.objective,
+        torch.device("cpu"), g.feature_names), params)
+
+
+@pytest.mark.parametrize("objective", ["binary", "multiclass"])
+def test_predict_api_on_card_matches_cpu(dev, objective):
+    """A model trained on the card: pred_contrib (the kernel, no plain
+    version) against the same trees' contributions on the CPU, pred_leaf
+    and early stopped predictions equal, refit's leaves within 1e-6."""
+    rng = np.random.RandomState(31)
+    n = 3000
+    X = rng.randn(n, 6)
+    X[:, 3] = rng.randint(0, 12, n)
+    X[rng.rand(n) < 0.1, 1] = np.nan
+    z = X[:, 0] + np.isin(X[:, 3], [2, 5, 7]) + 0.3 * rng.randn(n)
+    p = {"objective": objective, "num_leaves": 31, "min_data_in_leaf": 10,
+         "verbosity": -1, "device_type": "cuda"}
+    if objective == "multiclass":
+        p["num_class"] = 3
+        y = np.digitize(z, [-0.5, 0.8]).astype(float)
+    else:
+        y = (z > 0.5).astype(float)
+    bst = lgt.train(p, lgt.Dataset(X, y, categorical_feature=[3]), 6)
+    cpu = _cpu_twin(bst)
+    _kernels.reset_counts()
+    phi = bst.predict(X, pred_contrib=True)
+    assert _kernels.LAUNCHES["treeshap"] == 1
+    assert _kernels.PLAIN_CALLS["treeshap"] == 0
+    g = bst._gbdt
+    paths = build_shap_paths(g.models, g._pred_nan_arr.cpu().numpy(),
+                             g.feature_is_categorical(), "cpu")
+    _shap_close(torch.from_numpy(phi), torch.from_numpy(
+        cpu.predict(X, pred_contrib=True)), paths)
+    k = g.num_class
+    raw = bst.predict(X, raw_score=True).reshape(n, k)
+    np.testing.assert_allclose(phi.reshape(n, k, -1).sum(-1), raw,
+                               atol=1e-5)
+    np.testing.assert_array_equal(bst.predict(X, pred_leaf=True),
+                                  cpu.predict(X, pred_leaf=True))
+    stop = dict(pred_early_stop=True, pred_early_stop_margin=1.0,
+                pred_early_stop_freq=2)
+    np.testing.assert_allclose(bst.predict(X, **stop),
+                               cpu.predict(X, **stop), atol=1e-6)
+    a = bst.refit(X[:1000], y[:1000], decay_rate=0.9)._gbdt.models
+    b = cpu.refit(X[:1000], y[:1000], decay_rate=0.9)._gbdt.models
+    for ta, tb in zip(a, b):
+        np.testing.assert_allclose(ta.leaf_value, tb.leaf_value, rtol=1e-6,
+                                   atol=1e-9)

@@ -172,11 +172,11 @@ def test_parameters_of_the_ranking_and_renewal_slice_train(params):
     ({"tpu_bin_pack4": True}, "A15b"),
     ({"deterministic": True}, "B1/B2"),
     ({"num_machines": 2}, "A18"),
-    ({"pred_early_stop": True}, "A10"),
+    ({"two_round": True}, "A16"),
     ({"snapshot_freq": 2}, "A16"),
     ({"save_period": 5}, "A16"),
     ({"top_k": 30}, "A18"),
-    ({"refit_decay_rate": 0.5}, "A8"),
+    ({"tpu_leaf_quant": "int8"}, "A17"),
     ({"header": True}, "A16"),
 ])
 def test_parameters_outside_the_slice_raise(params, item):
@@ -185,6 +185,33 @@ def test_parameters_outside_the_slice_raise(params, item):
               "verbosity": -1}, **params)
     with pytest.raises(NotImplementedError, match=item):
         lgt.train(p, lgt.Dataset(X, y), 1)
+
+
+@pytest.mark.parametrize("params", [
+    {"pred_early_stop": True, "pred_early_stop_margin": 0.5,
+     "pred_early_stop_freq": 1},
+    {"refit_decay_rate": 0.5}])
+def test_prediction_parameters_take_effect(params):
+    """``pred_early_stop`` and ``refit_decay_rate`` (refused until the
+    twelfth slice, ROADMAP A10 and A8) act as the reference's do: early
+    stopped binary predictions, and refit's default decay (parity with the
+    JAX package in tests/test_torch_predict_api.py)."""
+    X, y = _data()
+    p = dict({"objective": "binary", "device_type": "cpu",
+              "verbosity": -1}, **params)
+    bst = lgt.train(p, lgt.Dataset(X, y), 4)
+    plain = bst.predict(X, pred_early_stop=False)
+    if "pred_early_stop" in params:
+        assert np.abs(bst.predict(X) - plain).max() > 1e-4
+        return
+    np.testing.assert_array_equal(bst.predict(X), plain)
+    by_param = bst.refit(X, y)._gbdt.models
+    explicit = bst.refit(X, y, decay_rate=0.5)._gbdt.models
+    default = bst.refit(X, y, decay_rate=0.9)._gbdt.models
+    for a, b, c in zip(by_param, explicit, default):
+        np.testing.assert_array_equal(a.leaf_value, b.leaf_value)
+    assert any(np.abs(a.leaf_value - c.leaf_value).max() > 1e-6
+               for a, c in zip(by_param, default))
 
 
 @pytest.mark.parametrize("params", [
