@@ -76,8 +76,35 @@ non-zero):
    channels; the reloaded model (1e-6); the card against the CPU with
    deterministic rounding (compact at 100k x 28, the masked grower's shim
    at 20k, 31 leaves, 3 rounds; 1e-4, differing splits counted);
+   then UNFUSED (right after QUANT, on MAIN's datasets): the compact
+   grower without the fused kernel (tpu_fused=off), 1 warm-up and 2
+   timed rounds and a profiled tree in four runs: f32 at 255 bins (K1
+   dense on the records' bin columns), use_quantized_grad at 255 bins (K1
+   dense int8), use_quantized_grad at max_bin=63 with the sublane layout
+   (K3 int8 on a feature-major copy of each segment) and
+   tpu_quant_hist_bits=16 (K1 narrowed where a leaf fits it): each split
+   K2's partition alone, the segment gather and the histogram, with
+   iterations/s, launches and host syncs a split (0), every launch in its
+   mode, the leaves that took the 16-bit engine; at each run's root the
+   gather and the histogram against their plain versions (int32 exact;
+   f32 bit-equal on 1/64-grid gradients, and on the run's own each within
+   f32's summation bound of float64 sums; the narrowed kernel also against
+   the 32-bit one),
+   timed beside index_add_ and their byte bounds (UNFUSED_ROOT);
+   the card against the CPU for the four runs at 100k x 28 (quantized: 0
+   differing splits; f32 1e-4); then PACK4: the same rows at max_bin=15
+   with tpu_bin_pack4=true, 1 warm-up and 2 timed rounds in f32 and
+   quantized beside the u8 run on the same binning (quantized: equal
+   trees; f32 1e-4, differing splits counted), every K2 and K1 launch on
+   packed records, packed and u8 prediction equal on the validation rows,
+   a profiled packed f32 tree; K2 packed4 at the root split against its
+   plain version (bit-equal on 1/16-grid gradients in f32), timed beside
+   K2 on the u8 records, each with its byte bound, argsort + index_select
+   and the bytes it moves a row (PACK4_ROOT_SPLIT); the card against the
+   CPU at 100k x 28 (PACK4_CPU_VS_CARD);
 7. the masked grower at the main path's row count: the same Higgs-shaped
-   rows binned at max_bin=63 with tpu_grower=masked and the sublane layout
+   rows binned at max_bin=63 (the datasets UNFUSED made) with
+   tpu_grower=masked and the sublane layout
    (K3 only), 63 leaves, 1 warm-up and 2 timed rounds: iterations/s, AUC
    (> 0.7), K3's launches (> 0) and K1's and K2's (0), plain calls (0),
    host syncs in each later tree (0), and a profiled tree with K3's device ms
@@ -1613,6 +1640,557 @@ def quant_cpu_vs_card(lgt):
     return out
 
 
+UNFUSED_ROUNDS = 2               # timed rounds after one warm-up round
+# UNFUSED's runs: name -> (parameters over MAIN's, the histogram kernel, the
+# mode that every launch of it must be in)
+UNFUSED_RUNS = {
+    "f32": ({}, "histogram", None),
+    "quant": ({"use_quantized_grad": True}, "histogram", "histogram/int8"),
+    "sublane_quant": ({"use_quantized_grad": True, "max_bin": 63,
+                       "tpu_hist_layout": "sublane"}, "histogram_sublane",
+                      "histogram_sublane/int8"),
+    "narrow": ({"use_quantized_grad": True, "tpu_quant_hist_bits": 16},
+               "histogram", "histogram/narrow"),
+}
+MAIN_PARAMS = {"objective": "binary", "metric": "auc", "num_leaves": 255,
+               "max_bin": 255, "learning_rate": 0.1,
+               "min_data_in_leaf": 100, "verbosity": -1,
+               "device_type": "cuda"}
+
+
+def bin63_datasets(lgt, results):
+    """MAIN's rows binned at max_bin=63 (train, valid, construct s), made
+    once for UNFUSED's sublane run and MASKED_LARGE."""
+    if "bin63_datasets" not in results:
+        X, y, _, n_val = results["higgs"]
+        t1 = time.perf_counter()
+        ds = lgt.Dataset(X[:-n_val], y[:-n_val], params={"max_bin": 63})
+        dv = ds.create_valid(X[-n_val:], y[-n_val:])
+        ds.construct()
+        dv.construct()
+        results["bin63_datasets"] = (ds, dv, time.perf_counter() - t1)
+    return results["bin63_datasets"]
+
+
+def timed_run(lgt, params, ds, dv, rounds):
+    """One warm-up and ``rounds`` timed rounds on constructed datasets:
+    the booster and a line with iterations/s, the validation AUC, the
+    kernels' and modes' launches, the plain versions' calls and the host
+    syncs in every compact tree step after the first (COMPACT_STEP)."""
+    from lightgbm_tpu_torch import _kernels
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    syncs, ends, evals = {}, [], {}
+
+    def timer(env):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+    timer.order = 5
+    _kernels.reset_counts()
+    with count_syncs(gbdt_mod.GBDT, COMPACT_STEP, syncs):
+        t_start = time.perf_counter()
+        bst = lgt.train(params, ds, 1 + rounds, valid_sets=[dv],
+                        callbacks=[timer, lgt.record_evaluation(evals)])
+    check(len(ends) == 1 + rounds, f"trained {len(ends)} rounds")
+    auc = evals["valid_0"]["auc"][-1]
+    check(np.isfinite(auc) and auc > 0.7, f"validation AUC {auc}")
+    return bst, {
+        "rounds_timed": rounds,
+        "iterations_per_s": rounds / (ends[-1] - ends[0]),
+        "round_s": np.diff(ends).tolist(),
+        "first_round_s": ends[0] - t_start, "valid_auc": auc,
+        "launches": dict(_kernels.LAUNCHES),
+        "mode_launches": dict(_kernels.MODE_LAUNCHES),
+        "plain_calls": dict(_kernels.PLAIN_CALLS),
+        "host_syncs_in_tree_step": syncs.get("in_tree"),
+        "num_trees": bst.num_trees()}
+
+
+def tree_line(prof, splits):
+    """A profiled tree's numbers: device s, idle share, launches a split,
+    each kernel's device ms and launches beside its byte bound."""
+    return {"tree_device_s": prof["device_s"],
+            "tree_device_idle_share": prof["device_idle_share"],
+            "tree_kernel_launches": prof["kernel_launches"],
+            "launches_a_split": prof["kernel_launches"] / splits,
+            "tree_kernels": {k: {"device_ms": v["device_ms"],
+                                 "launches": v["launches"],
+                                 "bound_ms": v.get("bound_ms")}
+                             for k, v in prof["kernels"].items()
+                             if v["launches"]}}
+
+
+def sector_bytes(lo, hi):
+    """Bytes of the 32-byte sectors that hold record bytes [lo, hi)."""
+    return 32 * ((hi - 1) // 32 - lo // 32 + 1)
+
+
+def unfused_root_checks(bst, name, quant, hist_kernel):
+    """The unfused path's kernels on the run's records at the root (all
+    training rows, the last tree's codes; ``seg`` on the device): the
+    segment gather, then K1 dense (f32 or int8) or K3 (int8 on the
+    gather's feature-major copy) against their plain versions (int32
+    exactly equal; f32 bit-equal on 1/64-grid gradients, and on the run's
+    own each within f32's summation bound of float64 sums), the narrowed
+    K1 (forced, its
+    flushes on the way) against its plain version and the 32-bit kernel,
+    bit for bit; each timed beside its plain version, index_add_ of the
+    same channels and its byte bound; the narrowed kernel also on a
+    6,000-row segment, where the grower's own choice takes it."""
+    from lightgbm_tpu_torch.ops.compact import (record_channels,
+                                                segment_histogram)
+    from lightgbm_tpu_torch.ops.histogram import _xla_histogram_narrow
+    from lightgbm_tpu_torch.ops.pallas_histogram import (
+        _dense_f32, _dense_int, _launch_sublane, _num_sms,
+        segment_gather, segment_gather_plain, sublane_geometry)
+    gbdt = bst._gbdt
+    layout = gbdt.layout
+    B = gbdt.grower_params.num_bins
+    F = layout.num_features
+    dev = gbdt.device
+    n = gbdt.num_data
+    work, scratch = gbdt.work, gbdt.scratch
+    stride = work.stride(0)
+    seg = torch.tensor([0, n, 0], dtype=torch.int32, device=dev)
+    sublane = hist_kernel == "histogram_sublane"
+    ch_dtype = (torch.int32 if sublane else torch.int8) if quant \
+        else torch.float32
+    ch_bytes = 4 * ch_dtype.itemsize
+    line = {"run": name, "rows": n, "bins": B}
+    # the gather against its plain version
+    ch, bt = segment_gather(work, scratch, seg, layout, ch_dtype, sublane)
+    pch, pbt = segment_gather_plain(work, scratch, seg, layout, ch_dtype,
+                                    sublane)
+    check(torch.equal(ch, pch) and (bt is None or torch.equal(bt, pbt)),
+          f"UNFUSED {name}: the segment gather differs from its plain "
+          "version")
+    del pch, pbt
+    gather_bytes = n * (sector_bytes(layout.grad_off, layout.cnt_off + 4)
+                        + ch_bytes + (2 * F if sublane else 0))
+    line["segment_gather"] = {
+        "ms": time_ms(lambda: segment_gather(work, scratch, seg, layout,
+                                             ch_dtype, sublane)),
+        "plain_ms": time_ms(lambda: segment_gather_plain(
+            work, scratch, seg, layout, ch_dtype, sublane), 3, 1),
+        "bound_ms": 1e3 * gather_bytes / HBM_BYTES_PER_S,
+        "library_ms": None, "max_abs_err": 0,
+        "transposed": sublane}
+    if sublane:
+        geom = sublane_geometry(n, F, B, 4, _num_sms(dev.index or 0))
+
+        def kern():
+            return _launch_sublane(bt, ch, B, "int8", geom)
+        hist_bytes = n * (F + ch_bytes)
+    elif quant:
+        def kern():
+            return _dense_int(work, scratch, n, stride, seg, False, ch, F, B,
+                              0, 0)
+        hist_bytes = n * (sector_bytes(0, layout.feat_cols) + ch_bytes)
+    else:
+        def kern():
+            return _dense_f32(work, scratch, n, stride, seg, False, ch, F, B,
+                              False)
+        hist_bytes = n * (sector_bytes(0, layout.feat_cols) + ch_bytes)
+    hist_bytes += F * B * 16
+    hk = kern()
+    hp = segment_histogram(work, 0, n, layout, B, quant,
+                           hist_layout="sublane" if sublane else "lane")
+    if quant:
+        check(hk.dtype == torch.int32 and torch.equal(hk, hp),
+              f"UNFUSED {name}: {hist_kernel} int8 at the root differs from "
+              "its plain version")
+        err = int((hk - hp).abs().max())
+    else:
+        # on 1/64-grid gradients every partial sum is exact: bit-equal
+        dwork = dyadic_records(work, layout)
+        dch, _ = segment_gather(dwork, scratch, seg, layout, ch_dtype, False)
+        hist_close(_dense_f32(dwork, scratch, n, stride, seg, False, dch, F,
+                              B, False),
+                   segment_histogram(dwork, 0, n, layout, B), None,
+                   f"UNFUSED {name}: K1 dense at the root, 1/64 grid", rel=0)
+        del dwork, dch
+    bins = (bt.T if sublane else work[:, :F]).to(torch.int64)
+    flat = (bins + torch.arange(F, device=dev) * B).reshape(-1)
+    del bins
+    src = record_channels(work, layout, quant)[:, None, :].expand(
+        n, F, 4).reshape(-1, 4)
+    lib_out = torch.zeros(F * B, 4, dtype=src.dtype, device=dev)
+    if not quant:
+        # the run's own gradients: the rows of a leaf share one gradient,
+        # and f32 sums of many equal addends round with a bias, so the
+        # error grows with the rows, up to (m - 1) 2^-24 of a cell's sum
+        # of |addends| in any order (m its rows; the random-walk
+        # tolerance of check_tuned_kernels was passed by 1.15x here). The
+        # kernel and its plain version are each held to that bound
+        # against float64 sums
+        exact = torch.zeros(F * B, 4, dtype=torch.float64, device=dev)
+        absh = torch.zeros(F * B, 4, dtype=torch.float64, device=dev)
+        src64 = src.double()
+        exact.index_add_(0, flat, src64)
+        absh.index_add_(0, flat, src64.abs_())
+        del src64
+        exact, absh = exact.view(F, B, 4), absh.view(F, B, 4)
+        bound = (exact[..., 3:] - 1).clamp(min=0) * 2.0 ** -24 \
+            * absh[..., :2]
+        for what, h in (("kernel", hk), ("plain version", hp)):
+            herr = (h[..., :2].double() - exact[..., :2]).abs()
+            check(bool((herr <= bound + 1e-30).all()), f"UNFUSED {name}: "
+                  f"the {what}'s f32 sums at the root off the float64 "
+                  "sums by more than (m - 1) 2^-24 of their |addends|")
+            line[f"run_gradients_{what.split()[0]}_max_rel_err"] = float(
+                (herr / (absh[..., :2] + 1e-30)).max())
+        check(torch.equal(hk[..., 2:], hp[..., 2:]), f"UNFUSED {name}: "
+              "count channels differ")
+        err = float((hk - hp).abs().max())
+        del exact, absh, bound
+
+    def lib():
+        lib_out.zero_()
+        lib_out.index_add_(0, flat, src)
+    lib()
+    if quant:
+        check(torch.equal(lib_out.view(F, B, 4), hk), f"UNFUSED {name}: "
+              "index_add_ of the int32 channels differs from the kernel")
+    line[hist_kernel] = {
+        "mode": "int8" if quant else "f32", "max_abs_err": err,
+        "ms": time_ms(kern),
+        "plain_ms": time_ms(lambda: segment_histogram(work, 0, n, layout, B,
+                                                      quant), 3, 1),
+        "library_ms": time_ms(lib, 3, 1),
+        "bound_ms": 1e3 * hist_bytes / HBM_BYTES_PER_S}
+    del flat, src, lib_out
+    if name == "narrow":
+        qmax = gbdt.grower_params.quant_max
+        nk = _dense_int(work, scratch, n, stride, seg, False, ch, F, B, qmax,
+                        1)
+        np_ = _xla_histogram_narrow(work[:, :F], ch, B, qmax)
+        check(torch.equal(nk, np_) and torch.equal(nk, hk),
+              "UNFUSED narrow: K1 narrowed at the root differs from its "
+              "plain version or from the 32-bit kernel")
+        small = 6_000
+        sseg = torch.tensor([0, small, 0], dtype=torch.int32, device=dev)
+        sch, _ = segment_gather(work, scratch, sseg, layout, ch_dtype, False)
+        tally = torch.zeros(1, dtype=torch.int32, device=dev)
+        auto = _dense_int(work, scratch, n, stride, sseg, False, sch, F, B,
+                          qmax, 2, tally)
+        check(int(tally) == 1 and torch.equal(
+            auto, segment_histogram(work, 0, small, layout, B, True)),
+              "UNFUSED narrow: the 16-bit engine on a 6,000-row leaf")
+        line["histogram_narrow"] = {
+            "quant_max": qmax, "max_abs_err": int((nk - np_).abs().max()),
+            "ms": time_ms(lambda: _dense_int(work, scratch, n, stride, seg,
+                                             False, ch, F, B, qmax, 1)),
+            "int32_ms": line["histogram"]["ms"],
+            "plain_ms": time_ms(lambda: _xla_histogram_narrow(
+                work[:, :F], ch, B, qmax), 3, 1),
+            "library_ms": line["histogram"]["library_ms"],
+            "bound_ms": line["histogram"]["bound_ms"],
+            "leaf_6000_ms": time_ms(lambda: _dense_int(
+                work, scratch, n, stride, sseg, False, sch, F, B, qmax, 2)),
+            "leaf_6000_int32_ms": time_ms(lambda: _dense_int(
+                work, scratch, n, stride, sseg, False, sch, F, B, 0, 0))}
+        del nk, np_, auto
+    return line
+
+
+def unfused_cpu_vs_card(lgt):
+    """UNFUSED's four runs on 100k x 28 rows, 31 leaves, 3 rounds,
+    deterministic rounding: the card against the CPU (quantized runs: 0
+    differing splits; f32 within 1e-4, differing splits counted); the
+    narrowed run's last tree's leaves that took the 16-bit engine (> 0,
+    the CPU's count)."""
+    X, y = make_higgs_like(100_000, 28, seed=21)
+    get = shared_datasets(lgt)
+    out = {}
+    for name, (extra, _, _) in UNFUSED_RUNS.items():
+        params = dict({"objective": "binary", "num_leaves": 31,
+                       "verbosity": -1, "tpu_grower": "compact",
+                       "tpu_fused": "off", "stochastic_rounding": False},
+                      **extra)
+        ds = get(X, y, extra.get("max_bin", 255))
+        boosters = {dev: lgt.train(dict(params, device_type=dev), ds, 3)
+                    for dev in ("cuda", "cpu")}
+        diff, differ = compare_boosters(boosters["cuda"], boosters["cpu"], X)
+        if "use_quantized_grad" in extra:
+            check(differ == 0, f"UNFUSED {name}: {differ} splits differ "
+                  "between the card and the CPU")
+        check(diff <= 1e-4, f"UNFUSED {name}: card vs CPU predictions "
+              f"differ by {diff}")
+        out[name] = {"max_abs_pred_diff": diff, "differing_splits": differ}
+        if name == "narrow":
+            # the last tree's 31 histograms: the kernel's own per-leaf
+            # choice takes the 16-bit engine for the CPU's leaves
+            narrowed = {dev: int(b._gbdt.tree_stats["narrowed_leaves"])
+                        for dev, b in boosters.items()}
+            check(0 < narrowed["cuda"] == narrowed["cpu"] < 31,
+                  f"UNFUSED narrow at 100k rows: {narrowed} of 31 "
+                  "histograms took the 16-bit engine")
+            out[name]["narrowed_leaves"] = narrowed["cuda"]
+    return out
+
+
+def phase_unfused(lgt, results):
+    """The compact grower without the fused kernel (UNFUSED): MAIN's
+    datasets and parameters with tpu_fused=off, 1 warm-up and
+    UNFUSED_ROUNDS timed rounds and a profiled tree in four runs (f32 at
+    255 bins: K1 dense on the records' bin columns; quantized at 255 bins:
+    K1 dense int8; quantized at max_bin=63 with the sublane layout: K3
+    int8; quantized with tpu_quant_hist_bits=16: K1 narrowed where a leaf
+    fits it), each split K2's partition alone, the segment gather and the
+    histogram; then each run's kernels at the root (unfused_root_checks)
+    and the card against the CPU (unfused_cpu_vs_card)."""
+    ds, dv = results["main_datasets"]
+    out = {}
+    for name, (extra, hist_kernel, mode) in UNFUSED_RUNS.items():
+        d_t, d_v = ds, dv
+        if extra.get("max_bin") == 63:
+            d_t, d_v, construct_s = bin63_datasets(lgt, results)
+        params = dict(MAIN_PARAMS, tpu_fused="off", **extra)
+        bst, run = timed_run(lgt, params, d_t, d_v, UNFUSED_ROUNDS)
+        gbdt = bst._gbdt
+        gp = gbdt.grower_params
+        quant = "use_quantized_grad" in extra
+        launches, modes = run["launches"], run["mode_launches"]
+        trees = bst.num_trees()
+        run["run"] = name
+        check(gbdt.use_compact and not gp.fused and not gp.fused_dual,
+              f"UNFUSED {name}: not the compact grower without the fused "
+              "kernel")
+        check(gp.hist_layout == ("sublane" if hist_kernel
+                                 == "histogram_sublane" else "lane"),
+              f"UNFUSED {name}: layout {gp.hist_layout}")
+        check(gbdt._quant_int == quant and gp.quant_narrow == (
+            name == "narrow"), f"UNFUSED {name}: quantized path")
+        splits = trees * (gp.num_leaves - 1)
+        check(launches["fused_split"] == modes["fused_split/partition"]
+              == splits, f"UNFUSED {name}: K2 launched "
+              f"{launches['fused_split']} times, "
+              f"{modes['fused_split/partition']} of them its partition "
+              f"alone, for {splits} splits")
+        check(launches["segment_gather"] == launches[hist_kernel]
+              == trees * gp.num_leaves, f"UNFUSED {name}: the gather and "
+              f"{hist_kernel} launched {launches['segment_gather']} and "
+              f"{launches[hist_kernel]} times for {trees} trees")
+        other = ("histogram" if hist_kernel == "histogram_sublane"
+                 else "histogram_sublane")
+        check(launches[other] == 0, f"UNFUSED {name}: {other} launched")
+        if mode is not None:
+            check(modes[mode] == launches[hist_kernel], f"UNFUSED {name}: "
+                  f"{launches[hist_kernel] - modes[mode]} launches of "
+                  f"{hist_kernel} outside its {mode} mode")
+        for k, v in run["plain_calls"].items():
+            check(v == 0, f"plain version of {k} ran {v} times on the card")
+        check(run["host_syncs_in_tree_step"] == 0, f"UNFUSED {name}: host "
+              "syncs inside the tree step")
+        if name == "narrow":
+            # the leaves that took the 16-bit engine by the kernel's own
+            # choice (count x quant_max < 2^15, the reference's rule): at
+            # 9.45M rows and 255 leaves few or no smaller child is that
+            # small (the last tree's count); unfused_cpu_vs_card's
+            # 100k-row run must take some
+            run["narrowed_leaves"] = int(gbdt.tree_stats["narrowed_leaves"])
+        prof = profile_tree(bst, 1.0 / run["iterations_per_s"])
+        if mode is not None:
+            pm = prof["modes"]
+            check(pm[mode]["counted"] == prof["kernels"][hist_kernel][
+                "launches"], f"UNFUSED {name}: the profiled tree ran "
+                  f"{hist_kernel} outside its {mode} mode")
+        run.update(tree_line(prof, gp.num_leaves - 1))
+        print("UNFUSED", json.dumps(run), flush=True)
+        run["root"] = unfused_root_checks(bst, name, quant, hist_kernel)
+        print("UNFUSED_ROOT", json.dumps(run["root"]), flush=True)
+        run["profile"] = prof
+        out[name] = run
+        del bst, gbdt
+    out["cpu_vs_card"] = unfused_cpu_vs_card(lgt)
+    print("UNFUSED_CPU_VS_CARD", json.dumps(out["cpu_vs_card"]), flush=True)
+    results["unfused"] = out
+
+
+PACK4_ROUNDS = 2                 # timed rounds after one warm-up round
+
+
+def pack4_root_split(p4, u8, quant):
+    """K2 at the root split of the last packed tree, on the packed run's
+    records (nibbles) against its plain version (the children byte-equal,
+    rows outside and the padding unchanged; the histogram int32-exact, or
+    in f32 bit-equal on the records' gradients rounded to 1/16: a bin of
+    max_bin=15 holds up to 590k rows, its sums stay below 2^20), timed
+    beside K2 on the u8 run's records at the same split, each with its byte
+    bound, its partition alone, K1 alone over all the rows, and stable
+    argsort + index_select of its records; the bytes a partition moves a
+    row, packed and u8."""
+    from lightgbm_tpu_torch.ops.compact import record_column
+    from lightgbm_tpu_torch.ops.fused_split import (fused_split,
+                                                    fused_split_plain)
+    from lightgbm_tpu_torch.ops.pallas_histogram import record_histogram
+    from lightgbm_tpu_torch.ops.split import go_left_pred
+    g4, g8 = p4._gbdt, u8._gbdt
+    B = g4.grower_params.num_bins
+    dev = g4.device
+    n = g4.num_data
+    tree = g4.models[-1]
+    f, b = int(tree.split_feature[0]), int(tree.split_bin[0])
+    dl, nan = int(tree.default_left[0]), int(g4.nan_bin_arr[f])
+    none = torch.zeros(8, dtype=torch.int32, device=dev)
+    line = {"rows": n, "feature": f, "bin": b}
+    for what, g in (("packed4", g4), ("u8", g8)):
+        layout = g.layout
+        work = g.work.clone() if quant else dyadic_records(g.work, layout,
+                                                           16)
+        scratch = torch.zeros_like(work)
+        gl = go_left_pred(record_column(work, f, layout), b, bool(dl), nan,
+                          False, none)
+        n_left = int(gl.sum())
+        args = (0, 0, n, n_left, f, b, dl, nan, 0, None, layout, B)
+        if what == "packed4":
+            before = (work.clone(), scratch.clone())
+            wk, sk = before[0].clone(), before[1].clone()
+            _, _, hk = fused_split(wk, sk, *args, quant=quant)
+            wp, spl = before[0].clone(), before[1].clone()
+            _, _, hp = fused_split_plain(wp, spl, *args, quant=quant)
+            torch.cuda.synchronize()
+            check_split((wk, sk), (wp, spl), before, 0, n, n_left, 0, layout,
+                        "K2 packed4 at the root split")
+            check(torch.equal(hk, hp), "K2 packed4 at the root split: "
+                  "histograms differ")
+            line["max_abs_err"] = float((hk - hp).abs().max())
+            del before, wk, sk, wp, spl, hk, hp
+        calls = [0]
+
+        def alternating():
+            fused_split(work, scratch, *args, side=calls[0] % 2, quant=quant)
+            calls[0] += 1
+
+        def partition():
+            fused_split(work, scratch, *args, side=calls[0] % 2, quant=quant,
+                        hist=False)
+            calls[0] += 1
+
+        def library():
+            perm = torch.argsort(gl.to(torch.uint8), stable=True)
+            torch.index_select(work, 0, perm, out=scratch)
+        n_small = min(n_left, n - n_left)
+        root = torch.tensor([0, n, 0], dtype=torch.int32, device=dev)
+        line[what] = {
+            "ms": time_ms(alternating),
+            # its two halves apart: the partition alone, and K1 in record
+            # mode over all the rows
+            "partition_ms": time_ms(partition),
+            "k1_root_ms": time_ms(lambda: record_histogram(
+                work, scratch, root, layout, B, quant)),
+            "plain_ms": time_ms(lambda: fused_split_plain(
+                work, scratch, *args, quant=quant), 3, 1),
+            "library_ms": time_ms(library, 3, 1),
+            "bound_ms": 1e3 * (2 * n * layout.num_real_cols + n_small
+                               * record_row_bytes(layout)) / HBM_BYTES_PER_S,
+            "moved_bytes_a_row": layout.moved_cols,
+            "real_bytes_a_row": layout.num_real_cols}
+        del work, scratch, gl
+    return line
+
+
+def pack4_cpu_vs_card(lgt):
+    """Packed runs on 100k x 28 rows at max_bin=15, 31 leaves, 3 rounds,
+    deterministic rounding: the card against the CPU (quantized: 0
+    differing splits; f32 within 1e-4, differing splits counted)."""
+    X, y = make_higgs_like(100_000, 28, seed=23)
+    ds = lgt.Dataset(X, y, params={"max_bin": 15})
+    out = {}
+    for name, extra in (("f32", {}), ("quant", {"use_quantized_grad": True})):
+        params = dict({"objective": "binary", "num_leaves": 31,
+                       "max_bin": 15, "verbosity": -1,
+                       "tpu_grower": "compact", "tpu_bin_pack4": True,
+                       "stochastic_rounding": False}, **extra)
+        boosters = {dev: lgt.train(dict(params, device_type=dev), ds, 3)
+                    for dev in ("cuda", "cpu")}
+        check(boosters["cuda"]._gbdt.layout.packed4, "PACK4 check: not packed")
+        diff, differ = compare_boosters(boosters["cuda"], boosters["cpu"], X)
+        if extra:
+            check(differ == 0, f"PACK4 {name}: {differ} splits differ "
+                  "between the card and the CPU")
+        check(diff <= 1e-4, f"PACK4 {name}: card vs CPU predictions differ "
+              f"by {diff}")
+        out[name] = {"max_abs_pred_diff": diff, "differing_splits": differ}
+    return out
+
+
+def phase_pack4(lgt, results):
+    """4-bit packed bins (PACK4): MAIN's rows binned at max_bin=15, MAIN's
+    parameters with tpu_bin_pack4=true, 1 warm-up and PACK4_ROUNDS timed
+    rounds, in f32 and quantized, each beside the u8 run on the same
+    binning (quantized: equal trees; f32 within 1e-4, differing splits
+    counted) and a profiled packed f32 tree: every K2 and K1 launch on
+    nibble-packed records, packed and u8 prediction of the packed booster
+    equal on the validation rows; then K2 packed4 at the root split
+    (pack4_root_split) and the card against the CPU (pack4_cpu_vs_card)."""
+    X, y, _, n_val = results["higgs"]
+    t1 = time.perf_counter()
+    ds = lgt.Dataset(X[:-n_val], y[:-n_val], params={"max_bin": 15})
+    dv = ds.create_valid(X[-n_val:], y[-n_val:])
+    ds.construct()
+    dv.construct()
+    out = {"construct_s": time.perf_counter() - t1}
+    Xv = X[-n_val:]
+    for name, extra in (("f32", {}), ("quant", {"use_quantized_grad": True})):
+        params = dict(MAIN_PARAMS, max_bin=15, **extra)
+        u8, ru8 = timed_run(lgt, params, ds, dv, PACK4_ROUNDS)
+        p4, run = timed_run(lgt, dict(params, tpu_bin_pack4=True), ds, dv,
+                            PACK4_ROUNDS)
+        g4 = p4._gbdt
+        gp = g4.grower_params
+        launches, modes = run["launches"], run["mode_launches"]
+        trees = p4.num_trees()
+        check(not u8._gbdt.layout.packed4, "PACK4: the u8 run is packed")
+        check(g4.use_compact and g4.layout.packed4 and gp.bin_pack4
+              and g4._pred_pack4 and gp.fused, f"PACK4 {name}: not the "
+              "packed compact path")
+        check(launches["fused_split"] == modes["fused_split/packed4"]
+              == trees * gp.num_leaves, f"PACK4 {name}: K2 launched "
+              f"{launches['fused_split']} times, "
+              f"{modes['fused_split/packed4']} on packed records")
+        check(launches["histogram"] == modes["histogram/packed4"]
+              == launches["fused_split"], f"PACK4 {name}: K1's record "
+              "launches are not all on packed records")
+        for k, v in run["plain_calls"].items():
+            check(v == 0, f"plain version of {k} ran {v} times on the card")
+        check(run["host_syncs_in_tree_step"] == 0, f"PACK4 {name}: host "
+              "syncs inside the tree step")
+        p_packed = p4.predict(Xv)
+        g4._pred_pack4 = False
+        p_plain = p4.predict(Xv)
+        g4._pred_pack4 = True
+        check(np.array_equal(p_packed, p_plain), f"PACK4 {name}: packed and "
+              "u8 prediction differ on the validation rows")
+        diff, differ = compare_boosters(p4, u8, Xv[:200_000])
+        if extra:
+            check(differ == 0 and diff <= 1e-6, f"PACK4 {name}: packed and "
+                  f"u8 runs differ ({differ} splits, {diff})")
+        else:
+            check(diff <= 1e-4, f"PACK4 {name}: packed and u8 predictions "
+                  f"differ by {diff}")
+        run.update({"run": name, "u8_iterations_per_s":
+                    ru8["iterations_per_s"], "u8_valid_auc": ru8["valid_auc"],
+                    "vs_u8_max_abs_pred_diff": diff,
+                    "vs_u8_differing_splits": differ,
+                    "record_bytes": g4.layout.num_cols,
+                    "moved_bytes_a_row": g4.layout.moved_cols,
+                    "u8_moved_bytes_a_row": u8._gbdt.layout.moved_cols})
+        if name == "f32":
+            prof = profile_tree(p4, 1.0 / run["iterations_per_s"])
+            run.update(tree_line(prof, gp.num_leaves - 1))
+            run["profile"] = prof
+        print("PACK4", json.dumps({k: v for k, v in run.items()
+                                   if k != "profile"}), flush=True)
+        run["root_split"] = pack4_root_split(p4, u8, bool(extra))
+        print("PACK4_ROOT_SPLIT", json.dumps(run["root_split"]), flush=True)
+        out[name] = run
+        del u8, p4, g4
+    del ds, dv
+    out["cpu_vs_card"] = pack4_cpu_vs_card(lgt)
+    print("PACK4_CPU_VS_CARD", json.dumps(out["cpu_vs_card"]), flush=True)
+    results["pack4"] = out
+
+
 def phase_masked_large(lgt, rows, results):
     """The masked grower at the main path's row count: the Higgs-shaped
     rows of the main path (no second generation) binned at max_bin=63 with
@@ -1636,12 +2214,9 @@ def phase_masked_large(lgt, rows, results):
         ends.append(time.perf_counter())
     timer.order = 5
 
-    t1 = time.perf_counter()
-    ds = lgt.Dataset(Xt, yt, params={"max_bin": 63})
-    dv = ds.create_valid(Xv, yv)
-    ds.construct()
-    dv.construct()
-    construct_s = time.perf_counter() - t1
+    # the max_bin=63 datasets UNFUSED's sublane run made, then released
+    ds, dv, construct_s = bin63_datasets(lgt, results)
+    results.pop("bin63_datasets")
     evals = {}
     _kernels.reset_counts()
     with count_syncs(gbdt_mod, ["grow_tree"], syncs):
@@ -2097,7 +2672,8 @@ KERNEL_FUNCTIONS = {"histogram": ("hist_kernel",),
                     "histogram_sublane": ("hist_sublane_kernel",
                                           "hist_sublane_small_kernel"),
                     "monotone_walk": ("monotone_walk_kernel",),
-                    "treeshap": ("treeshap_kernel",)}
+                    "treeshap": ("treeshap_kernel",),
+                    "segment_gather": ("gather_kernel",)}
 # of those, the ones of which exactly one runs for each launch a wrapper
 # counts (K2's partition does not run for the root's histogram, mode 1)
 ENTRY_FUNCTIONS = {"histogram": ("hist_kernel",),
@@ -2105,13 +2681,21 @@ ENTRY_FUNCTIONS = {"histogram": ("hist_kernel",),
                    "histogram_sublane": ("hist_sublane_kernel",
                                          "hist_sublane_small_kernel"),
                    "monotone_walk": ("monotone_walk_kernel",),
-                   "treeshap": ("treeshap_kernel",)}
+                   "treeshap": ("treeshap_kernel",),
+                   "segment_gather": ("gather_kernel",)}
 
 
-# the device function of a kernel mode that has its own instantiation (the
-# profiler's demangled name, spaces removed): K1's integer variant. K2's
-# quant mode runs the same partition functions as its f32 mode
-MODE_FUNCTIONS = {"histogram/quant": "hist_kernel<true,true>"}
+# the device functions of a kernel mode that has its own instantiations (a
+# pattern of the profiler's demangled name, spaces removed): K1's integer
+# variants in record and in dense mode (the narrowed mode is a branch of
+# the dense one), K3's int32 accumulator. K2's quant and packed4 modes run
+# the same partition functions as its f32 mode, K1's packed4 the same
+# record functions
+MODE_FUNCTIONS = {
+    "histogram/quant": r"hist_kernel<true,true>",
+    "histogram/int8": r"hist_kernel<false,true>",
+    "histogram_sublane/int8": r"hist_sublane(_small)?_kernel<(true|false),"
+                              r"\d,int>"}
 
 
 # the port's profiler ranges (ops/grower_compact.py, boosting/dart.py)
@@ -2212,7 +2796,8 @@ def _named(name, fns):
 
 
 def _mode_named(name, mode):
-    return MODE_FUNCTIONS[mode] in name.replace(" ", "")
+    import re
+    return re.search(MODE_FUNCTIONS[mode], name.replace(" ", "")) is not None
 
 
 def smaller_child_rows(tree):
@@ -2246,6 +2831,30 @@ def tree_byte_bounds(tree, layout):
     n, smaller = smaller_child_rows(tree)
     cnt = np.asarray(tree.internal_count, np.float64)[:tree.num_nodes]
     return {"histogram": (n + smaller) * record_row_bytes(layout),
+            "fused_split": float(2 * cnt.sum() * layout.num_real_cols)}
+
+
+def unfused_tree_byte_bounds(tree, gbdt):
+    """Byte bounds of one compact tree without the fused kernel from its
+    node counts, for the root's rows and every smaller child's: the gather
+    reads the sectors of a row's grad, hess and weight and writes its
+    channels (for K3 also reads its bin sectors and writes its F bins
+    feature-major); the histogram reads a row's bins (K1: the record's bin
+    sectors; K3: the copy) and its channels; K2 reads and writes each split
+    parent's real columns once."""
+    layout = gbdt.layout
+    n, smaller = smaller_child_rows(tree)
+    rows = n + smaller
+    sub = gbdt.grower_params.hist_layout == "sublane"
+    ch = 4 if gbdt._quant_int and not sub else 16
+    bins = sector_bytes(0, layout.feat_cols)
+    f = layout.num_features
+    cnt = np.asarray(tree.internal_count, np.float64)[:tree.num_nodes]
+    return {"segment_gather": rows * (sector_bytes(layout.grad_off,
+                                                   layout.cnt_off + 4)
+                                      + ch + (bins + f if sub else 0)),
+            "histogram_sublane" if sub else "histogram":
+                rows * ((f if sub else bins) + ch),
             "fused_split": float(2 * cnt.sum() * layout.num_real_cols)}
 
 
@@ -2370,7 +2979,9 @@ def profile_tree(bst, tree_s, grower=None):
             "kernel_launches": launches,
             "top_device_ops": [{"name": k[:60], "ms": us * 1e-3, "calls": n}
                                for k, (us, n) in top]}
-    if gbdt.use_compact:
+    if gbdt.use_compact and not gbdt.grower_params.fused:
+        bounds = unfused_tree_byte_bounds(tree, gbdt)
+    elif gbdt.use_compact:
         bounds = tree_byte_bounds(tree, gbdt.layout)
     elif gbdt.grower_params.hist_layout == "sublane":
         bounds = {"histogram_sublane": masked_tree_hist_bytes(tree, gbdt)}
@@ -3306,14 +3917,14 @@ def raw_count_tree(gbdt, host):
     return out
 
 
-def dyadic_records(work, layout):
+def dyadic_records(work, layout, grid=64):
     """A copy of a record array with its grad and hess columns rounded to
-    multiples of 1/64: every partial sum of a bin is then exact in f32
-    (the in-bag column, and so the bag, unchanged)."""
+    multiples of 1/grid: every partial sum of a bin below 2^24 / grid is
+    then exact in f32 (the in-bag column, and so the bag, unchanged)."""
     out = work.clone()
     o = layout.grad_off
     gh = out[:, o:o + 8].contiguous().view(torch.float32)
-    out[:, o:o + 8] = (torch.round(gh * 64.0) / 64.0).view(torch.uint8)
+    out[:, o:o + 8] = (torch.round(gh * grid) / grid).view(torch.uint8)
     return out
 
 
@@ -4408,6 +5019,8 @@ def main() -> int:
                                                results)),
               ("predict_api", lambda: phase_predict_api(lgt, results)),
               ("quant", lambda: phase_quant(lgt, results)),
+              ("unfused", lambda: phase_unfused(lgt, results)),
+              ("pack4", lambda: phase_pack4(lgt, results)),
               ("renew", lambda: phase_renew(lgt, results)),
               ("tuned", lambda: phase_tuned(lgt, results)),
               ("constrained", lambda: phase_constrained(lgt, results)),
@@ -4464,6 +5077,28 @@ def main() -> int:
     rf_tree = rf["profile"]["kernels"]
     a14c = results["a14c_checks"]["cpu_vs_card"]
     pa = results["predict_api"]
+    uf = results["unfused"]
+    p4 = results["pack4"]
+
+    def unfused_path(run, kern, mode, root_key=None):
+        """A kernel mode on an UNFUSED run: its launches there (counted in
+        its mode), its times at the run's root against its plain version,
+        bound and index_add_, and one tree's device ms and launches beside
+        its byte bound."""
+        r = uf[run]
+        root = r["root"][root_key or kern]
+        tree = r["tree_kernels"].get(kern, {})
+        return {"launches": r["mode_launches"][mode] if mode
+                else r["launches"][kern],
+                "max_abs_err": root["max_abs_err"], "ms": root["ms"],
+                "plain_ms": root["plain_ms"], "bound_ms": root["bound_ms"],
+                "bound_by": "bytes", "library_ms": root["library_ms"],
+                "tree_device_ms": tree.get("device_ms"),
+                "tree_launches": tree.get("launches"),
+                "tree_bound_ms": tree.get("bound_ms"),
+                "iterations_per_s": r["iterations_per_s"],
+                "launches_a_split": r["launches_a_split"],
+                "host_syncs_in_tree_step": r["host_syncs_in_tree_step"]}
 
     def a14c_path(kern):
         """A kernel on the DART (compact) and RF (masked) paths: its
@@ -4684,6 +5319,67 @@ def main() -> int:
          "plain_4096_ms": pa["plain_4096_ms"],
          "deepest_path": pa["deepest_path"],
          "longest_ulen": pa["longest_ulen"]},
+        # the last modes of the three Pallas kernels, on the compact grower
+        # without the fused kernel (UNFUSED) and on 4-bit packed records
+        # (PACK4)
+        {"name": "histogram_int8", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/histogram.cu",
+         "replaces": "lightgbm_tpu/ops/pallas_histogram.py:67",
+         **unfused_path("quant", "histogram", "histogram/int8")},
+        {"name": "histogram_sublane_int8", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/histogram_sublane.cu",
+         "replaces": "lightgbm_tpu/ops/pallas_histogram.py:170",
+         **unfused_path("sublane_quant", "histogram_sublane",
+                        "histogram_sublane/int8"),
+         # the feature-major copy of a segment that K3 reads
+         "transposed_copy_ms": uf["sublane_quant"]["root"][
+             "segment_gather"]["ms"]},
+        # the JAX package's 16-bit quantized engine: XLA there, no Pallas
+        {"name": "histogram_narrow", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/histogram.cu",
+         "replaces": "lightgbm_tpu/ops/histogram.py:129",
+         **unfused_path("narrow", "histogram", "histogram/narrow",
+                        "histogram_narrow"),
+         "narrowed_leaves": uf["narrow"]["narrowed_leaves"],
+         "narrowed_leaves_100k_rows": uf["cpu_vs_card"]["narrow"][
+             "narrowed_leaves"],
+         "int32_ms": uf["narrow"]["root"]["histogram_narrow"]["int32_ms"],
+         "leaf_6000_ms": uf["narrow"]["root"]["histogram_narrow"][
+             "leaf_6000_ms"],
+         "leaf_6000_int32_ms": uf["narrow"]["root"]["histogram_narrow"][
+             "leaf_6000_int32_ms"]},
+        {"name": "fused_split_packed4", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/fused_split.cu",
+         "replaces": "lightgbm_tpu/ops/fused_split.py:198",
+         "launches": sum(p4[v]["mode_launches"]["fused_split/packed4"]
+                         for v in ("f32", "quant")),
+         "max_abs_err": max(p4[v]["root_split"]["max_abs_err"]
+                            for v in ("f32", "quant")),
+         "ms": p4["f32"]["root_split"]["packed4"]["ms"],
+         "plain_ms": p4["f32"]["root_split"]["packed4"]["plain_ms"],
+         "bound_ms": p4["f32"]["root_split"]["packed4"]["bound_ms"],
+         "bound_by": "bytes",
+         "library_ms": p4["f32"]["root_split"]["packed4"]["library_ms"],
+         "u8": p4["f32"]["root_split"]["u8"],
+         "quant": p4["quant"]["root_split"],
+         "moved_bytes_a_row": p4["f32"]["moved_bytes_a_row"],
+         "u8_moved_bytes_a_row": p4["f32"]["u8_moved_bytes_a_row"],
+         "tree_device_ms": p4["f32"]["tree_kernels"]["fused_split"][
+             "device_ms"],
+         "tree_bound_ms": p4["f32"]["tree_kernels"]["fused_split"][
+             "bound_ms"],
+         "histogram_tree_device_ms": p4["f32"]["tree_kernels"]["histogram"][
+             "device_ms"]},
+        # the unfused path's channels of a segment: no Pallas kernel, the
+        # JAX package's XLA channel stack (ops/compact.py:386-399)
+        {"name": "segment_gather", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/segment_gather.cu",
+         "replaces": "lightgbm_tpu/ops/compact.py:386",
+         **unfused_path("f32", "segment_gather", None),
+         "by_run": {run: {"launches": uf[run]["launches"][
+             "segment_gather"],
+                          **uf[run]["root"]["segment_gather"]}
+                    for run in UNFUSED_RUNS}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -11,9 +11,12 @@ allocate outputs and scratch with ``torch.empty`` / ``torch.zeros``.
 
 ``LAUNCHES`` counts kernel launches by kernel name (:func:`launch` adds one
 each time a wrapper launches its kernel), ``MODE_LAUNCHES`` those of a
-kernel's mode by ``"kernel/mode"`` (the quantized ``histogram/quant`` and
-``fused_split/quant``), and ``PLAIN_CALLS`` counts calls of the plain
-PyTorch versions, so a run can show which path it took.
+kernel's modes by ``"kernel/mode"`` (the quantized ``histogram/quant`` and
+``fused_split/quant``, K1's dense ``histogram/int8`` and
+``histogram/narrow``, K3's ``histogram_sublane/int8``, the packed records'
+``*/packed4``, K2's ``fused_split/partition`` alone), and ``PLAIN_CALLS``
+counts calls of the plain PyTorch versions, so a run can show which path it
+took.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple, Union
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -39,19 +42,27 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # kernel name -> (source file, {C function: argtypes})
 KERNELS = {
     "histogram": ("histogram.cu", {
-        "lgbt_hist_dense": [_P, _L, _P, _I, _I, _I, _I, _I, _P, _P],
-        "lgbt_hist_records": [_P, _P, _L, _L, _P, _I, _I, _I, _I, _I, _P,
-                              _P],
+        "lgbt_hist_dense": [_P, _P, _L, _L, _P, _I, _P, _I, _I, _I, _I, _P,
+                            _P],
+        "lgbt_hist_dense_int": [_P, _P, _L, _L, _P, _I, _P, _I, _I, _I, _I,
+                                _I, _I, _P, _P, _P],
+        "lgbt_hist_records": [_P, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I,
+                              _P, _P],
         "lgbt_hist_records_int": [_P, _P, _L, _L, _P, _I, _I, _I, _I, _I,
-                                  _P, _P],
+                                  _I, _P, _P],
     }),
     "fused_split": ("fused_split.cu", {
-        "lgbt_fused_split": [_I, _I, _P, _P, _I, _L, _I, _I, _I, _P, _P, _I,
-                             _P, _P, _P, _P],
+        "lgbt_fused_split": [_I, _I, _P, _P, _I, _L, _I, _I, _I, _I, _P, _P,
+                             _I, _P, _P, _P, _P],
     }),
     "histogram_sublane": ("histogram_sublane.cu", {
         "lgbt_hist_sublane": [_P, _L, _P, _I, _L, _I, _I, _I, _P, _I, _I,
-                              _I, _I, _I, _I, _I, _P],
+                              _I, _I, _I, _I, _I, _I, _P, _P],
+    }),
+    # the unfused compact path's channels (and K3's bins) of a segment
+    "segment_gather": ("segment_gather.cu", {
+        "lgbt_segment_gather": [_P, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I,
+                                _P, _P, _L, _P],
     }),
     "monotone_walk": ("monotone_walk.cu", {
         "lgbt_monotone_walk": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P,
@@ -64,8 +75,15 @@ KERNELS = {
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
-MODE_LAUNCHES: Dict[str, int] = {"histogram/quant": 0,
-                                 "fused_split/quant": 0}
+MODE_LAUNCHES: Dict[str, int] = {
+    "histogram/quant": 0, "fused_split/quant": 0,
+    # K1's dense integer variant, and those of its launches that may take
+    # the narrowed 16-bit engine; K3's int32 accumulator
+    "histogram/int8": 0, "histogram/narrow": 0, "histogram_sublane/int8": 0,
+    # nibble-packed records: K1's record mode, K2; K2's partition alone
+    # (tpu_fused=off)
+    "histogram/packed4": 0, "fused_split/packed4": 0,
+    "fused_split/partition": 0}
 PLAIN_CALLS: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -156,17 +174,17 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def launch(name: str, fn: str, device, *args,
-           mode: Optional[str] = None) -> None:
+           mode: Union[None, str, Tuple[str, ...]] = None) -> None:
     """Call C entry ``fn`` of kernel library ``name`` with ``args`` and the
     current stream of ``device``, with ``device`` made current (the C side
     launches on the current device). Counts the launch (and, with ``mode``,
-    the launch of that mode) and raises if the entry returns a CUDA error
-    code."""
+    the launch of that mode, or of each of a tuple of modes) and raises if
+    the entry returns a CUDA error code."""
     import torch
     lib = library(name)
     LAUNCHES[name] += 1
-    if mode is not None:
-        MODE_LAUNCHES[f"{name}/{mode}"] += 1
+    for m in (mode,) if isinstance(mode, str) else (mode or ()):
+        MODE_LAUNCHES[f"{name}/{m}"] += 1
     with torch.cuda.device(device):
         err = getattr(lib, fn)(*args,
                                torch.cuda.current_stream(device).cuda_stream)

@@ -143,14 +143,16 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..config import resolve_hist_layout
-from ..io.dataset import BinnedDataset
+from ..config import resolve_fused, resolve_hist_layout
+from ..io.dataset import (BinnedDataset, pack4_eligible, pack4_matrix,
+                          pack4_train_eligible)
 from ..io.efb import EfbLayout, unbundle
 from ..metrics import Metric
 from ..ops.compact import RowLayout, _u8_to_f32, pack_rows
 from ..ops.grower import (ExtraDraws, GrowerParams, TreeArrays, TreeOptions,
                           grow_tree)
 from ..ops.grower_compact import grow_tree_compact
+from ..ops.histogram import narrow_chunk_rows
 from ..ops.predict import StackedTrees, predict_leaf_batched, \
     predict_raw_batched
 from ..ops.renew import renew_leaf_quantile
@@ -519,6 +521,7 @@ class GBDT:
             [m.nan_bin if not m.is_trivial else 0 for m in self.mappers],
             dtype=torch.int64).to(device)
         self._pred_nan_arr = self.nan_bin_arr
+        self._pred_pack4 = False
         self._efb = None
         self._linear = False
         return self
@@ -590,6 +593,14 @@ class GBDT:
                         "the masked grower with the 'basic' method")
             self._mono_intermediate = False
         mappers = train_set.mappers
+        # prediction packs its bins two a byte where every original feature
+        # has at most 16 bins (reference: boosting/gbdt.py:713-717)
+        want_pack4 = bool(cfg.get("tpu_bin_pack4", False))
+        self._pred_pack4 = want_pack4 and pack4_eligible(mappers)
+        if want_pack4 and not self._pred_pack4:
+            log.warning("tpu_bin_pack4=true needs every feature to have "
+                        "<= 16 bins (max_bin <= 15); predicting on the u8 "
+                        "matrix")
         # prediction and model text work per original feature
         self._pred_nan_arr = torch.from_numpy(
             train_set.feature_nan_bins().astype(np.int64)).to(dev)
@@ -619,6 +630,9 @@ class GBDT:
             min_data_per_group=float(cfg.get("min_data_per_group", 100)),
             hist_layout=resolve_hist_layout(cfg,
                                             int(train_set.max_num_bins)),
+            # without the fused kernel the partition is K2's copy-back
+            fused=resolve_fused(cfg),
+            fused_dual=resolve_fused(cfg),
             bynode_fraction=float(cfg.get("feature_fraction_bynode", 1.0)),
             use_monotone=self._mono_np is not None,
             monotone_penalty=float(cfg.get("monotone_penalty", 0.0)),
@@ -851,14 +865,23 @@ class GBDT:
         self._quant_int = bins <= 127 and fits
         if not self._quant_int:
             return
+        gp = self.grower_params._replace(quant_max=bins + 1)
+        # the narrowed 16-bit histogram, chosen a leaf at a time without the
+        # fused kernel (reference: boosting/gbdt.py:1655-1685); auto (0)
+        # keeps 32 bits, as there
         bits = int(cfg.get("tpu_quant_hist_bits", 0) or 0)
         if bits not in (0, 16, 32):
             log.warning(f"tpu_quant_hist_bits={bits} is not one of 0 (auto) "
                         "| 16 | 32; using 32-bit accumulation")
-        elif bits == 16:
-            log.warning("tpu_quant_hist_bits=16 (the narrowed 16-bit "
-                        "histogram) is not in the PyTorch port; keeping "
-                        "32-bit accumulation")
+            bits = 32
+        narrow_able = narrow_chunk_rows(bins + 1) > 0 and not gp.fused
+        if bits == 16 and not narrow_able:
+            log.warning("tpu_quant_hist_bits=16 needs the compact grower "
+                        "without the fused kernel (tpu_fused=off) and a "
+                        "num_grad_quant_bins small enough for the packing "
+                        "radix; keeping 32-bit accumulation")
+        self.grower_params = gp._replace(
+            quant_narrow=bits == 16 and narrow_able)
 
     def _quant_generator(self) -> torch.Generator:
         """The stochastic-rounding draws of this iteration: a generator on
@@ -1044,8 +1067,23 @@ class GBDT:
         has_w = obj_w is not None
         gcols = 2 * k if k > 1 else 0
         e = k + gcols + 2 + (1 if has_w else 0)
+        # 4-bit packed bin columns where every stored column (a bundle
+        # column under EFB) and the histogram width fit a nibble (reference:
+        # boosting/gbdt.py:1384-1411)
+        pack4 = False
+        if bool(self.config.get("tpu_bin_pack4", False)):
+            nb = self.num_bins_arr.cpu().numpy()
+            hist_bins = int(self.grower_params.num_bins)
+            pack4 = pack4_train_eligible(nb, hist_bins)
+            if not pack4:
+                log.warning(
+                    "tpu_bin_pack4=true: training keeps u8 bin columns; "
+                    "nibble packing needs every stored column to realize "
+                    f"<= 16 bins and max_bin <= 15 (histogram width "
+                    f"{hist_bins}, widest column {int(nb.max())})")
+        self.grower_params = self.grower_params._replace(bin_pack4=pack4)
         self.layout = RowLayout(num_features=int(train_set.binned.shape[1]),
-                                num_extra=e)
+                                num_extra=e, packed4=pack4)
         self._cx_grads = k if k > 1 else None
         self._cx_label = k + gcols
         self._cx_weight = k + gcols + 1 if has_w else None
@@ -1417,12 +1455,12 @@ class GBDT:
             tree = self._renewed(tree, sums[0], sums[1])
         return tree, row_leaf
 
-    def _routed_leaves(self, tree, binned: torch.Tensor,
-                       depth: int) -> torch.Tensor:
+    def _routed_leaves(self, tree, binned: torch.Tensor, depth: int,
+                       packed: bool = False) -> torch.Tensor:
         """Each row's leaf in one tree (a ``TreeArrays`` on the device), for
         rows of the training data's column space (bundle space when EFB
         bundled; reference: ``_route_args``, ``boosting/gbdt.py:
-        2247-2251``)."""
+        2247-2251``); ``packed``: the bins are nibble-packed."""
         sf = tree.split_feature
         cat, nan_arr = {}, self.nan_bin_arr
         if self._efb is not None:
@@ -1445,7 +1483,8 @@ class GBDT:
             right_child=tree.right_child[None],
             leaf_value=tree.leaf_value[None],
             num_nodes=tree.num_nodes.reshape(1), **cat)
-        return predict_leaf_batched(binned, one, nan_arr, depth)[0]
+        return predict_leaf_batched(binned, one, nan_arr, depth,
+                                    packed=packed)[0]
 
     def _update_valid_scores(self, tree: TreeArrays, depth: int,
                              k: int) -> None:
@@ -1456,10 +1495,16 @@ class GBDT:
     def _routing_binned(self) -> torch.Tensor:
         """The training rows' bins in the order of ``train_score`` (the
         compact grower's records are permuted; reference:
-        ``_routing_binned``, ``boosting/gbdt.py:2734-2741``)."""
+        ``_routing_binned``, ``boosting/gbdt.py:2734-2741``), nibble-packed
+        where ``_routing_packed``."""
         if self.use_compact and self._compact_ready:
-            return self.work[:, :self.layout.num_features]
+            return self.work[:, :self.layout.feat_cols]
         return self.binned
+
+    def _routing_packed(self) -> bool:
+        """Whether ``_routing_binned`` holds two features a byte."""
+        return self.use_compact and self._compact_ready \
+            and self.layout.packed4
 
     def host_tree_arrays(self, host: HostTree) -> TreeArrays:
         """A host tree's routing arrays on the device in one upload (every
@@ -1515,8 +1560,8 @@ class GBDT:
                 add(vs.score[k], vs.binned, vs.dataset.raw_data)
             return
         if train:
-            self.train_score[k] += tree.leaf_value[
-                self._routed_leaves(tree, self._routing_binned(), depth)]
+            self.train_score[k] += tree.leaf_value[self._routed_leaves(
+                tree, self._routing_binned(), depth, self._routing_packed())]
         if valid:
             self._update_valid_scores(tree, depth, k)
 
@@ -1712,6 +1757,15 @@ class GBDT:
                             self.feature_is_categorical())
         return models, trees, max(m.max_depth for m in models)
 
+    def _pred_bins(self, binned: np.ndarray) -> torch.Tensor:
+        """Binned rows on the device, nibble-packed on the host first with
+        ``tpu_bin_pack4`` (reference: ``_pad_request_to_bucket``,
+        ``boosting/gbdt.py:3065-3077``): half the bytes uploaded and held."""
+        binned = np.ascontiguousarray(binned)
+        if self._pred_pack4:
+            binned = pack4_matrix(binned.astype(np.uint8, copy=False))
+        return torch.from_numpy(binned).to(self.device)
+
     def predict_raw_binned(self, binned: np.ndarray,
                            num_iteration: Optional[int] = None,
                            start_iteration: int = 0,
@@ -1726,11 +1780,11 @@ class GBDT:
         if not models:
             return np.zeros((self.num_class, binned.shape[0]), np.float32)
         margin, freq = early_stop if early_stop else (0.0, 0)
-        b = torch.from_numpy(np.ascontiguousarray(binned)).to(self.device)
+        b = self._pred_bins(binned)
         raw = predict_raw_batched(
             b, trees, self._pred_nan_arr, depth, num_class=self.num_class,
-            early_stop_margin=float(margin),
-            early_stop_freq=int(freq)).cpu().numpy()
+            early_stop_margin=float(margin), early_stop_freq=int(freq),
+            packed=self._pred_pack4).cpu().numpy()
         if self.average_output:
             raw = raw / self._average_divisor(models)
         return raw
@@ -1772,8 +1826,9 @@ class GBDT:
                                                     start_iteration)
         if not models:
             return np.zeros((binned.shape[0], 0), np.int32)
-        b = torch.from_numpy(binned).to(self.device)
-        leaves = predict_leaf_batched(b, trees, self._pred_nan_arr, depth)
+        leaves = predict_leaf_batched(self._pred_bins(binned), trees,
+                                      self._pred_nan_arr, depth,
+                                      packed=self._pred_pack4)
         return leaves.to(torch.int32).T.cpu().numpy()
 
     def predict_contrib_matrix(self, arr: np.ndarray,

@@ -159,10 +159,16 @@ PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...]]] = {
     # grower selection knobs shared with the JAX package
     "tpu_grower": ("auto", str, ()),            # auto | compact | masked
     "tpu_hist_layout": ("auto", str, ("hist_layout",)),  # auto|lane|sublane
+    # 4-bit packed bin columns (compact records and prediction) where every
+    # column has at most 16 bins; else a warning and u8 columns
     "tpu_bin_pack4": (False, bool, ("bin_pack4",)),
-    # 0 = auto, 16 = narrowed accumulation (kept at 32 bits here, with a
-    # warning, as the JAX package does when its fused kernel is on), 32
+    # 0 = auto, 16 = the narrowed 16-bit quantized histogram (the compact
+    # grower without the fused kernel only; with K2 a warning and 32
+    # bits, as in the JAX package), 32
     "tpu_quant_hist_bits": (0, int, ("quant_hist_bits",)),
+    # the compact grower's fused split kernel K2: auto | on | off; off
+    # partitions and then histograms the smaller child (resolve_fused)
+    "tpu_fused": ("auto", str, ()),
 }
 
 # the JAX package's keys the port cannot honour yet: name -> (default, type,
@@ -231,7 +237,7 @@ IGNORED_PARAMS: Dict[str, Tuple[str, ...]] = {
     "tpu_autotune_cache": ("autotune_cache",), "tpu_hist_scatter": (),
     "tpu_step_buckets": ("step_buckets",),
     "tpu_compile_cache_dir": ("compile_cache_dir",),
-    "tpu_hist_overlap": ("hist_overlap",), "tpu_fused": (),
+    "tpu_hist_overlap": ("hist_overlap",),
     "tpu_fused_block": (), "tpu_fused_interpret": (),
     "tpu_predict_tbatch": ("predict_tbatch",),
     "tpu_predict_buckets": ("predict_buckets",),
@@ -458,7 +464,6 @@ class Config:
             if cond:
                 todo.append(f"{what} (ROADMAP {item})")
 
-        need(self.tpu_bin_pack4, "tpu_bin_pack4", "A15b")
         need(bool(self.forcedbins_filename), "forced bins", "A3")
         need(self.max_bin > 255, "max_bin>255", "A3")
         for name, value in self.refused.items():
@@ -496,6 +501,21 @@ def resolve_hist_layout(cfg: Config, num_bins: int) -> str:
         return "lane"
     return mode
 
+
+def resolve_fused(cfg: Config) -> bool:
+    """``tpu_fused`` as the compact grower's choice of K2 (the on/off
+    decision of ``resolve_fused_block``, ``lightgbm_tpu/engines/
+    registry.py:422-452``): ``auto`` and ``on`` run the fused split kernel
+    (the card always has it); ``off`` partitions with K2's partition alone
+    and histograms the smaller child with K1 or K3; an unknown value warns
+    and means ``auto``."""
+    mode = str(cfg.tpu_fused or "auto").lower()
+    if mode in ("off", "0", "false"):
+        return False
+    if mode not in ("auto", "on", "1", "true"):
+        log.warning(f"tpu_fused={mode!r} is not one of auto|on|off; using "
+                    "auto")
+    return True
 
 
 def resolve_device(cfg: Config):

@@ -52,6 +52,14 @@
 // the Python wrapper after these launches; in mode 1 only `prep` runs here
 // and K1 covers the whole segment.
 //
+// Nibble-packed records (packed4, the TPU kernel's packed4, lightgbm_tpu/
+// ops/fused_split.py:217-228, :662): the bin columns hold two features a
+// byte, so a record's real vectors are fewer (P shrinks with the layout's
+// moved_cols) and the routing reads feature f's nibble, byte f >> 1, shift
+// 4 (f & 1), from the staged tile; the rest is unchanged in either
+// residency. The compact grower without the fused kernel (tpu_fused=off)
+// runs these launches alone, with no histogram after them.
+//
 // Padding bytes past the last 16-byte vector of a row's real columns are
 // neither read nor written; the arrays start with zero padding and every
 // copy of the grower moves whole rows, so the padding stays zero.
@@ -178,7 +186,7 @@ __device__ __forceinline__ int wait_flag(const unsigned long long* p,
 
 __global__ void __launch_bounds__(kThreads)
 partition_kernel(uint8_t* work, uint8_t* scratch, long long C, int P, int T,
-                 const int* ws, const uint32_t* bits, int W,
+                 int packed4, const int* ws, const uint32_t* bits, int W,
                  unsigned long long* flags, int* ctl) {
   extern __shared__ uint4 tile[];            // [T][P] vectors, then dest[T]
   int* dest = reinterpret_cast<int*>(tile + (long long)T * P);
@@ -225,9 +233,15 @@ partition_kernel(uint8_t* work, uint8_t* scratch, long long C, int P, int T,
       if (k < rounds) {
         const int i = k * kThreads + threadIdx.x;
         bool gl = false;
-        if (i < rows)
-          gl = go_left(tile_bytes[(long long)i * P * 16 + s.feat], s, bits,
-                       W);
+        if (i < rows) {
+          // packed4: the feature's nibble, byte feat >> 1, shift
+          // 4 (feat & 1)
+          const uint8_t* rec = tile_bytes + (long long)i * P * 16;
+          const int col = packed4
+              ? (rec[s.feat >> 1] >> (4 * (s.feat & 1))) & 0xF
+              : rec[s.feat];
+          gl = go_left(col, s, bits, W);
+        }
         const unsigned bl = __ballot_sync(0xffffffffu, gl);
         rank_in_warp[k] = __popc(bl & lt);
         if (gl) left_bits |= 1u << k;
@@ -353,7 +367,8 @@ copyback_kernel(uint8_t* work, const uint8_t* scratch, long long C, int P,
 // variant (side taken as 0, then the copy-back launch).
 extern "C" int lgbt_fused_split(int mode, int dual, void* work, void* scratch,
                                 int n_rows, long long C, int P, int T, int F,
-                                const void* sp, const void* bits, int W,
+                                int packed4, const void* sp, const void* bits,
+                                int W,
                                 void* ws, void* flags, void* ctl,
                                 void* stream) {
   if (C % 16 != 0 || P <= 0 || P * 16 > C || T <= 0 || T % kThreads != 0
@@ -381,7 +396,7 @@ extern "C" int lgbt_fused_split(int mode, int dual, void* work, void* scratch,
     const int grid = occ * sms < n_tiles ? occ * sms : n_tiles;
     partition_kernel<<<grid > 0 ? grid : 1, kThreads, smem, st>>>(
         static_cast<uint8_t*>(work), static_cast<uint8_t*>(scratch), C, P, T,
-        wsp, static_cast<const uint32_t*>(bits), W,
+        packed4, wsp, static_cast<const uint32_t*>(bits), W,
         static_cast<unsigned long long*>(flags), ctlp);
     if (!dual) {
       // four blocks an SM, fewer where the whole array has fewer vectors

@@ -68,6 +68,31 @@
 //     shared memory, and the end-of-block flush walks the cells without
 //     integer division.
 //
+// The dense mode has an integer variant too (lgbt_hist_dense_int), the TPU
+// kernel's int8 mode (pallas_histogram.py:107-109, :277-281): int8 or
+// int32 codes summed with integer shared-memory atomics into an int32
+// output, exactly. Its narrowed mode is the JAX package's 16-bit quantized
+// engine (ops/histogram.py _xla_histogram_narrow, XLA there): the (grad,
+// hess) codes of a row travel as one 32-bit word g * 2^16 + h and the
+// (in-bag, raw) counts as another, so a (row, feature) costs two atomics
+// where the 32-bit cells cost four. A word is unpacked with an arithmetic
+// shift and a mask (exact for a negative grad sum while the hess sum stays
+// below 2^16), so a block flushes its cells into the output before any of
+// them could carry: every 32,767 / quant_max rows, two rows a thread a tile
+// while that is at least 2,048 rows, else one. With narrow == 2 the kernel
+// takes the 16-bit cells only where the whole segment fits them (count x
+// quant_max < 2^15, the reference's GetHistBitsInLeaf), a choice made on
+// the device from the segment count it reads, and tallies those launches.
+//
+// Both modes read a segment given on the device (seg = start, count, which
+// array) through a row stride, as record mode does: the compact grower
+// without the fused kernel histograms the records' bin columns in place,
+// with the segment's channels (row r of the channels for row start + r)
+// from csrc/segment_gather.cu. Nibble-packed bins (packed4: feature f in
+// byte f >> 1, shift 4 (f & 1)) are unpacked into the row buffer as a row
+// is loaded, in record and in dense mode, so the rest of the kernel is
+// that of u8 bins; an odd F's last high nibble is never read.
+//
 // A one-hot product on the tensor cores is not the route: it would first
 // write a 256-wide one-hot for every (row, feature) into shared memory:
 // 10.5M x 28 x 256 = 75 billion entries at the root of a Higgs-sized tree,
@@ -106,38 +131,70 @@ struct Args {
   const uint8_t* rows_b;
   long long stride;
   const float* ch;
-  const int* seg;
+  const int8_t* ch8;   // dense integer variant: int8 codes, else
+  const int* ch32;     // int32 codes
+  const int* seg;      // device (start, count, which), or null (dense)
   long long n_rows;
   long long count;
   float* out;
-  int* iout;           // the integer variant's int32 output
+  int* iout;           // the integer variants' int32 output
+  int* tally;          // narrowed launches chosen on the device, or null
   int K, F, B, bf16;
   int fc, Fp, kc, nf;  // feature chunk, its padded width, channels a chunk
   int u;               // row-buffer words a thread (8 or odd)
   int grad_off, hess_off, cnt_off;
+  int packed4;         // bins nibble-packed, two features a byte
+  int narrow;          // 0: 32-bit cells; 1: 16-bit; 2: 16-bit if it fits
+  int quant_max;       // |code| bound of the narrowed mode
 };
 
+// Four packed bytes (eight nibbles) into eight bytes, features in order.
+__device__ __forceinline__ void unpack_word(uint32_t v, uint32_t* d) {
+  const uint32_t lo = v & 0x0f0f0f0fu;
+  const uint32_t hi = (v >> 4) & 0x0f0f0f0fu;
+  d[0] = __byte_perm(lo, hi, 0x5140);
+  d[1] = __byte_perm(lo, hi, 0x7362);
+}
+
 // One row into the thread's row buffer (the bytes of features [f0, f0 + fc)
-// from the returned offset on) and its channels into c (records: grad, hess
-// -- as ints with QUANT -- and the packed counts `packed`). Returns the
-// offset.
+// from the returned offset on, nibbles unpacked) and its channels into c:
+// records: grad, hess -- as ints with QUANT -- and the packed counts
+// `packed`; dense: the row's channels at channel row `crow` (QUANT: int
+// codes; narrowed: the two packed words). Returns the offset.
 template <bool RECORDS, bool QUANT>
 __device__ __forceinline__ int load_row(const Args& a, const uint8_t* rows,
-                                        long long row, int f0, int fc, int k0,
-                                        int kc, uint32_t* buf, Acc<QUANT>* c,
-                                        uint32_t& packed) {
+                                        long long row, long long crow,
+                                        int f0, int fc, int k0, int kc,
+                                        bool narrow, uint32_t* buf,
+                                        Acc<QUANT>* c, uint32_t& packed) {
+  int boff;
+  const uint8_t* rec = rows + row * a.stride;
   if (RECORDS) {
-    const uint8_t* rec = rows + row * a.stride;
-    const int q0 = f0 >> 4;
-    const int q1 = (f0 + fc + 15) >> 4;
     const uint4* src = reinterpret_cast<const uint4*>(rec);
-    for (int q = q0; q < q1; ++q) {
-      const uint4 v = __ldg(src + q);
-      uint32_t* d = buf + 4 * (q - q0);
-      d[0] = v.x;
-      d[1] = v.y;
-      d[2] = v.z;
-      d[3] = v.w;
+    if (a.packed4) {
+      const int q0 = (f0 >> 1) >> 4;
+      const int q1 = (((f0 + fc - 1) >> 1) + 16) >> 4;
+      for (int q = q0; q < q1; ++q) {
+        const uint4 v = __ldg(src + q);
+        uint32_t* d = buf + 8 * (q - q0);
+        unpack_word(v.x, d);
+        unpack_word(v.y, d + 2);
+        unpack_word(v.z, d + 4);
+        unpack_word(v.w, d + 6);
+      }
+      boff = f0 - 32 * q0;
+    } else {
+      const int q0 = f0 >> 4;
+      const int q1 = (f0 + fc + 15) >> 4;
+      for (int q = q0; q < q1; ++q) {
+        const uint4 v = __ldg(src + q);
+        uint32_t* d = buf + 4 * (q - q0);
+        d[0] = v.x;
+        d[1] = v.y;
+        d[2] = v.z;
+        d[3] = v.w;
+      }
+      boff = f0 - 16 * q0;
     }
     if (QUANT) {
       // integer codes stored as f32: the conversion is exact
@@ -148,32 +205,98 @@ __device__ __forceinline__ int load_row(const Args& a, const uint8_t* rows,
       c[1] = load_f32_bytes(rec, a.hess_off);
     }
     packed = 0x10000u | (load_f32_bytes(rec, a.cnt_off) != 0.f ? 1u : 0u);
-    return f0 - 16 * q0;
+    return boff;
   }
-  const uint8_t* p = rows + row * a.stride + f0;
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(p);
+  const int b0 = a.packed4 ? f0 >> 1 : f0;
+  const int b1 = a.packed4 ? ((f0 + fc - 1) >> 1) + 1 : f0 + fc;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(rec + b0);
   const uint32_t* w = reinterpret_cast<const uint32_t*>(addr & ~uintptr_t(3));
-  const int boff = (int)(addr & 3);
-  const int nw = (boff + fc + 3) >> 2;
-  for (int i = 0; i < nw; ++i) buf[i] = __ldg(w + i);
+  const int boff_b = (int)(addr & 3);
+  const int nw = (boff_b + b1 - b0 + 3) >> 2;
+  if (a.packed4) {
+    for (int i = 0; i < nw; ++i) unpack_word(__ldg(w + i), buf + 2 * i);
+    boff = 2 * boff_b + (f0 & 1);
+  } else {
+    for (int i = 0; i < nw; ++i) buf[i] = __ldg(w + i);
+    boff = boff_b;
+  }
+  if (QUANT) {
+    // the narrowed mode packs all four channels into its two words
+    const int kr = narrow ? 4 : kc;
+    int v[kMaxK];
 #pragma unroll
-  for (int k = 0; k < kMaxK; ++k) {
-    if (k < kc) {
-      const float v = __ldg(a.ch + row * a.K + k0 + k);
-      c[k] = a.bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+    for (int k = 0; k < kMaxK; ++k) {
+      if (k < kr) {
+        const long long i = crow * a.K + k0 + k;
+        v[k] = a.ch8 ? (int)__ldg(a.ch8 + i) : __ldg(a.ch32 + i);
+      }
+    }
+    if (narrow) {
+      // (grad, hess) and (in-bag, raw) as two words hi * 2^16 + lo
+      c[0] = (int)(((uint32_t)v[0] << 16) + (uint32_t)v[1]);
+      c[1] = (int)(((uint32_t)v[2] << 16) + (uint32_t)v[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kMaxK; ++k) {
+        if (k < kc) c[k] = v[k];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kMaxK; ++k) {
+      if (k < kc) {
+        const float v = __ldg(a.ch + crow * a.K + k0 + k);
+        c[k] = a.bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+      }
     }
   }
   return boff;
 }
 
+// Flush a block's packed cells into the int32 or f32 output: records'
+// counts (low 16 bits in-bag, high raw), or the narrowed words (hi * 2^16
+// + lo: grad, hess; in-bag, raw). Zeroes them.
+template <bool RECORDS, bool QUANT>
+__device__ __forceinline__ void flush_packed(const Args& a, uint32_t* smem,
+                                             int f0, int fc, int lg) {
+  const int B = a.B;
+  const int Fp = a.Fp;
+  for (int i = threadIdx.x; i < B * Fp; i += kThreads) {
+    const int f = i & (Fp - 1);
+    if (f >= fc) continue;
+    const long long o = ((long long)(f0 + f) * B + (i >> lg)) * 4;
+    if (RECORDS) {
+      uint32_t* counts = smem + 2 * B * Fp;
+      const uint32_t v = counts[i];
+      if (v == 0u) continue;
+      if (QUANT) {
+        atomicAdd(a.iout + o + 2, (int)(v & 0xffffu));
+        atomicAdd(a.iout + o + 3, (int)(v >> 16));
+      } else {
+        atomicAdd(a.out + o + 2, (float)(v & 0xffffu));
+        atomicAdd(a.out + o + 3, (float)(v >> 16));
+      }
+      counts[i] = 0u;
+    } else {
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        const uint32_t v = smem[w * B * Fp + i];
+        if (v == 0u) continue;
+        // arithmetic shift: floor(v / 2^16), exact while lo < 2^16
+        atomicAdd(a.iout + o + 2 * w, (int)v >> 16);
+        atomicAdd(a.iout + o + 2 * w + 1, (int)(v & 0xffffu));
+        smem[w * B * Fp + i] = 0u;
+      }
+    }
+  }
+}
+
 template <bool RECORDS, bool QUANT>
 __global__ void __launch_bounds__(kThreads, 1) hist_kernel(const Args a) {
-  static_assert(RECORDS || !QUANT, "the integer variant reads records");
   extern __shared__ uint32_t smem[];
   const int f0 = (blockIdx.y % a.nf) * a.fc;
   const int fc = min(a.fc, a.F - f0);
   const int k0 = (blockIdx.y / a.nf) * a.kc;
-  const int kc = RECORDS ? 3 : min(a.kc, a.K - k0);
   const int B = a.B;
   const int Fp = a.Fp;                 // 32 or 64
   const int lg = Fp == 64 ? 6 : 5;
@@ -181,14 +304,25 @@ __global__ void __launch_bounds__(kThreads, 1) hist_kernel(const Args a) {
   long long start = 0;
   long long count = a.count;
   const uint8_t* rows = a.rows_a;
-  if (RECORDS) {
+  if (a.seg) {
     // defence in depth, as the fused split's prep clamps its scalars: a bad
     // segment reads fewer rows, never rows outside the arrays
     start = min(max((long long)a.seg[0], 0LL), a.n_rows);
     count = min(max((long long)a.seg[1], 0LL), a.n_rows - start);
     if (a.seg[2] != 0) rows = a.rows_b;
   }
-  const long long n_tiles = (count + kTile - 1) / kTile;
+  // the narrowed cells: forced, or where the whole segment fits them
+  const bool narrow = !RECORDS && QUANT
+      && (a.narrow == 1 || (a.narrow == 2 && count * a.quant_max < 32768));
+  if (narrow && a.narrow == 2 && a.tally && blockIdx.x == 0
+      && blockIdx.y == 0 && threadIdx.x == 0)
+    atomicAdd(a.tally, 1);
+  const int kc = RECORDS ? 3 : narrow ? 2 : min(a.kc, a.K - k0);
+  // rows a block adds between flushes of its packed cells (0: never)
+  const long long flush_rows =
+      RECORDS ? kCountFlushRows : narrow ? 32767 / a.quant_max : 0;
+  const int tile = narrow && flush_rows < kTile ? kThreads : kTile;
+  const long long n_tiles = (count + tile - 1) / tile;
   const int active = (int)min((long long)gridDim.x, max(n_tiles, 1LL));
   if ((int)blockIdx.x >= active) return;  // uniform across the block
 
@@ -210,40 +344,29 @@ __global__ void __launch_bounds__(kThreads, 1) hist_kernel(const Args a) {
 
   long long since_flush = 0;
   for (long long t = blockIdx.x; t < n_tiles; t += active) {
-    if (RECORDS && since_flush + kTile > kCountFlushRows) {
-      // no bin of this block can pass 65,535 rows before the flush
+    if (flush_rows && since_flush + tile > flush_rows) {
+      // no packed cell of this block can carry before the flush
       __syncthreads();
-      for (int i = threadIdx.x; i < B * Fp; i += kThreads) {
-        const int f = i & (Fp - 1);
-        const uint32_t v = counts[i];
-        if (f < fc && v != 0u) {
-          const long long o = ((long long)(f0 + f) * B + (i >> lg)) * 4;
-          if (QUANT) {
-            atomicAdd(a.iout + o + 2, (int)(v & 0xffffu));
-            atomicAdd(a.iout + o + 3, (int)(v >> 16));
-          } else {
-            atomicAdd(a.out + o + 2, (float)(v & 0xffffu));
-            atomicAdd(a.out + o + 3, (float)(v >> 16));
-          }
-          counts[i] = 0u;
-        }
-      }
+      flush_packed<RECORDS, QUANT>(a, smem, f0, fc, lg);
       __syncthreads();
       since_flush = 0;
     }
-    since_flush += kTile;
-    // rows r and r + kThreads of the tile: neighbouring threads read
+    since_flush += tile;
+    // rows r and r + kThreads of the tile (one row a thread in the
+    // narrowed mode's short tiles): neighbouring threads read
     // neighbouring rows
-    const long long r = t * kTile + threadIdx.x;
+    const long long r = t * tile + threadIdx.x;
     if (r >= count) continue;
-    const bool two = r + kThreads < count;
+    const bool two = tile == kTile && r + kThreads < count;
     Acc<QUANT> c0[kMaxK], c1[kMaxK] = {};
     uint32_t p0 = 0u, p1 = 0u;
-    const int boff0 = load_row<RECORDS, QUANT>(a, rows, start + r, f0, fc,
-                                               k0, kc, buf0, c0, p0);
+    const int boff0 = load_row<RECORDS, QUANT>(a, rows, start + r, r, f0,
+                                               fc, k0, kc, narrow, buf0, c0,
+                                               p0);
     const int boff1 =
-        two ? load_row<RECORDS, QUANT>(a, rows, start + r + kThreads, f0, fc,
-                                       k0, kc, buf1, c1, p1)
+        two ? load_row<RECORDS, QUANT>(a, rows, start + r + kThreads,
+                                       r + kThreads, f0, fc, k0, kc, narrow,
+                                       buf1, c1, p1)
             : 0;
     for (int j = 0; j < rot; ++j) {
       int f = j + lane_f;
@@ -285,6 +408,10 @@ __global__ void __launch_bounds__(kThreads, 1) hist_kernel(const Args a) {
     }
   }
   __syncthreads();
+  if (narrow) {
+    flush_packed<false, true>(a, smem, f0, fc, lg);
+    return;
+  }
   const int K = RECORDS ? 4 : a.K;
   const int float_ch = RECORDS ? 2 : kc;
   for (int k = 0; k < kc; ++k) {
@@ -296,7 +423,7 @@ __global__ void __launch_bounds__(kThreads, 1) hist_kernel(const Args a) {
       const long long o = ((long long)(f0 + f) * B + (i >> lg)) * K;
       if (QUANT) {
         if (k < float_ch) {
-          atomicAdd(a.iout + o + k, (int)v);
+          atomicAdd(a.iout + o + k0 + k, (int)v);
         } else {
           atomicAdd(a.iout + o + 2, (int)(v & 0xffffu));
           atomicAdd(a.iout + o + 3, (int)(v >> 16));
@@ -327,17 +454,34 @@ template <bool RECORDS, bool QUANT = false>
 int launch(Args a, cudaStream_t stream) {
   if (a.F <= 0 || a.B <= 0 || a.B > 256 || a.K <= 0 || a.K > kMaxK)
     return (int)cudaErrorInvalidValue;
+  // the narrowed mode: the (grad, hess, in-bag, raw) quad, and at least one
+  // row a thread between flushes
+  if (a.narrow && (a.K != 4 || a.quant_max < 1
+                   || 32767 / a.quant_max < kThreads))
+    return (int)cudaErrorInvalidValue;
   const int kc_all = RECORDS ? 3 : a.K;
-  // a thread's row-buffer words: its chunk's bins (records: whole 16-byte
-  // vectors from a chunk start that may sit mid-vector; dense: words from
-  // an address that may sit mid-word). The stride sets the banks of the
-  // rotated byte reads: 8 words puts them on 32 banks at a rotation period
-  // of 32, an odd stride on at most two a bank otherwise
+  // the packed cells need all their channels in one block
+  const bool split_k = !RECORDS && a.narrow == 0;
+  // a thread's row-buffer words: its chunk's bins, nibbles unpacked
+  // (records: whole 16-byte vectors from a chunk start that may sit
+  // mid-vector; dense: words from an address that may sit mid-word). The
+  // stride sets the banks of the rotated byte reads: 8 words puts them on
+  // 32 banks at a rotation period of 32, an odd stride on at most two a
+  // bank otherwise
   auto row_words = [&](int fc) {
-    // records in one chunk start at vector 0
-    const int w = !RECORDS ? (3 + fc + 3) / 4
-                  : fc == a.F ? 4 * ((fc + 15) / 16)
-                              : 4 * ((15 + fc + 15) / 16);
+    int w;
+    if (RECORDS && a.packed4) {
+      // a chunk's packed bytes are at most fc / 2 + 1
+      w = fc == a.F ? 8 * (((a.F + 1) / 2 + 15) / 16)
+                    : 8 * ((fc / 2 + 1 + 30) / 16);
+    } else if (RECORDS) {
+      // records in one chunk start at vector 0
+      w = fc == a.F ? 4 * ((fc + 15) / 16) : 4 * ((15 + fc + 15) / 16);
+    } else if (a.packed4) {
+      w = 2 * ((3 + fc / 2 + 1 + 3) / 4);
+    } else {
+      w = (3 + fc + 3) / 4;
+    }
     return fc > 16 && fc < 32 && w <= 8 ? 8 : w | 1;
   };
   auto fp_of = [](int fc) { return (fc + 31) / 32 * 32; };
@@ -350,7 +494,7 @@ int launch(Args a, cudaStream_t stream) {
   while (smem_of(fc, kc) > kSmemLimit) {
     if (fc > 32) {
       fc = 32;
-    } else if (!RECORDS && kc > 1) {
+    } else if (split_k && kc > 1) {
       kc = (kc + 1) / 2;
     } else if (fc > 1) {
       fc = (fc + 1) / 2;
@@ -382,6 +526,7 @@ int launch(Args a, cudaStream_t stream) {
   int gx = num_sms() * (occ > 0 ? occ : 1) / chunks;
   if (gx < 1) gx = 1;
   if (!RECORDS) {
+    // dense: the rows (or, for a segment on the device, the most it holds)
     if (a.count <= 0) return (int)cudaSuccess;
     const long long tiles = (a.count + kTile - 1) / kTile;
     if (tiles < gx) gx = (int)tiles;
@@ -392,7 +537,7 @@ int launch(Args a, cudaStream_t stream) {
 }
 
 Args record_args(const void* work, const void* scratch, long long n_rows,
-                 long long stride, const void* seg, int F, int B,
+                 long long stride, const void* seg, int F, int B, int packed4,
                  int grad_off, int hess_off, int cnt_off) {
   Args a = {};
   a.rows_a = static_cast<const uint8_t*>(work);
@@ -403,44 +548,85 @@ Args record_args(const void* work, const void* scratch, long long n_rows,
   a.K = 4;
   a.F = F;
   a.B = B;
+  a.packed4 = packed4;
   a.grad_off = grad_off;
   a.hess_off = hess_off;
   a.cnt_off = cnt_off;
   return a;
 }
 
-}  // namespace
-
-// Dense mode: bins [n, F] u8 with row stride `stride` bytes, channels
-// [n, K] f32 contiguous, out [F, B, K] f32 zeroed by the caller.
-extern "C" int lgbt_hist_dense(const void* bins, long long stride,
-                               const void* ch, int K, int n, int F, int B,
-                               int bf16, void* out, void* stream) {
+Args dense_args(const void* bins, const void* bins_b, long long n_rows,
+                long long stride, const void* seg, int packed4, int K, int F,
+                int B) {
   Args a = {};
   a.rows_a = static_cast<const uint8_t*>(bins);
+  a.rows_b = static_cast<const uint8_t*>(bins_b);
   a.stride = stride;
-  a.ch = static_cast<const float*>(ch);
-  a.n_rows = n;
-  a.count = n;
-  a.out = static_cast<float*>(out);
+  a.seg = static_cast<const int*>(seg);
+  a.n_rows = n_rows;
+  a.count = n_rows;
+  a.packed4 = packed4;
   a.K = K;
   a.F = F;
   a.B = B;
+  return a;
+}
+
+}  // namespace
+
+// Dense mode: bins [n_rows, *] u8 with row stride `stride` bytes (packed4:
+// two features a byte), channels [n_rows, K] f32 contiguous, out [F, B, K]
+// f32 zeroed by the caller. With `seg` (device int32 {start, count,
+// which}, clamped to the rows) rows [start, start + count) of `bins`
+// (which == 0) or `bins_b`, whose row start + r takes channel row r.
+extern "C" int lgbt_hist_dense(const void* bins, const void* bins_b,
+                               long long n_rows, long long stride,
+                               const void* seg, int packed4, const void* ch,
+                               int K, int F, int B, int bf16, void* out,
+                               void* stream) {
+  Args a = dense_args(bins, bins_b, n_rows, stride, seg, packed4, K, F, B);
+  a.ch = static_cast<const float*>(ch);
+  a.out = static_cast<float*>(out);
   a.bf16 = bf16;
   return launch<false>(a, static_cast<cudaStream_t>(stream));
+}
+
+// Dense mode, integer variant: the same rows against int8 (ch_int8) or
+// int32 codes; out [F, B, K] int32 zeroed by the caller. narrow 1: the
+// 16-bit cells (K = 4: grad, hess, in-bag, raw; |code| <= quant_max <= 31,
+// hess codes >= 0); 2: those cells where count x quant_max < 2^15, which
+// then adds one to *tally (if not null).
+extern "C" int lgbt_hist_dense_int(const void* bins, const void* bins_b,
+                                   long long n_rows, long long stride,
+                                   const void* seg, int packed4,
+                                   const void* ch, int ch_int8, int K, int F,
+                                   int B, int quant_max, int narrow,
+                                   void* out, void* tally, void* stream) {
+  Args a = dense_args(bins, bins_b, n_rows, stride, seg, packed4, K, F, B);
+  if (ch_int8) {
+    a.ch8 = static_cast<const int8_t*>(ch);
+  } else {
+    a.ch32 = static_cast<const int*>(ch);
+  }
+  a.iout = static_cast<int*>(out);
+  a.tally = static_cast<int*>(tally);
+  a.quant_max = quant_max;
+  a.narrow = narrow;
+  return launch<false, true>(a, static_cast<cudaStream_t>(stream));
 }
 
 // Record mode: rows [start, start + count) of `work` (seg[2] == 0) or
 // `scratch` (seg[2] != 0), both [n_rows, stride] u8, seg = device int32
 // {start, count, which}, clamped on the device to start in [0, n_rows] and
-// count in [0, n_rows - start]; out [F, B, 4] f32 zeroed by the caller.
+// count in [0, n_rows - start]; packed4: the bin columns hold two features
+// a byte; out [F, B, 4] f32 zeroed by the caller.
 extern "C" int lgbt_hist_records(const void* work, const void* scratch,
                                  long long n_rows, long long stride,
-                                 const void* seg, int F, int B, int grad_off,
-                                 int hess_off, int cnt_off, void* out,
-                                 void* stream) {
-  Args a = record_args(work, scratch, n_rows, stride, seg, F, B, grad_off,
-                       hess_off, cnt_off);
+                                 const void* seg, int F, int B, int packed4,
+                                 int grad_off, int hess_off, int cnt_off,
+                                 void* out, void* stream) {
+  Args a = record_args(work, scratch, n_rows, stride, seg, F, B, packed4,
+                       grad_off, hess_off, cnt_off);
   a.out = static_cast<float*>(out);
   return launch<true>(a, static_cast<cudaStream_t>(stream));
 }
@@ -450,10 +636,10 @@ extern "C" int lgbt_hist_records(const void* work, const void* scratch,
 extern "C" int lgbt_hist_records_int(const void* work, const void* scratch,
                                      long long n_rows, long long stride,
                                      const void* seg, int F, int B,
-                                     int grad_off, int hess_off, int cnt_off,
-                                     void* out, void* stream) {
-  Args a = record_args(work, scratch, n_rows, stride, seg, F, B, grad_off,
-                       hess_off, cnt_off);
+                                     int packed4, int grad_off, int hess_off,
+                                     int cnt_off, void* out, void* stream) {
+  Args a = record_args(work, scratch, n_rows, stride, seg, F, B, packed4,
+                       grad_off, hess_off, cnt_off);
   a.iout = static_cast<int*>(out);
   return launch<true, true>(a, static_cast<cudaStream_t>(stream));
 }

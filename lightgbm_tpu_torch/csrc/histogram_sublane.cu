@@ -72,9 +72,21 @@
 //     bound by fixed costs (zeroing and summing seven copies, a global
 //     atomic a cell a block), which its single shared histogram a block
 //     keeps low. The masked grower's 20k rows take it.
+//
+// The int8 mode (the TPU kernel's int8 mode, pallas_histogram.py:202-203,
+// :316; is_int): the channels are int32 codes and every cell is an int32
+// sum, on both paths, through the same 32-bit shared-memory accesses (a
+// bit copy) with integer adds, and integer global atomics at the end; the
+// result equals the plain version's exactly, whatever the order. With
+// `cnt` (a device int32) the rows read are [0, min(*cnt, n)): the compact
+// grower without the fused kernel hands K3 a feature-major copy of a
+// segment whose count stays on the device (csrc/segment_gather.cu), the
+// geometry being that of the whole array.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -107,9 +119,10 @@ inline int max_active_lanes(int F, int fc) {
 struct Args {
   const uint8_t* bins;
   long long ld;
-  const float* ch;
+  const void* ch;     // [n, K] f32, or int32 codes (the int8 mode)
   long long n;
-  float* out;
+  void* out;          // [F, B, K] f32, or int32
+  const int* cnt;     // a device count bounding the rows read, or null
   int F, B, bf16, ch_vec;
   int fc, warps, group;
   int warp_bytes;     // a warp's stage, pending tile and pending channels
@@ -133,6 +146,28 @@ __device__ __forceinline__ void sts_if(uint32_t addr, float v, bool p) {
   asm volatile("{\n.reg .pred q;\nsetp.ne.b32 q, %2, 0;\n"
                "@q st.shared.f32 [%0], %1;\n}\n"
                :: "r"(addr), "f"(v), "r"((int)p) : "memory");
+}
+// The channel and cell type T (float, or int in the int8 mode) through the
+// 32-bit shared-memory accesses above: a bit copy either way.
+template <typename T>
+__device__ __forceinline__ T from_bits(uint32_t v) {
+  if constexpr (std::is_same<T, int>::value) {
+    return (int)v;
+  } else {
+    return __uint_as_float(v);
+  }
+}
+template <typename T>
+__device__ __forceinline__ T lds_t(uint32_t addr, bool p) {
+  return from_bits<T>(__float_as_uint(lds_if(addr, p)));
+}
+template <typename T>
+__device__ __forceinline__ void sts_t(uint32_t addr, T v, bool p) {
+  if constexpr (std::is_same<T, int>::value) {
+    sts_if(addr, __int_as_float(v), p);
+  } else {
+    sts_if(addr, v, p);
+  }
 }
 __device__ __forceinline__ void sts_u8_if(uint32_t addr, uint32_t v, bool p) {
   asm volatile("{\n.reg .pred q;\nsetp.ne.b32 q, %2, 0;\n"
@@ -193,41 +228,43 @@ __device__ __forceinline__ void store_bins(uint32_t stage, int fcc, int na,
 
 // The lane's four rows of channels (zero past n and on idle lanes),
 // bf16-rounded in bf16 mode.
-template <int K>
+template <int K, typename T>
 __device__ __forceinline__ void load_channels(const Args& a, long long row,
-                                              bool on, float* c) {
-  const float* cp = a.ch + row * K;
+                                              bool on, T* c) {
+  const T* cp = static_cast<const T*>(a.ch) + row * K;
   if (on && a.ch_vec && row + kRowsPerLane <= a.n) {
 #pragma unroll
     for (int q = 0; q < K; ++q) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(cp) + q);
-      c[4 * q] = v.x;
-      c[4 * q + 1] = v.y;
-      c[4 * q + 2] = v.z;
-      c[4 * q + 3] = v.w;
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(cp) + q);
+      c[4 * q] = from_bits<T>(v.x);
+      c[4 * q + 1] = from_bits<T>(v.y);
+      c[4 * q + 2] = from_bits<T>(v.z);
+      c[4 * q + 3] = from_bits<T>(v.w);
     }
   } else {
 #pragma unroll
     for (int i = 0; i < kRowsPerLane * K; ++i) {
-      c[i] = on && row + i / K < a.n ? __ldg(cp + i) : 0.f;
+      c[i] = on && row + i / K < a.n ? __ldg(cp + i) : T(0);
     }
   }
-  if (a.bf16) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (a.bf16) {
 #pragma unroll
-    for (int i = 0; i < kRowsPerLane * K; ++i) {
-      c[i] = __bfloat162float(__float2bfloat16_rn(c[i]));
+      for (int i = 0; i < kRowsPerLane * K; ++i) {
+        c[i] = __bfloat162float(__float2bfloat16_rn(c[i]));
+      }
     }
   }
 }
 
-template <int K>
-__device__ __forceinline__ uint32_t live_rows(const float* c) {
+template <int K, typename T>
+__device__ __forceinline__ uint32_t live_rows(const T* c) {
   uint32_t live = 0;
 #pragma unroll
   for (int i = 0; i < kRowsPerLane; ++i) {
     bool any = false;
 #pragma unroll
-    for (int k = 0; k < K; ++k) any |= c[i * K + k] != 0.f;
+    for (int k = 0; k < K; ++k) any |= c[i * K + k] != T(0);
     live |= (uint32_t)any << i;
   }
   return live;
@@ -237,9 +274,9 @@ __device__ __forceinline__ uint32_t live_rows(const float* c) {
 // column `col` (word w) into the histogram copy at shared address hb. Rows
 // of one bin are merged into the first of them; a row adds where it is the
 // first of its bin, the bin is < B and some row of the bin is live.
-template <int K>
+template <int K, typename T>
 __device__ __forceinline__ void add_step(uint32_t hb, int col, uint32_t w,
-                                         const float* c, uint32_t live,
+                                         const T* c, uint32_t live,
                                          bool act, int B) {
   int b[kRowsPerLane];
 #pragma unroll
@@ -252,10 +289,10 @@ __device__ __forceinline__ void add_step(uint32_t hb, int col, uint32_t w,
   v[1] = act && b[1] < B && !e01 && (l1 || (e12 && l2) || (e13 && l3));
   v[2] = act && b[2] < B && !e02 && !e12 && (l2 || (e23 && l3));
   v[3] = act && b[3] < B && !e03 && !e13 && !e23 && l3;
-  float sum[kRowsPerLane * K];
+  T sum[kRowsPerLane * K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    float s0 = c[k], s1 = c[K + k], s2 = c[2 * K + k];
+    T s0 = c[k], s1 = c[K + k], s2 = c[2 * K + k];
     if (e01) s0 += c[K + k];
     if (e02) s0 += c[2 * K + k];
     if (e03) s0 += c[3 * K + k];
@@ -274,27 +311,28 @@ __device__ __forceinline__ void add_step(uint32_t hb, int col, uint32_t w,
   }
   // the valid rows' cells are distinct, and no other lane of the warp
   // writes this column at this step: loads, adds, stores
-  float old[kRowsPerLane * K];
+  T old[kRowsPerLane * K];
 #pragma unroll
   for (int i = 0; i < kRowsPerLane; ++i) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      old[i * K + k] = lds_if(addr[i] + k * kCols * 4, v[i]);
+      old[i * K + k] = lds_t<T>(addr[i] + k * kCols * 4, v[i]);
     }
   }
 #pragma unroll
   for (int i = 0; i < kRowsPerLane; ++i) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      sts_if(addr[i] + k * kCols * 4, old[i * K + k] + sum[i * K + k], v[i]);
+      sts_t<T>(addr[i] + k * kCols * 4, old[i * K + k] + sum[i * K + k],
+               v[i]);
     }
   }
 }
 
 // Rotation steps [j0, j1) of a tile whose bins sit in the stage at `stage`.
-template <int K>
+template <int K, typename T>
 __device__ __forceinline__ void add_tile(uint32_t hb, uint32_t stage,
-                                         const float* c, uint32_t live,
+                                         const T* c, uint32_t live,
                                          bool act, int base, int col0,
                                          int fcc, int j0, int j1, int B,
                                          int lane) {
@@ -307,20 +345,20 @@ __device__ __forceinline__ void add_tile(uint32_t hb, uint32_t stage,
     f = f + 1 == fcc ? 0 : f + 1;
     // the next step's word, read before this step's adds
     const uint32_t w_next = lds_u32(sw + f * kStageRow);
-    add_step<K>(hb, col, w, c, live, act, B);
+    add_step<K, T>(hb, col, w, c, live, act, B);
     __syncwarp();               // this step's cells before the next step's
     w = w_next;
   }
 }
 
 // Add the pending tile (its first p rows live) and leave it empty.
-template <int K>
+template <int K, typename T>
 __device__ __forceinline__ void add_pending(uint32_t hb, uint32_t pend,
                                             uint32_t pend_ch, int p, bool act,
                                             int base, int col0, int fcc,
                                             int B, int lane) {
   __syncwarp();
-  float c[kRowsPerLane * K];
+  T c[kRowsPerLane * K];
   uint32_t live = 0;
 #pragma unroll
   for (int i = 0; i < kRowsPerLane; ++i) {
@@ -329,16 +367,25 @@ __device__ __forceinline__ void add_pending(uint32_t hb, uint32_t pend,
     live |= (uint32_t)on << i;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      c[i * K + k] = lds_if(pend_ch + (q * K + k) * 4, on);
+      c[i * K + k] = lds_t<T>(pend_ch + (q * K + k) * 4, on);
     }
   }
-  add_tile<K>(hb, pend, c, live, act, base, col0, fcc, 0, fcc, B, lane);
+  add_tile<K, T>(hb, pend, c, live, act, base, col0, fcc, 0, fcc, B,
+                 lane);
   __syncwarp();
 }
 
-template <bool VEC, int K>
+// the rows a launch reads: n, or the device count clamped to [0, n]
+__device__ __forceinline__ Args bounded(const Args& a0) {
+  Args a = a0;
+  if (a0.cnt) a.n = min(max((long long)*a0.cnt, 0LL), a0.n);
+  return a;
+}
+
+template <bool VEC, int K, typename T>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-hist_sublane_kernel(const Args a) {
+hist_sublane_kernel(const Args a0) {
+  const Args a = bounded(a0);
   extern __shared__ __align__(16) float smem[];
   const int B = a.B;
   const int f0 = blockIdx.y * a.fc;
@@ -378,19 +425,19 @@ hist_sublane_kernel(const Args a) {
   // channels say which), the current item in the stage and registers.
   long long item = (long long)blockIdx.x * a.warps + warp;
   uint4 bn[kPieces];
-  float c[kRowsPerLane * K], cn[kRowsPerLane * K], cnn[kRowsPerLane * K];
+  T c[kRowsPerLane * K], cn[kRowsPerLane * K], cnn[kRowsPerLane * K];
   uint32_t lanes_cur = 0, lanes_next = 0;
   auto row_of = [&](long long it) {
     return (it / n_groups) * cap + kRowsPerLane * lane;
   };
   if (item < items) {
-    load_channels<K>(a, row_of(item), act, cn);
-    lanes_next = __ballot_sync(0xffffffffu, live_rows<K>(cn) != 0);
+    load_channels<K, T>(a, row_of(item), act, cn);
+    lanes_next = __ballot_sync(0xffffffffu, live_rows<K, T>(cn) != 0);
     load_bins<VEC>(a, f0, fcc, na, row_of(item) - kRowsPerLane * lane, lane,
                    lanes_next, bn);
   }
   if (item + stride < items) {
-    load_channels<K>(a, row_of(item + stride), act, cnn);
+    load_channels<K, T>(a, row_of(item + stride), act, cnn);
   }
   int p = 0;                                  // rows in the pending tile
   for (; item < items; item += stride) {
@@ -404,16 +451,16 @@ hist_sublane_kernel(const Args a) {
     }
     const long long next = item + stride;
     if (next + stride < items) {
-      load_channels<K>(a, row_of(next + stride), act, cnn);
+      load_channels<K, T>(a, row_of(next + stride), act, cnn);
     }
     if (next < items) {
-      lanes_next = __ballot_sync(0xffffffffu, live_rows<K>(cn) != 0);
+      lanes_next = __ballot_sync(0xffffffffu, live_rows<K, T>(cn) != 0);
       load_bins<VEC>(a, f0, fcc, na, row_of(next) - kRowsPerLane * lane,
                      lane, lanes_next, bn);
     }
     __syncwarp();
 
-    const uint32_t live = live_rows<K>(c);
+    const uint32_t live = live_rows<K, T>(c);
     uint32_t m[kRowsPerLane];
     int cnt = 0, before = 0;
 #pragma unroll
@@ -426,12 +473,12 @@ hist_sublane_kernel(const Args a) {
     if (n_groups > 1 || 4 * cnt > 3 * cap) {
       const int g = (int)(item % n_groups);
       const int j0 = g * a.group;
-      add_tile<K>(hb, stage, c, live, act, base, col0, fcc, j0,
-                  min(fcc, j0 + a.group), B, lane);
+      add_tile<K, T>(hb, stage, c, live, act, base, col0, fcc, j0,
+                     min(fcc, j0 + a.group), B, lane);
       continue;
     }
     if (p + cnt > cap) {
-      add_pending<K>(hb, pend, pend_ch, p, act, base, col0, fcc, B, lane);
+      add_pending<K, T>(hb, pend, pend_ch, p, act, base, col0, fcc, B, lane);
       p = 0;
     }
     // the live rows into the pending tile, at p + (live rows of the lanes
@@ -455,13 +502,14 @@ hist_sublane_kernel(const Args a) {
     for (int i = 0; i < kRowsPerLane; ++i) {
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        sts_if(pend_ch + (q[i] * K + k) * 4, c[i * K + k], (live >> i) & 1u);
+        sts_t<T>(pend_ch + (q[i] * K + k) * 4, c[i * K + k],
+                 (live >> i) & 1u);
       }
     }
     p += cnt;
   }
   if (p > 0) {
-    add_pending<K>(hb, pend, pend_ch, p, act, base, col0, fcc, B, lane);
+    add_pending<K, T>(hb, pend, pend_ch, p, act, base, col0, fcc, B, lane);
   }
   __syncthreads();
 
@@ -471,21 +519,23 @@ hist_sublane_kernel(const Args a) {
   for (int i = threadIdx.x; i < copy_cells; i += threads) {
     const int col = i & (kCols - 1);
     if (col >= fcc) continue;
-    float part[kMaxWarps];
+    T part[kMaxWarps];
 #pragma unroll
     for (int cp = 0; cp < kMaxWarps; ++cp) {
-      part[cp] = 0.f;
+      part[cp] = T(0);
       if (cp < a.warps) {
-        const float* h = smem + cp * copy_cells + i;
+        const T* h = reinterpret_cast<const T*>(smem) + cp * copy_cells + i;
         part[cp] = h[0];
         for (int r = 1; r < reps; ++r) part[cp] += h[r * fcc];
       }
     }
-    float v = 0.f;
+    T v = T(0);
 #pragma unroll
     for (int cp = 0; cp < kMaxWarps; ++cp) v += part[cp];
-    if (v != 0.f) {
-      atomicAdd(a.out + (long long)(f0 + col) * B * K + (i >> 5), v);
+    if (v != T(0)) {
+      atomicAdd(static_cast<T*>(a.out) + (long long)(f0 + col) * B * K
+                    + (i >> 5),
+                v);
     }
   }
 }
@@ -504,16 +554,18 @@ constexpr int kSmallWarps = kSmallThreads / 32;
 constexpr int kSmallRows = 8;                       // rows a lane
 constexpr int kSmallTile = 32 * kSmallRows;         // 256 rows
 
-template <bool VEC, int K>
+template <bool VEC, int K, typename T>
 __global__ void __launch_bounds__(kSmallThreads)
-hist_sublane_small_kernel(const Args a) {
+hist_sublane_small_kernel(const Args a0) {
+  const Args a = bounded(a0);
   constexpr int KS = K | 1;  // odd bin stride
-  extern __shared__ float hist[];  // [fc][B][KS]
+  extern __shared__ float hist_raw[];
+  T* hist = reinterpret_cast<T*>(hist_raw);  // [fc][B][KS]
   const int B = a.B;
   const int f0 = blockIdx.y * a.fc;
   const int fc = min(a.fc, a.F - f0);
   for (int i = threadIdx.x; i < fc * B * KS; i += kSmallThreads) {
-    hist[i] = 0.f;
+    hist[i] = T(0);
   }
   __syncthreads();
   const int lane = threadIdx.x & 31;
@@ -527,21 +579,21 @@ hist_sublane_small_kernel(const Args a) {
     const int grp = (int)(item % n_groups);
     const long long row_g = (item / n_groups) * kSmallTile
                             + lane * kSmallRows;
-    float c[kSmallRows * K];
-    const float* cp = a.ch + row_g * K;
+    T c[kSmallRows * K];
+    const T* cp = static_cast<const T*>(a.ch) + row_g * K;
     if (a.ch_vec && row_g + kSmallRows <= n) {
 #pragma unroll
       for (int q = 0; q < kSmallRows * K / 4; ++q) {
-        const float4 v = __ldg(reinterpret_cast<const float4*>(cp) + q);
-        c[4 * q] = v.x;
-        c[4 * q + 1] = v.y;
-        c[4 * q + 2] = v.z;
-        c[4 * q + 3] = v.w;
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(cp) + q);
+        c[4 * q] = from_bits<T>(v.x);
+        c[4 * q + 1] = from_bits<T>(v.y);
+        c[4 * q + 2] = from_bits<T>(v.z);
+        c[4 * q + 3] = from_bits<T>(v.w);
       }
     } else {
 #pragma unroll
       for (int i = 0; i < kSmallRows * K; ++i) {
-        c[i] = row_g + i / K < n ? __ldg(cp + i) : 0.f;
+        c[i] = row_g + i / K < n ? __ldg(cp + i) : T(0);
       }
     }
     uint32_t live = 0;
@@ -550,10 +602,13 @@ hist_sublane_small_kernel(const Args a) {
       bool any = false;
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        if (a.bf16) {
-          c[j * K + k] = __bfloat162float(__float2bfloat16_rn(c[j * K + k]));
+        if constexpr (std::is_same<T, float>::value) {
+          if (a.bf16) {
+            c[j * K + k] =
+                __bfloat162float(__float2bfloat16_rn(c[j * K + k]));
+          }
         }
-        any |= c[j * K + k] != 0.f;
+        any |= c[j * K + k] != T(0);
       }
       live |= (uint32_t)any << j;
     }
@@ -581,7 +636,7 @@ hist_sublane_small_kernel(const Args a) {
           w[q] = word;
         }
       }
-      float* hf = hist + f * B * KS;
+      T* hf = hist + f * B * KS;
 #pragma unroll
       for (int j = 0; j < kSmallRows; ++j) {
         const int b = (w[j >> 2] >> ((j & 3) * 8)) & 0xFF;
@@ -592,11 +647,11 @@ hist_sublane_small_kernel(const Args a) {
     }
   }
   __syncthreads();
-  float* o = a.out + (long long)f0 * B * K;
+  T* o = static_cast<T*>(a.out) + (long long)f0 * B * K;
   for (int i = threadIdx.x; i < fc * B * K; i += kSmallThreads) {
     const int cell = i / K;  // f * B + b
-    const float v = hist[cell * KS + (i - cell * K)];
-    if (v != 0.f) atomicAdd(o + i, v);
+    const T v = hist[cell * KS + (i - cell * K)];
+    if (v != T(0)) atomicAdd(o + i, v);
   }
 }
 
@@ -614,29 +669,29 @@ int launch(const Args& a, int threads, int gx, int chunks, int smem,
   return (int)cudaGetLastError();
 }
 
-template <bool VEC, int K>
+template <bool VEC, int K, typename T>
 int launch_k(const Args& a, bool small, int gx, int chunks, int smem,
              cudaStream_t s) {
   if (small) {
-    return launch<hist_sublane_small_kernel<VEC, K>>(a, kSmallThreads, gx,
-                                                     chunks, smem, s);
+    return launch<hist_sublane_small_kernel<VEC, K, T>>(a, kSmallThreads, gx,
+                                                        chunks, smem, s);
   }
-  return launch<hist_sublane_kernel<VEC, K>>(a, a.warps * 32, gx, chunks,
-                                             smem, s);
+  return launch<hist_sublane_kernel<VEC, K, T>>(a, a.warps * 32, gx, chunks,
+                                                smem, s);
 }
 
-template <bool VEC>
+template <bool VEC, typename T>
 int dispatch(const Args& a, int K, bool small, int gx, int chunks, int smem,
              cudaStream_t s) {
   switch (K) {
-    case 1: return launch_k<VEC, 1>(a, small, gx, chunks, smem, s);
-    case 2: return launch_k<VEC, 2>(a, small, gx, chunks, smem, s);
-    case 3: return launch_k<VEC, 3>(a, small, gx, chunks, smem, s);
-    case 4: return launch_k<VEC, 4>(a, small, gx, chunks, smem, s);
-    case 5: return launch_k<VEC, 5>(a, small, gx, chunks, smem, s);
-    case 6: return launch_k<VEC, 6>(a, small, gx, chunks, smem, s);
-    case 7: return launch_k<VEC, 7>(a, small, gx, chunks, smem, s);
-    case 8: return launch_k<VEC, 8>(a, small, gx, chunks, smem, s);
+    case 1: return launch_k<VEC, 1, T>(a, small, gx, chunks, smem, s);
+    case 2: return launch_k<VEC, 2, T>(a, small, gx, chunks, smem, s);
+    case 3: return launch_k<VEC, 3, T>(a, small, gx, chunks, smem, s);
+    case 4: return launch_k<VEC, 4, T>(a, small, gx, chunks, smem, s);
+    case 5: return launch_k<VEC, 5, T>(a, small, gx, chunks, smem, s);
+    case 6: return launch_k<VEC, 6, T>(a, small, gx, chunks, smem, s);
+    case 7: return launch_k<VEC, 7, T>(a, small, gx, chunks, smem, s);
+    case 8: return launch_k<VEC, 8, T>(a, small, gx, chunks, smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -657,7 +712,8 @@ extern "C" int lgbt_hist_sublane(const void* bins_t, long long ld,
                                  const void* ch, int K, long long n, int F,
                                  int B, int bf16, void* out, int small,
                                  int fc, int warps, int group, int grid_x,
-                                 int smem, int warp_bytes, void* stream) {
+                                 int smem, int warp_bytes, int is_int,
+                                 const void* cnt, void* stream) {
   if (F <= 0 || B <= 0 || B > kMaxB || K <= 0 || K > kMaxK || n < 0
       || fc < 1 || warps < 1 || warps > kMaxWarps || group < 1
       || grid_x < 1 || (small ? warps != kSmallWarps : fc > kCols)) {
@@ -676,9 +732,10 @@ extern "C" int lgbt_hist_sublane(const void* bins_t, long long ld,
   Args a;
   a.bins = static_cast<const uint8_t*>(bins_t);
   a.ld = ld;
-  a.ch = static_cast<const float*>(ch);
+  a.ch = ch;
   a.n = n;
-  a.out = static_cast<float*>(out);
+  a.out = out;
+  a.cnt = static_cast<const int*>(cnt);
   a.F = F;
   a.B = B;
   a.bf16 = bf16;
@@ -692,6 +749,10 @@ extern "C" int lgbt_hist_sublane(const void* bins_t, long long ld,
   const bool vec = (reinterpret_cast<uintptr_t>(bins_t) & align) == 0
                    && (ld & (long long)align) == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec ? dispatch<true>(a, K, small, grid_x, chunks, smem, s)
-             : dispatch<false>(a, K, small, grid_x, chunks, smem, s);
+  if (is_int) {
+    return vec ? dispatch<true, int>(a, K, small, grid_x, chunks, smem, s)
+               : dispatch<false, int>(a, K, small, grid_x, chunks, smem, s);
+  }
+  return vec ? dispatch<true, float>(a, K, small, grid_x, chunks, smem, s)
+             : dispatch<false, float>(a, K, small, grid_x, chunks, smem, s);
 }

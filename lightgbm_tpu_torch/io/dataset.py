@@ -15,9 +15,10 @@ binned rows and applied to the whole matrix, which then holds
 ``bundle_info.n_columns`` stored columns (reference: ``io/dataset.py:
 330-350`` of the JAX package); a validation set built with ``reference=``
 takes the training set's bundle layout. Every per-feature array
-(``feature_num_bins`` and the others) stays per original feature. Not here
-yet: nibble packing (ROADMAP A15b), sequence input and binary save/load
-(A16).
+(``feature_num_bins`` and the others) stays per original feature.
+``pack4_matrix`` and its eligibility checks are the 4-bit bin store of
+``tpu_bin_pack4`` (two bins a byte). Not here yet: sequence input and
+binary save/load (A16).
 """
 from __future__ import annotations
 
@@ -236,6 +237,43 @@ class BinnedDataset:
 
     def feature_is_categorical(self) -> np.ndarray:
         return np.array([m.is_categorical for m in self.mappers], bool)
+
+
+# -- 4-bit dense bin packing (reference: the 4-bit mode of the dense bin
+# store, src/io/dense_bin.hpp DenseBin<true>, and lightgbm_tpu/io/
+# dataset.py:635-680) ------------------------------------------------------
+def pack4_eligible(mappers) -> bool:
+    """True when every original feature has at most 16 bins, so prediction
+    inputs (binned per original feature) pack two columns a byte."""
+    return bool(mappers) and all(m.num_bins <= 16 for m in mappers)
+
+
+def pack4_train_eligible(stored_num_bins, hist_bins: int) -> bool:
+    """Training's pack4 eligibility: every STORED column (under EFB the
+    bundle columns, which may be wider than their members) has at most 16
+    bins, and so has the histogram width (``max_bin + 1``), since the
+    routing and the histograms read nibble values 0..15."""
+    nb = np.asarray(stored_num_bins)
+    return bool(nb.size) and int(nb.max()) <= 16 and int(hist_bins) <= 16
+
+
+def pack4_matrix(binned: np.ndarray) -> np.ndarray:
+    """``[N, F]`` u8 (every value < 16) -> ``[N, ceil(F/2)]`` u8: column
+    ``2j`` in the low nibble of packed column ``j``, ``2j+1`` in the high
+    one (an odd F pads a zero high nibble)."""
+    if binned.dtype != np.uint8:
+        raise ValueError("pack4_matrix needs a uint8 bin matrix")
+    if binned.shape[1] % 2:
+        binned = np.pad(binned, ((0, 0), (0, 1)))
+    return (binned[:, 0::2] | (binned[:, 1::2] << 4)).astype(np.uint8)
+
+
+def unpack4_matrix(packed: np.ndarray, num_features: int) -> np.ndarray:
+    """Host inverse of ``pack4_matrix``."""
+    out = np.empty((packed.shape[0], packed.shape[1] * 2), np.uint8)
+    out[:, 0::2] = packed & 0x0F
+    out[:, 1::2] = (packed >> 4) & 0x0F
+    return out[:, :num_features]
 
 
 def _plan_efb(ds, sample_binned, max_bin, max_conflict_rate

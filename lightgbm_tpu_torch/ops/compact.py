@@ -9,7 +9,8 @@ histogram streams only its own rows.
 Row records pack into one ``uint8`` matrix ``[N, C]``, byte for byte the
 JAX package's layout:
 
-    [0, F)          binned features (uint8)
+    [0, F)          binned features (uint8; with ``packed4`` ceil(F/2)
+                    bytes, two features a byte)
     [F, F+4)        grad   (f32 bytes, already times the sample weight)
     [F+4, F+8)      hess   (f32 bytes, already times the sample weight)
     [F+8, F+12)     sample weight (f32 bytes; 0 = out of bag)
@@ -25,24 +26,36 @@ are the oracles the kernels of ``ops/fused_split.py`` and
 ``ops/pallas_histogram.py`` are held against, and the CPU path. Unlike the
 JAX package, the arrays carry no padding rows: the Hopper kernels never
 write past a segment's end.
+
+``RowLayout.packed4`` (``tpu_bin_pack4``): the bin columns hold two
+features a byte, feature ``2j`` in the low nibble of byte ``j`` (the
+``io/dataset.py`` ``pack4_matrix`` layout); every reader takes feature
+``f`` from byte ``f >> 1``, shift ``4 * (f & 1)``, so the full-width
+matrix never lies on the device (reference: ``lightgbm_tpu/ops/
+compact.py:54-75``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .histogram import _xla_histogram
+from .histogram import _xla_histogram, _xla_histogram_narrow
+from .packed import unpack4
 from .split import go_left_pred
 
 
 class RowLayout(NamedTuple):
-    """Static description of the packed row record."""
+    """Static description of the packed row record. ``num_features`` is
+    the logical feature count; ``feat_cols`` the stored bin bytes."""
     num_features: int
     num_extra: int          # number of carried f32 columns
+    packed4: bool = False   # bin columns nibble-packed, two features a byte
 
     @property
     def feat_cols(self) -> int:
+        if self.packed4:
+            return (self.num_features + 1) // 2
         return self.num_features
 
     @property
@@ -92,12 +105,19 @@ def _u8_to_f32(x: torch.Tensor) -> torch.Tensor:
 def pack_rows(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               cnt: torch.Tensor, extras: torch.Tensor,
               layout: RowLayout) -> torch.Tensor:
-    """Pack per-row arrays into the ``[N, C]`` record matrix."""
+    """Pack per-row arrays into the ``[N, C]`` record matrix; with
+    ``layout.packed4`` a full-width ``[N, F]`` bin matrix nibble-packs here
+    (an already packed ``[N, ceil(F/2)]`` one passes through)."""
     n = binned.shape[0]
     work = torch.zeros((n, layout.num_cols), dtype=torch.uint8,
                        device=binned.device)
-    f = layout.num_features
-    work[:, :f] = binned.to(torch.uint8)
+    binned = binned.to(torch.uint8)
+    if layout.packed4 and binned.shape[1] == layout.num_features:
+        if layout.num_features % 2:
+            binned = torch.nn.functional.pad(binned, (0, 1))
+        binned = binned[:, 0::2] | (binned[:, 1::2] << 4)
+    f = layout.feat_cols
+    work[:, :f] = binned
     cols = [grad, hess, cnt.to(torch.float32)]
     cols += [extras[i] for i in range(layout.num_extra)]
     packed = torch.stack([c.to(torch.float32) for c in cols], dim=1)
@@ -107,8 +127,11 @@ def pack_rows(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
 
 def unpack_rows(work: torch.Tensor, n: int, layout: RowLayout):
-    """Inverse of ``pack_rows`` on the first ``n`` rows."""
+    """Inverse of ``pack_rows`` on the first ``n`` rows (packed bins
+    unpacked to the full ``[n, F]`` width)."""
     binned = work[:n, :layout.feat_cols]
+    if layout.packed4:
+        binned = unpack4(binned, layout.num_features)
     grad = _u8_to_f32(work[:n, layout.grad_off:layout.grad_off + 4])
     hess = _u8_to_f32(work[:n, layout.hess_off:layout.hess_off + 4])
     cnt = _u8_to_f32(work[:n, layout.cnt_off:layout.cnt_off + 4])
@@ -130,29 +153,59 @@ def record_channels(rows: torch.Tensor, layout: RowLayout,
     return torch.stack([g.to(dt), h.to(dt), (c != 0.0).to(dt), ones], dim=1)
 
 
+def record_bins(rows: torch.Tensor, layout: RowLayout) -> torch.Tensor:
+    """``[M, C]`` records -> their ``[M, F]`` u8 bins (nibbles unpacked)."""
+    bins = rows[:, :layout.feat_cols]
+    if layout.packed4:
+        bins = unpack4(bins, layout.num_features)
+    return bins
+
+
+def record_column(rows: torch.Tensor, feature: int,
+                  layout: RowLayout) -> torch.Tensor:
+    """Feature ``feature``'s bins of ``[M, C]`` records (its nibble under
+    ``packed4``: byte ``feature >> 1``, shift ``4 * (feature & 1)``)."""
+    if layout.packed4:
+        return (rows[:, feature >> 1] >> (4 * (feature & 1))) & 0x0F
+    return rows[:, feature]
+
+
 def segment_histogram(work: torch.Tensor, start: int, count: int,
                       layout: RowLayout, num_bins: int,
-                      quant: bool = False) -> torch.Tensor:
+                      quant: bool = False, acc_bits: int = 32,
+                      quant_max: int = 127,
+                      hist_layout: str = "lane") -> torch.Tensor:
     """Histogram ``[F, B, 4]`` of the contiguous segment
     ``work[start:start+count]`` (channels: grad, hess, in-bag count, raw
     count). Counts accumulate in f32, exact below 2^24 rows; with ``quant``
     every channel is an exact int32 sum of integer codes (reference:
     ``segment_histogram(quantized=True)``, ``lightgbm_tpu/ops/compact.py:
-    387-393``)."""
+    323-413``), and ``acc_bits=16`` takes the narrowed engine (the same
+    int32 sums; ``quant_max`` bounds |code|). Packed bins unpack here.
+    Plain PyTorch on any device: ``hist_layout`` only names the kernel
+    whose plain call this is (``PLAIN_CALLS``)."""
     rows = work[start:start + count]
-    return _xla_histogram(rows[:, :layout.feat_cols],
-                          record_channels(rows, layout, quant), num_bins)
+    bins = record_bins(rows, layout)
+    ch = record_channels(rows, layout, quant)
+    kernel = "histogram_sublane" if hist_layout == "sublane" else "histogram"
+    if quant and acc_bits == 16:
+        return _xla_histogram_narrow(bins, ch, num_bins, quant_max, kernel)
+    return _xla_histogram(bins, ch, num_bins, kernel)
 
 
 def partition_segment(work: torch.Tensor, start: int, count: int,
                       feature: int, bin_: int, default_left, nan_bin: int,
-                      is_cat, cat_bitset: torch.Tensor
+                      is_cat, cat_bitset: torch.Tensor,
+                      layout: Optional[RowLayout] = None
                       ) -> Tuple[torch.Tensor, int]:
     """Stably partition ``work[start:start+count]`` in place: left-child
-    rows first, then right-child rows, each in their original order.
-    Returns ``(work, n_left)``."""
+    rows first, then right-child rows, each in their original order
+    (``layout.packed4``: the feature's nibble routes). Returns ``(work,
+    n_left)``."""
     seg = work[start:start + count]
-    gl = go_left_pred(seg[:, feature], bin_, default_left, nan_bin, is_cat,
+    col = (seg[:, feature] if layout is None
+           else record_column(seg, feature, layout))
+    gl = go_left_pred(col, bin_, default_left, nan_bin, is_cat,
                       cat_bitset)
     left, right = seg[gl], seg[~gl]
     work[start:start + count] = torch.cat([left, right])

@@ -43,7 +43,19 @@ lives on the device across splits, one set per (device, stream): splits on
 one stream run one after another on the device, and a lock keeps each
 split's two launches together when several threads issue splits.
 
-Not here yet: the nibble-packed (``packed4``) records (ROADMAP A15b).
+``layout.packed4`` is the TPU kernel's ``packed4`` (``lightgbm_tpu/ops/
+fused_split.py:217-228``, ``:662``): the bin columns hold two features a
+byte, the partition routes by feature ``f``'s nibble (byte ``f >> 1``,
+shift ``4 * (f & 1)``) and moves the narrower records, and K1's record
+loader unpacks the nibbles; both residencies take it.
+
+``hist=False`` is K2's partition alone (``prep`` and the partition, and in
+copy-back the copy), its histogram launch skipped: the compact grower
+without the fused kernel (``tpu_fused=off``) partitions with it, as the
+JAX package's ``partition_segment`` (XLA there) does, and then histograms
+the smaller child itself. The wrapper then returns, in place of the
+histogram, the device int32 ``(start, count, which array)`` of the segment
+the histogram would have read.
 """
 from __future__ import annotations
 
@@ -53,8 +65,8 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _kernels
-from .compact import RowLayout, segment_histogram
-from .pallas_histogram import _check_records, record_histogram
+from .compact import RowLayout, record_column, segment_histogram
+from .pallas_histogram import _check_records, _modes, record_histogram
 from .split import go_left_pred
 
 # the partition kernel's rows a tile: the largest of these whose staged
@@ -97,13 +109,15 @@ def _lookback_state(dev: torch.device, n_tiles: int):
 def fused_split_plain(work, scratch, mode, start, count, n_left, feature,
                       bin_, default_left, nan_bin, is_cat, cat_bitset,
                       layout: RowLayout, num_bins: int, smaller_left=None,
-                      side=None, dual: bool = True, quant: bool = False
+                      side=None, dual: bool = True, quant: bool = False,
+                      hist: bool = True
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K2: masks in stable order, the same writes
     as the kernel (left rows in place, right rows into the other array, the
     first ``layout.moved_cols`` bytes of a row; with ``dual=False`` the
     right range then copied back from ``scratch`` into ``work``); an int32
-    histogram with ``quant``."""
+    histogram with ``quant``; with ``hist=False`` the histogram's segment
+    (start, count, which) as an int32 tensor in its place."""
     _kernels.PLAIN_CALLS["fused_split"] += 1
     n_rows = work.shape[0]
     s = min(max(int(start), 0), n_rows)
@@ -111,15 +125,25 @@ def fused_split_plain(work, scratch, mode, start, count, n_left, feature,
     nl = min(max(int(n_left), 0), c)
     sd = dual and side is not None and int(side) != 0
     src, dst = (scratch, work) if sd else (work, scratch)
+    dev = work.device
+
+    def out(start_, count_, which):
+        if not hist:
+            return work, scratch, torch.tensor(
+                [start_, count_, int(which)], dtype=torch.int32, device=dev)
+        return work, scratch, segment_histogram(
+            scratch if which else work, start_, count_, layout, num_bins,
+            quant)
+
     if mode == 1:
-        return work, scratch, segment_histogram(src, s, c, layout, num_bins,
-                                                quant)
+        return out(s, c, sd)
     f = min(max(int(feature), 0), layout.num_features - 1)
     bits = (cat_bitset if cat_bitset is not None
             else torch.zeros(1, dtype=torch.int32, device=work.device))
     mv = layout.moved_cols
     seg = src[s:s + c, :mv]
-    gl = go_left_pred(seg[:, f], int(bin_), bool(int(default_left)),
+    gl = go_left_pred(record_column(seg, f, layout), int(bin_),
+                      bool(int(default_left)),
                       int(nan_bin), bool(int(is_cat)), bits)
     left, right = seg[gl], seg[~gl]
     src[s:s + left.shape[0], :mv] = left
@@ -135,21 +159,21 @@ def fused_split_plain(work, scratch, mode, start, count, n_left, feature,
     else:
         sl = int(smaller_left) != 0
     if sl:
-        return work, scratch, segment_histogram(src, s, nl, layout, num_bins,
-                                                quant)
-    return work, scratch, segment_histogram(dst, s + nl, c - nl, layout,
-                                            num_bins, quant)
+        return out(s, nl, sd)
+    return out(s + nl, c - nl, sd if not dual else not sd)
 
 
 def fused_split(work: torch.Tensor, scratch: torch.Tensor, mode: int,
                 start, count, n_left, feature, bin_, default_left, nan_bin,
                 is_cat, cat_bitset: Optional[torch.Tensor],
                 layout: RowLayout, num_bins: int, smaller_left=None,
-                side=None, dual: bool = True, quant: bool = False
+                side=None, dual: bool = True, quant: bool = False,
+                hist: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One split (mode 0) or one segment histogram (mode 1); ``dual``
     chooses dual residency or the copy-back variant, ``quant`` the int32
-    histogram of integer codes (module docstring).
+    histogram of integer codes, ``hist=False`` the partition alone, which
+    returns the histogram's segment instead (module docstring).
 
     ``work``/``scratch``: ``[N, C]`` uint8 record arrays, updated in place.
     ``mode`` is a Python int; every other scalar may be a Python int or a
@@ -164,7 +188,7 @@ def fused_split(work: torch.Tensor, scratch: torch.Tensor, mode: int,
         return fused_split_plain(work, scratch, mode, start, count, n_left,
                                  feature, bin_, default_left, nan_bin, is_cat,
                                  cat_bitset, layout, num_bins, smaller_left,
-                                 side, dual, quant)
+                                 side, dual, quant, hist)
     _check_records(work, scratch, layout)
     dev = work.device
     if work.shape[0] >= (1 << 31):
@@ -202,9 +226,14 @@ def fused_split(work: torch.Tensor, scratch: torch.Tensor, mode: int,
                         1 if dual else 0,
                         work.data_ptr(), scratch.data_ptr(), work.shape[0],
                         work.shape[1], vec, tile, layout.num_features,
-                        sp.data_ptr(), bits.data_ptr(), bits.numel(),
-                        ws.data_ptr(), flags.data_ptr(), ctl.data_ptr(),
-                        mode="quant" if quant else None)
+                        int(layout.packed4), sp.data_ptr(), bits.data_ptr(),
+                        bits.numel(), ws.data_ptr(), flags.data_ptr(),
+                        ctl.data_ptr(),
+                        mode=_modes(quant and "quant",
+                                    layout.packed4 and "packed4",
+                                    not hist and "partition"))
     # ws[3:6] = (start, count, which array) of the histogram's segment
-    hist = record_histogram(work, scratch, ws[3:6], layout, num_bins, quant)
-    return work, scratch, hist
+    if not hist:
+        return work, scratch, ws[3:6]
+    return work, scratch, record_histogram(work, scratch, ws[3:6], layout,
+                                           num_bins, quant)

@@ -98,6 +98,19 @@ class GrowerParams(NamedTuple):
     # the compact grower's K2 variant: dual residency, or copy-back (every
     # segment in `work`, the JAX package's choice on EFB-bundled data)
     fused_dual: bool = True
+    # the compact grower with the fused split kernel (tpu_fused auto|on), or
+    # without it (off): K2's partition alone, then the smaller child's
+    # histogram by K1 dense or K3 (copy-back residency)
+    fused: bool = True
+    # quantized codes: the narrowed 16-bit histogram engine, chosen a leaf
+    # at a time (ops/renew.py hist_bits_in_leaf; tpu_quant_hist_bits=16,
+    # without the fused kernel only), and its |code| bound
+    # (num_grad_quant_bins + 1)
+    quant_narrow: bool = False
+    quant_max: int = 127
+    # 4-bit packed bin columns in the records (tpu_bin_pack4; the operative
+    # switch is RowLayout.packed4, this mirrors it)
+    bin_pack4: bool = False
     # EFB (compact grower): virtual features scanned after the stored
     # columns, and the widest bundled feature's bin count
     efb_virtual: int = 0

@@ -65,8 +65,17 @@ leaf's cached histogram, its cached split kept where no bound moved
 ``opts.extra.rescan[k]``. These options never meet EFB: the trainer
 unbundles first.
 
-Not here yet: the narrowed (16-bit) quantized histogram (ROADMAP A7c),
-data-parallel reductions (A18).
+Without the fused kernel (``params.fused`` False, ``tpu_fused=off``;
+reference: ``lightgbm_tpu/ops/grower_compact.py:438-446``, ``:729-733``,
+``:760-768``): the root's histogram is ``unfused_histogram`` over the whole
+array, and each split runs K2's partition alone (copy-back residency, as
+the JAX package's ``partition_segment``), then ``unfused_histogram`` over
+the smaller child's segment, whose bounds stay on the device: K1 dense or
+K3 (``params.hist_layout``), in f32, int32 codes, or with
+``params.quant_narrow`` the narrowed 16-bit engine where the leaf fits it
+(``seg_hist``, ``:309-345``). Still no read back to the host.
+
+Not here yet: data-parallel reductions (A18).
 """
 from __future__ import annotations
 
@@ -77,6 +86,7 @@ import torch
 from ..io.efb import EfbLayout
 from .compact import RowLayout, segments_to_leaf_vectors
 from .fused_split import fused_split
+from .pallas_histogram import unfused_histogram
 from .grower import (_BG, _BIG, _BLC, _BLG, _BLH, _CMAX, _CMIN, _LC,
                      _LEAF_F, _LEFT, _LG, _LH, _LOUT, _RIGHT, _SF,
                      GrowerParams, TreeOptions, _split_rows, bound_children,
@@ -129,7 +139,9 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
     option inputs (``TreeOptions``, no lazy CEGB costs). ``stats``: a
     caller's dict that takes, with the intermediate method,
     ``"rescan_flagged"``: the tree's flagged (rescanned) leaves summed over
-    its splits, a 0-d int64 device tensor."""
+    its splits, a 0-d int64 device tensor; with the narrowed quantized
+    histogram ``"narrowed_leaves"``: the histograms that took the 16-bit
+    engine, a one-element int32 device tensor."""
     dev = work.device
     n = n_real
     L = params.num_leaves
@@ -184,11 +196,23 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
     coupled = o.cegb_coupled if o.cegb_coupled is not None else \
         torch.zeros(fs, dtype=torch.float32, device=dev)
 
-    # ---- root: the fused kernel's histogram-only mode ----
+    # ---- root: the fused kernel's histogram-only mode, or (unfused) the
+    # whole array's histogram ----
     zero = torch.zeros(1, dtype=i64, device=dev)
-    work, scratch, root_hist = fused_split(
-        work, scratch, 1, zero, n, zero, zero, zero, zero, zero, zero, None,
-        layout, B, side=zero, dual=params.fused_dual, quant=quant)
+    # the leaves whose histogram took the narrowed 16-bit engine
+    narrowed = (torch.zeros(1, dtype=torch.int32, device=dev)
+                if not params.fused and quant and params.quant_narrow
+                else None)
+    if params.fused:
+        work, scratch, root_hist = fused_split(
+            work, scratch, 1, zero, n, zero, zero, zero, zero, zero, zero,
+            None, layout, B, side=zero, dual=params.fused_dual, quant=quant)
+    else:
+        # fill_ of a slice: a setitem would copy through the host
+        seg0 = torch.zeros(3, dtype=torch.int32, device=dev)
+        seg0[1:2].fill_(n)
+        root_hist = seg_hist(work, scratch, seg0, layout, B, quant, params,
+                             narrowed)
     # every feature's bins sum to the totals, so feature 0 gives the root;
     # quantized: the int sums cast to f32, then times the scales
     root_g, root_h, root_c = (root_hist[0, :, j].sum().to(torch.float32)
@@ -247,9 +271,11 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
     for k in range(L - 1):
         st = _split_step(st, k, work, scratch, layout, B, nan_bin_arr,
                          is_cat_arr, route, scan, leaf_mask, params, quant,
-                         o, coupled, extra, flagged)
+                         o, coupled, extra, flagged, narrowed)
     if flagged is not None and stats is not None:
         stats["rescan_flagged"] = flagged
+    if narrowed is not None and stats is not None:
+        stats["narrowed_leaves"] = narrowed
 
     leaf_i = st.leaf_i
     leaf_start = leaf_i[:, _START]
@@ -270,7 +296,7 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
 def _split_step(st: CompactState, k: int, work, scratch, layout, B,
                 nan_bin_arr, is_cat_arr, route, scan, leaf_mask, params,
                 quant: bool, o: TreeOptions, coupled, extra,
-                flagged) -> CompactState:
+                flagged, narrowed) -> CompactState:
     """Split number ``k``: node ``k`` splits the best leaf into itself (left
     child) and leaf ``k + 1`` (right child). ``route``: (stored column,
     bitset flag, original feature) arrays over scan indices (the first or
@@ -323,11 +349,15 @@ def _split_step(st: CompactState, k: int, work, scratch, layout, B,
             f_orig = orig_of.index_select(0, f_)
     else:
         bits, f_cat = None, zero
+    # unfused: the partition alone, then the smaller child's segment
     work, scratch, hist_small = fused_split(
         work, scratch, 0, s_, m_eff, n_left_eff, f_col, b_, dl,
         nan_bin_arr.index_select(0, f_), f_cat, bits, layout, B,
         smaller_left=left_smaller, side=side_p, dual=params.fused_dual,
-        quant=quant)
+        quant=quant, hist=params.fused)
+    if not params.fused:
+        hist_small = seg_hist(work, scratch, hist_small, layout, B, quant,
+                              params, narrowed)
     # exact in int32 when quantized
     parent_hist = leaf_hist.index_select(0, best)[0]
     hist_large = parent_hist - hist_small
@@ -463,3 +493,17 @@ def _intermediate(k, node_i, leaf_f, leaf_i, leaf_hist, leaf_bits,
         if route is not None:
             leaf_bits[:live] = torch.where(fl, sp.cat_bitset,
                                            leaf_bits[:live])
+
+
+def seg_hist(work: torch.Tensor, scratch: torch.Tensor, seg: torch.Tensor,
+             layout: RowLayout, B: int, quant: bool, params: GrowerParams,
+             narrowed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The histogram of the segment ``seg`` (device int32 start, count,
+    which array) without the fused kernel (reference: ``seg_hist``,
+    ``lightgbm_tpu/ops/grower_compact.py:309-345``): in the narrowed mode
+    each leaf takes the 16-bit engine where its count fits it, else the
+    32-bit one, the same int32 sums either way; ``narrowed`` counts the
+    16-bit ones."""
+    narrow = params.quant_max if quant and params.quant_narrow else 0
+    return unfused_histogram(work, scratch, seg, layout, B, quant, narrow,
+                             params.hist_layout, narrowed)

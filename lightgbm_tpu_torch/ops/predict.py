@@ -27,6 +27,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .packed import gather_bin
+
 #: rows x trees of one walk chunk (bounds the [Tb, N] index temporaries)
 _CHUNK_ELEMS = 1 << 24
 
@@ -53,15 +55,17 @@ class StackedTrees(NamedTuple):
 
 
 def predict_leaf_batched(binned: torch.Tensor, trees: StackedTrees,
-                         nan_bin_arr: torch.Tensor, depth: int
-                         ) -> torch.Tensor:
+                         nan_bin_arr: torch.Tensor, depth: int,
+                         packed: bool = False) -> torch.Tensor:
     """Leaf index ``[T, N]`` of every row in every tree (numerical splits:
     left is ``bin <= threshold``, NaN bins follow ``default_left``;
-    categorical ones: left when the bin's bit is set)."""
-    n, f = binned.shape
+    categorical ones: left when the bin's bit is set). ``packed``: the bins
+    are nibble-packed (``[N, ceil(F/2)]``), a node's column read as byte
+    ``col >> 1``, nibble ``col & 1`` (``ops/packed.py`` ``gather_bin``;
+    reference: ``lightgbm_tpu/ops/predict.py:401``, ``:430-441``)."""
+    n = binned.shape[0]
     t = trees.num_trees
-    flat = binned.reshape(-1)
-    rows = torch.arange(n, device=binned.device, dtype=torch.int64) * f
+    rows = torch.arange(n, device=binned.device, dtype=torch.int64)[None, :]
     safe_f = torch.clamp(trees.split_feature, min=0)
     nan_of = nan_bin_arr.to(torch.int64)[safe_f]                  # [T, L-1]
     start = torch.where(trees.num_nodes > 0, 0, -1)               # [T]
@@ -72,7 +76,7 @@ def predict_leaf_batched(binned: torch.Tensor, trees: StackedTrees,
     for _ in range(depth):
         node = torch.clamp(cur, min=0)
         col = safe_f.gather(1, node)
-        fcol = flat[rows[None, :] + col].to(torch.int64)
+        fcol = gather_bin(binned, rows, col, packed)
         thr = trees.split_bin.gather(1, node)
         dl = trees.default_left.gather(1, node)
         go_left = (fcol <= thr) | (dl & (fcol == nan_of.gather(1, node)))
@@ -121,14 +125,16 @@ def predict_raw_batched(binned: torch.Tensor, trees: StackedTrees,
                         nan_bin_arr: torch.Tensor, depth: int,
                         tbatch: int = 16, num_class: int = 1,
                         early_stop_margin: float = 0.0,
-                        early_stop_freq: int = 0) -> torch.Tensor:
+                        early_stop_freq: int = 0,
+                        packed: bool = False) -> torch.Tensor:
     """Raw scores ``[K, N]`` f32 (K = ``num_class``): tree ``t``'s leaf
     values added into class ``t % K`` one tree after another, trees walked
     ``tbatch`` at a time.
     With ``early_stop_freq > 0`` and ``early_stop_margin > 0`` a row stops
     adding trees once its margin exceeds ``early_stop_margin`` at a check
     after a multiple of ``early_stop_freq`` iterations; the batch is then
-    ``early_stop_tbatch(num_class, early_stop_freq, tbatch)``."""
+    ``early_stop_tbatch(num_class, early_stop_freq, tbatch)``. ``packed``:
+    nibble-packed bins (``predict_leaf_batched``)."""
     n = binned.shape[0]
     dev = binned.device
     scores = torch.zeros((num_class, n), dtype=torch.float32, device=dev)
@@ -146,7 +152,8 @@ def predict_raw_batched(binned: torch.Tensor, trees: StackedTrees,
                 if use_stop else None)
         for t0 in range(0, t_total, tbatch):
             sub = trees.slice(t0, t0 + tbatch)
-            leaf = predict_leaf_batched(part, sub, nan_bin_arr, depth)
+            leaf = predict_leaf_batched(part, sub, nan_bin_arr, depth,
+                                        packed)
             vals = sub.leaf_value.gather(1, leaf)
             if use_stop:
                 vals = torch.where(done[None, :], 0.0, vals)

@@ -16,10 +16,30 @@ cumulative weight reaches ``alpha * total``; the JAX function picks the
 same row whenever the cumulative sums are exact (unit weights, or weights
 on a 1/64 grid), since then the order of summation cannot move it. Empty
 leaves, and leaves whose rows all weigh 0, get 0.
+
+``hist_bits_in_leaf`` is the quantized pipeline's per-leaf choice between
+the narrowed 16-bit and the 32-bit histogram engines.
 """
 from __future__ import annotations
 
 import torch
+
+# the largest leaf (rows x quant_max) whose code sums fit the narrowed
+# engine's 16-bit halves (reference: lightgbm_tpu/ops/renew.py:22-26)
+_NARROW_LEAF_MAX = 1 << 15
+
+
+def hist_bits_in_leaf(leaf_count, quant_max: int) -> torch.Tensor:
+    """16 where a leaf's worst-case code sums fit the narrowed accumulation
+    (``count * quant_max < 2^15``), else 32 (reference:
+    ``hist_bits_in_leaf``, ``lightgbm_tpu/ops/renew.py:29-46``, after
+    GradientDiscretizer::GetHistBitsInLeaf). ``leaf_count`` may be a
+    tensor; the result is an int32 tensor. On the card the histogram kernel
+    makes this choice itself, from the segment count it reads
+    (``ops/pallas_histogram.py`` ``unfused_histogram``)."""
+    cnt = torch.as_tensor(leaf_count).to(torch.float32)
+    narrow = cnt * float(quant_max) < float(_NARROW_LEAF_MAX)
+    return torch.where(narrow, 16, 32).to(torch.int32)
 
 
 def renew_leaf_quantile(residual: torch.Tensor, weight: torch.Tensor,

@@ -521,7 +521,7 @@ def test_masked_train_on_card_matches_cpu(dev):
     bc = lgt.train(dict(p, device_type="cpu"), lgt.Dataset(X, y), 3)
     assert launches == {"histogram": 0, "fused_split": 0,
                         "histogram_sublane": 3 * 31, "monotone_walk": 0,
-                        "treeshap": 0}
+                        "treeshap": 0, "segment_gather": 0}
     assert sum(plain.values()) == 0
     np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-4)
 
@@ -552,7 +552,8 @@ def test_masked_grower_past_the_compact_bound(dev):
         assert not boosters[layout]._gbdt.use_compact
     assert launches["sublane"] == {"histogram": 0, "fused_split": 0,
                                    "histogram_sublane": 63,
-                                   "monotone_walk": 0, "treeshap": 0}
+                                   "monotone_walk": 0, "treeshap": 0,
+                                   "segment_gather": 0}
     assert launches["lane"]["histogram"] == 63
     assert launches["lane"]["fused_split"] == 0
     ts, tl = (b._gbdt.models[0] for b in boosters.values())
@@ -615,11 +616,11 @@ def test_categorical_train_on_card_matches_cpu(dev, grower, objective):
     if grower == "compact":
         assert launches == {"histogram": per_run, "fused_split": per_run,
                             "histogram_sublane": 0, "monotone_walk": 0,
-                            "treeshap": 0}
+                            "treeshap": 0, "segment_gather": 0}
     else:
         assert launches == {"histogram": 0, "fused_split": 0,
                             "histogram_sublane": per_run, "monotone_walk": 0,
-                            "treeshap": 0}
+                            "treeshap": 0, "segment_gather": 0}
     assert sum(plain.values()) == 0
     assert any(t.cat_bitset[:t.num_nodes].any() for t in bg._gbdt.models)
     np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-4)
@@ -1284,3 +1285,288 @@ def test_predict_api_on_card_matches_cpu(dev, objective):
     for ta, tb in zip(a, b):
         np.testing.assert_allclose(ta.leaf_value, tb.leaf_value, rtol=1e-6,
                                    atol=1e-9)
+
+
+# ---- int8, narrowed, packed4, and the compact path without K2's histogram --
+
+def _codes(n, f, b, dev, seed, qmax=5, skew=None):
+    """Bins and the quantized channel quad (grad codes in [-qmax, qmax],
+    the first half of the rows at -qmax, hess codes in [0, qmax], in-bag,
+    raw), int8 on the card."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    bins = torch.randint(0, b, (n, f), generator=g, device=dev,
+                         dtype=torch.uint8)
+    if skew == "one_bin":
+        bins[:] = (torch.arange(f, device=dev) * 37 % b).to(torch.uint8)
+    gc = torch.randint(-qmax, qmax + 1, (n,), generator=g, device=dev)
+    gc[: n // 2] = -qmax
+    ch = torch.stack([gc, torch.randint(0, qmax + 1, (n,), generator=g,
+                                        device=dev),
+                      (torch.rand(n, generator=g, device=dev) > 0.2).long(),
+                      torch.ones(n, dtype=torch.long, device=dev)], 1)
+    return bins, ch.to(torch.int8)
+
+
+@pytest.mark.parametrize("n,f,b,dtype", [
+    (30_000, 28, 256, torch.int8), (100_000, 5, 128, torch.int32),
+    (30_000, 60, 256, torch.int8), (3_000_000, 28, 256, torch.int8)])
+def test_dense_int8_histogram_is_exact(dev, n, f, b, dtype):
+    """K1's dense integer variant against its plain version: int32 sums,
+    exactly equal, at F = 60 in two feature chunks too."""
+    bins, ch = _codes(n, f, b, dev, seed=n + f, qmax=127)
+    _kernels.reset_counts()
+    kern = pallas_histogram(bins, ch.to(dtype), b, mode="int8")
+    torch.cuda.synchronize()
+    assert _kernels.MODE_LAUNCHES["histogram/int8"] == 1
+    plain = pallas_histogram_plain(bins, ch, b, mode="int8")
+    assert kern.dtype == torch.int32 and torch.equal(kern, plain)
+
+
+@pytest.mark.parametrize("n,f,b", [(20_000, 28, 64), (400_000, 28, 63),
+                                   (300_000, 5, 16)])
+def test_sublane_int8_histogram_is_exact(dev, n, f, b):
+    """K3's int32 accumulator on both of its paths (the small-data path up
+    to 262,144 rows, the tile path above), exactly equal."""
+    bins, ch = _codes(n, f, b, dev, seed=n, qmax=127)
+    bt = bins.T.contiguous()
+    _kernels.reset_counts()
+    kern = pallas_histogram_sublane(bt, ch, b, mode="int8")
+    torch.cuda.synchronize()
+    assert _kernels.MODE_LAUNCHES["histogram_sublane/int8"] == 1
+    plain = pallas_histogram_sublane_plain(bt, ch, b, mode="int8")
+    assert kern.dtype == torch.int32 and torch.equal(kern, plain)
+
+
+@pytest.mark.parametrize("n,f,qmax,skew", [
+    (30_000, 28, 5, None), (3_000_000, 28, 5, "one_bin"),
+    (500_000, 7, 31, None), (1_000_000, 28, 15, "one_bin")])
+def test_narrow_histogram_is_exact(dev, n, f, qmax, skew):
+    """K1 narrowed against its plain version and the 32-bit engine, bit for
+    bit: negative grad sums, and skewed bins whose cells would carry
+    without the flushes (every 32,767 / qmax rows of a block; one row a
+    thread a tile at qmax 31)."""
+    from lightgbm_tpu_torch.ops.pallas_histogram import (
+        pallas_histogram_narrow, pallas_histogram_narrow_plain)
+    bins, ch = _codes(n, f, 256, dev, seed=n + qmax, qmax=qmax, skew=skew)
+    _kernels.reset_counts()
+    kern = pallas_histogram_narrow(bins, ch, 256, qmax)
+    torch.cuda.synchronize()
+    assert _kernels.MODE_LAUNCHES["histogram/narrow"] == 1
+    plain = pallas_histogram_narrow_plain(bins, ch, 256, qmax)
+    assert torch.equal(kern, plain)
+    assert torch.equal(kern, pallas_histogram_plain(bins, ch, 256, "int8"))
+
+
+def _packed_records(n, f, b, dev, seed, packed4, quant):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    layout = RowLayout(num_features=f, num_extra=2, packed4=packed4)
+    if quant:
+        gr = torch.randint(-5, 6, (n,), generator=g, device=dev).float()
+        hs = torch.randint(0, 6, (n,), generator=g, device=dev).float()
+    else:
+        gr = torch.randint(-64, 65, (n,), generator=g, device=dev) / 64.0
+        hs = torch.randint(1, 65, (n,), generator=g, device=dev) / 64.0
+    work = pack_rows(
+        torch.randint(0, b, (n, f), generator=g, device=dev,
+                      dtype=torch.uint8), gr, hs,
+        (torch.rand(n, generator=g, device=dev) > 0.2).float(),
+        torch.randn(2, n, generator=g, device=dev), layout)
+    return layout, work
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8, torch.int32])
+@pytest.mark.parametrize("packed4", [False, True])
+def test_segment_gather_matches_plain(dev, dtype, packed4):
+    from lightgbm_tpu_torch.ops.pallas_histogram import (
+        segment_gather, segment_gather_plain)
+    layout, work = _packed_records(50_000, 29, 16, dev, 3, packed4,
+                                   dtype != torch.float32)
+    scratch = work.flip(0).contiguous()
+    for seg in ([123, 40_000, 1], [49_990, 500, 0], [0, 0, 0]):
+        s = torch.tensor(seg, dtype=torch.int32, device=dev)
+        _kernels.reset_counts()
+        ch, bt = segment_gather(work, scratch, s, layout, dtype, True)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["segment_gather"] == 1
+        pch, pbt = segment_gather_plain(work, scratch, s, layout, dtype, True)
+        c = min(seg[1], 50_000 - seg[0])
+        assert torch.equal(ch[:c], pch[:c])
+        assert torch.equal(bt[:, :c], pbt[:, :c])
+
+
+@pytest.mark.parametrize("layout_name,quant,narrow,packed4", [
+    ("lane", False, 0, False), ("lane", True, 0, False),
+    ("lane", True, 5, False), ("lane", True, 5, True),
+    ("sublane", False, 0, True), ("sublane", True, 0, False)])
+def test_unfused_histogram_matches_plain(dev, layout_name, quant, narrow,
+                                         packed4):
+    """The unfused path's histogram of a segment on the device (the gather,
+    then K1 dense or K3 bounded by the device count) against the plain
+    segment histogram: int32 exact, f32 exact on 1/64-grid channels; the
+    narrowed mode takes the 16-bit engine for the small segment only."""
+    from lightgbm_tpu_torch.ops.compact import segment_histogram
+    from lightgbm_tpu_torch.ops.pallas_histogram import unfused_histogram
+    b = 16 if packed4 else 63
+    layout, work = _packed_records(300_000, 28, b, dev, 5, packed4, quant)
+    scratch = work.flip(0).contiguous()
+    tally = torch.zeros(1, dtype=torch.int32, device=dev)
+    for seg in ([1_000, 290_000, 0], [77, 5_000, 1], [3, 0, 0]):
+        s = torch.tensor(seg, dtype=torch.int32, device=dev)
+        tally.zero_()
+        _kernels.reset_counts()
+        kern = unfused_histogram(work, scratch, s, layout, b, quant, narrow,
+                                 layout_name, tally)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["segment_gather"] == 1
+        name = "histogram" if layout_name == "lane" else "histogram_sublane"
+        assert _kernels.LAUNCHES[name] == 1
+        assert sum(_kernels.PLAIN_CALLS.values()) == 0
+        plain = segment_histogram(scratch if seg[2] else work, seg[0],
+                                  seg[1], layout, b, quant)
+        assert kern.dtype == plain.dtype and torch.equal(kern, plain)
+        small = 0 < seg[1] * 5 < (1 << 15) or seg[1] == 0
+        assert int(tally) == (1 if narrow and small else 0)
+
+
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("dual", [True, False])
+@pytest.mark.parametrize("mode,start,count,side,f", [
+    (1, 0, 300_000, 0, 28), (0, 0, 300_000, 0, 28),
+    (0, 37, 220_190, 1, 29), (0, 96, 128, 0, 7), (0, 13, 290_000, 1, 529)])
+def test_fused_split_packed4(dev, mode, start, count, side, f, dual, quant):
+    """K2 on nibble-packed records (the routing reads a nibble, K1's record
+    loader unpacks two features a byte; odd F leaves a padding nibble)
+    against its plain version: the records byte-equal, the histogram exact
+    (int32, or f32 on 1/64-grid gradients)."""
+    layout, parent = _packed_records(300_000, f, 16, dev, start + f, True,
+                                     quant)
+    _, other = _packed_records(300_000, f, 16, dev, start + 1, True, quant)
+    feat, bin_ = f - 1, 9
+    col = parent[start:start + count, feat >> 1].to(torch.int64)
+    col = (col >> (4 * (feat & 1))) & 0xF
+    n_left = int((col <= bin_).sum())
+    args = (mode, start, count, n_left, feat, bin_, 0, 0, 0, None, layout,
+            16)
+    kw = {"side": side, "dual": dual, "quant": quant}
+    arrays = (other, parent) if side and dual else (parent, other)
+    _kernels.reset_counts()
+    wk, sk, hk = fused_split(*(a.clone() for a in arrays), *args, **kw)
+    wp, sp, hp = fused_split_plain(*(a.clone() for a in arrays), *args, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.MODE_LAUNCHES["fused_split/packed4"] == 1
+    assert _kernels.MODE_LAUNCHES["histogram/packed4"] == 1
+    assert torch.equal(wk, wp) and torch.equal(sk, sp)
+    assert hk.dtype == hp.dtype and torch.equal(hk, hp)
+    # the same rows, in the same order, as on u8 records
+    u8 = RowLayout(num_features=f, num_extra=2)
+    assert layout.moved_cols <= u8.moved_cols
+
+
+def test_fused_split_partition_alone(dev):
+    """``hist=False``: K2's prep and partition (and the copy-back) only, the
+    records as the full split leaves them, the histogram's segment on the
+    device."""
+    layout, parent = _packed_records(300_000, 28, 63, dev, 9, False, True)
+    col = parent[1000:251_000, 3].to(torch.int64)
+    n_left = int((col <= 30).sum())
+    args = (0, 1000, 250_000, n_left, 3, 30, 0, 0, 0, None, layout, 63)
+    kw = {"side": 0, "dual": False, "quant": True}
+    _kernels.reset_counts()
+    wk, sk, seg = fused_split(parent.clone(), torch.zeros_like(parent), *args,
+                              hist=False, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["histogram"] == 0
+    assert _kernels.MODE_LAUNCHES["fused_split/partition"] == 1
+    wp, sp, pseg = fused_split_plain(parent.clone(), torch.zeros_like(parent),
+                                     *args, hist=False, **kw)
+    assert torch.equal(wk, wp)
+    assert seg.tolist() == pseg.tolist()
+
+
+def _count_tree_syncs(monkeypatch):
+    """Host syncs inside every compact tree after the first (torch's sync
+    debug mode), into the returned list."""
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    import warnings
+    real = gbdt_mod.grow_tree_compact
+    counts = []
+
+    def counted(*a, **kw):
+        if not counts and not getattr(counted, "warm", False):
+            counted.warm = True
+            return real(*a, **kw)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = real(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        counts.append(sum("called a synchronizing" in str(w.message)
+                          for w in caught))
+        return out
+    monkeypatch.setattr(gbdt_mod, "grow_tree_compact", counted)
+    return counts
+
+
+@pytest.mark.parametrize("case", ["f32", "quant", "narrow", "sublane",
+                                  "pack4", "pack4_unfused"])
+def test_unfused_and_packed_train_on_card_matches_cpu(dev, case,
+                                                      monkeypatch):
+    """The compact grower without the fused kernel (K2's partition alone,
+    the gather, K1 dense or K3) and on packed records, card against CPU:
+    quantized runs grow equal trees, f32 runs predict within 1e-4; an
+    unfused tree makes no host sync; no plain version runs on the card."""
+    rng = np.random.RandomState(4)
+    X = rng.randn(20_000, 7).astype(np.float32)
+    y = (X[:, 0] - 0.5 * X[:, 3] + 0.3 * rng.randn(20_000) > 0).astype(float)
+    p = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+         "tpu_grower": "compact", "tpu_fused": "off"}
+    quant = {"use_quantized_grad": True, "stochastic_rounding": False}
+    p.update({"f32": {}, "quant": quant,
+              "narrow": dict(quant, tpu_quant_hist_bits=16),
+              "sublane": dict(quant, tpu_hist_layout="sublane", max_bin=63),
+              "pack4": dict(quant, tpu_fused="auto", tpu_bin_pack4=True,
+                            max_bin=15),
+              "pack4_unfused": dict(tpu_bin_pack4=True, max_bin=15)}[case])
+    syncs = _count_tree_syncs(monkeypatch)
+    _kernels.reset_counts()
+    bg = lgt.train(dict(p, device_type="cuda"), lgt.Dataset(X, y), 3)
+    launches = dict(_kernels.LAUNCHES)
+    modes = dict(_kernels.MODE_LAUNCHES)
+    plain = dict(_kernels.PLAIN_CALLS)
+    card_syncs = list(syncs)
+    monkeypatch.undo()
+    bc = lgt.train(dict(p, device_type="cpu"), lgt.Dataset(X, y), 3)
+    assert sum(plain.values()) == 0
+    assert card_syncs == [0, 0]
+    gp = bg._gbdt.grower_params
+    assert gp.fused == (case == "pack4")
+    assert bg._gbdt.layout.packed4 == case.startswith("pack4")
+    if gp.fused:
+        assert launches["fused_split"] == modes["fused_split/packed4"] \
+            == 3 * 31
+    else:
+        assert launches["fused_split"] == modes["fused_split/partition"] \
+            == 3 * 30
+        assert launches["segment_gather"] == 3 * 31
+        hist = "histogram_sublane" if case == "sublane" else "histogram"
+        assert launches[hist] == 3 * 31
+    if case == "narrow":
+        assert modes["histogram/narrow"] == 3 * 31
+        # the last tree: the kernel's own choice equals the CPU's
+        narrowed = [int(b._gbdt.tree_stats["narrowed_leaves"])
+                    for b in (bg, bc)]
+        assert 0 < narrowed[0] == narrowed[1] < 31
+    if case == "f32" or case == "pack4_unfused":
+        np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-4)
+        return
+    for a, b in zip(bg._gbdt.models, bc._gbdt.models):
+        n = a.num_nodes
+        assert b.num_nodes == n
+        np.testing.assert_array_equal(a.split_feature[:n], b.split_feature[:n])
+        np.testing.assert_array_equal(a.split_bin[:n], b.split_bin[:n])
+    np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-5)

@@ -148,7 +148,9 @@ def test_record_histogram_clamps_the_segment(seg, clamped):
 def test_modes_and_shapes_are_checked():
     binned, ch = _inputs(64, 4)
     tb, tc = torch.from_numpy(binned), torch.from_numpy(ch)
-    with pytest.raises(NotImplementedError):
+    # int8 takes the quantized codes: float channels are refused, as the
+    # JAX wrapper refuses them
+    with pytest.raises(ValueError):
         pallas_histogram(tb, tc, 64, mode="int8")
     with pytest.raises(ValueError):
         pallas_histogram(tb, torch.zeros(N, 5), 64, mode="split")

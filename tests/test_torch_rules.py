@@ -25,7 +25,7 @@ import torch
 
 import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch import _kernels
-from lightgbm_tpu_torch.config import Config
+from lightgbm_tpu_torch.config import IGNORED_PARAMS, PARAMS, Config
 
 # one intra-op thread: the suite runs several workers on the machine's
 # cores, and each worker's spin-waiting OpenMP threads would slow the CPU
@@ -169,7 +169,7 @@ def test_parameters_of_the_ranking_and_renewal_slice_train(params):
 @pytest.mark.parametrize("params,item", [
     ({"tree_learner": "data"}, "A18"),
     ({"max_bin": 511}, "A3"),
-    ({"tpu_bin_pack4": True}, "A15b"),
+    ({"tpu_checkpoint_dir": "ckpt"}, "A16"),
     ({"deterministic": True}, "B1/B2"),
     ({"num_machines": 2}, "A18"),
     ({"two_round": True}, "A16"),
@@ -185,6 +185,27 @@ def test_parameters_outside_the_slice_raise(params, item):
               "verbosity": -1}, **params)
     with pytest.raises(NotImplementedError, match=item):
         lgt.train(p, lgt.Dataset(X, y), 1)
+
+
+@pytest.mark.parametrize("value,fused", [
+    ("auto", True), ("on", True), ("off", False), ("sideways", True)])
+def test_tpu_fused_is_read(value, fused):
+    """``tpu_fused`` (once an ignored key; ROADMAP A7c) is in ``PARAMS``:
+    off trains the compact grower without the fused kernel, an unknown
+    value warns and means auto, as the JAX package's
+    ``resolve_fused_block`` does; ``tpu_bin_pack4`` is accepted."""
+    from lightgbm_tpu_torch.config import resolve_fused
+    assert "tpu_fused" in PARAMS and "tpu_fused" not in IGNORED_PARAMS
+    assert "tpu_fused_block" in IGNORED_PARAMS
+    cfg = Config({"tpu_fused": value, "tpu_bin_pack4": True})
+    cfg.check_supported()
+    assert resolve_fused(cfg) is fused
+    X, y = _data()
+    bst = lgt.train({"objective": "binary", "device_type": "cpu",
+                     "verbosity": -1, "tpu_grower": "compact",
+                     "tpu_fused": value, "num_leaves": 4},
+                    lgt.Dataset(X, y), 1)
+    assert bst._gbdt.grower_params.fused is fused
 
 
 @pytest.mark.parametrize("params", [
