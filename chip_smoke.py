@@ -9,7 +9,11 @@ Phases, each of which raises on a failed check (the script then exits
 non-zero):
 
 1. the card's name and power limit, and the build of every kernel from the
-   sources in lightgbm_tpu_torch/csrc (one nvcc per source, in parallel);
+   sources in lightgbm_tpu_torch/csrc (one nvcc per source, all started
+   together in the background: K1's and K2's phases wait for their own
+   libraries only, then the card against the CPU on the compact path
+   (8.) and A14C_CHECKS (20.) run, and K3's phase waits for the whole
+   build);
 2. K1, the histogram kernel, against its plain PyTorch version at the Higgs
    root shape (dense channels and packed row records) and at F=100 (feature
    chunking), with its time, the plain version's and index_add_'s; then two
@@ -261,14 +265,32 @@ non-zero):
    (0), plain calls (0), host syncs in the grower (0), a profiled tree
    with K1's device ms beside its byte bound, average_output in the saved
    text and the reloaded model (1e-6);
-19. A14C_CHECKS: the card against the CPU on weighted rows
+19. max_bin above 255 (WIDE_BINS, right after RF): the same rows binned
+   at max_bin=1023 (uint16 bins on the host, an int16 view on the card, no
+   EFB), MAIN's other parameters, 1 warm-up and 2 timed rounds on the
+   masked grower with the lane layout (K1's wide-bin kernel, once for the
+   root and once a split, no other kernel): iterations/s beside MAIN's,
+   AUC (> 0.7), plain calls (0), host syncs in the grower (0), a profiled
+   tree (K1's device ms beside its byte bound, the profiler's launches
+   equal to the wrapper's); K1 16-bit at the root (9.45M rows, B = 1,024)
+   against its plain version (bit-equal on 1/64-grid gradients; on the
+   run's own within (m - 1) 2^-24 of float64 sums), timed beside
+   index_add_ and its byte bound, and on synthetic bins at B = 1,024, 4,096
+   and 40,000 (bins from 32,768 up; bit-equal); pred_leaf against the
+   CPU's; pred_contrib on 4,096 validation rows through the 16-bit
+   TreeSHAP kernel against its plain version (1e-12 of a cell's scale),
+   timed beside its operations bound; the reloaded model (1e-6) and its
+   dump_model equal to the booster's in the fields a loaded model holds;
+   the card against the CPU at 100k x 28, 31 leaves, 3 rounds, on
+   weighted rows (0 differing splits, 1e-4);
+20. A14C_CHECKS: the card against the CPU on weighted rows
    (tie_free_weights), 15 leaves, 3 rounds: DART on the compact grower
    (70k x 28, drop_rate 0.5, the same drops on both), DART, RF (numpy's
    bags on both), forced splits (their first splits checked) and linear
    leaves (a regression on 20k rows, a tenth of two columns NaN,
    gradients on a 1/64 grid; the fit's host seconds a tree) on the masked
    grower (1e-4, 0 differing splits);
-20. TRACE_CHECK (last): the profiler's raw events, which every profiled
+21. TRACE_CHECK (last): the profiler's raw events, which every profiled
    number above reads, against torch's public prof.events() on a small
    trace (the same kernels, calls and launches).
 
@@ -290,6 +312,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -1196,7 +1219,7 @@ def phase_predict_api(lgt, results):
     pred_early_stop at margins 1.5 and 0.25, freq 2 (the share
     of rows stopped, each row's score equal to the window it stopped at,
     equal to the CPU's; margin 1e9 equal to the plain prediction); refit
-    on the validation rows with decay 0.9 against the CPU's refit (leaf
+    on the 131,072 rows with decay 0.9 against the CPU's refit (leaf
     values within 1e-6)."""
     from lightgbm_tpu_torch import _kernels
     from lightgbm_tpu_torch.ops import treeshap_device as ts
@@ -1338,11 +1361,13 @@ def phase_predict_api(lgt, results):
         Xv, raw_score=True, **dict(stop, pred_early_stop_margin=1e9)), full),
         "margin 1e9 against the plain prediction")
 
-    # refit on the validation rows
+    # refit on pred_contrib's rows, not every validation row: the card's
+    # and the CPU's host routing of 1.05M rows took 30 s of the smoke
     t0 = time.perf_counter()
-    refit = bst.refit(Xv, yv, decay_rate=0.9)
+    refit = bst.refit(Xp, yv[:len(Xp)], decay_rate=0.9)
     out["refit_wall_s"] = time.perf_counter() - t0
-    cpu_refit = cpu.refit(Xv, yv, decay_rate=0.9)
+    out["refit_rows"] = len(Xp)
+    cpu_refit = cpu.refit(Xp, yv[:len(Xp)], decay_rate=0.9)
     # the gradients are f32 on each device (their exp and sigmoid part by
     # ulps), and a leaf's sum of them cancels: held absolute, the leaves
     # moving by about 1e-2
@@ -2666,7 +2691,7 @@ def phase_multiclass_masked(lgt, results):
 
 
 # the device functions of each kernel of the port, as the profiler names them
-KERNEL_FUNCTIONS = {"histogram": ("hist_kernel",),
+KERNEL_FUNCTIONS = {"histogram": ("hist_kernel", "hist_wide_kernel"),
                     "fused_split": ("prep_kernel", "partition_kernel",
                                     "copyback_kernel"),
                     "histogram_sublane": ("hist_sublane_kernel",
@@ -2676,7 +2701,7 @@ KERNEL_FUNCTIONS = {"histogram": ("hist_kernel",),
                     "segment_gather": ("gather_kernel",)}
 # of those, the ones of which exactly one runs for each launch a wrapper
 # counts (K2's partition does not run for the root's histogram, mode 1)
-ENTRY_FUNCTIONS = {"histogram": ("hist_kernel",),
+ENTRY_FUNCTIONS = {"histogram": ("hist_kernel", "hist_wide_kernel"),
                    "fused_split": ("prep_kernel",),
                    "histogram_sublane": ("hist_sublane_kernel",
                                          "hist_sublane_small_kernel"),
@@ -2688,12 +2713,15 @@ ENTRY_FUNCTIONS = {"histogram": ("hist_kernel",),
 # the device functions of a kernel mode that has its own instantiations (a
 # pattern of the profiler's demangled name, spaces removed): K1's integer
 # variants in record and in dense mode (the narrowed mode is a branch of
-# the dense one), K3's int32 accumulator. K2's quant and packed4 modes run
-# the same partition functions as its f32 mode, K1's packed4 the same
-# record functions
+# the dense one), K3's int32 accumulator, K1's wide-bin kernel and
+# TreeSHAP on uint16 rows. K2's quant and packed4 modes run the same
+# partition functions as its f32 mode, K1's packed4 the same record
+# functions
 MODE_FUNCTIONS = {
     "histogram/quant": r"hist_kernel<true,true>",
     "histogram/int8": r"hist_kernel<false,true>",
+    "histogram/u16": r"hist_wide_kernel\(",
+    "treeshap/u16": r"treeshap_kernel<(unsignedshort|ushort|uint16_t)>",
     "histogram_sublane/int8": r"hist_sublane(_small)?_kernel<(true|false),"
                               r"\d,int>"}
 
@@ -2867,16 +2895,17 @@ def masked_tree_hist_bytes(tree, gbdt, k=3):
     outside the leaf has g = h = 0: a launch must read the 4-byte mask
     channel of every row (it tells the launch which rows are live), the
     other K - 1 channels and the F bins of its live rows only (all N at the
-    root, the smaller child's rows at a split) and write the F x B x K f32
-    output:
+    root, the smaller child's rows at a split; 2F bytes of 16-bit bins) and
+    write the F x B x K f32 output:
     bytes = L (4 N + 4 F B K) + (4 (K - 1) + F) (N + smaller-child rows)."""
     n = gbdt.num_data
     f = gbdt.binned_t.shape[0]
+    row_bins = f * gbdt.binned_t.element_size()
     b = gbdt.grower_params.num_bins
     launches = gbdt.grower_params.num_leaves
     _, smaller = smaller_child_rows(tree)
     return float(launches * (4 * n + 4 * f * b * k)
-                 + (4 * (k - 1) + f) * (n + smaller))
+                 + (4 * (k - 1) + row_bins) * (n + smaller))
 
 
 def profile_tree(bst, tree_s, grower=None):
@@ -4838,6 +4867,299 @@ def phase_rf(lgt, results):
     del bst, gbdt, ds, dv
 
 
+WIDE_ROUNDS = 2                # timed rounds after one warm-up round
+WIDE_PARAMS = dict(MAIN_PARAMS, max_bin=1023)
+# K1's wide-bin kernel on synthetic bins: (rows, features, bins, channels)
+WIDE_SYNTHETIC = ((2_000_000, 28, 1024, 3), (1_000_000, 8, 4096, 3),
+                  (500_000, 3, 40_000, 3))
+
+
+def dump_agrees(loaded, trained):
+    """Whether a reloaded model's ``dump_model`` equals the trained
+    booster's in every field it holds (a model read from text, as the JAX
+    package's ``loaded_dump``, dumps no internal weights or counts and no
+    feature infos)."""
+    if isinstance(loaded, dict):
+        return isinstance(trained, dict) and all(
+            key in trained and dump_agrees(v, trained[key])
+            for key, v in loaded.items())
+    if isinstance(loaded, list):
+        return isinstance(trained, list) and len(loaded) == len(trained) \
+            and all(map(dump_agrees, loaded, trained))
+    return loaded == trained
+
+
+def wide_bins_root_check(bst):
+    """K1's wide-bin kernel at the WIDE_BINS run's root (every training
+    row, B = 1,024) against its plain version: bit-equal on the run's
+    gradients rounded to a 1/64 grid; on the run's own gradients each
+    within (m - 1) 2^-24 of a cell's |addends| of float64 sums (a leaf's
+    rows share one gradient: unfused_root_checks); timed beside its plain
+    version, index_add_ of the same channels and its byte bound, N (2F +
+    4K) read and F B K 4 written."""
+    from lightgbm_tpu_torch.ops.histogram import _xla_histogram
+    from lightgbm_tpu_torch.ops.packed import bin_values
+    from lightgbm_tpu_torch.ops.pallas_histogram import pallas_histogram
+    gbdt = bst._gbdt
+    bins = gbdt.binned
+    n, f = bins.shape
+    b = gbdt.grower_params.num_bins
+    g, h = gbdt.objective.get_gradients(gbdt.train_score[0], gbdt.label,
+                                        gbdt.grad_weight)
+    ch = torch.stack([g, h, torch.ones_like(g)], dim=1).float().contiguous()
+    k = ch.shape[1]
+    dch = torch.round(ch * 64) / 64
+
+    def kern(c=ch):
+        return pallas_histogram(bins, c, b, mode="f32")
+    hist_close(kern(dch), _xla_histogram(bins, dch, b), None,
+               "WIDE_BINS: K1 16-bit at the root, 1/64 grid", rel=0)
+    del dch
+    hk, hp = kern(), _xla_histogram(bins, ch, b)
+    flat = (bin_values(bins) + torch.arange(f, device=bins.device) * b
+            ).reshape(-1)
+    src = ch[:, None, :].expand(n, f, k).reshape(-1, k)
+    exact = torch.zeros(f * b, k, dtype=torch.float64, device=bins.device)
+    absh = torch.zeros_like(exact)
+    src64 = src.double()
+    exact.index_add_(0, flat, src64)
+    absh.index_add_(0, flat, src64.abs_())
+    del src64
+    exact, absh = exact.view(f, b, k), absh.view(f, b, k)
+    bound = (exact[..., 2:] - 1).clamp(min=0) * 2.0 ** -24 * absh[..., :2]
+    line = {"rows": n, "features": f, "bins": b, "channels": k}
+    for what, hist in (("kernel", hk), ("plain", hp)):
+        herr = (hist[..., :2].double() - exact[..., :2]).abs()
+        check(bool((herr <= bound + 1e-30).all()), f"WIDE_BINS: the "
+              f"{what}'s f32 sums at the root off the float64 sums by more "
+              "than (m - 1) 2^-24 of their |addends|")
+        line[f"run_gradients_{what}_max_rel_err"] = float(
+            (herr / (absh[..., :2] + 1e-30)).max())
+    check(torch.equal(hk[..., 2:], hp[..., 2:]), "WIDE_BINS: K1 16-bit's "
+          "count channel differs from its plain version's")
+    line["max_abs_err"] = float((hk - hp).abs().max())
+    del exact, absh, bound, hk, hp
+    lib_out = torch.zeros(f * b, k, device=bins.device)
+
+    def lib():
+        lib_out.zero_()
+        lib_out.index_add_(0, flat, src)
+    line.update(
+        ms=time_ms(kern),
+        plain_ms=time_ms(lambda: _xla_histogram(bins, ch, b), 3, 1),
+        library_ms=time_ms(lib, 3, 1),
+        bound_ms=1e3 * (n * (2 * f + 4 * k) + 4 * f * b * k)
+        / HBM_BYTES_PER_S)
+    return line
+
+
+def wide_bins_synthetic():
+    """K1's wide-bin kernel at B = 1,024, 4,096 and 40,000 on synthetic
+    uint16 bins (a tenth of the rows in one bin of feature 0, bins from
+    32,768 up where B passes it) and 1/64-grid channels, a third of the
+    rows zero: bit-equal to its plain version, timed beside it and its
+    byte bound."""
+    from lightgbm_tpu_torch.ops.packed import bins_to_device
+    from lightgbm_tpu_torch.ops.pallas_histogram import (
+        pallas_histogram, pallas_histogram_plain)
+    out = []
+    for n, f, b, k in WIDE_SYNTHETIC:
+        rng = np.random.RandomState(b)
+        bins = rng.randint(0, b, (n, f)).astype(np.uint16)
+        bins[:n // 10, 0] = min(b - 1, 40_000)
+        ch = np.round(rng.randn(n, k) * 64) / 64
+        ch[rng.rand(n) < 0.3] = 0.0
+        tb = bins_to_device(bins, "cuda")
+        tc = torch.from_numpy(ch.astype(np.float32)).cuda()
+        kern = pallas_histogram(tb, tc, b, mode="f32")
+        plain = pallas_histogram_plain(tb, tc, b, "f32")
+        check(torch.equal(kern, plain), f"WIDE_BINS: K1 16-bit at B = {b} "
+              "differs from its plain version")
+        out.append({"rows": n, "features": f, "bins": b, "channels": k,
+                    "max_bin_value": int(bins.max()), "max_abs_err": 0.0,
+                    "ms": time_ms(lambda: pallas_histogram(tb, tc, b,
+                                                           mode="f32")),
+                    "plain_ms": time_ms(lambda: pallas_histogram_plain(
+                        tb, tc, b, "f32"), 3, 1),
+                    "bound_ms": 1e3 * (n * (2 * f + 4 * k) + 4 * f * b * k)
+                    / HBM_BYTES_PER_S})
+        del tb, tc, kern, plain
+    return out
+
+
+def wide_bins_cpu_vs_card(lgt):
+    """WIDE_BINS' configuration at 100k x 28, 31 leaves, 3 rounds, on
+    weighted rows (tie_free_weights: no exact tie for f32 order to break)
+    on the card and on the CPU: 0 differing splits, predictions within
+    1e-4."""
+    X, y = make_higgs_like(100_000, 28, seed=11)
+    w = tie_free_weights(len(X))
+    p = dict(WIDE_PARAMS, num_leaves=31)
+    ds = lgt.Dataset(X, y, weight=w, params={"max_bin": 1023})
+    boosters = [lgt.train(dict(p, device_type=d), ds, 3)
+                for d in ("cuda", "cpu")]
+    diff, splits = compare_boosters(*boosters, X[:20_000])
+    check(splits == 0 and diff <= 1e-4, f"WIDE_BINS card vs CPU: {splits} "
+          f"differing splits, predictions {diff} apart")
+    return {"rows": len(X), "max_abs_diff": diff, "differing_splits": splits}
+
+
+def phase_wide_bins(lgt, results):
+    """WIDE_BINS: MAIN's rows binned at max_bin=1023 (16-bit bins, no EFB)
+    with MAIN's other parameters, 1 warm-up and WIDE_ROUNDS timed rounds:
+    the masked grower with the lane layout, K1's wide-bin kernel once for
+    the root and once a split and no other kernel, plain calls (0), host
+    syncs in the grower (0), iterations/s beside MAIN's, validation AUC (>
+    0.7), a profiled tree (K1's device ms beside its byte bound, the
+    profiler's launches equal the wrapper's); K1 16-bit at the root against
+    its plain version, timed beside index_add_ (wide_bins_root_check) and
+    on synthetic bins up to B = 40,000; pred_leaf equal to the CPU's on a
+    sample; pred_contrib on 4,096 validation rows through the 16-bit
+    TreeSHAP kernel against its plain version (1e-12 of a cell's scale),
+    timed; the reloaded model (1e-6) and its dump_model equal to the
+    booster's; the card against the CPU at 100k rows."""
+    from lightgbm_tpu_torch import _kernels
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    from lightgbm_tpu_torch.ops import treeshap_device as ts
+    from lightgbm_tpu_torch.ops.packed import bins_to_device
+    X, y, _, n_val = results["higgs"]
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(X[:-n_val], y[:-n_val], params={"max_bin": 1023})
+    dv = ds.create_valid(X[-n_val:], y[-n_val:])
+    ds.construct()
+    dv.construct()
+    construct_s = time.perf_counter() - t0
+    inner = ds._inner
+    check(inner.binned.dtype == np.uint16 and inner.bundle_info is None
+          and inner.max_num_bins == 1024,
+          f"WIDE_BINS: {inner.binned.dtype} bins, bundles "
+          f"{inner.bundle_info}, {inner.max_num_bins} bins")
+    rounds = WIDE_ROUNDS
+    syncs, ends, evals = {}, [], {}
+
+    def timer(env):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+    timer.order = 5
+
+    _kernels.reset_counts()
+    with count_syncs(gbdt_mod, ["grow_tree"], syncs):
+        t_start = time.perf_counter()
+        bst = lgt.train(dict(WIDE_PARAMS, device_type="cuda"), ds,
+                        1 + rounds, valid_sets=[dv],
+                        callbacks=[timer, lgt.record_evaluation(evals)])
+    launches = dict(_kernels.LAUNCHES)
+    modes = dict(_kernels.MODE_LAUNCHES)
+    plain_calls = dict(_kernels.PLAIN_CALLS)
+    gbdt = bst._gbdt
+    L = gbdt.grower_params.num_leaves
+    check(len(ends) == 1 + rounds, f"trained {len(ends)} rounds")
+    it_s = rounds / (ends[-1] - ends[0])
+    auc = evals["valid_0"]["auc"][-1]
+    check(not gbdt.use_compact and gbdt.grower_params.hist_layout == "lane"
+          and gbdt.binned.dtype == torch.int16,
+          "WIDE_BINS did not take the masked grower, the lane layout and "
+          "16-bit bins")
+    check(launches["histogram"] == modes["histogram/u16"]
+          == (1 + rounds) * L, f"K1 16-bit launched {modes['histogram/u16']}"
+          f" times ({launches['histogram']} K1 launches) in {1 + rounds} "
+          f"masked trees of {L} leaves")
+    check(sum(launches.values()) == launches["histogram"],
+          f"another kernel ran on the WIDE_BINS path: {launches}")
+    for k, v in plain_calls.items():
+        check(v == 0, f"plain version of {k} ran {v} times on the card")
+    check(syncs.get("in_tree") == 0, f"host syncs in the grower: {syncs}")
+    check(np.isfinite(auc) and auc > 0.7, f"WIDE_BINS validation AUC {auc}")
+    prof = profile_tree(bst, 1.0 / it_s)
+    k1 = prof["kernels"]["histogram"]
+    check(prof["modes"]["histogram/u16"]["launches"]
+          == prof["modes"]["histogram/u16"]["counted"] == L,
+          f"the profiled tree's K1 16-bit launches: {prof['modes']}")
+    root = wide_bins_root_check(bst)
+    synthetic = wide_bins_synthetic()
+
+    # prediction on 16-bit rows: leaf indices, contributions, model text
+    Xv = X[-n_val:]
+    cpu = cpu_twin(bst)
+    leaves = bst.predict(Xv[:PREDICT_SAMPLE], pred_leaf=True)
+    check(np.array_equal(leaves, cpu.predict(Xv[:PREDICT_SAMPLE],
+                                             pred_leaf=True)),
+          "WIDE_BINS: pred_leaf card against CPU")
+    Xp = Xv[:PREDICT_PLAIN_ROWS]
+    before = dict(_kernels.MODE_LAUNCHES)
+    phi = bst.predict(Xp, pred_contrib=True)
+    contrib_launches = (_kernels.MODE_LAUNCHES["treeshap/u16"]
+                        - before["treeshap/u16"])
+    check(contrib_launches > 0, "pred_contrib did not launch the 16-bit "
+          "TreeSHAP kernel")
+    paths = ts.build_shap_paths(gbdt.models,
+                                gbdt._pred_nan_arr.cpu().numpy(),
+                                gbdt.feature_is_categorical(), gbdt.device)
+    b = bins_to_device(gbdt.bin_matrix(Xp), gbdt.device)
+    kern = ts.tree_shap(b, paths, 1)
+    plain = ts.tree_shap_plain(b, paths, 1)
+    scale = float(paths.leaf_value.abs().sum() + paths.ev.abs().sum())
+    err = (kern - plain).abs()
+    shap = {"rows": len(Xp), "launches": contrib_launches,
+            "max_abs_err": float(err.max()),
+            "max_rel_err": float((err / (plain.abs() + scale)).max()),
+            "contrib_max_abs_err": float(np.abs(
+                phi - plain.reshape(len(Xp), -1).cpu().numpy()).max())}
+    check(shap["max_rel_err"] <= 1e-12 and shap["contrib_max_abs_err"]
+          <= 1e-12 * (float(plain.abs().max()) + scale),
+          f"WIDE_BINS: the 16-bit TreeSHAP kernel against its plain "
+          f"version: {shap}")
+    nbytes = (b.numel() * b.element_size() + len(Xp) * (Xp.shape[1] + 1) * 8
+              + sum(t.numel() * t.element_size() for t in paths
+                    if torch.is_tensor(t)))
+    ops = ts.shap_ops(paths, len(Xp))
+    shap.update(ms=time_ms(lambda: ts.tree_shap(b, paths, 1), reps=5,
+                           warm=1),
+                plain_ms=time_ms(lambda: ts.tree_shap_plain(b, paths, 1),
+                                 reps=1, warm=0),
+                bytes_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+                ops_ms=1e3 * ops / FP64_OPS_PER_S)
+    shap["bound_ms"] = max(shap["bytes_ms"], shap["ops_ms"])
+    shap["bound_by"] = ("operations" if shap["ops_ms"] >= shap["bytes_ms"]
+                        else "bytes")
+    del b, kern, plain
+    diff, text = reload_diff(lgt, bst, Xv[:20_000])
+    check(diff <= 1e-6, f"reloaded WIDE_BINS model differs by {diff}")
+    check(dump_agrees(lgt.Booster(model_str=text).dump_model(),
+                      bst.dump_model()),
+          "WIDE_BINS: the reloaded model's dump_model differs from the "
+          "booster's")
+    cmp = wide_bins_cpu_vs_card(lgt)
+    main = results["main"]
+    out = {"train_rows": gbdt.num_data, "valid_rows": dv.num_data(),
+           "max_bin": 1023, "bins": gbdt.grower_params.num_bins,
+           "host_bin_dtype": str(inner.binned.dtype),
+           "device_bin_dtype": str(gbdt.binned.dtype),
+           "bin_mb": inner.binned.nbytes / 2 ** 20,
+           "construct_s": construct_s, "rounds_timed": rounds,
+           "iterations_per_s": it_s,
+           "main_iterations_per_s": main["iterations_per_s"],
+           "vs_main": it_s / main["iterations_per_s"],
+           "round_s": np.diff(ends).tolist(),
+           "first_round_s": ends[0] - t_start, "valid_auc": auc,
+           "valid_auc_by_round": evals["valid_0"]["auc"],
+           "launches": launches, "mode_launches": modes,
+           "plain_calls": plain_calls,
+           "host_syncs_in_grower": syncs.get("in_tree"),
+           "tree_kernel_launches": prof["kernel_launches"],
+           "tree_device_s": prof["device_s"], "tree_wall_s": 1.0 / it_s,
+           "tree_device_idle_share": prof["device_idle_share"],
+           "k1_tree_device_ms": k1["device_ms"],
+           "k1_tree_launches": k1["launches"],
+           "k1_tree_bound_ms": k1.get("bound_ms"),
+           "root": root, "synthetic": synthetic, "treeshap": shap,
+           "reload_max_abs_diff": diff, "cpu_vs_card": cmp}
+    print("WIDE_BINS", json.dumps(out), flush=True)
+    out["profile"] = prof
+    results["wide_bins"] = out
+    del bst, gbdt, ds, dv, inner
+
+
 @contextlib.contextmanager
 def dyadic_regression():
     """The L2 regression objective's weighted gradients and hessians
@@ -5006,15 +5328,44 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
-    t0 = time.perf_counter()
-    built = _kernels.build()
-    print(f"build: {json.dumps(built)} wall_s {time.perf_counter() - t0:.2f}",
-          flush=True)
+    # every kernel builds at once in the background (K3's 32 instantiations
+    # take about a minute of nvcc), while the first phases, which need K1
+    # and K2 only and time on the card alone, run
+    build = {}
+
+    def run_build():
+        t0 = time.perf_counter()
+        try:
+            build["seconds"] = _kernels.build()
+        except Exception as err:      # raised again in the main thread
+            build["error"] = err
+        build["wall_s"] = time.perf_counter() - t0
+    build_thread = threading.Thread(target=run_build)
+    build_thread.start()
+
+    def built(names=None):
+        """Wait for the named kernels' libraries (default: the whole
+        build), raising if the build failed."""
+        while build_thread.is_alive() and (names is None or not all(
+                _kernels._lib_path(n).is_file() for n in names)):
+            time.sleep(0.1)
+        if "error" in build:
+            build_thread.join()
+            raise build["error"]
+        if names is None:
+            build_thread.join()
+            print(f"build: {json.dumps(build['seconds'])} wall_s "
+                  f"{build['wall_s']:.2f}", flush=True)
 
     results = {}
-    phases = [("k1", lambda: phase_kernels_k1(args.rows, results)),
-              ("k2", lambda: phase_kernels_k2(args.rows, results)),
-              ("k3", lambda: phase_kernels_k3(args.rows, results)),
+    phases = [("k1", lambda: (built(["histogram"]),
+                              phase_kernels_k1(args.rows, results))),
+              ("k2", lambda: (built(["fused_split"]),
+                              phase_kernels_k2(args.rows, results))),
+              ("cpu_vs_card", lambda: phase_cpu_vs_card(lgt, results)),
+              ("a14c_checks", lambda: phase_a14c_checks(lgt, results)),
+              ("k3", lambda: (built(), phase_kernels_k3(args.rows,
+                                                         results))),
               ("main", lambda: phase_main_path(lgt, args.rows, args.rounds,
                                                results)),
               ("predict_api", lambda: phase_predict_api(lgt, results)),
@@ -5026,11 +5377,10 @@ def main() -> int:
               ("constrained", lambda: phase_constrained(lgt, results)),
               ("dart", lambda: phase_dart(lgt, results)),
               ("rf", lambda: phase_rf(lgt, results)),
-              ("a14c_checks", lambda: phase_a14c_checks(lgt, results)),
+              ("wide_bins", lambda: phase_wide_bins(lgt, results)),
               ("rank", lambda: phase_rank(lgt, results)),
               ("masked_large", lambda: phase_masked_large(lgt, args.rows,
                                                           results)),
-              ("cpu_vs_card", lambda: phase_cpu_vs_card(lgt, results)),
               ("masked", lambda: phase_masked(lgt, results)),
               ("multiclass_masked", lambda: phase_multiclass_masked(
                   lgt, results)),
@@ -5079,6 +5429,7 @@ def main() -> int:
     pa = results["predict_api"]
     uf = results["unfused"]
     p4 = results["pack4"]
+    wb = results["wide_bins"]
 
     def unfused_path(run, kern, mode, root_key=None):
         """A kernel mode on an UNFUSED run: its launches there (counted in
@@ -5370,6 +5721,32 @@ def main() -> int:
              "bound_ms"],
          "histogram_tree_device_ms": p4["f32"]["tree_kernels"]["histogram"][
              "device_ms"]},
+        # max_bin > 255: K1's wide-bin kernel on 16-bit bins (the masked
+        # grower's histogram, WIDE_BINS), at the run's root
+        {"name": "histogram_u16", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/histogram.cu",
+         "replaces": "lightgbm_tpu/ops/pallas_histogram.py:67",
+         "launches": wb["mode_launches"]["histogram/u16"],
+         "max_abs_err": wb["root"]["max_abs_err"], "ms": wb["root"]["ms"],
+         "plain_ms": wb["root"]["plain_ms"],
+         "bound_ms": wb["root"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": wb["root"]["library_ms"],
+         "bins": wb["bins"],
+         "tree_device_ms": wb["k1_tree_device_ms"],
+         "tree_launches": wb["k1_tree_launches"],
+         "tree_bound_ms": wb["k1_tree_bound_ms"],
+         "iterations_per_s": wb["iterations_per_s"],
+         "main_iterations_per_s": wb["main_iterations_per_s"],
+         "synthetic": wb["synthetic"]},
+        # pred_contrib on 16-bit rows (WIDE_BINS): the TreeSHAP kernel's
+        # uint16 instantiation
+        {"name": "treeshap_u16", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/treeshap.cu",
+         "replaces": "lightgbm_tpu/ops/treeshap_device.py:248",
+         **{key: wb["treeshap"][key] for key in (
+             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+             "bound_by", "rows", "max_rel_err")},
+         "library_ms": None},
         # the unfused path's channels of a segment: no Pallas kernel, the
         # JAX package's XLA channel stack (ops/compact.py:386-399)
         {"name": "segment_gather", "route": "cuda",

@@ -10,7 +10,7 @@ The port imports nothing of the JAX package.
 """
 from __future__ import annotations
 
-from .basic import Booster, Dataset
+from .basic import Booster, Dataset, Sequence
 from .callback import (EarlyStopException, early_stopping, log_evaluation,
                        record_evaluation, reset_parameter)
 from .config import Config
@@ -19,5 +19,5 @@ from .engine import train
 __version__ = "0.1.0"
 
 __all__ = ["Booster", "Config", "Dataset", "EarlyStopException",
-           "early_stopping", "log_evaluation", "record_evaluation",
-           "reset_parameter", "train"]
+           "Sequence", "early_stopping", "log_evaluation",
+           "record_evaluation", "reset_parameter", "train"]

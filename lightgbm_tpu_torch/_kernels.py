@@ -14,7 +14,8 @@ each time a wrapper launches its kernel), ``MODE_LAUNCHES`` those of a
 kernel's modes by ``"kernel/mode"`` (the quantized ``histogram/quant`` and
 ``fused_split/quant``, K1's dense ``histogram/int8`` and
 ``histogram/narrow``, K3's ``histogram_sublane/int8``, the packed records'
-``*/packed4``, K2's ``fused_split/partition`` alone), and ``PLAIN_CALLS``
+``*/packed4``, K2's ``fused_split/partition`` alone, K1's and TreeSHAP's
+16-bit bins ``*/u16``), and ``PLAIN_CALLS``
 counts calls of the plain PyTorch versions, so a run can show which path it
 took.
 """
@@ -46,6 +47,7 @@ KERNELS = {
                             _P],
         "lgbt_hist_dense_int": [_P, _P, _L, _L, _P, _I, _P, _I, _I, _I, _I,
                                 _I, _I, _P, _P, _P],
+        "lgbt_hist_dense_u16": [_P, _L, _L, _P, _I, _I, _I, _I, _P, _P],
         "lgbt_hist_records": [_P, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I,
                               _P, _P],
         "lgbt_hist_records_int": [_P, _P, _L, _L, _P, _I, _I, _I, _I, _I,
@@ -71,6 +73,7 @@ KERNELS = {
     # binned rows, 8 shapes, 16 path tables, output and 3 scratch arrays
     "treeshap": ("treeshap.cu", {
         "lgbt_treeshap": [_P, _L, _L] + [_I] * 8 + [_P] * 21,
+        "lgbt_treeshap_u16": [_P, _L, _L] + [_I] * 8 + [_P] * 21,
     }),
 }
 
@@ -83,7 +86,9 @@ MODE_LAUNCHES: Dict[str, int] = {
     # nibble-packed records: K1's record mode, K2; K2's partition alone
     # (tpu_fused=off)
     "histogram/packed4": 0, "fused_split/packed4": 0,
-    "fused_split/partition": 0}
+    "fused_split/partition": 0,
+    # 16-bit bins (more than 256): K1's wide-bin kernel, TreeSHAP's rows
+    "histogram/u16": 0, "treeshap/u16": 0}
 PLAIN_CALLS: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _libs: Dict[str, ctypes.CDLL] = {}

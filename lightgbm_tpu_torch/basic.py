@@ -33,7 +33,7 @@ from .config import Config, alias_table, resolve_device
 from .io.dataset import BinnedDataset, Metadata
 from .metrics import create_metrics
 from .model_io import (LoadedGBDT, booster_to_dict, booster_to_string,
-                       load_booster, merge_model_texts)
+                       load_booster, loaded_dump, merge_model_texts)
 from .objectives import create_objective
 
 _DATASET_PARAM_KEYS = ("max_bin", "min_data_in_bin", "bin_construct_sample_cnt",
@@ -45,6 +45,34 @@ _DATASET_PARAM_KEYS = ("max_bin", "min_data_in_bin", "bin_construct_sample_cnt",
 # the keyword arguments of Booster.predict beside its named ones
 _EARLY_STOP_KEYS = ("pred_early_stop", "pred_early_stop_margin",
                     "pred_early_stop_freq")
+
+
+class Sequence:
+    """Random-access rows for streaming Dataset construction (reference:
+    ``lightgbm_tpu/basic.py:34-49``; LightGBM's ``lightgbm.Sequence``).
+    A subclass implements ``__getitem__`` (an int: one row ``[F]``; a
+    slice: rows ``[K, F]``) and ``__len__``; ``batch_size`` rows are read
+    at a time. The raw ``[N, F]`` matrix is never made."""
+
+    batch_size = 4096
+
+    def __getitem__(self, idx):
+        raise NotImplementedError("Sequence subclasses implement "
+                                  "__getitem__")
+
+    def __len__(self):
+        raise NotImplementedError("Sequence subclasses implement __len__")
+
+
+def _as_sequences(data) -> Optional[List[Sequence]]:
+    """``data`` as a list of ``Sequence`` objects, or None where it is not
+    one or a non-empty list of them."""
+    if isinstance(data, Sequence):
+        return [data]
+    if isinstance(data, (list, tuple)) and data \
+            and all(isinstance(s, Sequence) for s in data):
+        return list(data)
+    return None
 
 
 def _maybe_series(x):
@@ -113,8 +141,7 @@ class Dataset:
         cat = self.categorical_feature
         if cat is None or (isinstance(cat, str) and cat == "auto"):
             cat = cfg.categorical_feature
-        self._inner = BinnedDataset.construct(
-            self.data,
+        common = dict(
             max_bin=cfg.max_bin,
             min_data_in_bin=cfg.min_data_in_bin,
             bin_construct_sample_cnt=cfg.bin_construct_sample_cnt,
@@ -127,10 +154,17 @@ class Dataset:
             categorical_feature=cat,
             enable_bundle=bool(cfg.enable_bundle),
             max_conflict_rate=float(cfg.max_conflict_rate),
+            forcedbins_filename=str(cfg.forcedbins_filename or ""))
+        seqs = _as_sequences(self.data)
+        if seqs is not None:
+            self._inner = BinnedDataset.construct_from_sequences(seqs,
+                                                                 **common)
+        else:
             # linear leaves fit on raw values (reference: basic.py:212-214,
             # LightGBM's dataset.h raw_data_)
-            keep_raw=not self.free_raw_data or bool(cfg.linear_tree),
-        )
+            self._inner = BinnedDataset.construct(
+                self.data, **common,
+                keep_raw=not self.free_raw_data or bool(cfg.linear_tree))
         md = self._inner.metadata
         if self.label is not None:
             md.set_label(_maybe_series(self.label))
@@ -580,11 +614,13 @@ class Booster:
 
     def dump_model(self, num_iteration: Optional[int] = None
                    ) -> Dict[str, Any]:
-        """The model as a JSON-ready dict (reference: GBDT::DumpModel)."""
+        """The model as a JSON-ready dict (reference: GBDT::DumpModel). A
+        continued booster dumps its merged model text, the loaded trees
+        first, as the reference does (``lightgbm_tpu/basic.py:1323-1332``:
+        the text round trip is exact for the loaded trees)."""
         if self._pre_model is not None:
-            raise NotImplementedError(
-                "dump_model of a continued model is not in the PyTorch "
-                "port yet (ROADMAP A9); save_model writes its text")
+            return loaded_dump(LoadedGBDT(self.model_to_string(
+                num_iteration)))
         return booster_to_dict(self, num_iteration)
 
 

@@ -28,8 +28,10 @@ once an iteration from the iteration-start scores.
   original row order, the iteration's in-bag mask (``sample_strategy.py``;
   ones without sampling) multiplied into the gradient, hessian and count
   channels, ``grow_tree`` over the bin matrix (kept on the device row-major
-  for K1 and feature-major for the partition and K3), and
-  ``train_score[k] += leaf_value[row_leaf]``.
+  for K1 and feature-major for the partition and K3; more than 256 bins are
+  16-bit, an int16 view of the host's uint16 matrix, ``ops/packed.py``,
+  and take this step only, as the reference's compact grower refuses them,
+  ``boosting/gbdt.py:969``), and ``train_score[k] += leaf_value[row_leaf]``.
 * Compact step (``_build_compact_step_fn`` there, ``boosting/gbdt.py:
   1561-1800``): the packed row-record state of ``_setup_compact_state``,
   built before the first compact tree (gradients in the current row order
@@ -144,8 +146,8 @@ import numpy as np
 import torch
 
 from ..config import resolve_fused, resolve_hist_layout
-from ..io.dataset import (BinnedDataset, pack4_eligible, pack4_matrix,
-                          pack4_train_eligible)
+from ..io.dataset import (BinnedDataset, bin_dtype, pack4_eligible,
+                          pack4_matrix, pack4_train_eligible)
 from ..io.efb import EfbLayout, unbundle
 from ..metrics import Metric
 from ..ops.compact import RowLayout, _u8_to_f32, pack_rows
@@ -153,6 +155,7 @@ from ..ops.grower import (ExtraDraws, GrowerParams, TreeArrays, TreeOptions,
                           grow_tree)
 from ..ops.grower_compact import grow_tree_compact
 from ..ops.histogram import narrow_chunk_rows
+from ..ops.packed import bins_to_device
 from ..ops.predict import StackedTrees, predict_leaf_batched, \
     predict_raw_batched
 from ..ops.renew import renew_leaf_quantile
@@ -456,8 +459,7 @@ class _ValidSet:
         self.dataset = dataset
         self.name = name
         self.n_real = dataset.num_data
-        self.binned = torch.from_numpy(np.ascontiguousarray(
-            dataset.binned)).to(device)
+        self.binned = bins_to_device(dataset.binned, device)
         self.score = torch.from_numpy(_initial_scores(
             dataset.metadata, k, self.n_real)).to(device)
         self.metrics: List[Metric] = []
@@ -494,6 +496,8 @@ class GBDT:
         self.train_metrics: List[Metric] = []
         self.mappers = train_set.mappers
         self.feature_names = list(train_set.feature_names)
+        # prediction bins rows in the training matrix's type
+        self._bin_dtype = train_set.binned.dtype
         self._setup_train(train_set)
 
     @classmethod
@@ -512,6 +516,8 @@ class GBDT:
                           if objective is not None else 1)
         self.iter_ = len(self.models) // self.num_class
         self.mappers = list(mappers)
+        self._bin_dtype = bin_dtype(max([m.num_bins for m in self.mappers]
+                                        + [1]))
         self.feature_names = (list(feature_names) if feature_names is not None
                               else [f"Column_{i}"
                                     for i in range(len(self.mappers))])
@@ -564,9 +570,17 @@ class GBDT:
         # forced splits run on the masked grower (reference: gbdt.py:983-987)
         modes_ok = not (self._masked_only or self._linear
                         or self._forced is not None)
+        # more than 256 bins: 16-bit bins, which the records' byte columns
+        # cannot hold (reference: boosting/gbdt.py:969)
+        bins_ok = int(train_set.max_num_bins) <= 256
         can_compact = (n < _COMPACT_MAX_ROWS and obj_ok and rows_ok
-                       and modes_ok)
-        if grower == "compact" and not modes_ok:
+                       and modes_ok and bins_ok)
+        if grower == "compact" and not bins_ok:
+            log.warning(f"tpu_grower=compact stores bins in bytes and "
+                        f"supports at most 256 bins (this dataset has "
+                        f"{train_set.max_num_bins}: max_bin > 255); using "
+                        "the masked grower")
+        elif grower == "compact" and not modes_ok:
             log.warning(f"tpu_grower=compact does not run "
                         f"boosting={self.boosting_type}, linear_tree or "
                         "forced splits; using the masked grower")
@@ -1031,13 +1045,13 @@ class GBDT:
         dev = self.device
         md = train_set.metadata
         binned = np.ascontiguousarray(train_set.binned)
-        self.binned = torch.from_numpy(binned).to(dev)
-        # feature rows padded to a multiple of 16 bytes: K3 loads its tiles
-        # in 16-byte pieces
+        self.binned = bins_to_device(binned, dev)
+        # feature rows padded to a multiple of 16 entries: K3 loads its
+        # (uint8) tiles in 16-byte pieces
         n, f = binned.shape
-        binned_t = np.zeros((f, -(-n // 16) * 16), np.uint8)
+        binned_t = np.zeros((f, -(-n // 16) * 16), binned.dtype)
         binned_t[:, :n] = binned.T
-        self.binned_t = torch.from_numpy(binned_t).to(dev)[:, :n]
+        self.binned_t = bins_to_device(binned_t, dev)[:, :n]
         self.label = torch.from_numpy(np.asarray(md.label, np.float32)).to(
             dev)
         self.weight = (None if md.weight is None else torch.from_numpy(
@@ -1737,7 +1751,7 @@ class GBDT:
         if arr.shape[1] != len(self.mappers):
             raise ValueError(f"input has {arr.shape[1]} features, model "
                              f"expects {len(self.mappers)}")
-        return bin_columns(self.mappers, arr, np.uint8)
+        return bin_columns(self.mappers, arr, self._bin_dtype)
 
     def _average_divisor(self, models: Sequence[HostTree]) -> int:
         """The iterations in a prediction window, by which a model with
@@ -1761,10 +1775,9 @@ class GBDT:
         """Binned rows on the device, nibble-packed on the host first with
         ``tpu_bin_pack4`` (reference: ``_pad_request_to_bucket``,
         ``boosting/gbdt.py:3065-3077``): half the bytes uploaded and held."""
-        binned = np.ascontiguousarray(binned)
         if self._pred_pack4:
             binned = pack4_matrix(binned.astype(np.uint8, copy=False))
-        return torch.from_numpy(binned).to(self.device)
+        return bins_to_device(binned, self.device)
 
     def predict_raw_binned(self, binned: np.ndarray,
                            num_iteration: Optional[int] = None,
@@ -1851,5 +1864,5 @@ class GBDT:
             return np.zeros((n, k * (f + 1)), np.float64)
         paths = build_shap_paths(models, self._pred_nan_arr.cpu().numpy(),
                                  self.feature_is_categorical(), self.device)
-        b = torch.from_numpy(binned).to(self.device)
+        b = bins_to_device(binned, self.device)
         return tree_shap(b, paths, k).reshape(n, k * (f + 1)).cpu().numpy()

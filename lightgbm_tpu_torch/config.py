@@ -464,8 +464,6 @@ class Config:
             if cond:
                 todo.append(f"{what} (ROADMAP {item})")
 
-        need(bool(self.forcedbins_filename), "forced bins", "A3")
-        need(self.max_bin > 255, "max_bin>255", "A3")
         for name, value in self.refused.items():
             default, typ, _aliases, item = REFUSED_PARAMS[name]
             need(_coerce(name, value, typ) != default,

@@ -26,7 +26,7 @@ from .basic import Booster
 from .boosting.gbdt import GBDT, HostTree
 from .config import Config, resolve_device
 from .io.binning import MISSING_NAN, BinMapper
-from .io.dataset import BinnedDataset, Metadata
+from .io.dataset import BinnedDataset, Metadata, bin_dtype
 from .io.efb import BundleInfo
 from .objectives import create_objective
 
@@ -99,11 +99,12 @@ def dataset_from_arrays(binned: np.ndarray,
                         offset_of: Optional[np.ndarray] = None,
                         num_column_bins: Optional[np.ndarray] = None
                         ) -> BinnedDataset:
-    """A port ``BinnedDataset`` around an existing uint8 bin matrix and its
+    """A port ``BinnedDataset`` around an existing bin matrix and its
     mappers' arrays: ``[N, F]``, or with an EFB layout (``col_of`` and
     ``offset_of`` a feature, ``num_column_bins`` a stored column, the JAX
-    package's ``BundleInfo`` fields) the bundled ``[N, C]`` matrix."""
-    binned = np.ascontiguousarray(binned, np.uint8)
+    package's ``BundleInfo`` fields) the bundled ``[N, C]`` matrix; uint8,
+    or uint16 past 256 bins (``max_bin`` > 255)."""
+    binned = np.ascontiguousarray(binned, bin_dtype(max(max_bin + 1, 2)))
     ds = BinnedDataset()
     ds.binned = binned
     ds.num_data = binned.shape[0]

@@ -93,6 +93,37 @@
 // is loaded, in record and in dense mode, so the rest of the kernel is
 // that of u8 bins; an odd F's last high nibble is never read.
 //
+// Wide bins (lgbt_hist_dense_u16): a bin matrix of more than 256 bins is
+// 16-bit (uint16 on the host, an int16 view of the same bytes on the
+// device), B up to 65,536, in dense f32 mode only: the masked grower's
+// histogram, the one path such data trains on (the compact grower's
+// records hold bins in bytes, and quantized runs on the masked grower sum
+// dequantized f32 channels). It is its own kernel, hist_wide_kernel, so
+// the byte-bin modes above keep their layout and row buffer as they are:
+//   * shared memory: the block's cells are [kc][fc][bs] f32, bs = br | 1
+//     (an odd stride: the same bin of the features of a rotation step lands
+//     on different banks). [F, B, K] at B = 1,024 is 344 KB at K = 3, past
+//     the 227 KB a block may use, and one feature's [B, K] passes it from
+//     B = 18,944. So the launch narrows in this order until the cells fit:
+//     the feature chunk (grid.y, down to one feature), then the channels
+//     (grid.y, down to one), then the bin range (grid.z): at B = 1,024,
+//     K = 3, F = 28 two chunks of 14 features; at B = 40,000 one feature
+//     and one channel a block (160 KB); at B = 65,536 two bin ranges. Each
+//     (feature chunk, channel chunk, bin range) reads the rows once; a row
+//     whose bin falls outside the block's range adds nothing there;
+//   * rows: one a thread a step, neighbouring threads on neighbouring
+//     rows; its channels first, and a row whose channels are all zero (the
+//     masked grower zeroes every row outside the histogrammed leaf) reads
+//     no bins and adds nothing; features rotated across the lanes as above
+//     (lane l adds feature (j + l) mod fc at step j); bins read as uint16
+//     into 32-bit registers, so no value in [0, 65,535] is a sentinel, and
+//     bins >= B drop;
+//   * the end: each nonzero cell added into the output with one global
+//     atomic.
+// What bounds it: the bytes are N (2F + 4K) at the root; the f32
+// shared-memory atomics, one a (live row, feature, channel), bind it as
+// they do the byte-bin modes.
+//
 // A one-hot product on the tensor cores is not the route: it would first
 // write a 256-wide one-hot for every (row, feature) into shared memory:
 // 10.5M x 28 x 256 = 75 billion entries at the root of a Higgs-sized tree,
@@ -536,6 +567,124 @@ int launch(Args a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+struct WideArgs {
+  const uint16_t* bins;
+  long long n_rows;
+  long long stride;    // elements a row
+  const float* ch;     // [n_rows, K]
+  float* out;          // [F, B, K]
+  int K, F, B, bf16;
+  int fc, nf, kc, br, bs;  // feature chunk, chunks; channels, bin range
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+    hist_wide_kernel(const WideArgs a) {
+  extern __shared__ float wcells[];
+  const int f0 = (blockIdx.y % a.nf) * a.fc;
+  const int fc = min(a.fc, a.F - f0);
+  const int k0 = (blockIdx.y / a.nf) * a.kc;
+  const int kc = min(a.kc, a.K - k0);
+  const int b0 = blockIdx.z * a.br;
+  const int br = min(a.br, a.B - b0);
+  if (br <= 0) return;  // uniform across the block
+  const int bs = a.bs;
+  const int cells = a.kc * a.fc * bs;
+  for (int i = threadIdx.x; i < cells; i += kThreads) wcells[i] = 0.f;
+  __syncthreads();
+  const int lane_f = (threadIdx.x & 31) % fc;
+  const long long step = (long long)gridDim.x * kThreads;
+  for (long long r = blockIdx.x * (long long)kThreads + threadIdx.x;
+       r < a.n_rows; r += step) {
+    float c[kMaxK];
+    bool live = false;
+#pragma unroll
+    for (int k = 0; k < kMaxK; ++k) {
+      if (k < kc) {
+        const float v = __ldg(a.ch + r * a.K + k0 + k);
+        c[k] = a.bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+        live |= c[k] != 0.f;
+      }
+    }
+    if (!live) continue;
+    const uint16_t* row = a.bins + r * a.stride + f0;
+    for (int j = 0; j < fc; ++j) {
+      int f = j + lane_f;
+      if (f >= fc) f -= fc;
+      // unsigned: bins below b0 wrap past br and drop, as do bins >= B
+      const unsigned b = (unsigned)__ldg(row + f) - (unsigned)b0;
+      if (b >= (unsigned)br) continue;
+      float* cell = wcells + f * bs + b;
+#pragma unroll
+      for (int k = 0; k < kMaxK; ++k) {
+        if (k < kc) atomicAdd(cell + k * a.fc * bs, c[k]);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < cells; i += kThreads) {
+    const float v = wcells[i];
+    const int b = i % bs;
+    const int f = (i / bs) % a.fc;
+    const int k = i / (bs * a.fc);
+    if (v == 0.f || b >= br || f >= fc || k >= kc) continue;
+    atomicAdd(a.out + ((long long)(f0 + f) * a.B + b0 + b) * a.K + k0 + k,
+              v);
+  }
+}
+
+// The wide-bin launch: the widest feature chunk (<= 64), then the most
+// channels, then the widest bin range whose cells fit a block.
+int launch_wide(WideArgs a, cudaStream_t stream) {
+  if (a.F <= 0 || a.B <= 0 || a.B > 65536 || a.K <= 0 || a.K > kMaxK
+      || a.stride < a.F)
+    return (int)cudaErrorInvalidValue;
+  if (a.n_rows <= 0) return (int)cudaSuccess;
+  auto smem_of = [](int fc, int kc, int br) {
+    return (long long)kc * fc * (br | 1) * 4;
+  };
+  int fc = a.F < kMaxChunk ? a.F : kMaxChunk;
+  int kc = a.K;
+  int br = a.B;
+  while (smem_of(fc, kc, br) > kSmemLimit) {
+    if (fc > 1) {
+      fc = (fc + 1) / 2;
+    } else if (kc > 1) {
+      kc = (kc + 1) / 2;
+    } else {
+      br = (br + 1) / 2;
+    }
+  }
+  // even chunks of the same count
+  a.nf = (a.F + fc - 1) / fc;
+  a.fc = (a.F + a.nf - 1) / a.nf;
+  const int nk = (a.K + kc - 1) / kc;
+  a.kc = (a.K + nk - 1) / nk;
+  const int nz = (a.B + br - 1) / br;
+  a.br = (a.B + nz - 1) / nz;
+  a.bs = a.br | 1;
+  const int smem = (int)smem_of(a.fc, a.kc, a.br);
+  static int smem_set = 48 * 1024;
+  if (smem > smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        hist_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemLimit);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = kSmemLimit;
+  }
+  int occ = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &occ, hist_wide_kernel, kThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int chunks = a.nf * nk * nz;
+  long long gx = (long long)num_sms() * (occ > 0 ? occ : 1) / chunks;
+  const long long row_blocks = (a.n_rows + kThreads - 1) / kThreads;
+  if (gx > row_blocks) gx = row_blocks;
+  if (gx < 1) gx = 1;
+  hist_wide_kernel<<<dim3((unsigned)gx, a.nf * nk, nz), kThreads, smem,
+                     stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 Args record_args(const void* work, const void* scratch, long long n_rows,
                  long long stride, const void* seg, int F, int B, int packed4,
                  int grad_off, int hess_off, int cnt_off) {
@@ -589,6 +738,26 @@ extern "C" int lgbt_hist_dense(const void* bins, const void* bins_b,
   a.out = static_cast<float*>(out);
   a.bf16 = bf16;
   return launch<false>(a, static_cast<cudaStream_t>(stream));
+}
+
+// Dense mode on 16-bit bins: bins [n_rows, *] uint16 (B <= 65,536) with a
+// row stride of `stride` elements, channels [n_rows, K] f32 contiguous
+// (bf16: rounded to bf16 first), out [F, B, K] f32 zeroed by the caller.
+extern "C" int lgbt_hist_dense_u16(const void* bins, long long n_rows,
+                                   long long stride, const void* ch, int K,
+                                   int F, int B, int bf16, void* out,
+                                   void* stream) {
+  WideArgs a = {};
+  a.bins = static_cast<const uint16_t*>(bins);
+  a.n_rows = n_rows;
+  a.stride = stride;
+  a.ch = static_cast<const float*>(ch);
+  a.out = static_cast<float*>(out);
+  a.K = K;
+  a.F = F;
+  a.B = B;
+  a.bf16 = bf16;
+  return launch_wide(a, static_cast<cudaStream_t>(stream));
 }
 
 // Dense mode, integer variant: the same rows against int8 (ch_int8) or

@@ -36,14 +36,21 @@
 // and node count as their size, so they live in device scratch laid out
 // [slot][row]: neighbouring threads touch neighbouring addresses, as local
 // memory would, at any depth.
+//
+// Rows of more than 256 bins are 16-bit (uint16 on the host, an int16
+// view of the same bytes on the device): the kernel is a template on the
+// bin type, lgbt_treeshap (uint8) and lgbt_treeshap_u16 (uint16), and a
+// bin is read into a 32-bit int either way.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 128;
 
+template <typename BinT>
 __global__ void __launch_bounds__(kThreads) treeshap_kernel(
-    const unsigned char* __restrict__ binned, long long n,
+    const BinT* __restrict__ binned, long long n,
     long long row_stride, int f, int num_trees, int max_nodes,
     int cat_words, int max_leaves, int max_steps, int max_slots,
     int num_class, const int* __restrict__ split_feature,
@@ -63,7 +70,7 @@ __global__ void __launch_bounds__(kThreads) treeshap_kernel(
   double* pw = pw_all + r;                  // pweight[j] at pw[j * n]
   unsigned char* one = one_all + r;         // one[j] at one[j * n]
   unsigned* dec = dec_all + r;              // decision word w at dec[w * n]
-  const unsigned char* x = binned + r * row_stride;
+  const BinT* x = binned + r * row_stride;
   const int width = f + 1;
 
   for (int t = 0; t < num_trees; ++t) {
@@ -144,26 +151,26 @@ __global__ void __launch_bounds__(kThreads) treeshap_kernel(
   }
 }
 
-}  // namespace
-
-extern "C" int lgbt_treeshap(
-    const void* binned, long long n, long long row_stride, int f,
-    int num_trees, int max_nodes, int cat_words, int max_leaves,
-    int max_steps, int max_slots, int num_class, const void* split_feature,
-    const void* split_bin, const void* nan_bin, const void* node_flags,
-    const void* cat_bitset, const void* num_nodes, const void* num_leaves,
-    const void* path_len, const void* step_node, const void* step_left,
-    const void* step_slot, const void* zfrac, const void* feat,
-    const void* ulen, const void* leaf_value, const void* ev, void* out,
-    void* pw, void* one, void* dec, void* stream) {
+template <typename BinT>
+int launch(const void* binned, long long n, long long row_stride, int f,
+           int num_trees, int max_nodes, int cat_words, int max_leaves,
+           int max_steps, int max_slots, int num_class,
+           const void* split_feature, const void* split_bin,
+           const void* nan_bin, const void* node_flags,
+           const void* cat_bitset, const void* num_nodes,
+           const void* num_leaves, const void* path_len,
+           const void* step_node, const void* step_left,
+           const void* step_slot, const void* zfrac, const void* feat,
+           const void* ulen, const void* leaf_value, const void* ev,
+           void* out, void* pw, void* one, void* dec, void* stream) {
   if (n <= 0 || f <= 0 || num_trees <= 0 || max_nodes <= 0 ||
       cat_words <= 0 || max_leaves <= 0 || max_steps <= 0 ||
       max_slots <= 0 || num_class <= 0)
     return (int)cudaErrorInvalidValue;
   const long long blocks = (n + kThreads - 1) / kThreads;
-  treeshap_kernel<<<(unsigned)blocks, kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned char*>(binned), n, row_stride, f,
+  treeshap_kernel<BinT><<<(unsigned)blocks, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const BinT*>(binned), n, row_stride, f,
       num_trees, max_nodes, cat_words, max_leaves, max_steps, max_slots,
       num_class, static_cast<const int*>(split_feature),
       static_cast<const int*>(split_bin), static_cast<const int*>(nan_bin),
@@ -178,4 +185,44 @@ extern "C" int lgbt_treeshap(
       static_cast<double*>(pw), static_cast<unsigned char*>(one),
       static_cast<unsigned*>(dec));
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// binned: [n, f] uint8 rows of row_stride bytes
+extern "C" int lgbt_treeshap(
+    const void* binned, long long n, long long row_stride, int f,
+    int num_trees, int max_nodes, int cat_words, int max_leaves,
+    int max_steps, int max_slots, int num_class, const void* split_feature,
+    const void* split_bin, const void* nan_bin, const void* node_flags,
+    const void* cat_bitset, const void* num_nodes, const void* num_leaves,
+    const void* path_len, const void* step_node, const void* step_left,
+    const void* step_slot, const void* zfrac, const void* feat,
+    const void* ulen, const void* leaf_value, const void* ev, void* out,
+    void* pw, void* one, void* dec, void* stream) {
+  return launch<uint8_t>(
+      binned, n, row_stride, f, num_trees, max_nodes, cat_words, max_leaves,
+      max_steps, max_slots, num_class, split_feature, split_bin, nan_bin,
+      node_flags, cat_bitset, num_nodes, num_leaves, path_len, step_node,
+      step_left, step_slot, zfrac, feat, ulen, leaf_value, ev, out, pw, one,
+      dec, stream);
+}
+
+// binned: [n, f] uint16 rows of row_stride elements
+extern "C" int lgbt_treeshap_u16(
+    const void* binned, long long n, long long row_stride, int f,
+    int num_trees, int max_nodes, int cat_words, int max_leaves,
+    int max_steps, int max_slots, int num_class, const void* split_feature,
+    const void* split_bin, const void* nan_bin, const void* node_flags,
+    const void* cat_bitset, const void* num_nodes, const void* num_leaves,
+    const void* path_len, const void* step_node, const void* step_left,
+    const void* step_slot, const void* zfrac, const void* feat,
+    const void* ulen, const void* leaf_value, const void* ev, void* out,
+    void* pw, void* one, void* dec, void* stream) {
+  return launch<uint16_t>(
+      binned, n, row_stride, f, num_trees, max_nodes, cat_words, max_leaves,
+      max_steps, max_slots, num_class, split_feature, split_bin, nan_bin,
+      node_flags, cat_bitset, num_nodes, num_leaves, path_len, step_node,
+      step_left, step_slot, zfrac, feat, ulen, leaf_value, ev, out, pw, one,
+      dec, stream);
 }

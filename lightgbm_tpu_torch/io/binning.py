@@ -2,10 +2,11 @@
 
 Copy of ``lightgbm_tpu/io/binning.py`` (the port imports nothing of the JAX
 package): ``BinMapper`` (numerical and categorical), ``_greedy_find_bin``,
-``find_bin_numerical``, ``find_bin_categorical`` and ``bin_columns`` (the
-JAX package's ``bin_columns`` and ``_bin_columns`` in one), same
-algorithms, so bin bounds, category tables and uint8 bin matrices are equal
-to the JAX package's. The
+``find_bin_numerical`` (with user-forced bounds, ``_find_bin_with_forced``),
+``find_bin_categorical`` and ``bin_columns`` (the JAX package's
+``bin_columns`` and ``_bin_columns`` in one), same algorithms, so bin
+bounds, category tables and bin matrices (uint8, or uint16 above 256 bins)
+are equal to the JAX package's. The
 reference is the ``BinMapper`` of LightGBM (include/LightGBM/bin.h:85,
 src/io/bin.cpp — ``FindBin`` bin.cpp:311, ``GreedyFindBin`` bin.cpp:78,
 ``FindBinWithZeroAsOneBin`` bin.cpp:242, the categorical branch bin.cpp:
@@ -14,9 +15,8 @@ stores.
 
 A categorical feature's bin 0 holds missing values (NaN, negative values)
 and the categories that did not get a bin of their own; categories take
-bins 1.. by descending count. Forced bin bounds are not here yet (ROADMAP
-A3); the configuration raises before reaching them. Binning runs in numpy
-on the host; the bin matrix then goes to the device in one copy.
+bins 1.. by descending count. Binning runs in numpy on the host; the bin
+matrix then goes to the device in one copy.
 """
 from __future__ import annotations
 
@@ -54,13 +54,19 @@ def _greedy_find_bin(
     n = len(distinct_values)
     if n == 0:
         return [float("inf")]
+    # Python lists: the loops below read one element at a time, which costs
+    # a numpy scalar each from the arrays (the greedy loop ran 0.16 s a
+    # 200,000-value feature that way); the values are float64, so the
+    # midpoints are the same
+    dv = np.asarray(distinct_values).tolist()
+    cnt = np.asarray(counts).tolist()
     upper: List[float] = []
     if n <= max_bin:
         cnt_in_bin = 0
         for i in range(n - 1):
-            cnt_in_bin += int(counts[i])
+            cnt_in_bin += cnt[i]
             if cnt_in_bin >= min_data_in_bin:
-                upper.append(float(distinct_values[i] + distinct_values[i + 1]) / 2.0)
+                upper.append((dv[i] + dv[i + 1]) / 2.0)
                 cnt_in_bin = 0
         upper.append(float("inf"))
         return upper
@@ -76,21 +82,24 @@ def _greedy_find_bin(
         mean_rest = rest_cnt / rest_bins
     else:
         mean_rest = float("inf")
+    # big_from[i]: the heavy values at i and after
+    big_from = np.concatenate([np.cumsum(is_big[::-1])[::-1], [0]]).tolist()
+    big = is_big.tolist()
     cur_cnt = 0
     bins_remaining = eff_max_bin
     for i in range(n - 1):
-        if not is_big[i]:
-            rest_cnt -= int(counts[i])
-        cur_cnt += int(counts[i])
+        if not big[i]:
+            rest_cnt -= cnt[i]
+        cur_cnt += cnt[i]
         # close the current bin if: value is heavy, bin is full, or next value is heavy
-        if is_big[i] or cur_cnt >= mean_rest or (is_big[i + 1] and cur_cnt >= max(1.0, mean_rest * 0.5)):
-            upper.append(float(distinct_values[i] + distinct_values[i + 1]) / 2.0)
+        if big[i] or cur_cnt >= mean_rest or (big[i + 1] and cur_cnt >= max(1.0, mean_rest * 0.5)):
+            upper.append((dv[i] + dv[i + 1]) / 2.0)
             cur_cnt = 0
             bins_remaining -= 1
             if bins_remaining <= 1:
                 break
-            if not is_big[i] and rest_bins > int(is_big[i + 1 :].sum()):
-                rb = bins_remaining - int(is_big[i + 1 :].sum())
+            if not big[i] and rest_bins > big_from[i + 1]:
+                rb = bins_remaining - big_from[i + 1]
                 if rb > 0:
                     mean_rest = rest_cnt / rb
     upper.append(float("inf"))
@@ -182,13 +191,23 @@ def find_bin_numerical(
     min_data_in_bin: int = 3,
     use_missing: bool = True,
     zero_as_missing: bool = False,
+    forced_bounds: Optional[np.ndarray] = None,
 ) -> BinMapper:
     """Construct a numerical BinMapper from sampled values.
 
     ``sample_values`` may contain NaN. ``total_sample_cnt`` includes rows whose
     value was zero and therefore may exceed ``len(sample_values)`` in sparse
     ingestion paths (reference semantics: zeros counted implicitly).
+    ``forced_bounds``: user bin upper bounds (``forcedbins_filename``), which
+    take priority over the greedy ones.
     """
+    if forced_bounds is not None and len(forced_bounds):
+        m = _find_bin_with_forced(sample_values, total_sample_cnt, max_bin,
+                                  min_data_in_bin, use_missing,
+                                  zero_as_missing,
+                                  np.asarray(forced_bounds, np.float64))
+        if m is not None:
+            return m
     values = np.asarray(sample_values, dtype=np.float64)
     nan_cnt = int(np.isnan(values).sum())
     values = values[~np.isnan(values)]
@@ -266,6 +285,46 @@ def find_bin_numerical(
     # default bin = bin of 0.0
     mapper.default_bin = int(np.searchsorted(upper_arr[:-1], 0.0, side="left"))
     return mapper
+
+
+def _find_bin_with_forced(values, total_sample_cnt, max_bin, min_data_in_bin,
+                          use_missing, zero_as_missing,
+                          forced) -> Optional[BinMapper]:
+    """Greedy binning that keeps the user's bounds (reference:
+    ``_find_bin_with_forced``, ``lightgbm_tpu/io/binning.py:306-353``;
+    LightGBM's forced_bin_bounds in bin.cpp FindBin): the greedy fit runs
+    with the budget left after the forced bounds, and its bounds outside
+    them are thinned at evenly spaced positions to fit ``max_bin - 1``."""
+    forced = np.unique(forced)
+    if len(forced) == 0:
+        return None
+    base = find_bin_numerical(values, total_sample_cnt,
+                              max(max_bin - len(forced), 2),
+                              min_data_in_bin, use_missing, zero_as_missing)
+    finite = base.bin_upper_bounds[np.isfinite(base.bin_upper_bounds)]
+    forced = forced[: max_bin - 1]
+    budget = max_bin - 1 - len(forced)
+    leftover = np.setdiff1d(finite, forced)
+    if budget <= 0:
+        greedy = leftover[:0]
+    elif len(leftover) > budget:
+        # spacing > 1: the rounded positions are distinct, so exactly
+        # `budget` bounds remain
+        pick = np.linspace(0, len(leftover) - 1, budget).round().astype(int)
+        greedy = leftover[np.unique(pick)]
+    else:
+        greedy = leftover
+    bounds = np.sort(np.concatenate([forced, greedy]))
+    m = BinMapper(
+        num_bins=len(bounds) + 1 + (1 if base.missing_type == MISSING_NAN
+                                    else 0),
+        missing_type=base.missing_type,
+        bin_upper_bounds=np.concatenate([bounds, [np.inf]]),
+        min_value=base.min_value,
+        max_value=base.max_value,
+    )
+    m.default_bin = int(m.value_to_bin(np.array([0.0]))[0])
+    return m
 
 
 # row-chunk x column-chunk x bounds budget for the batched compare

@@ -7,9 +7,10 @@ named by index or by name) and bin-matrix layout, so the bin matrix is
 equal to the JAX package's (reference: LightGBM's
 ``Dataset`` / ``Metadata``, include/LightGBM/dataset.h:48,487).
 
-Binning is numpy on the host. The matrix stays a host ``uint8`` array here;
-the trainer copies it to the device once, into the packed row records of
-``ops/compact.py``. With ``enable_bundle`` (the default, as in LightGBM),
+Binning is numpy on the host. The matrix stays a host array here: ``uint8``,
+or ``uint16`` where the bin axis (``max_num_bins``) passes 256 (``bin_dtype``;
+such data is never bundled); the trainer copies it to the device once.
+With ``enable_bundle`` (the default, as in LightGBM),
 Exclusive Feature Bundling (``io/efb.py``) is planned on the first 50,000
 binned rows and applied to the whole matrix, which then holds
 ``bundle_info.n_columns`` stored columns (reference: ``io/dataset.py:
@@ -17,19 +18,31 @@ binned rows and applied to the whole matrix, which then holds
 takes the training set's bundle layout. Every per-feature array
 (``feature_num_bins`` and the others) stays per original feature.
 ``pack4_matrix`` and its eligibility checks are the 4-bit bin store of
-``tpu_bin_pack4`` (two bins a byte). Not here yet: sequence input and
-binary save/load (A16).
+``tpu_bin_pack4`` (two bins a byte). ``construct_from_sequences`` builds
+the same dataset from ``Sequence`` objects (random row reads for the bin
+sample, then batched range reads) without the raw matrix.
+``forcedbins_filename`` (a JSON list of ``{"feature": i,
+"bin_upper_bound": [...]}``) forces bin bounds. Not here yet: binary
+save/load (A16).
 """
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence, Set, Union
+import json
+from typing import Any, Dict, List, Optional, Sequence, Set, Union
 
 import numpy as np
 
 from ..utils import log
 from .binning import (MISSING_NAN, BinMapper, bin_columns,
                       find_bin_categorical, find_bin_numerical)
-from .efb import BundleInfo, build_bundle_info, bundle_matrix, plan_bundles
+from .efb import (BundleInfo, build_bundle_info, bundle_chunk, bundle_matrix,
+                  conflict_allowance, plan_bundles)
+
+
+def bin_dtype(max_num_bins: int):
+    """The bin matrix's type: ``uint8`` up to 256 bins, else ``uint16``
+    (reference: ``lightgbm_tpu/io/dataset.py:331``, ``:455``)."""
+    return np.uint8 if max_num_bins <= 256 else np.uint16
 
 
 def _to_2d_float(data: Any) -> np.ndarray:
@@ -122,8 +135,9 @@ class Metadata:
 
 
 class BinnedDataset:
-    """The constructed (binned) dataset: dense ``[N, F]`` uint8 bin matrix,
-    per-feature ``BinMapper``s and ``Metadata``."""
+    """The constructed (binned) dataset: dense ``[N, F]`` bin matrix (uint8,
+    or uint16 above 256 bins), per-feature ``BinMapper``s and
+    ``Metadata``."""
 
     def __init__(self):
         self.binned: Optional[np.ndarray] = None
@@ -158,6 +172,7 @@ class BinnedDataset:
         enable_bundle: bool = True,
         max_conflict_rate: float = 1e-4,
         keep_raw: bool = False,
+        forcedbins_filename: str = "",
     ) -> "BinnedDataset":
         arr = _to_2d_float(data)
         n, f = arr.shape
@@ -194,8 +209,9 @@ class BinnedDataset:
             else:
                 sample = arr
             _fit_mappers(ds, sample, f, cat_idx, max_bin, min_data_in_bin,
-                         use_missing, zero_as_missing, max_bin_by_feature)
-        binned = bin_columns(ds.mappers, arr, np.uint8)
+                         use_missing, zero_as_missing, max_bin_by_feature,
+                         forcedbins_filename)
+        binned = bin_columns(ds.mappers, arr, bin_dtype(ds.max_num_bins))
         # Exclusive Feature Bundling (reference: FeatureGroup /
         # Dataset::Construct FindGroups, include/LightGBM/feature_group.h)
         if reference is not None:
@@ -214,6 +230,125 @@ class BinnedDataset:
         ds.metadata = Metadata(n)
         if keep_raw:
             ds.raw_data = arr.astype(np.float64, copy=False)
+        return ds
+
+    @staticmethod
+    def construct_from_sequences(
+        seqs: List[Any],
+        *,
+        max_bin: int = 255,
+        min_data_in_bin: int = 3,
+        bin_construct_sample_cnt: int = 200000,
+        use_missing: bool = True,
+        zero_as_missing: bool = False,
+        feature_names: Optional[Sequence[str]] = None,
+        data_random_seed: int = 1,
+        reference: Optional["BinnedDataset"] = None,
+        max_bin_by_feature: Optional[Sequence[int]] = None,
+        categorical_feature: Optional[Sequence[Union[int, str]]] = None,
+        enable_bundle: bool = True,
+        max_conflict_rate: float = 1e-4,
+        forcedbins_filename: str = "",
+    ) -> "BinnedDataset":
+        """The dataset of the rows of ``seqs`` (objects with ``__len__``,
+        ``__getitem__`` of a row index and of a row range, and an optional
+        ``batch_size``), in order, without the raw ``[N, F]`` matrix: the
+        bin sample is read row by row (or in batches where it takes a
+        third of a sequence's rows), then every batch is binned (and
+        bundled) into the matrix (reference: ``construct_from_sequences``,
+        ``lightgbm_tpu/io/dataset.py:360-510``; LightGBM's ``Sequence``
+        and ``Dataset::PushOneRow``). The same rows, sample and mappers as
+        ``construct`` on the stacked matrix."""
+        lens = [len(s) for s in seqs]
+        n = int(sum(lens))
+        if n == 0:
+            raise ValueError("empty Sequence data")
+        probe = next(s for s, m in zip(seqs, lens) if m > 0)
+        f = np.asarray(probe[0], np.float64).reshape(-1).shape[0]
+        ds = BinnedDataset()
+        ds.num_data = n
+        ds.num_total_features = f
+        ds.feature_names = (list(feature_names) if feature_names is not None
+                            else [f"Column_{j}" for j in range(f)])
+        if len(ds.feature_names) != f:
+            raise ValueError("feature_names length mismatch")
+        offsets = np.cumsum([0] + lens)
+        info = None
+        if reference is not None:
+            if f != reference.num_total_features:
+                raise ValueError(
+                    f"validation data has {f} features, training data had "
+                    f"{reference.num_total_features}")
+            ds.mappers = reference.mappers
+            ds.max_num_bins = reference.max_num_bins
+            ds.used_features = reference.used_features
+            ds.categorical_features = reference.categorical_features
+            info = reference.bundle_info
+        else:
+            cat_idx = _resolve_categorical(categorical_feature,
+                                           ds.feature_names)
+            ds.categorical_features = sorted(cat_idx)
+            s_cnt = min(n, bin_construct_sample_cnt)
+            rng = np.random.RandomState(data_random_seed)
+            idx = (np.sort(rng.choice(n, size=s_cnt, replace=False))
+                   if s_cnt < n else np.arange(n))
+            sample = _read_sample(seqs, offsets, idx, f)
+            _fit_mappers(ds, sample, f, cat_idx, max_bin, min_data_in_bin,
+                         use_missing, zero_as_missing, max_bin_by_feature,
+                         forcedbins_filename)
+            if enable_bundle and ds.max_num_bins <= 256:
+                # the in-memory path's planning cap on the sample
+                info = _plan_efb(ds, bin_columns(ds.mappers, sample[:50_000],
+                                                 np.uint8),
+                                 max_bin, max_conflict_rate)
+        dtype = bin_dtype(ds.max_num_bins)
+        dbins = np.array([m.default_bin for m in ds.mappers], np.int32)
+
+        def stream(binfo):
+            out = np.zeros((n, binfo.n_columns if binfo is not None else f),
+                           dtype)
+            conflicts = 0
+            pos = 0
+            for sq in seqs:
+                bs = int(getattr(sq, "batch_size", 4096) or 4096)
+                m = len(sq)
+                for a in range(0, m, bs):
+                    rows = min(a + bs, m) - a
+                    raw = np.asarray(sq[a:a + rows], np.float64)
+                    if raw.ndim == 1:
+                        raw = raw.reshape(1, -1)
+                    if raw.shape[1] != f:
+                        raise ValueError(
+                            f"Sequence batch has {raw.shape[1]} features, "
+                            f"expected {f}")
+                    if raw.shape[0] != rows:
+                        raise ValueError(
+                            f"Sequence slice returned {raw.shape[0]} rows "
+                            f"for a {rows}-row range")
+                    chunk = bin_columns(ds.mappers, raw, dtype)
+                    if binfo is not None:
+                        chunk, cf = bundle_chunk(chunk, binfo, dbins)
+                        conflicts += cf
+                    out[pos:pos + rows] = chunk
+                    pos += rows
+            if pos != n:
+                raise ValueError(
+                    f"Sequences yielded {pos} rows, __len__ promised {n}")
+            return out, conflicts
+
+        out, conflicts = stream(info)
+        if info is not None and reference is None:
+            if conflicts > conflict_allowance(info, n, max_conflict_rate):
+                log.warning("EFB: feature conflict outside the planning "
+                            "sample; keeping the dense matrix")
+                info = None
+                out, _ = stream(None)
+            else:
+                log.info(f"EFB: bundled {info.n_bundled} of {f} features "
+                         f"into {info.n_columns} stored columns (streaming)")
+        ds.bundle_info = info
+        ds.binned = out
+        ds.metadata = Metadata(n)
         return ds
 
     @property
@@ -334,12 +469,56 @@ def _resolve_categorical(categorical_feature, feature_names: List[str]
     return out
 
 
+def _read_sample(seqs, offsets, idx, f) -> np.ndarray:
+    """Rows ``idx`` (sorted) of the stacked sequences as ``[len(idx), F]``
+    float64: a sequence that gives a third of its rows or more is read in
+    its batches, the others a row at a time (reference:
+    ``lightgbm_tpu/io/dataset.py:419-443``)."""
+    sample = np.empty((len(idx), f), np.float64)
+    si = np.searchsorted(offsets, idx, side="right") - 1
+    pos = 0
+    for sq_i, sq in enumerate(seqs):
+        local = (idx[si == sq_i] - offsets[sq_i]).astype(np.int64)
+        if not len(local):
+            continue
+        m = len(sq)
+        if len(local) * 3 >= m:
+            bs = int(getattr(sq, "batch_size", 4096) or 4096)
+            for a in range(0, m, bs):
+                sel = local[(local >= a) & (local < a + bs)]
+                if not len(sel):
+                    continue
+                batch = np.asarray(sq[a:min(a + bs, m)],
+                                   np.float64).reshape(-1, f)
+                sample[pos:pos + len(sel)] = batch[sel - a]
+                pos += len(sel)
+        else:
+            for i in local:
+                sample[pos] = np.asarray(sq[int(i)], np.float64).reshape(-1)
+                pos += 1
+    return sample
+
+
+def read_forced_bins(path: str) -> Dict[int, np.ndarray]:
+    """``forcedbins_filename``'s bounds by feature: a JSON list of
+    ``{"feature": i, "bin_upper_bound": [...]}`` (reference:
+    DatasetLoader::GetForcedBins, dataset_loader.cpp:1493)."""
+    if not path:
+        return {}
+    with open(path) as fh:
+        return {int(e["feature"]): np.asarray(e["bin_upper_bound"],
+                                              np.float64)
+                for e in json.load(fh)}
+
+
 def _fit_mappers(ds, sample, f, cat_idx, max_bin, min_data_in_bin,
-                 use_missing, zero_as_missing, max_bin_by_feature):
+                 use_missing, zero_as_missing, max_bin_by_feature,
+                 forcedbins_filename=""):
     """Fit per-feature BinMappers from a row sample."""
     total_sample_cnt = len(sample)
     if max_bin_by_feature is not None and len(max_bin_by_feature) != f:
         raise ValueError("max_bin_by_feature needs one entry per feature")
+    forced = read_forced_bins(forcedbins_filename)
 
     def fit(j):
         mb = (int(max_bin_by_feature[j]) if max_bin_by_feature is not None
@@ -348,12 +527,17 @@ def _fit_mappers(ds, sample, f, cat_idx, max_bin, min_data_in_bin,
             return find_bin_categorical(sample[:, j], mb, min_data_in_bin)
         return find_bin_numerical(sample[:, j], total_sample_cnt, mb,
                                   min_data_in_bin, use_missing=use_missing,
-                                  zero_as_missing=zero_as_missing)
+                                  zero_as_missing=zero_as_missing,
+                                  forced_bounds=forced.get(j))
     ds.mappers = [fit(j) for j in range(f)]
     ds.used_features = [j for j, m in enumerate(ds.mappers)
                         if not m.is_trivial]
     if not ds.used_features:
         log.warning("all features are constant; no informative splits "
                     "possible")
-    # shape-stable bin axis: max_bin + 1 (the JAX package pads the same way)
-    ds.max_num_bins = max(max_bin + 1, 2)
+    # shape-stable bin axis: max_bin + 1 (the JAX package pads the same
+    # way); a max_bin_by_feature entry above max_bin widens it (the JAX
+    # package keeps max_bin + 1 there, and its uint8 matrix overflows on
+    # such a feature's bins: ROADMAP C notes)
+    widest = max([max_bin] + [int(v) for v in max_bin_by_feature or ()])
+    ds.max_num_bins = max(widest + 1, 2)

@@ -24,7 +24,9 @@ Linear trees carry their block (``is_linear=1``, ``leaf_const``,
 ``num_features``, ``leaf_features``, ``leaf_coeff``; reference: Tree::
 ToString, src/io/tree.cpp) and predict from raw values; a random forest's
 header says ``average_output``, and its predictions are the mean of its
-iterations. C++ export (``to_if_else``) is ROADMAP A9.
+iterations. ``dump_model`` of a loaded model (and of a continued one,
+through its merged text) dumps the parsed trees (``loaded_dump``). C++
+export (``to_if_else``) comes with the CLI (ROADMAP A16).
 """
 from __future__ import annotations
 
@@ -221,14 +223,78 @@ def _node_to_json(host, mappers, node: int) -> Dict[str, Any]:
     return out
 
 
+def _loaded_node_json(t: "LoadedTree", node: int) -> Dict[str, Any]:
+    """A parsed tree's node as JSON (reference: ``_loaded_node_json``,
+    ``lightgbm_tpu/model_io.py:731-771``): its threshold and category
+    values as the text holds them."""
+    if node < 0:
+        leaf = -(node + 1)
+        return {
+            "leaf_index": int(leaf),
+            "leaf_value": float(t.leaf_value[leaf]),
+            "leaf_weight": float(t.leaf_weight[leaf])
+            if len(t.leaf_weight) > leaf else 0.0,
+            "leaf_count": int(t.leaf_count[leaf])
+            if len(t.leaf_count) > leaf else 0,
+        }
+    dt = int(t.decision_type[node])
+    out = {
+        "split_index": int(node),
+        "split_feature": int(t.split_feature[node]),
+        "split_gain": float(t.split_gain[node]),
+        "internal_value": float(t.internal_value[node])
+        if len(t.internal_value) > node else 0.0,
+    }
+    if dt & 1:
+        ci = int(t.threshold[node])
+        lo, hi = int(t.cat_boundaries[ci]), int(t.cat_boundaries[ci + 1])
+        cats = [(wi - lo) * 32 + bit for wi in range(lo, hi)
+                for bit in range(32) if (int(t.cat_threshold[wi]) >> bit) & 1]
+        out.update(decision_type="==",
+                   threshold="||".join(str(c) for c in cats),
+                   default_left=False, missing_type="None")
+    else:
+        out.update(decision_type="<=", threshold=float(t.threshold[node]),
+                   default_left=bool(dt & 2),
+                   missing_type=_MISSING_NAMES.get((dt >> 2) & 3, "None"))
+    out["left_child"] = _loaded_node_json(t, int(t.left_child[node]))
+    out["right_child"] = _loaded_node_json(t, int(t.right_child[node]))
+    return out
+
+
+def loaded_dump(loaded: "LoadedGBDT", num_iteration: Optional[int] = None
+                ) -> Dict[str, Any]:
+    """JSON dump of a parsed model (reference: ``loaded_dump``,
+    ``lightgbm_tpu/model_io.py:774-797``; GBDT::DumpModel), its leading
+    ``num_iteration`` iterations where given."""
+    trees = [{
+        "tree_index": i,
+        "num_leaves": int(t.num_leaves),
+        "num_cat": int(t.num_cat),
+        "shrinkage": float(t.shrinkage),
+        "tree_structure": _loaded_node_json(t, 0 if t.num_nodes > 0
+                                            else -1),
+    } for i, t in enumerate(loaded._model_window(num_iteration))]
+    return {
+        "name": "tree",
+        "version": "v4",
+        "num_class": loaded.header_num_class,
+        "num_tree_per_iteration": loaded.num_class,
+        "label_index": 0,
+        "max_feature_idx": loaded.max_feature_idx,
+        "objective": loaded.objective_str,
+        "average_output": loaded.average_output,
+        "feature_names": loaded.feature_names,
+        "tree_info": trees,
+    }
+
+
 def booster_to_dict(booster, num_iteration: Optional[int] = None
                     ) -> Dict[str, Any]:
     """(reference: GBDT::DumpModel, gbdt_model_text.cpp)"""
     gbdt = booster._gbdt
     if isinstance(gbdt, LoadedGBDT):
-        raise NotImplementedError(
-            "dump_model of a model loaded from text is not in the PyTorch "
-            "port yet (ROADMAP A9); dump the booster that trained it")
+        return loaded_dump(gbdt, num_iteration)
     k = gbdt.num_class
     models = gbdt.models
     if num_iteration is not None and num_iteration > 0:
@@ -262,9 +328,10 @@ def booster_to_dict(booster, num_iteration: Optional[int] = None
 # parser Tree::Tree(const char*), src/io/tree.cpp)
 # ---------------------------------------------------------------------------
 class LoadedTree:
-    __slots__ = ("num_leaves", "num_nodes", "split_feature", "split_gain",
-                 "threshold", "decision_type", "left_child", "right_child",
-                 "leaf_value", "leaf_count", "internal_count", "shrinkage",
+    __slots__ = ("num_leaves", "num_nodes", "num_cat", "split_feature",
+                 "split_gain", "threshold", "decision_type", "left_child",
+                 "right_child", "leaf_value", "leaf_weight", "leaf_count",
+                 "internal_value", "internal_count", "shrinkage",
                  "cat_boundaries", "cat_threshold",
                  "is_linear", "leaf_const", "leaf_features", "leaf_coeff")
 
@@ -369,6 +436,9 @@ class LoadedGBDT:
         hdr = _parse_block(header)
         self.num_class = int(hdr.get(
             "num_tree_per_iteration", hdr.get("num_class", 1)))
+        # the header's own values, which dump_model reports
+        self.header_num_class = int(hdr.get("num_class", 1))
+        self.objective_str = hdr.get("objective", "custom")
         self.max_feature_idx = int(hdr.get("max_feature_idx", 0))
         self.feature_names = hdr.get("feature_names", "").split()
         self.average_output = "average_output" in hdr
@@ -381,7 +451,7 @@ class LoadedGBDT:
             t.num_leaves = int(d.get("num_leaves", 1))
             t.num_nodes = nn = max(t.num_leaves - 1, 0)
             t.decision_type = _arr(d, "decision_type", np.int32, nn)
-            num_cat = int(d.get("num_cat", 0))
+            t.num_cat = num_cat = int(d.get("num_cat", 0))
             t.cat_boundaries = _arr(d, "cat_boundaries", np.int64,
                                     num_cat + 1)
             t.cat_threshold = (_arr(d, "cat_threshold", np.uint32, 0)
@@ -404,8 +474,11 @@ class LoadedGBDT:
             t.left_child = _arr(d, "left_child", np.int32, nn)
             t.right_child = _arr(d, "right_child", np.int32, nn)
             t.leaf_value = _arr(d, "leaf_value", np.float64, t.num_leaves)
-            # TreeSHAP's covers and refit's shrinkage
+            # dump_model's weights and values, TreeSHAP's covers and
+            # refit's shrinkage
+            t.leaf_weight = _arr(d, "leaf_weight", np.float64, t.num_leaves)
             t.leaf_count = _arr(d, "leaf_count", np.float64, t.num_leaves)
+            t.internal_value = _arr(d, "internal_value", np.float64, nn)
             t.internal_count = _arr(d, "internal_count", np.float64, nn)
             t.shrinkage = float(d.get("shrinkage", 1.0))
             self.models.append(t)

@@ -321,7 +321,8 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               forced: Optional[Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]] = None
               ) -> Tuple[TreeArrays, torch.Tensor]:
-    """Grow one tree over ``binned [N, F]`` (uint8) with per-row ``grad``,
+    """Grow one tree over ``binned [N, F]`` (uint8, or the int16 view of
+    16-bit bins, ``ops/packed.py``) with per-row ``grad``,
     ``hess`` (already multiplied by weights and bag mask) and
     ``cnt_weight`` (the bag mask); returns ``(TreeArrays, row_leaf [N])``
     (reference: ``grow_tree``, ``lightgbm_tpu/ops/grower.py:343``).

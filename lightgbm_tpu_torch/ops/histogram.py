@@ -13,7 +13,8 @@ Hopper histogram kernels of ``ops/pallas_histogram.py`` are held against.
 ``dequantize_hist`` is the one int32 -> f32 boundary of a quantized
 histogram.
 ``histogram_block`` dispatches on the layout, the channels' type and on
-where the tensors lie: ``lane`` is K1 (bins ``[N, F]``), ``sublane`` is K3
+where the tensors lie: ``lane`` is K1 (bins ``[N, F]``; 16-bit bins, their
+int16 view, take K1's wide-bin kernel), ``sublane`` is K3
 (bins feature-major ``[F, N]``, B <= 64), in f32 or, for integer channels
 (the quantized codes), their ``int8`` mode with an exact int32 result;
 ``acc_bits=16`` is the narrowed 16-bit quantized histogram (K1 narrowed;
@@ -28,6 +29,7 @@ from typing import Optional
 import torch
 
 from .. import _kernels
+from .packed import bin_values
 
 
 def _xla_histogram(binned: torch.Tensor, channels: torch.Tensor,
@@ -35,7 +37,8 @@ def _xla_histogram(binned: torch.Tensor, channels: torch.Tensor,
     """Plain histogram ``[F, B, K]`` of ``binned [N, F]`` against
     ``channels [N, K]``: f32, or exact int32 for integer channels
     (reference: ``_xla_histogram``, ``lightgbm_tpu/ops/histogram.py:49``);
-    bins >= ``num_bins`` are dropped. ``kernel`` names the kernel this call
+    bins >= ``num_bins`` are dropped. ``binned``: uint8, or the int16 view
+    of 16-bit bins (``ops/packed.py``). ``kernel`` names the kernel this call
     stands in for (its ``PLAIN_CALLS`` count)."""
     _kernels.PLAIN_CALLS[kernel] += 1
     n, f = binned.shape
@@ -45,7 +48,7 @@ def _xla_histogram(binned: torch.Tensor, channels: torch.Tensor,
     # one scatter over every feature into cells f * (B + 1) + bin (bins >= B
     # land in a column that is dropped); the positions run feature-major, so
     # each cell still adds its rows in row order
-    idx = (torch.clamp(binned.to(torch.int64), max=b)
+    idx = (torch.clamp(bin_values(binned), max=b)
            + torch.arange(f, device=dev) * (b + 1)).T.reshape(-1)
     dt = torch.float32 if channels.is_floating_point() else torch.int32
     out = torch.zeros((k, f * (b + 1)), dtype=dt, device=dev)
@@ -107,7 +110,7 @@ def _xla_histogram_narrow(binned: torch.Tensor, channels: torch.Tensor,
         nr = rows.stop - r0
         cid = torch.arange(nr, device=dev) // chunk
         idx = (cid[:, None] * cells + fidx
-               + torch.clamp(binned[rows].to(torch.int64), max=b))
+               + torch.clamp(bin_values(binned[rows]), max=b))
         nc = -(-nr // chunk)
         part = torch.zeros((2, nc * cells), dtype=torch.float32, device=dev)
         part.scatter_add_(1, idx.reshape(1, -1).expand(2, -1),

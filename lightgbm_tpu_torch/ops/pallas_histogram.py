@@ -26,7 +26,12 @@ The wrappers:
 * ``pallas_histogram`` — dense ``[N, F]`` bins against ``[N, K]`` f32
   channels (the standalone entry); ``hist_layout="sublane"`` transposes the
   bins, as the JAX wrapper does, and runs K3; ``pallas_histogram_narrow``,
-  the narrowed mode of its integer variant;
+  the narrowed mode of its integer variant. 16-bit bins (more than 256:
+  ``max_bin`` > 255, the masked grower's data), which lie on the device as
+  an int16 view of the uint16 matrix (``ops/packed.py``), run K1's
+  wide-bin kernel (``lgbt_hist_dense_u16``, B up to 65,536, f32 modes;
+  ``MODE_LAUNCHES["histogram/u16"]``): the TPU kernel sums bins of any
+  integer type at any B (``lightgbm_tpu/ops/pallas_histogram.py:97``);
 * ``pallas_histogram_sublane`` — K3 on bins already feature-major
   (``[F, N]``), the masked grower's entry: it makes that copy once per
   training instead of once a split;
@@ -315,10 +320,13 @@ def pallas_histogram_sublane(binned_t: torch.Tensor, channels: torch.Tensor,
 def pallas_histogram(binned: torch.Tensor, channels: torch.Tensor,
                      num_bins: int, mode: str = "split",
                      hist_layout: str = "lane") -> torch.Tensor:
-    """``[F, B, K]`` histogram of ``binned [N, F]`` (uint8) against
-    ``channels [N, K]`` (f32; K <= 4 in ``split`` mode, <= 8 otherwise): f32,
-    or with ``mode="int8"`` (int8 or int32 channels) exact int32.
-    ``hist_layout="sublane"`` (B <= 64) runs K3 on ``binned.T``."""
+    """``[F, B, K]`` histogram of ``binned [N, F]`` (uint8, or the int16
+    view of 16-bit bins, ``ops/packed.py``) against ``channels [N, K]``
+    (f32; K <= 4 in ``split`` mode, <= 8 otherwise): f32, or with
+    ``mode="int8"`` (int8 or int32 channels, uint8 bins) exact int32.
+    16-bit bins (B up to 65,536) run K1's wide-bin kernel
+    (``lgbt_hist_dense_u16``). ``hist_layout="sublane"`` (B <= 64) runs
+    K3 on ``binned.T``."""
     if hist_layout == "sublane":
         _check_sublane_bins(num_bins)
         return pallas_histogram_sublane(binned.T.contiguous(), channels,
@@ -337,13 +345,19 @@ def pallas_histogram(binned: torch.Tensor, channels: torch.Tensor,
         return pallas_histogram_plain(binned, channels, num_bins, mode)
     if binned.device.type != "cuda":
         raise ValueError(f"no histogram kernel for {binned.device}")
-    if binned.dtype != torch.uint8:
-        raise TypeError(f"the histogram kernel takes uint8 bins, got "
-                        f"{binned.dtype}")
+    if binned.dtype not in (torch.uint8, torch.int16):
+        raise TypeError(f"the histogram kernel takes uint8 bins or the "
+                        f"int16 view of 16-bit bins, got {binned.dtype}")
     if binned.stride(1) != 1 or not channels.is_contiguous():
         raise ValueError("the histogram kernel needs unit feature stride "
                          "bins and contiguous channels")
     n, f = binned.shape
+    if binned.dtype == torch.int16:
+        if mode == "int8" or channels.dtype != torch.float32:
+            raise TypeError(f"16-bit bins take float32 channels in f32, "
+                            f"split or bf16 mode, got mode={mode!r} and "
+                            f"{channels.dtype}")
+        return _dense_u16(binned, channels, num_bins, mode == "bf16")
     if mode == "int8":
         _mode_channels(channels[:0], mode)
         return _dense_int(binned, None, n, binned.stride(0), None, False,
@@ -353,6 +367,22 @@ def pallas_histogram(binned: torch.Tensor, channels: torch.Tensor,
                         f"{channels.dtype}")
     return _dense_f32(binned, None, n, binned.stride(0), None, False,
                       channels, f, num_bins, mode == "bf16")
+
+
+def _dense_u16(bins: torch.Tensor, channels: torch.Tensor, num_bins: int,
+               bf16: bool) -> torch.Tensor:
+    """One launch of K1's wide-bin kernel: ``bins [N, F]`` int16 (the view
+    of uint16 bins) against f32 ``channels [N, K]``, B up to 65,536."""
+    if not 1 <= num_bins <= 65536:
+        raise ValueError(f"num_bins must be in 1..65536, got {num_bins}")
+    n, f = bins.shape
+    k = channels.shape[1]
+    out = torch.zeros((f, num_bins, k), dtype=torch.float32,
+                      device=bins.device)
+    _kernels.launch("histogram", "lgbt_hist_dense_u16", bins.device,
+                    bins.data_ptr(), n, bins.stride(0), channels.data_ptr(),
+                    k, f, num_bins, int(bf16), out.data_ptr(), mode="u16")
+    return out
 
 
 def _check_bins(num_bins: int) -> None:

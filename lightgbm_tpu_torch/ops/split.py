@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as tnf
 
 from .histogram import dequantize_hist
+from .packed import bin_values
 
 _NEG_INF = -1e30
 _EPS = 1e-15
@@ -186,7 +187,7 @@ def go_left_pred(col: torch.Tensor, bin_, default_left, nan_bin, is_cat,
     Tree::CategoricalDecision). ``cat_bitset`` holds int32 words.
     ``is_cat`` is a host value, or a bool tensor on ``col``'s device that
     selects between the two predicates with no read back to the host."""
-    col = col.to(torch.int64)
+    col = bin_values(col)
     num = (col <= bin_) | (default_left & (col == nan_bin))
     on_host = not isinstance(is_cat, torch.Tensor)
     if on_host and not is_cat:

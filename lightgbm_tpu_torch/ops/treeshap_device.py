@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
+from .packed import bin_values
 from .treeshap import tree_expected_value
 
 # elements of one [rows, leaves, slots] temporary of the plain version: 32
@@ -187,8 +188,9 @@ def _tree_paths(m) -> dict:
 def tree_shap(binned: torch.Tensor, paths: ShapPaths, num_class: int
               ) -> torch.Tensor:
     """TreeSHAP contributions ``[N, K, F+1]`` float64 of ``binned [N, F]``
-    uint8 rows (bias last). On CUDA tensors the kernel runs; on CPU
-    tensors, the plain version."""
+    rows (bias last): uint8, or the int16 view of 16-bit bins
+    (``ops/packed.py``), which the kernel reads as uint16. On CUDA tensors
+    the kernel runs; on CPU tensors, the plain version."""
     if binned.is_cuda:
         return _tree_shap_cuda(binned, paths, num_class)
     _kernels.PLAIN_CALLS["treeshap"] += 1
@@ -205,10 +207,12 @@ def _tree_shap_cuda(binned, paths, num_class):
         if t.device != dev or t.dtype != want or not t.is_contiguous():
             raise ValueError(f"tree_shap: table {name} must be contiguous "
                              f"{want} on {dev}")
-    if binned.dtype != torch.uint8 or binned.dim() != 2 \
-            or binned.stride(1) != 1:
-        raise ValueError("tree_shap: binned must be [N, F] uint8 with "
-                         "unit feature stride")
+    if binned.dtype not in (torch.uint8, torch.int16) \
+            or binned.dim() != 2 or binned.stride(1) != 1:
+        raise ValueError("tree_shap: binned must be [N, F] uint8 (or the "
+                         "int16 view of 16-bit bins) with unit feature "
+                         "stride")
+    wide = binned.dtype == torch.int16
     n, f = binned.shape
     if int(paths.split_feature.max()) >= f:
         raise ValueError(f"tree_shap: a split on a feature past the rows' "
@@ -229,7 +233,8 @@ def _tree_shap_cuda(binned, paths, num_class):
         rows = min(chunk, n - r0)
         part = binned[r0:r0 + rows]
         _kernels.launch(
-            "treeshap", "lgbt_treeshap", dev,
+            "treeshap", "lgbt_treeshap_u16" if wide else "lgbt_treeshap",
+            dev,
             part.data_ptr(), rows, part.stride(0), f, t_count, m_max,
             paths.cat_bitset.shape[2], l_max, d_max, u1, num_class,
             paths.split_feature.data_ptr(), paths.split_bin.data_ptr(),
@@ -241,7 +246,7 @@ def _tree_shap_cuda(binned, paths, num_class):
             paths.feat.data_ptr(), paths.ulen.data_ptr(),
             paths.leaf_value.data_ptr(), paths.ev.data_ptr(),
             out[r0:r0 + rows].data_ptr(), pw.data_ptr(), one.data_ptr(),
-            dec.data_ptr())
+            dec.data_ptr(), mode="u16" if wide else None)
     return out
 
 
@@ -250,7 +255,7 @@ def _node_decisions(binned: torch.Tensor, paths: ShapPaths, t: int,
     """``[N, nn]`` bool: each internal node's go-left decision for each
     row (the predicate of ``ops/predict.py`` ``predict_leaf_batched``)."""
     sf = paths.split_feature[t, :nn].to(torch.int64)
-    fcol = binned[:, sf].to(torch.int64)                          # [N, nn]
+    fcol = bin_values(binned[:, sf])                              # [N, nn]
     flags = paths.node_flags[t, :nn]
     go_left = (fcol <= paths.split_bin[t, :nn].to(torch.int64)) | (
         ((flags & 1) != 0) & (fcol == paths.nan_bin[t, :nn].to(torch.int64)))

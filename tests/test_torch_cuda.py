@@ -1570,3 +1570,97 @@ def test_unfused_and_packed_train_on_card_matches_cpu(dev, case,
         np.testing.assert_array_equal(a.split_feature[:n], b.split_feature[:n])
         np.testing.assert_array_equal(a.split_bin[:n], b.split_bin[:n])
     np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-5)
+
+
+# ---- 16-bit bins (max_bin > 255): K1's wide-bin kernel, TreeSHAP on
+# uint16 rows ----
+@pytest.mark.parametrize("n,f,b,k,mode", [
+    (300_000, 28, 1024, 3, "f32"), (50_000, 7, 4096, 3, "f32"),
+    (40_000, 3, 40_000, 2, "f32"), (20_000, 2, 65_536, 1, "f32"),
+    (5_000, 70, 300, 8, "bf16")])
+def test_dense_histogram_u16(dev, n, f, b, k, mode):
+    """K1's wide-bin kernel against its plain version, bit-equal on 1/64-
+    grid channels: feature chunks, channel chunks and bin ranges over the
+    grid, bins from 32,768 up (negative in the int16 view), a bin holding a
+    tenth of the rows, bins >= B dropped, rows with zero channels."""
+    from lightgbm_tpu_torch.ops.packed import bins_to_device
+    rng = np.random.RandomState(n)
+    bins = rng.randint(0, min(b + 50, 65_536), (n, f)).astype(np.uint16)
+    bins[:n // 10, 0] = min(b - 1, 40_000)
+    ch = np.round(rng.randn(n, k) * 64) / 64
+    ch[rng.rand(n) < 0.3] = 0.0
+    tb = bins_to_device(bins, dev)
+    tc = torch.from_numpy(ch.astype(np.float32)).to(dev)
+    _kernels.reset_counts()
+    kern = pallas_histogram(tb, tc, b, mode=mode)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["histogram"] == 1
+    assert _kernels.MODE_LAUNCHES["histogram/u16"] == 1
+    assert _kernels.PLAIN_CALLS["histogram"] == 0
+    plain = pallas_histogram_plain(tb, tc, b, mode)
+    assert torch.equal(kern, plain)
+    if b > 32_768:
+        assert float(kern[0, min(b - 1, 40_000)].abs().sum()) > 0
+
+
+def test_wide_bins_train_on_card_matches_cpu(dev):
+    """max_bin=1023 on the card: the masked grower, K1's wide-bin kernel
+    once for the root and once a split (no other kernel), predictions
+    within 1e-4 of the CPU's, leaf indices equal, contributions through the
+    16-bit TreeSHAP kernel against the same trees on the CPU."""
+    rng = np.random.RandomState(8)
+    n = 20_000
+    X = rng.randn(n, 6).astype(np.float32)
+    X[rng.rand(n, 6) < 0.05] = np.nan
+    Z = np.nan_to_num(X)
+    y = (Z[:, 0] - 0.5 * Z[:, 2] + 0.3 * rng.randn(n) > 0).astype(float)
+    w = 1.0 + rng.rand(n)
+    p = {"objective": "binary", "num_leaves": 31, "max_bin": 1023,
+         "verbosity": -1}
+    _kernels.reset_counts()
+    bg = lgt.train(dict(p, device_type="cuda"), lgt.Dataset(X, y, weight=w),
+                   3)
+    launches = dict(_kernels.LAUNCHES)
+    modes = dict(_kernels.MODE_LAUNCHES)
+    plain = dict(_kernels.PLAIN_CALLS)
+    bc = lgt.train(dict(p, device_type="cpu"), lgt.Dataset(X, y, weight=w),
+                   3)
+    assert not bg._gbdt.use_compact and bg._gbdt.binned.dtype == torch.int16
+    assert launches == {"histogram": 3 * 31, "fused_split": 0,
+                        "histogram_sublane": 0, "monotone_walk": 0,
+                        "treeshap": 0, "segment_gather": 0}
+    assert modes["histogram/u16"] == 3 * 31
+    assert sum(plain.values()) == 0
+    np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-4)
+    np.testing.assert_array_equal(bg.predict(X, pred_leaf=True),
+                                  _cpu_twin(bg).predict(X, pred_leaf=True))
+    _kernels.reset_counts()
+    phi = bg.predict(X[:3000], pred_contrib=True)
+    assert _kernels.LAUNCHES["treeshap"] == 1
+    assert _kernels.MODE_LAUNCHES["treeshap/u16"] == 1
+    assert _kernels.PLAIN_CALLS["treeshap"] == 0
+    g = bg._gbdt
+    paths = build_shap_paths(g.models, g._pred_nan_arr.cpu().numpy(),
+                             g.feature_is_categorical(), "cpu")
+    _shap_close(torch.from_numpy(phi), torch.from_numpy(
+        _cpu_twin(bg).predict(X[:3000], pred_contrib=True)), paths)
+
+
+@pytest.mark.parametrize("nb", [300, 40_000])
+def test_treeshap_kernel_u16_matches_plain(dev, nb):
+    """The TreeSHAP kernel on uint16 rows (their int16 view) against its
+    plain version, thresholds and bins past 32,768 included."""
+    from lightgbm_tpu_torch.ops.packed import bins_to_device
+    from torch_shap_trees import random_forest, random_rows
+    models = random_forest(23, 5, nb)
+    paths = build_shap_paths(models, np.full(5, nb - 1), np.zeros(5, bool),
+                             dev)
+    b = bins_to_device(random_rows(24, 3000, 5, nb), dev)
+    assert b.dtype == torch.int16
+    _kernels.reset_counts()
+    kern = tree_shap(b, paths, 1)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["treeshap"] == 1
+    assert _kernels.MODE_LAUNCHES["treeshap/u16"] == 1
+    _shap_close(kern, tree_shap_plain(b, paths, 1), paths)
+

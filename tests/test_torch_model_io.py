@@ -15,7 +15,10 @@ package and stock LightGBM, on the CPU.
 * save -> load -> predict round-trips within 1e-6 (the loaded model routes
   raw float64 values on the host, the trained one bins on the device);
 * stock LightGBM's ranking golden, a quantile text and a text with a
-  linear tree load and predict as the JAX package's loader does.
+  linear tree load and predict as the JAX package's loader does;
+* ``dump_model`` of a loaded model equals the JAX package's
+  ``loaded_dump`` of the same text (its loaded Booster's own
+  ``dump_model`` raises ``AttributeError``).
 """
 import os
 
@@ -24,7 +27,9 @@ import pytest
 
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lgt
+from lightgbm_tpu.model_io import LoadedGBDT as JaxLoaded
 from lightgbm_tpu.model_io import booster_to_dict as jax_booster_to_dict
+from lightgbm_tpu.model_io import loaded_dump as jax_loaded_dump
 from lightgbm_tpu_torch.convert import booster_from_arrays
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
@@ -251,8 +256,9 @@ def test_texts_outside_the_slice_raise(case, item):
     """The binary golden turned into a model whose first tree is linear
     (one coefficient a leaf, on feature 0 or 1; the golden's NaNs fall back
     to the constant leaf value): it loads and predicts what the JAX
-    package's loader predicts; ``dump_model`` of a loaded model still
-    raises, naming its ROADMAP item."""
+    package's loader predicts; ``dump_model`` of the loaded model (ROADMAP
+    ``item``, once refused) equals the JAX package's ``loaded_dump`` of the
+    text."""
     X, _, _, text = _golden()
     block = text.split("Tree=1")[0].split("Tree=0")[1]
     nl = int(block.split("num_leaves=")[1].split()[0])
@@ -269,8 +275,8 @@ def test_texts_outside_the_slice_raise(case, item):
     np.testing.assert_allclose(bst.predict(X),
                                lgb.Booster(model_str=text).predict(X),
                                atol=1e-7)
-    with pytest.raises(NotImplementedError, match=item):
-        bst.dump_model()
+    assert item == "A9"
+    assert bst.dump_model() == jax_loaded_dump(JaxLoaded(text))
 
 
 def test_bad_model_inputs_raise(jax_and_carried):
@@ -288,5 +294,6 @@ def test_bad_model_inputs_raise(jax_and_carried):
     for b in (loaded, jloaded):
         with pytest.raises(AttributeError, match="train_one_iter"):
             b.update()
-    with pytest.raises(NotImplementedError, match="A9"):
-        loaded.dump_model()
+    # dump_model of a loaded model: the JAX package's loaded_dump
+    assert loaded.dump_model() == jax_loaded_dump(
+        JaxLoaded(bt.model_to_string()))

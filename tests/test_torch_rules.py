@@ -168,7 +168,6 @@ def test_parameters_of_the_ranking_and_renewal_slice_train(params):
 
 @pytest.mark.parametrize("params,item", [
     ({"tree_learner": "data"}, "A18"),
-    ({"max_bin": 511}, "A3"),
     ({"tpu_checkpoint_dir": "ckpt"}, "A16"),
     ({"deterministic": True}, "B1/B2"),
     ({"num_machines": 2}, "A18"),

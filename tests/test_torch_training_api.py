@@ -408,8 +408,13 @@ def test_continued_prediction_windows():
     np.testing.assert_allclose(cut.predict(XV, raw_score=True),
                                b2.predict(XV, raw_score=True,
                                           num_iteration=4), atol=1e-6)
-    with pytest.raises(NotImplementedError, match="A9"):
-        b2.dump_model()
+    # dump_model of a continued booster: the JAX package's (its
+    # lightgbm_tpu/basic.py:1328-1331) dump of the merged text
+    from lightgbm_tpu.model_io import loaded_dump as jax_loaded_dump
+    assert b2.dump_model() == jax_loaded_dump(JaxLoaded(
+        b2.model_to_string()))
+    assert b2.dump_model(num_iteration=4) == jax_loaded_dump(JaxLoaded(
+        b2.model_to_string(num_iteration=4)))
 
 
 def test_continued_training_needs_raw_data():

@@ -75,7 +75,8 @@ def random_forest(seed, num_features=5, num_bins=16, cat=(), words=1):
 
 
 def random_rows(seed, n, num_features, num_bins):
-    """Bin rows ``[n, F]`` uint8 that hit every bin, the NaN bin (the last)
-    included."""
+    """Bin rows ``[n, F]`` that hit every bin, the NaN bin (the last)
+    included: uint8, or uint16 past 256 bins."""
     rng = np.random.RandomState(seed)
-    return rng.randint(0, num_bins, size=(n, num_features)).astype(np.uint8)
+    return rng.randint(0, num_bins, size=(n, num_features)).astype(
+        np.uint8 if num_bins <= 256 else np.uint16)
