@@ -283,6 +283,23 @@ non-zero):
    dump_model equal to the booster's in the fields a loaded model holds;
    the card against the CPU at 100k x 28, 31 leaves, 3 rounds, on
    weighted rows (0 differing splits, 1e-4);
+19b. the user surface (CV, SKLEARN, CLI, right after WIDE_BINS): lgt.cv
+   with MAIN's parameters on MAIN's first 2.1M x 28 rows, 5 stratified
+   folds (each binned anew from its 1.68M raw training rows), 3 rounds:
+   construct
+   s a fold, rounds/s beside MAIN's iterations/s, each fold's grower and
+   device, K2's and K1's launches, the peak device memory, valid auc-mean
+   (> 0.7), and cv on the card against the CPU at 100k rows (3 folds, 31
+   leaves, weighted rows; fold means and predictions within 1e-4);
+   LGBMClassifier at 1.05M rows (compact, K2 and K1 counted; AUC > 0.7;
+   equal to lgt.train with its mapped parameters within 1e-4), LGBMRanker
+   at 35k MS-LTR-shaped rows (masked, K1 dense) and LGBMRegressor with an
+   eval_set and early stopping, each card against CPU; the command line
+   in process on a 262,144-row CSV (task=train with snapshot_freq=1:
+   compact, K2 and K1 counted; task=predict on its first 16,384 rows equal
+   to Booster(model_file=...).predict within 1e-6, each snapshot the final
+   model's first iterations' text) and one python -m lightgbm_tpu_torch
+   task=predict subprocess on the card on the same rows;
 20. A14C_CHECKS: the card against the CPU on weighted rows
    (tie_free_weights), 15 leaves, 3 rounds: DART on the compact grower
    (70k x 28, drop_rate 0.5, the same drops on both), DART, RF (numpy's
@@ -309,6 +326,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -5304,6 +5322,349 @@ def phase_a14c_checks(lgt, results):
     results["a14c_checks"] = checks
 
 
+# half of MAIN's rows (4.2M training rows a fold): at all 10.5M (8.4M a
+# fold) CV alone took 90.8 s on an H100, too much of the 150 s that CV,
+# SKLEARN and CLI have together. The card-against-CPU halves of CV and
+# SKLEARN went first (tests/test_torch_cuda.py holds them now)
+CV_ROWS = 5_250_000
+CV_FOLDS = 5
+CV_ROUNDS = 3
+SKLEARN_ROWS = 1_050_000       # LGBMClassifier on the card
+SKLEARN_RANK_ROWS = 35_000     # LGBMRanker: the masked grower, K1 dense
+CLI_ROWS = 262_144             # the CSV the command line trains on
+CLI_PREDICT_ROWS = 16_384      # task=predict (on the host), in process
+CLI_SUBPROCESS_ROWS = 65_536   # python -m task=train: the compact grower
+
+
+def auc_of(y, p):
+    """The rank AUC of scores ``p`` against binary labels ``y`` (tied
+    scores share their mean rank)."""
+    from scipy.stats import rankdata
+    pos = np.asarray(y) > 0
+    n_pos = int(pos.sum())
+    ranks = rankdata(p)
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2)
+                 / (n_pos * (len(pos) - n_pos)))
+
+
+@contextlib.contextmanager
+def timed_constructs(lgt, out):
+    """Append the seconds of every ``Dataset.construct`` call inside the
+    block to ``out`` (a constructed Dataset returns at once)."""
+    orig = lgt.Dataset.construct
+
+    def construct(self):
+        t0 = time.perf_counter()
+        try:
+            return orig(self)
+        finally:
+            out.append(time.perf_counter() - t0)
+    lgt.Dataset.construct = construct
+    try:
+        yield out
+    finally:
+        lgt.Dataset.construct = orig
+
+
+def phase_cv(lgt, results):
+    """CV: lgt.cv with MAIN's parameters on MAIN's first 5.25M x 28 rows
+    (CV_ROWS), 5 stratified folds (4.2M training rows a fold, each binned
+    anew from its raw rows), 3 rounds of the 5 folds: construct s a fold,
+    cv rounds/s (a round is 5 trees) beside MAIN's iterations/s, each
+    fold's grower and device, K2's and K1's launches from the wrappers
+    (compact: one of each a split, 5 x 3 x 255), plain calls (0), the peak
+    device memory, valid auc-mean (> 0.7). Card against CPU:
+    tests/test_torch_cuda.py::test_cv_on_card_matches_cpu."""
+    from lightgbm_tpu_torch import _kernels
+    X, y = results["higgs"][0][:CV_ROWS], results["higgs"][1][:CV_ROWS]
+    ends, constructs, starts = [], [], []
+
+    def timer(env):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+    timer.order = 5
+
+    def started(env):
+        starts.append(time.perf_counter())
+    started.before_iteration = True
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_counts()
+    t0 = time.perf_counter()
+    with timed_constructs(lgt, constructs):
+        res = lgt.cv(MAIN_PARAMS, lgt.Dataset(X, y, free_raw_data=False),
+                     num_boost_round=CV_ROUNDS, nfold=CV_FOLDS,
+                     stratified=True, seed=0, return_cvbooster=True,
+                     callbacks=[timer, started])
+    launches = dict(_kernels.LAUNCHES)
+    plain_calls = dict(_kernels.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    boosters = res["cvbooster"].boosters
+    check(len(ends) == CV_ROUNDS and len(boosters) == CV_FOLDS,
+          f"CV ran {len(ends)} rounds of {len(boosters)} folds")
+    folds = [{"train_rows": b._gbdt.num_data,
+              "grower": "compact" if b._gbdt.use_compact else "masked",
+              "device": str(b.device)} for b in boosters]
+    for f in folds:
+        check(f["grower"] == "compact" and f["device"].startswith("cuda"),
+              f"CV fold {f}")
+    for k in ("histogram", "fused_split"):
+        check(launches[k] > 0, f"CV: kernel {k} was not launched")
+    for k, v in plain_calls.items():
+        check(v == 0, f"CV: plain version of {k} ran {v} times on the card")
+    check(list(k for k in res if k != "cvbooster")
+          == ["valid auc-mean", "valid auc-stdv"], f"CV keys {list(res)}")
+    auc = res["valid auc-mean"][-1]
+    check(np.isfinite(auc) and auc > 0.7, f"CV valid auc-mean {auc}")
+    rounds_s = (CV_ROUNDS - 1) / (ends[-1] - ends[0])
+    main = results["main"]
+    out = {"rows": len(X), "folds": folds, "rounds": CV_ROUNDS,
+           "setup_s": starts[0] - t0,
+           "construct_s_a_fold": sum(constructs) / CV_FOLDS,
+           "round_s": np.diff(ends).tolist(),
+           "first_round_s": ends[0] - starts[0],
+           "rounds_per_s": rounds_s, "trees_per_s": CV_FOLDS * rounds_s,
+           "main_iterations_per_s": main["iterations_per_s"],
+           "launches": launches, "plain_calls": plain_calls,
+           "launches_a_tree": {k: launches[k] / (CV_FOLDS * CV_ROUNDS)
+                               for k in ("histogram", "fused_split")},
+           "peak_device_gib": peak / 2 ** 30,
+           "valid_auc_mean": res["valid auc-mean"],
+           "valid_auc_stdv": res["valid auc-stdv"],
+           "wall_s": time.perf_counter() - t0}
+    del res, boosters
+    print("CV", json.dumps(out), flush=True)
+    results["cv"] = out
+
+
+def phase_sklearn(lgt, results):
+    """SKLEARN: LGBMClassifier(n_estimators=3, num_leaves=255,
+    min_child_samples=100) on 1.05M of MAIN's rows (compact: K2 and K1
+    counted), predict_proba's AUC on 100k other rows (> 0.7), equal to
+    lgt.train with the estimator's mapped parameters within 1e-4; then
+    LGBMRanker at 35k MS-LTR-shaped rows (the masked grower, K1 dense
+    counted) and LGBMRegressor with an eval_set and early stopping on
+    weighted rows, on the card. Card against CPU: tests/test_torch_cuda.py
+    ::test_estimators_on_card_match_cpu."""
+    from lightgbm_tpu_torch import _kernels
+    X, y, logits, _ = results["higgs"]
+    Xs, ys = X[:SKLEARN_ROWS], y[:SKLEARN_ROWS]
+    Xv, yv = X[-100_000:], y[-100_000:]
+    _kernels.reset_counts()
+    t0 = time.perf_counter()
+    clf = lgt.LGBMClassifier(n_estimators=3, num_leaves=255,
+                             min_child_samples=100, verbosity=-1)
+    clf.fit(Xs, ys)
+    fit_s = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    plain_calls = dict(_kernels.PLAIN_CALLS)
+    check(clf.booster_._gbdt.use_compact
+          and clf.booster_.device.type == "cuda",
+          "SKLEARN: the classifier did not train compact on the card")
+    for k in ("histogram", "fused_split"):
+        check(launches[k] > 0, f"SKLEARN: kernel {k} was not launched")
+    for k, v in plain_calls.items():
+        check(v == 0, f"SKLEARN: plain version of {k} ran {v} times")
+    proba = clf.predict_proba(Xv)
+    check(proba.shape == (len(Xv), 2) and np.all(np.isfinite(proba)),
+          f"SKLEARN: predict_proba {proba.shape}")
+    auc = auc_of(yv, proba[:, 1])
+    check(auc > 0.7, f"SKLEARN: predict_proba AUC {auc}")
+    bst = lgt.train(clf._lgb_params(), lgt.Dataset(Xs, ys), 3)
+    train_diff = float(np.abs(bst.predict(Xv) - proba[:, 1]).max())
+    check(train_diff <= 1e-4, f"SKLEARN: the classifier against lgt.train "
+          f"differs by {train_diff}")
+    del clf, bst
+    checks = {}
+    t1 = time.perf_counter()
+    Xr, yr, group = make_msltr_like(SKLEARN_RANK_ROWS, 137)
+    _kernels.reset_counts()
+    ranker = lgt.LGBMRanker(n_estimators=3, num_leaves=31, verbosity=-1)
+    ranker.fit(Xr, yr, group=group)
+    rank_launches = dict(_kernels.LAUNCHES)
+    g = ranker.booster_._gbdt
+    check(not g.use_compact and g.grower_params.hist_layout == "lane"
+          and ranker.booster_.device.type == "cuda",
+          "SKLEARN: the ranker did not take the masked grower (lane) on "
+          "the card")
+    check(rank_launches["histogram"] > 0
+          and sum(_kernels.PLAIN_CALLS.values()) == 0,
+          f"SKLEARN: the ranker's launches {rank_launches}")
+    scores = ranker.predict(Xr)
+    check(scores.shape == (len(Xr),) and np.all(np.isfinite(scores)),
+          f"SKLEARN: ranker scores {scores.shape}")
+    checks["ranker"] = {"rows": SKLEARN_RANK_ROWS, "launches": rank_launches,
+                        "wall_s": time.perf_counter() - t1}
+    t1 = time.perf_counter()
+    w = tie_free_weights(120_000)
+    Xg, yg = X[:100_000], logits[:100_000]
+    # a gain under 0.05 of validation l2 stops it (round 8-13 or so)
+    reg = lgt.LGBMRegressor(
+        n_estimators=20, learning_rate=0.5, num_leaves=31,
+        early_stopping_rounds=2, early_stopping_min_delta=0.05,
+        verbosity=-1).fit(
+        Xg, yg, sample_weight=w[:100_000],
+        eval_set=[(X[100_000:120_000], logits[100_000:120_000])],
+        eval_sample_weight=[w[100_000:]])
+    l2 = reg.evals_result_["valid_0"]["l2"]
+    pred = reg.predict(X[100_000:120_000])
+    checks["regressor_early_stopping"] = {
+        "best_iteration": reg.best_iteration_, "valid_l2": l2,
+        "wall_s": time.perf_counter() - t1}
+    check(reg.booster_.device.type == "cuda"
+          and 0 < reg.best_iteration_ < 20 and np.all(np.isfinite(pred))
+          and min(l2) < l2[0], f"SKLEARN: early stopping: {checks}")
+    out = {"classifier": {"rows": SKLEARN_ROWS, "fit_s": fit_s,
+                          "launches": launches, "plain_calls": plain_calls,
+                          "predict_proba_auc": auc,
+                          "vs_train_max_abs_diff": train_diff},
+           "on_card": checks, "wall_s": time.perf_counter() - t0}
+    print("SKLEARN", json.dumps(out), flush=True)
+    results["sklearn"] = out
+
+
+def write_csv(path, X, y):
+    """A header line, then each row's label and features (%.9g: float32
+    values read back exactly)."""
+    with open(path, "w") as fh:
+        fh.write(",".join(["label"] + [f"x{j}" for j in range(X.shape[1])])
+                 + "\n")
+        np.savetxt(fh, np.column_stack([y, X]), fmt="%.9g", delimiter=",")
+
+
+# python -m lightgbm_tpu_torch as `python -m` runs it (runpy), then the
+# kernel launches of that process: the wrappers' counts
+CLI_MAIN = """import json, runpy, sys
+sys.argv[0] = "lightgbm_tpu_torch"
+try:
+    runpy.run_module("lightgbm_tpu_torch", run_name="__main__",
+                     alter_sys=True)
+except SystemExit as done:
+    if done.code:
+        raise
+from lightgbm_tpu_torch import _kernels
+print("LAUNCHES", json.dumps({"launches": dict(_kernels.LAUNCHES),
+                             "plain_calls": dict(_kernels.PLAIN_CALLS)}))
+"""
+
+
+def phase_cli(lgt, results):
+    """CLI: MAIN's first 262,144 rows as a CSV with a header; the command
+    line in process (cli.run) trains it (task=train, 255 leaves, 3
+    iterations, snapshot_freq=1: the compact grower, K2 and K1 counted) and
+    predicts its first 16,384 rows on the host (task=predict: a model
+    loaded from text): the predictions equal Booster(model_file=...)
+    .predict within 1e-6, each snapshot's text the final model's
+    model_to_string(num_iteration=N). Then one python -m
+    lightgbm_tpu_torch task=train subprocess on the first 65,536 rows (the
+    compact grower) with the same parameters: K2's and K1's launches
+    counted inside that process equal those of the same training in this
+    one, and its predictions agree with that training's within 1e-4 (two
+    runs on the card: f32 atomics add in another order)."""
+    from lightgbm_tpu_torch import _kernels, cli
+    X, y, _, _ = results["higgs"]
+    Xc, yc = X[:CLI_ROWS], y[:CLI_ROWS]
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        t0 = time.perf_counter()
+        data = os.path.join(work, "train.csv")
+        write_csv(data, Xc, yc)
+        write_s = time.perf_counter() - t0
+        model = os.path.join(work, "model.txt")
+        common = ["header=true", "label_column=name:label"]
+        train_args = ["task=train", *common, "objective=binary",
+                      "num_leaves=255", "min_data_in_leaf=100",
+                      "num_iterations=3", "verbosity=-1"]
+        _kernels.reset_counts()
+        t1 = time.perf_counter()
+        check(cli.run([*train_args, f"data={data}", "snapshot_freq=1",
+                       f"output_model={model}"]) == 0,
+              "CLI: task=train failed")
+        train_s = time.perf_counter() - t1
+        launches = dict(_kernels.LAUNCHES)
+        for k in ("histogram", "fused_split"):
+            check(launches[k] > 0, f"CLI: kernel {k} was not launched")
+        small = os.path.join(work, "small.csv")
+        ns = CLI_PREDICT_ROWS
+        write_csv(small, Xc[:ns], yc[:ns])
+        pred_path = os.path.join(work, "pred.txt")
+        t1 = time.perf_counter()
+        check(cli.run(["task=predict", f"data={small}", *common,
+                       f"input_model={model}",
+                       f"output_result={pred_path}"]) == 0,
+              "CLI: task=predict failed")
+        predict_s = time.perf_counter() - t1
+        pred = np.loadtxt(pred_path)
+        bst = lgt.Booster(model_file=model)
+        pred_diff = float(np.abs(pred - bst.predict(Xc[:ns])).max())
+        check(pred.shape == (ns,) and pred_diff <= 1e-6,
+              f"CLI: predictions differ from Booster.predict by {pred_diff}")
+        for n in (1, 2, 3):
+            with open(f"{model}.snapshot_iter_{n}") as fh:
+                check(fh.read() == bst.model_to_string(num_iteration=n),
+                      f"CLI: snapshot {n} is not the model's first {n} "
+                      "iterations")
+        auc = auc_of(yc[:ns], pred)
+        check(auc > 0.7, f"CLI: training AUC {auc}")
+        # the entry point on the card: python -m lightgbm_tpu_torch trains
+        # the first 65,536 rows, its launches read in its own process
+        nsub = CLI_SUBPROCESS_ROWS
+        sub_data = os.path.join(work, "sub.csv")
+        write_csv(sub_data, Xc[:nsub], yc[:nsub])
+        sub_model = os.path.join(work, "sub_model.txt")
+        root = os.path.dirname(os.path.abspath(__file__))
+        t1 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-c", CLI_MAIN, *train_args,
+             f"data={sub_data}", f"output_model={sub_model}"], cwd=root,
+            timeout=300, env=dict(os.environ, PYTHONPATH=root),
+            capture_output=True, text=True)
+        subprocess_s = time.perf_counter() - t1
+        said = [ln for ln in run.stdout.splitlines()
+                if ln.startswith("LAUNCHES ")]
+        check(run.returncode == 0 and len(said) == 1
+              and "(device cuda" in run.stdout,
+              f"CLI: python -m lightgbm_tpu_torch: {run.returncode} "
+              f"{run.stdout[-500:]} {run.stderr[-2000:]}")
+        counted = json.loads(said[0][len("LAUNCHES "):])
+        sub_launches, sub_plain = counted["launches"], counted["plain_calls"]
+        sub_bst = lgt.Booster(model_file=sub_model)
+        check(all(sub_launches[k] > 0 for k in ("histogram", "fused_split")),
+              f"CLI: the subprocess launched {sub_launches}")
+        check(sum(sub_plain.values()) == 0,
+              f"CLI: the subprocess ran plain versions {sub_plain}")
+        _kernels.reset_counts()
+        ref = lgt.train({"objective": "binary", "num_leaves": 255,
+                         "min_data_in_leaf": 100, "verbosity": -1},
+                        lgt.Dataset(Xc[:nsub], yc[:nsub]), 3)
+        check(ref._gbdt.use_compact, "CLI: 65,536 rows did not take the "
+              "compact grower")
+        check({k: sub_launches[k] for k in ("histogram", "fused_split")}
+              == {k: _kernels.LAUNCHES[k] for k in ("histogram",
+                                                    "fused_split")},
+              f"CLI: the subprocess launched {sub_launches}, the same "
+              f"training in process {dict(_kernels.LAUNCHES)}")
+        sub_diff = float(np.abs(sub_bst.predict(Xc[:ns])
+                                - ref.predict(Xc[:ns])).max())
+        check(sub_diff <= 1e-4, f"CLI: the subprocess's model differs from "
+              f"the same training in process by {sub_diff}")
+        out = {"rows": CLI_ROWS, "csv_mb": os.path.getsize(data) / 2 ** 20,
+               "write_s": write_s, "train_s": train_s,
+               "predict_s_on_host": predict_s, "predict_rows": ns,
+               "launches": launches,
+               "pred_max_abs_diff": pred_diff, "snapshots": 3,
+               "subprocess": {"task": "train", "rows": nsub,
+                              "wall_s": subprocess_s,
+                              "launches": sub_launches,
+                              "plain_calls": sub_plain,
+                              "stdout": run.stdout.strip()[-300:],
+                              "max_abs_diff_to_in_process": sub_diff},
+               "train_auc": auc, "wall_s": time.perf_counter() - t0}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print("CLI", json.dumps(out), flush=True)
+    results["cli"] = out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=10_500_000,
@@ -5378,6 +5739,9 @@ def main() -> int:
               ("dart", lambda: phase_dart(lgt, results)),
               ("rf", lambda: phase_rf(lgt, results)),
               ("wide_bins", lambda: phase_wide_bins(lgt, results)),
+              ("cv", lambda: phase_cv(lgt, results)),
+              ("sklearn", lambda: phase_sklearn(lgt, results)),
+              ("cli", lambda: phase_cli(lgt, results)),
               ("rank", lambda: phase_rank(lgt, results)),
               ("masked_large", lambda: phase_masked_large(lgt, args.rows,
                                                           results)),
@@ -5501,6 +5865,18 @@ def main() -> int:
                 "tree_device_ms": tn_tree[kern]["device_ms"],
                 "tree_bound_ms": tn_tree[kern]["bound_ms"]}
 
+    def surface_launches(kern):
+        """A kernel's launches in the CV, SKLEARN (the classifier and the
+        ranker) and CLI (task=train in process and python -m) runs."""
+        return {"cv": results["cv"]["launches"][kern],
+                "sklearn_classifier": results["sklearn"]["classifier"][
+                    "launches"][kern],
+                "sklearn_ranker": results["sklearn"]["on_card"]["ranker"][
+                    "launches"][kern],
+                "cli_train": results["cli"]["launches"][kern],
+                "cli_python_m_train": results["cli"]["subprocess"][
+                    "launches"][kern]}
+
     def multiclass_path(kern, tree_kernels, launches, rounds, extra=None):
         """A kernel's numbers on a multiclass path: launches a round (K
         trees) over the run's rounds, and device ms and byte bound of one
@@ -5556,6 +5932,7 @@ def main() -> int:
          "ranking": ranking_path("histogram"),
          "renew": renew_path("histogram"),
          "tuned": tuned_path("histogram"),
+         "user_surface": surface_launches("histogram"),
          "constrained": constrained_path("histogram"),
          **a14c_path("histogram")},
         {"name": "fused_split", "route": "cuda",
@@ -5611,6 +5988,7 @@ def main() -> int:
          "ranking": ranking_path("fused_split"),
          "renew": renew_path("fused_split"),
          "tuned": tuned_path("fused_split"),
+         "user_surface": surface_launches("fused_split"),
          "constrained": constrained_path("fused_split"),
          **a14c_path("fused_split")},
         {"name": "histogram_sublane", "route": "cuda",

@@ -1,12 +1,16 @@
 """User-facing ``Dataset`` and ``Booster``.
 
 Counterpart of ``lightgbm_tpu/basic.py`` (reference:
-python-package/lightgbm/basic.py): a lazily constructed ``Dataset`` and a
+python-package/lightgbm/basic.py): a lazily constructed ``Dataset`` (its
+fields set before or after ``construct``, ``subset`` on the parent's bins,
+``save_binary`` and a ``.npz``/``.bin`` path as ``data``) and a
 ``Booster`` with ``update`` (``fobj``: a custom objective),
 ``rollback_one_iter``, ``reset_parameter``, ``predict``,
 ``eval_train``/``eval_valid`` (``feval``: custom metrics), ``refit``,
-``current_iteration``, ``feature_importance`` and model text
-(``save_model``, ``model_to_string``, ``dump_model``;
+``current_iteration``, ``num_model_per_iteration``, ``feature_name``,
+``feature_importance``, ``lower_bound``/``upper_bound`` and model text
+(``save_model``, ``model_to_string``, ``dump_model``, each over an
+iteration window;
 ``Booster(model_file=...)`` / ``Booster(model_str=...)`` loads text written
 by the port, the JAX package or stock LightGBM, and predicts on the host,
 see ``model_io.py``). A Booster continued from a loaded model
@@ -18,8 +22,6 @@ stopped classification scores (``pred_early_stop``). The device comes from the
 ``device_type`` parameter (default ``cuda``; ``cpu`` runs the plain PyTorch
 versions of the kernels) and is never chosen silently: ``cuda`` without a
 visible card raises.
-
-Not here yet: ``cv``, sklearn and the CLI (ROADMAP A16).
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ from .config import Config, alias_table, resolve_device
 from .io.dataset import BinnedDataset, Metadata
 from .metrics import create_metrics
 from .model_io import (LoadedGBDT, booster_to_dict, booster_to_string,
-                       load_booster, loaded_dump, merge_model_texts)
+                       check_importance_type, load_booster, loaded_dump,
+                       merge_model_texts)
 from .objectives import create_objective
 
 _DATASET_PARAM_KEYS = ("max_bin", "min_data_in_bin", "bin_construct_sample_cnt",
@@ -103,6 +106,7 @@ class Dataset:
         self.categorical_feature = categorical_feature
         self.params = copy.deepcopy(params) if params else {}
         self.free_raw_data = free_raw_data
+        self.used_indices: Optional[np.ndarray] = None
         self._inner: Optional[BinnedDataset] = None
 
     def _update_params(self, params: Optional[Dict[str, Any]]) -> "Dataset":
@@ -129,6 +133,23 @@ class Dataset:
         cfg = Config(self.params)
         cfg.check_supported(dataset_only=True)
         resolve_device(cfg)
+        if isinstance(self.data, str) and self.data.endswith((".npz",
+                                                              ".bin")):
+            # a binary dataset file (reference: ``lightgbm_tpu/basic.py:
+            # 151-166``; LightGBM's DatasetLoader::LoadFromBinFile): its
+            # own metadata, unless given here
+            self._inner = BinnedDataset.load_binary(self.data)
+            md = self._inner.metadata
+            for value, setter in ((self.label, md.set_label),
+                                  (self.weight, md.set_weight),
+                                  (self.group, md.set_group),
+                                  (self.init_score, md.set_init_score),
+                                  (self.position, md.set_position)):
+                if value is not None:
+                    setter(_maybe_series(value))
+            if self.free_raw_data:
+                self.data = None
+            return self
         ref_inner = None
         if self.reference is not None:
             self.reference.construct()
@@ -176,23 +197,125 @@ class Dataset:
             self.data = None
         return self
 
+    def subset(self, used_indices, params=None) -> "Dataset":
+        """A Dataset of some of this one's rows on its bins and mappers, not
+        binned again (reference: ``Dataset.subset``, ``lightgbm_tpu/
+        basic.py:237-307``; LGBM_DatasetGetSubset): the rows sorted and
+        unique, their label, weight, init score, positions and raw rows;
+        ranking queries kept whole, else a ``ValueError``."""
+        self.construct()
+        idx = np.unique(np.asarray(used_indices, np.int64).reshape(-1))
+        inner = self._inner
+        sub = Dataset(None, reference=self, feature_name=self.feature_name,
+                      categorical_feature=self.categorical_feature,
+                      params=params or self.params,
+                      free_raw_data=self.free_raw_data)
+        sub.used_indices = idx
+        si = BinnedDataset()
+        for name in ("bundle_info", "mappers", "feature_names",
+                     "max_num_bins", "num_total_features", "used_features",
+                     "categorical_features"):
+            setattr(si, name, getattr(inner, name))
+        si.binned = inner.binned[idx]
+        si.num_data = len(idx)
+        if inner.raw_data is not None:
+            si.raw_data = inner.raw_data[idx]
+        src = inner.metadata
+        md = si.metadata = Metadata(len(idx))
+        if src.label is not None:
+            md.set_label(src.label[idx])
+        md.set_weight(None if src.weight is None else src.weight[idx])
+        if src.init_score is not None:
+            # class-major [K * N]
+            md.set_init_score(src.init_score.reshape(
+                -1, src.num_data)[:, idx].reshape(-1))
+        md.set_position(None if src.position is None else src.position[idx])
+        if src.query_boundaries is not None:
+            qb = src.query_boundaries
+            sizes = np.bincount(np.searchsorted(qb, idx, side="right") - 1,
+                                minlength=len(qb) - 1)
+            partial = (sizes > 0) & (sizes != np.diff(qb))
+            if partial.any():
+                raise ValueError(
+                    "Dataset.subset would split query groups "
+                    f"{np.nonzero(partial)[0][:5].tolist()}...; ranking "
+                    "subsets must select whole queries")
+            md.set_group(sizes[sizes > 0])
+        sub._inner = si
+        return sub
+
     def create_valid(self, data, label=None, weight=None, group=None,
-                     init_score=None, position=None) -> "Dataset":
+                     init_score=None, params=None, position=None
+                     ) -> "Dataset":
         """A validation Dataset binned with this one's mappers (its own
-        query groups for the ranking metrics)."""
+        query groups for the ranking metrics; ``params``: its own, else
+        this one's)."""
         return Dataset(data, label=label, reference=self, weight=weight,
                        group=group, init_score=init_score,
-                       params=self.params, position=position)
+                       params=params or self.params,
+                       free_raw_data=self.free_raw_data, position=position)
+
+    # -- fields, before or after construct (reference: the set_field
+    # family, ``lightgbm_tpu/basic.py:318-400``) ----------------------------
+    def set_label(self, label) -> "Dataset":
+        self.label = label
+        if self._inner is not None:
+            self._inner.metadata.set_label(_maybe_series(label))
+        return self
+
+    def set_weight(self, weight) -> "Dataset":
+        self.weight = weight
+        if self._inner is not None:
+            self._inner.metadata.set_weight(_maybe_series(weight))
+        return self
 
     def set_group(self, group) -> "Dataset":
         """Query sizes in row order (reference: Dataset.set_group)."""
         self.group = group
         if self._inner is not None:
-            self._inner.metadata.set_group(group)
+            self._inner.metadata.set_group(_maybe_series(group))
         return self
 
-    def get_label(self):
+    def set_init_score(self, init_score) -> "Dataset":
+        self.init_score = init_score
         if self._inner is not None:
+            self._inner.metadata.set_init_score(_maybe_series(init_score))
+        return self
+
+    def set_position(self, position) -> "Dataset":
+        self.position = position
+        if self._inner is not None:
+            self._inner.metadata.set_position(_maybe_series(position))
+        return self
+
+    def get_field(self, name: str):
+        getter = {"label": self.get_label, "weight": self.get_weight,
+                  "group": self.get_group, "init_score": self.get_init_score}
+        if name not in getter:
+            raise KeyError(name)
+        return getter[name]()
+
+    def set_field(self, name: str, value) -> "Dataset":
+        setter = {"label": self.set_label, "weight": self.set_weight,
+                  "group": self.set_group, "init_score": self.set_init_score,
+                  "position": self.set_position}
+        if name not in setter:
+            raise KeyError(name)
+        return setter[name](value)
+
+    def save_binary(self, filename: str) -> "Dataset":
+        """Write the constructed Dataset to a binary file, which ``Dataset(
+        filename)`` (or the JAX package's) loads without binning again."""
+        self.construct()
+        self._inner.save_binary(filename)
+        return self
+
+    def get_feature_name(self) -> List[str]:
+        self.construct()
+        return list(self._inner.feature_names)
+
+    def get_label(self):
+        if self._inner is not None and self._inner.metadata.label is not None:
             return self._inner.metadata.label
         return self.label
 
@@ -205,6 +328,11 @@ class Dataset:
         if self._inner is not None:
             return self._inner.metadata.weight
         return self.weight
+
+    def get_init_score(self):
+        if self._inner is not None:
+            return self._inner.metadata.init_score
+        return self.init_score
 
     def num_data(self) -> int:
         if self._inner is not None:
@@ -397,7 +525,8 @@ class Booster:
     def predict(self, data, start_iteration: int = 0,
                 num_iteration: Optional[int] = None,
                 raw_score: bool = False, pred_leaf: bool = False,
-                pred_contrib: bool = False, **kwargs) -> np.ndarray:
+                pred_contrib: bool = False, validate_features: bool = False,
+                **kwargs) -> np.ndarray:
         """Predictions ``[N]``, or ``[N, K]`` for a model of K classes:
         the objective's output (probabilities for the classifiers), or raw
         scores with ``raw_score`` (reference: Booster.predict,
@@ -406,12 +535,12 @@ class Booster:
         contributions ``[N, K*(F+1)]`` float64, each class's bias last.
         ``pred_early_stop``, ``pred_early_stop_margin`` and
         ``pred_early_stop_freq`` override the parameters of the same
-        names."""
+        names. ``validate_features`` is accepted as the JAX package accepts
+        it (``lightgbm_tpu/basic.py:831``): rows of another width than the
+        model's raise with it or without it."""
         unknown = sorted(set(kwargs) - set(_EARLY_STOP_KEYS))
         if unknown:
-            raise NotImplementedError(
-                f"predict arguments {unknown} are not in the PyTorch port "
-                "yet (ROADMAP A16)")
+            raise TypeError(f"predict got unexpected arguments {unknown}")
         start_iteration, num_iteration = self._predict_window(
             start_iteration, num_iteration)
         arr = np.asarray(_maybe_series(data))
@@ -570,14 +699,22 @@ class Booster:
         return len(self._gbdt.models) + (
             len(pre.models) if pre is not None else 0)
 
-    def feature_importance(self, importance_type: str = "split"
-                           ) -> np.ndarray:
-        """Splits (or gains) per feature, over the loaded model's trees too
-        (reference: Booster.feature_importance)."""
-        imp = self._gbdt.feature_importance(importance_type)
-        pre = self._pre_model
-        if pre is not None:
-            pre_imp = pre.feature_importance(importance_type)
+    def num_model_per_iteration(self) -> int:
+        """Trees an iteration: K for K classes, else 1."""
+        return self._gbdt.num_class
+
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: Optional[int] = None) -> np.ndarray:
+        """Splits (or gains) per feature over the trees of the first
+        ``iteration`` iterations (None or <= 0: all), the loaded model's
+        first (reference: Booster.feature_importance)."""
+        (pre, _, pre_cut, _, own_cut, pre_empty,
+         own_empty) = self._global_tree_window(
+             0, iteration if iteration and iteration > 0 else None)
+        imp = (self._gbdt.feature_importance(importance_type, own_cut)
+               if not own_empty else np.zeros(self.num_feature()))
+        if pre is not None and not pre_empty:
+            pre_imp = pre.feature_importance(importance_type, pre_cut)
             out = np.zeros(max(len(imp), len(pre_imp)), np.float64)
             out[:len(imp)] += imp
             out[:len(pre_imp)] += pre_imp
@@ -587,41 +724,80 @@ class Booster:
     def num_feature(self) -> int:
         return self._gbdt.num_features()
 
+    def feature_name(self) -> List[str]:
+        return list(self._gbdt.feature_names)
+
+    def _leaf_values(self):
+        """Each tree's leaf values, the loaded model's and the own."""
+        pre = self._pre_model
+        models = list(self._gbdt.models) + (list(pre.models)
+                                            if pre is not None else [])
+        return [m.leaf_value[:m.num_leaves] for m in models]
+
+    def lower_bound(self) -> float:
+        """The smallest leaf value of any tree (reference: ``lower_bound``,
+        ``lightgbm_tpu/basic.py:1388``)."""
+        return float(min((v.min() for v in self._leaf_values()),
+                         default=0.0))
+
+    def upper_bound(self) -> float:
+        """The largest leaf value of any tree."""
+        return float(max((v.max() for v in self._leaf_values()),
+                         default=0.0))
+
     # -- model text (reference: Booster.save_model, model_to_string and
     # dump_model of python-package/lightgbm/basic.py) -------------------------
-    def model_to_string(self, num_iteration: Optional[int] = None) -> str:
-        """The model as LightGBM v4 text (all trees unless
-        ``num_iteration``); a loaded model returns its text as read."""
+    def model_to_string(self, num_iteration: Optional[int] = None,
+                        start_iteration: int = 0,
+                        importance_type: str = "split") -> str:
+        """The model as LightGBM v4 text: the trees of ``num_iteration``
+        iterations from ``start_iteration`` (default: to the best iteration
+        of an early-stopped run, else all), numbered from 0, and the
+        ``importance_type`` importances (``split`` or ``gain``) of the
+        first ``num_iteration`` iterations, as LightGBM's
+        SaveModelToString counts them whatever ``start_iteration`` is; a
+        loaded model's whole text is the text it was read from."""
         if num_iteration is None and self.best_iteration > 0:
             num_iteration = self.best_iteration
+        if num_iteration is not None and num_iteration <= 0:
+            num_iteration = None
         pre = self._pre_model
         if pre is None:
-            return booster_to_string(self, num_iteration)
+            return booster_to_string(self, num_iteration, start_iteration,
+                                     importance_type)
         # the loaded trees first (reference: models_ holds loaded, then new
         # trees, gbdt_model_text.cpp)
-        pre_cut = own_cut = None
-        if num_iteration is not None and num_iteration > 0:
-            pre_cut = min(num_iteration, pre.current_iteration())
-            own_cut = max(num_iteration - pre.current_iteration(), 0)
-        return merge_model_texts(pre, booster_to_string(self, own_cut),
-                                 pre_num_iteration=pre_cut)
+        (_, pre_start, pre_cut, own_start, own_cut, pre_empty,
+         _) = self._global_tree_window(start_iteration, num_iteration)
+        return merge_model_texts(
+            pre, booster_to_string(self, own_cut, own_start),
+            pre_num_iteration=0 if pre_empty else pre_cut,
+            pre_start_iteration=pre_start, importance_type=importance_type,
+            importance=self.feature_importance(importance_type,
+                                               num_iteration))
 
-    def save_model(self, filename: str,
-                   num_iteration: Optional[int] = None) -> "Booster":
+    def save_model(self, filename: str, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0,
+                   importance_type: str = "split") -> "Booster":
         with open(filename, "w") as fh:
-            fh.write(self.model_to_string(num_iteration))
+            fh.write(self.model_to_string(num_iteration, start_iteration,
+                                          importance_type))
         return self
 
-    def dump_model(self, num_iteration: Optional[int] = None
-                   ) -> Dict[str, Any]:
-        """The model as a JSON-ready dict (reference: GBDT::DumpModel). A
-        continued booster dumps its merged model text, the loaded trees
-        first, as the reference does (``lightgbm_tpu/basic.py:1323-1332``:
-        the text round trip is exact for the loaded trees)."""
+    def dump_model(self, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0,
+                   importance_type: str = "split") -> Dict[str, Any]:
+        """The model as a JSON-ready dict (reference: GBDT::DumpModel), the
+        trees of an iteration window. A continued booster dumps its merged
+        model text, the loaded trees first, as the reference does
+        (``lightgbm_tpu/basic.py:1323-1332``: the text round trip is exact
+        for the loaded trees). ``importance_type`` is checked and, as in
+        the JAX package's dict, not written."""
+        check_importance_type(importance_type)
         if self._pre_model is not None:
             return loaded_dump(LoadedGBDT(self.model_to_string(
-                num_iteration)))
-        return booster_to_dict(self, num_iteration)
+                num_iteration, start_iteration)))
+        return booster_to_dict(self, num_iteration, start_iteration)
 
 
 class _DatasetView:

@@ -1637,15 +1637,19 @@ class GBDT:
     def num_features(self) -> int:
         return len(self.mappers)
 
-    def feature_importance(self, importance_type: str = "split"
-                           ) -> np.ndarray:
-        """Splits per feature over all trees, or with ``importance_type=
-        "gain"`` their summed gains (reference: GBDT::FeatureImportance)."""
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: Optional[int] = None) -> np.ndarray:
+        """Splits per feature over the trees of the first ``iteration``
+        iterations (None or <= 0: all), or with ``importance_type="gain"``
+        their summed gains (reference: GBDT::FeatureImportance)."""
         if importance_type not in ("split", "gain"):
             raise ValueError(f"importance_type={importance_type!r}: "
                              "'split' or 'gain'")
         out = np.zeros(len(self.mappers), np.float64)
-        for m in self.models:
+        models = self.models
+        if iteration is not None and iteration > 0:
+            models = models[:iteration * self.num_class]
+        for m in models:
             np.add.at(out, m.split_feature[:m.num_nodes],
                       1.0 if importance_type == "split"
                       else m.split_gain[:m.num_nodes].astype(np.float64))

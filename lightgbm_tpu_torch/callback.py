@@ -6,7 +6,8 @@ python-package/lightgbm/callback.py — log_evaluation :75, record_evaluation
 EarlyStopException :28). Evaluation entries are ``(dataset_name,
 metric_name, value, is_higher_better)``. A callback with
 ``before_iteration`` set runs before the iteration's update, the others
-after it, each group in ``order``.
+after it, each group in ``order``. ``cv`` hands the callbacks its fold
+means as ``("cv_agg", "<dataset> <metric>", mean, is_higher_better)``.
 """
 from __future__ import annotations
 
@@ -38,7 +39,9 @@ def _fmt_eval(entry) -> str:
 
 
 def log_evaluation(period: int = 1, show_stdv: bool = True) -> Callable:
-    """(reference: callback.py:75)"""
+    """Log the evaluation entries every ``period`` iterations, ``cv``'s
+    fold means as ``cv_agg's valid auc: ...`` (reference: callback.py:75,
+    ``lightgbm_tpu/callback.py:40-49``)."""
 
     def _callback(env: CallbackEnv) -> None:
         if period > 0 and env.evaluation_result_list \
@@ -107,7 +110,8 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
     with ``first_metric_only``); raises ``EarlyStopException`` with the
     best iteration (0-based) and its evaluation list (reference:
     callback.py:454, ``lightgbm_tpu/callback.py:102-193``). The training
-    data's entries are never watched."""
+    data's entries are never watched: ``training``, and ``cv``'s
+    ``train``-prefixed fold means."""
     if stopping_rounds <= 0:
         raise ValueError("stopping_rounds should be greater than zero.")
     state = {"enabled": True}
@@ -129,6 +133,11 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
         return (value > best + min_delta if higher_better
                 else value < best - min_delta)
 
+    def _watched(entry) -> bool:
+        name, metric = entry[0], entry[1]
+        return name != "training" and not (
+            name == "cv_agg" and metric.split(" ")[0] == "train")
+
     def _report(what: str, i: int) -> None:
         if verbose:
             log.info(f"{what}\n[{state['best_iter'][i] + 1}]\t"
@@ -144,7 +153,7 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
         entries = env.evaluation_result_list
         first_metric_seen = False
         for i, (name, metric, value, _) in enumerate(entries):
-            if name == "training":
+            if not _watched(entries[i]):
                 continue
             if first_metric_only and first_metric_seen \
                     and metric != entries[0][1]:
@@ -161,7 +170,7 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
                                          state["best_list"][i])
         if env.iteration == env.end_iteration - 1:
             for i, entry in enumerate(entries):
-                if entry[0] == "training":
+                if not _watched(entry):
                     continue
                 if state["best_list"][i] is not None:
                     _report("Did not meet early stopping. Best iteration "

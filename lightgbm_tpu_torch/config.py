@@ -154,8 +154,20 @@ PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...]]] = {
     "pred_early_stop_margin": (10.0, float, ()),
     # Booster.refit's default decay (reference: config.h refit_decay_rate)
     "refit_decay_rate": (0.9, float, ()),
-    # model snapshots, read to be refused (ROADMAP A16)
+    # model text snapshots every snapshot_freq iterations, to
+    # "{output_model}.snapshot_iter_{i}" (engine.train), and the CLI's model
     "snapshot_freq": (-1, int, ("save_period",)),
+    "output_model": ("LightGBM_model.txt", str, ("model_output", "model_out")),
+    # the text-file loader (io/loader.py) and Dataset.save_binary
+    "two_round": (False, bool, ("two_round_loading", "use_two_round_loading")),
+    "header": (False, bool, ("has_header",)),
+    "label_column": ("", str, ("label",)),
+    "weight_column": ("", str, ("weight",)),
+    "group_column": ("", str, ("group", "group_id", "query_column", "query", "query_id")),
+    "ignore_column": ("", str, ("ignore_feature", "blacklist")),
+    "save_binary": (False, bool, ("is_save_binary", "is_save_binary_file")),
+    "precise_float_parser": (False, bool, ()),
+    "parser_config_file": ("", str, ()),
     # grower selection knobs shared with the JAX package
     "tpu_grower": ("auto", str, ()),            # auto | compact | masked
     "tpu_hist_layout": ("auto", str, ("hist_layout",)),  # auto|lane|sublane
@@ -185,22 +197,12 @@ REFUSED_PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...], str]] = {
     "machines": ("", str, ("workers", "nodes"), "A18"),
     "tpu_mesh_shape": ("", str, ("mesh_shape",), "A18"),
     "num_shards": (0, int, (), "A18"),
-    # the file loader and checkpoints
-    "two_round": (False, bool, (
-        "two_round_loading", "use_two_round_loading"), "A16"),
-    "header": (False, bool, ("has_header",), "A16"),
-    "label_column": ("", str, ("label",), "A16"),
-    "weight_column": ("", str, ("weight",), "A16"),
-    "group_column": ("", str, (
-        "group", "group_id", "query_column", "query", "query_id"), "A16"),
-    "ignore_column": ("", str, ("ignore_feature", "blacklist"), "A16"),
-    "save_binary": (False, bool, (
-        "is_save_binary", "is_save_binary_file"), "A16"),
-    "precise_float_parser": (False, bool, (), "A16"),
-    "parser_config_file": ("", str, (), "A16"),
-    "tpu_checkpoint_dir": ("", str, ("checkpoint_dir",), "A16"),
-    "tpu_checkpoint_freq": (0, int, ("checkpoint_freq",), "A16"),
-    "tpu_checkpoint_keep": (3, int, ("checkpoint_keep",), "A16"),
+    # full-state checkpoints (the JAX package's io/checkpoint.py)
+    "tpu_checkpoint_dir": ("", str, ("checkpoint_dir",), "A16 (checkpoints)"),
+    "tpu_checkpoint_freq": (0, int, ("checkpoint_freq",),
+                            "A16 (checkpoints)"),
+    "tpu_checkpoint_keep": (3, int, ("checkpoint_keep",),
+                            "A16 (checkpoints)"),
     # serving: quantized leaves change the level engine's outputs
     "tpu_leaf_quant": ("off", str, (), "A17"),
     # tooling: injected faults
@@ -209,9 +211,9 @@ REFUSED_PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...], str]] = {
 
 # the JAX package's keys that change no result for the inputs the port
 # takes: its TPU layout and engine switches, serving, tracing and metrics,
-# threads and devices, the CLI's output switches, and output_model (read
-# only with snapshot_freq, which is refused). name -> aliases; accepted
-# with one debug line.
+# threads and devices, and the CLI's output switches (which the CLI reads
+# from its own key=value pairs). name -> aliases; accepted with one debug
+# line.
 IGNORED_PARAMS: Dict[str, Tuple[str, ...]] = {
     "stop_check_freq": (), "force_col_wise": (), "force_row_wise": (),
     "is_enable_sparse": ("is_sparse", "enable_sparse", "sparse"),
@@ -223,7 +225,6 @@ IGNORED_PARAMS: Dict[str, Tuple[str, ...]] = {
     "predict_disable_shape_check": (),
     "is_provide_training_metric": ("training_metric", "is_training_metric",
                                    "train_metric"),
-    "output_model": ("model_output", "model_out"),
     "gpu_platform_id": (), "gpu_device_id": (), "gpu_use_dp": (),
     "num_gpu": (),
     "tpu_hist_impl": (), "tpu_trace_dir": (), "tpu_trace_mode": ("trace_mode",),
@@ -472,7 +473,6 @@ class Config:
             need(str(self.tree_learner).lower() != "serial",
                  f"tree_learner={self.tree_learner!r}", "A18")
             need(self.num_machines > 1, "num_machines>1", "A18")
-            need(self.snapshot_freq > 0, "snapshot_freq", "A16")
             # the CUDA histograms add f32 atomics in no fixed order
             need(self.deterministic, "deterministic histograms", "B1/B2")
         if todo:

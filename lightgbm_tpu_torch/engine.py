@@ -1,12 +1,17 @@
-"""Training entry point ``train()``.
+"""Training entry points ``train()`` and ``cv()``.
 
-Counterpart of ``train`` in ``lightgbm_tpu/engine.py`` (reference:
-python-package/lightgbm/engine.py:109): build the Booster, continue a
-loaded model (``init_model`` or the ``input_model`` parameter), attach the
-validation sets, run ``num_boost_round`` updates with the callbacks before
-and after each (early stopping from ``early_stopping_round``), evaluate
-custom metrics (``feval``), and record ``best_iteration`` and
-``best_score``. ``cv`` and checkpoints are ROADMAP A16.
+Counterpart of ``lightgbm_tpu/engine.py`` (reference:
+python-package/lightgbm/engine.py — train :109, cv :611, CVBooster :354).
+``train`` builds the Booster, continues a loaded model (``init_model`` or
+the ``input_model`` parameter), attaches the validation sets, runs
+``num_boost_round`` updates with the callbacks before and after each
+(early stopping from ``early_stopping_round``), evaluates custom metrics
+(``feval``), writes a model snapshot every ``snapshot_freq`` iterations
+(``{output_model}.snapshot_iter_{i}``) and records ``best_iteration`` and
+``best_score``. ``cv`` bins each fold anew from its raw rows, as the JAX
+package does, and advances all folds one update at a time: the callbacks
+see the fold means, so early stopping acts on them. Full-state
+checkpoints are ROADMAP A16 (checkpoints).
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import numpy as np
 from . import callback as callback_mod
 from .basic import Booster, Dataset
 from .config import Config, alias_table
+from .io.dataset import _to_2d_float
 from .model_io import LoadedGBDT
 from .utils import log
 
@@ -111,6 +117,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
                 booster._seed_valid_scores(-1, pre_raw)
 
     cbs_before, cbs_after = _setup_callbacks(params, callbacks)
+    cfg = Config(params)
+    snapshot_freq = int(cfg.snapshot_freq)
     evaluation_result_list: List = []
     for i in range(num_boost_round):
         for cb in cbs_before:
@@ -136,6 +144,10 @@ def train(params: Dict[str, Any], train_set: Dataset,
             booster.best_iteration = e.best_iteration + 1
             evaluation_result_list = e.best_score or []
             break
+        # model snapshots (reference: ``lightgbm_tpu/engine.py:364-367``;
+        # GBDT::Train, gbdt.cpp:250-254)
+        if snapshot_freq > 0 and (i + 1) % snapshot_freq == 0:
+            booster.save_model(f"{cfg.output_model}.snapshot_iter_{i + 1}")
         if finished:
             log.info("Finished training (no further splits possible)")
             break
@@ -145,3 +157,187 @@ def train(params: Dict[str, Any], train_set: Dataset,
             best.setdefault(name, collections.OrderedDict())[metric] = value
         booster.best_score = best
     return booster
+
+
+class CVBooster:
+    """The boosters of ``cv``'s folds (reference: engine.py:354,
+    ``lightgbm_tpu/engine.py:429-444``): a method called on it is called on
+    each fold's booster, its results in a list."""
+
+    def __init__(self, boosters: Optional[List[Booster]] = None):
+        self.boosters = boosters or []
+        self.best_iteration = -1
+
+    def append(self, booster: Booster) -> "CVBooster":
+        self.boosters.append(booster)
+        return self
+
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+
+        def handler_function(*args, **kwargs):
+            return [getattr(b, name)(*args, **kwargs) for b in self.boosters]
+        return handler_function
+
+
+def _make_n_folds(num_data: int, nfold: int, seed: int, stratified: bool,
+                  shuffle: bool, label: np.ndarray,
+                  group: Optional[np.ndarray]) -> List[np.ndarray]:
+    """Each fold's test rows, sorted (reference: ``_make_n_folds``,
+    ``lightgbm_tpu/engine.py:447-479``): whole queries a fold for ranking
+    data, each class's rows split over the folds when ``stratified``, else
+    the rows; shuffled by ``RandomState(seed)``."""
+    rng = np.random.RandomState(seed)
+    if group is not None:
+        gidx = np.arange(len(group))
+        if shuffle:
+            rng.shuffle(gidx)
+        bounds = np.concatenate([[0], np.cumsum(group)])
+        return [np.sort(np.concatenate([np.arange(bounds[g], bounds[g + 1])
+                                        for g in gf]))
+                if len(gf) else np.zeros(0, np.int64)
+                for gf in np.array_split(gidx, nfold)]
+    if stratified:
+        folds: List[List[np.ndarray]] = [[] for _ in range(nfold)]
+        for cls in np.unique(label):
+            idx = np.where(label == cls)[0]
+            if shuffle:
+                rng.shuffle(idx)
+            for i, part in enumerate(np.array_split(idx, nfold)):
+                folds[i].append(part)
+        return [np.sort(np.concatenate(f)) for f in folds]
+    idx = np.arange(num_data)
+    if shuffle:
+        rng.shuffle(idx)
+    return [np.sort(f) for f in np.array_split(idx, nfold)]
+
+
+def _query_sizes(group: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """The sizes of the queries that ``rows`` (sorted, whole queries)
+    cover."""
+    qid = np.searchsorted(np.concatenate([[0], np.cumsum(group)]), rows,
+                          side="right") - 1
+    return np.unique(qid, return_counts=True)[1]
+
+
+def cv(params: Dict[str, Any], train_set: Dataset,
+       num_boost_round: int = 100, folds=None, nfold: int = 5,
+       stratified: bool = True, shuffle: bool = True,
+       metrics: Optional[Union[str, Sequence[str]]] = None,
+       feval: Optional[Union[Callable, Sequence[Callable]]] = None,
+       init_model: Optional[Union[str, Booster]] = None, seed: int = 0,
+       callbacks: Optional[Sequence[Callable]] = None,
+       eval_train_metric: bool = False,
+       return_cvbooster: bool = False) -> Dict[str, Any]:
+    """K-fold cross-validation (reference: engine.py:611, ``cv``,
+    ``lightgbm_tpu/engine.py:482-614``). ``folds``: ``(train, test)`` row
+    index pairs, or an object whose ``split(X, y, groups)`` yields them;
+    else ``nfold`` folds, stratified by class for the binary and
+    multiclass objectives, whole queries a fold for ranking data. Each
+    fold's training rows are binned anew from the raw rows (the Dataset
+    needs them: ``free_raw_data=False``, or not yet constructed), its test
+    rows with the fold's mappers. Returns ``{"<dataset> <metric>-mean":
+    [...], "<dataset> <metric>-stdv": [...]}`` an iteration (``valid``, and
+    ``train`` with ``eval_train_metric``), cut at the best iteration when
+    early stopping acts on the fold means, and with ``return_cvbooster``
+    the folds' boosters as ``"cvbooster"``. ``init_model`` and init scores
+    on ``train_set`` raise (ROADMAP A16 (cv init): the JAX package's cv
+    ignores both, so nothing holds them to a reference yet)."""
+    if init_model is not None:
+        raise NotImplementedError("cv(init_model=...) is not ported yet "
+                                  "(ROADMAP A16 (cv init))")
+    params = copy.deepcopy(params) if params else {}
+    if metrics is not None:
+        params["metric"] = metrics
+    at = alias_table()
+    for key in list(params.keys()):
+        if at.get(key) == "num_iterations" and params[key] is not None:
+            num_boost_round = int(params.pop(key))
+    params["num_iterations"] = num_boost_round
+    cfg = Config(params)
+    if stratified and cfg.objective not in ("binary", "multiclass",
+                                            "multiclassova"):
+        stratified = False
+    if train_set.data is None:
+        raise ValueError("cv() needs the raw data; construct the Dataset "
+                         "with free_raw_data=False or pass data directly")
+    raw = _to_2d_float(train_set.data)
+    label = np.asarray(train_set.get_label(), np.float64).reshape(-1)
+    weight = train_set.get_weight()
+    weight = None if weight is None else np.asarray(weight).reshape(-1)
+    group = train_set.get_group()
+    group = None if group is None else np.asarray(group, np.int64)
+    if train_set.get_init_score() is not None:
+        raise NotImplementedError("cv() of a Dataset with init scores is "
+                                  "not ported yet (ROADMAP A16 (cv init))")
+    num_data = len(raw)
+    if folds is None:
+        all_rows = np.arange(num_data)
+        folds = [(np.setdiff1d(all_rows, te), te) for te in _make_n_folds(
+            num_data, nfold, seed, stratified, shuffle, label, group)]
+    elif hasattr(folds, "split"):
+        qid = (None if group is None
+               else np.repeat(np.arange(len(group)), group))
+        folds = list(folds.split(raw, label, groups=qid))
+
+    cvbooster = CVBooster()
+    for tr, te in folds:
+        tr, te = np.asarray(tr), np.asarray(te)
+        dtr = Dataset(raw[tr], label=label[tr],
+                      weight=None if weight is None else weight[tr],
+                      group=None if group is None else _query_sizes(group,
+                                                                    tr),
+                      feature_name=train_set.feature_name,
+                      categorical_feature=train_set.categorical_feature,
+                      params=train_set.params)
+        dtr._update_params(params)
+        dte = dtr.create_valid(
+            raw[te], label=label[te],
+            weight=None if weight is None else weight[te],
+            group=None if group is None else _query_sizes(group, te))
+        bst = Booster(params=params, train_set=dtr)
+        bst._train_data_name = "train"
+        bst.add_valid(dte, "valid")
+        cvbooster.append(bst)
+
+    cbs_before, cbs_after = _setup_callbacks(params, callbacks)
+    results: Dict[str, List[float]] = collections.OrderedDict()
+    for i in range(num_boost_round):
+        for cb in cbs_before:
+            cb(callback_mod.CallbackEnv(
+                model=cvbooster, params=params, iteration=i,
+                begin_iteration=0, end_iteration=num_boost_round,
+                evaluation_result_list=None))
+        for bst in cvbooster.boosters:
+            bst.update()
+        merged: Dict = collections.OrderedDict()
+        for bst in cvbooster.boosters:
+            entries = bst.eval_train(feval) if eval_train_metric else []
+            for name, metric, value, hib in entries + bst.eval_valid(feval):
+                merged.setdefault((name, metric, hib), []).append(value)
+        agg_list = []
+        for (name, metric, hib), values in merged.items():
+            key = f"{name} {metric}"
+            mean = float(np.mean(values))
+            results.setdefault(f"{key}-mean", []).append(mean)
+            results.setdefault(f"{key}-stdv", []).append(
+                float(np.std(values)))
+            agg_list.append(("cv_agg", key, mean, hib))
+        try:
+            for cb in cbs_after:
+                cb(callback_mod.CallbackEnv(
+                    model=cvbooster, params=params, iteration=i,
+                    begin_iteration=0, end_iteration=num_boost_round,
+                    evaluation_result_list=agg_list))
+        except callback_mod.EarlyStopException as e:
+            cvbooster.best_iteration = e.best_iteration + 1
+            for bst in cvbooster.boosters:
+                bst.best_iteration = cvbooster.best_iteration
+            for key in results:
+                results[key] = results[key][:cvbooster.best_iteration]
+            break
+    out: Dict[str, Any] = dict(results)
+    if return_cvbooster:
+        out["cvbooster"] = cvbooster
+    return out

@@ -22,8 +22,10 @@ takes the training set's bundle layout. Every per-feature array
 the same dataset from ``Sequence`` objects (random row reads for the bin
 sample, then batched range reads) without the raw matrix.
 ``forcedbins_filename`` (a JSON list of ``{"feature": i,
-"bin_upper_bound": [...]}``) forces bin bounds. Not here yet: binary
-save/load (A16).
+"bin_upper_bound": [...]}``) forces bin bounds. ``save_binary`` and
+``load_binary`` write and read the JAX package's binary dataset file (an
+``.npz`` of the bins, the EFB layout, the metadata and the mappers as
+JSON), so a file written by either package loads in the other.
 """
 from __future__ import annotations
 
@@ -154,6 +156,98 @@ class BinnedDataset:
         # the raw rows in float64, in the original order, kept for linear
         # leaves (construct's keep_raw)
         self.raw_data: Optional[np.ndarray] = None
+
+    # -- the binary dataset file (reference: ``save_binary``/``load_binary``,
+    # ``lightgbm_tpu/io/dataset.py:156-262``; LightGBM's
+    # Dataset::SaveBinaryFile and DatasetLoader::LoadFromBinFile) ----------
+    def save_binary(self, path: str) -> None:
+        """Write the constructed dataset (bins, mappers, EFB layout and
+        metadata) to ``path`` as it is named (no ``.npz`` appended). The
+        mappers go as JSON, never a pickle: loading a dataset file must
+        not run code. Non-finite numbers are written as strings, so the
+        JSON stays strict."""
+        def num(x):
+            return float(x) if np.isfinite(x) else str(float(x))
+        mappers = [{
+            "num_bins": int(m.num_bins),
+            "is_categorical": bool(m.is_categorical),
+            "missing_type": int(m.missing_type),
+            "bin_upper_bounds": [num(x) for x in m.bin_upper_bounds],
+            "cat_to_bin": {str(k): int(v) for k, v in m.cat_to_bin.items()},
+            "bin_to_cat": [int(x) for x in m.bin_to_cat],
+            "default_bin": int(m.default_bin),
+            "min_value": num(m.min_value), "max_value": num(m.max_value),
+        } for m in self.mappers]
+        md, info = self.metadata, self.bundle_info
+
+        def opt(arr, dtype=np.float64):
+            return arr if arr is not None else np.zeros(0, dtype)
+
+        def layout(field):
+            return (np.asarray(getattr(info, field), np.int64)
+                    if info is not None else np.zeros(0, np.int64))
+        with open(path, "wb") as fh:
+            np.savez_compressed(
+                fh, magic=np.frombuffer(b"lgbtpu.bin.v2\x00\x00\x00",
+                                        np.uint8),
+                binned=self.binned,
+                feature_names=np.asarray(self.feature_names),
+                max_num_bins=self.max_num_bins, num_data=self.num_data,
+                num_total_features=self.num_total_features,
+                used_features=np.asarray(self.used_features, np.int64),
+                categorical_features=np.asarray(self.categorical_features,
+                                                np.int64),
+                bundle_col_of=layout("col_of"),
+                bundle_offset_of=layout("offset_of"),
+                bundle_col_bins=layout("num_column_bins"),
+                mappers=np.frombuffer(json.dumps(
+                    mappers, allow_nan=False).encode(), np.uint8),
+                label=opt(md.label), weight=opt(md.weight),
+                init_score=opt(md.init_score),
+                group=opt(md.group, np.int64), position=opt(md.position))
+
+    @staticmethod
+    def load_binary(path: str) -> "BinnedDataset":
+        """A dataset written by ``save_binary`` (or by the JAX package's)."""
+        z = np.load(path, allow_pickle=False)
+        if bytes(z["magic"].tobytes())[:13] != b"lgbtpu.bin.v2":
+            raise ValueError(f"{path} is not a lightgbm_tpu binary dataset "
+                             "(v2); write it again with save_binary()")
+        ds = BinnedDataset()
+        ds.binned = z["binned"]
+        ds.feature_names = [str(x) for x in z["feature_names"]]
+        ds.max_num_bins = int(z["max_num_bins"])
+        ds.num_data = int(z["num_data"])
+        ds.num_total_features = int(z["num_total_features"])
+        ds.used_features = [int(i) for i in z["used_features"]]
+        ds.categorical_features = [int(i)
+                                   for i in z["categorical_features"]]
+        if z["bundle_col_of"].size:
+            off_of = z["bundle_offset_of"].astype(np.int32)
+            ds.bundle_info = BundleInfo(
+                col_of=z["bundle_col_of"].astype(np.int32), offset_of=off_of,
+                num_column_bins=z["bundle_col_bins"].astype(np.int32),
+                n_columns=int(z["bundle_col_bins"].size),
+                n_bundled=int((off_of >= 0).sum()))
+        for blob in json.loads(z["mappers"].tobytes().decode()):
+            blob["bin_upper_bounds"] = np.asarray(
+                [float(v) for v in blob["bin_upper_bounds"]], np.float64)
+            blob["cat_to_bin"] = {int(k): int(v)
+                                  for k, v in blob["cat_to_bin"].items()}
+            blob["bin_to_cat"] = np.asarray(blob["bin_to_cat"], np.int64)
+            blob["min_value"] = float(blob["min_value"])
+            blob["max_value"] = float(blob["max_value"])
+            ds.mappers.append(BinMapper(**blob))
+        md = Metadata(ds.num_data)
+        for name in ("label", "weight", "position"):
+            if z[name].size:
+                setattr(md, name, z[name])
+        if z["init_score"].size:
+            md.set_init_score(z["init_score"])
+        if z["group"].size:
+            md.set_group(z["group"])
+        ds.metadata = md
+        return ds
 
     @staticmethod
     def construct(

@@ -25,8 +25,13 @@ Linear trees carry their block (``is_linear=1``, ``leaf_const``,
 ToString, src/io/tree.cpp) and predict from raw values; a random forest's
 header says ``average_output``, and its predictions are the mean of its
 iterations. ``dump_model`` of a loaded model (and of a continued one,
-through its merged text) dumps the parsed trees (``loaded_dump``). C++
-export (``to_if_else``) comes with the CLI (ROADMAP A16).
+through its merged text) dumps the parsed trees (``loaded_dump``).
+``save_model``, ``model_to_string`` and ``dump_model`` take an iteration
+window (``start_iteration``, ``num_iteration``; the text numbers its trees
+from 0, as LightGBM's SaveModelToString does) and the text's
+``feature_importances`` lines take ``importance_type`` (gains truncated to
+integers, as LightGBM writes them). ``LoadedGBDT.to_if_else`` is the CLI's
+``convert_model``: C++ if-else code of the whole model.
 """
 from __future__ import annotations
 
@@ -142,11 +147,58 @@ def _tree_to_text(host, tree_idx: int, mappers) -> str:
     ])
 
 
-def booster_to_string(booster, num_iteration: Optional[int] = None) -> str:
-    """(reference: GBDT::SaveModelToString, gbdt_model_text.cpp)"""
+def _importance_lines(imp: np.ndarray, names: List[str]) -> List[str]:
+    """The ``feature_importances:`` lines: each feature's importance
+    truncated to an integer, largest first, zeros left out (reference:
+    GBDT::SaveModelToString, gbdt_model_text.cpp)."""
+    imp = np.floor(np.asarray(imp, np.float64))
+    return [f"{names[j] if j < len(names) else f'Column_{j}'}={int(imp[j])}"
+            for j in np.argsort(-imp, kind="stable") if imp[j] > 0]
+
+
+def check_importance_type(importance_type: str) -> None:
+    if importance_type not in ("split", "gain"):
+        raise ValueError(f"importance_type={importance_type!r}: 'split' or "
+                         "'gain'")
+
+
+def _window(models: list, k: int, num_iteration: Optional[int],
+            start_iteration: int = 0) -> list:
+    """The trees of an iteration window: from ``start_iteration``,
+    ``num_iteration`` iterations of K trees (None: to the end; 0 here:
+    none, a continued model's cut that ends inside its loaded trees)."""
+    models = models[max(start_iteration, 0) * k:]
+    if num_iteration is not None and num_iteration >= 0:
+        models = models[:num_iteration * k]
+    return models
+
+
+def booster_to_string(booster, num_iteration: Optional[int] = None,
+                      start_iteration: int = 0,
+                      importance_type: str = "split") -> str:
+    """(reference: GBDT::SaveModelToString, gbdt_model_text.cpp) The
+    window's trees, numbered from 0, and the importances of the first
+    ``num_iteration`` iterations whatever ``start_iteration`` is (None: of
+    every tree), as LightGBM's FeatureImportance(num_iteration) counts
+    them (the JAX package's text counts every tree whatever the window),
+    so a snapshot's text is ``model_to_string(num_iteration=i)``."""
+    check_importance_type(importance_type)
     gbdt = booster._gbdt
     if isinstance(gbdt, LoadedGBDT):
-        return gbdt.original_text
+        if (num_iteration is None and start_iteration <= 0
+                and importance_type == "split"):
+            return gbdt.original_text
+        # the window in the layout booster_to_string writes (a blank line
+        # before "end of trees"): a snapshot's text is then the loaded
+        # final model's window
+        take = gbdt._model_window(num_iteration, start_iteration)
+        first = max(start_iteration, 0) * gbdt.num_class
+        return _emit_loaded(gbdt._header_lines,
+                            gbdt._tree_chunks[first:first + len(take)], take,
+                            [""] + gbdt._footer_lines, gbdt.feature_names,
+                            importance=_tree_importance(
+                                gbdt._model_window(num_iteration),
+                                importance_type))
     mappers = gbdt.mappers
     feature_infos = [
         "none" if m.is_trivial
@@ -154,10 +206,7 @@ def booster_to_string(booster, num_iteration: Optional[int] = None) -> str:
         if m.is_categorical else f"[{m.min_value:g}:{m.max_value:g}]"
         for m in mappers]
     k = gbdt.num_class
-    models = gbdt.models
-    if num_iteration is not None and num_iteration >= 0:
-        # None: all trees; 0: none
-        models = models[:num_iteration * k]
+    models = _window(gbdt.models, k, num_iteration, start_iteration)
     blocks = [_tree_to_text(m, i, mappers) for i, m in enumerate(models)]
     header = [
         "tree",
@@ -174,10 +223,10 @@ def booster_to_string(booster, num_iteration: Optional[int] = None) -> str:
         "",
     ]
     footer = ["", "end of trees", "", "feature_importances:"]
-    imp = gbdt.feature_importance()
-    for j in np.argsort(-imp, kind="stable"):
-        if imp[j] > 0:
-            footer.append(f"{gbdt.feature_names[j]}={int(imp[j])}")
+    footer += _importance_lines(
+        _tree_importance(_window(gbdt.models, k, num_iteration),
+                         importance_type, len(mappers)),
+        gbdt.feature_names)
     footer += ["", "parameters:"]
     footer += [f"[{key}: {value}]"
                for key, value in sorted(booster.params.items())]
@@ -262,19 +311,21 @@ def _loaded_node_json(t: "LoadedTree", node: int) -> Dict[str, Any]:
     return out
 
 
-def loaded_dump(loaded: "LoadedGBDT", num_iteration: Optional[int] = None
-                ) -> Dict[str, Any]:
+def loaded_dump(loaded: "LoadedGBDT", num_iteration: Optional[int] = None,
+                start_iteration: int = 0) -> Dict[str, Any]:
     """JSON dump of a parsed model (reference: ``loaded_dump``,
-    ``lightgbm_tpu/model_io.py:774-797``; GBDT::DumpModel), its leading
-    ``num_iteration`` iterations where given."""
+    ``lightgbm_tpu/model_io.py:774-797``; GBDT::DumpModel), the trees of
+    an iteration window where given, each with its index in the model."""
+    first = max(start_iteration, 0) * loaded.num_class
     trees = [{
-        "tree_index": i,
+        "tree_index": first + i,
         "num_leaves": int(t.num_leaves),
         "num_cat": int(t.num_cat),
         "shrinkage": float(t.shrinkage),
         "tree_structure": _loaded_node_json(t, 0 if t.num_nodes > 0
                                             else -1),
-    } for i, t in enumerate(loaded._model_window(num_iteration))]
+    } for i, t in enumerate(loaded._model_window(num_iteration,
+                                                 start_iteration))]
     return {
         "name": "tree",
         "version": "v4",
@@ -289,18 +340,19 @@ def loaded_dump(loaded: "LoadedGBDT", num_iteration: Optional[int] = None
     }
 
 
-def booster_to_dict(booster, num_iteration: Optional[int] = None
-                    ) -> Dict[str, Any]:
-    """(reference: GBDT::DumpModel, gbdt_model_text.cpp)"""
+def booster_to_dict(booster, num_iteration: Optional[int] = None,
+                    start_iteration: int = 0) -> Dict[str, Any]:
+    """(reference: GBDT::DumpModel, gbdt_model_text.cpp) The trees of an
+    iteration window, each with its index in the model."""
     gbdt = booster._gbdt
     if isinstance(gbdt, LoadedGBDT):
-        return loaded_dump(gbdt, num_iteration)
+        return loaded_dump(gbdt, num_iteration, start_iteration)
     k = gbdt.num_class
-    models = gbdt.models
-    if num_iteration is not None and num_iteration > 0:
-        models = models[:num_iteration * k]
+    models = _window(gbdt.models, k, num_iteration if num_iteration
+                     and num_iteration > 0 else None, start_iteration)
+    first = max(start_iteration, 0) * k
     trees = [{
-        "tree_index": i,
+        "tree_index": first + i,
         "num_leaves": host.num_leaves,
         "num_cat": 0,
         "shrinkage": host.shrinkage,
@@ -501,11 +553,9 @@ class LoadedGBDT:
     def _model_window(self, num_iteration: Optional[int] = None,
                      start_iteration: int = 0) -> List[LoadedTree]:
         """The trees of an iteration window (None or <= 0: to the end)."""
-        k = self.num_class
-        models = self.models[max(start_iteration, 0) * k:]
-        if num_iteration is not None and num_iteration > 0:
-            models = models[:num_iteration * k]
-        return models
+        return _window(self.models, self.num_class,
+                       num_iteration if num_iteration and num_iteration > 0
+                       else None, start_iteration)
 
     def predict_raw_matrix(self, arr: np.ndarray,
                            num_iteration: Optional[int] = None,
@@ -559,27 +609,132 @@ class LoadedGBDT:
                             self.models, self._footer_lines,
                             self.feature_names)
 
-    def feature_importance(self, importance_type: str = "split"
-                           ) -> np.ndarray:
-        """Splits (or summed gains) per feature over the loaded trees."""
-        if importance_type not in ("split", "gain"):
-            raise ValueError(f"importance_type={importance_type!r}: "
-                             "'split' or 'gain'")
-        out = np.zeros(self.num_features(), np.float64)
-        for t in self.models:
-            np.add.at(out, t.split_feature[:t.num_nodes],
-                      1.0 if importance_type == "split"
-                      else t.split_gain[:t.num_nodes])
-        return out
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: Optional[int] = None) -> np.ndarray:
+        """Splits (or summed gains) per feature over the loaded trees of
+        the first ``iteration`` iterations (None or <= 0: all)."""
+        check_importance_type(importance_type)
+        return _tree_importance(self._model_window(iteration),
+                                importance_type, self.num_features())
+
+    def to_if_else(self) -> str:
+        """C++ if-else prediction code of the whole model (reference:
+        ``LoadedGBDT.to_if_else``, ``lightgbm_tpu/model_io.py:475-572``;
+        LightGBM's Tree::ToIfElse behind ``task=convert_model``): one
+        function a tree over ``const double* x`` with the text's raw
+        thresholds and category bitsets, and ``Predict`` summing tree
+        ``i`` into class ``i % K``. Leaf values carry their shrinkage, so
+        the sum is the raw score. The text equals the JAX package's."""
+        out = [
+            "// generated by lightgbm_tpu task=convert_model",
+            "#include <cmath>",
+            "#include <cstdint>",
+            "#include <limits>",
+            "",
+            "namespace lightgbm_tpu_model {",
+            "",
+            "static inline bool CatInSet(const uint32_t* w, int n, "
+            "double v) {",
+            "  if (std::isnan(v) || v < 0) return false;",
+            "  int iv = static_cast<int>(v);",
+            "  if (iv >= 32 * n) return false;",
+            "  return (w[iv / 32] >> (iv % 32)) & 1u;",
+            "}",
+            "",
+        ]
+
+        def cpp_double(x) -> str:
+            # non-finite values as C++ expressions: bare inf or nan tokens
+            # do not compile
+            x = float(x)
+            if x != x:
+                return "std::numeric_limits<double>::quiet_NaN()"
+            if x in (float("inf"), float("-inf")):
+                return ("-" if x < 0 else "") \
+                    + "std::numeric_limits<double>::infinity()"
+            return repr(x)
+
+        def emit_node(t, node, depth, lines):
+            ind = "  " * (depth + 1)
+            if node < 0:
+                lines.append(f"{ind}return "
+                             f"{cpp_double(t.leaf_value[-(node + 1)])};")
+                return
+            f = int(t.split_feature[node])
+            dt = int(t.decision_type[node])
+            if dt & 1:
+                ci = int(t.threshold[node])
+                lo = int(t.cat_boundaries[ci])
+                hi = int(t.cat_boundaries[ci + 1])
+                words = ", ".join(f"{int(w)}u"
+                                  for w in t.cat_threshold[lo:hi])
+                lines.append(f"{ind}static const uint32_t cats_{node}[] = "
+                             f"{{{words}}};")
+                cond = f"CatInSet(cats_{node}, {hi - lo}, x[{f}])"
+            else:
+                default_left = "true" if dt & 2 else "false"
+                missing_type = (dt >> 2) & 3
+                thr = cpp_double(t.threshold[node])
+                if missing_type == 2:      # NaN
+                    cond = (f"(std::isnan(x[{f}]) ? {default_left} : "
+                            f"(x[{f}] <= {thr}))")
+                elif missing_type == 1:    # zero as missing
+                    cond = (f"((std::isnan(x[{f}]) || std::fabs(x[{f}]) "
+                            f"<= 1e-35) ? {default_left} : "
+                            f"(x[{f}] <= {thr}))")
+                else:
+                    cond = (f"((std::isnan(x[{f}]) ? 0.0 : x[{f}]) "
+                            f"<= {thr})")
+            lines.append(f"{ind}if ({cond}) {{")
+            emit_node(t, int(t.left_child[node]), depth + 1, lines)
+            lines.append(f"{ind}}} else {{")
+            emit_node(t, int(t.right_child[node]), depth + 1, lines)
+            lines.append(f"{ind}}}")
+
+        for i, t in enumerate(self.models):
+            out.append(f"double PredictTree{i}(const double* x) {{")
+            if t.num_nodes == 0:
+                out.append(f"  return {cpp_double(t.leaf_value[0])};")
+            else:
+                emit_node(t, 0, 0, out)
+            out += ["}", ""]
+        k = max(self.num_class, 1)
+        out += [f"const int kNumClass = {k};",
+                f"const int kNumTrees = {len(self.models)};", "",
+                "void Predict(const double* x, double* output) {",
+                "  for (int c = 0; c < kNumClass; ++c) output[c] = 0.0;"]
+        out += [f"  output[{i % k}] += PredictTree{i}(x);"
+                for i in range(len(self.models))]
+        if self.average_output:
+            out.append(f"  for (int c = 0; c < kNumClass; ++c) "
+                       f"output[c] /= {max(len(self.models) // k, 1)};")
+        out += ["}", "", "}  // namespace lightgbm_tpu_model"]
+        return "\n".join(out) + "\n"
+
+
+def _tree_importance(models, importance_type: str,
+                     width: int = 0) -> np.ndarray:
+    """Splits (or summed gains) per feature over parsed trees, at least
+    ``width`` features long."""
+    out = np.zeros(width, np.float64)
+    for t in models:
+        if not t.num_nodes:
+            continue
+        f = t.split_feature[:t.num_nodes]
+        if f.max() >= len(out):
+            out = np.pad(out, (0, int(f.max()) + 1 - len(out)))
+        np.add.at(out, f, 1.0 if importance_type == "split"
+                  else t.split_gain[:t.num_nodes])
+    return out
 
 
 def _emit_loaded(header_lines, chunks, models, footer_lines,
-                 feature_names) -> str:
+                 feature_names, importance_type: str = "split",
+                 importance: Optional[np.ndarray] = None) -> str:
     """A parsed model's text again: its header with new ``tree_sizes``, the
     tree blocks renumbered (leaf values written from ``models``), and its
-    footer with the split importances
-    recomputed over ``models`` (reference: ``_emit_loaded``,
-    ``lightgbm_tpu/model_io.py:643-687``)."""
+    footer with ``importance`` (default: recomputed over ``models``;
+    reference: ``_emit_loaded``, ``lightgbm_tpu/model_io.py:643-687``)."""
     blocks = []
     for i, (chunk, t) in enumerate(zip(chunks, models)):
         out = []
@@ -597,24 +752,15 @@ def _emit_loaded(header_lines, chunks, models, footer_lines,
     header = list(header_lines)
     header.append("tree_sizes=" + " ".join(str(len(b) + 1) for b in blocks))
     header.append("")
-    imp = np.zeros(0, np.float64)
-    for t in models:
-        if t.num_nodes:
-            f = t.split_feature[:t.num_nodes]
-            if f.max() >= len(imp):
-                imp = np.pad(imp, (0, int(f.max()) + 1 - len(imp)))
-            np.add.at(imp, f, 1.0)
+    imp = (_tree_importance(models, importance_type) if importance is None
+           else importance)
     footer = []
     in_imp = False
     for line in footer_lines:
         if line.strip() == "feature_importances:":
             in_imp = True
             footer.append(line)
-            for j in np.argsort(-imp, kind="stable"):
-                if imp[j] > 0:
-                    name = (feature_names[j] if j < len(feature_names)
-                            else f"Column_{j}")
-                    footer.append(f"{name}={int(imp[j])}")
+            footer += _importance_lines(imp, feature_names)
             continue
         if in_imp:
             if "=" in line and not line.startswith("["):
@@ -626,23 +772,29 @@ def _emit_loaded(header_lines, chunks, models, footer_lines,
 
 
 def merge_model_texts(pre, new_text: str,
-                      pre_num_iteration: Optional[int] = None) -> str:
-    """A continued model's text: the loaded model's tree blocks (the first
-    ``pre_num_iteration`` iterations of them, None: all), then those of
-    ``new_text``, under ``new_text``'s header and footer, so that stock
-    LightGBM and the JAX package load it (reference:
-    ``merge_model_texts``, ``lightgbm_tpu/model_io.py:697-712``). ``pre``:
-    a ``LoadedGBDT`` or model text."""
+                      pre_num_iteration: Optional[int] = None,
+                      pre_start_iteration: int = 0,
+                      importance_type: str = "split",
+                      importance: Optional[np.ndarray] = None) -> str:
+    """A continued model's text: the loaded model's tree blocks (
+    ``pre_num_iteration`` iterations of them from ``pre_start_iteration``,
+    None: to the end), then those of ``new_text``, under ``new_text``'s
+    header and footer, so that stock LightGBM and the JAX package load it
+    (reference: ``merge_model_texts``, ``lightgbm_tpu/model_io.py:
+    697-712``). ``pre``: a ``LoadedGBDT`` or model text; ``importance``:
+    the footer's importances (default: those of the trees written)."""
     if not isinstance(pre, LoadedGBDT):
         pre = LoadedGBDT(pre)
     new = LoadedGBDT(new_text)
-    take = len(pre.models)
-    if pre_num_iteration is not None:
-        take = pre_num_iteration * max(pre.num_class, 1)
+    first = max(pre_start_iteration, 0) * pre.num_class
+    take = len(_window(pre.models, pre.num_class, pre_num_iteration,
+                       pre_start_iteration))
     return _emit_loaded(new._header_lines,
-                        pre._tree_chunks[:take] + new._tree_chunks,
-                        pre.models[:take] + new.models,
-                        new._footer_lines, new.feature_names)
+                        pre._tree_chunks[first:first + take]
+                        + new._tree_chunks,
+                        pre.models[first:first + take] + new.models,
+                        new._footer_lines, new.feature_names,
+                        importance_type, importance)
 
 
 def _objective_from_string(obj_str: str):

@@ -23,6 +23,7 @@ The data: 3,000 rows of 8 features, 15 leaves.
 """
 import json
 import logging
+import os
 
 import jax
 import numpy as np
@@ -36,6 +37,7 @@ from lightgbm_tpu.boosting import gbdt as jgbdt
 from lightgbm_tpu_torch import _kernels
 from lightgbm_tpu_torch.boosting import dart as tdart
 from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+from lightgbm_tpu_torch.model_io import LoadedGBDT
 from test_torch_constraints import ORACLES, _data, dyadic  # noqa: F401
 from test_torch_sampling import assert_same_trees, jax_uniform
 
@@ -480,14 +482,34 @@ def test_pred_early_stop_is_refused_where_the_reference_acts(dyadic):
     np.testing.assert_allclose(bt.predict(X), bj.predict(X), atol=1e-5)
 
 
-def test_snapshot_freq_is_refused_where_the_reference_acts(tmp_path):
+def test_snapshot_freq_is_refused_where_the_reference_acts(tmp_path, dyadic):
+    """Model snapshots, once refused, now act where the reference acts
+    (the name kept from then): every ``snapshot_freq`` iterations (alias
+    ``save_period``) ``{output_model}.snapshot_iter_{i}``, whose text is
+    ``model_to_string(num_iteration=i)``, and whose trees are the JAX
+    package's snapshot's."""
     X, y, _ = _data(n=500)
     out = str(tmp_path / "m.txt")
     p = dict(BASE, snapshot_freq=1, output_model=out)
     lgb.train(dict(p, **ORACLES["xla"]), lgb.Dataset(X, label=y), 2)
     assert (tmp_path / "m.txt.snapshot_iter_2").exists()
-    with pytest.raises(NotImplementedError, match="A16"):
-        lgt.train(dict(p, device_type="cpu"), lgt.Dataset(X, y), 2)
-    # output_model alone changes nothing
-    lgt.train(dict(BASE, output_model=out, device_type="cpu"),
-              lgt.Dataset(X, y), 1)
+    port = str(tmp_path / "port.txt")
+    bst = lgt.train(dict(BASE, save_period=1, output_model=port,
+                         device_type="cpu"), lgt.Dataset(X, y), 2)
+    for i in (1, 2):
+        with open(f"{port}.snapshot_iter_{i}") as fh:
+            text = fh.read()
+        assert text == bst.model_to_string(num_iteration=i)
+        with open(f"{out}.snapshot_iter_{i}") as fh:
+            ref = LoadedGBDT(fh.read()).models
+        mine = LoadedGBDT(text).models
+        assert len(mine) == len(ref) == i
+        for a, b in zip(mine, ref):
+            np.testing.assert_array_equal(a.split_feature, b.split_feature)
+            np.testing.assert_array_equal(a.threshold, b.threshold)
+            np.testing.assert_allclose(a.leaf_value, b.leaf_value,
+                                       atol=1e-5)
+    # output_model alone writes no snapshot
+    lgt.train(dict(BASE, output_model=str(tmp_path / "none.txt"),
+                   device_type="cpu"), lgt.Dataset(X, y), 1)
+    assert not any(f.startswith("none") for f in os.listdir(tmp_path))

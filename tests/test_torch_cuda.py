@@ -1664,3 +1664,98 @@ def test_treeshap_kernel_u16_matches_plain(dev, nb):
     assert _kernels.MODE_LAUNCHES["treeshap/u16"] == 1
     _shap_close(kern, tree_shap_plain(b, paths, 1), paths)
 
+
+
+def _higgs_like(n, f, seed):
+    """Dense features, a nonlinear score and its binary cut (the smoke's
+    Higgs-shaped rows)."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, f).astype(np.float32)
+    w1 = rng.randn(f) / np.sqrt(f)
+    w2 = rng.randn(f) / np.sqrt(f)
+    logits = X @ w1 + 0.7 * np.abs(X @ w2) - 0.4 + 0.5 * rng.randn(n)
+    return X, (logits > 0).astype(np.float64), logits
+
+
+def _differing_splits(a, b):
+    return sum(int(((ta.split_feature != tb.split_feature)
+                    | (ta.split_bin != tb.split_bin)
+                    | (ta.default_left != tb.default_left)).sum())
+               for ta, tb in zip(a._gbdt.models, b._gbdt.models))
+
+
+def test_cv_on_card_matches_cpu(dev):
+    """cv at 100k x 28 rows, 3 stratified folds (66,666 training rows a
+    fold: the compact grower), 31 leaves, 3 rounds on weighted rows, on the
+    card and on the CPU: the same keys, every fold mean within 1e-4, each
+    fold's predictions within 1e-4 and its splits equal."""
+    X, y, _ = _higgs_like(100_000, 28, 11)
+    w = np.random.RandomState(13).uniform(0.5, 1.5, len(y))
+    params = {"objective": "binary", "metric": ["auc", "binary_logloss"],
+              "num_leaves": 31, "verbosity": -1}
+    res = {}
+    for device in ("cuda", "cpu"):
+        _kernels.reset_counts()
+        res[device] = lgt.cv(dict(params, device_type=device),
+                             lgt.Dataset(X, y, weight=w, free_raw_data=False),
+                             num_boost_round=3, nfold=3, stratified=True,
+                             seed=0, return_cvbooster=True)
+        if device == "cuda":
+            launches = dict(_kernels.LAUNCHES)
+            plain = dict(_kernels.PLAIN_CALLS)
+    assert launches["fused_split"] == launches["histogram"] == 3 * 3 * 31
+    assert sum(plain.values()) == 0
+    keys = [k for k in res["cuda"] if k != "cvbooster"]
+    assert keys == [k for k in res["cpu"] if k != "cvbooster"]
+    for k in keys:
+        np.testing.assert_allclose(res["cuda"][k], res["cpu"][k], rtol=0,
+                                   atol=1e-4, err_msg=k)
+    for a, b in zip(res["cuda"]["cvbooster"].boosters,
+                    res["cpu"]["cvbooster"].boosters):
+        assert a._gbdt.use_compact and a.device.type == "cuda"
+        assert _differing_splits(a, b) == 0
+        np.testing.assert_allclose(a.predict(X), b.predict(X), rtol=0,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["ranker", "regressor_early_stopping"])
+def test_estimators_on_card_match_cpu(dev, case):
+    """LGBMRanker at 35k rows (the masked grower, K1 dense) and
+    LGBMRegressor with an eval_set and early stopping on weighted rows, on
+    the card and on the CPU: predictions within 1e-4, the splits equal, the
+    same best iteration."""
+    fits = {}
+    if case == "ranker":
+        rng = np.random.RandomState(7)
+        X = rng.randn(35_000, 137).astype(np.float32)
+        rel = X @ (rng.randn(137) / np.sqrt(137)) + 0.8 * rng.randn(35_000)
+        y = np.digitize(rel, np.quantile(rel, [0.55, 0.75, 0.9, 0.97]))
+        group = np.full(35_000 // 120, 120)
+        group = np.append(group, 35_000 - group.sum())
+        for device in ("cuda", "cpu"):
+            _kernels.reset_counts()
+            fits[device] = lgt.LGBMRanker(
+                n_estimators=3, num_leaves=31, verbosity=-1,
+                device_type=device).fit(X, y.astype(float), group=group)
+            if device == "cuda":
+                launches = dict(_kernels.LAUNCHES)
+        g = fits["cuda"].booster_._gbdt
+        assert not g.use_compact and g.grower_params.hist_layout == "lane"
+        assert launches["histogram"] > 0 and launches["fused_split"] == 0
+    else:
+        X, _, logits = _higgs_like(120_000, 28, 7)
+        w = np.random.RandomState(13).uniform(0.5, 1.5, 120_000)
+        for device in ("cuda", "cpu"):
+            fits[device] = lgt.LGBMRegressor(
+                n_estimators=20, learning_rate=0.5, num_leaves=31,
+                early_stopping_rounds=2, early_stopping_min_delta=0.05,
+                verbosity=-1, device_type=device).fit(
+                X[:100_000], logits[:100_000], sample_weight=w[:100_000],
+                eval_set=[(X[100_000:], logits[100_000:])],
+                eval_sample_weight=[w[100_000:]])
+        assert (fits["cuda"].best_iteration_ == fits["cpu"].best_iteration_
+                and 0 < fits["cuda"].best_iteration_ < 20)
+    a, b = fits["cuda"].booster_, fits["cpu"].booster_
+    assert a.device.type == "cuda"
+    assert _differing_splits(a, b) == 0
+    np.testing.assert_allclose(a.predict(X), b.predict(X), rtol=0, atol=1e-4)

@@ -10,7 +10,8 @@
 * parameters outside the port's slices raise NotImplementedError naming the
   ROADMAP item that brings them; those of the last slice ported train;
   every key of the JAX package's ``PARAMS`` (read from its config.py with
-  ``ast``) is read, refused or ignored by the port, never dropped unseen.
+  ``ast``) is read, refused or ignored by the port, never dropped unseen,
+  and a parameter dict resolves to the JAX package's canonical values.
 """
 import importlib
 import os
@@ -46,11 +47,21 @@ def _port_modules():
 
 
 def test_import_loads_no_jax():
+    """Every module imports without JAX, and without scikit-learn, pandas,
+    matplotlib or graphviz (the card's machine has none of them: the
+    estimators, plotting and the CLI import them in the calls that need
+    them, if at all)."""
     code = (
         "import importlib, sys\n"
+        "for m in ('sklearn', 'pandas', 'matplotlib', 'graphviz'):\n"
+        "    sys.modules[m] = None\n"
         "import lightgbm_tpu_torch\n"
         f"for m in {_port_modules()!r}:\n"
         "    importlib.import_module(m)\n"
+        "assert lightgbm_tpu_torch.LGBMClassifier.__name__ == "
+        "'LGBMClassifier'\n"
+        "assert callable(lightgbm_tpu_torch.plot_importance)\n"
+        "assert callable(lightgbm_tpu_torch.register_parser)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m == 'lightgbm_tpu'"
         " or m.startswith('lightgbm_tpu.')]\n"
@@ -171,12 +182,8 @@ def test_parameters_of_the_ranking_and_renewal_slice_train(params):
     ({"tpu_checkpoint_dir": "ckpt"}, "A16"),
     ({"deterministic": True}, "B1/B2"),
     ({"num_machines": 2}, "A18"),
-    ({"two_round": True}, "A16"),
-    ({"snapshot_freq": 2}, "A16"),
-    ({"save_period": 5}, "A16"),
     ({"top_k": 30}, "A18"),
     ({"tpu_leaf_quant": "int8"}, "A17"),
-    ({"header": True}, "A16"),
 ])
 def test_parameters_outside_the_slice_raise(params, item):
     X, y = _data()
@@ -184,6 +191,35 @@ def test_parameters_outside_the_slice_raise(params, item):
               "verbosity": -1}, **params)
     with pytest.raises(NotImplementedError, match=item):
         lgt.train(p, lgt.Dataset(X, y), 1)
+
+
+@pytest.mark.parametrize("params,canon,value", [
+    ({"two_round": True}, "two_round", True),
+    ({"snapshot_freq": 2}, "snapshot_freq", 2),
+    ({"save_period": 5}, "snapshot_freq", 5),
+    ({"header": True}, "header", True),
+    ({"has_header": "true", "label": "name:y"}, "label_column", "name:y"),
+    ({"is_save_binary": True, "ignore_feature": "1,2"}, "ignore_column",
+     "1,2"),
+])
+def test_loader_and_snapshot_parameters_are_read(params, canon, value,
+                                                 tmp_path):
+    """The text loader's keys and ``snapshot_freq`` (once refused, naming
+    ROADMAP A16) are read under their canonical names;
+    training with them runs, a snapshot every ``snapshot_freq``
+    iterations (``tests/test_torch_boosting_modes.py`` holds its text,
+    ``tests/test_torch_loader_cli.py`` the loader against the JAX
+    package)."""
+    cfg = Config(params)
+    cfg.check_supported()
+    assert getattr(cfg, canon) == value
+    X, y = _data()
+    out = str(tmp_path / "m.txt")
+    p = dict({"objective": "binary", "device_type": "cpu", "verbosity": -1,
+              "output_model": out}, **params)
+    lgt.train(p, lgt.Dataset(X, y), 2)
+    snapped = sorted(os.listdir(tmp_path))
+    assert snapped == (["m.txt.snapshot_iter_2"] if value == 2 else [])
 
 
 @pytest.mark.parametrize("value,fused", [
@@ -305,7 +341,7 @@ def test_every_reference_parameter_has_a_place():
         assert sum(name in h for h in homes) == 1, name
     for name, (default, _typ, aliases, item) in REFUSED_PARAMS.items():
         assert default == ref[name][0] and aliases == ref[name][2], name
-        assert re.fullmatch(r"A\d+[a-z]?", item), name
+        assert re.fullmatch(r"A\d+[a-z]?( \([a-z]+\))?", item), name
     for name, aliases in IGNORED_PARAMS.items():
         assert aliases == ref[name][2], name
     for name in ("drop_rate", "max_drop", "skip_drop", "uniform_drop",
@@ -324,8 +360,9 @@ def test_parameter_homes_act():
     cfg.check_supported()
     with pytest.raises(NotImplementedError, match="A18"):
         Config({"topk": 21}).check_supported()
-    with pytest.raises(NotImplementedError, match="A16"):
-        Config({"label": "name:y"}).check_supported(dataset_only=True)
+    with pytest.raises(NotImplementedError, match=r"A16 \(checkpoints\)"):
+        Config({"checkpoint_dir": "c"}).check_supported(dataset_only=True)
+    assert Config({"label": "name:y"}).label_column == "name:y"
     import logging
     seen = []
     handler = logging.Handler()
@@ -338,3 +375,32 @@ def test_parameter_homes_act():
         logger.removeHandler(handler)
     assert any("Unknown parameter: no_such_key" in m for m in seen)
     assert not any("tpu_step_buckets" in m and "Unknown" in m for m in seen)
+
+
+def test_config_matches_the_reference_config():
+    """One parameter dict across aliases, lists and the loader's keys
+    resolves in the port's ``Config`` to the JAX package's canonical values
+    (the device aside: the port's is ``cuda`` or ``cpu``; and
+    ``max_conflict_rate``, which the JAX package reads with a default
+    outside its ``PARAMS``)."""
+    from lightgbm_tpu.config import Config as JaxConfig
+    params = {
+        "objective": "multiclassova", "num_class": 3, "eta": 0.05,
+        "num_leaf": 63, "min_child_samples": 7, "subsample": 0.8,
+        "subsample_freq": 2, "colsample_bytree": 0.7, "reg_lambda": 1.5,
+        "metric": ["multi_logloss", "multi_error"], "eval_at": [1, 3],
+        "monotone_constraints": [1, 0, -1], "max_bin_by_feature": [15, 31],
+        "has_header": "true", "label": "name:y", "weight": "2",
+        "query": "3", "blacklist": "4,5", "two_round_loading": True,
+        "is_save_binary": "false", "precise_float_parser": 1,
+        "parser_config_file": "parser.json", "save_period": "5",
+        "model_output": "m.txt", "input_model": "in.txt",
+        "early_stopping_rounds": 4, "verbosity": -1, "seed": 11,
+        "categorical_column": "0,2", "interaction_constraints": [[0, 1]]}
+    ref, port = JaxConfig(params), Config(params)
+    for name in PARAMS:
+        if name in ("device_type", "max_conflict_rate"):
+            continue
+        assert getattr(port, name) == getattr(ref, name), name
+    assert port.snapshot_freq == 5 and port.output_model == "m.txt"
+    assert port.metric == ["multi_logloss", "multi_error"]
