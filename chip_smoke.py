@@ -12,8 +12,9 @@ non-zero):
    sources in lightgbm_tpu_torch/csrc (one nvcc per source, all started
    together in the background: K1's and K2's phases wait for their own
    libraries only, then the card against the CPU on the compact path
-   (8.) and A14C_CHECKS (20.) run, and K3's phase waits for the whole
-   build);
+   (8.) and A14C_CHECKS (20.) run, and the compact path (5.) makes and
+   bins its rows; its timed rounds and every later phase wait for the
+   whole build);
 2. K1, the histogram kernel, against its plain PyTorch version at the Higgs
    root shape (dense channels and packed row records) and at F=100 (feature
    chunking), with its time, the plain version's and index_add_'s; then two
@@ -216,12 +217,9 @@ non-zero):
    f32's summation error on the run's own gradients), timed beside
    argsort + index_select and index_add_; GOSS's
    selection at the run's row count on the card against the CPU, row for
-   row, timed; the card against the CPU with the same draws for uniform,
-   balanced (lane and, K3 on a bagged mask, sublane) and by-query bagging,
-   GOSS, feature_fraction with
-   feature_fraction_bynode on both growers and bagged quantized renewal
-   (100k x 28 compact, 20k x 28 masked, 31 leaves, 2-3 rounds, GOSS 4;
-   1e-4, differing splits counted); early stopping at the same best iteration on both; a custom
+   row, timed (the card against the CPU for the sampling modes is the
+   card test test_sampled_train_on_card_matches_cpu, since PR 16); early
+   stopping at the same best iteration on both; a custom
    objective (hand-written logloss) against the built-in binary without
    boost-from-average (1e-4); init_model, card against CPU (1e-4), its
    5-tree text reloaded (1e-6); a rollback's validation scores against
@@ -309,7 +307,21 @@ non-zero):
    grower (1e-4, 0 differing splits);
 21. TRACE_CHECK (last): the profiler's raw events, which every profiled
    number above reads, against torch's public prof.events() on a small
-   trace (the same kernels, calls and launches).
+   trace (the same kernels, calls and launches);
+22. DETERMINISTIC (right after PREDICT_API, on MAIN's datasets):
+   deterministic=True on MAIN's configuration, 1 + 2 rounds twice, equal
+   model text and validation predictions bit for bit, every K1 and K2
+   launch in the deterministic (fixed-point) mode, no host sync in the
+   tree steps; a run killed by tpu_fault_spec before iteration 2 and
+   resumed from its snapshot of iteration 2 equal to them (the snapshot's
+   bytes, write and read seconds); the masked grower with sublane at
+   max_bin=63 on MAIN's first 2M rows, 1 + 1 rounds twice, equal, every
+   K3 launch deterministic; each deterministic mode at MAIN's shapes (K1
+   record at the root, K1 dense on the records' bin columns, K1 16-bit at
+   B = 1,024, K2 at a root split, K3 at the probe and on its small-data
+   path) launched twice with equal bits, against its plain fixed-point
+   version and within the f32 plain version's summation tolerance, timed
+   beside the default mode on the same inputs; one profiled tree.
 
 Each profiled tree must hold as many launches of each kernel as its wrapper
 counted in that round; a short trace is repeated. The line before the last
@@ -1008,6 +1020,13 @@ def device_us(fn, name, reps=30):
     for _ in range(3):   # a profile now and then records no device events
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # a trace taken after another one in the process can miss its
+            # first device activities (profile_tree): tiny kernels first
+            warm = torch.zeros(4, device="cuda")
+            for _ in range(256):
+                warm.add_(1.0)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -1060,7 +1079,10 @@ def check_k3_paths(g):
     return line
 
 
-def phase_main_path(lgt, rows, rounds, results):
+def phase_main_path(lgt, rows, rounds, results, before_training=None):
+    """MAIN: the rows are made and binned, then ``before_training`` (the
+    smoke waits there for the whole kernel build, so that no ``nvcc``
+    shares the host with the timed rounds), then 1 + ``rounds`` rounds."""
     from lightgbm_tpu_torch import _kernels
     from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
     t0 = time.perf_counter()
@@ -1089,6 +1111,8 @@ def phase_main_path(lgt, rows, rounds, results):
         ds.construct()
         dv.construct()
         construct_s = time.perf_counter() - t1
+        if before_training is not None:
+            before_training()
         evals = {}
         t_start = time.perf_counter()
         bst = lgt.train(params, ds, 1 + rounds, valid_sets=[dv],
@@ -1403,6 +1427,403 @@ def phase_predict_api(lgt, results):
     check(moved > 0, "refit moved no leaf")
     print("PREDICT_API", json.dumps(out), flush=True)
     results["predict_api"] = out
+
+
+DET_ROUNDS = 2                 # timed rounds after one warm-up round
+DET_KILL_AT = 2                # the killed run dies before this iteration
+DET_CKPT_FREQ = 2              # ... and resumes from its snapshot at 2
+DET_MASKED_ROWS = 2_000_000    # MAIN's first rows, masked at max_bin=63
+K3_SMALL_PROBE_ROWS = 20_000   # K3's small-data path (the masked 20k)
+
+
+def against_f64(kern, bins, ch, B, what, rel=2.0 ** -22):
+    """The f32 histogram ``kern [F, B, >=K]`` of ``bins [N, F]`` against the
+    float64 sum of ``ch [N, K]`` (``index_add_`` in float64 on the card):
+    every cell within ``rel`` of its float64 sum of |addends| (default: a
+    fixed-point sum, exact to 2^-40, then rounded once to f32). Returns the
+    largest error over that tolerance."""
+    n, f = bins.shape
+    k = ch.shape[1]
+    dev = bins.device
+    flat = ((bins.to(torch.int64) & 0xFFFF)
+            + torch.arange(f, device=dev) * B).reshape(-1)
+    ref = torch.zeros(f * B, k, dtype=torch.float64, device=dev)
+    ref.index_add_(0, flat, ch.to(torch.float64)[:, None, :].expand(
+        n, f, k).reshape(-1, k))
+    absr = torch.zeros_like(ref)
+    absr.index_add_(0, flat, ch.abs().to(torch.float64)[:, None, :].expand(
+        n, f, k).reshape(-1, k))
+    err = (kern[..., :k].to(torch.float64).reshape(-1, k) - ref).abs()
+    worst = float((err / (rel * absr + 1e-30)).max())
+    check(worst <= 1.0, f"{what}: {worst:.3g}x its tolerance against the "
+          "float64 sum")
+    return worst
+
+
+def summation_rel(bins):
+    """The tolerance, relative to a cell's sum of |addends|, of two f32
+    sums of a bin's rows in other orders (here the plain version's f32 sum
+    against the fixed-point one, exact to 2^-40 of it): each partial sum
+    rounds at most u = 2^-24 of the sum of |addends|, sqrt(m) u as a random
+    walk, sqrt(2m) u between two orders, five of those for the largest of
+    the cells; m the fullest bin's row count over the features of ``bins
+    [N, F]`` (uint8, or the int16 view of 16-bit bins)."""
+    m = max(int(torch.bincount(bins[:, j].to(torch.int64) & 0xFFFF).max())
+            for j in range(bins.shape[1]))
+    return 5 * math.sqrt(2 * m) * 2.0 ** -24
+
+
+def fixed_point_library(bins, q, B):
+    """``index_add_`` of the int64 fixed-point channels ``q [N, K]`` of
+    bins ``[N, F]`` on a flat index precomputed outside the timing: the
+    PyTorch call that computes the deterministic histogram's integer sums
+    (integer atomics, order-free). Returns the timed function."""
+    n, f = bins.shape
+    dev = bins.device
+    flat = ((bins.to(torch.int64) & 0xFFFF)
+            + torch.arange(f, device=dev) * B).reshape(-1)
+    src = q[:, None, :].expand(n, f, q.shape[1]).reshape(-1, q.shape[1])
+    out = torch.zeros(f * B, q.shape[1], dtype=torch.int64, device=dev)
+
+    def lib():
+        out.zero_()
+        out.index_add_(0, flat, src)
+    return lib
+
+
+def det_kernel_checks(bst):
+    """Each deterministic mode at MAIN's shapes, two launches of the same
+    inputs equal bit for bit, against its plain fixed-point version (bit
+    for bit; K3's tile path, which rounds each block's fixed f32 sum,
+    within tolerance) and within the f32 plain version's tolerance (counts
+    exact, grad and hess within the f32 summation tolerance of the cell's
+    sum of |addends|, ``summation_rel``: at these row counts two f32 sums
+    part by more than 1e-5 of it, which the card tests hold), timed
+    beside the default mode's launch on the same inputs, with the same
+    byte bound: K1 record mode at the root of the run's records, K1 dense
+    on the records' bin columns, K1 16-bit at WIDE_BINS' root shape (B =
+    1,024), K2 at the last tree's root split, K3 at the probe shape (10.5M
+    x 28, B = 64, the tile path) and on its small-data path (20k rows)."""
+    from lightgbm_tpu_torch.ops.compact import record_channels
+    from lightgbm_tpu_torch.ops.determinism import (channel_scale, det_scale,
+                                                    to_fixed)
+    from lightgbm_tpu_torch.ops.fused_split import (fused_split,
+                                                    fused_split_plain)
+    from lightgbm_tpu_torch.ops.pallas_histogram import (
+        SUBLANE_SMALL_ROWS, pallas_histogram, pallas_histogram_plain,
+        pallas_histogram_sublane, pallas_histogram_sublane_plain,
+        record_histogram, record_histogram_plain)
+    from lightgbm_tpu_torch.ops.split import go_left_pred
+    gbdt = bst._gbdt
+    layout = gbdt.layout
+    B = gbdt.grower_params.num_bins
+    F = layout.num_features
+    dev = gbdt.device
+    n = gbdt.num_data
+    work = gbdt.work.clone()
+    scratch = torch.zeros_like(work)
+    ch = record_channels(work, layout)
+    one = torch.ones((), device=dev)
+    det = det_scale(torch.stack([ch[:, 0].abs().amax(),
+                                 ch[:, 1].abs().amax(), one, one]), n)
+    out = {}
+
+    def twice(fn):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), "a deterministic launch repeated gave "
+              "other bits")
+        return a
+
+    # K1 record mode at the root
+    seg = torch.tensor([0, n, 0], dtype=torch.int32, device=dev)
+    hk = twice(lambda: record_histogram(work, scratch, seg, layout, B,
+                                        det=det))
+    check(torch.equal(hk, record_histogram_plain(work, scratch, seg, layout,
+                                                 B, det=det)),
+          "K1 record det differs from its plain fixed-point version")
+    plain = record_histogram_plain(work, scratch, seg, layout, B)
+    check(torch.equal(hk[..., 2:], plain[..., 2:]),
+          "K1 record det: the count channels differ")
+    f64 = against_f64(hk, work[:, :F], ch[:, :2], B, "K1 record det")
+    err = float((hk - plain).abs().max())
+    del plain
+    q = to_fixed(ch[:, :2], det[:2])
+    out["k1_record"] = {
+        "rows": n, "max_abs_err": 0.0, "f32_plain_max_abs_err": err,
+        "f64_worst_over_tolerance": f64,
+        "ms": time_ms(lambda: record_histogram(work, scratch, seg, layout, B,
+                                               det=det)),
+        "default_ms": time_ms(lambda: record_histogram(work, scratch, seg,
+                                                       layout, B)),
+        "plain_ms": time_ms(lambda: record_histogram_plain(
+            work, scratch, seg, layout, B, det=det), 2, 0),
+        "library_ms": time_ms(fixed_point_library(work[:, :F], q, B), 2, 1),
+        "bound_ms": 1e3 * (n * RECORD_ROW_BYTES + F * B * 16)
+        / HBM_BYTES_PER_S}
+    del q
+    # K1 dense on the records' bin columns (a row stride of 128 bytes)
+    bins = work[:, :F]
+    dch = ch[:, :3].contiguous()
+    ddet = channel_scale(dch, n)
+    hk = twice(lambda: pallas_histogram(bins, dch, B, "f32", det=ddet))
+    check(torch.equal(hk, pallas_histogram_plain(bins, dch, B, "f32",
+                                                 ddet)),
+          "K1 dense det differs from its plain fixed-point version")
+    f64 = against_f64(hk, bins, dch, B, "K1 dense det")
+    err = float((hk - pallas_histogram_plain(bins, dch, B, "f32")).abs()
+                .max())
+    out["k1_dense"] = {
+        "rows": n, "max_abs_err": 0.0, "f32_plain_max_abs_err": err,
+        "f64_worst_over_tolerance": f64,
+        "ms": time_ms(lambda: pallas_histogram(bins, dch, B, "f32",
+                                               det=ddet)),
+        "default_ms": time_ms(lambda: pallas_histogram(bins, dch, B, "f32")),
+        "plain_ms": time_ms(lambda: pallas_histogram_plain(
+            bins, dch, B, "f32", ddet), 2, 0),
+        "bound_ms": 1e3 * (n * (F + 4 * 3) + F * B * 3 * 4)
+        / HBM_BYTES_PER_S}
+    # K1 16-bit at WIDE_BINS' root shape
+    wb = 1024
+    g = torch.Generator(device=dev)
+    g.manual_seed(16)
+    wbins = torch.randint(0, wb, (n, F), generator=g, device=dev,
+                          dtype=torch.int16)
+    hk = twice(lambda: pallas_histogram(wbins, dch, wb, "f32", det=ddet))
+    check(torch.equal(hk, pallas_histogram_plain(wbins, dch, wb, "f32",
+                                                 ddet)),
+          "K1 16-bit det differs from its plain fixed-point version")
+    f64 = against_f64(hk, wbins, dch, wb, "K1 16-bit det")
+    err = float((hk - pallas_histogram_plain(wbins, dch, wb, "f32")).abs()
+                .max())
+    out["k1_u16"] = {
+        "rows": n, "bins": wb, "max_abs_err": 0.0,
+        "f32_plain_max_abs_err": err, "f64_worst_over_tolerance": f64,
+        "ms": time_ms(lambda: pallas_histogram(wbins, dch, wb, "f32",
+                                               det=ddet)),
+        "default_ms": time_ms(lambda: pallas_histogram(wbins, dch, wb,
+                                                       "f32")),
+        "plain_ms": time_ms(lambda: pallas_histogram_plain(
+            wbins, dch, wb, "f32", ddet), 2, 0),
+        "bound_ms": 1e3 * (n * (2 * F + 4 * 3) + F * wb * 3 * 4)
+        / HBM_BYTES_PER_S}
+    del wbins
+    # K2 at the last tree's root split
+    tree = gbdt.models[-1]
+    f, b = int(tree.split_feature[0]), int(tree.split_bin[0])
+    dl, nan = int(tree.default_left[0]), int(gbdt.nan_bin_arr[f])
+    gl = go_left_pred(work[:, f], b, bool(dl), nan, False,
+                      torch.zeros(8, dtype=torch.int32, device=dev))
+    n_left = int(gl.sum())
+    root_args = (0, 0, n, n_left, f, b, dl, nan, 0, None, layout, B)
+
+    def split(det_, plain=False):
+        fn = fused_split_plain if plain else fused_split
+        w, s, h = fn(work.clone(), scratch.clone(), *root_args, side=0,
+                     det=det_)
+        return torch.cat([h.reshape(-1).view(torch.uint8), w.reshape(-1),
+                          s.reshape(-1)])
+    both = twice(lambda: split(det))
+    check(torch.equal(both, split(det, plain=True)),
+          "K2 det differs from its plain version (records or histogram)")
+    cells = F * B * 4
+    hk = both[:cells * 4].view(torch.float32).reshape(F, B, 4)
+    del both
+    plain = split(None, plain=True)[:cells * 4].view(
+        torch.float32).reshape(F, B, 4)
+    check(torch.equal(hk[..., 2:], plain[..., 2:]),
+          "K2 det: the count channels differ")
+    err = float((hk - plain).abs().max())
+    del plain
+    n_small = min(n_left, n - n_left)
+    calls = [0]
+
+    def alternating(det_):
+        def run():
+            fused_split(work, scratch, *root_args, side=calls[0] % 2,
+                        det=det_)
+            calls[0] += 1
+        return run
+
+    def library():
+        perm = torch.argsort(gl.to(torch.uint8), stable=True)
+        torch.index_select(work, 0, perm, out=scratch)
+    out["k2_root_split"] = {
+        "rows": n, "n_left": n_left, "max_abs_err": 0.0,
+        "f32_plain_max_abs_err": err,
+        "ms": time_ms(alternating(det)),
+        "default_ms": time_ms(alternating(None)),
+        "plain_ms": time_ms(lambda: fused_split_plain(
+            work.clone(), scratch.clone(), *root_args, det=det), 2, 0),
+        "library_ms": time_ms(library, 4, 2),
+        "bound_ms": 1e3 * (2 * n * layout.num_real_cols
+                           + n_small * record_row_bytes(layout))
+        / HBM_BYTES_PER_S}
+    del work, scratch, ch, dch, bins
+    # K3: the probe (the tile path) and the small-data path
+    for name, rows in (("k3_probe", 10_500_000),
+                       ("k3_small", K3_SMALL_PROBE_ROWS)):
+        fk, bk = 28, 64
+        bins_t = torch.randint(0, bk, (fk, rows), generator=g, device=dev,
+                               dtype=torch.uint8)
+        kch = torch.randn(rows, 3, generator=g, device=dev)
+        kch[:, 1] = kch[:, 1].abs()
+        kch[:, 2] = (kch[:, 2] > 0).float()
+        kdet = channel_scale(kch, rows)
+        hk = twice(lambda: pallas_histogram_sublane(bins_t, kch, bk, "f32",
+                                                    kdet))
+        plain_det = pallas_histogram_sublane_plain(bins_t, kch, bk, "f32",
+                                                   kdet)
+        if name == "k3_small":
+            check(torch.equal(hk, plain_det), "K3 small-path det differs "
+                  "from its plain fixed-point version")
+        # the tile path rounds each block's f32 sum: one f32 summation's
+        # tolerance; the small path is a fixed-point sum
+        krel = (summation_rel(bins_t.T) if rows > SUBLANE_SMALL_ROWS
+                else 2.0 ** -22)
+        f64 = against_f64(hk, bins_t.T, kch, bk, f"{name} det", krel)
+        err = float((hk - plain_det).abs().max())
+        reps = 10 if rows > K3_SMALL_PROBE_ROWS else 100
+        line = {"rows": rows, "max_abs_err": err, "rel_tolerance": krel,
+                "f64_worst_over_tolerance": f64,
+                "equals_plain_fixed_point": bool(torch.equal(hk, plain_det)),
+                "ms": time_ms(lambda: pallas_histogram_sublane(
+                    bins_t, kch, bk, "f32", kdet), reps),
+                "default_ms": time_ms(lambda: pallas_histogram_sublane(
+                    bins_t, kch, bk, "f32"), reps),
+                "plain_ms": time_ms(lambda: pallas_histogram_sublane_plain(
+                    bins_t, kch, bk, "f32", kdet), 2, 0),
+                "bound_ms": 1e3 * (rows * (fk + 4 * 3) + fk * bk * 3 * 4)
+                / HBM_BYTES_PER_S}
+        if name == "k3_probe":
+            line["library_ms"] = time_ms(fixed_point_library(
+                bins_t.T, to_fixed(kch, kdet), bk), 2, 1)
+        out[name] = line
+        del bins_t, kch
+    print("DETERMINISTIC_KERNELS", json.dumps(out), flush=True)
+    return out
+
+
+def phase_deterministic(lgt, results):
+    """deterministic=True on MAIN's configuration and datasets: two runs
+    (1 + DET_ROUNDS rounds) give equal bits, trees and predictions; a run
+    killed by ``tpu_fault_spec`` and resumed from its snapshot equals them;
+    every K1 and K2 launch of the runs is in the deterministic mode, and
+    the tree steps make no host sync. Beside MAIN's iterations/s: the
+    deterministic iterations/s, the snapshot's bytes and write and read
+    seconds, one profiled tree (each kernel's device ms beside its byte
+    bound), and the kernel checks (``det_kernel_checks``)."""
+    from lightgbm_tpu_torch.analysis import faultinject
+    from lightgbm_tpu_torch.io import checkpoint as ckpt_mod
+    ds, dv = results["main_datasets"]
+    X, _, _, n_val = results["higgs"]
+    Xv = X[-n_val:]
+    params = dict(MAIN_PARAMS, deterministic=True)
+    runs, lines = [], []
+    for _ in range(2):
+        bst, line = timed_run(lgt, params, ds, dv, DET_ROUNDS)
+        runs.append(bst)
+        lines.append(line)
+    line = lines[0]
+    for k in ("histogram", "fused_split"):
+        check(line["mode_launches"][f"{k}/det"] == line["launches"][k] > 0,
+              f"{k}: not every launch of the deterministic run took the "
+              "deterministic mode")
+    check(sum(line["plain_calls"].values()) == 0,
+          "a plain version ran on the card")
+    check(line["host_syncs_in_tree_step"] == 0,
+          "host syncs in the deterministic tree steps")
+    check(not torch.are_deterministic_algorithms_enabled(),
+          "train left PyTorch's deterministic algorithms on")
+    # killed by an injected fault, resumed from the last snapshot
+    ckdir = tempfile.mkdtemp(prefix="lgbt_det_ckpt_")
+    timing = {}
+    write, load = ckpt_mod.write_snapshot, ckpt_mod.load_latest
+
+    def timed_write(*a, **kw):
+        t0 = time.perf_counter()
+        path = write(*a, **kw)
+        timing["write_s"] = time.perf_counter() - t0
+        timing["bytes"] = os.path.getsize(path)
+        return path
+
+    def timed_load(*a, **kw):
+        t0 = time.perf_counter()
+        state = load(*a, **kw)
+        timing["read_s"] = time.perf_counter() - t0
+        return state
+    ckpt_mod.write_snapshot, ckpt_mod.load_latest = timed_write, timed_load
+    try:
+        kp = dict(params, tpu_checkpoint_dir=ckdir,
+                  tpu_checkpoint_freq=DET_CKPT_FREQ)
+        killed = False
+        try:
+            lgt.train(dict(kp, tpu_fault_spec=f"kill@iteration="
+                                               f"{DET_KILL_AT}"),
+                      ds, 1 + DET_ROUNDS, valid_sets=[dv])
+        except faultinject.SimulatedKill:
+            killed = True
+        check(killed, "the injected kill did not fire")
+        t0 = time.perf_counter()
+        resumed = lgt.train(kp, ds, 1 + DET_ROUNDS, valid_sets=[dv])
+        resume_s = time.perf_counter() - t0
+    finally:
+        ckpt_mod.write_snapshot, ckpt_mod.load_latest = write, load
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+    def trees(bst):
+        return bst.model_to_string().split("\nparameters:")[0]
+    text = trees(runs[0])
+    check(trees(runs[1]) == text, "two deterministic runs grew other trees")
+    check(trees(resumed) == text, "the resumed run grew other trees")
+    pred = runs[0].predict(Xv)
+    check(np.array_equal(runs[1].predict(Xv), pred)
+          and np.array_equal(resumed.predict(Xv), pred),
+          "the deterministic runs' predictions differ")
+    # the masked grower with the sublane layout (K3, the tile path at
+    # these rows) on MAIN's first rows at max_bin=63
+    mds = lgt.Dataset(X[:DET_MASKED_ROWS], results["higgs"][1][
+        :DET_MASKED_ROWS], params={"max_bin": 63})
+    mdv = mds.create_valid(Xv, results["higgs"][1][-n_val:])
+    mparams = dict(MAIN_PARAMS, deterministic=True, num_leaves=63,
+                   max_bin=63, tpu_grower="masked",
+                   tpu_hist_layout="sublane")
+    masked = [timed_run(lgt, mparams, mds, mdv, 1) for _ in range(2)]
+    mline = masked[0][1]
+    check(mline["mode_launches"]["histogram_sublane/det"]
+          == mline["launches"]["histogram_sublane"] == 2 * 63,
+          "K3: not every launch of the masked deterministic run took the "
+          "deterministic mode")
+    check(trees(masked[0][0]) == trees(masked[1][0])
+          and np.array_equal(masked[0][0].predict(Xv),
+                             masked[1][0].predict(Xv)),
+          "two masked deterministic runs differ")
+    del masked
+    out = {"rounds_timed": DET_ROUNDS, "equal_runs": True,
+           "resumed_equal": True, "killed_at": DET_KILL_AT,
+           "iterations_per_s": line["iterations_per_s"],
+           "second_run_iterations_per_s": lines[1]["iterations_per_s"],
+           "main_iterations_per_s": results["main"]["iterations_per_s"],
+           "round_s": line["round_s"], "valid_auc": line["valid_auc"],
+           "launches": line["launches"],
+           "mode_launches": {k: v for k, v in line["mode_launches"].items()
+                             if v},
+           "host_syncs_in_tree_step": line["host_syncs_in_tree_step"],
+           "snapshot_bytes": timing["bytes"],
+           "snapshot_write_s": timing["write_s"],
+           "snapshot_read_s": timing["read_s"],
+           "resumed_run_s": resume_s,
+           "masked": {"iterations_per_s": mline["iterations_per_s"],
+                      "launches": mline["launches"],
+                      "mode_launches": {k: v for k, v in
+                                        mline["mode_launches"].items()
+                                        if v},
+                      "equal_runs": True}}
+    print("DETERMINISTIC", json.dumps(out), flush=True)
+    del runs[1], resumed
+    out["kernels"] = det_kernel_checks(runs[0])
+    out["profile"] = profile_tree(runs[0], 1.0 / line["iterations_per_s"])
+    results["deterministic"] = out
 
 
 QUANT_ROUNDS = 2                 # timed rounds after one warm-up round
@@ -2709,7 +3130,10 @@ def phase_multiclass_masked(lgt, results):
 
 
 # the device functions of each kernel of the port, as the profiler names them
-KERNEL_FUNCTIONS = {"histogram": ("hist_kernel", "hist_wide_kernel"),
+# (the deterministic mode's finishing pass, csrc/det_finish.cuh, is one
+# function in K1's and K3's libraries, listed under K1)
+KERNEL_FUNCTIONS = {"histogram": ("hist_kernel", "hist_wide_kernel",
+                                  "hist_det_finish_kernel"),
                     "fused_split": ("prep_kernel", "partition_kernel",
                                     "copyback_kernel"),
                     "histogram_sublane": ("hist_sublane_kernel",
@@ -2731,17 +3155,22 @@ ENTRY_FUNCTIONS = {"histogram": ("hist_kernel", "hist_wide_kernel"),
 # the device functions of a kernel mode that has its own instantiations (a
 # pattern of the profiler's demangled name, spaces removed): K1's integer
 # variants in record and in dense mode (the narrowed mode is a branch of
-# the dense one), K3's int32 accumulator, K1's wide-bin kernel and
-# TreeSHAP on uint16 rows. K2's quant and packed4 modes run the same
-# partition functions as its f32 mode, K1's packed4 the same record
-# functions
+# the dense one), K3's int32 accumulator, K1's wide-bin kernel (both
+# modes) and TreeSHAP on uint16 rows, the deterministic mode of K1 (record,
+# dense and wide-bin) and of K3 (both paths). K2's quant, packed4 and
+# deterministic modes run the same partition functions as its f32 mode,
+# K1's packed4 the same record functions
 MODE_FUNCTIONS = {
-    "histogram/quant": r"hist_kernel<true,true>",
-    "histogram/int8": r"hist_kernel<false,true>",
-    "histogram/u16": r"hist_wide_kernel\(",
+    "histogram/quant": r"hist_kernel<true,true,false>",
+    "histogram/int8": r"hist_kernel<false,true,false>",
+    "histogram/u16": r"hist_wide_kernel<(true|false)>\(",
     "treeshap/u16": r"treeshap_kernel<(unsignedshort|ushort|uint16_t)>",
     "histogram_sublane/int8": r"hist_sublane(_small)?_kernel<(true|false),"
-                              r"\d,int>"}
+                              r"\d,int,false>",
+    "histogram/det": r"hist_kernel<(true|false),false,true>"
+                     r"|hist_wide_kernel<true>\(",
+    "histogram_sublane/det": r"hist_sublane(_small)?_kernel<(true|false),"
+                             r"\d,float,true>"}
 
 
 # the port's profiler ranges (ops/grower_compact.py, boosting/dart.py)
@@ -4147,81 +4576,6 @@ def check_goss_selection(bst):
             "launches": launches, "host_syncs": syncs.get("bag_mask")}
 
 
-def tuned_cpu_vs_card(lgt):
-    """The card against the CPU with the same draws (seamed_draws): 100k x
-    28 on the compact grower, 20k x 28 on the masked one, 31 leaves, 2-3
-    rounds (GOSS 4 at learning rate 0.5, two past its warm-up; each case
-    still holds a reused bag or a fresh draw); predictions
-    within 1e-4, differing splits counted. The sublane case runs K3 on a
-    bagged mask channel."""
-    from lightgbm_tpu_torch import _kernels
-    out = {}
-    X, y = make_higgs_like(100_000, 28, seed=21)
-    Xm, ym = X[:20_000], y[:20_000]
-    base = {"objective": "binary", "num_leaves": 31, "verbosity": -1}
-    cases = [
-        ("bagging_compact", X, y, 3, {"bagging_fraction": 0.7,
-                                      "bagging_freq": 2}, None),
-        ("balanced_masked", Xm, ym, 2, {"bagging_fraction": 0.8,
-                                        "bagging_freq": 1,
-                                        "pos_bagging_fraction": 0.5,
-                                        "neg_bagging_fraction": 0.9}, None),
-        # K3 on a bagged mask channel
-        ("balanced_sublane_masked", Xm, ym, 2, {
-            "bagging_fraction": 0.8, "bagging_freq": 1,
-            "pos_bagging_fraction": 0.5, "neg_bagging_fraction": 0.9,
-            "max_bin": 63, "tpu_hist_layout": "sublane"}, None),
-        ("by_query_masked", Xm, ym, 2, {"bagging_fraction": 0.6,
-                                        "bagging_freq": 1,
-                                        "bagging_by_query": True},
-         np.full(200, 100)),
-        ("goss_compact", X, y, 4, {"data_sample_strategy": "goss",
-                                   "learning_rate": 0.5}, None),
-        ("feature_fraction_compact", X, y, 2, {
-            "feature_fraction": 0.7, "feature_fraction_bynode": 0.6,
-            "tpu_grower": "compact"}, None),
-        ("feature_fraction_masked", Xm, ym, 2, {
-            "feature_fraction": 0.7, "feature_fraction_bynode": 0.6,
-            "tpu_grower": "masked"}, None),
-        ("bagging_quant_renew_compact", X, y, 2, {
-            "bagging_fraction": 0.7, "bagging_freq": 1,
-            "use_quantized_grad": True, "stochastic_rounding": False,
-            "quant_train_renew_leaf": True}, None)]
-    with seamed_draws():
-        dataset = shared_datasets(lgt)
-        for name, Xc, yc, rounds, extra, group in cases:
-            ds = dataset(Xc, yc, extra.get("max_bin", 255), group)
-            _kernels.reset_counts()
-            boosters = {"cuda": lgt.train(dict(base, device_type="cuda",
-                                               **extra),
-                                          ds,
-                                          rounds)}
-            launches = dict(_kernels.LAUNCHES)
-            check(sum(_kernels.PLAIN_CALLS.values()) == 0,
-                  f"{name}: a plain version ran on the card")
-            if "sublane" in name:
-                check(launches["histogram_sublane"] > 0
-                      and launches["histogram"] == 0,
-                      f"{name}: not on K3 alone: {launches}")
-            boosters["cpu"] = lgt.train(dict(base, device_type="cpu",
-                                             **extra),
-                                        ds,
-                                        rounds)
-            want_compact = "masked" not in name
-            check(boosters["cuda"]._gbdt.use_compact == want_compact,
-                  f"{name}: wrong grower")
-            diff, differ = compare_boosters(boosters["cuda"],
-                                            boosters["cpu"], Xc)
-            check(diff <= 1e-4, f"{name}: card vs CPU predictions differ "
-                  f"by {diff}")
-            out[name] = {"rows": len(Xc), "rounds": rounds,
-                         "max_abs_pred_diff": diff,
-                         "differing_splits": differ,
-                         "launches": {k: v for k, v in launches.items()
-                                      if v}}
-    return out
-
-
 def tuned_api_checks(lgt):
     """Early stopping, a custom objective, continued training and a
     rollback on the card (100k x 28 rows, 20k more for validation, 31
@@ -4409,7 +4763,6 @@ def phase_tuned(lgt, results):
     checks = {"kernels": check_tuned_kernels(bst),
               "goss": check_goss_selection(bst)}
     del bst, gbdt, ds, dv
-    checks["cpu_vs_card"] = tuned_cpu_vs_card(lgt)
     checks["api"] = tuned_api_checks(lgt)
     print("TUNED_CHECKS", json.dumps(checks), flush=True)
     out["checks"] = checks
@@ -5725,11 +6078,13 @@ def main() -> int:
                               phase_kernels_k2(args.rows, results))),
               ("cpu_vs_card", lambda: phase_cpu_vs_card(lgt, results)),
               ("a14c_checks", lambda: phase_a14c_checks(lgt, results)),
-              ("k3", lambda: (built(), phase_kernels_k3(args.rows,
-                                                         results))),
+              # MAIN makes and bins its rows while K3 builds, and times
+              # its rounds after the build
               ("main", lambda: phase_main_path(lgt, args.rows, args.rounds,
-                                               results)),
+                                               results, built)),
+              ("k3", lambda: phase_kernels_k3(args.rows, results)),
               ("predict_api", lambda: phase_predict_api(lgt, results)),
+              ("deterministic", lambda: phase_deterministic(lgt, results)),
               ("quant", lambda: phase_quant(lgt, results)),
               ("unfused", lambda: phase_unfused(lgt, results)),
               ("pack4", lambda: phase_pack4(lgt, results)),
@@ -5794,6 +6149,22 @@ def main() -> int:
     uf = results["unfused"]
     p4 = results["pack4"]
     wb = results["wide_bins"]
+    dm = results["deterministic"]
+    dmk = dm["kernels"]
+    dm_tree = dm["profile"]["kernels"]
+
+    def det_entry(kern, mode, check_name, launches, extra):
+        """A kernel's deterministic mode: its launches in the DETERMINISTIC
+        runs, its times at MAIN's shapes beside the default mode's on the
+        same inputs, its plain fixed-point version, the library call and
+        the byte bound."""
+        c = dmk[check_name]
+        return {"launches": launches[kern] if mode is None
+                else launches[mode],
+                "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                "default_ms": c["default_ms"], "plain_ms": c["plain_ms"],
+                "bound_ms": c["bound_ms"], "bound_by": "bytes",
+                "library_ms": c.get("library_ms"), **extra}
 
     def unfused_path(run, kern, mode, root_key=None):
         """A kernel mode on an UNFUSED run: its launches there (counted in
@@ -6135,6 +6506,40 @@ def main() -> int:
              "segment_gather"],
                           **uf[run]["root"]["segment_gather"]}
                     for run in UNFUSED_RUNS}},
+        # the deterministic mode (fixed-point sums) of the three Pallas
+        # kernels' ports, on DETERMINISTIC's runs of MAIN's configuration
+        # (K1, K2) and of its rows masked at max_bin=63 with sublane (K3)
+        {"name": "histogram_det", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/histogram.cu",
+         "replaces": "lightgbm_tpu/ops/pallas_histogram.py:67",
+         **det_entry("histogram", "histogram/det", "k1_record",
+                     dm["mode_launches"], {
+                         "dense": dmk["k1_dense"], "u16": dmk["k1_u16"],
+                         "tree_device_ms": dm_tree["histogram"][
+                             "device_ms"],
+                         "tree_launches": dm_tree["histogram"]["launches"],
+                         "tree_bound_ms": dm_tree["histogram"]["bound_ms"],
+                         "iterations_per_s": dm["iterations_per_s"],
+                         "main_iterations_per_s": dm[
+                             "main_iterations_per_s"]})},
+        {"name": "fused_split_det", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/fused_split.cu",
+         "replaces": "lightgbm_tpu/ops/fused_split.py:198",
+         **det_entry("fused_split", "fused_split/det", "k2_root_split",
+                     dm["mode_launches"], {
+                         "tree_device_ms": dm_tree["fused_split"][
+                             "device_ms"],
+                         "tree_launches": dm_tree["fused_split"]["launches"],
+                         "tree_bound_ms": dm_tree["fused_split"][
+                             "bound_ms"]})},
+        {"name": "histogram_sublane_det", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/histogram_sublane.cu",
+         "replaces": "lightgbm_tpu/ops/pallas_histogram.py:170",
+         **det_entry("histogram_sublane", "histogram_sublane/det",
+                     "k3_probe", dm["masked"]["mode_launches"], {
+                         "small_path": dmk["k3_small"],
+                         "masked_iterations_per_s": dm["masked"][
+                             "iterations_per_s"]})},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -15,7 +15,8 @@ kernel's modes by ``"kernel/mode"`` (the quantized ``histogram/quant`` and
 ``fused_split/quant``, K1's dense ``histogram/int8`` and
 ``histogram/narrow``, K3's ``histogram_sublane/int8``, the packed records'
 ``*/packed4``, K2's ``fused_split/partition`` alone, K1's and TreeSHAP's
-16-bit bins ``*/u16``), and ``PLAIN_CALLS``
+16-bit bins ``*/u16``, the deterministic mode's ``*/det`` of K1, K2 and
+K3), and ``PLAIN_CALLS``
 counts calls of the plain PyTorch versions, so a run can show which path it
 took.
 """
@@ -52,6 +53,14 @@ KERNELS = {
                               _P, _P],
         "lgbt_hist_records_int": [_P, _P, _L, _L, _P, _I, _I, _I, _I, _I,
                                   _I, _P, _P],
+        # the deterministic mode: the f32 entries' arguments, then the
+        # scales and the int64 sums
+        "lgbt_hist_records_det": [_P, _P, _L, _L, _P, _I, _I, _I, _I, _I,
+                                  _I, _P, _P, _P, _P],
+        "lgbt_hist_dense_det": [_P, _P, _L, _L, _P, _I, _P, _I, _I, _I, _I,
+                                _P, _P, _P, _P],
+        "lgbt_hist_dense_u16_det": [_P, _L, _L, _P, _I, _I, _I, _I, _P, _P,
+                                    _P, _P],
     }),
     "fused_split": ("fused_split.cu", {
         "lgbt_fused_split": [_I, _I, _P, _P, _I, _L, _I, _I, _I, _I, _P, _P,
@@ -60,6 +69,8 @@ KERNELS = {
     "histogram_sublane": ("histogram_sublane.cu", {
         "lgbt_hist_sublane": [_P, _L, _P, _I, _L, _I, _I, _I, _P, _I, _I,
                               _I, _I, _I, _I, _I, _I, _P, _P],
+        "lgbt_hist_sublane_det": [_P, _L, _P, _I, _L, _I, _I, _I, _P, _I,
+                                  _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     }),
     # the unfused compact path's channels (and K3's bins) of a segment
     "segment_gather": ("segment_gather.cu", {
@@ -88,7 +99,9 @@ MODE_LAUNCHES: Dict[str, int] = {
     "histogram/packed4": 0, "fused_split/packed4": 0,
     "fused_split/partition": 0,
     # 16-bit bins (more than 256): K1's wide-bin kernel, TreeSHAP's rows
-    "histogram/u16": 0, "treeshap/u16": 0}
+    "histogram/u16": 0, "treeshap/u16": 0,
+    # the deterministic mode (fixed-point sums): K1, K2's K1, K3
+    "histogram/det": 0, "fused_split/det": 0, "histogram_sublane/det": 0}
 PLAIN_CALLS: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -122,7 +135,9 @@ def nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / KERNELS[name][0]).read_bytes()
+    # the shared headers are part of every source
+    src = b"".join(p.read_bytes() for p in [CSRC / KERNELS[name][0],
+                                             *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -26,6 +26,7 @@ visible card raises.
 from __future__ import annotations
 
 import copy
+import threading
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -38,6 +39,7 @@ from .model_io import (LoadedGBDT, booster_to_dict, booster_to_string,
                        check_importance_type, load_booster, loaded_dump,
                        merge_model_texts)
 from .objectives import create_objective
+from .ops.determinism import deterministic_algorithms
 
 _DATASET_PARAM_KEYS = ("max_bin", "min_data_in_bin", "bin_construct_sample_cnt",
                        "use_missing", "zero_as_missing", "data_random_seed",
@@ -354,6 +356,9 @@ class Booster:
                  model_file: Optional[str] = None,
                  model_str: Optional[str] = None):
         self.params = copy.deepcopy(params) if params else {}
+        # held by ``update`` and ``save_checkpoint``: a snapshot never sees
+        # a half-applied iteration (the JAX package's write/read locks)
+        self._step_lock = threading.RLock()
         self._valid_names: List[str] = []
         self._train_data_name = "training"
         self.best_iteration = -1
@@ -402,6 +407,7 @@ class Booster:
         self.device = gbdt.device
         self.train_set = None
         self._gbdt = gbdt
+        self._step_lock = threading.RLock()
         self._valid_names = []
         self._train_data_name = "training"
         self.best_iteration = -1
@@ -450,15 +456,65 @@ class Booster:
         train_set) -> (grad, hess)``: a custom objective, given the raw
         scores (``[n, K]`` for K trees an iteration) and returning the
         gradients in the dataset's row order. A model loaded from text
-        has no training state, as in the JAX package."""
+        has no training state, as in the JAX package. With
+        ``deterministic=True`` the iteration runs with PyTorch's
+        deterministic algorithms on (``ops/determinism.py``), the setting
+        before it restored after it."""
         if train_set is not None:
             raise NotImplementedError(
                 "changing train_set on update is not supported")
         fobj = fobj or self._custom_objective
-        if fobj is None:
-            return self._gbdt.train_one_iter()
-        grad, hess = _call_custom_objective(fobj, self)
-        return self._gbdt.train_one_iter(grad, hess)
+        with self._step_lock, deterministic_algorithms(
+                getattr(self._gbdt, "deterministic", False)):
+            if fobj is None:
+                return self._gbdt.train_one_iter()
+            grad, hess = _call_custom_objective(fobj, self)
+            return self._gbdt.train_one_iter(grad, hess)
+
+    # -- checkpoint / resume (io/checkpoint.py) ------------------------------
+    def _capture_checkpoint(self, callback_states: Optional[Dict] = None
+                            ) -> Dict[str, Any]:
+        """The complete training state (reference: ``_capture_checkpoint``,
+        ``lightgbm_tpu/basic.py:722-730``): the trainer's, the booster's
+        early-stopping bests and the engine's callback states."""
+        state = self._gbdt.capture_training_state()
+        state["best_iteration"] = int(self.best_iteration)
+        state["best_score"] = copy.deepcopy(self.best_score)
+        if callback_states:
+            state["callbacks"] = callback_states
+        return state
+
+    def save_checkpoint(self, directory: str, keep: int = 3,
+                        callback_states: Optional[Dict] = None) -> str:
+        """Write an atomic training snapshot into ``directory`` (write-
+        temp-fsync-rename, a checksum, keep-last-``keep`` rotation;
+        ``io/checkpoint.py``) and return its path (reference:
+        ``save_checkpoint``, ``lightgbm_tpu/basic.py:732-751``). The state
+        is captured under the step lock, so never inside an ``update``."""
+        from .io.checkpoint import write_snapshot
+        with self._step_lock:
+            state = self._capture_checkpoint(callback_states)
+        return write_snapshot(directory, int(state["iteration"]), state,
+                              keep=keep)
+
+    def _restore_checkpoint(self, state: Dict[str, Any],
+                            callbacks=None) -> None:
+        """Rebind this booster to a snapshot; raises ``ValueError`` when it
+        cannot resume this run (reference: ``_restore_checkpoint``,
+        ``lightgbm_tpu/basic.py:753-771``)."""
+        reason = self._gbdt.snapshot_compatible(state)
+        if reason is not None:
+            raise ValueError(reason)
+        self._gbdt.restore_training_state(state)
+        self.best_iteration = int(state.get("best_iteration", -1))
+        self.best_score = state.get("best_score", {}) or {}
+        saved = state.get("callbacks") or {}
+        for cb in callbacks or ():
+            key = getattr(cb, "_ckpt_key", None)
+            cb_state = getattr(cb, "state", None)
+            if key and key in saved and isinstance(cb_state, dict):
+                cb_state.clear()
+                cb_state.update(copy.deepcopy(saved[key]))
 
     def rollback_one_iter(self) -> "Booster":
         """Remove the last iteration's trees (reference:

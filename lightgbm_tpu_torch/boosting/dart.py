@@ -42,6 +42,24 @@ class DART(GBDT):
         # the iterations dropped in the last call of train_one_iter
         self.last_drop: List[int] = []
 
+    def capture_training_state(self):
+        """The drop state rides the snapshot (reference: ``lightgbm_tpu/
+        boosting/dart.py:38-58``): the drop RandomState and the per-tree
+        weights decide which trees later iterations drop."""
+        state = super().capture_training_state()
+        state["dart"] = {"rng": self._rng.get_state(),
+                         "tree_weight": [float(w) for w in self.tree_weight],
+                         "sum_weight": float(self.sum_weight)}
+        return state
+
+    def restore_training_state(self, state):
+        super().restore_training_state(state)
+        dart = state.get("dart")
+        if dart is not None:
+            self._rng.set_state(dart["rng"])
+            self.tree_weight = list(dart["tree_weight"])
+            self.sum_weight = float(dart["sum_weight"])
+
     def _select_drop(self) -> List[int]:
         """The iterations to drop (reference: ``DART._select_drop``,
         ``lightgbm_tpu/boosting/dart.py:59-84``; DroppingTrees)."""

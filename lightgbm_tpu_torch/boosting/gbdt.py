@@ -134,8 +134,26 @@ adds a multiple of a host tree to the train scores, the validation scores or
 both (rollback, DART's drops); a model with ``average_output`` (RF) predicts
 the mean of its iterations.
 
-Checkpoints and the JAX package's compile ladder are ROADMAP A16 (the ladder
-has no counterpart in eager PyTorch).
+The JAX package's compile ladder has no counterpart in eager PyTorch.
+
+Checkpoints (``io/checkpoint.py``): ``capture_training_state`` takes the
+complete training state to the host in numpy arrays and JSON scalars,
+``restore_training_state`` puts it back into a freshly built trainer, and
+``snapshot_compatible`` says why a snapshot cannot resume this run. The
+state is more than the JAX package's, whose draws derive from keys folded
+with the iteration: the port's come from stateful ``torch.Generator``s,
+whose states ride along (the bag draw, the quantized rounding, extra
+trees, by-node sampling, XENDCG's draws and call count), as do numpy's
+feature-fraction stream, the bag cache, the CEGB state, lambdarank's
+position biases, DART's drop state (``dart.py``) and the compact grower's
+records in their physical order, which histogram and score sums follow.
+The port keeps no pending-tree stack (each tree comes to the host as it is
+grown), so nothing is flushed first.
+
+``deterministic=True`` (``ops/determinism.py``): each tree's histograms
+take the kernels' fixed-point mode at scales made here from the tree's
+largest addends, and ``basic.Booster.update`` runs the iteration with
+PyTorch's deterministic algorithms on.
 """
 from __future__ import annotations
 
@@ -151,6 +169,8 @@ from ..io.dataset import (BinnedDataset, bin_dtype, pack4_eligible,
 from ..io.efb import EfbLayout, unbundle
 from ..metrics import Metric
 from ..ops.compact import RowLayout, _u8_to_f32, pack_rows
+from ..ops.determinism import cumsum as det_cumsum
+from ..ops.determinism import det_scale
 from ..ops.grower import (ExtraDraws, GrowerParams, TreeArrays, TreeOptions,
                           grow_tree)
 from ..ops.grower_compact import grow_tree_compact
@@ -247,6 +267,25 @@ class HostTree:
     @property
     def max_depth(self) -> int:
         return int(np.max(self.leaf_depth[:self.num_leaves], initial=0))
+
+
+def _tree_state(t: "HostTree") -> dict:
+    """A HostTree's fields as numpy arrays and plain scalars (a
+    checkpoint's ``models``)."""
+    out = {}
+    for name in HostTree.__slots__:
+        if hasattr(t, name):
+            v = getattr(t, name)
+            out[name] = np.asarray(v) if isinstance(v, np.ndarray) else v
+    return out
+
+
+def _tree_from_state(fields: dict) -> "HostTree":
+    """``_tree_state``'s inverse."""
+    t = HostTree.__new__(HostTree)
+    for name, v in fields.items():
+        setattr(t, name, v)
+    return t
 
 
 def stack_trees(models: Sequence[HostTree], device: torch.device,
@@ -530,6 +569,7 @@ class GBDT:
         self._pred_pack4 = False
         self._efb = None
         self._linear = False
+        self.deterministic = False
         return self
 
     def feature_is_categorical(self) -> np.ndarray:
@@ -542,6 +582,8 @@ class GBDT:
         n = train_set.num_data
         self.num_data = n
         self._n_real = n
+        # the kernels' fixed-point histograms (ops/determinism.py)
+        self.deterministic = bool(cfg.get("deterministic", False))
         grower = str(cfg.get("tpu_grower", "auto")).lower()
         obj = self.objective
         goss = str(cfg.get("data_sample_strategy", "bagging")) == "goss"
@@ -1333,15 +1375,29 @@ class GBDT:
         return {"g": g, "h": h, "true_g": true_g, "true_h": true_h,
                 "mask": mask}
 
+    def _det_scale(self, *cols: torch.Tensor) -> Optional[torch.Tensor]:
+        """The deterministic mode's fixed-point scales of a tree's
+        histogram channels (``cols``, each ``[N]``, or a float for a channel
+        bounded by it), made on the device; None outside the mode."""
+        if not self.deterministic:
+            return None
+        amax = torch.stack([
+            c.abs().amax().to(torch.float32) if torch.is_tensor(c)
+            # a fill on the device: no host-to-device copy in a tree step
+            else torch.full((), float(c), device=self.device)
+            for c in cols])
+        return det_scale(amax, self.num_data)
+
     def _grow_masked(self, k: int, it: dict, feat_mask, bynode_u, opts):
         """Tree ``k`` of an iteration on the masked grower: ``(tree,
         row_leaf)`` with the rows in the dataset's order."""
         mask = it["mask"]
+        g, h = it["g"][k] * mask, it["h"][k] * mask
         tree, row_leaf = grow_tree(
-            self.binned, it["g"][k] * mask, it["h"][k] * mask, mask,
+            self.binned, g, h, mask,
             self.num_bins_arr, self.nan_bin_arr, self.has_nan_arr, feat_mask,
             self.grower_params, self.binned_t, self.is_cat_arr, bynode_u,
-            opts, self._forced)
+            opts, self._forced, det=self._det_scale(g, h, mask))
         if self._quant_renew:
             # in-bag true gradient sums a leaf, by each row's leaf
             L = tree.leaf_value.shape[0]
@@ -1434,12 +1490,16 @@ class GBDT:
         self.work[:, lay.grad_off:lay.grad_off + 4 * cols.shape[0]] = \
             cols.T.reshape(-1).view(torch.uint8).reshape(self.num_data, -1)
 
+        # the deterministic mode's scales of the records' (grad, hess,
+        # in-bag, raw) channels; integer codes sum exactly already
+        det = (self._det_scale(cols[0], cols[1], 1.0, 1.0)
+               if it["quant_scales"] is None else None)
         (tree, row_leaf, self.work, self.scratch, leaf_start,
          leaf_nrows) = grow_tree_compact(
             self.work, self.scratch, self.num_bins_arr, self.nan_bin_arr,
             self.has_nan_arr, feat_mask, lay, self.grower_params,
             self.num_data, self.is_cat_arr, self._efb, it["quant_scales"],
-            bynode_u, opts, self.tree_stats)
+            bynode_u, opts, self.tree_stats, det=det)
         # the score columns moved with the rows
         self.train_score = self._score_cols()
         if self.objective.renew_leaves:
@@ -1461,7 +1521,7 @@ class GBDT:
                       if self._cx_weight is not None else None)
             tg, th = self._gradients(self.train_score,
                                      self._col(self._cx_label), weight)
-            cs = torch.cumsum(torch.cat([tg, th]) * self._bag_col(), dim=1)
+            cs = det_cumsum(torch.cat([tg, th]) * self._bag_col(), dim=1)
             cs = torch.cat([torch.zeros_like(cs[:, :1]), cs], dim=1)
             ends = torch.clamp(leaf_start + leaf_nrows, max=n)
             starts = torch.clamp(leaf_start, max=n)
@@ -1590,6 +1650,136 @@ class GBDT:
                                       c, -1.0)
         del self.models[len(self.models) - k:]
         self.iter_ -= 1
+
+    # -- checkpoint / resume (io/checkpoint.py) -------------------------------
+    def _snapshot_meta(self) -> dict:
+        return {"boosting": self.boosting_type, "num_data": self._n_real,
+                "trees_per_iteration": self.num_class,
+                "num_leaves": int(self.grower_params.num_leaves)}
+
+    def snapshot_compatible(self, state) -> Optional[str]:
+        """Why this run cannot resume from ``state``, or None (reference:
+        ``snapshot_compatible``, ``lightgbm_tpu/boosting/gbdt.py:2606-
+        2630``). Structural checks only: a resumed run is expected to take
+        the interrupted run's parameters."""
+        if not isinstance(state, dict) or state.get("format") != 1:
+            return "unknown snapshot format"
+        meta = state.get("meta", {})
+        for key, val in self._snapshot_meta().items():
+            if meta.get(key) != val:
+                return (f"{key}: snapshot has {meta.get(key)!r}, this run "
+                        f"has {val!r}")
+        names = [n for n, _ in state.get("valid_scores", ())]
+        if names != [vs.name for vs in self.valid_sets]:
+            return (f"validation sets differ (snapshot {names}, run "
+                    f"{[vs.name for vs in self.valid_sets]})")
+        expect_compact = bool(self.use_compact
+                              and int(state.get("iteration", 0)) >= 1)
+        if (state.get("compact") is not None) != expect_compact:
+            return ("row-storage layout differs (compact vs masked grower: "
+                    "tpu_grower or the data size changed)")
+        return None
+
+    def _generators(self) -> dict:
+        """The run's ``torch.Generator``s that exist, by name."""
+        gens = {"bag": getattr(self.sample_strategy, "_gen", None),
+                "quant": self._quant_gen, "extra": self._extra_gen,
+                "bynode": self._bynode_gen,
+                "objective": getattr(self.objective, "_gen", None)}
+        return {k: g for k, g in gens.items() if g is not None}
+
+    def capture_training_state(self) -> dict:
+        """The complete training state on the host (reference:
+        ``capture_training_state``, ``lightgbm_tpu/boosting/gbdt.py:2632-
+        2690``): trees, iteration, shrinkage, the cached train and
+        validation scores, every random stream, the bag cache, the CEGB
+        state, the position biases and the compact grower's records in
+        their physical order (and, through ``dart.py``, DART's drops). The
+        one planned device-to-host fetch outside stop checks: the engine
+        calls it at a checkpoint tick only."""
+        def host(t):
+            return None if t is None else t.detach().cpu().numpy()
+
+        strat = self.sample_strategy
+        obj = self.objective
+        state = {
+            "format": 1,
+            "meta": self._snapshot_meta(),
+            "iteration": int(self.iter_),
+            "models": [_tree_state(t) for t in self.models],
+            "shrinkage_rate": float(self.shrinkage_rate),
+            "init_scores": [float(v) for v in self._init_scores],
+            "has_init_score": bool(self._has_init_score),
+            "train_score": host(self.train_score),
+            "valid_scores": [(vs.name, host(vs.score))
+                             for vs in self.valid_sets],
+            "feat_rng": self._feat_rng.get_state(),
+            "generators": {k: g.get_state().numpy()
+                           for k, g in self._generators().items()},
+            "bag_cached": host(getattr(strat, "_cached", None)),
+            "cegb_used": host(self._cegb_used),
+            "cegb_charged": host(self._cegb_charged),
+            "pos_biases": host(getattr(obj, "pos_biases", None)),
+            "objective_calls": getattr(obj, "_calls", None),
+            "compact": None,
+        }
+        if self.use_compact and self._compact_ready:
+            # the records in their physical order: histogram and score sums
+            # follow it. `scratch` holds no live row between trees (the
+            # grower gathers dual-resident segments back into `work`), so
+            # only `work` rides along
+            state["compact"] = {"work": host(self.work)}
+        return state
+
+    def restore_training_state(self, state: dict) -> None:
+        """Rebind this freshly built trainer to a snapshot (reference:
+        ``restore_training_state``, ``lightgbm_tpu/boosting/gbdt.py:2692-
+        2732``); the caller checks ``snapshot_compatible`` first. Each
+        array lands on the run's device, the records in the grower's own
+        buffers, each generator's state on its device."""
+        dev = self.device
+
+        def put(arr, like=None):
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+            return t.to(dev, like.dtype if like is not None else t.dtype)
+
+        self.models = [_tree_from_state(t) for t in state["models"]]
+        self.iter_ = int(state["iteration"])
+        self.shrinkage_rate = float(state["shrinkage_rate"])
+        self._init_scores = list(state["init_scores"])
+        self._has_init_score = bool(state["has_init_score"])
+        comp = state.get("compact")
+        if comp is not None:
+            if not self._compact_ready:
+                self._setup_compact_state(self.train_set)
+            self.work.copy_(put(comp["work"]))
+            self.scratch.zero_()
+        self.train_score = put(state["train_score"], self.train_score)
+        for vs, (_, arr) in zip(self.valid_sets, state["valid_scores"]):
+            vs.score = put(arr, vs.score)
+        self._feat_rng.set_state(state["feat_rng"])
+        strat = self.sample_strategy
+        if state.get("bag_cached") is not None and hasattr(strat, "_cached"):
+            strat._cached = put(state["bag_cached"])
+        if state.get("cegb_used") is not None:
+            self._cegb_used = put(state["cegb_used"])
+        if state.get("cegb_charged") is not None:
+            self._cegb_charged = put(state["cegb_charged"])
+        obj = self.objective
+        if state.get("pos_biases") is not None and obj is not None:
+            obj.pos_biases = put(state["pos_biases"])
+        if state.get("objective_calls") is not None and obj is not None:
+            obj._calls = int(state["objective_calls"])
+        gens = state.get("generators", {})
+        for name, arr in gens.items():
+            gen = torch.Generator(device=dev)
+            gen.set_state(torch.from_numpy(np.ascontiguousarray(arr)))
+            if name == "bag":
+                strat._gen = gen
+            elif name == "objective":
+                obj._gen = gen
+            else:
+                setattr(self, f"_{name}_gen", gen)
 
     def reset_config(self, config) -> None:
         """Take the learning rate, the tree's size and regularization and

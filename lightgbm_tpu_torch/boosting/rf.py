@@ -68,13 +68,14 @@ class RF(GBDT):
         n_prev = float(self.iter_)
         for c in range(self.num_class):
             tree_index = len(self.models)
+            g, h = grad[c] * mask, hess[c] * mask
             tree, row_leaf = grow_tree(
-                self.binned, grad[c] * mask, hess[c] * mask, mask,
+                self.binned, g, h, mask,
                 self.num_bins_arr, self.nan_bin_arr, self.has_nan_arr,
                 feat_mask, self.grower_params, self.binned_t,
                 self.is_cat_arr, self._bynode_uniforms(tree_index),
                 self._tree_options(tree_index, int(self.feat_mask.shape[0])),
-                self._forced)
+                self._forced, det=self._det_scale(g, h, mask))
             self._note_used_features(tree)
             init = self._init_scores[c]
             # the running average: score * n_prev, plus the tree, over

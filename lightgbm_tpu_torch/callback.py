@@ -114,6 +114,9 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
     ``train``-prefixed fold means."""
     if stopping_rounds <= 0:
         raise ValueError("stopping_rounds should be greater than zero.")
+    # the bests live in a plain dict (``_callback.state``) that checkpoints
+    # carry under ``_ckpt_key``, so a resumed run stops where an
+    # uninterrupted one does (reference: lightgbm_tpu/callback.py:106-110)
     state = {"enabled": True}
 
     def _init(env: CallbackEnv) -> None:
@@ -145,7 +148,8 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
                                  for e in state["best_list"][i]))
 
     def _callback(env: CallbackEnv) -> None:
-        # a callback reused across train() calls starts afresh
+        # a callback reused across train() calls starts afresh; a resumed
+        # run starts past begin_iteration and keeps a restored state
         if env.iteration == env.begin_iteration or "best_score" not in state:
             _init(env)
         if not state["enabled"]:
@@ -180,4 +184,5 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
 
     _callback.order = 30
     _callback.state = state
+    _callback._ckpt_key = "early_stopping"
     return _callback

@@ -181,6 +181,15 @@ PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...]]] = {
     # the compact grower's fused split kernel K2: auto | on | off; off
     # partitions and then histograms the smaller child (resolve_fused)
     "tpu_fused": ("auto", str, ()),
+    # full-state checkpoints with auto-resume (io/checkpoint.py, engine.py)
+    "tpu_checkpoint_dir": ("", str, ("checkpoint_dir",)),
+    "tpu_checkpoint_freq": (0, int, ("checkpoint_freq",)),
+    "tpu_checkpoint_keep": (3, int, ("checkpoint_keep",)),
+    # injected faults (analysis/faultinject.py)
+    "tpu_fault_spec": ("", str, ()),
+    # the step watchdog: each update under a wall-clock deadline, a final
+    # snapshot when it fires (parallel/multihost.py run_with_deadline)
+    "tpu_collective_deadline_s": (0.0, float, ("collective_deadline",)),
 }
 
 # the JAX package's keys the port cannot honour yet: name -> (default, type,
@@ -197,16 +206,8 @@ REFUSED_PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...], str]] = {
     "machines": ("", str, ("workers", "nodes"), "A18"),
     "tpu_mesh_shape": ("", str, ("mesh_shape",), "A18"),
     "num_shards": (0, int, (), "A18"),
-    # full-state checkpoints (the JAX package's io/checkpoint.py)
-    "tpu_checkpoint_dir": ("", str, ("checkpoint_dir",), "A16 (checkpoints)"),
-    "tpu_checkpoint_freq": (0, int, ("checkpoint_freq",),
-                            "A16 (checkpoints)"),
-    "tpu_checkpoint_keep": (3, int, ("checkpoint_keep",),
-                            "A16 (checkpoints)"),
     # serving: quantized leaves change the level engine's outputs
     "tpu_leaf_quant": ("off", str, (), "A17"),
-    # tooling: injected faults
-    "tpu_fault_spec": ("", str, (), "A19"),
 }
 
 # the JAX package's keys that change no result for the inputs the port
@@ -258,7 +259,7 @@ IGNORED_PARAMS: Dict[str, Tuple[str, ...]] = {
     "tpu_drift_min_rows": ("drift_min_rows",),
     "tpu_serve_slo_ms": ("serve_slo_ms",),
     "tpu_serve_slo_target": ("serve_slo_target",),
-    "tpu_collective_deadline_s": ("collective_deadline",),
+    # the JAX package's multi-host bootstrap retries (ROADMAP A18)
     "tpu_collective_retries": (),
 }
 
@@ -473,8 +474,6 @@ class Config:
             need(str(self.tree_learner).lower() != "serial",
                  f"tree_learner={self.tree_learner!r}", "A18")
             need(self.num_machines > 1, "num_machines>1", "A18")
-            # the CUDA histograms add f32 atomics in no fixed order
-            need(self.deterministic, "deterministic histograms", "B1/B2")
         if todo:
             raise NotImplementedError(
                 "not in the PyTorch port yet: " + "; ".join(todo))

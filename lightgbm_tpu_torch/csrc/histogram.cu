@@ -124,6 +124,26 @@
 // shared-memory atomics, one a (live row, feature, channel), bind it as
 // they do the byte-bin modes.
 //
+// The deterministic mode (deterministic=True; template parameter DET, the
+// entries lgbt_hist_records_det, lgbt_hist_dense_det and
+// lgbt_hist_dense_u16_det): every float mode above adds its f32 channels in
+// fixed point. Each addend becomes an int64 q = rint(v * scale[k]) (scale a
+// power of two, one a channel for the whole tree, read on the device: the
+// caller chooses it so that rows x max |v| x scale < 2^62, ops/
+// determinism.py), the shared cells are int64 and add with integer
+// atomics, and each block adds its cells into an int64 [F, B, K] array
+// with integer global atomics; a finishing launch writes each cell as
+// (float)((double)sum / scale[k]). Integer sums do not depend on their
+// order, so the result is fixed by the inputs and equals, bit for bit, the
+// plain fixed-point sum (fixed_point_histogram). The record mode's counts
+// are the packed 16-bit integers they are in the default mode, added into
+// the output as exact f32 integers: order-free as well. The int64 cells
+// double the float part of the shared histogram: records at B = 256 take
+// 2 x 2 x 256 x 32 x 8 B + 32 KB of counts = 160 KB beside the 64 KB of row
+// buffers (still one chunk at F <= 32); dense and wide modes narrow their
+// chunks further as the launch's loops below find. The integer variants
+// already sum exactly, and take no such mode.
+//
 // A one-hot product on the tensor cores is not the route: it would first
 // write a 256-wide one-hot for every (row, feature) into shared memory:
 // 10.5M x 28 x 256 = 75 billion entries at the root of a Higgs-sized tree,
@@ -133,6 +153,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "det_finish.cuh"
 
 namespace {
 
@@ -170,6 +192,8 @@ struct Args {
   float* out;
   int* iout;           // the integer variants' int32 output
   int* tally;          // narrowed launches chosen on the device, or null
+  const double* scale;         // DET: the channels' fixed-point scales
+  unsigned long long* acc;     // DET: int64 [F, B, K (records: 2)] sums
   int K, F, B, bf16;
   int fc, Fp, kc, nf;  // feature chunk, its padded width, channels a chunk
   int u;               // row-buffer words a thread (8 or odd)
@@ -289,7 +313,8 @@ __device__ __forceinline__ int load_row(const Args& a, const uint8_t* rows,
 // + lo: grad, hess; in-bag, raw). Zeroes them.
 template <bool RECORDS, bool QUANT>
 __device__ __forceinline__ void flush_packed(const Args& a, uint32_t* smem,
-                                             int f0, int fc, int lg) {
+                                             uint32_t* counts, int f0, int fc,
+                                             int lg) {
   const int B = a.B;
   const int Fp = a.Fp;
   for (int i = threadIdx.x; i < B * Fp; i += kThreads) {
@@ -297,7 +322,6 @@ __device__ __forceinline__ void flush_packed(const Args& a, uint32_t* smem,
     if (f >= fc) continue;
     const long long o = ((long long)(f0 + f) * B + (i >> lg)) * 4;
     if (RECORDS) {
-      uint32_t* counts = smem + 2 * B * Fp;
       const uint32_t v = counts[i];
       if (v == 0u) continue;
       if (QUANT) {
@@ -322,8 +346,24 @@ __device__ __forceinline__ void flush_packed(const Args& a, uint32_t* smem,
   }
 }
 
-template <bool RECORDS, bool QUANT>
+// DET: an f32 addend as int64 fixed point (two's complement in a u64);
+// otherwise the addend itself
+template <bool DET, typename T>
+__device__ __forceinline__ auto to_cell(T v, double scale) {
+  if constexpr (DET) {
+    return (unsigned long long)__double2ll_rn((double)v * scale);
+  } else {
+    return v;
+  }
+}
+
+template <bool RECORDS, bool QUANT, bool DET = false>
 __global__ void __launch_bounds__(kThreads, 1) hist_kernel(const Args a) {
+  static_assert(!(QUANT && DET), "the integer variants are exact already");
+  // the grad and hess (dense: every channel) cells
+  using Cell = typename std::conditional<DET, unsigned long long,
+                                         Acc<QUANT>>::type;
+  constexpr int kWords = DET ? 2 : 1;   // 32-bit words a float cell
   extern __shared__ uint32_t smem[];
   const int f0 = (blockIdx.y % a.nf) * a.fc;
   const int fc = min(a.fc, a.F - f0);
@@ -358,10 +398,16 @@ __global__ void __launch_bounds__(kThreads, 1) hist_kernel(const Args a) {
   if ((int)blockIdx.x >= active) return;  // uniform across the block
 
   // [kc][B][Fp] cells; in record mode channel 2 holds the packed counts
-  Acc<QUANT>* hist = reinterpret_cast<Acc<QUANT>*>(smem);
-  uint32_t* counts = smem + 2 * B * Fp;
-  const int cells = kc * B * Fp;
+  Cell* hist = reinterpret_cast<Cell*>(smem);
+  uint32_t* counts = smem + 2 * kWords * B * Fp;
+  const int cells = (RECORDS ? 2 * kWords + 1 : kc * kWords) * B * Fp;
   for (int i = threadIdx.x; i < cells; i += kThreads) smem[i] = 0u;
+  // DET: the fixed-point scales of the block's channels
+  double sc[kMaxK];
+#pragma unroll
+  for (int k = 0; k < kMaxK; ++k) {
+    sc[k] = DET && k < (RECORDS ? 2 : kc) ? a.scale[k0 + k] : 1.0;
+  }
   uint32_t* buf0 = smem + cells + threadIdx.x * a.u;
   uint32_t* buf1 = buf0 + kThreads * a.u;
   const uint8_t* bytes0 = reinterpret_cast<const uint8_t*>(buf0);
@@ -378,7 +424,7 @@ __global__ void __launch_bounds__(kThreads, 1) hist_kernel(const Args a) {
     if (flush_rows && since_flush + tile > flush_rows) {
       // no packed cell of this block can carry before the flush
       __syncthreads();
-      flush_packed<RECORDS, QUANT>(a, smem, f0, fc, lg);
+      flush_packed<RECORDS, QUANT>(a, smem, counts, f0, fc, lg);
       __syncthreads();
       since_flush = 0;
     }
@@ -399,6 +445,16 @@ __global__ void __launch_bounds__(kThreads, 1) hist_kernel(const Args a) {
                                        r + kThreads, f0, fc, k0, kc, narrow,
                                        buf1, c1, p1)
             : 0;
+    // the channels set above (records and the narrowed words: two)
+    const int kset = RECORDS || narrow ? 2 : kc;
+    Cell q0[kMaxK], q1[kMaxK];
+#pragma unroll
+    for (int k = 0; k < kMaxK; ++k) {
+      if (k < kset) {
+        q0[k] = to_cell<DET>(c0[k], sc[k]);
+        q1[k] = to_cell<DET>(c1[k], sc[k]);
+      }
+    }
     for (int j = 0; j < rot; ++j) {
       int f = j + lane_f;
       if (f >= rot) f -= rot;
@@ -411,28 +467,28 @@ __global__ void __launch_bounds__(kThreads, 1) hist_kernel(const Args a) {
       if (b0 < B) {
         const int cell = b0 * Fp + f;
         if (RECORDS) {
-          atomicAdd(hist + cell, same ? c0[0] + c1[0] : c0[0]);
-          atomicAdd(hist + B * Fp + cell, same ? c0[1] + c1[1] : c0[1]);
+          atomicAdd(hist + cell, same ? q0[0] + q1[0] : q0[0]);
+          atomicAdd(hist + B * Fp + cell, same ? q0[1] + q1[1] : q0[1]);
           atomicAdd(counts + cell, same ? p0 + p1 : p0);
         } else {
 #pragma unroll
           for (int k = 0; k < kMaxK; ++k) {
             if (k < kc)
               atomicAdd(hist + k * B * Fp + cell,
-                        same ? c0[k] + c1[k] : c0[k]);
+                        same ? q0[k] + q1[k] : q0[k]);
           }
         }
       }
       if (!same && b1 < B) {
         const int cell = b1 * Fp + f;
         if (RECORDS) {
-          atomicAdd(hist + cell, c1[0]);
-          atomicAdd(hist + B * Fp + cell, c1[1]);
+          atomicAdd(hist + cell, q1[0]);
+          atomicAdd(hist + B * Fp + cell, q1[1]);
           atomicAdd(counts + cell, p1);
         } else {
 #pragma unroll
           for (int k = 0; k < kMaxK; ++k) {
-            if (k < kc) atomicAdd(hist + k * B * Fp + cell, c1[k]);
+            if (k < kc) atomicAdd(hist + k * B * Fp + cell, q1[k]);
           }
         }
       }
@@ -440,13 +496,30 @@ __global__ void __launch_bounds__(kThreads, 1) hist_kernel(const Args a) {
   }
   __syncthreads();
   if (narrow) {
-    flush_packed<false, true>(a, smem, f0, fc, lg);
+    flush_packed<false, true>(a, smem, counts, f0, fc, lg);
     return;
   }
   const int K = RECORDS ? 4 : a.K;
   const int float_ch = RECORDS ? 2 : kc;
-  for (int k = 0; k < kc; ++k) {
-    const uint32_t* cells_k = smem + k * B * Fp;
+  if (DET) {
+    // the int64 cells into the int64 sums, one integer atomic a non-zero
+    // cell; the counts below as in the default mode
+    const unsigned long long* h64 =
+        reinterpret_cast<const unsigned long long*>(smem);
+    const int ka = RECORDS ? 2 : a.K;
+    for (int k = 0; k < float_ch; ++k) {
+      for (int i = threadIdx.x; i < B * Fp; i += kThreads) {
+        const int f = i & (Fp - 1);
+        const unsigned long long v = h64[k * B * Fp + i];
+        if (f >= fc || v == 0ull) continue;
+        atomicAdd(a.acc + ((long long)(f0 + f) * B + (i >> lg)) * ka + k0
+                      + k,
+                  v);
+      }
+    }
+  }
+  for (int k = DET ? float_ch : 0; k < kc; ++k) {
+    const uint32_t* cells_k = k < float_ch ? smem + k * B * Fp : counts;
     for (int i = threadIdx.x; i < B * Fp; i += kThreads) {
       const int f = i & (Fp - 1);
       const uint32_t v = cells_k[i];
@@ -481,7 +554,7 @@ int num_sms() {
 
 // Chunking: the widest feature chunk (<= 64) and the most channels a chunk
 // whose histogram and row buffers fit one block's shared memory.
-template <bool RECORDS, bool QUANT = false>
+template <bool RECORDS, bool QUANT = false, bool DET = false>
 int launch(Args a, cudaStream_t stream) {
   if (a.F <= 0 || a.B <= 0 || a.B > 256 || a.K <= 0 || a.K > kMaxK)
     return (int)cudaErrorInvalidValue;
@@ -516,8 +589,12 @@ int launch(Args a, cudaStream_t stream) {
     return fc > 16 && fc < 32 && w <= 8 ? 8 : w | 1;
   };
   auto fp_of = [](int fc) { return (fc + 31) / 32 * 32; };
+  // 32-bit words of a (bin, feature): DET's float cells take two
+  auto cell_words = [&](int kc) {
+    return DET ? (RECORDS ? 5 : 2 * kc) : kc;
+  };
   auto smem_of = [&](int fc, int kc) {
-    return (long long)kc * a.B * fp_of(fc) * 4
+    return (long long)cell_words(kc) * a.B * fp_of(fc) * 4
            + 2LL * kThreads * row_words(fc) * 4;
   };
   int fc = a.F < kMaxChunk ? a.F : kMaxChunk;
@@ -543,7 +620,7 @@ int launch(Args a, cudaStream_t stream) {
   static int smem_set = 48 * 1024;
   if (smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        hist_kernel<RECORDS, QUANT>,
+        hist_kernel<RECORDS, QUANT, DET>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         kSmemLimit);
     if (e != cudaSuccess) return (int)e;
@@ -551,7 +628,7 @@ int launch(Args a, cudaStream_t stream) {
   }
   int occ = 0;
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &occ, hist_kernel<RECORDS, QUANT>, kThreads, smem);
+      &occ, hist_kernel<RECORDS, QUANT, DET>, kThreads, smem);
   if (e != cudaSuccess) return (int)e;
   const int chunks = a.nf * nk;
   int gx = num_sms() * (occ > 0 ? occ : 1) / chunks;
@@ -562,7 +639,7 @@ int launch(Args a, cudaStream_t stream) {
     const long long tiles = (a.count + kTile - 1) / kTile;
     if (tiles < gx) gx = (int)tiles;
   }
-  hist_kernel<RECORDS, QUANT>
+  hist_kernel<RECORDS, QUANT, DET>
       <<<dim3(gx, chunks), kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -573,13 +650,19 @@ struct WideArgs {
   long long stride;    // elements a row
   const float* ch;     // [n_rows, K]
   float* out;          // [F, B, K]
+  const double* scale;         // DET: the channels' fixed-point scales
+  unsigned long long* acc;     // DET: int64 [F, B, K] sums
   int K, F, B, bf16;
   int fc, nf, kc, br, bs;  // feature chunk, chunks; channels, bin range
 };
 
+template <bool DET = false>
 __global__ void __launch_bounds__(kThreads, 1)
     hist_wide_kernel(const WideArgs a) {
-  extern __shared__ float wcells[];
+  using Cell = typename std::conditional<DET, unsigned long long,
+                                         float>::type;
+  extern __shared__ __align__(16) unsigned char wraw[];
+  Cell* wcells = reinterpret_cast<Cell*>(wraw);
   const int f0 = (blockIdx.y % a.nf) * a.fc;
   const int fc = min(a.fc, a.F - f0);
   const int k0 = (blockIdx.y / a.nf) * a.kc;
@@ -589,20 +672,27 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (br <= 0) return;  // uniform across the block
   const int bs = a.bs;
   const int cells = a.kc * a.fc * bs;
-  for (int i = threadIdx.x; i < cells; i += kThreads) wcells[i] = 0.f;
+  for (int i = threadIdx.x; i < cells; i += kThreads) wcells[i] = Cell(0);
+  double sc[kMaxK];
+#pragma unroll
+  for (int k = 0; k < kMaxK; ++k) {
+    sc[k] = DET && k < kc ? a.scale[k0 + k] : 1.0;
+  }
   __syncthreads();
   const int lane_f = (threadIdx.x & 31) % fc;
   const long long step = (long long)gridDim.x * kThreads;
   for (long long r = blockIdx.x * (long long)kThreads + threadIdx.x;
        r < a.n_rows; r += step) {
-    float c[kMaxK];
+    Cell c[kMaxK];
     bool live = false;
 #pragma unroll
     for (int k = 0; k < kMaxK; ++k) {
       if (k < kc) {
         const float v = __ldg(a.ch + r * a.K + k0 + k);
-        c[k] = a.bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-        live |= c[k] != 0.f;
+        const float x = a.bf16 ? __bfloat162float(__float2bfloat16_rn(v))
+                               : v;
+        live |= x != 0.f;
+        c[k] = to_cell<DET>(x, sc[k]);
       }
     }
     if (!live) continue;
@@ -613,7 +703,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       // unsigned: bins below b0 wrap past br and drop, as do bins >= B
       const unsigned b = (unsigned)__ldg(row + f) - (unsigned)b0;
       if (b >= (unsigned)br) continue;
-      float* cell = wcells + f * bs + b;
+      Cell* cell = wcells + f * bs + b;
 #pragma unroll
       for (int k = 0; k < kMaxK; ++k) {
         if (k < kc) atomicAdd(cell + k * a.fc * bs, c[k]);
@@ -622,25 +712,30 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
   for (int i = threadIdx.x; i < cells; i += kThreads) {
-    const float v = wcells[i];
+    const Cell v = wcells[i];
     const int b = i % bs;
     const int f = (i / bs) % a.fc;
     const int k = i / (bs * a.fc);
-    if (v == 0.f || b >= br || f >= fc || k >= kc) continue;
-    atomicAdd(a.out + ((long long)(f0 + f) * a.B + b0 + b) * a.K + k0 + k,
-              v);
+    if (v == Cell(0) || b >= br || f >= fc || k >= kc) continue;
+    const long long o = ((long long)(f0 + f) * a.B + b0 + b) * a.K + k0 + k;
+    if constexpr (DET) {
+      atomicAdd(a.acc + o, v);
+    } else {
+      atomicAdd(a.out + o, v);
+    }
   }
 }
 
 // The wide-bin launch: the widest feature chunk (<= 64), then the most
 // channels, then the widest bin range whose cells fit a block.
+template <bool DET = false>
 int launch_wide(WideArgs a, cudaStream_t stream) {
   if (a.F <= 0 || a.B <= 0 || a.B > 65536 || a.K <= 0 || a.K > kMaxK
       || a.stride < a.F)
     return (int)cudaErrorInvalidValue;
   if (a.n_rows <= 0) return (int)cudaSuccess;
   auto smem_of = [](int fc, int kc, int br) {
-    return (long long)kc * fc * (br | 1) * 4;
+    return (long long)kc * fc * (br | 1) * (DET ? 8 : 4);
   };
   int fc = a.F < kMaxChunk ? a.F : kMaxChunk;
   int kc = a.K;
@@ -666,22 +761,22 @@ int launch_wide(WideArgs a, cudaStream_t stream) {
   static int smem_set = 48 * 1024;
   if (smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        hist_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        hist_wide_kernel<DET>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kSmemLimit);
     if (e != cudaSuccess) return (int)e;
     smem_set = kSmemLimit;
   }
   int occ = 0;
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &occ, hist_wide_kernel, kThreads, smem);
+      &occ, hist_wide_kernel<DET>, kThreads, smem);
   if (e != cudaSuccess) return (int)e;
   const int chunks = a.nf * nk * nz;
   long long gx = (long long)num_sms() * (occ > 0 ? occ : 1) / chunks;
   const long long row_blocks = (a.n_rows + kThreads - 1) / kThreads;
   if (gx > row_blocks) gx = row_blocks;
   if (gx < 1) gx = 1;
-  hist_wide_kernel<<<dim3((unsigned)gx, a.nf * nk, nz), kThreads, smem,
-                     stream>>>(a);
+  hist_wide_kernel<DET><<<dim3((unsigned)gx, a.nf * nk, nz), kThreads,
+                          smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -811,4 +906,66 @@ extern "C" int lgbt_hist_records_int(const void* work, const void* scratch,
                        grad_off, hess_off, cnt_off);
   a.iout = static_cast<int*>(out);
   return launch<true, true>(a, static_cast<cudaStream_t>(stream));
+}
+
+// The deterministic mode of the f32 entries above (the header note): the
+// same arguments, then `scale` (float64 [K]: records' grad and hess at 0
+// and 1) and `acc`, int64 [F, B, K] (records: [F, B, 2]) zeroed by the
+// caller; `out` zeroed by the caller as above.
+extern "C" int lgbt_hist_records_det(const void* work, const void* scratch,
+                                     long long n_rows, long long stride,
+                                     const void* seg, int F, int B,
+                                     int packed4, int grad_off, int hess_off,
+                                     int cnt_off, const void* scale,
+                                     void* acc, void* out, void* stream) {
+  Args a = record_args(work, scratch, n_rows, stride, seg, F, B, packed4,
+                       grad_off, hess_off, cnt_off);
+  a.out = static_cast<float*>(out);
+  a.scale = static_cast<const double*>(scale);
+  a.acc = static_cast<unsigned long long*>(acc);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int e = launch<true, false, true>(a, s);
+  if (e != 0) return e;
+  return det_finish(a.acc, a.scale, a.out, (long long)F * B, 2, 4, s);
+}
+
+extern "C" int lgbt_hist_dense_det(const void* bins, const void* bins_b,
+                                   long long n_rows, long long stride,
+                                   const void* seg, int packed4,
+                                   const void* ch, int K, int F, int B,
+                                   int bf16, const void* scale, void* acc,
+                                   void* out, void* stream) {
+  Args a = dense_args(bins, bins_b, n_rows, stride, seg, packed4, K, F, B);
+  a.ch = static_cast<const float*>(ch);
+  a.out = static_cast<float*>(out);
+  a.bf16 = bf16;
+  a.scale = static_cast<const double*>(scale);
+  a.acc = static_cast<unsigned long long*>(acc);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int e = launch<false, false, true>(a, s);
+  if (e != 0) return e;
+  return det_finish(a.acc, a.scale, a.out, (long long)F * B, K, K, s);
+}
+
+extern "C" int lgbt_hist_dense_u16_det(const void* bins, long long n_rows,
+                                       long long stride, const void* ch,
+                                       int K, int F, int B, int bf16,
+                                       const void* scale, void* acc,
+                                       void* out, void* stream) {
+  WideArgs a = {};
+  a.bins = static_cast<const uint16_t*>(bins);
+  a.n_rows = n_rows;
+  a.stride = stride;
+  a.ch = static_cast<const float*>(ch);
+  a.out = static_cast<float*>(out);
+  a.K = K;
+  a.F = F;
+  a.B = B;
+  a.bf16 = bf16;
+  a.scale = static_cast<const double*>(scale);
+  a.acc = static_cast<unsigned long long*>(acc);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int e = launch_wide<true>(a, s);
+  if (e != 0) return e;
+  return det_finish(a.acc, a.scale, a.out, (long long)F * B, K, K, s);
 }

@@ -82,11 +82,28 @@
 // grower without the fused kernel hands K3 a feature-major copy of a
 // segment whose count stays on the device (csrc/segment_gather.cu), the
 // geometry being that of the whole array.
+//
+// The deterministic mode (deterministic=True; lgbt_hist_sublane_det, f32
+// channels): the result is fixed by the inputs on both paths. On the tile
+// path a block's sum is already fixed (each warp adds its statically
+// assigned rows into its own copy in program order, and the copies and
+// replicas are summed in a fixed order); only the global atomics across
+// blocks are not, so each block's non-zero cell goes out as an int64
+// q = rint(v * scale[k]) with an integer atomic into an int64 [F, B, K]
+// array. On the small-data path the 8 warps of a block share one histogram
+// through shared-memory atomics, so there each addend is converted and the
+// shared cells are int64 ([fc][B][K | 1] x 8 B: the host halves the feature
+// chunk to fit its budget), flushed the same way. A finishing launch writes
+// each sum as (float)((double)sum / scale[k]). Integer sums do not depend
+// on their order. The scale is a power of two a channel, chosen by the
+// caller so that rows x max |v| x scale < 2^62 (ops/determinism.py).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "det_finish.cuh"
 
 namespace {
 
@@ -123,6 +140,8 @@ struct Args {
   long long n;
   void* out;          // [F, B, K] f32, or int32
   const int* cnt;     // a device count bounding the rows read, or null
+  const double* scale;         // DET: the channels' fixed-point scales
+  unsigned long long* acc;     // DET: int64 [F, B, K] sums
   int F, B, bf16, ch_vec;
   int fc, warps, group;
   int warp_bytes;     // a warp's stage, pending tile and pending channels
@@ -382,7 +401,7 @@ __device__ __forceinline__ Args bounded(const Args& a0) {
   return a;
 }
 
-template <bool VEC, int K, typename T>
+template <bool VEC, int K, typename T, bool DET = false>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 hist_sublane_kernel(const Args a0) {
   const Args a = bounded(a0);
@@ -533,9 +552,14 @@ hist_sublane_kernel(const Args a0) {
 #pragma unroll
     for (int cp = 0; cp < kMaxWarps; ++cp) v += part[cp];
     if (v != T(0)) {
-      atomicAdd(static_cast<T*>(a.out) + (long long)(f0 + col) * B * K
-                    + (i >> 5),
-                v);
+      const long long o = (long long)(f0 + col) * B * K + (i >> 5);
+      if constexpr (DET) {
+        // the block's fixed sum in fixed point; (i >> 5) % K is its channel
+        atomicAdd(a.acc + o, (unsigned long long)__double2ll_rn(
+                                 (double)v * a.scale[(i >> 5) % K]));
+      } else {
+        atomicAdd(static_cast<T*>(a.out) + o, v);
+      }
     }
   }
 }
@@ -554,19 +578,24 @@ constexpr int kSmallWarps = kSmallThreads / 32;
 constexpr int kSmallRows = 8;                       // rows a lane
 constexpr int kSmallTile = 32 * kSmallRows;         // 256 rows
 
-template <bool VEC, int K, typename T>
+template <bool VEC, int K, typename T, bool DET = false>
 __global__ void __launch_bounds__(kSmallThreads)
 hist_sublane_small_kernel(const Args a0) {
   const Args a = bounded(a0);
   constexpr int KS = K | 1;  // odd bin stride
-  extern __shared__ float hist_raw[];
-  T* hist = reinterpret_cast<T*>(hist_raw);  // [fc][B][KS]
+  // DET: int64 fixed-point cells
+  using Cell = typename std::conditional<DET, unsigned long long, T>::type;
+  extern __shared__ __align__(16) float hist_raw[];
+  Cell* hist = reinterpret_cast<Cell*>(hist_raw);  // [fc][B][KS]
   const int B = a.B;
   const int f0 = blockIdx.y * a.fc;
   const int fc = min(a.fc, a.F - f0);
   for (int i = threadIdx.x; i < fc * B * KS; i += kSmallThreads) {
-    hist[i] = T(0);
+    hist[i] = Cell(0);
   }
+  double sc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) sc[k] = DET ? a.scale[k] : 1.0;
   __syncthreads();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -636,22 +665,34 @@ hist_sublane_small_kernel(const Args a0) {
           w[q] = word;
         }
       }
-      T* hf = hist + f * B * KS;
+      Cell* hf = hist + f * B * KS;
 #pragma unroll
       for (int j = 0; j < kSmallRows; ++j) {
         const int b = (w[j >> 2] >> ((j & 3) * 8)) & 0xFF;
         if (!((live >> j) & 1u) || b >= B) continue;
 #pragma unroll
-        for (int k = 0; k < K; ++k) atomicAdd(hf + b * KS + k, c[j * K + k]);
+        for (int k = 0; k < K; ++k) {
+          if constexpr (DET) {
+            atomicAdd(hf + b * KS + k, (unsigned long long)__double2ll_rn(
+                                           (double)c[j * K + k] * sc[k]));
+          } else {
+            atomicAdd(hf + b * KS + k, c[j * K + k]);
+          }
+        }
       }
     }
   }
   __syncthreads();
-  T* o = static_cast<T*>(a.out) + (long long)f0 * B * K;
+  const long long o0 = (long long)f0 * B * K;
   for (int i = threadIdx.x; i < fc * B * K; i += kSmallThreads) {
     const int cell = i / K;  // f * B + b
-    const T v = hist[cell * KS + (i - cell * K)];
-    if (v != T(0)) atomicAdd(o + i, v);
+    const Cell v = hist[cell * KS + (i - cell * K)];
+    if (v == Cell(0)) continue;
+    if constexpr (DET) {
+      atomicAdd(a.acc + o0 + i, v);
+    } else {
+      atomicAdd(static_cast<T*>(a.out) + o0 + i, v);
+    }
   }
 }
 
@@ -669,31 +710,74 @@ int launch(const Args& a, int threads, int gx, int chunks, int smem,
   return (int)cudaGetLastError();
 }
 
-template <bool VEC, int K, typename T>
+template <bool VEC, int K, typename T, bool DET = false>
 int launch_k(const Args& a, bool small, int gx, int chunks, int smem,
              cudaStream_t s) {
   if (small) {
-    return launch<hist_sublane_small_kernel<VEC, K, T>>(a, kSmallThreads, gx,
-                                                        chunks, smem, s);
+    return launch<hist_sublane_small_kernel<VEC, K, T, DET>>(
+        a, kSmallThreads, gx, chunks, smem, s);
   }
-  return launch<hist_sublane_kernel<VEC, K, T>>(a, a.warps * 32, gx, chunks,
-                                                smem, s);
+  return launch<hist_sublane_kernel<VEC, K, T, DET>>(a, a.warps * 32, gx,
+                                                     chunks, smem, s);
 }
 
-template <bool VEC, typename T>
+template <bool VEC, typename T, bool DET = false>
 int dispatch(const Args& a, int K, bool small, int gx, int chunks, int smem,
              cudaStream_t s) {
   switch (K) {
-    case 1: return launch_k<VEC, 1, T>(a, small, gx, chunks, smem, s);
-    case 2: return launch_k<VEC, 2, T>(a, small, gx, chunks, smem, s);
-    case 3: return launch_k<VEC, 3, T>(a, small, gx, chunks, smem, s);
-    case 4: return launch_k<VEC, 4, T>(a, small, gx, chunks, smem, s);
-    case 5: return launch_k<VEC, 5, T>(a, small, gx, chunks, smem, s);
-    case 6: return launch_k<VEC, 6, T>(a, small, gx, chunks, smem, s);
-    case 7: return launch_k<VEC, 7, T>(a, small, gx, chunks, smem, s);
-    case 8: return launch_k<VEC, 8, T>(a, small, gx, chunks, smem, s);
+    case 1: return launch_k<VEC, 1, T, DET>(a, small, gx, chunks, smem, s);
+    case 2: return launch_k<VEC, 2, T, DET>(a, small, gx, chunks, smem, s);
+    case 3: return launch_k<VEC, 3, T, DET>(a, small, gx, chunks, smem, s);
+    case 4: return launch_k<VEC, 4, T, DET>(a, small, gx, chunks, smem, s);
+    case 5: return launch_k<VEC, 5, T, DET>(a, small, gx, chunks, smem, s);
+    case 6: return launch_k<VEC, 6, T, DET>(a, small, gx, chunks, smem, s);
+    case 7: return launch_k<VEC, 7, T, DET>(a, small, gx, chunks, smem, s);
+    case 8: return launch_k<VEC, 8, T, DET>(a, small, gx, chunks, smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The checks and Args of both entries below; returns 0 or an error code.
+int make_args(Args& a, const void* bins_t, long long ld, const void* ch,
+              int K, long long n, int F, int B, int bf16, void* out,
+              int small, int fc, int warps, int group, int grid_x, int smem,
+              int warp_bytes, const void* cnt, int cell_bytes) {
+  if (F <= 0 || B <= 0 || B > kMaxB || K <= 0 || K > kMaxK || n < 0
+      || fc < 1 || warps < 1 || warps > kMaxWarps || group < 1
+      || grid_x < 1 || (small ? warps != kSmallWarps : fc > kCols)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long need =
+      small ? (long long)fc * B * (K | 1) * cell_bytes
+            : warps * ((long long)B * K * kCols * 4 + warp_bytes);
+  if (smem > kSmemLimit || smem < need
+      || (!small && (warp_bytes % 16 != 0
+                     || warp_bytes < 2LL * fc * kStageRow
+                                     + 16LL * K * max_active_lanes(F, fc)))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  a = Args{};
+  a.bins = static_cast<const uint8_t*>(bins_t);
+  a.ld = ld;
+  a.ch = ch;
+  a.n = n;
+  a.out = out;
+  a.cnt = static_cast<const int*>(cnt);
+  a.F = F;
+  a.B = B;
+  a.bf16 = bf16;
+  a.ch_vec = (reinterpret_cast<uintptr_t>(ch) & 15) == 0;
+  a.fc = fc;
+  a.warps = warps;
+  a.group = group;
+  a.warp_bytes = warp_bytes;
+  return 0;
+}
+
+bool vec_bins(const void* bins_t, long long ld, bool small) {
+  const uintptr_t align = small ? 7 : 15;
+  return (reinterpret_cast<uintptr_t>(bins_t) & align) == 0
+         && (ld & (long long)align) == 0;
 }
 
 }  // namespace
@@ -714,40 +798,13 @@ extern "C" int lgbt_hist_sublane(const void* bins_t, long long ld,
                                  int fc, int warps, int group, int grid_x,
                                  int smem, int warp_bytes, int is_int,
                                  const void* cnt, void* stream) {
-  if (F <= 0 || B <= 0 || B > kMaxB || K <= 0 || K > kMaxK || n < 0
-      || fc < 1 || warps < 1 || warps > kMaxWarps || group < 1
-      || grid_x < 1 || (small ? warps != kSmallWarps : fc > kCols)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const long long need =
-      small ? (long long)fc * B * (K | 1) * 4
-            : warps * ((long long)B * K * kCols * 4 + warp_bytes);
-  if (smem > kSmemLimit || smem < need
-      || (!small && (warp_bytes % 16 != 0
-                     || warp_bytes < 2LL * fc * kStageRow
-                                     + 16LL * K * max_active_lanes(F, fc)))) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (n == 0) return (int)cudaSuccess;
   Args a;
-  a.bins = static_cast<const uint8_t*>(bins_t);
-  a.ld = ld;
-  a.ch = ch;
-  a.n = n;
-  a.out = out;
-  a.cnt = static_cast<const int*>(cnt);
-  a.F = F;
-  a.B = B;
-  a.bf16 = bf16;
-  a.ch_vec = (reinterpret_cast<uintptr_t>(ch) & 15) == 0;
-  a.fc = fc;
-  a.warps = warps;
-  a.group = group;
-  a.warp_bytes = warp_bytes;
+  const int e = make_args(a, bins_t, ld, ch, K, n, F, B, bf16, out, small,
+                          fc, warps, group, grid_x, smem, warp_bytes, cnt, 4);
+  if (e != 0) return e;
+  if (n == 0) return (int)cudaSuccess;
   const int chunks = (F + fc - 1) / fc;
-  const uintptr_t align = small ? 7 : 15;
-  const bool vec = (reinterpret_cast<uintptr_t>(bins_t) & align) == 0
-                   && (ld & (long long)align) == 0;
+  const bool vec = vec_bins(bins_t, ld, small);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_int) {
     return vec ? dispatch<true, int>(a, K, small, grid_x, chunks, smem, s)
@@ -755,4 +812,32 @@ extern "C" int lgbt_hist_sublane(const void* bins_t, long long ld,
   }
   return vec ? dispatch<true, float>(a, K, small, grid_x, chunks, smem, s)
              : dispatch<false, float>(a, K, small, grid_x, chunks, smem, s);
+}
+
+// The deterministic mode of the f32 entry above (the header note): the
+// same arguments (the small path's `smem` sized for 8-byte cells), then
+// `scale` (float64 [K]) and `acc`, int64 [F, B, K] zeroed by the caller.
+extern "C" int lgbt_hist_sublane_det(const void* bins_t, long long ld,
+                                     const void* ch, int K, long long n,
+                                     int F, int B, int bf16, void* out,
+                                     int small, int fc, int warps, int group,
+                                     int grid_x, int smem, int warp_bytes,
+                                     const void* cnt, const void* scale,
+                                     void* acc, void* stream) {
+  Args a;
+  const int e = make_args(a, bins_t, ld, ch, K, n, F, B, bf16, out, small,
+                          fc, warps, group, grid_x, smem, warp_bytes, cnt, 8);
+  if (e != 0) return e;
+  a.scale = static_cast<const double*>(scale);
+  a.acc = static_cast<unsigned long long*>(acc);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n > 0) {
+    const int chunks = (F + fc - 1) / fc;
+    const int r = vec_bins(bins_t, ld, small)
+        ? dispatch<true, float, true>(a, K, small, grid_x, chunks, smem, s)
+        : dispatch<false, float, true>(a, K, small, grid_x, chunks, smem, s);
+    if (r != 0) return r;
+  }
+  return det_finish(a.acc, a.scale, static_cast<float*>(out),
+                    (long long)F * B, K, K, s);
 }

@@ -10,22 +10,37 @@ the ``input_model`` parameter), attaches the validation sets, runs
 (``{output_model}.snapshot_iter_{i}``) and records ``best_iteration`` and
 ``best_score``. ``cv`` bins each fold anew from its raw rows, as the JAX
 package does, and advances all folds one update at a time: the callbacks
-see the fold means, so early stopping acts on them. Full-state
-checkpoints are ROADMAP A16 (checkpoints).
+see the fold means, so early stopping acts on them.
+
+Fault tolerance (reference: ``lightgbm_tpu/engine.py:229-282``,
+``:326-400``): with ``tpu_checkpoint_dir`` a run resumes from the newest
+valid snapshot there (an incompatible one is ignored with a warning) and
+writes a full-state snapshot every ``tpu_checkpoint_freq`` iterations
+(``io/checkpoint.py``, keep-last-``tpu_checkpoint_keep``); with
+``tpu_collective_deadline_s`` each update runs under the step watchdog
+(``parallel/multihost.py``), and a step that overruns writes a final
+snapshot and raises ``TrainingInterrupted``. ``tpu_fault_spec`` arms
+injected faults (``analysis/faultinject.py``: ``iteration``, ``step`` and
+``snapshot`` fire here). The JAX package's multi-host agreement on the
+resume point is ROADMAP A18, its flight recorder and metrics stream A19.
 """
 from __future__ import annotations
 
 import collections
 import copy
+import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
 from . import callback as callback_mod
+from .analysis.faultinject import active_plan
 from .basic import Booster, Dataset
 from .config import Config, alias_table
+from .io import checkpoint as ckpt_mod
 from .io.dataset import _to_2d_float
 from .model_io import LoadedGBDT
+from .parallel.multihost import TrainingInterrupted, run_with_deadline
 from .utils import log
 
 
@@ -119,38 +134,130 @@ def train(params: Dict[str, Any], train_set: Dataset,
     cbs_before, cbs_after = _setup_callbacks(params, callbacks)
     cfg = Config(params)
     snapshot_freq = int(cfg.snapshot_freq)
+
+    # fault tolerance: full-state checkpoints and the step watchdog
+    ckpt_dir = str(cfg.tpu_checkpoint_dir or "")
+    ckpt_freq = int(cfg.tpu_checkpoint_freq or 0)
+    ckpt_keep = int(cfg.tpu_checkpoint_keep)
+    deadline = float(cfg.tpu_collective_deadline_s or 0.0)
+    plan = active_plan(cfg)
+    all_cbs = cbs_before + cbs_after
+
+    def _callback_states():
+        out = {}
+        for cb in all_cbs:
+            key = getattr(cb, "_ckpt_key", None)
+            st = getattr(cb, "state", None)
+            if key and isinstance(st, dict):
+                out[key] = copy.deepcopy(st)
+        return out
+
+    def _write_checkpoint():
+        booster.save_checkpoint(ckpt_dir, keep=ckpt_keep,
+                                callback_states=_callback_states())
+
+    start_iteration = 0
+    if ckpt_dir:
+        found = ckpt_mod.load_latest(ckpt_dir)
+        if found is not None:
+            try:
+                booster._restore_checkpoint(found, callbacks=all_cbs)
+                start_iteration = int(found["iteration"])
+                log.info(f"Resuming from checkpoint at iteration "
+                         f"{start_iteration} ({ckpt_dir})")
+            except ValueError as err:
+                log.warning(f"ignoring incompatible checkpoint in "
+                            f"{ckpt_dir}: {err}")
+
     evaluation_result_list: List = []
-    for i in range(num_boost_round):
-        for cb in cbs_before:
-            cb(callback_mod.CallbackEnv(
-                model=booster, params=params, iteration=i,
-                begin_iteration=0, end_iteration=num_boost_round,
-                evaluation_result_list=None))
-        finished = booster.update()
-        evaluation_result_list = []
-        if (valid_sets is not None and (booster._valid_names
-                                        or is_valid_contain_train)) \
-                or feval is not None:
-            if is_valid_contain_train:
-                evaluation_result_list.extend(booster.eval_train(feval))
-            evaluation_result_list.extend(booster.eval_valid(feval))
-        try:
-            for cb in cbs_after:
+    abandoned, began = threading.Event(), set()
+    try:
+        for i in range(start_iteration, num_boost_round):
+            for cb in cbs_before:
                 cb(callback_mod.CallbackEnv(
                     model=booster, params=params, iteration=i,
                     begin_iteration=0, end_iteration=num_boost_round,
-                    evaluation_result_list=evaluation_result_list))
-        except callback_mod.EarlyStopException as e:
-            booster.best_iteration = e.best_iteration + 1
-            evaluation_result_list = e.best_score or []
-            break
-        # model snapshots (reference: ``lightgbm_tpu/engine.py:364-367``;
-        # GBDT::Train, gbdt.cpp:250-254)
-        if snapshot_freq > 0 and (i + 1) % snapshot_freq == 0:
-            booster.save_model(f"{cfg.output_model}.snapshot_iter_{i + 1}")
-        if finished:
-            log.info("Finished training (no further splits possible)")
-            break
+                    evaluation_result_list=None))
+            plan.fire("iteration", iteration=i)
+            if deadline > 0:
+                # the step watchdog: an overrunning step surfaces as
+                # TrainingInterrupted, handled below with a final snapshot.
+                # A step the watchdog gave up on before its update began
+                # never begins it
+                def _step(i=i):
+                    plan.fire("step", iteration=i)
+                    with booster._step_lock:
+                        if abandoned.is_set():
+                            return True
+                        began.add(i)
+                        return booster.update()
+                finished = run_with_deadline(
+                    _step, deadline, f"boosting iteration {i}")
+            else:
+                plan.fire("step", iteration=i)
+                finished = booster.update()
+            evaluation_result_list = []
+            if (valid_sets is not None and (booster._valid_names
+                                            or is_valid_contain_train)) \
+                    or feval is not None:
+                if is_valid_contain_train:
+                    evaluation_result_list.extend(booster.eval_train(feval))
+                evaluation_result_list.extend(booster.eval_valid(feval))
+            try:
+                for cb in cbs_after:
+                    cb(callback_mod.CallbackEnv(
+                        model=booster, params=params, iteration=i,
+                        begin_iteration=0, end_iteration=num_boost_round,
+                        evaluation_result_list=evaluation_result_list))
+            except callback_mod.EarlyStopException as e:
+                booster.best_iteration = e.best_iteration + 1
+                evaluation_result_list = e.best_score or []
+                break
+            # model snapshots (reference: ``lightgbm_tpu/engine.py:364-
+            # 367``; GBDT::Train, gbdt.cpp:250-254)
+            if snapshot_freq > 0 and (i + 1) % snapshot_freq == 0:
+                booster.save_model(
+                    f"{cfg.output_model}.snapshot_iter_{i + 1}")
+            # the checkpoint tick: the one planned device-to-host fetch
+            # outside stop checks (atomic write, keep-last-k)
+            if ckpt_dir and ckpt_freq > 0 and (i + 1) % ckpt_freq == 0:
+                _write_checkpoint()
+            if finished:
+                log.info("Finished training (no further splits possible)")
+                break
+    except TrainingInterrupted as err:
+        # a step overran its deadline: a best-effort final snapshot, then
+        # the structured error. The abandoned step may still be inside its
+        # update, so the snapshot takes the booster's step lock (waiting
+        # one more deadline) and is written only if the update never
+        # began: the state is then exactly that of iteration i's start.
+        # Otherwise the last periodic snapshot stands. The write runs under
+        # a deadline too (a hung step may still hold the device)
+        abandoned.set()
+
+        def _write_final():
+            if not booster._step_lock.acquire(timeout=deadline):
+                raise TrainingInterrupted(
+                    "the overrunning update still holds the booster",
+                    deadline)
+            try:
+                if i in began:
+                    raise TrainingInterrupted(
+                        "the overrunning update finished after its "
+                        "deadline")
+                _write_checkpoint()
+            finally:
+                booster._step_lock.release()
+        if ckpt_dir:
+            try:
+                run_with_deadline(_write_final, max(deadline, 30.0),
+                                  "final interrupt snapshot")
+                log.warning(f"training interrupted ({err}); final "
+                            f"snapshot written to {ckpt_dir}")
+            except BaseException as snap_err:  # noqa: BLE001 - best effort
+                log.warning(f"training interrupted ({err}); final "
+                            f"snapshot failed: {snap_err}")
+        raise
     if evaluation_result_list:
         best: Dict[str, Dict[str, float]] = collections.OrderedDict()
         for name, metric, value, _ in evaluation_result_list:

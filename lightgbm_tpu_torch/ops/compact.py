@@ -40,7 +40,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .histogram import _xla_histogram, _xla_histogram_narrow
+from .histogram import (_xla_histogram, _xla_histogram_narrow,
+                        fixed_point_histogram)
 from .packed import unpack4
 from .split import go_left_pred
 
@@ -174,7 +175,8 @@ def segment_histogram(work: torch.Tensor, start: int, count: int,
                       layout: RowLayout, num_bins: int,
                       quant: bool = False, acc_bits: int = 32,
                       quant_max: int = 127,
-                      hist_layout: str = "lane") -> torch.Tensor:
+                      hist_layout: str = "lane",
+                      det: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Histogram ``[F, B, 4]`` of the contiguous segment
     ``work[start:start+count]`` (channels: grad, hess, in-bag count, raw
     count). Counts accumulate in f32, exact below 2^24 rows; with ``quant``
@@ -182,14 +184,18 @@ def segment_histogram(work: torch.Tensor, start: int, count: int,
     ``segment_histogram(quantized=True)``, ``lightgbm_tpu/ops/compact.py:
     323-413``), and ``acc_bits=16`` takes the narrowed engine (the same
     int32 sums; ``quant_max`` bounds |code|). Packed bins unpack here.
-    Plain PyTorch on any device: ``hist_layout`` only names the kernel
-    whose plain call this is (``PLAIN_CALLS``)."""
+    With ``det`` (the deterministic mode's ``[4]`` scales, f32 only) the
+    fixed-point sum (``fixed_point_histogram``). Plain PyTorch on any
+    device: ``hist_layout`` only names the kernel whose plain call this is
+    (``PLAIN_CALLS``)."""
     rows = work[start:start + count]
     bins = record_bins(rows, layout)
     ch = record_channels(rows, layout, quant)
     kernel = "histogram_sublane" if hist_layout == "sublane" else "histogram"
     if quant and acc_bits == 16:
         return _xla_histogram_narrow(bins, ch, num_bins, quant_max, kernel)
+    if det is not None and not quant:
+        return fixed_point_histogram(bins, ch, num_bins, det, kernel)
     return _xla_histogram(bins, ch, num_bins, kernel)
 
 

@@ -49,6 +49,12 @@ byte, the partition routes by feature ``f``'s nibble (byte ``f >> 1``,
 shift ``4 * (f & 1)``) and moves the narrower records, and K1's record
 loader unpacks the nibbles; both residencies take it.
 
+``det`` is the deterministic mode (``ops/determinism.py``): the
+smaller child's histogram from K1's deterministic record mode
+(``MODE_LAUNCHES["fused_split/det"]``). The partition is stable and its
+placement fixed, so it is unchanged: its one atomic hands out look-back
+tickets, not sums.
+
 ``hist=False`` is K2's partition alone (``prep`` and the partition, and in
 copy-back the copy), its histogram launch skipped: the compact grower
 without the fused kernel (``tpu_fused=off``) partitions with it, as the
@@ -110,7 +116,7 @@ def fused_split_plain(work, scratch, mode, start, count, n_left, feature,
                       bin_, default_left, nan_bin, is_cat, cat_bitset,
                       layout: RowLayout, num_bins: int, smaller_left=None,
                       side=None, dual: bool = True, quant: bool = False,
-                      hist: bool = True
+                      hist: bool = True, det=None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K2: masks in stable order, the same writes
     as the kernel (left rows in place, right rows into the other array, the
@@ -133,7 +139,7 @@ def fused_split_plain(work, scratch, mode, start, count, n_left, feature,
                 [start_, count_, int(which)], dtype=torch.int32, device=dev)
         return work, scratch, segment_histogram(
             scratch if which else work, start_, count_, layout, num_bins,
-            quant)
+            quant, det=det)
 
     if mode == 1:
         return out(s, c, sd)
@@ -168,7 +174,7 @@ def fused_split(work: torch.Tensor, scratch: torch.Tensor, mode: int,
                 is_cat, cat_bitset: Optional[torch.Tensor],
                 layout: RowLayout, num_bins: int, smaller_left=None,
                 side=None, dual: bool = True, quant: bool = False,
-                hist: bool = True
+                hist: bool = True, det: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One split (mode 0) or one segment histogram (mode 1); ``dual``
     chooses dual residency or the copy-back variant, ``quant`` the int32
@@ -181,14 +187,14 @@ def fused_split(work: torch.Tensor, scratch: torch.Tensor, mode: int,
     tensors, so nothing is read back to the host). ``cat_bitset``: int32
     words of the categorical bitset (bit patterns), or None.
     Returns ``(work, scratch, hist [F, B, 4])``, f32 or (``quant``)
-    int32."""
+    int32. ``det``: the deterministic mode's ``[4]`` scales (f32 only)."""
     if mode not in (0, 1):
         raise ValueError(f"mode must be 0 or 1, got {mode!r}")
     if work.device.type == "cpu":
         return fused_split_plain(work, scratch, mode, start, count, n_left,
                                  feature, bin_, default_left, nan_bin, is_cat,
                                  cat_bitset, layout, num_bins, smaller_left,
-                                 side, dual, quant, hist)
+                                 side, dual, quant, hist, det)
     _check_records(work, scratch, layout)
     dev = work.device
     if work.shape[0] >= (1 << 31):
@@ -231,9 +237,11 @@ def fused_split(work: torch.Tensor, scratch: torch.Tensor, mode: int,
                         ctl.data_ptr(),
                         mode=_modes(quant and "quant",
                                     layout.packed4 and "packed4",
-                                    not hist and "partition"))
+                                    not hist and "partition",
+                                    hist and not quant and det is not None
+                                    and "det"))
     # ws[3:6] = (start, count, which array) of the histogram's segment
     if not hist:
         return work, scratch, ws[3:6]
     return work, scratch, record_histogram(work, scratch, ws[3:6], layout,
-                                           num_bins, quant)
+                                           num_bins, quant, det)

@@ -56,6 +56,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .determinism import cumsum as det_cumsum
 from .histogram import histogram
 from .split import (_NEG_INF, SplitParams, best_split, child_output,
                     depth_gate, go_left_pred, leaf_output)
@@ -319,7 +320,8 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               bynode_u: Optional[torch.Tensor] = None,
               opts: Optional[TreeOptions] = None,
               forced: Optional[Tuple[torch.Tensor, torch.Tensor,
-                                     torch.Tensor]] = None
+                                     torch.Tensor]] = None,
+              det: Optional[torch.Tensor] = None
               ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree over ``binned [N, F]`` (uint8, or the int16 view of
     16-bit bins, ``ops/packed.py``) with per-row ``grad``,
@@ -334,7 +336,9 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     < 1 (see ``node_feature_mask``). ``opts``: the constraint and option
     inputs (``TreeOptions``); ``opts.cegb_charged`` is updated in place.
     ``forced``: ``(leaf, feature, bin)`` int64 tensors of the splits that
-    come first, whatever their gains.
+    come first, whatever their gains. ``det``: the deterministic mode's
+    ``[3]`` fixed-point scales of the (grad, hess, count) channels for this
+    tree (``ops/determinism.py``), or None.
     The intermediate monotone method is the compact grower's: here
     ``params.mono_intermediate`` runs the basic method."""
     dev = binned.device
@@ -359,7 +363,8 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
     def hist3(mask):
         ch = torch.stack([grad * mask, hess * mask, cnt * mask], dim=1)
-        return histogram(binned, ch, B, params.hist_layout, binned_t)
+        return histogram(binned, ch, B, params.hist_layout, binned_t,
+                         det=det)
 
     def leaf_mask(rows, used):
         return node_feature_mask(
@@ -482,7 +487,7 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
             # the forced bin's left sums: a cumulative read of the feature's
             # row of the leaf's histogram
             frow = leaf_hist.index_select(0, best)[0].index_select(0, f_)[0]
-            lg, lh, lc = torch.cumsum(frow, dim=0).index_select(0, b_)[0]
+            lg, lh, lc = det_cumsum(frow, dim=0).index_select(0, b_)[0]
         else:
             lg, lh, lc = rf[_BLG], rf[_BLH], rf[_BLC]
         rg, rh, rc = pg - lg, ph - lh, pc - lc

@@ -125,7 +125,8 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
                       efb: Optional[EfbLayout] = None, quant_scales=None,
                       bynode_u: Optional[torch.Tensor] = None,
                       opts: Optional[TreeOptions] = None,
-                      stats: Optional[dict] = None):
+                      stats: Optional[dict] = None,
+                      det: Optional[torch.Tensor] = None):
     """Grow one tree. Returns ``(TreeArrays, row_leaf [N], work, scratch,
     leaf_start [L], leaf_nrows [L])``, the per-row outputs in the post-tree
     row order; ``work`` and ``scratch`` are updated in place. The
@@ -141,7 +142,9 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
     ``"rescan_flagged"``: the tree's flagged (rescanned) leaves summed over
     its splits, a 0-d int64 device tensor; with the narrowed quantized
     histogram ``"narrowed_leaves"``: the histograms that took the 16-bit
-    engine, a one-element int32 device tensor."""
+    engine, a one-element int32 device tensor. ``det``: the deterministic
+    mode's ``[4]`` fixed-point scales of the records' (grad, hess, in-bag,
+    raw) channels for this tree (``ops/determinism.py``), or None."""
     dev = work.device
     n = n_real
     L = params.num_leaves
@@ -206,13 +209,14 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
     if params.fused:
         work, scratch, root_hist = fused_split(
             work, scratch, 1, zero, n, zero, zero, zero, zero, zero, zero,
-            None, layout, B, side=zero, dual=params.fused_dual, quant=quant)
+            None, layout, B, side=zero, dual=params.fused_dual, quant=quant,
+            det=det)
     else:
         # fill_ of a slice: a setitem would copy through the host
         seg0 = torch.zeros(3, dtype=torch.int32, device=dev)
         seg0[1:2].fill_(n)
         root_hist = seg_hist(work, scratch, seg0, layout, B, quant, params,
-                             narrowed)
+                             narrowed, det)
     # every feature's bins sum to the totals, so feature 0 gives the root;
     # quantized: the int sums cast to f32, then times the scales
     root_g, root_h, root_c = (root_hist[0, :, j].sum().to(torch.float32)
@@ -271,7 +275,7 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
     for k in range(L - 1):
         st = _split_step(st, k, work, scratch, layout, B, nan_bin_arr,
                          is_cat_arr, route, scan, leaf_mask, params, quant,
-                         o, coupled, extra, flagged, narrowed)
+                         o, coupled, extra, flagged, narrowed, det)
     if flagged is not None and stats is not None:
         stats["rescan_flagged"] = flagged
     if narrowed is not None and stats is not None:
@@ -296,7 +300,7 @@ def grow_tree_compact(work: torch.Tensor, scratch: torch.Tensor,
 def _split_step(st: CompactState, k: int, work, scratch, layout, B,
                 nan_bin_arr, is_cat_arr, route, scan, leaf_mask, params,
                 quant: bool, o: TreeOptions, coupled, extra,
-                flagged, narrowed) -> CompactState:
+                flagged, narrowed, det=None) -> CompactState:
     """Split number ``k``: node ``k`` splits the best leaf into itself (left
     child) and leaf ``k + 1`` (right child). ``route``: (stored column,
     bitset flag, original feature) arrays over scan indices (the first or
@@ -354,10 +358,10 @@ def _split_step(st: CompactState, k: int, work, scratch, layout, B,
         work, scratch, 0, s_, m_eff, n_left_eff, f_col, b_, dl,
         nan_bin_arr.index_select(0, f_), f_cat, bits, layout, B,
         smaller_left=left_smaller, side=side_p, dual=params.fused_dual,
-        quant=quant, hist=params.fused)
+        quant=quant, hist=params.fused, det=det)
     if not params.fused:
         hist_small = seg_hist(work, scratch, hist_small, layout, B, quant,
-                              params, narrowed)
+                              params, narrowed, det)
     # exact in int32 when quantized
     parent_hist = leaf_hist.index_select(0, best)[0]
     hist_large = parent_hist - hist_small
@@ -497,7 +501,8 @@ def _intermediate(k, node_i, leaf_f, leaf_i, leaf_hist, leaf_bits,
 
 def seg_hist(work: torch.Tensor, scratch: torch.Tensor, seg: torch.Tensor,
              layout: RowLayout, B: int, quant: bool, params: GrowerParams,
-             narrowed: Optional[torch.Tensor] = None) -> torch.Tensor:
+             narrowed: Optional[torch.Tensor] = None,
+             det: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The histogram of the segment ``seg`` (device int32 start, count,
     which array) without the fused kernel (reference: ``seg_hist``,
     ``lightgbm_tpu/ops/grower_compact.py:309-345``): in the narrowed mode
@@ -506,4 +511,4 @@ def seg_hist(work: torch.Tensor, scratch: torch.Tensor, seg: torch.Tensor,
     16-bit ones."""
     narrow = params.quant_max if quant and params.quant_narrow else 0
     return unfused_histogram(work, scratch, seg, layout, B, quant, narrow,
-                             params.hist_layout, narrowed)
+                             params.hist_layout, narrowed, det)

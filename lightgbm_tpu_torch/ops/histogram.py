@@ -11,7 +11,10 @@ all features, f32 accumulation in row order; int32 for integer channels,
 the quantized-gradient codes); it is the CPU path and the version the
 Hopper histogram kernels of ``ops/pallas_histogram.py`` are held against.
 ``dequantize_hist`` is the one int32 -> f32 boundary of a quantized
-histogram.
+histogram. ``fixed_point_histogram`` is the plain version of the kernels'
+deterministic mode (``ops/determinism.py``): each addend rounded to an
+int64 at the channel's power-of-two scale, summed exactly, converted back.
+The histogram entries take that mode with ``det``, the scales.
 ``histogram_block`` dispatches on the layout, the channels' type and on
 where the tensors lie: ``lane`` is K1 (bins ``[N, F]``; 16-bit bins, their
 int16 view, take K1's wide-bin kernel), ``sublane`` is K3
@@ -29,6 +32,7 @@ from typing import Optional
 import torch
 
 from .. import _kernels
+from .determinism import from_fixed, to_fixed
 from .packed import bin_values
 
 
@@ -50,10 +54,23 @@ def _xla_histogram(binned: torch.Tensor, channels: torch.Tensor,
     # each cell still adds its rows in row order
     idx = (torch.clamp(bin_values(binned), max=b)
            + torch.arange(f, device=dev) * (b + 1)).T.reshape(-1)
-    dt = torch.float32 if channels.is_floating_point() else torch.int32
+    dt = (torch.float32 if channels.is_floating_point()
+          else torch.int64 if channels.dtype == torch.int64 else torch.int32)
     out = torch.zeros((k, f * (b + 1)), dtype=dt, device=dev)
     out.scatter_add_(1, idx.expand(k, -1), channels.to(dt).T.repeat(1, f))
     return out.view(k, f, b + 1).permute(1, 2, 0)[:, :b].contiguous()
+
+
+def fixed_point_histogram(binned: torch.Tensor, channels: torch.Tensor,
+                          num_bins: int, scale: torch.Tensor,
+                          kernel: str = "histogram") -> torch.Tensor:
+    """Plain version of the kernels' deterministic mode: the f32 histogram
+    of ``channels [N, K]`` summed in int64 fixed point at the power-of-two
+    ``scale [K]`` (float64), then converted to f32 (``ops/determinism.py``);
+    exact in its integer sums, so the same in any order."""
+    q = to_fixed(channels.to(torch.float32), scale.to(channels.device))
+    return from_fixed(_xla_histogram(binned, q, num_bins, kernel),
+                      scale.to(channels.device))
 
 
 # the narrowed (16-bit) quantized accumulation's packing radix (reference:
@@ -135,7 +152,8 @@ def dequantize_hist(hist: torch.Tensor, g_scale, h_scale) -> torch.Tensor:
 def histogram_block(binned: torch.Tensor, channels: torch.Tensor,
                     num_bins: int, layout: str = "lane",
                     binned_t: Optional[torch.Tensor] = None,
-                    acc_bits: int = 32, quant_max: int = 127) -> torch.Tensor:
+                    acc_bits: int = 32, quant_max: int = 127,
+                    det: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Histogram of one row block (reference: ``histogram_block``,
     ``lightgbm_tpu/ops/histogram.py:239-311``): f32 channels accumulate in
     f32, integer channels (quantized codes) in exact int32 (the kernels'
@@ -143,30 +161,37 @@ def histogram_block(binned: torch.Tensor, channels: torch.Tensor,
     narrowed, ``|code| <= quant_max``). ``lane`` runs K1 on ``binned [N,
     F]``, ``sublane`` runs K3 (B <= 64) on the same bins feature-major,
     ``binned_t [F, N]`` when the caller keeps that copy (the masked grower
-    makes it once per training), else ``binned.T`` made here. CPU tensors
-    take the plain versions."""
+    makes it once per training), else ``binned.T`` made here. ``det``: the
+    deterministic mode's fixed-point scales ``[K]`` (f32 channels only).
+    CPU tensors take the plain versions."""
     from .pallas_histogram import (pallas_histogram, pallas_histogram_narrow,
                                    pallas_histogram_sublane)
     quantized = not channels.is_floating_point()
     mode = "int8" if quantized else "f32"
     if quantized and acc_bits == 16:
         return pallas_histogram_narrow(binned, channels, num_bins, quant_max)
+    if quantized:
+        det = None
     if layout == "sublane":
         bt = binned.T.contiguous() if binned_t is None else binned_t
-        return pallas_histogram_sublane(bt, channels, num_bins, mode=mode)
+        return pallas_histogram_sublane(bt, channels, num_bins, mode=mode,
+                                        det=det)
     if layout != "lane":
         raise ValueError(f"layout must be 'lane' or 'sublane', got "
                          f"{layout!r}")
-    if binned.device.type == "cpu":
+    if binned.device.type == "cpu" and det is None:
         return _xla_histogram(binned, channels, num_bins)
-    return pallas_histogram(binned, channels, num_bins, mode=mode)
+    return pallas_histogram(binned, channels, num_bins, mode=mode, det=det)
 
 
 def histogram(binned: torch.Tensor, channels: torch.Tensor, num_bins: int,
               layout: str = "lane",
-              binned_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+              binned_t: Optional[torch.Tensor] = None,
+              det: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[F, B, K]`` per-(feature, bin) sums of the ``channels`` columns
     (reference: ``histogram``, ``lightgbm_tpu/ops/histogram.py:330``), for
     the serial learner: one block over all rows. The reference's
-    ``axis_name`` reduction and ``overlap`` groups are ROADMAP A18."""
-    return histogram_block(binned, channels, num_bins, layout, binned_t)
+    ``axis_name`` reduction and ``overlap`` groups are ROADMAP A18.
+    ``det``: the deterministic mode's scales."""
+    return histogram_block(binned, channels, num_bins, layout, binned_t,
+                           det=det)

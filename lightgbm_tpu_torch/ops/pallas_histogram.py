@@ -72,6 +72,15 @@ the narrowed mode K1 picks the 16-bit or the 32-bit engine from that count
 (``ops/renew.py`` ``hist_bits_in_leaf``) and adds one to a caller's device
 tally when it takes the 16-bit one.
 
+The deterministic mode (``det``: float64 fixed-point scales ``[K]`` on the
+tensors' device, one a channel, ``ops/determinism.py``) of every f32 entry
+here: K1's record mode (``lgbt_hist_records_det``), dense mode
+(``lgbt_hist_dense_det``) and wide-bin kernel (``lgbt_hist_dense_u16_det``)
+and K3 on both paths (``lgbt_hist_sublane_det``) add in int64 fixed point,
+a result fixed by the inputs (``MODE_LAUNCHES["*/det"]``); the plain
+version is ``fixed_point_histogram``. The integer modes are exact already
+and ignore ``det``.
+
 Each wrapper takes the plain PyTorch version only for CPU tensors; for CUDA
 tensors it launches the kernel or raises.
 """
@@ -85,7 +94,8 @@ import torch
 from .. import _kernels
 from .compact import (RowLayout, record_bins, record_channels,
                       segment_histogram)
-from .histogram import _xla_histogram, _xla_histogram_narrow
+from .histogram import (_xla_histogram, _xla_histogram_narrow,
+                        fixed_point_histogram)
 from .renew import hist_bits_in_leaf
 
 _MODES = ("split", "f32", "bf16", "int8")
@@ -115,13 +125,28 @@ def _mode_channels(channels: torch.Tensor, mode: str) -> torch.Tensor:
     return ch
 
 
+def _check_det(det: Optional[torch.Tensor], k: int,
+               dev: torch.device) -> None:
+    if det is None:
+        return
+    if det.dtype != torch.float64 or det.dim() != 1 or det.numel() < k \
+            or det.device != dev or not det.is_contiguous():
+        raise ValueError(f"det must be a contiguous float64 vector of at "
+                         f"least {k} fixed-point scales on {dev}")
+
+
 def pallas_histogram_plain(binned: torch.Tensor, channels: torch.Tensor,
-                           num_bins: int, mode: str = "split"
+                           num_bins: int, mode: str = "split",
+                           det: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """Plain PyTorch version of K1's dense mode (``int8``: the exact int32
-    histogram of integer channels)."""
+    histogram of integer channels; ``det``: the fixed-point sum)."""
     _check_mode(mode, channels.shape[1])
-    return _xla_histogram(binned, _mode_channels(channels, mode), num_bins)
+    ch = _mode_channels(channels, mode)
+    if det is not None and mode != "int8":
+        return fixed_point_histogram(binned, ch, num_bins,
+                                     det[:ch.shape[1]])
+    return _xla_histogram(binned, ch, num_bins)
 
 
 def _check_sublane_bins(num_bins: int) -> None:
@@ -133,13 +158,20 @@ def _check_sublane_bins(num_bins: int) -> None:
 
 def pallas_histogram_sublane_plain(binned_t: torch.Tensor,
                                    channels: torch.Tensor, num_bins: int,
-                                   mode: str = "split") -> torch.Tensor:
+                                   mode: str = "split",
+                                   det: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
     """Plain PyTorch version of K3: the plain histogram of ``binned_t.T``
-    (``int8``: exact int32)."""
+    (``int8``: exact int32; ``det``: the fixed-point sum)."""
     _check_mode(mode, channels.shape[1])
     _check_sublane_bins(num_bins)
-    return _xla_histogram(binned_t.T, _mode_channels(channels, mode),
-                          num_bins, kernel="histogram_sublane")
+    ch = _mode_channels(channels, mode)
+    if det is not None and mode != "int8":
+        return fixed_point_histogram(binned_t.T, ch, num_bins,
+                                     det[:ch.shape[1]],
+                                     kernel="histogram_sublane")
+    return _xla_histogram(binned_t.T, ch, num_bins,
+                          kernel="histogram_sublane")
 
 
 # K3's launch geometry on the H100 (NVIDIA's figures: 228 KB of shared
@@ -188,17 +220,19 @@ def sublane_active_lanes(fcc: int) -> int:
 
 @functools.lru_cache(maxsize=256)
 def sublane_geometry(n: int, num_features: int, num_bins: int, k: int,
-                     num_sms: int) -> SublaneGeometry:
+                     num_sms: int, det: bool = False) -> SublaneGeometry:
     """K3's launch geometry for ``n`` rows, ``num_features`` features,
     ``num_bins`` (<= 64) bins and ``k`` channels on a card of ``num_sms``
     SMs: the small-data path up to SUBLANE_SMALL_ROWS rows, the tile path
-    above."""
+    above. ``det``: the deterministic mode, whose small-path cells are
+    8 bytes."""
     _check_sublane_bins(num_bins)
     if not 1 <= k <= 8:
         raise ValueError(f"K3 takes 1..8 channels, got {k}")
-    path = (sublane_small_geometry if n <= SUBLANE_SMALL_ROWS
-            else sublane_tile_geometry)
-    return path(n, num_features, num_bins, k, num_sms)
+    if n <= SUBLANE_SMALL_ROWS:
+        return sublane_small_geometry(n, num_features, num_bins, k, num_sms,
+                                      8 if det else 4)
+    return sublane_tile_geometry(n, num_features, num_bins, k, num_sms)
 
 
 def sublane_tile_geometry(n: int, num_features: int, num_bins: int, k: int,
@@ -232,11 +266,13 @@ def sublane_tile_geometry(n: int, num_features: int, num_bins: int, k: int,
 
 
 def sublane_small_geometry(n: int, num_features: int, num_bins: int,
-                           k: int, num_sms: int) -> SublaneGeometry:
-    """The small-data path: a block's histogram is [fc][B][K | 1] f32 in at
+                           k: int, num_sms: int,
+                           cell_bytes: int = 4) -> SublaneGeometry:
+    """The small-data path: a block's histogram is [fc][B][K | 1] cells
+    (f32 or int32; int64 in the deterministic mode: ``cell_bytes`` 8) in at
     most 96 KB, so that several blocks share an SM; an item covers fewer
     features when the tiles alone leave warp slots idle."""
-    feature_bytes = num_bins * (k | 1) * 4
+    feature_bytes = num_bins * (k | 1) * cell_bytes
     fc = min(num_features, SUBLANE_SMALL_BUDGET // feature_bytes)
     chunks = -(-num_features // fc)
     smem = fc * feature_bytes
@@ -257,16 +293,31 @@ def _num_sms(index: int) -> int:
 
 def _launch_sublane(binned_t: torch.Tensor, channels: torch.Tensor,
                     num_bins: int, mode: str, geom: SublaneGeometry,
-                    count: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    count: Optional[torch.Tensor] = None,
+                    det: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One K3 launch: f32, or (``mode="int8"``, int32 channels) int32.
     ``count``: a device int32 whose value (clamped to ``[0, N]``) bounds
-    the rows read, the geometry being that of all N."""
+    the rows read, the geometry being that of all N. ``det`` (f32 only):
+    the deterministic mode's scales, the geometry made with ``det=True``."""
     f, n = binned_t.shape
     k = channels.shape[1]
     quant = mode == "int8"
     out = torch.zeros((f, num_bins, k),
                       dtype=torch.int32 if quant else torch.float32,
                       device=binned_t.device)
+    if det is not None and not quant:
+        _check_det(det, k, binned_t.device)
+        acc = torch.zeros((f, num_bins, k), dtype=torch.int64,
+                          device=binned_t.device)
+        _kernels.launch("histogram_sublane", "lgbt_hist_sublane_det",
+                        binned_t.device, binned_t.data_ptr(),
+                        binned_t.stride(0), channels.data_ptr(), k, n, f,
+                        num_bins, 1 if mode == "bf16" else 0, out.data_ptr(),
+                        int(geom.small), geom.fc, geom.warps, geom.group,
+                        geom.grid_x, geom.smem, geom.warp_bytes,
+                        0 if count is None else count.data_ptr(),
+                        det.data_ptr(), acc.data_ptr(), mode="det")
+        return out
     _kernels.launch("histogram_sublane", "lgbt_hist_sublane",
                     binned_t.device, binned_t.data_ptr(), binned_t.stride(0),
                     channels.data_ptr(), k, n, f, num_bins,
@@ -279,13 +330,15 @@ def _launch_sublane(binned_t: torch.Tensor, channels: torch.Tensor,
 
 
 def pallas_histogram_sublane(binned_t: torch.Tensor, channels: torch.Tensor,
-                             num_bins: int, mode: str = "split"
+                             num_bins: int, mode: str = "split",
+                             det: Optional[torch.Tensor] = None
                              ) -> torch.Tensor:
     """``[F, B, K]`` f32 histogram of feature-major ``binned_t [F, N]``
     (uint8, unit stride along rows) against ``channels [N, K]`` (f32; K <= 4
     in ``split`` mode, <= 8 otherwise), B <= 64; bins >= B are dropped.
     ``int8``: integer channels (int8 or int32 codes), an exact int32
-    histogram."""
+    histogram. ``det``: the deterministic mode's scales (module
+    docstring)."""
     _check_mode(mode, channels.shape[1])
     _check_sublane_bins(num_bins)
     if binned_t.dim() != 2 or channels.dim() != 2 \
@@ -297,7 +350,7 @@ def pallas_histogram_sublane(binned_t: torch.Tensor, channels: torch.Tensor,
         raise ValueError("binned_t and channels must lie on one device")
     if binned_t.device.type == "cpu":
         return pallas_histogram_sublane_plain(binned_t, channels, num_bins,
-                                              mode)
+                                              mode, det)
     if binned_t.device.type != "cuda":
         raise ValueError(f"no histogram kernel for {binned_t.device}")
     if mode == "int8":
@@ -312,25 +365,30 @@ def pallas_histogram_sublane(binned_t: torch.Tensor, channels: torch.Tensor,
                          "bins and contiguous channels")
     f, n = binned_t.shape
     index = binned_t.device.index
+    det = None if mode == "int8" else det
     geom = sublane_geometry(n, f, num_bins, channels.shape[1], _num_sms(
-        torch.cuda.current_device() if index is None else index))
-    return _launch_sublane(binned_t, channels, num_bins, mode, geom)
+        torch.cuda.current_device() if index is None else index),
+        det is not None)
+    return _launch_sublane(binned_t, channels, num_bins, mode, geom,
+                           det=det)
 
 
 def pallas_histogram(binned: torch.Tensor, channels: torch.Tensor,
                      num_bins: int, mode: str = "split",
-                     hist_layout: str = "lane") -> torch.Tensor:
+                     hist_layout: str = "lane",
+                     det: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[F, B, K]`` histogram of ``binned [N, F]`` (uint8, or the int16
     view of 16-bit bins, ``ops/packed.py``) against ``channels [N, K]``
     (f32; K <= 4 in ``split`` mode, <= 8 otherwise): f32, or with
     ``mode="int8"`` (int8 or int32 channels, uint8 bins) exact int32.
     16-bit bins (B up to 65,536) run K1's wide-bin kernel
     (``lgbt_hist_dense_u16``). ``hist_layout="sublane"`` (B <= 64) runs
-    K3 on ``binned.T``."""
+    K3 on ``binned.T``. ``det``: the deterministic mode's scales (module
+    docstring)."""
     if hist_layout == "sublane":
         _check_sublane_bins(num_bins)
         return pallas_histogram_sublane(binned.T.contiguous(), channels,
-                                        num_bins, mode)
+                                        num_bins, mode, det)
     if hist_layout != "lane":
         raise ValueError(f"hist_layout must be 'lane' or 'sublane', got "
                          f"{hist_layout!r}")
@@ -342,7 +400,7 @@ def pallas_histogram(binned: torch.Tensor, channels: torch.Tensor,
     if binned.device != channels.device:
         raise ValueError("binned and channels must lie on one device")
     if binned.device.type == "cpu":
-        return pallas_histogram_plain(binned, channels, num_bins, mode)
+        return pallas_histogram_plain(binned, channels, num_bins, mode, det)
     if binned.device.type != "cuda":
         raise ValueError(f"no histogram kernel for {binned.device}")
     if binned.dtype not in (torch.uint8, torch.int16):
@@ -357,7 +415,7 @@ def pallas_histogram(binned: torch.Tensor, channels: torch.Tensor,
             raise TypeError(f"16-bit bins take float32 channels in f32, "
                             f"split or bf16 mode, got mode={mode!r} and "
                             f"{channels.dtype}")
-        return _dense_u16(binned, channels, num_bins, mode == "bf16")
+        return _dense_u16(binned, channels, num_bins, mode == "bf16", det)
     if mode == "int8":
         _mode_channels(channels[:0], mode)
         return _dense_int(binned, None, n, binned.stride(0), None, False,
@@ -366,19 +424,31 @@ def pallas_histogram(binned: torch.Tensor, channels: torch.Tensor,
         raise TypeError(f"mode={mode!r} takes float32 channels, got "
                         f"{channels.dtype}")
     return _dense_f32(binned, None, n, binned.stride(0), None, False,
-                      channels, f, num_bins, mode == "bf16")
+                      channels, f, num_bins, mode == "bf16", det)
 
 
 def _dense_u16(bins: torch.Tensor, channels: torch.Tensor, num_bins: int,
-               bf16: bool) -> torch.Tensor:
+               bf16: bool, det: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
     """One launch of K1's wide-bin kernel: ``bins [N, F]`` int16 (the view
-    of uint16 bins) against f32 ``channels [N, K]``, B up to 65,536."""
+    of uint16 bins) against f32 ``channels [N, K]``, B up to 65,536
+    (``det``: its deterministic mode)."""
     if not 1 <= num_bins <= 65536:
         raise ValueError(f"num_bins must be in 1..65536, got {num_bins}")
     n, f = bins.shape
     k = channels.shape[1]
     out = torch.zeros((f, num_bins, k), dtype=torch.float32,
                       device=bins.device)
+    if det is not None:
+        _check_det(det, k, bins.device)
+        acc = torch.zeros((f, num_bins, k), dtype=torch.int64,
+                          device=bins.device)
+        _kernels.launch("histogram", "lgbt_hist_dense_u16_det", bins.device,
+                        bins.data_ptr(), n, bins.stride(0),
+                        channels.data_ptr(), k, f, num_bins, int(bf16),
+                        det.data_ptr(), acc.data_ptr(), out.data_ptr(),
+                        mode=("u16", "det"))
+        return out
     _kernels.launch("histogram", "lgbt_hist_dense_u16", bins.device,
                     bins.data_ptr(), n, bins.stride(0), channels.data_ptr(),
                     k, f, num_bins, int(bf16), out.data_ptr(), mode="u16")
@@ -391,14 +461,28 @@ def _check_bins(num_bins: int) -> None:
 
 
 def _dense_f32(bins, bins_b, n_rows, stride, seg, packed4, channels, f,
-               num_bins, bf16) -> torch.Tensor:
+               num_bins, bf16, det=None) -> torch.Tensor:
     """One launch of K1 dense (f32): rows ``[0, n_rows)`` of ``bins``, or
     the segment ``seg`` (device int32 start, count, which array) of
-    ``bins``/``bins_b`` with the channels' row r for the segment's row r."""
+    ``bins``/``bins_b`` with the channels' row r for the segment's row r
+    (``det``: its deterministic mode)."""
     _check_bins(num_bins)
     k = channels.shape[1]
     out = torch.zeros((f, num_bins, k), dtype=torch.float32,
                       device=bins.device)
+    if det is not None:
+        _check_det(det, k, bins.device)
+        acc = torch.zeros((f, num_bins, k), dtype=torch.int64,
+                          device=bins.device)
+        _kernels.launch("histogram", "lgbt_hist_dense_det", bins.device,
+                        bins.data_ptr(),
+                        0 if bins_b is None else bins_b.data_ptr(), n_rows,
+                        stride, 0 if seg is None else seg.data_ptr(),
+                        int(packed4), channels.data_ptr(), k, f, num_bins,
+                        int(bf16), det.data_ptr(), acc.data_ptr(),
+                        out.data_ptr(),
+                        mode=_modes("det", packed4 and "packed4"))
+        return out
     _kernels.launch("histogram", "lgbt_hist_dense", bins.device,
                     bins.data_ptr(),
                     0 if bins_b is None else bins_b.data_ptr(), n_rows,
@@ -472,21 +556,24 @@ def pallas_histogram_narrow(binned: torch.Tensor, channels: torch.Tensor,
 
 def record_histogram_plain(work: torch.Tensor, scratch: torch.Tensor,
                            seg: torch.Tensor, layout: RowLayout,
-                           num_bins: int, quant: bool = False
+                           num_bins: int, quant: bool = False,
+                           det: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
-    """Plain PyTorch version of K1's record mode (int32 with ``quant``),
-    with the kernel's clamps of the segment."""
+    """Plain PyTorch version of K1's record mode (int32 with ``quant``;
+    ``det``: the fixed-point sum), with the kernel's clamps of the
+    segment."""
     start, count, which = (int(v) for v in seg.tolist()[:3])
     n_rows = work.shape[0]
     start = min(max(start, 0), n_rows)
     count = min(max(count, 0), n_rows - start)
     return segment_histogram(scratch if which else work, start, count,
-                             layout, num_bins, quant)
+                             layout, num_bins, quant, det=det)
 
 
 def record_histogram(work: torch.Tensor, scratch: torch.Tensor,
                      seg: torch.Tensor, layout: RowLayout,
-                     num_bins: int, quant: bool = False) -> torch.Tensor:
+                     num_bins: int, quant: bool = False,
+                     det: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[F, B, 4]`` histogram (grad, hess, in-bag, raw count) of rows
     ``[start, start+count)`` of ``work`` (which == 0) or ``scratch``, where
     ``seg`` = int32 ``(start, count, which)`` on the arrays' device. The
@@ -495,10 +582,14 @@ def record_histogram(work: torch.Tensor, scratch: torch.Tensor,
     ``quant`` the grad and hess columns hold integer codes (|code| < 2^24)
     and every channel is an exact int32 sum (K1's integer variant): the
     caller keeps ``rows x max |code|`` below 2^31. ``layout.packed4``: the
-    kernel unpacks two features a byte as it loads a record."""
+    kernel unpacks two features a byte as it loads a record. ``det``
+    (f32 only): the deterministic mode's ``[4]`` scales (grad and hess at 0 and 1; module
+    docstring)."""
+    if quant:
+        det = None
     if work.device.type == "cpu":
         return record_histogram_plain(work, scratch, seg, layout, num_bins,
-                                      quant)
+                                      quant, det)
     _check_records(work, scratch, layout)
     if seg.device != work.device or seg.dtype != torch.int32 \
             or seg.numel() < 3 or not seg.is_contiguous():
@@ -510,6 +601,18 @@ def record_histogram(work: torch.Tensor, scratch: torch.Tensor,
     out = torch.zeros((f, num_bins, 4),
                       dtype=torch.int32 if quant else torch.float32,
                       device=work.device)
+    if det is not None:
+        _check_det(det, 2, work.device)
+        acc = torch.zeros((f, num_bins, 2), dtype=torch.int64,
+                          device=work.device)
+        _kernels.launch("histogram", "lgbt_hist_records_det", work.device,
+                        work.data_ptr(), scratch.data_ptr(), work.shape[0],
+                        work.stride(0), seg.data_ptr(), f, num_bins,
+                        int(layout.packed4), layout.grad_off,
+                        layout.hess_off, layout.cnt_off, det.data_ptr(),
+                        acc.data_ptr(), out.data_ptr(),
+                        mode=_modes("det", layout.packed4 and "packed4"))
+        return out
     _kernels.launch("histogram",
                     "lgbt_hist_records_int" if quant else "lgbt_hist_records",
                     work.device, work.data_ptr(), scratch.data_ptr(),
@@ -612,7 +715,8 @@ def unfused_histogram(work: torch.Tensor, scratch: torch.Tensor,
                       seg: torch.Tensor, layout: RowLayout, num_bins: int,
                       quant: bool = False, narrow_max: int = 0,
                       hist_layout: str = "lane",
-                      tally: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      tally: Optional[torch.Tensor] = None,
+                      det: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[F, B, 4]`` histogram (grad, hess, in-bag, raw count) of the
     records' segment ``seg`` (device int32 start, count, which array), as
     the JAX package's compact grower builds it without the fused kernel
@@ -622,8 +726,11 @@ def unfused_histogram(work: torch.Tensor, scratch: torch.Tensor,
     the narrowed 16-bit engine (``hist_bits_in_leaf``). ``hist_layout``:
     K1 dense (``lane``) or K3 (``sublane``). ``tally``: a one-element int32
     tensor on the arrays' device that gains one when the 16-bit engine is
-    taken. The plain version reads the segment on the host; the card reads
-    it on the device only."""
+    taken. ``det`` (f32 only): the deterministic mode's ``[4]`` scales.
+    The plain version reads the segment on the host; the card reads it on
+    the device only."""
+    if quant:
+        det = None
     if work.device.type == "cpu":
         start, count, which = (int(v) for v in seg.tolist()[:3])
         bits = 32
@@ -633,7 +740,7 @@ def unfused_histogram(work: torch.Tensor, scratch: torch.Tensor,
                 tally += 1
         return segment_histogram(scratch if which else work, start, count,
                                  layout, num_bins, quant, bits, narrow_max,
-                                 hist_layout)
+                                 hist_layout, det)
     f = layout.num_features
     if hist_layout == "sublane":
         ch, bins_t = segment_gather(
@@ -642,10 +749,11 @@ def unfused_histogram(work: torch.Tensor, scratch: torch.Tensor,
         _check_sublane_bins(num_bins)
         index = work.device.index
         geom = sublane_geometry(bins_t.shape[1], f, num_bins, 4, _num_sms(
-            torch.cuda.current_device() if index is None else index))
+            torch.cuda.current_device() if index is None else index),
+            det is not None)
         return _launch_sublane(bins_t, ch, num_bins,
                                "int8" if quant else "f32", geom,
-                               count=seg[1:2])
+                               count=seg[1:2], det=det)
     if hist_layout != "lane":
         raise ValueError(f"hist_layout must be 'lane' or 'sublane', got "
                          f"{hist_layout!r}")
@@ -657,4 +765,4 @@ def unfused_histogram(work: torch.Tensor, scratch: torch.Tensor,
                           f, num_bins, narrow_max, 2 if narrow_max else 0,
                           tally)
     return _dense_f32(work, scratch, n, stride, seg, layout.packed4, ch, f,
-                      num_bins, False)
+                      num_bins, False, det)

@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from .determinism import cumsum as det_cumsum
+
 # the largest leaf (rows x quant_max) whose code sums fit the narrowed
 # engine's 16-bit halves (reference: lightgbm_tpu/ops/renew.py:22-26)
 _NARROW_LEAF_MAX = 1 << 15
@@ -62,7 +64,7 @@ def renew_leaf_quantile(residual: torch.Tensor, weight: torch.Tensor,
     start = end - count
     # cumulative weight within the segment (f64: exact wherever the f32
     # sums of the JAX function are)
-    cw = torch.cumsum(w_s.to(torch.float64), 0)
+    cw = det_cumsum(w_s.to(torch.float64), 0)
     before = torch.cat([cw.new_zeros(1), cw])[start]
     cw_seg = cw - before[leaf_s]
     total = (torch.cat([cw.new_zeros(1), cw])[end] - before).to(

@@ -44,6 +44,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as tnf
 
+from .determinism import active as det_active
+from .determinism import cumsum as det_cumsum
 from .histogram import dequantize_hist
 from .packed import bin_values
 
@@ -318,10 +320,16 @@ def best_split(
     h = hist[..., 1]
     c = hist[..., 2]
     r = hist[..., 3] if k > 3 else c
-    cg = torch.cumsum(g, dim=-1)
-    ch = torch.cumsum(h, dim=-1)
-    cc = torch.cumsum(c, dim=-1)
-    cr = torch.cumsum(r, dim=-1)
+    if det_active():
+        # the deterministic mode's scan (ops/determinism.py), of the four
+        # channels at once
+        cs = det_cumsum(torch.stack([g, h, c, r], dim=-1), dim=-2)
+        cg, ch, cc, cr = cs.unbind(dim=-1)
+    else:
+        cg = torch.cumsum(g, dim=-1)
+        ch = torch.cumsum(h, dim=-1)
+        cc = torch.cumsum(c, dim=-1)
+        cr = torch.cumsum(r, dim=-1)
 
     dev = hist.device
     t_iota = torch.arange(b, device=dev)[None, :]                # [1, B]
@@ -513,7 +521,7 @@ def _sorted_cat_split(hist, is_cat, num_bins, feat_mask, parent_grad,
                         torch.full_like(g, float("inf")))
     order = torch.argsort(ratio, dim=-1, stable=True)
     srt = torch.gather(hist, -2, order[..., None].expand(*batch, f, b, k))
-    csum = tnf.pad(torch.cumsum(srt, dim=-2), (0, 0, 1, 0))        # [.., F, B+1, K]
+    csum = tnf.pad(det_cumsum(srt, dim=-2), (0, 0, 1, 0))        # [.., F, B+1, K]
 
     # left sums of the first t sorted bins (forward) and of the last t
     # eligible ones (reverse), t = 1..T: csum[t] and csum[used] - csum[used-t]

@@ -10,6 +10,7 @@ must be byte-equal; histogram counts are exact and grad/hess agree within
 1e-5 * sum |addends| per cell (f32 atomics add in another order), and bit
 for bit on dyadic channels (multiples of 1/64, every partial sum exact).
 """
+import os
 import sys
 import threading
 
@@ -959,6 +960,44 @@ def test_sampled_train_on_card_matches_cpu(dev, case, monkeypatch):
     np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-4)
 
 
+@pytest.mark.parametrize("case", ["by_query_masked",
+                                  "bagging_quant_renew_compact"])
+def test_tuned_sampling_on_card_matches_cpu(dev, case, monkeypatch):
+    """The sampling cases of the smoke's TUNED phase that the card test
+    above lacks, as the smoke ran them until PR 16 moved them here: by-query
+    bagging (20k x 28 rows in queries of 100, the masked grower) and bagged
+    quantized renewal (100k x 28, the compact grower), 31 leaves, 2 rounds,
+    the same draws: predictions within 1e-4 (f32 order may flip an exact
+    tie, so splits are not compared)."""
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    init = gbdt_mod.GBDT.__init__
+
+    def patched(self, *a, **kw):
+        init(self, *a, **kw)
+        _numpy_draws(self)
+    monkeypatch.setattr(gbdt_mod.GBDT, "__init__", patched)
+    X, y, _ = _higgs_like(100_000, 28, 21)
+    group = None
+    if case == "by_query_masked":
+        X, y, group = X[:20_000], y[:20_000], np.full(200, 100)
+        extra = {"bagging_fraction": 0.6, "bagging_freq": 1,
+                 "bagging_by_query": True}
+    else:
+        extra = {"bagging_fraction": 0.7, "bagging_freq": 1,
+                 "use_quantized_grad": True, "stochastic_rounding": False,
+                 "quant_train_renew_leaf": True}
+    p = dict({"objective": "binary", "num_leaves": 31, "verbosity": -1},
+             **extra)
+    ds = lgt.Dataset(X, y, group=group)
+    _kernels.reset_counts()
+    bg = lgt.train(dict(p, device_type="cuda"), ds, 2)
+    assert sum(_kernels.PLAIN_CALLS.values()) == 0
+    bc = lgt.train(dict(p, device_type="cpu"), ds, 2)
+    assert bg._gbdt.use_compact == (case == "bagging_quant_renew_compact")
+    np.testing.assert_allclose(bg.predict(X), bc.predict(X), rtol=0,
+                               atol=1e-4)
+
+
 def test_goss_threshold_on_card_past_2_24(dev):
     """GOSS's threshold on more elements than torch.quantile takes, equal
     on the card and the CPU."""
@@ -1759,3 +1798,217 @@ def test_estimators_on_card_match_cpu(dev, case):
     assert a.device.type == "cuda"
     assert _differing_splits(a, b) == 0
     np.testing.assert_allclose(a.predict(X), b.predict(X), rtol=0, atol=1e-4)
+
+
+# ---- the deterministic mode (deterministic=True): fixed-point sums in K1
+# (every float mode), K2 (through K1's record mode) and K3 (both paths) ----
+
+def _det_case(case, dev):
+    """One deterministic launch of ``case`` as a function of nothing, with
+    its plain fixed-point version, its plain f32 version and the f32 plain
+    version on |channels| (the tolerance's sum of |addends|), all on the
+    same inputs; the MODE_LAUNCHES key it counts; whether the kernel is
+    held to the fixed-point version bit for bit (every mode but K3's tile
+    path, which rounds each block's fixed f32 sum)."""
+    from lightgbm_tpu_torch.ops.determinism import channel_scale, det_scale
+    from lightgbm_tpu_torch.ops.pallas_histogram import unfused_histogram
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    if case in ("records", "records_packed4", "fused_split",
+                "dense_segment"):
+        n, f, b = 300_000, 28, 16 if case == "records_packed4" else 256
+        layout = RowLayout(num_features=f, num_extra=2,
+                           packed4=case == "records_packed4")
+        bins = torch.randint(0, b, (n, f), generator=g, device=dev,
+                             dtype=torch.uint8)
+        grad = torch.randn(n, generator=g, device=dev)
+        work = pack_rows(bins, grad, torch.rand(n, generator=g, device=dev),
+                         (torch.rand(n, generator=g, device=dev)
+                          > 0.2).float(),
+                         torch.randn(2, n, generator=g, device=dev), layout)
+        scratch = torch.zeros_like(work)
+        one = torch.ones((), device=dev)
+        det = det_scale(torch.stack([grad.abs().amax(), one, one, one]), n)
+        seg = torch.tensor([1234, 250_000, 0], dtype=torch.int32,
+                           device=dev)
+        if case == "fused_split":
+            col = work[1234:1234 + 250_000, 3].to(torch.int64)
+            n_left = int((col <= 100).sum())
+            args = (0, 1234, 250_000, n_left, 3, 100, 0, 0, 0, None, layout,
+                    b)
+
+            def run():
+                w, s, h = fused_split(work.clone(), scratch.clone(), *args,
+                                      side=0, det=det)
+                return torch.cat([h.reshape(-1).view(torch.uint8),
+                                  w.reshape(-1), s.reshape(-1)])
+
+            def plain(w, d=None):
+                return fused_split_plain(w.clone(), scratch.clone(), *args,
+                                         side=0, det=d)[2]
+            return (run, plain(work, det), plain(work),
+                    plain(_abs_grad(work, layout)), "fused_split/det", True)
+        if case == "dense_segment":
+            def run():
+                return unfused_histogram(work, scratch, seg, layout, b,
+                                         det=det)
+        else:
+            def run():
+                return record_histogram(work, scratch, seg, layout, b,
+                                        det=det)
+
+        def plain(w, d=None):
+            return record_histogram_plain(w, scratch, seg, layout, b, det=d)
+        return (run, plain(work, det), plain(work),
+                plain(_abs_grad(work, layout)), "histogram/det", True)
+    if case in ("dense_f32", "dense_bf16", "u16"):
+        n, f, b = 400_000, 28, 1024 if case == "u16" else 256
+        bins = torch.randint(0, b, (n, f), generator=g, device=dev,
+                             dtype=torch.int16 if case == "u16"
+                             else torch.uint8)
+        ch = torch.randn(n, 3, generator=g, device=dev)
+        ch[:, 2] = (ch[:, 2] > 0).float()
+        mode = "bf16" if case == "dense_bf16" else "f32"
+        det = channel_scale(ch, n)
+
+        def run():
+            return pallas_histogram(bins, ch, b, mode=mode, det=det)
+        return (run, pallas_histogram_plain(bins, ch, b, mode, det),
+                pallas_histogram_plain(bins, ch, b, mode),
+                pallas_histogram_plain(bins, ch.abs(), b, mode),
+                "histogram/det", True)
+    # K3: the small-data path and the tile path
+    n = 20_000 if case == "sublane_small" else SUBLANE_SMALL_ROWS + 100_000
+    f, b = 28, 64
+    bins_t = torch.randint(0, b, (f, n), generator=g, device=dev,
+                           dtype=torch.uint8)
+    ch = torch.randn(n, 3, generator=g, device=dev)
+    ch[:, 2] = (ch[:, 2] > 0).float()
+    det = channel_scale(ch, n)
+
+    def run():
+        return pallas_histogram_sublane(bins_t, ch, b, "f32", det)
+    return (run, pallas_histogram_sublane_plain(bins_t, ch, b, "f32", det),
+            pallas_histogram_sublane_plain(bins_t, ch, b, "f32"),
+            pallas_histogram_sublane_plain(bins_t, ch.abs(), b, "f32"),
+            "histogram_sublane/det", case == "sublane_small")
+
+
+@pytest.mark.parametrize("case", [
+    "records", "records_packed4", "fused_split", "dense_segment",
+    "dense_f32", "dense_bf16", "u16", "sublane_small", "sublane_tile"])
+def test_deterministic_kernel_modes(dev, case):
+    """Each deterministic mode launched twice gives the same bits, counts
+    its mode's launches and takes no plain version; it equals its plain
+    fixed-point version bit for bit (K3's tile path: within tolerance) and
+    stays within the f32 plain version's tolerance: counts exact, grad and
+    hess within 1e-5 of the cell's sum of |addends|."""
+    run, plain_det, plain_f32, plain_abs, mode, exact = _det_case(case, dev)
+    _kernels.reset_counts()
+    first = run()
+    second = run()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert _kernels.MODE_LAUNCHES[mode] == 2
+    assert sum(_kernels.PLAIN_CALLS.values()) == 0
+    if case == "fused_split":
+        hist = first[:plain_f32.numel() * 4].view(torch.float32) \
+            .reshape(plain_f32.shape)
+    else:
+        hist = first
+    if exact:
+        assert torch.equal(hist, plain_det)
+    if hist.shape[-1] == 4 and case != "dense_segment":
+        _close(hist, plain_f32, plain_abs)
+    else:
+        err = (hist - plain_f32).abs()
+        assert bool((err <= 1e-5 * plain_abs + 1e-30).all())
+
+
+def _det_data(n, seed):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, 12).astype(np.float32)
+    y = (X[:, 0] + 0.7 * X[:, 3] + 0.5 * rng.randn(n) > 0).astype(float)
+    return X, y
+
+
+@pytest.mark.parametrize("grower", ["compact", "masked"])
+def test_deterministic_train_repeats_and_resumes(dev, grower, tmp_path):
+    """deterministic=True on the card: two runs give equal model text and
+    predictions bit for bit (compact with bagging through K2 and K1; masked
+    with the sublane layout through K3), only the deterministic kernels
+    launch, and a run killed by an injected fault and resumed from its
+    last snapshot equals them bit for bit."""
+    from lightgbm_tpu_torch.analysis import faultinject
+    X, y = _det_data(80_000, 3)
+    p = {"objective": "binary", "num_leaves": 31, "deterministic": True,
+         "verbosity": -1, "device_type": "cuda"}
+    if grower == "compact":
+        p.update(tpu_grower="compact", bagging_fraction=0.7, bagging_freq=2)
+    else:
+        p.update(tpu_grower="masked", max_bin=63, tpu_hist_layout="sublane")
+    runs = []
+    for _ in range(2):
+        _kernels.reset_counts()
+        runs.append(lgt.train(p, lgt.Dataset(X, y), 6))
+        modes = dict(_kernels.MODE_LAUNCHES)
+        launches = dict(_kernels.LAUNCHES)
+    if grower == "compact":
+        assert modes["fused_split/det"] == launches["fused_split"] > 0
+        assert modes["histogram/det"] == launches["histogram"]
+    else:
+        assert modes["histogram_sublane/det"] == \
+            launches["histogram_sublane"] == 6 * 31
+    assert not torch.are_deterministic_algorithms_enabled()
+    q = dict(p, tpu_checkpoint_dir=str(tmp_path), tpu_checkpoint_freq=2)
+    with faultinject.inject("kill@iteration=3"):
+        with pytest.raises(faultinject.SimulatedKill):
+            lgt.train(q, lgt.Dataset(X, y), 6)
+    res = lgt.train(q, lgt.Dataset(X, y), 6)
+    a, b, c = (bst.model_to_string().split("parameters:")[0]
+               for bst in (*runs, res))
+    assert a == b == c
+    assert np.array_equal(runs[0].predict(X), runs[1].predict(X))
+    assert np.array_equal(runs[0].predict(X), res.predict(X))
+
+
+def test_checkpoint_ticks_add_no_host_sync_to_tree_steps(dev, tmp_path):
+    """With checkpointing on, the compact tree steps after the first make
+    no host sync (torch's sync debug mode): the snapshot's fetch happens at
+    the engine's tick, outside them."""
+    import warnings
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    X, y = _det_data(70_000, 5)
+    syncs = {"n": 0, "calls": 0}
+    orig = {m: getattr(GBDT, m) for m in ("_begin_compact_iter",
+                                           "_grow_compact")}
+
+    def counted(fn):
+        def run(*a, **kw):
+            syncs["calls"] += 1
+            if syncs["calls"] <= 2:
+                return fn(*a, **kw)
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    syncs["n"] += sum("called a synchronizing"
+                                      in str(w.message) for w in caught)
+        return run
+    try:
+        for m, fn in orig.items():
+            setattr(GBDT, m, counted(fn))
+        lgt.train({"objective": "binary", "num_leaves": 31,
+                   "tpu_grower": "compact", "deterministic": True,
+                   "verbosity": -1, "device_type": "cuda",
+                   "tpu_checkpoint_dir": str(tmp_path),
+                   "tpu_checkpoint_freq": 1}, lgt.Dataset(X, y), 4)
+    finally:
+        for m, fn in orig.items():
+            setattr(GBDT, m, fn)
+    assert syncs["calls"] == 8 and syncs["n"] == 0
+    assert len(os.listdir(tmp_path)) == 3

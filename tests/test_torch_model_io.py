@@ -33,13 +33,10 @@ from lightgbm_tpu.model_io import loaded_dump as jax_loaded_dump
 from lightgbm_tpu_torch.convert import booster_from_arrays
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
-# the golden case's parameters (tests/golden/binary_nan.model.txt), without
-# deterministic=True: the port's kernels add f32 atomics in no fixed order
-# and still reject it (ROADMAP B1/B2); on the CPU the plain histogram is
-# sequential anyway
+# the golden case's parameters (tests/golden/binary_nan.model.txt)
 GOLDEN_PARAMS = {"objective": "binary", "num_leaves": 15, "max_bin": 63,
                  "min_data_in_leaf": 5, "learning_rate": 0.1,
-                 "verbosity": -1}
+                 "deterministic": True, "verbosity": -1}
 
 
 def _golden(name="binary_nan"):
@@ -128,8 +125,7 @@ def test_stock_lightgbm_model_loads_and_predicts():
                                ref.predict(X, num_iteration=5), atol=1e-7)
 
 
-# each golden case's parameters (scripts/gen_interop_goldens.py), without
-# deterministic=True (see GOLDEN_PARAMS)
+# each golden case's parameters (scripts/gen_interop_goldens.py)
 CASES = {
     "multiclass": ({"objective": "multiclass", "num_class": 3}, "auto"),
     "categorical": ({"objective": "regression", "min_data_per_group": 10,

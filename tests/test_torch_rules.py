@@ -179,8 +179,8 @@ def test_parameters_of_the_ranking_and_renewal_slice_train(params):
 
 @pytest.mark.parametrize("params,item", [
     ({"tree_learner": "data"}, "A18"),
-    ({"tpu_checkpoint_dir": "ckpt"}, "A16"),
-    ({"deterministic": True}, "B1/B2"),
+    ({"tpu_mesh_shape": "2x2"}, "A18"),
+    ({"pre_partition": True}, "A18"),
     ({"num_machines": 2}, "A18"),
     ({"top_k": 30}, "A18"),
     ({"tpu_leaf_quant": "int8"}, "A17"),
@@ -360,8 +360,8 @@ def test_parameter_homes_act():
     cfg.check_supported()
     with pytest.raises(NotImplementedError, match="A18"):
         Config({"topk": 21}).check_supported()
-    with pytest.raises(NotImplementedError, match=r"A16 \(checkpoints\)"):
-        Config({"checkpoint_dir": "c"}).check_supported(dataset_only=True)
+    with pytest.raises(NotImplementedError, match="A18"):
+        Config({"mesh_shape": "2x2"}).check_supported(dataset_only=True)
     assert Config({"label": "name:y"}).label_column == "name:y"
     import logging
     seen = []
