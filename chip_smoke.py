@@ -66,7 +66,23 @@ non-zero):
    margins 1.5 and 0.25, freq 2 (each row's score that of the window it
    stopped at, the share stopped, the CPU's on a sample, margin 1e9 the
    plain prediction); refit with decay 0.9 on the validation rows against
-   the CPU's refit (leaf values within 1e-6);
+   the CPU's refit (leaf values within 1e-6); predict_device on the 1.05M
+   validation rows (slices of the auto ladder's top rung, joined on the
+   card) equal to predict bit for bit;
+   then SERVING: the repo's serving benchmark (bench.py:747-776, 20k x 28,
+   63 leaves, max_bin=63, 20 trees; ladder 256/1024/4096, the predict,
+   leaf and contrib endpoints, the device featurizer) behind
+   Booster.serve: warmed, then 8 open-loop clients at 100, 300 and 1000
+   requests/s for 3 s each on each endpoint in turn, requests cycling
+   1/8/64/256 rows, with a hot swap to a 25-tree booster halfway through
+   predict's 300/s (p50/p99 latency, rate, shed and timeout shares a level; every
+   answer equal to its version's predict, pred_leaf and pred_contrib; no
+   failed request at 100 and 300/s; the tabled TreeSHAP on every contrib
+   batch); at the top rung the featurizer against bin_matrix, the level
+   engine against the walk (and through tpu_predict_engine=level), int8
+   leaves within their bound, the tables against their plain version and
+   the loop kernel, each timed; a drift monitor on an unshifted and a
+   3-sigma-shifted stream;
 6. quantized-gradient training on the same constructed datasets
    (QUANT): use_quantized_grad=True with LightGBM's defaults (4 bins,
    stochastic rounding), 1 warm-up and 2 timed rounds and a profiled tree:
@@ -82,8 +98,8 @@ non-zero):
    deterministic rounding (compact at 100k x 28, the masked grower's shim
    at 20k, 31 leaves, 3 rounds; 1e-4, differing splits counted);
    then UNFUSED (right after QUANT, on MAIN's datasets): the compact
-   grower without the fused kernel (tpu_fused=off), 1 warm-up and 2
-   timed rounds and a profiled tree in four runs: f32 at 255 bins (K1
+   grower without the fused kernel (tpu_fused=off), 1 warm-up and 1
+   timed round and a profiled tree in four runs: f32 at 255 bins (K1
    dense on the records' bin columns), use_quantized_grad at 255 bins (K1
    dense int8), use_quantized_grad at max_bin=63 with the sublane layout
    (K3 int8 on a feature-major copy of each segment) and
@@ -98,7 +114,7 @@ non-zero):
    timed beside index_add_ and their byte bounds (UNFUSED_ROOT);
    the card against the CPU for the four runs at 100k x 28 (quantized: 0
    differing splits; f32 1e-4); then PACK4: the same rows at max_bin=15
-   with tpu_bin_pack4=true, 1 warm-up and 2 timed rounds in f32 and
+   with tpu_bin_pack4=true, 1 warm-up and 1 timed round in f32 and
    quantized beside the u8 run on the same binning (quantized: equal
    trees; f32 1e-4, differing splits counted), every K2 and K1 launch on
    packed records, packed and u8 prediction equal on the validation rows,
@@ -229,7 +245,7 @@ non-zero):
    with monotone_constraints (the sign of the generator's w1 on the 8
    features with the largest |w1|), monotone_constraints_method
    intermediate and four interaction groups of 7 features, 1 warm-up and
-   3 timed rounds and a profiled tree: iterations/s beside MAIN's,
+   2 timed rounds and a profiled tree: iterations/s beside MAIN's,
    launches a split, the walk kernel's launches (one a split) and device
    ms a tree, the batched rescans' device ms and launches a tree (their
    profiler ranges), the flagged leaves a tree (> 0), K1's and
@@ -237,14 +253,18 @@ non-zero):
    the walk kernel against its plain version on every split's state of
    one more tree (flags and bounds equal), timed; a sweep of each
    constrained feature over its bin bounds on 1,000 validation rows (no
-   prediction moves against the direction); then CONSTRAINED_CHECKS: the
-   card against the CPU on weighted rows for basic monotone on both
-   growers, intermediate, monotone_penalty, interaction constraints on
-   both growers, path_smooth, extra trees (numpy's words on both),
-   feature_contri, CEGB split and coupled on the compact grower, and lazy
-   CEGB on the masked grower with the sublane layout (K3); 100k x 28
-   compact, 20k x 28 masked, 15 leaves, 2 rounds (1e-4, 0 differing
-   splits);
+   prediction moves against the direction); then CONSTRAINED_CHECKS: each
+   constraint and scan option alone on the card on weighted rows: basic
+   monotone on both growers, intermediate (the walk kernel twice a split),
+   monotone_penalty, interaction constraints on both growers, path_smooth,
+   extra trees, feature_contri, CEGB split and coupled on the compact
+   grower, and lazy CEGB on the masked grower with the sublane layout (K3
+   alone); 100k x 28 compact, 20k x 28 masked, 15 leaves, 2 rounds: the
+   grower, no plain call, finite predictions, monotone cases swept over
+   their bin bounds (no step against the direction), interaction cases
+   with every branch's features inside one group (the same options
+   against the CPU are the card test
+   tests/test_torch_cuda.py::test_constraint_options_on_card_match_cpu);
 17. DART (run right after CONSTRAINED on MAIN's datasets): MAIN's
    parameters with boosting=dart and LightGBM's DART defaults but
    skip_drop=0 (drop_rate 0.1, max_drop 50, drop_seed 4), 1 warm-up and 5
@@ -283,7 +303,7 @@ non-zero):
    weighted rows (0 differing splits, 1e-4);
 19b. the user surface (CV, SKLEARN, CLI, right after WIDE_BINS): lgt.cv
    with MAIN's parameters on MAIN's first 2.1M x 28 rows, 5 stratified
-   folds (each binned anew from its 1.68M raw training rows), 3 rounds:
+   folds (each binned anew from its 1.68M raw training rows), 2 rounds:
    construct
    s a fold, rounds/s beside MAIN's iterations/s, each fold's grower and
    device, K2's and K1's launches, the peak device memory, valid auc-mean
@@ -1364,6 +1384,15 @@ def phase_predict_api(lgt, results):
     check(out["leaf_sum_max_abs_err"] <= 1e-5, "leaf values summed against "
           f"raw_score: {out['leaf_sum_max_abs_err']}")
     out["adds"] = time_tree_adds(g, Xv)
+    # predict_device: raw scores left on the card, 1.05M rows above the
+    # auto ladder's top rung (2^20) in slices of it, joined on the card
+    t0 = time.perf_counter()
+    dev_raw = bst.predict_device(Xv)
+    torch.cuda.synchronize()
+    out["predict_device_wall_s"] = time.perf_counter() - t0
+    out["predict_device_equal"] = bool(
+        dev_raw.is_cuda and torch.equal(dev_raw.cpu(), torch.from_numpy(full)))
+    check(out["predict_device_equal"], "predict_device against predict")
 
     # early stopping with freq 2: a check after every second iteration
     # (one after the last changes nothing); margin 1.5 (few rows are that
@@ -1427,6 +1456,409 @@ def phase_predict_api(lgt, results):
     check(moved > 0, "refit moved no leaf")
     print("PREDICT_API", json.dumps(out), flush=True)
     results["predict_api"] = out
+
+
+SERVING_TRAIN_ROWS = 20_000    # bench.py:747-776, the serving benchmark
+SERVING_PARAMS = {"objective": "binary", "num_leaves": 63, "max_bin": 63,
+                  "learning_rate": 0.1, "min_data_in_leaf": 20,
+                  "verbosity": -1, "device_type": "cuda",
+                  "tpu_predict_buckets": "256,1024,4096",
+                  "tpu_serve_endpoints": "predict,leaf,contrib",
+                  "tpu_serve_featurize": "device"}
+SERVING_TREES = 20
+SERVING_SWAP_TREES = 25        # the hot-swapped booster
+SERVING_RATES = (100, 300, 1000)   # requests/s, open loop
+SERVING_LEVEL_S = 3.0
+SERVING_CLIENTS = 8
+SERVING_SIZES = (1, 8, 64, 256)
+SERVING_KINDS = ("predict", "leaf", "contrib")
+SERVING_POOL = 4096            # traffic rows (the top rung)
+SERVING_MIXED_RATE = 300       # requests/s of the mixed-endpoint level
+
+
+def serving_expected(bst, pool):
+    """A booster's answers for every traffic row: predict, pred_leaf and
+    pred_contrib (the TreeSHAP loop kernel), and the contributions'
+    scale (each cell's tolerance is 1e-12 of its |value| plus it)."""
+    from lightgbm_tpu_torch.ops.treeshap_device import build_shap_paths
+    g = bst._gbdt
+    paths = build_shap_paths(g.models, g._pred_nan_arr.cpu().numpy(),
+                             g.feature_is_categorical(), "cpu")
+    return {"predict": bst.predict(pool),
+            "leaf": bst.predict(pool, pred_leaf=True),
+            "contrib": bst.predict(pool, pred_contrib=True),
+            "scale": float(paths.leaf_value.abs().sum()
+                           + paths.ev.abs().sum())}
+
+
+def serving_level(server, pool, kinds, rate, swap=None):
+    """One open-loop level (as bench.py:821-879 drives each endpoint):
+    ``SERVING_CLIENTS`` threads each submit every ``SERVING_CLIENTS /
+    rate`` s for ``SERVING_LEVEL_S`` s, without waiting for answers;
+    request ``k`` takes ``SERVING_SIZES[k % 4]`` rows of the pool and the
+    endpoint ``kinds[k % len(kinds)]``. ``swap``: a call made from its own
+    thread halfway through. Returns the level's numbers and its ``(kind,
+    first row, size, future)`` list."""
+    from lightgbm_tpu_torch.serving import ServerOverloaded, ServingTimeout
+    reqs, shed, other = [], [0], []
+    mu = threading.Lock()
+    t0 = time.monotonic()
+    t_end = t0 + SERVING_LEVEL_S
+    interval = SERVING_CLIENTS / rate
+
+    def client(c):
+        k, nxt = c, t0 + c * interval / SERVING_CLIENTS
+        while True:
+            now = time.monotonic()
+            if now >= t_end:
+                return
+            if now < nxt:
+                time.sleep(min(nxt - now, 0.005))
+                continue
+            nxt += interval
+            size = SERVING_SIZES[k % len(SERVING_SIZES)]
+            kind = kinds[k % len(kinds)]
+            lo = (k * 37) % (len(pool) - size)
+            k += SERVING_CLIENTS
+            try:
+                fut = server.submit(pool[lo:lo + size], kind=kind)
+                with mu:
+                    reqs.append((kind, lo, size, fut))
+            except ServerOverloaded:
+                with mu:
+                    shed[0] += 1
+            except Exception as err:  # noqa: BLE001 - counted, checked
+                with mu:
+                    other.append(repr(err))
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVING_CLIENTS)]
+    swapper = None
+    if swap is not None:
+        def run_swap():
+            time.sleep(SERVING_LEVEL_S / 2)
+            swap()
+        swapper = threading.Thread(target=run_swap)
+        swapper.start()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if swapper is not None:
+        swapper.join()
+    lat, timeouts, failed = [], 0, []
+    for _, _, _, fut in reqs:
+        try:
+            fut.result()
+            lat.append(fut.latency_s * 1e3)
+        except ServingTimeout:
+            timeouts += 1
+        except Exception as err:  # noqa: BLE001 - a failed request
+            failed.append(repr(err))
+    offered = len(reqs) + shed[0] + len(other)
+    out = {"offered_per_s": offered / SERVING_LEVEL_S,
+           "achieved_per_s": len(lat) / SERVING_LEVEL_S,
+           "p50_ms": float(np.percentile(lat, 50)) if lat else None,
+           "p99_ms": float(np.percentile(lat, 99)) if lat else None,
+           "shed_share": shed[0] / max(offered, 1),
+           "timeout_share": timeouts / max(offered, 1),
+           "failed": len(failed) + len(other),
+           "errors": (failed + other)[:3]}
+    return out, reqs
+
+
+def check_responses(reqs, expected):
+    """Every answered request of a level against its version's answers for
+    its rows; returns the requests checked a kind and the largest
+    contribution error relative to its tolerance."""
+    counts, worst = {k: 0 for k in SERVING_KINDS}, 0.0
+    for kind, lo, size, fut in reqs:
+        if fut._error is not None:
+            continue
+        got = fut.result()
+        want = expected[fut.version]
+        ref = want[kind][lo:lo + size]
+        if kind == "contrib":
+            err = np.abs(got - ref) / (1e-12 * (np.abs(ref) + want["scale"]))
+            worst = max(worst, float(err.max()))
+            check(err.max() <= 1.0, "served pred_contrib against "
+                  f"pred_contrib ({fut.version}): {float(err.max())}")
+        else:
+            check(np.array_equal(got, ref), f"served {kind} against "
+                  f"predict ({fut.version}, rows {lo}:{lo + size})")
+        counts[kind] += 1
+    return counts, worst
+
+
+def record_level(levels, key, level, reqs, expected, t_start):
+    """A traffic level's answers checked (check_responses), its numbers
+    kept in ``levels[key]`` and printed; returns the largest contribution
+    error relative to its tolerance."""
+    counts, worst = check_responses(reqs, expected)
+    level["checked"] = sum(counts.values())
+    level["versions"] = sorted({f.version for *_, f in reqs
+                                if f.version is not None})
+    level["wall_s"] = time.perf_counter() - t_start
+    levels[key] = level
+    print(f"SERVING_LEVEL {key}/s {json.dumps(level)}", flush=True)
+    return worst
+
+
+def phase_serving(lgt, results):
+    """SERVING: the repo's serving benchmark (bench.py:747-776:
+    make_higgs_like 20k x 28, 63 leaves, max_bin=63, learning rate 0.1,
+    min_data_in_leaf 20, 20 trees: the first 20 of one 25-round training;
+    ladder 256/1024/4096, the three endpoints, the device featurizer) on
+    a server warmed, then driven by
+    8 open-loop clients at 100, 300 and 1000 requests/s for 3 s each on
+    each endpoint in turn (predict, leaf, contrib, as bench.py drives
+    them), requests cycling 1/8/64/256 rows, with a hot swap to a 25-tree
+    booster halfway through predict's 300/s level: each level's p50/p99
+    latency, rate, shed and timeout shares; every answered request equal
+    to its version's predict, pred_leaf and pred_contrib; no failed
+    request at 100 and 300/s; the tabled TreeSHAP launched on every
+    contrib batch (the wrapper's counts, zeroed before the server starts);
+    then one level of the three endpoints cycled request by request at
+    SERVING_MIXED_RATE requests/s, its answers checked and its numbers
+    reported, not held; one warm call of each endpoint at 1, 256 and 4,096
+    rows, timed.
+    Then, on the 25-tree booster at the top rung: the featurizer against
+    bin_matrix (equal; device ms beside the host's), the level engine
+    against the walk (bit for bit, through tpu_predict_engine=level too;
+    device ms), the tables
+    against their plain version (1e-12 of scale) timed beside the loop
+    kernel, int8 leaves within their recorded bound, and a drift monitor
+    on an unshifted and a 3-sigma-shifted stream."""
+    from lightgbm_tpu_torch import _kernels
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    from lightgbm_tpu_torch.ops import predict as pr
+    from lightgbm_tpu_torch.ops import treeshap_device as ts
+    from lightgbm_tpu_torch.ops.device_bin import bin_rows_device
+    from lightgbm_tpu_torch.ops.packed import bins_to_device
+    from lightgbm_tpu_torch.basic import Booster
+    from lightgbm_tpu_torch.config import Config
+    X, y = make_higgs_like(SERVING_TRAIN_ROWS, 28)
+    t0 = time.perf_counter()
+    # one training of 25 rounds: the served model is its first 20 trees
+    # (the benchmark's), the hot swap brings all 25
+    swap_bst = lgt.train(SERVING_PARAMS, lgt.Dataset(X, y),
+                         SERVING_SWAP_TREES)
+    sg = swap_bst._gbdt
+    bst = Booster._from_gbdt(gbdt_mod.GBDT.for_prediction(
+        Config(SERVING_PARAMS), sg.models[:SERVING_TREES], sg.mappers,
+        sg.objective, sg.device, sg.feature_names), SERVING_PARAMS)
+    out = {"train_s": time.perf_counter() - t0, "trees": bst.num_trees(),
+           "swap_trees": swap_bst.num_trees()}
+    pool = make_higgs_like(SERVING_POOL, 28, seed=11)[0]
+    t0 = time.perf_counter()
+    expected = {"v0": serving_expected(bst, pool),
+                "v1": serving_expected(swap_bst, pool)}
+    out["expected_s"] = time.perf_counter() - t0
+    contrib_calls = [0]
+    real_contrib = gbdt_mod.GBDT.predict_contrib_padded
+
+    def counted_contrib(self, *a, **kw):
+        contrib_calls[0] += 1
+        return real_contrib(self, *a, **kw)
+    gbdt_mod.GBDT.predict_contrib_padded = counted_contrib
+    try:
+        # the main path: counts zeroed, the server warmed, the traffic
+        _kernels.reset_counts()
+        contrib_calls[0] = 0
+        t0 = time.perf_counter()
+        server = bst.serve(tick_ms=2.0, queue_max=16384, deadline_ms=2000)
+        out["warm_s"] = time.perf_counter() - t0
+        out["warm"] = server.registry.warm_stats()
+        levels, worst = {}, 0.0
+        try:
+            for kind in SERVING_KINDS:
+                for rate in SERVING_RATES:
+                    swap = (lambda: server.deploy("v1", swap_bst)) \
+                        if (kind, rate) == ("predict", 300) else None
+                    t1 = time.perf_counter()
+                    level, reqs = serving_level(server, pool, (kind,),
+                                                rate, swap)
+                    worst = max(worst, record_level(
+                        levels, f"{kind}@{rate}", level, reqs, expected, t1))
+            # the three endpoints cycled request by request: measured, not
+            # held (a tick serves one endpoint's run of requests)
+            t1 = time.perf_counter()
+            level, reqs = serving_level(server, pool, SERVING_KINDS,
+                                        SERVING_MIXED_RATE)
+            worst = max(worst, record_level(
+                levels, f"mixed@{SERVING_MIXED_RATE}", level, reqs,
+                expected, t1))
+            stats = server.stats
+            health = server.health()
+        finally:
+            server.close()
+        launches = dict(_kernels.LAUNCHES)
+        modes = dict(_kernels.MODE_LAUNCHES)
+        plain = dict(_kernels.PLAIN_CALLS)
+        calls = contrib_calls[0]
+    finally:
+        gbdt_mod.GBDT.predict_contrib_padded = real_contrib
+    out.update(levels=levels, stats=stats, contrib_batches=calls,
+               launches=launches, tables_launches=modes["treeshap/tables"],
+               plain_calls=plain, contrib_max_err_over_tol=worst,
+               swaps=health["swaps"], failed_swaps=health["failed_swaps"],
+               active_version=health["active_version"])
+    for key, level in levels.items():
+        if not key.endswith("@1000") and not key.startswith("mixed"):
+            check(level["failed"] == 0 and level["timeout_share"] == 0
+                  and level["shed_share"] == 0,
+                  f"requests failed at {key}/s: {level}")
+    check(levels["predict@300"]["versions"] == ["v0", "v1"]
+          and health["active_version"] == "v1" and health["swaps"] == 2,
+          f"the hot swap: {levels['predict@300']['versions']}, {health}")
+    check(calls > 0 and modes["treeshap/tables"] == calls
+          and launches["treeshap"] == calls,
+          f"the tabled TreeSHAP on {modes['treeshap/tables']} of {calls} "
+          f"contrib batches ({launches['treeshap']} TreeSHAP launches)")
+    check(all(v == 0 for v in plain.values()),
+          f"plain versions ran on the card: {plain}")
+
+    # the rest on the trained 25-tree booster, now active
+    bst = swap_bst
+    # one serving call of each endpoint a rung, warm (wall ms: the host
+    # issues every launch; the answer's copy to the host ends it)
+    calls_ms = {}
+    for rows_n in (1, 256, SERVING_POOL):
+        for kind, fn in (("predict", bst.predict_serving),
+                         ("leaf", bst.predict_leaf_serving),
+                         ("contrib", bst.predict_contrib_serving)):
+            fn(pool[:rows_n])
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn(pool[:rows_n])
+            calls_ms[f"{kind}@{rows_n}"] = (time.perf_counter() - t0) / 5e-3
+    out["call_ms"] = calls_ms
+    # the top rung, beside the traffic
+    g = bst._gbdt
+    rung = SERVING_POOL
+    state = g._featurize_state()
+    raw_dev = torch.from_numpy(pool).to(g.device)
+    host = g.bin_matrix(pool)
+    dev_bins = g.featurize_rung(pool)
+    out["featurizer_equal"] = bool(np.array_equal(dev_bins.cpu().numpy(),
+                                                  host))
+    check(out["featurizer_equal"], "featurizer against bin_matrix")
+    out["featurize_device_ms"] = time_ms(
+        lambda: bin_rows_device(raw_dev, state, rung), reps=20)
+    out["featurize_rung_ms"] = time_ms(lambda: g.featurize_rung(pool),
+                                       reps=20)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        g.bin_matrix(pool)
+    out["bin_matrix_host_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    c = g._device_trees_entry()
+    trees, depth = c["st"], c["depth"]
+    level = pr.build_level_layout(trees, g._pred_nan_arr, depth)
+    b = bins_to_device(host, g.device)
+    walk = pr.predict_raw_batched(b, trees, g._pred_nan_arr, depth)
+    lvl = pr.predict_raw_level(b, level, trees.leaf_value)
+    check(torch.equal(walk, lvl), "level engine against the walk")
+    check(torch.equal(pr.predict_leaf_level(b, level),
+                      pr.predict_leaf_batched(b, trees, g._pred_nan_arr,
+                                              depth)),
+          "level engine's leaves against the walk's")
+    out["depth"] = depth
+    out["walk_ms"] = time_ms(lambda: pr.predict_raw_batched(
+        b, trees, g._pred_nan_arr, depth), reps=10)
+    out["level_ms"] = time_ms(lambda: pr.predict_raw_level(
+        b, level, trees.leaf_value), reps=10)
+    f32, _ = bst.predict_serving(pool, raw_score=True)
+    bst.reset_parameter({"tpu_predict_engine": "level",
+                         "tpu_level_depth_cap": max(depth, 10)})
+    by_level, _ = bst.predict_serving(pool, raw_score=True)
+    check(np.array_equal(by_level, f32), "tpu_predict_engine=level against "
+          "the walk through predict_serving")
+    bst.reset_parameter({"tpu_predict_engine": "batched",
+                         "tpu_leaf_quant": "int8"})
+    q, _ = bst.predict_serving(pool, raw_score=True)
+    out["int8_bound"] = g.leaf_quant_bound()
+    out["int8_max_abs_err"] = float(np.abs(q - f32).max())
+    slack = bst.num_trees() * np.finfo(np.float32).eps \
+        * (np.abs(f32).max() + out["int8_bound"])
+    check(0 < out["int8_max_abs_err"] <= out["int8_bound"] + slack,
+          f"int8 leaves: {out['int8_max_abs_err']} against the bound "
+          f"{out['int8_bound']}")
+    bst.reset_parameter({"tpu_leaf_quant": "off"})
+    # the tabled TreeSHAP at the top rung: kernel, plain version, loop
+    sc = g._device_shap_state(None, 0)
+    paths = sc["paths"]
+    tables = g._shap_tables(sc)
+    kern = ts.tree_shap_tables(b, paths, tables, 1)
+    plain_out = ts.tree_shap_tables_plain(b, paths, tables, 1)
+    scale = float(paths.leaf_value.abs().sum() + paths.ev.abs().sum())
+    err = (kern - plain_out).abs()
+    tab = {"rows": rung, "table_bytes": tables.table.numel() * 8,
+           "mask_bits": tables.mask_bits,
+           "max_abs_err": float(err.max()),
+           "max_rel_err": float((err / (plain_out.abs() + scale)).max())}
+    check(tab["max_rel_err"] <= 1e-12, "tabled TreeSHAP against its plain "
+          f"version: {tab['max_rel_err']}")
+    loop_err = (kern - ts.tree_shap(b, paths, 1)).abs()
+    tab["loop_max_rel_err"] = float((loop_err / (plain_out.abs()
+                                                  + scale)).max())
+    check(tab["loop_max_rel_err"] <= 1e-12, "tabled TreeSHAP against the "
+          f"loop kernel: {tab['loop_max_rel_err']}")
+    tab["ms"] = time_ms(lambda: ts.tree_shap_tables(b, paths, tables, 1),
+                        reps=10)
+    tab["loop_ms"] = time_ms(lambda: ts.tree_shap(b, paths, 1), reps=5)
+    tab["plain_ms"] = time_ms(
+        lambda: ts.tree_shap_tables_plain(b, paths, tables, 1), reps=1,
+        warm=1)
+    t0 = time.perf_counter()
+    ts.build_shap_tables(paths)
+    torch.cuda.synchronize()
+    tab["build_s"] = time.perf_counter() - t0
+    f = pool.shape[1]
+    # bytes: each input of the launch read once (the rows, the 13 path
+    # arrays it takes, offset and ev) and of the table only the weights
+    # of the distinct (tree, leaf, mask) this batch forms
+    # (shap_table_bytes_read), the output written once; operations: a
+    # leaf of u slots forms u mask bits and adds u weights for each row
+    # (shap_table_ops)
+    launched = (paths.split_feature, paths.split_bin, paths.nan_bin,
+                paths.node_flags, paths.cat_bitset, paths.num_nodes,
+                paths.num_leaves, paths.path_len, paths.step_node,
+                paths.step_left, paths.step_slot, paths.feat, paths.ulen,
+                tables.offset, paths.ev)
+    table_read = ts.shap_table_bytes_read(b, paths)
+    nbytes = (b.numel() * b.element_size() + rung * (f + 1) * 8
+              + table_read
+              + sum(t.numel() * t.element_size() for t in launched))
+    ops = ts.shap_table_ops(paths, rung)
+    tab.update(bytes=nbytes, table_bytes_read=table_read, fp64_ops=ops,
+               bytes_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+               ops_ms=1e3 * ops / FP64_OPS_PER_S)
+    tab["bound_ms"] = max(tab["bytes_ms"], tab["ops_ms"])
+    tab["bound_by"] = ("operations" if tab["ops_ms"] >= tab["bytes_ms"]
+                       else "bytes")
+    out["tables"] = tab
+    # drift: an unshifted stream, then one shifted by 3 sigma on feature 0
+    mon_server = bst.serve(tick_ms=0.0, deadline_ms=10_000,
+                           drift_flush_every=10 ** 9, warm=False)
+    try:
+        mon = mon_server.observer.drift
+        shifted = pool.copy()
+        shifted[:, 0] += 3 * float(pool[:, 0].std())
+        psi = []
+        for stream in (pool, shifted):
+            futs = [mon_server.submit(stream[lo:lo + 256])
+                    for lo in range(0, rung, 256)]
+            for fut in futs:
+                fut.result()
+            psi.append(mon.flush()["psi"]["Column_0"])
+        out["drift"] = {"unshifted_psi": psi[0], "shifted_psi": psi[1],
+                        "threshold": mon.threshold,
+                        "host_syncs": mon.host_syncs}
+    finally:
+        mon_server.close()
+    check(psi[0] < mon.threshold < psi[1], f"drift PSI {psi} against the "
+          f"threshold {mon.threshold}")
+    print("SERVING", json.dumps(out), flush=True)
+    results["serving"] = out
 
 
 DET_ROUNDS = 2                 # timed rounds after one warm-up round
@@ -2104,7 +2536,7 @@ def quant_cpu_vs_card(lgt):
     return out
 
 
-UNFUSED_ROUNDS = 2               # timed rounds after one warm-up round
+UNFUSED_ROUNDS = 1               # timed rounds after one warm-up round
 # UNFUSED's runs: name -> (parameters over MAIN's, the histogram kernel, the
 # mode that every launch of it must be in)
 UNFUSED_RUNS = {
@@ -2470,7 +2902,7 @@ def phase_unfused(lgt, results):
     results["unfused"] = out
 
 
-PACK4_ROUNDS = 2                 # timed rounds after one warm-up round
+PACK4_ROUNDS = 1                 # timed rounds after one warm-up round
 
 
 def pack4_root_split(p4, u8, quant):
@@ -3139,7 +3571,7 @@ KERNEL_FUNCTIONS = {"histogram": ("hist_kernel", "hist_wide_kernel",
                     "histogram_sublane": ("hist_sublane_kernel",
                                           "hist_sublane_small_kernel"),
                     "monotone_walk": ("monotone_walk_kernel",),
-                    "treeshap": ("treeshap_kernel",),
+                    "treeshap": ("treeshap_kernel", "treeshap_tables_kernel"),
                     "segment_gather": ("gather_kernel",)}
 # of those, the ones of which exactly one runs for each launch a wrapper
 # counts (K2's partition does not run for the root's histogram, mode 1)
@@ -3148,7 +3580,7 @@ ENTRY_FUNCTIONS = {"histogram": ("hist_kernel", "hist_wide_kernel"),
                    "histogram_sublane": ("hist_sublane_kernel",
                                          "hist_sublane_small_kernel"),
                    "monotone_walk": ("monotone_walk_kernel",),
-                   "treeshap": ("treeshap_kernel",),
+                   "treeshap": ("treeshap_kernel", "treeshap_tables_kernel"),
                    "segment_gather": ("gather_kernel",)}
 
 
@@ -3164,7 +3596,9 @@ MODE_FUNCTIONS = {
     "histogram/quant": r"hist_kernel<true,true,false>",
     "histogram/int8": r"hist_kernel<false,true,false>",
     "histogram/u16": r"hist_wide_kernel<(true|false)>\(",
-    "treeshap/u16": r"treeshap_kernel<(unsignedshort|ushort|uint16_t)>",
+    "treeshap/u16": r"treeshap(_tables)?_kernel<(unsignedshort|ushort|"
+                    r"uint16_t)>",
+    "treeshap/tables": r"treeshap_tables_kernel<",
     "histogram_sublane/int8": r"hist_sublane(_small)?_kernel<(true|false),"
                               r"\d,int,false>",
     "histogram/det": r"hist_kernel<(true|false),false,true>"
@@ -4769,7 +5203,7 @@ def phase_tuned(lgt, results):
     results["tuned"] = out
 
 
-CONSTRAINED_ROUNDS = 3         # timed rounds after one warm-up round
+CONSTRAINED_ROUNDS = 2         # timed rounds after one warm-up round
 # the four interaction groups of the Higgs-shaped features
 INTERACTION_GROUPS = [list(range(0, 7)), list(range(7, 14)),
                       list(range(14, 21)), list(range(21, 28))]
@@ -4864,25 +5298,47 @@ def check_walk_kernel(bst):
             "leaves": L}
 
 
-def constrained_cpu_vs_card(lgt):
-    """The card against the CPU, one case each: 100k x 28 on the compact
-    grower, 20k x 28 on the masked one, 15 leaves, 2 rounds, on
-    continuously weighted rows (tie_free_weights); the extra-trees case
-    with numpy's words on both (seamed_draws). Predictions within 1e-4
-    and 0 differing splits; each case's wall seconds."""
+def interaction_violations(bst, groups):
+    """Branches of the booster's trees whose split features do not all lie
+    in one of the interaction ``groups`` (0 when the constraint holds)."""
+    sets = [set(g) for g in groups]
+    bad = 0
+    for m in bst._gbdt.models:
+        stack = [(0, frozenset())] if m.num_nodes > 0 else []
+        while stack:
+            node, used = stack.pop()
+            used = used | {int(m.split_feature[node])}
+            if not any(used <= g for g in sets):
+                bad += 1
+                continue
+            for child in (m.left_child[node], m.right_child[node]):
+                if child >= 0:
+                    stack.append((int(child), used))
+    return bad
+
+
+def constrained_card_options(lgt):
+    """Each constraint and scan option alone on the card, one training
+    each: 100k x 28 on the compact grower, 20k x 28 on the masked one, 15
+    leaves, 2 rounds, on continuously weighted rows (tie_free_weights).
+    Held: the grower, no plain call, the walk twice a split with the
+    intermediate method, K3 alone with lazy CEGB on sublane, finite
+    predictions, the monotone sweep (0) and the interaction groups (no
+    branch outside one). Each case's launches and wall seconds."""
     from lightgbm_tpu_torch import _kernels
     X, y = make_higgs_like(100_000, 28, seed=31)
     w = tie_free_weights(len(y), seed=17)
-    mono = [1, -1, 0, 1, 0, 0, -1, 0] + [0] * 20
-    base = {"objective": "binary", "num_leaves": 15, "verbosity": -1}
+    mono = np.array([1, -1, 0, 1, 0, 0, -1, 0] + [0] * 20)
+    base = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
+            "device_type": "cuda"}
     cases = [
-        ("monotone_basic_compact", {"monotone_constraints": mono}),
-        ("monotone_basic_masked", {"monotone_constraints": mono,
+        ("monotone_basic_compact", {"monotone_constraints": mono.tolist()}),
+        ("monotone_basic_masked", {"monotone_constraints": mono.tolist(),
                                    "tpu_grower": "masked"}),
         ("monotone_intermediate_compact", {
-            "monotone_constraints": mono,
+            "monotone_constraints": mono.tolist(),
             "monotone_constraints_method": "intermediate"}),
-        ("monotone_penalty_compact", {"monotone_constraints": mono,
+        ("monotone_penalty_compact", {"monotone_constraints": mono.tolist(),
                                       "monotone_penalty": 1.5}),
         ("interaction_compact", {
             "interaction_constraints": INTERACTION_GROUPS}),
@@ -4899,41 +5355,44 @@ def constrained_cpu_vs_card(lgt):
                                       "tpu_hist_layout": "sublane"})]
     out = {}
     dataset = shared_datasets(lgt)
-    with seamed_draws():
-        for name, extra in cases:
-            t0 = time.perf_counter()
-            n = 20_000 if "masked" in name else len(y)
-            Xc, yc, wc = X[:n], y[:n], w[:n]
-            ds = dataset(Xc, yc, extra.get("max_bin", 255), weight=wc)
-            _kernels.reset_counts()
-            params = dict(base, **extra)
-            boosters = {"cuda": lgt.train(
-                dict(params, device_type="cuda"), ds, 2)}
-            launches = dict(_kernels.LAUNCHES)
-            check(sum(_kernels.PLAIN_CALLS.values()) == 0,
-                  f"{name}: a plain version ran on the card")
-            if "sublane" in name:
-                check(launches["histogram_sublane"] > 0
-                      and launches["histogram"] == 0,
-                      f"{name}: not on K3 alone: {launches}")
-            if "intermediate" in name:
-                check(launches["monotone_walk"]
-                      == 2 * (params["num_leaves"] - 1),
-                      f"{name}: {launches['monotone_walk']} walks")
-            boosters["cpu"] = lgt.train(
-                dict(params, device_type="cpu"), ds, 2)
-            check(boosters["cuda"]._gbdt.use_compact == ("masked" not in name),
-                  f"{name}: the wrong grower")
-            diff, differ = compare_boosters(boosters["cuda"], boosters["cpu"],
-                                            Xc)
-            check(diff <= 1e-4 and differ == 0,
-                  f"{name}: card vs CPU predictions differ by {diff}, "
-                  f"{differ} differing splits")
-            out[name] = {"rows": n, "max_abs_pred_diff": diff,
-                         "differing_splits": differ,
-                         "launches": {k: v for k, v in launches.items()
-                                      if v},
-                         "s": time.perf_counter() - t0}
+    for name, extra in cases:
+        t0 = time.perf_counter()
+        n = 20_000 if "masked" in name else len(y)
+        Xc = X[:n]
+        ds = dataset(Xc, y[:n], extra.get("max_bin", 255), weight=w[:n])
+        params = dict(base, **extra)
+        _kernels.reset_counts()
+        bst = lgt.train(params, ds, 2)
+        launches = dict(_kernels.LAUNCHES)
+        check(sum(_kernels.PLAIN_CALLS.values()) == 0,
+              f"{name}: a plain version ran on the card")
+        check(bst._gbdt.use_compact == ("masked" not in name),
+              f"{name}: the wrong grower")
+        if "sublane" in name:
+            check(launches["histogram_sublane"] > 0
+                  and launches["histogram"] == 0,
+                  f"{name}: not on K3 alone: {launches}")
+        if "intermediate" in name:
+            check(launches["monotone_walk"] == 2 * (params["num_leaves"] - 1),
+                  f"{name}: {launches['monotone_walk']} walks")
+        pred = bst.predict(Xc[:1000], raw_score=True)
+        check(np.isfinite(pred).all(), f"{name}: predictions not finite")
+        case = {"rows": n, "launches": {k: v for k, v in launches.items()
+                                        if v}}
+        if "monotone" in name:
+            case["monotone_sweep_worst_step"] = monotone_sweep(
+                bst, Xc[:200], mono)
+            check(case["monotone_sweep_worst_step"] == 0.0,
+                  f"{name}: a prediction moved against its direction by "
+                  f"{case['monotone_sweep_worst_step']}")
+        if "interaction" in name:
+            case["interaction_violations"] = interaction_violations(
+                bst, INTERACTION_GROUPS)
+            check(case["interaction_violations"] == 0,
+                  f"{name}: {case['interaction_violations']} branches "
+                  "outside every interaction group")
+        case["s"] = time.perf_counter() - t0
+        out[name] = case
     return out
 
 
@@ -4944,8 +5403,10 @@ def phase_constrained(lgt, results):
     intermediate method and the four interaction groups; 1 warm-up and
     CONSTRAINED_ROUNDS timed rounds, a profiled tree (the walk kernel's
     device ms, and the rescans' from their profiler ranges), one more tree
-    whose walk states check the walk kernel, and the monotone sweep. Then
-    CONSTRAINED_CHECKS: constrained_cpu_vs_card."""
+    whose walk states check the walk kernel, and the monotone sweep; then
+    CONSTRAINED_CHECKS: constrained_card_options (the card against the CPU
+    for each option is the card test
+    test_constraint_options_on_card_match_cpu)."""
     from lightgbm_tpu_torch import _kernels
     from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
     ds, dv = results["main_datasets"]
@@ -5037,7 +5498,7 @@ def phase_constrained(lgt, results):
     print("CONSTRAINED", json.dumps(out), flush=True)
     out["profile"] = prof
     del bst, gbdt, ds, dv
-    checks = {"cpu_vs_card": constrained_cpu_vs_card(lgt)}
+    checks = {"card_options": constrained_card_options(lgt)}
     print("CONSTRAINED_CHECKS", json.dumps(checks), flush=True)
     out["checks"] = checks
     results["constrained"] = out
@@ -5681,7 +6142,7 @@ def phase_a14c_checks(lgt, results):
 # SKLEARN went first (tests/test_torch_cuda.py holds them now)
 CV_ROWS = 5_250_000
 CV_FOLDS = 5
-CV_ROUNDS = 3
+CV_ROUNDS = 2
 SKLEARN_ROWS = 1_050_000       # LGBMClassifier on the card
 SKLEARN_RANK_ROWS = 35_000     # LGBMRanker: the masked grower, K1 dense
 CLI_ROWS = 262_144             # the CSV the command line trains on
@@ -6084,6 +6545,7 @@ def main() -> int:
                                                results, built)),
               ("k3", lambda: phase_kernels_k3(args.rows, results)),
               ("predict_api", lambda: phase_predict_api(lgt, results)),
+              ("serving", lambda: phase_serving(lgt, results)),
               ("deterministic", lambda: phase_deterministic(lgt, results)),
               ("quant", lambda: phase_quant(lgt, results)),
               ("unfused", lambda: phase_unfused(lgt, results)),
@@ -6146,6 +6608,7 @@ def main() -> int:
     rf_tree = rf["profile"]["kernels"]
     a14c = results["a14c_checks"]["cpu_vs_card"]
     pa = results["predict_api"]
+    sv = results["serving"]
     uf = results["unfused"]
     p4 = results["pack4"]
     wb = results["wide_bins"]
@@ -6384,7 +6847,7 @@ def main() -> int:
              "histogram_sublane", None, mc_masked["launches"],
              mc_masked["rounds"]),
          "tuned_launches": tn["launches"]["histogram_sublane"],
-         "constrained_checks_launches": cn["checks"]["cpu_vs_card"][
+         "constrained_checks_launches": cn["checks"]["card_options"][
              "cegb_lazy_sublane_masked"]["launches"]["histogram_sublane"],
          "dart_launches": dt["launches"]["histogram_sublane"],
          "rf_launches": rf["launches"]["histogram_sublane"]},
@@ -6419,6 +6882,24 @@ def main() -> int:
          "plain_4096_ms": pa["plain_4096_ms"],
          "deepest_path": pa["deepest_path"],
          "longest_ulen": pa["longest_ulen"]},
+        # serving's pred_contrib: the tabled mode of the TreeSHAP kernel,
+        # launched on every contrib batch of SERVING's traffic (no Pallas
+        # kernel: the JAX package's XLA program shap_batched_tables)
+        {"name": "treeshap_tables", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/treeshap.cu",
+         "replaces": "lightgbm_tpu/ops/treeshap_device.py:385",
+         "launches": sv["tables_launches"],
+         "max_abs_err": sv["tables"]["max_abs_err"],
+         "ms": sv["tables"]["ms"], "plain_ms": sv["tables"]["plain_ms"],
+         "bound_ms": sv["tables"]["bound_ms"],
+         "bound_by": sv["tables"]["bound_by"], "library_ms": None,
+         "rows": sv["tables"]["rows"],
+         "max_rel_err": sv["tables"]["max_rel_err"],
+         "loop_ms": sv["tables"]["loop_ms"],
+         "contrib_batches": sv["contrib_batches"],
+         "table_bytes": sv["tables"]["table_bytes"],
+         "table_bytes_read": sv["tables"]["table_bytes_read"],
+         "build_s": sv["tables"]["build_s"]},
         # the last modes of the three Pallas kernels, on the compact grower
         # without the fused kernel (UNFUSED) and on 4-bit packed records
         # (PACK4)

@@ -16,7 +16,7 @@ kernel's modes by ``"kernel/mode"`` (the quantized ``histogram/quant`` and
 ``histogram/narrow``, K3's ``histogram_sublane/int8``, the packed records'
 ``*/packed4``, K2's ``fused_split/partition`` alone, K1's and TreeSHAP's
 16-bit bins ``*/u16``, the deterministic mode's ``*/det`` of K1, K2 and
-K3), and ``PLAIN_CALLS``
+K3, TreeSHAP's tabled mode ``treeshap/tables``), and ``PLAIN_CALLS``
 counts calls of the plain PyTorch versions, so a run can show which path it
 took.
 """
@@ -85,6 +85,10 @@ KERNELS = {
     "treeshap": ("treeshap.cu", {
         "lgbt_treeshap": [_P, _L, _L] + [_I] * 8 + [_P] * 21,
         "lgbt_treeshap_u16": [_P, _L, _L] + [_I] * 8 + [_P] * 21,
+        # the tabled mode: 13 path tables, offsets, tables, expected
+        # values, output and the decision scratch
+        "lgbt_treeshap_tables": [_P, _L, _L] + [_I] * 8 + [_P] * 19,
+        "lgbt_treeshap_tables_u16": [_P, _L, _L] + [_I] * 8 + [_P] * 19,
     }),
 }
 
@@ -100,6 +104,8 @@ MODE_LAUNCHES: Dict[str, int] = {
     "fused_split/partition": 0,
     # 16-bit bins (more than 256): K1's wide-bin kernel, TreeSHAP's rows
     "histogram/u16": 0, "treeshap/u16": 0,
+    # serving's pred_contrib through the tables (ops/treeshap_device.py)
+    "treeshap/tables": 0,
     # the deterministic mode (fixed-point sums): K1, K2's K1, K3
     "histogram/det": 0, "fused_split/det": 0, "histogram_sublane/det": 0}
 PLAIN_CALLS: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -24,15 +24,18 @@ disarms. The port's training fires ``iteration`` (engine.train, before
 each boosting iteration, ``iteration=`` the 0-based index), ``step``
 (just before ``booster.update()``, inside the watchdog when one is set)
 and ``snapshot`` (io/checkpoint.py, after a snapshot file lands; 1-based
-ordinal; ``corrupt`` damages it). The other sites of the JAX package
-(``barrier``, ``backend_init``, ``bench_update``, ``request``,
-``coalesce_tick``, ``warmup``, ``swap``) parse and never fire until the
-modules that fire them are ported (ROADMAP A17, A18).
+ordinal; ``corrupt`` damages it). Serving fires ``request``
+(``PredictionServer.submit``), ``coalesce_tick`` (each coalescer tick,
+outside its queue lock), ``warmup`` (each rung of
+``Booster.warm_predict_ladder``) and ``swap`` (a deploy's commit, inside
+its deadline). The other sites of the JAX package (``barrier``,
+``backend_init``, ``bench_update``) parse and never fire until the
+modules that fire them are ported (ROADMAP A18).
 
 Injection sites call :func:`active_plan` and ``fire()``: a no-op
 ``NullPlan`` when no spec is set. Tests arm plans with :func:`inject`.
-The JAX package's flight-recorder notes are left out: the port has no
-``obs/`` yet (ROADMAP A19).
+The JAX package's flight-recorder notes are ROADMAP A19 and are left
+out.
 """
 from __future__ import annotations
 

@@ -18,15 +18,21 @@ see ``model_io.py``). A Booster continued from a loaded model
 host and are written first in its model text. ``predict`` also gives leaf
 indices (``pred_leaf``), TreeSHAP contributions (``pred_contrib``: on the
 device for the booster's own trees, on the host for loaded ones) and early
-stopped classification scores (``pred_early_stop``). The device comes from the
-``device_type`` parameter (default ``cuda``; ``cpu`` runs the plain PyTorch
-versions of the kernels) and is never chosen silently: ``cuda`` without a
-visible card raises.
+stopped classification scores (``pred_early_stop``). A trained booster also
+serves on the device: ``predict_device``, ``predict_serving``,
+``predict_leaf_serving``, ``predict_contrib_serving``,
+``warm_predict_ladder`` and ``serve`` (a ``serving.PredictionServer``).
+Every public method of both classes shares (reads) or holds (writes) the
+instance's reader-writer lock (``utils/rwlock.py``): predictions run side
+by side, training and every change to a model alone. The device comes from
+the ``device_type`` parameter (default ``cuda``; ``cpu`` runs the plain
+PyTorch versions of the kernels) and is never chosen silently: ``cuda``
+without a visible card raises.
 """
 from __future__ import annotations
 
 import copy
-import threading
+import time
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -40,6 +46,8 @@ from .model_io import (LoadedGBDT, booster_to_dict, booster_to_string,
                        merge_model_texts)
 from .objectives import create_objective
 from .ops.determinism import deterministic_algorithms
+from .utils import log
+from .utils.rwlock import RWLock, read_locked, write_locked
 
 _DATASET_PARAM_KEYS = ("max_bin", "min_data_in_bin", "bin_construct_sample_cnt",
                        "use_missing", "zero_as_missing", "data_random_seed",
@@ -97,6 +105,8 @@ class Dataset:
                  feature_name="auto", categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = True, position=None):
+        # public methods share or hold this lock (utils/rwlock.py)
+        self._api_lock = RWLock()
         self.data = data
         self.label = label
         self.reference = reference
@@ -128,6 +138,7 @@ class Dataset:
         self.params.update(incoming)
         return self
 
+    @write_locked
     def construct(self) -> "Dataset":
         """(reference: Dataset.construct, basic.py:2517)"""
         if self._inner is not None:
@@ -199,6 +210,7 @@ class Dataset:
             self.data = None
         return self
 
+    @write_locked
     def subset(self, used_indices, params=None) -> "Dataset":
         """A Dataset of some of this one's rows on its bins and mappers, not
         binned again (reference: ``Dataset.subset``, ``lightgbm_tpu/
@@ -246,6 +258,7 @@ class Dataset:
         sub._inner = si
         return sub
 
+    @read_locked
     def create_valid(self, data, label=None, weight=None, group=None,
                      init_score=None, params=None, position=None
                      ) -> "Dataset":
@@ -259,18 +272,21 @@ class Dataset:
 
     # -- fields, before or after construct (reference: the set_field
     # family, ``lightgbm_tpu/basic.py:318-400``) ----------------------------
+    @write_locked
     def set_label(self, label) -> "Dataset":
         self.label = label
         if self._inner is not None:
             self._inner.metadata.set_label(_maybe_series(label))
         return self
 
+    @write_locked
     def set_weight(self, weight) -> "Dataset":
         self.weight = weight
         if self._inner is not None:
             self._inner.metadata.set_weight(_maybe_series(weight))
         return self
 
+    @write_locked
     def set_group(self, group) -> "Dataset":
         """Query sizes in row order (reference: Dataset.set_group)."""
         self.group = group
@@ -278,18 +294,21 @@ class Dataset:
             self._inner.metadata.set_group(_maybe_series(group))
         return self
 
+    @write_locked
     def set_init_score(self, init_score) -> "Dataset":
         self.init_score = init_score
         if self._inner is not None:
             self._inner.metadata.set_init_score(_maybe_series(init_score))
         return self
 
+    @write_locked
     def set_position(self, position) -> "Dataset":
         self.position = position
         if self._inner is not None:
             self._inner.metadata.set_position(_maybe_series(position))
         return self
 
+    @read_locked
     def get_field(self, name: str):
         getter = {"label": self.get_label, "weight": self.get_weight,
                   "group": self.get_group, "init_score": self.get_init_score}
@@ -297,6 +316,7 @@ class Dataset:
             raise KeyError(name)
         return getter[name]()
 
+    @write_locked
     def set_field(self, name: str, value) -> "Dataset":
         setter = {"label": self.set_label, "weight": self.set_weight,
                   "group": self.set_group, "init_score": self.set_init_score,
@@ -305,6 +325,7 @@ class Dataset:
             raise KeyError(name)
         return setter[name](value)
 
+    @write_locked
     def save_binary(self, filename: str) -> "Dataset":
         """Write the constructed Dataset to a binary file, which ``Dataset(
         filename)`` (or the JAX package's) loads without binning again."""
@@ -312,35 +333,42 @@ class Dataset:
         self._inner.save_binary(filename)
         return self
 
+    @write_locked
     def get_feature_name(self) -> List[str]:
         self.construct()
         return list(self._inner.feature_names)
 
+    @read_locked
     def get_label(self):
         if self._inner is not None and self._inner.metadata.label is not None:
             return self._inner.metadata.label
         return self.label
 
+    @read_locked
     def get_group(self):
         if self._inner is not None:
             return self._inner.metadata.group
         return self.group
 
+    @read_locked
     def get_weight(self):
         if self._inner is not None:
             return self._inner.metadata.weight
         return self.weight
 
+    @read_locked
     def get_init_score(self):
         if self._inner is not None:
             return self._inner.metadata.init_score
         return self.init_score
 
+    @read_locked
     def num_data(self) -> int:
         if self._inner is not None:
             return self._inner.num_data
         return int(np.asarray(self.data).shape[0])
 
+    @read_locked
     def num_feature(self) -> int:
         if self._inner is not None:
             return self._inner.num_total_features
@@ -356,9 +384,11 @@ class Booster:
                  model_file: Optional[str] = None,
                  model_str: Optional[str] = None):
         self.params = copy.deepcopy(params) if params else {}
-        # held by ``update`` and ``save_checkpoint``: a snapshot never sees
-        # a half-applied iteration (the JAX package's write/read locks)
-        self._step_lock = threading.RLock()
+        # predictions share it, training and every change to the model
+        # hold it alone (utils/rwlock.py; reference: basic.py:29, :85-87):
+        # a checkpoint never sees a half-applied iteration, a served model
+        # never a half-trained one
+        self._api_lock = RWLock()
         self._valid_names: List[str] = []
         self._train_data_name = "training"
         self.best_iteration = -1
@@ -407,7 +437,7 @@ class Booster:
         self.device = gbdt.device
         self.train_set = None
         self._gbdt = gbdt
-        self._step_lock = threading.RLock()
+        self._api_lock = RWLock()
         self._valid_names = []
         self._train_data_name = "training"
         self.best_iteration = -1
@@ -431,6 +461,7 @@ class Booster:
         vs.score[:, :pre_raw.shape[1]] += torch.from_numpy(
             np.asarray(pre_raw, np.float32)).to(vs.score.device)
 
+    @write_locked
     def add_valid(self, data: Dataset, name: str) -> "Booster":
         """(reference: Booster.add_valid, basic.py:3963)"""
         if not isinstance(data, Dataset):
@@ -449,6 +480,7 @@ class Booster:
         self._valid_names.append(name)
         return self
 
+    @write_locked
     def update(self, train_set: Optional[Dataset] = None,
                fobj: Optional[Callable] = None) -> bool:
         """One boosting iteration; True if no further split was possible
@@ -464,7 +496,7 @@ class Booster:
             raise NotImplementedError(
                 "changing train_set on update is not supported")
         fobj = fobj or self._custom_objective
-        with self._step_lock, deterministic_algorithms(
+        with deterministic_algorithms(
                 getattr(self._gbdt, "deterministic", False)):
             if fobj is None:
                 return self._gbdt.train_one_iter()
@@ -484,19 +516,21 @@ class Booster:
             state["callbacks"] = callback_states
         return state
 
+    @read_locked
     def save_checkpoint(self, directory: str, keep: int = 3,
                         callback_states: Optional[Dict] = None) -> str:
         """Write an atomic training snapshot into ``directory`` (write-
         temp-fsync-rename, a checksum, keep-last-``keep`` rotation;
         ``io/checkpoint.py``) and return its path (reference:
         ``save_checkpoint``, ``lightgbm_tpu/basic.py:732-751``). The state
-        is captured under the step lock, so never inside an ``update``."""
+        is captured under the read side of the booster's lock, so never
+        inside an ``update``."""
         from .io.checkpoint import write_snapshot
-        with self._step_lock:
-            state = self._capture_checkpoint(callback_states)
+        state = self._capture_checkpoint(callback_states)
         return write_snapshot(directory, int(state["iteration"]), state,
                               keep=keep)
 
+    @write_locked
     def _restore_checkpoint(self, state: Dict[str, Any],
                             callbacks=None) -> None:
         """Rebind this booster to a snapshot; raises ``ValueError`` when it
@@ -516,12 +550,14 @@ class Booster:
                 cb_state.clear()
                 cb_state.update(copy.deepcopy(saved[key]))
 
+    @write_locked
     def rollback_one_iter(self) -> "Booster":
         """Remove the last iteration's trees (reference:
         Booster.rollback_one_iter)."""
         self._gbdt.rollback_one_iter()
         return self
 
+    @write_locked
     def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
         """Change parameters for the next iterations (reference:
         Booster.reset_parameter -> GBDT::ResetConfig, gbdt.cpp:795):
@@ -539,6 +575,7 @@ class Booster:
         self._gbdt.reset_config(self.config)
         return self
 
+    @write_locked
     def eval_train(self, feval=None):
         out = [(self._train_data_name, m, v, hb)
                for (_, m, v, hb) in self._gbdt.eval_train()]
@@ -547,6 +584,7 @@ class Booster:
                                          None))
         return out
 
+    @write_locked
     def eval_valid(self, feval=None):
         out = self._gbdt.eval_valid()
         if feval is not None:
@@ -578,6 +616,7 @@ class Booster:
                 out.append((name, metric, value, hb))
         return out
 
+    @read_locked
     def predict(self, data, start_iteration: int = 0,
                 num_iteration: Optional[int] = None,
                 raw_score: bool = False, pred_leaf: bool = False,
@@ -653,6 +692,211 @@ class Booster:
                 int(kwargs.get("pred_early_stop_freq",
                                cfg.pred_early_stop_freq)))
 
+    # -- serving (reference: ``lightgbm_tpu/basic.py:869-1223``) -----------
+    def _device_serving_inner(self):
+        """The trained GBDT behind the serving path, or a
+        ``NotImplementedError`` naming why this booster cannot take it: a
+        model loaded from text and a continued booster's loaded base
+        predict on the host (ROADMAP A10c, A10e), and linear leaves on raw
+        values (``predict``)."""
+        inner = self._gbdt
+        if isinstance(inner, LoadedGBDT) or not hasattr(inner,
+                                                        "predict_raw_device"):
+            raise NotImplementedError(
+                "device serving needs a trained booster (models loaded "
+                "from text predict on the host, ROADMAP A10c); use "
+                "predict()")
+        if self._pre_model is not None:
+            raise NotImplementedError(
+                "device serving does not take continued boosters (the "
+                "loaded base predicts on the host, ROADMAP A10e); use "
+                "predict()")
+        if getattr(inner, "_linear", False):
+            raise NotImplementedError(
+                "device serving does not take linear_tree models (their "
+                "leaves read raw values on the host); use predict()")
+        return inner
+
+    @read_locked
+    def predict_device(self, data, start_iteration: int = 0,
+                       num_iteration: Optional[int] = None) -> torch.Tensor:
+        """Raw scores left on the device (reference: ``predict_device``,
+        ``lightgbm_tpu/basic.py:869-905``): ``[N]``, or ``[N, K]`` for K
+        classes, a tensor on the booster's device. The rows are binned on
+        the host and padded to their ladder rung; above the ladder they
+        run in slices of its top rung, joined on the device."""
+        inner = self._device_serving_inner()
+        start_iteration, num_iteration = self._predict_window(
+            start_iteration, num_iteration)
+        arr = np.asarray(_maybe_series(data), dtype=np.float64)
+        raw = inner.predict_raw_rows(inner.bin_matrix(arr), num_iteration,
+                                     start_iteration)
+        if inner.average_output:
+            raw = raw / inner.window_divisor(num_iteration, start_iteration)
+        return raw[0] if raw.shape[0] == 1 else raw.T
+
+    def _serving_request(self, data, start_iteration: int,
+                         num_iteration: Optional[int]):
+        """``(inner, start, num, rows as float32, n)``: every serving
+        endpoint's preamble. float32 is the serving wire format in both
+        featurize modes, so ``tpu_serve_featurize`` never changes a
+        response."""
+        inner = self._device_serving_inner()
+        start_iteration, num_iteration = self._predict_window(
+            start_iteration, num_iteration)
+        arr = np.asarray(_maybe_series(data), dtype=np.float32)
+        if arr.ndim == 1:
+            arr = arr.reshape(1, -1)
+        return inner, start_iteration, num_iteration, arr, arr.shape[0]
+
+    @staticmethod
+    def _serving_binned(inner, arr32: np.ndarray):
+        """A batch's bins: the device featurizer's, at the rung (default),
+        or the host's ``bin_matrix`` (``tpu_serve_featurize=host``), which
+        the GBDT pads and uploads."""
+        if inner._serve_featurize_mode() == "device":
+            return inner.featurize_rung(arr32)
+        return inner.bin_matrix(arr32)
+
+    @read_locked
+    def predict_serving(self, data, raw_score: bool = False,
+                        start_iteration: int = 0,
+                        num_iteration: Optional[int] = None, observe=None):
+        """One serving batch: ``(scores at the rung on the host, n)``
+        (reference: ``predict_serving``, ``lightgbm_tpu/basic.py:
+        1022-1082``). Rows ``[:n]`` equal ``predict(float32(data))`` bit
+        for bit: routing, the sums and the objective's conversion are per
+        row. The batch pads to its ladder rung on the host and goes up in
+        one copy; nothing on the device has a shape that depends on the
+        request, and the caller slices its rows on the host. Honors the
+        prediction window's parameters and ``pred_early_stop``.
+        ``observe``: a drift monitor, whose device accumulates are queued
+        after the response's copy to the host."""
+        inner, start_iteration, num_iteration, arr, n = \
+            self._serving_request(data, start_iteration, num_iteration)
+        early = self._predict_early_stop({})
+        binned = self._serving_binned(inner, arr)
+        raw_dev = inner.predict_raw_device(
+            binned, num_iteration, start_iteration, early_stop=early,
+            device_packed=inner._pred_pack4)
+        raw = raw_dev.cpu().numpy()
+        if observe is not None:
+            observe.observe_binned(binned, n)
+            observe.observe_scores(raw_dev, n)
+        if inner.average_output:
+            raw = raw / inner.window_divisor(num_iteration, start_iteration)
+        out = raw[0] if raw.shape[0] == 1 else raw.T
+        if raw_score or inner.objective is None:
+            return out, n
+        return np.asarray(inner.objective.convert_output(out)), n
+
+    @read_locked
+    def predict_leaf_serving(self, data, start_iteration: int = 0,
+                             num_iteration: Optional[int] = None,
+                             observe=None):
+        """One ``pred_leaf`` serving batch: ``(leaf indices [rung, T]
+        int32, n)``, rows ``[:n]`` equal to ``predict(float32(data),
+        pred_leaf=True)``."""
+        inner, start_iteration, num_iteration, arr, n = \
+            self._serving_request(data, start_iteration, num_iteration)
+        binned = self._serving_binned(inner, arr)
+        out = inner.predict_leaf_padded(binned, num_iteration,
+                                        start_iteration,
+                                        device_packed=inner._pred_pack4)
+        if observe is not None:
+            observe.observe_binned(binned, n)
+        return out, n
+
+    @read_locked
+    def predict_contrib_serving(self, data, start_iteration: int = 0,
+                                num_iteration: Optional[int] = None,
+                                observe=None):
+        """One ``pred_contrib`` serving batch: ``(contributions [rung,
+        K*(F+1)] float64, n)`` through the tabled TreeSHAP where its
+        tables fit ``tpu_shap_table_mb`` (else the loop kernel), rows
+        ``[:n]`` within 1e-12 of a cell's scale of ``predict(float32(data),
+        pred_contrib=True)``."""
+        inner, start_iteration, num_iteration, arr, n = \
+            self._serving_request(data, start_iteration, num_iteration)
+        binned = self._serving_binned(inner, arr)
+        out = inner.predict_contrib_padded(binned, num_iteration,
+                                           start_iteration,
+                                           device_packed=inner._pred_pack4)
+        if observe is not None:
+            observe.observe_binned(binned, n)
+        return out, n
+
+    def _serve_endpoints(self) -> tuple:
+        """``tpu_serve_endpoints``: the request kinds this booster's
+        servers warm and accept; ``predict`` always."""
+        raw = str(self._gbdt.config.get("tpu_serve_endpoints", "predict")
+                  or "predict")
+        eps = {e.strip().lower() for e in raw.split(",") if e.strip()}
+        unknown = eps - {"predict", "leaf", "contrib"}
+        if unknown:
+            log.warning(f"unknown tpu_serve_endpoints {sorted(unknown)}; "
+                        "valid: predict, leaf, contrib")
+            eps -= unknown
+        eps.add("predict")
+        return tuple(sorted(eps))
+
+    @read_locked
+    def warm_predict_ladder(self, max_rows: Optional[int] = None,
+                            start_iteration: int = 0,
+                            num_iteration: Optional[int] = None
+                            ) -> Dict[str, Any]:
+        """Run one request of zeros a rung through each endpoint of
+        ``tpu_serve_endpoints`` (reference: ``warm_predict_ladder``,
+        ``lightgbm_tpu/basic.py:1138-1211``), so that a server builds its
+        caches (the window's device trees, level heaps, quantized slab,
+        TreeSHAP paths and tables, featurizer state) before it takes
+        traffic and a hot-swap candidate before it commits. Returns
+        ``rungs``, ``endpoints`` and ``seconds``. The JAX package also
+        reports ``lowerings``, ``backend_compiles`` and ``cache``: XLA's
+        compiles, which PyTorch's eager kernels do not have, so they are
+        left out rather than reported as 0. ``max_rows`` caps the rungs
+        (``tpu_serve_warm_max_rows``); ``scan`` warms nothing."""
+        from .analysis.faultinject import active_plan
+        from .ops.predict import parse_bucket_ladder, warmup_rungs
+        inner = self._device_serving_inner()
+        cfg = inner.config
+        if str(cfg.get("tpu_predict_engine", "batched")).lower() == "scan":
+            return {"rungs": [], "seconds": 0.0,
+                    "skipped": "tpu_predict_engine=scan runs each request "
+                               "on its own shape"}
+        if max_rows is None:
+            max_rows = int(cfg.get("tpu_serve_warm_max_rows", 0) or 0)
+        rungs = warmup_rungs(parse_bucket_ladder(
+            cfg.get("tpu_predict_buckets", "auto")), max_rows)
+        endpoints = self._serve_endpoints()
+        plan = active_plan(cfg)
+        n_feat = len(inner.mappers)
+        t0 = time.perf_counter()
+        for rung in rungs:
+            plan.fire("warmup", rung=rung)
+            dummy = np.zeros((rung, n_feat), np.float32)
+            window = dict(start_iteration=start_iteration,
+                          num_iteration=num_iteration)
+            self.predict_serving(dummy, **window)
+            if "leaf" in endpoints:
+                self.predict_leaf_serving(dummy, **window)
+            if "contrib" in endpoints:
+                self.predict_contrib_serving(dummy, **window)
+        return {"rungs": list(rungs), "endpoints": list(endpoints),
+                "seconds": round(time.perf_counter() - t0, 3)}
+
+    @read_locked
+    def serve(self, **kwargs):
+        """A ``serving.PredictionServer`` on this booster: micro-batches
+        over the ladder, bounded admission, deadlines and a model registry
+        for hot swaps. Keyword arguments override the ``tpu_serve_*``
+        parameters (``tick_ms``, ``queue_max``, ``deadline_ms``,
+        ``warm_max_rows``, ``warm``, ``version``, ``raw_score``); the
+        Prometheus endpoint (``metrics_port``) is ROADMAP A19."""
+        from .serving import PredictionServer
+        return PredictionServer(self, **kwargs)
+
+    @read_locked
     def refit(self, data, label, decay_rate: Optional[float] = None,
               weight=None, **kwargs) -> "Booster":
         """A new Booster with this model's trees and leaf values re-fit on
@@ -745,20 +989,24 @@ class Booster:
         return (pre, pre_start, pre_cut, own_start, own_cut, pre_empty,
                 own_cut == 0)
 
+    @read_locked
     def current_iteration(self) -> int:
         pre = self._pre_model
         return self._gbdt.current_iteration() + (
             pre.current_iteration() if pre is not None else 0)
 
+    @read_locked
     def num_trees(self) -> int:
         pre = self._pre_model
         return len(self._gbdt.models) + (
             len(pre.models) if pre is not None else 0)
 
+    @read_locked
     def num_model_per_iteration(self) -> int:
         """Trees an iteration: K for K classes, else 1."""
         return self._gbdt.num_class
 
+    @read_locked
     def feature_importance(self, importance_type: str = "split",
                            iteration: Optional[int] = None) -> np.ndarray:
         """Splits (or gains) per feature over the trees of the first
@@ -777,9 +1025,11 @@ class Booster:
             return out
         return imp
 
+    @read_locked
     def num_feature(self) -> int:
         return self._gbdt.num_features()
 
+    @read_locked
     def feature_name(self) -> List[str]:
         return list(self._gbdt.feature_names)
 
@@ -790,12 +1040,14 @@ class Booster:
                                             if pre is not None else [])
         return [m.leaf_value[:m.num_leaves] for m in models]
 
+    @read_locked
     def lower_bound(self) -> float:
         """The smallest leaf value of any tree (reference: ``lower_bound``,
         ``lightgbm_tpu/basic.py:1388``)."""
         return float(min((v.min() for v in self._leaf_values()),
                          default=0.0))
 
+    @read_locked
     def upper_bound(self) -> float:
         """The largest leaf value of any tree."""
         return float(max((v.max() for v in self._leaf_values()),
@@ -803,6 +1055,7 @@ class Booster:
 
     # -- model text (reference: Booster.save_model, model_to_string and
     # dump_model of python-package/lightgbm/basic.py) -------------------------
+    @read_locked
     def model_to_string(self, num_iteration: Optional[int] = None,
                         start_iteration: int = 0,
                         importance_type: str = "split") -> str:
@@ -832,6 +1085,7 @@ class Booster:
             importance=self.feature_importance(importance_type,
                                                num_iteration))
 
+    @read_locked
     def save_model(self, filename: str, num_iteration: Optional[int] = None,
                    start_iteration: int = 0,
                    importance_type: str = "split") -> "Booster":
@@ -840,6 +1094,7 @@ class Booster:
                                           importance_type))
         return self
 
+    @read_locked
     def dump_model(self, num_iteration: Optional[int] = None,
                    start_iteration: int = 0,
                    importance_type: str = "split") -> Dict[str, Any]:

@@ -141,6 +141,9 @@ class DART(GBDT):
             if not self.uniform_drop:
                 self.sum_weight -= self.tree_weight[i] * (1.0 / denom)
                 self.tree_weight[i] *= factor
+        if drop:
+            # rescaled leaves: every device copy of the trees is stale
+            self._invalidate_device_trees()
         if not self.uniform_drop:
             self.tree_weight.append(self.shrinkage_rate)
             self.sum_weight += self.shrinkage_rate

@@ -154,6 +154,21 @@ grown), so nothing is flushed first.
 take the kernels' fixed-point mode at scales made here from the tree's
 largest addends, and ``basic.Booster.update`` runs the iteration with
 PyTorch's deterministic algorithms on.
+
+Prediction and serving (reference: ``boosting/gbdt.py:2782-3523``): a
+prediction window's trees are stacked on the device once and kept in a
+cache slot with the level heap, the quantized slab and the TreeSHAP paths
+and tables built from them (``_device_trees_entry``,
+``_device_shap_state``); appended trees are joined to the slot, and every
+other change to the trees (rollback, DART's rescales, RF, a resumed
+snapshot, ``reset_parameter``) drops the caches
+(``_invalidate_device_trees``). ``_predict_raw`` and ``_predict_leaf``
+route rows through the slot with ``tpu_predict_engine``
+(``engines/registry.py``): ``predict`` on the rows' own shape, serving
+(``predict_raw_device``) on rows padded to their rung of
+``tpu_predict_buckets``; the walk is per row, so their answers are equal.
+``featurize_rung`` bins raw float32 rows on the device
+(``ops/device_bin.py``).
 """
 from __future__ import annotations
 
@@ -176,11 +191,15 @@ from ..ops.grower import (ExtraDraws, GrowerParams, TreeArrays, TreeOptions,
 from ..ops.grower_compact import grow_tree_compact
 from ..ops.histogram import narrow_chunk_rows
 from ..ops.packed import bins_to_device
-from ..ops.predict import StackedTrees, predict_leaf_batched, \
-    predict_raw_batched
+from ..ops.predict import (DEFAULT_LEVEL_DEPTH_CAP, StackedTrees,
+                           build_level_layout, bucket_rows,
+                           parse_bucket_ladder, predict_leaf_batched,
+                           predict_leaf_level, predict_raw_batched,
+                           predict_raw_level, quantize_leaves)
 from ..ops.renew import renew_leaf_quantile
 from ..ops.split import leaf_output
 from ..utils import log
+from ..utils.rwlock import Mutex
 from .linear import add_bias_linear, fit_linear_leaves, linear_leaf_outputs
 from .sample_strategy import GOSSStrategy, create_sample_strategy
 
@@ -289,12 +308,16 @@ def _tree_from_state(fields: dict) -> "HostTree":
 
 
 def stack_trees(models: Sequence[HostTree], device: torch.device,
-                is_cat_feature: Optional[np.ndarray] = None
-                ) -> StackedTrees:
+                is_cat_feature: Optional[np.ndarray] = None,
+                max_leaves: Optional[int] = None,
+                cat_w: Optional[int] = None) -> StackedTrees:
     """Stack host trees into padded device arrays for prediction;
-    ``is_cat_feature [F]`` marks the categorical features (None: none)."""
+    ``is_cat_feature [F]`` marks the categorical features (None: none).
+    ``max_leaves`` and ``cat_w`` fix the leaf and bitset widths (default:
+    the trees' own)."""
     t = len(models)
-    max_leaves = max((len(m.leaf_value) for m in models), default=2)
+    if max_leaves is None:
+        max_leaves = max((len(m.leaf_value) for m in models), default=2)
     max_nodes = max(max_leaves - 1, 1)
 
     def pad(getter, fill, dtype, width):
@@ -306,7 +329,7 @@ def stack_trees(models: Sequence[HostTree], device: torch.device,
 
     cat = {}
     if is_cat_feature is not None and np.any(is_cat_feature):
-        w = max(m.cat_bitset.shape[1] for m in models)
+        w = cat_w or max((m.cat_bitset.shape[1] for m in models), default=1)
         bits = np.zeros((t, max_nodes, w), np.uint32)
         for i, m in enumerate(models):
             bits[i, :m.cat_bitset.shape[0], :m.cat_bitset.shape[1]] = \
@@ -316,6 +339,7 @@ def stack_trees(models: Sequence[HostTree], device: torch.device,
                                                            0)],
                        False, bool, max_nodes),
             cat_bitset=torch.from_numpy(bits.view(np.int32)).to(device))
+    num_nodes = np.array([m.num_nodes for m in models], np.int64)
     return StackedTrees(
         split_feature=pad(lambda m: m.split_feature, -1, np.int64, max_nodes),
         split_bin=pad(lambda m: m.split_bin, 0, np.int64, max_nodes),
@@ -323,8 +347,7 @@ def stack_trees(models: Sequence[HostTree], device: torch.device,
         left_child=pad(lambda m: m.left_child, -1, np.int64, max_nodes),
         right_child=pad(lambda m: m.right_child, -1, np.int64, max_nodes),
         leaf_value=pad(lambda m: m.leaf_value, 0.0, np.float32, max_leaves),
-        num_nodes=torch.tensor([m.num_nodes for m in models],
-                               dtype=torch.int64).to(device),
+        num_nodes=torch.from_numpy(num_nodes).to(device),
         **cat)
 
 
@@ -1302,6 +1325,7 @@ class GBDT:
             # popped unless they are the very first, which stay constant
             if len(self.models) > k_total:
                 del self.models[-k_total:]
+                self._invalidate_device_trees()
             self.iter_ -= 1
             log.warning("Stopped training because there are no more leaves "
                         "that meet the split requirements")
@@ -1650,6 +1674,7 @@ class GBDT:
                                       c, -1.0)
         del self.models[len(self.models) - k:]
         self.iter_ -= 1
+        self._invalidate_device_trees()
 
     # -- checkpoint / resume (io/checkpoint.py) -------------------------------
     def _snapshot_meta(self) -> dict:
@@ -1744,6 +1769,7 @@ class GBDT:
             return t.to(dev, like.dtype if like is not None else t.dtype)
 
         self.models = [_tree_from_state(t) for t in state["models"]]
+        self._invalidate_device_trees()
         self.iter_ = int(state["iteration"])
         self.shrinkage_rate = float(state["shrinkage_rate"])
         self._init_scores = list(state["init_scores"])
@@ -1788,6 +1814,7 @@ class GBDT:
         growers rebuild their per-tree buffers from ``grower_params`` at
         every tree."""
         self.config = config
+        self._invalidate_device_trees()
         self.learning_rate = float(config.learning_rate)
         self.shrinkage_rate = self.learning_rate
         self.feature_fraction = float(config.feature_fraction)
@@ -1977,21 +2004,17 @@ class GBDT:
                            num_iteration: Optional[int] = None,
                            start_iteration: int = 0,
                            early_stop=None) -> np.ndarray:
-        """Raw scores [K, N] for already-binned rows. ``early_stop`` is an
-        optional ``(margin, freq)`` pair (reference:
-        ``lightgbm_tpu/boosting/gbdt.py:3195-3232``): a model with
-        ``average_output`` checks the margin on its sums before dividing,
-        as the reference does."""
-        models, trees, depth = self._stacked_window(num_iteration,
-                                                    start_iteration)
+        """Raw scores [K, N] for already-binned rows, on their own shape
+        through ``_predict_raw`` (reference: ``lightgbm_tpu/boosting/
+        gbdt.py:3195-3232``). ``early_stop`` is an optional ``(margin,
+        freq)`` pair: a model with ``average_output`` checks the margin on
+        its sums before dividing, as the reference does."""
+        models = self._model_window(num_iteration, start_iteration)
         if not models:
             return np.zeros((self.num_class, binned.shape[0]), np.float32)
-        margin, freq = early_stop if early_stop else (0.0, 0)
-        b = self._pred_bins(binned)
-        raw = predict_raw_batched(
-            b, trees, self._pred_nan_arr, depth, num_class=self.num_class,
-            early_stop_margin=float(margin), early_stop_freq=int(freq),
-            packed=self._pred_pack4).cpu().numpy()
+        raw = self._predict_raw(self._pred_bins(binned), self._pred_pack4,
+                                num_iteration, start_iteration,
+                                early_stop).cpu().numpy()
         if self.average_output:
             raw = raw / self._average_divisor(models)
         return raw
@@ -2025,18 +2048,12 @@ class GBDT:
     def predict_leaf_matrix(self, arr: np.ndarray,
                             num_iteration: Optional[int] = None,
                             start_iteration: int = 0) -> np.ndarray:
-        """Leaf indices ``[N, T]`` int32 of the window's trees, by the
-        depth-batched walk (reference: ``lightgbm_tpu/boosting/gbdt.py:
-        3552-3589``)."""
-        binned = self.bin_matrix(arr)
-        models, trees, depth = self._stacked_window(num_iteration,
-                                                    start_iteration)
-        if not models:
-            return np.zeros((binned.shape[0], 0), np.int32)
-        leaves = predict_leaf_batched(self._pred_bins(binned), trees,
-                                      self._pred_nan_arr, depth,
-                                      packed=self._pred_pack4)
-        return leaves.to(torch.int32).T.cpu().numpy()
+        """Leaf indices ``[N, T]`` int32 of the window's trees, on the rows'
+        own shape through ``_predict_leaf`` (reference:
+        ``lightgbm_tpu/boosting/gbdt.py:3552-3589``)."""
+        return self._predict_leaf(self._pred_bins(self.bin_matrix(arr)),
+                                  self._pred_pack4, num_iteration,
+                                  start_iteration)
 
     def predict_contrib_matrix(self, arr: np.ndarray,
                                num_iteration: Optional[int] = None,
@@ -2060,3 +2077,478 @@ class GBDT:
                                  self.feature_is_categorical(), self.device)
         b = bins_to_device(binned, self.device)
         return tree_shap(b, paths, k).reshape(n, k * (f + 1)).cpu().numpy()
+
+    # -- serving: the device tree cache and the engines (reference:
+    # ``lightgbm_tpu/boosting/gbdt.py:2782-3523``) ---------------------------
+    #: window slots of the device tree cache kept before the oldest goes
+    _DTC_SLOTS = 8
+    #: window slots of the TreeSHAP paths and tables
+    _SHAP_SLOTS = 4
+    _dtc = None
+    _shap_cache = None
+    _drift_score_host = None
+    _featurize_dev = None
+    _serve_engine_memo = None
+
+    @property
+    def _trees_mu(self):
+        """The lock of the device caches (a prediction may fill them from
+        a serving thread while another reads them)."""
+        mu = self.__dict__.get("_trees_mu_obj")
+        if mu is None:
+            mu = self.__dict__.setdefault("_trees_mu_obj", Mutex())
+        return mu
+
+    def _invalidate_device_trees(self) -> None:
+        """Drop every device cache of the trees: the stacks with their
+        level heaps and quantized slabs, the TreeSHAP paths and tables and
+        the drift reference's scores (reference: ``boosting/gbdt.py:
+        2830-2845``). Every change to the trees calls it: rollback, DART's
+        and RF's leaf rescales, a resumed snapshot and reset_parameter."""
+        with self._trees_mu:
+            self._dtc = None
+            self._shap_cache = None
+            self._drift_score_host = None
+            self._serve_engine_memo = None
+
+    def _predict_cfg(self):
+        """``(tbatch, ladder, engine)`` from the config at each call
+        (reset_parameter may change them)."""
+        cfg = self.config
+        tb = max(1, min(int(cfg.get("tpu_predict_tbatch", 16) or 16), 128))
+        ladder = parse_bucket_ladder(cfg.get("tpu_predict_buckets", "auto"))
+        engine = str(cfg.get("tpu_predict_engine", "batched")).lower()
+        return tb, ladder, engine
+
+    @staticmethod
+    def _window_key(num_iteration: Optional[int], start_iteration: int):
+        return (max(start_iteration, 0),
+                num_iteration if num_iteration is not None
+                and num_iteration > 0 else None)
+
+    def _device_trees_entry(self, num_iteration: Optional[int] = None,
+                            start_iteration: int = 0) -> dict:
+        """The cache slot of a prediction window: ``st`` (the window's
+        trees stacked on the device), ``t_real`` (their count), ``depth``
+        (the deepest leaf), and the level heap and quantized slab built
+        from them. Appended trees are stacked alone and joined to the slot
+        (a window's trees only grow while the model trains)."""
+        with self._trees_mu:
+            models = self._model_window(num_iteration, start_iteration)
+            t = len(models)
+            max_lv = max((len(m.leaf_value) for m in models), default=2)
+            cat_w = max((m.cat_bitset.shape[1] for m in models), default=1)
+            is_cat = self.feature_is_categorical()
+            key = self._window_key(num_iteration, start_iteration)
+            if self._dtc is None:
+                self._dtc = {}
+            c = self._dtc.get(key)
+            if c is not None and c["max_lv"] == max_lv \
+                    and c["cat_w"] == cat_w and c["t_real"] <= t:
+                if t > c["t_real"]:
+                    t0 = c["t_real"]
+                    fresh = stack_trees(models[t0:], self.device, is_cat,
+                                        max_lv, cat_w)
+                    c.update(st=StackedTrees(*(
+                        None if a is None else torch.cat([a, b])
+                        for a, b in zip(c["st"], fresh))), t_real=t,
+                        depth=max(c["depth"],
+                                  max(m.max_depth for m in models[t0:])))
+                    c.pop("level", None)
+                    c.pop("quant", None)
+                return c
+            c = {"st": stack_trees(models, self.device, is_cat, max_lv,
+                                   cat_w),
+                 "t_real": t, "max_lv": max_lv, "cat_w": cat_w,
+                 "depth": max((m.max_depth for m in models), default=0)}
+            self._dtc[key] = c
+            while len(self._dtc) > self._DTC_SLOTS:
+                self._dtc.pop(next(k for k in self._dtc if k != key))
+            return c
+
+    def _level_cap(self) -> int:
+        try:
+            cap = int(self.config.get("tpu_level_depth_cap",
+                                      DEFAULT_LEVEL_DEPTH_CAP)
+                      or DEFAULT_LEVEL_DEPTH_CAP)
+        except (TypeError, ValueError):
+            cap = DEFAULT_LEVEL_DEPTH_CAP
+        return max(1, cap)
+
+    def _level_state(self, c: dict):
+        """The slot's trees as level heaps, built once a slot."""
+        with self._trees_mu:
+            if c.get("level") is None:
+                c["level"] = build_level_layout(
+                    c["st"], self._pred_nan_arr,
+                    max(1, c["depth"]))
+            return c["level"]
+
+    def _quant_mode(self) -> Optional[str]:
+        """``tpu_leaf_quant`` (None: off); an unknown value warns once and
+        serves f32 leaves, as in the JAX package."""
+        m = str(self.config.get("tpu_leaf_quant", "off") or "off").lower()
+        if m in ("", "off", "0", "false", "none"):
+            return None
+        if m not in ("int8", "f16"):
+            if not getattr(self, "_warned_leaf_quant", False):
+                log.warning(f"tpu_leaf_quant={m!r} is not one of "
+                            "off|int8|f16; serving f32 leaves")
+                self._warned_leaf_quant = True
+            return None
+        return m
+
+    def _quant_state(self, c: dict, mode: str):
+        """``(slab, scale, bound)`` of the slot's leaves, built once a slot
+        and mode."""
+        with self._trees_mu:
+            q = c.get("quant")
+            if q is None or q[0] != mode:
+                class_ids = torch.arange(c["t_real"], device=self.device) \
+                    % max(self.num_class, 1)
+                q = (mode,) + quantize_leaves(
+                    c["st"].leaf_value, class_ids, mode,
+                    max(self.num_class, 1))
+                c["quant"] = q
+            return q[1], q[2], q[3]
+
+    def leaf_quant_bound(self, num_iteration: Optional[int] = None,
+                         start_iteration: int = 0) -> Optional[float]:
+        """The recorded bound on ``|quantized raw score - f32 raw score|``
+        of any row (reference: ``leaf_quant_bound``, ``boosting/gbdt.py:
+        2991-3006``); None with ``tpu_leaf_quant`` off."""
+        mode = self._quant_mode()
+        if mode is None:
+            return None
+        c = self._device_trees_entry(num_iteration, start_iteration)
+        if c["t_real"] == 0:
+            return 0.0
+        return self._quant_state(c, mode)[2]
+
+    def _serving_engine(self, engine: str, depth: int) -> str:
+        """``walk`` or ``level`` (``engines/registry.py``), resolved once a
+        (knob, depth, cap)."""
+        from ..engines.registry import resolve_serving_engine
+        cap = self._level_cap()
+        key = (engine, depth, cap)
+        with self._trees_mu:
+            if self._serve_engine_memo is None:
+                self._serve_engine_memo = {}
+            hit = self._serve_engine_memo.get(key)
+            if hit is None:
+                res = resolve_serving_engine(engine, depth, cap)
+                if res.source != "user":
+                    log.info(f"serving engine: {res.engine} "
+                             f"({res.source}; depth={depth}, cap={cap})")
+                hit = self._serve_engine_memo[key] = res.engine
+            return hit
+
+    def _serving_rung(self, n: int) -> int:
+        """The ladder rung of a serving batch of ``n`` rows; a batch above
+        the ladder raises."""
+        _, ladder, _ = self._predict_cfg()
+        rung = bucket_rows(n, ladder)
+        if rung is None:
+            raise ValueError(
+                f"request of {n} rows overflows the serving ladder (max "
+                f"{ladder[-1]}); slice it or raise tpu_predict_buckets "
+                "(one card never row-shards a request: sharded prediction "
+                "over a mesh is ROADMAP A18)")
+        return rung
+
+    def _pad_request(self, mat: np.ndarray, rung: int) -> torch.Tensor:
+        """A host bin matrix padded to ``rung`` rows on the host (packed
+        with ``tpu_bin_pack4``) and uploaded in one copy."""
+        if mat.shape[0] != rung:
+            mat = np.pad(mat, ((0, rung - mat.shape[0]), (0, 0)))
+        return self._pred_bins(mat)
+
+    def _serving_device_request(self, binned, device_packed: bool):
+        """``(rows on the device at a rung, packed?)`` of a batch binned on
+        the host (numpy) or by the device featurizer (a tensor)."""
+        if isinstance(binned, torch.Tensor):
+            return binned, device_packed
+        rung = self._serving_rung(binned.shape[0])
+        return self._pad_request(binned, rung), self._pred_pack4
+
+    def _predict_raw(self, dev: torch.Tensor, packed: bool,
+                     num_iteration: Optional[int], start_iteration: int,
+                     early_stop=None) -> torch.Tensor:
+        """Raw score sums ``[K, rows]`` of binned rows on the device, not
+        divided by ``average_output``: the window's cached trees, the
+        router of ``tpu_predict_engine`` and the leaves of
+        ``tpu_leaf_quant``; ``scan`` runs the plain walk on trees stacked
+        for the call. ``early_stop``: an optional ``(margin, freq)``
+        pair."""
+        k = self.num_class
+        tb, _, engine = self._predict_cfg()
+        margin, freq = early_stop if early_stop else (0.0, 0)
+        use_stop = freq > 0 and margin > 0.0
+        stop = dict(early_stop_margin=float(margin) if use_stop else 0.0,
+                    early_stop_freq=int(freq) if use_stop else 0)
+        if engine == "scan":
+            models, trees, depth = self._stacked_window(num_iteration,
+                                                        start_iteration)
+            if not models:
+                return torch.zeros((k, dev.shape[0]), dtype=torch.float32,
+                                   device=dev.device)
+            return predict_raw_batched(dev, trees, self._pred_nan_arr,
+                                       depth, tbatch=tb, num_class=k,
+                                       packed=packed, **stop)
+        c = self._device_trees_entry(num_iteration, start_iteration)
+        if c["t_real"] == 0:
+            return torch.zeros((k, dev.shape[0]), dtype=torch.float32,
+                               device=dev.device)
+        eng = self._serving_engine(engine, c["depth"])
+        st = c["st"]
+        qmode = self._quant_mode()
+        slab, scale = (self._quant_state(c, qmode)[:2] if qmode
+                       else (st.leaf_value, None))
+        kw = dict(tbatch=tb, num_class=k, packed=packed, leaf_scale=scale,
+                  **stop)
+        if eng == "level":
+            return predict_raw_level(dev, self._level_state(c), slab, **kw)
+        return predict_raw_batched(dev, st._replace(leaf_value=slab),
+                                   self._pred_nan_arr, c["depth"], **kw)
+
+    def _predict_leaf(self, dev: torch.Tensor, packed: bool,
+                      num_iteration: Optional[int], start_iteration: int
+                      ) -> np.ndarray:
+        """Leaf indices ``[rows, T]`` int32 of binned rows on the device,
+        routed as ``_predict_raw`` routes them."""
+        tb, _, engine = self._predict_cfg()
+        if engine == "scan":
+            models, trees, depth = self._stacked_window(num_iteration,
+                                                        start_iteration)
+            if not models:
+                return np.zeros((dev.shape[0], 0), np.int32)
+            lv = predict_leaf_batched(dev, trees, self._pred_nan_arr, depth,
+                                      packed=packed)
+            return lv.to(torch.int32).T.cpu().numpy()
+        c = self._device_trees_entry(num_iteration, start_iteration)
+        if c["t_real"] == 0:
+            return np.zeros((dev.shape[0], 0), np.int32)
+        if self._serving_engine(engine, c["depth"]) == "level":
+            lv = predict_leaf_level(dev, self._level_state(c), tb, packed)
+        else:
+            lv = predict_leaf_batched(dev, c["st"], self._pred_nan_arr,
+                                      c["depth"], packed=packed)
+        return lv.to(torch.int32).T.cpu().numpy()
+
+    def predict_raw_device(self, binned, num_iteration: Optional[int] = None,
+                           start_iteration: int = 0, early_stop=None,
+                           device_packed: bool = False) -> torch.Tensor:
+        """Raw score sums ``[K, rung]`` of a serving batch left on the
+        device, the first ``binned.shape[0]`` columns valid (reference:
+        ``predict_raw_device``, ``boosting/gbdt.py:3079-3171``): host rows
+        pad to their ladder rung on the host and go up in one copy (a
+        batch above the ladder raises: callers slice it); device rows (the
+        featurizer's) come at their rung; ``scan`` takes the rows' own
+        shape. Then ``_predict_raw``."""
+        if self._predict_cfg()[2] == "scan" \
+                and not isinstance(binned, torch.Tensor):
+            dev, packed = self._pred_bins(binned), self._pred_pack4
+        else:
+            dev, packed = self._serving_device_request(binned, device_packed)
+        return self._predict_raw(dev, packed, num_iteration, start_iteration,
+                                 early_stop)
+
+    def predict_raw_rows(self, binned: np.ndarray,
+                         num_iteration: Optional[int] = None,
+                         start_iteration: int = 0,
+                         early_stop=None) -> torch.Tensor:
+        """Raw score sums ``[K, N]`` of host-binned rows through the
+        ladder (``predict_device``), left on the device: rows above it in
+        slices of its top rung, joined on the device (``scan``: the rows'
+        own shape)."""
+        n = binned.shape[0]
+        _, ladder, engine = self._predict_cfg()
+        if engine == "scan" or bucket_rows(n, ladder) is not None:
+            return self.predict_raw_device(binned, num_iteration,
+                                           start_iteration, early_stop)[:, :n]
+        top = ladder[-1]
+        return torch.cat([self.predict_raw_device(
+            binned[a:a + top], num_iteration, start_iteration,
+            early_stop)[:, :min(top, n - a)]
+            for a in range(0, n, top)], dim=1)
+
+    def window_divisor(self, num_iteration: Optional[int],
+                       start_iteration: int) -> int:
+        """``average_output``'s divisor for a prediction window."""
+        return self._average_divisor(self._model_window(num_iteration,
+                                                        start_iteration))
+
+    def predict_leaf_padded(self, binned, num_iteration: Optional[int] = None,
+                            start_iteration: int = 0,
+                            device_packed: bool = False) -> np.ndarray:
+        """Leaf indices ``[rung, T]`` int32 of a serving batch (reference:
+        ``predict_leaf_padded``, ``boosting/gbdt.py:3497-3523``), through
+        the serving engine; the caller slices its rows on the host."""
+        dev, packed = self._serving_device_request(binned, device_packed)
+        return self._predict_leaf(dev, packed, num_iteration,
+                                  start_iteration)
+
+    # -- serving's pred_contrib (the tabled TreeSHAP) -----------------------
+    def _device_shap_state(self, num_iteration: Optional[int],
+                           start_iteration: int) -> dict:
+        """The window's TreeSHAP paths on the device, built once a window
+        and model length (the row-independent half of TreeSHAP), in a slot
+        that also keeps its tables."""
+        from ..ops.treeshap_device import build_shap_paths
+        with self._trees_mu:
+            models = self._model_window(num_iteration, start_iteration)
+            key = self._window_key(num_iteration, start_iteration)
+            if self._shap_cache is None:
+                self._shap_cache = {}
+            c = self._shap_cache.get(key)
+            if c is None or c["t_real"] != len(models):
+                c = {"t_real": len(models), "paths": build_shap_paths(
+                    models, self._pred_nan_arr.cpu().numpy(),
+                    self.feature_is_categorical(), self.device)
+                    if models else None}
+                self._shap_cache[key] = c
+                while len(self._shap_cache) > self._SHAP_SLOTS:
+                    self._shap_cache.pop(next(
+                        k for k in self._shap_cache if k != key))
+            return c
+
+    def _shap_table_mode(self) -> str:
+        raw = str(self.config.get("tpu_shap_tables", "auto")).strip().lower()
+        if raw in ("auto", "on", "off"):
+            return raw
+        if not getattr(self, "_warned_shap_tables", False):
+            self._warned_shap_tables = True
+            log.warning(f"tpu_shap_tables={raw!r} unknown (auto|on|off); "
+                        "using auto")
+        return "auto"
+
+    def _shap_tables(self, c: dict):
+        """The slot's TreeSHAP tables, or None where ``tpu_shap_tables`` is
+        off or they exceed ``tpu_shap_table_mb`` (the loop kernel then
+        serves; ``on`` raises instead), as ``boosting/gbdt.py:3368-3460``
+        gates them; the budget counts 8 bytes a weight (float64). Built
+        once a slot, when the model is deployed."""
+        from ..ops.treeshap_device import build_shap_tables, shap_table_bytes
+        mode = self._shap_table_mode()
+        if mode == "off" or c["paths"] is None:
+            return None
+        with self._trees_mu:
+            if c.get("tables_mode") == mode:
+                return c["tables"]
+            need = shap_table_bytes(c["paths"].ulen.cpu().numpy())
+            budget_mb = max(int(self.config.get("tpu_shap_table_mb", 64)), 0)
+            if need > budget_mb << 20:
+                if mode == "on":
+                    raise ValueError(
+                        f"tpu_shap_tables=on but the TreeSHAP tables need "
+                        f"{need / 2**20:.1f} MiB (> tpu_shap_table_mb="
+                        f"{budget_mb}); raise the budget or use "
+                        "tpu_shap_tables=auto")
+                log.info(f"TreeSHAP tables skipped: {need / 2**20:.1f} MiB "
+                         f"over the {budget_mb} MiB budget (the loop kernel "
+                         "serves pred_contrib)")
+                tables = None
+            else:
+                tables = build_shap_tables(c["paths"])
+            c["tables"], c["tables_mode"] = tables, mode
+            return tables
+
+    def predict_contrib_padded(self, binned,
+                               num_iteration: Optional[int] = None,
+                               start_iteration: int = 0,
+                               device_packed: bool = False) -> np.ndarray:
+        """TreeSHAP contributions ``[rung, K*(F+1)]`` float64 of a serving
+        batch, each class's bias last (reference:
+        ``predict_contrib_padded``, ``boosting/gbdt.py:3462-3495``): the
+        tabled mode where the tables fit their budget, else the loop
+        kernel (its plain versions on the CPU)."""
+        from ..ops.packed import unpack4
+        from ..ops.treeshap_device import tree_shap, tree_shap_tables
+        k, f = self.num_class, len(self.mappers)
+        c = self._device_shap_state(num_iteration, start_iteration)
+        dev, packed = self._serving_device_request(binned, device_packed)
+        if c["paths"] is None:
+            return np.zeros((dev.shape[0], k * (f + 1)), np.float64)
+        if packed:
+            dev = unpack4(dev, f).contiguous()
+        tables = self._shap_tables(c)
+        out = (tree_shap_tables(dev, c["paths"], tables, k)
+               if tables is not None else tree_shap(dev, c["paths"], k))
+        return out.reshape(dev.shape[0], k * (f + 1)).cpu().numpy()
+
+    # -- serving's featurizer and drift reference ---------------------------
+    def _serve_featurize_mode(self) -> str:
+        """``tpu_serve_featurize`` resolved for this model (reference:
+        ``_serve_featurize_mode``, ``boosting/gbdt.py:3247-3262``):
+        ``device`` (a request is one copy of raw float32 rows, binned on
+        the device) or ``host`` (``bin_matrix``); ``scan`` and a model
+        whose categorical codes leave int32 take the host."""
+        mode = str(self.config.get("tpu_serve_featurize", "device")).lower()
+        if mode not in ("device", "host"):
+            log.warning(f"unrecognized tpu_serve_featurize={mode!r}; "
+                        "using 'device'")
+            mode = "device"
+        if mode == "host" or self._predict_cfg()[2] == "scan":
+            return "host"
+        return "device" if self._featurize_state() is not None else "host"
+
+    def _featurize_state(self):
+        """The device featurizer's state (built once a model), or None for
+        a model that cannot take it (warned once)."""
+        from ..io.binning import export_featurize_state
+        from ..ops.device_bin import device_bin_state
+        with self._trees_mu:
+            cached = self._featurize_dev
+            if cached is None:
+                host = export_featurize_state(self.mappers)
+                if host.reason is not None:
+                    log.warning(f"tpu_serve_featurize=device unavailable "
+                                f"({host.reason}); serving bins on host")
+                    cached = "ineligible"
+                else:
+                    cached = device_bin_state(host, self.device)
+                self._featurize_dev = cached
+            return None if isinstance(cached, str) else cached
+
+    def featurize_rung(self, arr32: np.ndarray) -> torch.Tensor:
+        """A raw float32 request padded to its rung on the host, uploaded
+        in one copy and binned on the device (reference:
+        ``featurize_rung``, ``boosting/gbdt.py:3305-3330``): the bins the
+        host path would upload, packed with ``tpu_bin_pack4``."""
+        from ..ops.device_bin import bin_rows_device
+        if arr32.shape[1] != len(self.mappers):
+            raise ValueError(f"input has {arr32.shape[1]} features, model "
+                             f"expects {len(self.mappers)}")
+        n = arr32.shape[0]
+        rung = self._serving_rung(n)
+        if n != rung:
+            arr32 = np.pad(arr32, ((0, rung - n), (0, 0)))
+        state = self._featurize_state()
+        if state is None:
+            raise ValueError("model is not device-featurizable; use the "
+                             "host binner (tpu_serve_featurize=host)")
+        raw = torch.from_numpy(np.ascontiguousarray(arr32, np.float32))
+        return bin_rows_device(raw.to(self.device), state, n,
+                               wide=np.dtype(self._bin_dtype) == np.uint16,
+                               packed=self._pred_pack4)
+
+    def drift_reference(self):
+        """The drift monitor's reference (reference: ``drift_reference``,
+        ``boosting/gbdt.py:3282-3303``): ``(bin occupancy probs [F, B],
+        bins a feature [F], the training rows' raw scores [K, N] on the
+        host or None)``, the scores copied once a model length."""
+        if self.train_set is None or self.train_set.binned is None:
+            raise ValueError("the drift monitor needs the training data's "
+                             "bins")
+        probs, nbins = self.train_set.reference_bin_distribution()
+        with self._trees_mu:
+            key = len(self.models)
+            cached = self._drift_score_host
+            if cached is None or cached[0] != key:
+                ts = getattr(self, "train_score", None)
+                cached = (key, None if ts is None else
+                          self.train_score_original_order()[
+                              :, :self._n_real])
+                self._drift_score_host = cached
+        return probs, nbins, cached[1]
+

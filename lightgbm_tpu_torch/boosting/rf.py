@@ -103,6 +103,9 @@ class RF(GBDT):
             for vs in self.valid_sets:
                 vs.score[c] *= 1.0 / (n_prev + 1.0)
             self.models.append(host)
+            # the running average rescaled the scores the drift reference
+            # copies
+            self._invalidate_device_trees()
         self.iter_ += 1
         return False
 

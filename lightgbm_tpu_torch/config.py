@@ -18,8 +18,8 @@ Two things differ from the JAX package:
 Every key of the JAX package's ``PARAMS`` is in one of three places: this
 ``PARAMS`` (the keys the port reads), ``REFUSED_PARAMS`` (keys the port
 cannot honour yet: set away from their default they raise, naming their
-ROADMAP item) or ``IGNORED_PARAMS`` (the TPU layout, serving, tracing and
-thread switches, which change no result for the inputs the port takes: they
+ROADMAP item) or ``IGNORED_PARAMS`` (the TPU layout, tracing and thread
+switches, which change no result for the inputs the port takes: they
 are accepted with one debug line). A key in none of them warns "Unknown
 parameter" and is dropped, as in the JAX package.
 """
@@ -190,6 +190,37 @@ PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...]]] = {
     # the step watchdog: each update under a wall-clock deadline, a final
     # snapshot when it fires (parallel/multihost.py run_with_deadline)
     "tpu_collective_deadline_s": (0.0, float, ("collective_deadline",)),
+    # serving (basic.py, boosting/gbdt.py, serving/, obs/drift.py): the row
+    # ladder, the tree batch, the engine and its depth cap, quantized
+    # leaves, the tabled TreeSHAP and its budget
+    "tpu_predict_tbatch": (16, int, ("predict_tbatch",)),
+    "tpu_predict_buckets": ("auto", str, ("predict_buckets",)),
+    "tpu_predict_engine": ("batched", str, ()),
+    "tpu_level_depth_cap": (10, int, ()),
+    "tpu_leaf_quant": ("off", str, ()),
+    "tpu_shap_tables": ("auto", str, ()),
+    "tpu_shap_table_mb": (64, int, ()),
+    # the server: its tick, admission bound, deadline, warmed rungs,
+    # featurizer, endpoints and background kinds
+    "tpu_serve_tick_ms": (5.0, float, ("serve_tick_ms",)),
+    "tpu_serve_queue_max": (8192, int, ("serve_queue_max",)),
+    "tpu_serve_deadline_ms": (1000.0, float, ("serve_deadline_ms",)),
+    "tpu_serve_warm_max_rows": (16384, int, ("serve_warm_max_rows",)),
+    "tpu_serve_featurize": ("device", str, ("serve_featurize",)),
+    "tpu_serve_endpoints": ("predict", str, ("serve_endpoints",)),
+    "tpu_serve_background_kinds": ("", str, ("serve_background_kinds",)),
+    # the drift monitor and the SLO tracker (obs/drift.py)
+    "tpu_drift_flush_every": (0, int, ("drift_flush_every",)),
+    "tpu_drift_psi_threshold": (0.2, float, ("drift_psi_threshold",)),
+    "tpu_drift_score_bins": (32, int, ("drift_score_bins",)),
+    "tpu_drift_bins": (16, int, ("drift_bins",)),
+    "tpu_drift_min_rows": (0, int, ("drift_min_rows",)),
+    "tpu_serve_slo_ms": (0.0, float, ("serve_slo_ms",)),
+    "tpu_serve_slo_target": (0.99, float, ("serve_slo_target",)),
+    # read by a server, which refuses them naming ROADMAP A19 (the metrics
+    # endpoint and the drift flush records); training ignores them
+    "tpu_metrics_port": (0, int, ("metrics_port",)),
+    "tpu_metrics_path": ("", str, ("metrics_path",)),
 }
 
 # the JAX package's keys the port cannot honour yet: name -> (default, type,
@@ -206,12 +237,10 @@ REFUSED_PARAMS: Dict[str, Tuple[Any, type, Tuple[str, ...], str]] = {
     "machines": ("", str, ("workers", "nodes"), "A18"),
     "tpu_mesh_shape": ("", str, ("mesh_shape",), "A18"),
     "num_shards": (0, int, (), "A18"),
-    # serving: quantized leaves change the level engine's outputs
-    "tpu_leaf_quant": ("off", str, (), "A17"),
 }
 
 # the JAX package's keys that change no result for the inputs the port
-# takes: its TPU layout and engine switches, serving, tracing and metrics,
+# takes: its TPU layout and engine switches, tracing and metrics,
 # threads and devices, and the CLI's output switches (which the CLI reads
 # from its own key=value pairs). name -> aliases; accepted with one debug
 # line.
@@ -229,9 +258,7 @@ IGNORED_PARAMS: Dict[str, Tuple[str, ...]] = {
     "gpu_platform_id": (), "gpu_device_id": (), "gpu_use_dp": (),
     "num_gpu": (),
     "tpu_hist_impl": (), "tpu_trace_dir": (), "tpu_trace_mode": ("trace_mode",),
-    "tpu_metrics_path": ("metrics_path",),
     "tpu_flight_buffer": ("flight_buffer",),
-    "tpu_metrics_port": ("metrics_port",),
     "tpu_rank_stats_every": ("rank_stats_every",),
     "tpu_straggler_factor": ("straggler_factor",),
     "tpu_part_block": (), "tpu_hist_block": (),
@@ -241,24 +268,6 @@ IGNORED_PARAMS: Dict[str, Tuple[str, ...]] = {
     "tpu_compile_cache_dir": ("compile_cache_dir",),
     "tpu_hist_overlap": ("hist_overlap",),
     "tpu_fused_block": (), "tpu_fused_interpret": (),
-    "tpu_predict_tbatch": ("predict_tbatch",),
-    "tpu_predict_buckets": ("predict_buckets",),
-    "tpu_predict_engine": (), "tpu_level_depth_cap": (),
-    "tpu_serve_tick_ms": ("serve_tick_ms",),
-    "tpu_serve_queue_max": ("serve_queue_max",),
-    "tpu_serve_deadline_ms": ("serve_deadline_ms",),
-    "tpu_serve_warm_max_rows": ("serve_warm_max_rows",),
-    "tpu_serve_featurize": ("serve_featurize",),
-    "tpu_serve_endpoints": ("serve_endpoints",),
-    "tpu_serve_background_kinds": ("serve_background_kinds",),
-    "tpu_shap_tables": (), "tpu_shap_table_mb": (),
-    "tpu_drift_flush_every": ("drift_flush_every",),
-    "tpu_drift_psi_threshold": ("drift_psi_threshold",),
-    "tpu_drift_score_bins": ("drift_score_bins",),
-    "tpu_drift_bins": ("drift_bins",),
-    "tpu_drift_min_rows": ("drift_min_rows",),
-    "tpu_serve_slo_ms": ("serve_slo_ms",),
-    "tpu_serve_slo_target": ("serve_slo_target",),
     # the JAX package's multi-host bootstrap retries (ROADMAP A18)
     "tpu_collective_retries": (),
 }

@@ -186,7 +186,10 @@ def train(params: Dict[str, Any], train_set: Dataset,
                 # never begins it
                 def _step(i=i):
                     plan.fire("step", iteration=i)
-                    with booster._step_lock:
+                    # the booster's write lock (update takes it again,
+                    # re-entrant): the abandoned check and the update's
+                    # start are one step for the final snapshot below
+                    with booster._api_lock.write():
                         if abandoned.is_set():
                             return True
                         began.add(i)
@@ -228,7 +231,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
     except TrainingInterrupted as err:
         # a step overran its deadline: a best-effort final snapshot, then
         # the structured error. The abandoned step may still be inside its
-        # update, so the snapshot takes the booster's step lock (waiting
+        # update, so the snapshot takes the booster's write lock (waiting
         # one more deadline) and is written only if the update never
         # began: the state is then exactly that of iteration i's start.
         # Otherwise the last periodic snapshot stands. The write runs under
@@ -236,7 +239,10 @@ def train(params: Dict[str, Any], train_set: Dataset,
         abandoned.set()
 
         def _write_final():
-            if not booster._step_lock.acquire(timeout=deadline):
+            # the write side, waited for one deadline at most: a hung
+            # update keeps it, and the snapshot is then skipped rather than
+            # waited for (its read side nests in this write)
+            if not booster._api_lock.acquire_write(timeout=deadline):
                 raise TrainingInterrupted(
                     "the overrunning update still holds the booster",
                     deadline)
@@ -247,7 +253,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
                         "deadline")
                 _write_checkpoint()
             finally:
-                booster._step_lock.release()
+                booster._api_lock.release_write()
         if ckpt_dir:
             try:
                 run_with_deadline(_write_final, max(deadline, 30.0),

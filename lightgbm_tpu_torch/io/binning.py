@@ -480,3 +480,109 @@ def find_bin_categorical(sample_values: np.ndarray, max_bin: int,
         cat_to_bin={int(c): i + 1 for i, c in enumerate(cats)},
         bin_to_cat=np.concatenate([[-1], cats]).astype(np.int64),
         default_bin=0)
+
+
+# -- the serving featurizer's state (``ops/device_bin.py``; reference:
+# ``lightgbm_tpu/io/binning.py:346-456``) --------------------------------------
+
+#: an int32 key no served categorical code can equal (the device lookup pads
+#: its key table with it)
+CAT_PAD = np.int32(np.iinfo(np.int32).min)
+
+
+def round_down_f32(bounds: np.ndarray) -> np.ndarray:
+    """The largest float32 at most each float64 bound. For a float32 value
+    ``v`` and a float64 bound ``b``, ``v > b`` holds exactly when ``v > t``
+    for this ``t``, so float32 rows binned against these thresholds get the
+    bins ``bin_columns`` gives them in float64."""
+    b = np.asarray(bounds, np.float64)
+    t = b.astype(np.float32)
+    over = t.astype(np.float64) > b
+    if over.any():
+        t = t.copy()
+        t[over] = np.nextafter(t[over], np.float32(-np.inf))
+    return t
+
+
+@dataclass
+class FeaturizeState:
+    """The mappers stacked into dense host arrays for the device featurizer
+    (reference: ``FeaturizeState``; LightGBM caches the same state in its
+    single-row predictor, src/c_api.cpp:117). ``reason`` says why a model
+    cannot take the device featurizer (None: it can)."""
+    bounds32: np.ndarray        # [F, Kb] f32 round-down thresholds, +inf pad
+    nan_bins: np.ndarray        # [F] int32 (0 for trivial features)
+    is_cat: np.ndarray          # [F] bool
+    cat_keys: np.ndarray        # [F, Kc] int32 sorted, CAT_PAD padded
+    cat_vals: np.ndarray        # [F, Kc] int32, 0 padded
+    reason: Optional[str] = None
+
+
+def export_featurize_state(mappers: Sequence[BinMapper]) -> FeaturizeState:
+    """Stack fitted mappers for ``ops/device_bin.py`` (reference:
+    ``export_featurize_state``): each numerical feature's interior bounds
+    (those ``bin_columns`` searches) as round-down float32 thresholds
+    padded with +inf, which no value exceeds; each categorical feature's
+    sorted (code, bin) table padded with ``CAT_PAD``. Codes outside int32
+    leave the model to the host binner (``reason``)."""
+    f = len(mappers)
+    num_bounds = [_interior_bounds(m) if not (m.is_trivial
+                                              or m.is_categorical)
+                  else np.empty(0) for m in mappers]
+    kb = max((len(b) for b in num_bounds), default=0)
+    bounds32 = np.full((f, max(kb, 1)), np.inf, np.float32)
+    for j, b in enumerate(num_bounds):
+        if len(b):
+            bounds32[j, :len(b)] = round_down_f32(b)
+    nan_bins = np.array([0 if m.is_trivial else m.nan_bin for m in mappers],
+                        np.int32)
+    is_cat = np.array([m.is_categorical and not m.is_trivial
+                       for m in mappers], bool)
+    tables, reason = [], None
+    for j, m in enumerate(mappers):
+        if is_cat[j] and len(m.cat_to_bin):
+            keys, vals = m._cat_lookup()
+            if keys.size and (keys.max() > np.iinfo(np.int32).max
+                              or keys.min() < np.iinfo(np.int32).min + 1):
+                reason = (f"categorical feature {j} has codes outside "
+                          "int32; device featurization cannot represent "
+                          "its lookup keys")
+            tables.append((j, keys, vals))
+    kc = max((len(k) for _, k, _ in tables), default=0)
+    cat_keys = np.full((f, max(kc, 1)), CAT_PAD, np.int32)
+    cat_vals = np.zeros((f, max(kc, 1)), np.int32)
+    if reason is None:
+        for j, keys, vals in tables:
+            cat_keys[j, :len(keys)] = keys.astype(np.int32)
+            cat_vals[j, :len(vals)] = vals.astype(np.int32)
+    return FeaturizeState(bounds32, nan_bins, is_cat, cat_keys, cat_vals,
+                          reason)
+
+
+def bin_occupancy(binned: np.ndarray, mappers: Sequence[BinMapper],
+                  bundle_info=None) -> Tuple[np.ndarray, np.ndarray]:
+    """Bin counts of each original feature in a bin matrix: ``(counts [F,
+    B] float64, num_bins [F] int32)``, ``B`` the widest feature's bins
+    (reference: ``bin_occupancy``, ``lightgbm_tpu/io/binning.py:459-488``).
+    An EFB bundle column holds ``offset + 1 + b`` for a member's bin ``b``
+    other than its default and 0 otherwise (``io/efb.py``), so a member's
+    default bin counts the rest of the rows."""
+    n, f = binned.shape[0], len(mappers)
+    nb = np.array([m.num_bins for m in mappers], np.int32)
+    width = int(nb.max(initial=1))
+    counts = np.zeros((f, width), np.float64)
+    colhist = [np.bincount(binned[:, c].astype(np.int64, copy=False))
+               for c in range(binned.shape[1])]
+    for j, m in enumerate(mappers):
+        w = int(nb[j])
+        if bundle_info is None:
+            c, off = j, -1
+        else:
+            c, off = int(bundle_info.col_of[j]), int(bundle_info.offset_of[j])
+        h = colhist[c]
+        seg = h[:w] if off < 0 else h[off + 1:off + 1 + w]
+        counts[j, :len(seg)] = seg
+        if off >= 0:
+            d = int(m.default_bin)
+            counts[j, d] = max(n - counts[j].sum(), 0.0)
+    return counts, nb

@@ -30,7 +30,7 @@ JSON), so a file written by either package loads in the other.
 from __future__ import annotations
 
 import json
-from typing import Any, Dict, List, Optional, Sequence, Set, Union
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
 
@@ -466,6 +466,25 @@ class BinnedDataset:
 
     def feature_is_categorical(self) -> np.ndarray:
         return np.array([m.is_categorical for m in self.mappers], bool)
+
+    def reference_bin_distribution(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The drift monitor's reference (reference:
+        ``reference_bin_distribution``, ``lightgbm_tpu/io/dataset.py:
+        512-538``): each original feature's normalized bin occupancy of
+        these rows, ``(probs [F, B] float32, num_bins [F] int32)``, read
+        through EFB bundles where the matrix is bundled, and cached."""
+        cached = getattr(self, "_ref_dist", None)
+        if cached is not None:
+            return cached
+        if self.binned is None:
+            raise ValueError("dataset is not constructed")
+        from .binning import bin_occupancy
+        counts, nb = bin_occupancy(self.binned, self.mappers,
+                                   self.bundle_info)
+        probs = (counts / np.maximum(counts.sum(axis=1, keepdims=True), 1)
+                 ).astype(np.float32)
+        self._ref_dist = (probs, nb)
+        return self._ref_dist
 
 
 # -- 4-bit dense bin packing (reference: the 4-bit mode of the dense bin

@@ -7,8 +7,8 @@ structured :class:`TrainingInterrupted`, on which ``engine.train`` writes
 a final snapshot before it re-raises. The multi-host bootstrap, the
 process mesh and the collectives of the JAX package's module are ROADMAP
 A18; so is ``tpu_collective_retries``, which only that bootstrap reads
-there. The JAX package's flight-recorder notes are left out: the port has
-no ``obs/`` yet (ROADMAP A19).
+there. The JAX package's flight-recorder notes are ROADMAP A19 and are
+left out. The serving registry runs a deploy's commit under it too.
 """
 from __future__ import annotations
 

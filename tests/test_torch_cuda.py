@@ -1138,6 +1138,75 @@ def test_constrained_train_on_card_matches_cpu(dev, grower, monkeypatch):
     np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-5)
 
 
+_MONO = [1, -1, 0, 1, 0, 0, -1, 0] + [0] * 20
+_GROUPS = [list(range(0, 7)), list(range(7, 14)), list(range(14, 21)),
+           list(range(21, 28))]
+
+
+@pytest.mark.parametrize("case,extra", [
+    ("monotone_basic_compact", {"monotone_constraints": _MONO}),
+    ("monotone_basic_masked", {"monotone_constraints": _MONO,
+                               "tpu_grower": "masked"}),
+    ("monotone_intermediate_compact", {
+        "monotone_constraints": _MONO,
+        "monotone_constraints_method": "intermediate"}),
+    ("monotone_penalty_compact", {"monotone_constraints": _MONO,
+                                  "monotone_penalty": 1.5}),
+    ("interaction_compact", {"interaction_constraints": _GROUPS}),
+    ("interaction_masked", {"interaction_constraints": _GROUPS,
+                            "tpu_grower": "masked"}),
+    ("path_smooth_compact", {"path_smooth": 2.0}),
+    ("extra_trees_compact", {"extra_trees": True}),
+    ("feature_contri_compact", {"feature_contri": [1.0, 0.5] * 14}),
+    ("cegb_compact", {"cegb_penalty_split": 1e-4,
+                      "cegb_penalty_feature_coupled": [0.5] * 28}),
+    ("cegb_lazy_sublane_masked", {"cegb_penalty_feature_lazy": [0.01] * 28,
+                                  "max_bin": 63,
+                                  "tpu_hist_layout": "sublane"})])
+def test_constraint_options_on_card_match_cpu(dev, case, extra,
+                                              monkeypatch):
+    """Each constraint and scan option alone, card against CPU (the
+    smoke's ``CONSTRAINED_CHECKS`` run them on the card alone): 100k x 28
+    on the compact grower, 20k x 28 on the masked one, 15 leaves, 2
+    rounds, binary gradients on a 1/64 grid, the extra-trees words from
+    numpy on both; 0 differing splits, predictions within 1e-5, the walk
+    once a split with the intermediate method, K3 alone with
+    ``sublane``."""
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    _dyadic_binary(monkeypatch)
+    init = gbdt_mod.GBDT.__init__
+
+    def words(t, leaves, feats, intermediate):
+        rs = np.random.RandomState(40_000 + t)
+        shapes = [(2 * leaves - 1,)] * 2 + (
+            [(leaves - 1, leaves)] * 2 if intermediate else [])
+        return tuple(torch.from_numpy(rs.randint(
+            0, 1 << 32, size=(*sh, feats, 2), dtype=np.int64))
+            for sh in shapes)
+
+    def patched(self, *a, **kw):
+        init(self, *a, **kw)
+        self.extra_draws = words
+    monkeypatch.setattr(gbdt_mod.GBDT, "__init__", patched)
+    n = 20_000 if "masked" in case else 100_000
+    X, y, _ = _higgs_like(n, 28, 31)
+    p = dict({"objective": "binary", "num_leaves": 15, "verbosity": -1},
+             **extra)
+    _kernels.reset_counts()
+    bg = lgt.train(dict(p, device_type="cuda"), lgt.Dataset(X, y), 2)
+    launches = dict(_kernels.LAUNCHES)
+    assert sum(_kernels.PLAIN_CALLS.values()) == 0
+    bc = lgt.train(dict(p, device_type="cpu"), lgt.Dataset(X, y), 2)
+    assert bg._gbdt.use_compact == ("masked" not in case)
+    if "intermediate" in case:
+        assert launches["monotone_walk"] == 2 * 14
+    if "sublane" in case:
+        assert launches["histogram_sublane"] > 0 \
+            and launches["histogram"] == 0
+    assert _differing_splits(bg, bc) == 0
+    np.testing.assert_allclose(bg.predict(X), bc.predict(X), atol=1e-5)
+
+
 @pytest.mark.parametrize("case", ["dart_compact", "dart_masked",
                                   "rf_masked"])
 def test_boosting_modes_on_card_match_cpu(dev, case, monkeypatch):
@@ -1703,6 +1772,83 @@ def test_treeshap_kernel_u16_matches_plain(dev, nb):
     assert _kernels.MODE_LAUNCHES["treeshap/u16"] == 1
     _shap_close(kern, tree_shap_plain(b, paths, 1), paths)
 
+
+
+@pytest.mark.parametrize("case", ["numerical", "categorical", "multiclass",
+                                  "u16"])
+def test_treeshap_tables_kernel_matches_plain(dev, case):
+    """The tabled mode (serving's pred_contrib) against its plain version
+    and against the loop's plain version on random trees: repeated
+    features, a 39-step path, categorical bitsets of two words, K = 3,
+    and 16-bit rows."""
+    from lightgbm_tpu_torch.ops.packed import bins_to_device
+    from lightgbm_tpu_torch.ops.treeshap_device import (
+        build_shap_tables, tree_shap_tables, tree_shap_tables_plain)
+    from torch_shap_trees import random_forest, random_rows
+    cat = (1, 3) if case == "categorical" else ()
+    nb = {"categorical": 40, "u16": 300}.get(case, 16)
+    models = random_forest(25, 5, nb, cat=cat, words=2 if cat else 1)
+    k = 3 if case == "multiclass" else 1
+    paths = build_shap_paths(models, np.full(5, nb - 1),
+                             np.isin(np.arange(5), cat), dev)
+    tables = build_shap_tables(paths)
+    b = bins_to_device(random_rows(26, 3000, 5, nb), dev)
+    _kernels.reset_counts()
+    kern = tree_shap_tables(b, paths, tables, k)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["treeshap"] == 1
+    assert _kernels.MODE_LAUNCHES["treeshap/tables"] == 1
+    assert _kernels.MODE_LAUNCHES["treeshap/u16"] == (case == "u16")
+    assert _kernels.PLAIN_CALLS["treeshap"] == 0
+    _shap_close(kern, tree_shap_tables_plain(b, paths, tables, k), paths)
+    _shap_close(kern, tree_shap_plain(b, paths, k), paths)
+
+
+@pytest.mark.parametrize("params", [
+    {"objective": "binary"},
+    {"objective": "multiclass", "num_class": 3, "tpu_bin_pack4": True,
+     "max_bin": 15, "tpu_predict_engine": "level"}])
+def test_serving_on_card_matches_cpu(dev, params):
+    """Serving on the card against the CPU: the same training on both (0
+    differing splits), then each endpoint's rows through the device
+    featurizer, the ladder and (with the level engine and 4-bit bins)
+    equal to the CPU booster's predict within 1e-6, leaves equal, the
+    tabled TreeSHAP within 1e-12 of scale of the same trees' contributions
+    on the CPU and of the card's own loop kernel; a server's futures equal
+    ``predict``."""
+    X, y, logits = _higgs_like(6000, 8, 41)
+    X[::17, 2] = np.nan
+    if params["objective"] == "multiclass":
+        y = np.digitize(logits, [-0.5, 0.5]).astype(float)
+    p = dict(params, num_leaves=15, min_data_in_leaf=20, verbosity=-1,
+             tpu_predict_buckets="256,1024",
+             tpu_serve_endpoints="predict,leaf,contrib")
+    card = lgt.train(dict(p, device_type="cuda"), lgt.Dataset(X, y), 4)
+    cpu = lgt.train(dict(p, device_type="cpu"), lgt.Dataset(X, y), 4)
+    assert _differing_splits(card, cpu) == 0
+    rows = X[:700]
+    _kernels.reset_counts()
+    out, n = card.predict_serving(rows)
+    np.testing.assert_allclose(out[:n], cpu.predict(rows), atol=1e-6)
+    np.testing.assert_array_equal(out[:n], card.predict(rows))
+    leaves, n = card.predict_leaf_serving(rows)
+    np.testing.assert_array_equal(leaves[:n],
+                                  cpu.predict(rows, pred_leaf=True))
+    phi, n = card.predict_contrib_serving(rows)
+    assert _kernels.MODE_LAUNCHES["treeshap/tables"] == 1
+    assert _kernels.PLAIN_CALLS["treeshap"] == 0
+    # the card's trees on the CPU (the loop's plain version), and the
+    # card's own loop kernel
+    g = card._gbdt
+    paths = build_shap_paths(g.models, g._pred_nan_arr.cpu().numpy(),
+                             g.feature_is_categorical(), "cpu")
+    for want in (_cpu_twin(card).predict(rows, pred_contrib=True),
+                 card.predict(rows, pred_contrib=True)):
+        _shap_close(torch.from_numpy(phi[:n]), torch.from_numpy(want), paths)
+    with card.serve(tick_ms=1.0, deadline_ms=10_000) as server:
+        futs = [server.submit(rows[i:i + 7]) for i in range(0, 700, 7)]
+        np.testing.assert_array_equal(
+            np.concatenate([f.result() for f in futs]), out[:700])
 
 
 def _higgs_like(n, f, seed):

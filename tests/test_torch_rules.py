@@ -183,7 +183,7 @@ def test_parameters_of_the_ranking_and_renewal_slice_train(params):
     ({"pre_partition": True}, "A18"),
     ({"num_machines": 2}, "A18"),
     ({"top_k": 30}, "A18"),
-    ({"tpu_leaf_quant": "int8"}, "A17"),
+    ({"num_shards": 2}, "A18"),
 ])
 def test_parameters_outside_the_slice_raise(params, item):
     X, y = _data()
